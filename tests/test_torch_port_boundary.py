@@ -1,0 +1,99 @@
+"""Import boundary of the PyTorch port: every toad_tpu_torch module imports
+without the JAX stack (jax, pandas, h5py, ml_dtypes, orbax, optax are absent
+on the GPU machine) and without building a kernel."""
+
+import json
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+
+REPO = Path(__file__).resolve().parent.parent
+FORBIDDEN = ("jax", "jaxlib", "pandas", "h5py", "ml_dtypes", "orbax", "optax")
+
+_PROBE = f"""
+import importlib, json, pkgutil, sys
+import toad_tpu_torch
+names = [m.name for m in pkgutil.walk_packages(toad_tpu_torch.__path__, "toad_tpu_torch.")]
+for n in names:
+    importlib.import_module(n)
+from toad_tpu_torch.ops import _build
+print(json.dumps({{
+    "modules": names,
+    "forbidden": [m for m in {FORBIDDEN!r} if m in sys.modules],
+    "toad_tpu": sorted(m for m in sys.modules if m == "toad_tpu" or m.startswith("toad_tpu.")),
+    "built": _build.is_loaded(),
+}}))
+"""
+
+
+@pytest.fixture(scope="module")
+def probe():
+    out = subprocess.run(
+        [sys.executable, "-c", _PROBE], cwd=REPO, capture_output=True, text=True, timeout=300, check=True
+    )
+    return json.loads(out.stdout.strip().splitlines()[-1])
+
+
+def test_every_module_imports_without_the_jax_stack(probe):
+    assert len(probe["modules"]) >= 20
+    assert probe["forbidden"] == []
+
+
+def test_no_module_of_the_jax_package_is_imported(probe):
+    assert probe["toad_tpu"] == []
+
+
+def test_config_and_registry_match_the_jax_package():
+    """The port's stdlib copies of toad_tpu.config / toad_tpu.registry keep
+    the same fields, defaults and tasks (use_pallas has no counterpart)."""
+    import dataclasses
+
+    from toad_tpu import config as jax_config
+    from toad_tpu import registry as jax_registry
+    from toad_tpu_torch import config, registry
+
+    assert config.DEFAULT_BUCKETS == jax_config.DEFAULT_BUCKETS
+    for port_cls, jax_cls, skip in ((config.ModelConfig, jax_config.ModelConfig, {"use_pallas"}),
+                                    (config.TaskConfig, jax_config.TaskConfig, set())):
+        want = {(f.name, f.type, f.default) for f in dataclasses.fields(jax_cls) if f.name not in skip}
+        assert {(f.name, f.type, f.default) for f in dataclasses.fields(port_cls)} == want
+    for size in ("small", "big"):
+        port, ref = config.ModelConfig(size_arg=size), jax_config.ModelConfig(size_arg=size)
+        assert (port.hidden_dim, port.attn_dim) == (ref.hidden_dim, ref.attn_dim)
+    shipped = sorted(p.name for p in (REPO / "toad_tpu" / "tasks").glob("*.json"))
+    assert shipped == sorted(p.name for p in (REPO / "toad_tpu_torch" / "tasks").glob("*.json"))
+    for name in shipped:
+        port, ref = registry.load_task(name), jax_registry.load_task(name)
+        assert dataclasses.asdict(port) == dataclasses.asdict(ref)
+        assert port.n_classes == ref.n_classes
+        assert config.TaskConfig.from_json(port.to_json()) == port
+    with pytest.raises(KeyError, match="unknown task"):
+        registry.load_task("no_such_task")
+
+
+def test_import_builds_no_kernel(probe):
+    assert probe["built"] is False
+
+
+def test_dispatcher_lists_only_ported_commands():
+    out = subprocess.run(
+        [sys.executable, "-m", "toad_tpu_torch", "--help"], cwd=REPO, capture_output=True, text=True, timeout=120
+    )
+    assert out.returncode == 0
+    assert "serve" in out.stdout and "train" not in out.stdout
+    bad = subprocess.run(
+        [sys.executable, "-m", "toad_tpu_torch", "train"], cwd=REPO, capture_output=True, text=True, timeout=120
+    )
+    assert bad.returncode == 2 and "unknown command" in bad.stderr
+
+
+def test_kernel_sources_are_packaged():
+    import tomllib
+
+    cfg = tomllib.loads((REPO / "pyproject.toml").read_text())
+    assert "toad_tpu_torch*" in cfg["tool"]["setuptools"]["packages"]["find"]["include"]
+    data = cfg["tool"]["setuptools"]["package-data"]["toad_tpu_torch"]
+    assert "csrc/*.cu" in data and "tasks/*.json" in data
+    assert list((REPO / "toad_tpu_torch" / "csrc").glob("*.cu"))

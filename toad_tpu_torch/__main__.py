@@ -1,0 +1,41 @@
+"""Unified CLI dispatcher: ``python -m toad_tpu_torch <command> [args]``.
+
+Mirrors ``python -m toad_tpu``; lists only the commands ported so far.
+"""
+
+from __future__ import annotations
+
+import sys
+
+COMMANDS = {
+    "serve": ("toad_tpu_torch.cli.serve", "online prediction HTTP server (dynamic batching)"),
+}
+
+
+def _usage() -> str:
+    lines = ["usage: python -m toad_tpu_torch <command> [args]", "", "commands:"]
+    for name, (_, desc) in COMMANDS.items():
+        lines.append(f"  {name:<15} {desc}")
+    lines.append("")
+    lines.append("run `python -m toad_tpu_torch <command> --help` for per-command flags")
+    return "\n".join(lines)
+
+
+def main(argv: list[str] | None = None) -> int:
+    argv = sys.argv[1:] if argv is None else list(argv)
+    if not argv or argv[0] in ("-h", "--help"):
+        print(_usage())
+        return 0
+    cmd, rest = argv[0], argv[1:]
+    if cmd not in COMMANDS:
+        print(f"unknown command {cmd!r}\n\n{_usage()}", file=sys.stderr)
+        return 2
+    import importlib
+
+    module = importlib.import_module(COMMANDS[cmd][0])
+    module.main(rest)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,123 @@
+"""``python -m toad_tpu_torch serve``: online prediction server.
+
+Loads a reference-layout ``s_{fold}_checkpoint.pt`` and serves ``POST
+/predict`` with dynamic batching (:mod:`toad_tpu_torch.serve`) on one
+device. On CUDA the fused pooling kernel is the path.
+"""
+
+from __future__ import annotations
+
+import argparse
+import signal
+import threading
+import time
+
+
+def make_parser() -> argparse.ArgumentParser:
+    from toad_tpu_torch.cli.common import add_buckets_arg, add_temperature_from_arg
+
+    p = argparse.ArgumentParser(prog="python -m toad_tpu_torch serve", description=__doc__)
+    p.add_argument("--ckpt", type=str, required=True, help="reference-layout s_k_checkpoint.pt")
+    p.add_argument("--task", type=str, default=None, help="task JSON (for label names in responses)")
+    p.add_argument("--host", type=str, default="127.0.0.1")
+    p.add_argument("--port", type=int, default=8000)
+    p.add_argument("--device", type=str, default="cuda", help="cuda (default), cuda:<i> or cpu")
+    p.add_argument("--encoding_size", type=int, default=1024)
+    p.add_argument("--n_classes", type=int, default=None, help="defaults to the task's class count (or 18)")
+    p.add_argument("--max_batch", type=int, default=32, help="dynamic-batch size cap")
+    p.add_argument("--max_wait_ms", type=float, default=5.0, help="batching window after first request")
+    p.add_argument("--attention", action="store_true", help="compute attention scores on every request")
+    p.add_argument("--bf16", action="store_true", help="bfloat16 compute")
+    p.add_argument(
+        "--bf16_transfer", action="store_true",
+        help="force bfloat16 host->device feature transfer even under f32 compute "
+        "(on automatically with --bf16)",
+    )
+    p.add_argument("--temperature", type=float, default=1.0, help="calibrated softmax temperature for class probabilities")
+    add_temperature_from_arg(p)
+    add_buckets_arg(p)
+    p.add_argument(
+        "--bag_root", type=str, default=None, metavar="DIR",
+        help="restrict request bag_path to this directory (required for bag_path "
+        "when binding beyond loopback); relative bag_paths resolve against it",
+    )
+    p.add_argument("--max_body_mb", type=int, default=1024, metavar="MB", help="reject POST bodies beyond this size with 413")
+    p.add_argument(
+        "--warmup", type=str, default=None, nargs="?", const="all", metavar="BUCKETS",
+        help="run the serving shapes once before accepting traffic: 'all' (every "
+        "bucket) or comma-separated bucket sizes, each at batch 1 and max_batch",
+    )
+    return p
+
+
+def main(argv=None) -> None:
+    args = make_parser().parse_args(argv)
+
+    import torch
+
+    from toad_tpu_torch.config import ModelConfig
+    from toad_tpu_torch.registry import load_task
+    from toad_tpu_torch.cli.common import resolve_buckets, resolve_temperature
+    from toad_tpu_torch.serve import InferenceService, ServeConfig, make_http_server
+
+    device = torch.device(args.device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise SystemExit(f"error: --device {args.device} but CUDA is not available here; pass --device cpu to serve on the CPU")
+    if device.type not in ("cuda", "cpu"):
+        raise SystemExit(f"error: --device must be cuda, cuda:<i> or cpu, got {args.device!r}")
+    task = load_task(args.task) if args.task else None
+    n_classes = args.n_classes or (task.n_classes[0] if task else 18)
+    model_cfg = ModelConfig(
+        in_dim=args.encoding_size,
+        n_classes=n_classes,
+        compute_dtype="bfloat16" if args.bf16 else "float32",
+    )
+    buckets = resolve_buckets(args.buckets)
+    serve_cfg = ServeConfig(
+        **({"bucket_sizes": buckets} if buckets else {}),
+        max_batch=args.max_batch,
+        max_wait_ms=args.max_wait_ms,
+        need_attention=args.attention,
+        transfer_dtype="bfloat16" if args.bf16_transfer else "auto",
+        temperature=resolve_temperature(args.temperature, args.temperature_from),
+    )
+    service = InferenceService.from_checkpoint(
+        args.ckpt, model_cfg, serve_cfg, task=task, bag_root=args.bag_root, device=device
+    )
+    if args.warmup is not None:
+        warm = None if args.warmup == "all" else tuple(int(v) for v in args.warmup.split(","))
+        t0 = time.perf_counter()
+        n = service.batcher.warmup(warm)
+        print(f"warmup: {n} shape variants in {time.perf_counter() - t0:.1f}s", flush=True)
+    server = make_http_server(service, args.host, args.port, max_body_bytes=args.max_body_mb << 20)
+    print(
+        f"serving on http://{args.host}:{server.server_address[1]}  "
+        f"(POST /predict, GET /stats, GET /healthz) on {service.device_name}",
+        flush=True,
+    )
+
+    # graceful stop on SIGTERM/SIGINT: shutdown() blocks until serve_forever
+    # exits, so it must run off the serving thread
+    def _stop(signum, frame):
+        threading.Thread(target=server.shutdown, daemon=True).start()
+
+    signal.signal(signal.SIGTERM, _stop)
+    signal.signal(signal.SIGINT, _stop)
+    try:
+        server.serve_forever()
+    finally:
+        server.server_close()
+        drained = service.close()
+        # the batcher drain resolved the futures; let the handler threads
+        # finish writing those responses before the process exits
+        handlers_done = server.drain_requests(30.0)
+        if drained and handlers_done:
+            print("server stopped; in-flight requests drained", flush=True)
+        elif drained:
+            print("server stopped; in-flight requests drained (WARNING: a handler was still writing its response at exit)", flush=True)
+        else:
+            print("server stopped; WARNING: dispatch thread still busy after timeout", flush=True)
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,584 @@
+// Fused trunk + gated attention + masked online-softmax pooling over padded
+// bags, hand-written for Hopper (sm_90a).
+//
+// Replaces toad_tpu/ops/pallas_pool.py::_pool_kernel_body (the TPU kernel K1).
+// Per bag and per row tile it computes
+//     h1 = relu(x W1 + b1); h2 = relu(h1 W2 + b2)            (compute dtype)
+//     uv = h2 [Wa|Wb] + [ba|bb]; gated = tanh(u) * sigmoid(v) (f32, rounded)
+//     s  = gated Wc + bc                                      [rows, 2] f32
+// and folds the tile into an online masked softmax (running max, denominator
+// and acc[2, H] += e^T h2), so the [N, H] activations never reach device
+// memory. The rounding points are the TPU kernel's: h1, h2 and gated are
+// rounded to the compute dtype, tanh/sigmoid/scores/softmax stay f32, and e
+// is rounded to the compute dtype before e^T h2.
+//
+// What bounds it on an H100: about 2.4 MFLOP per 1024-d row against 2 KB of
+// bf16 input, ~1,150 FLOP/byte, far above the card's ~295, so it is
+// tensor-core bound, not HBM bound. The 2.3 MB (bf16) of weights do not fit
+// in shared memory, so each GEMM streams 256-column x 32-deep weight slices
+// from L2 (where all weights stay resident) through shared memory, while the
+// row tile's h1, h2 and gated activations stay in shared memory. The TPU's
+// sequential grid (state carried across a bag's tiles) becomes a split-N
+// grid: block (split, bag) runs a contiguous range of row tiles and writes a
+// partial (acc, max, denom); pool_combine_kernel merges the partials exactly,
+// spread over 2H/32 blocks per bag so that one large bag combines in parallel.
+// The bf16 instance uses mma.sync m16n8k16 (f32 accumulate) fed by ldmatrix,
+// with a 3-deep cp.async ring of weight/input slices; the f32 instance uses
+// FMA so that f32 stays f32 (no TF32) and stages synchronously. A first
+// kernel: no wgmma, TMA or warp specialisation yet.
+//
+// Layout contract (the Python wrapper ops/cuda_pool.py prepares it):
+//   x [B, N, D] and weights in the compute dtype T, weights in nn.Linear
+//   layout [out, in]; the 2A rows of [Wa|Wb]^T are interleaved in groups of
+//   32 (u rows g*32.., then v rows g*32..) so that a thread holds u_j and v_j
+//   of the same j; biases, mask and all outputs are f32.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+typedef __nv_bfloat16 bf16;
+
+constexpr int kThreads = 256;  // 8 warps
+constexpr int kBN = 256;       // GEMM output columns per pass
+constexpr int kBK = 32;        // GEMM reduction depth per staged slice
+constexpr int kHPad = 8;       // row padding of the activation buffers
+constexpr float kNegInf = -1e30f;
+
+// Rows per tile, staging stride (elements) and staging depth per compute
+// dtype. bf16 rows are padded by 16 bytes (conflict-free ldmatrix, 16-byte
+// aligned cp.async); f32 rows by one word (conflict-free column reads).
+// kStages: slices in flight in the cp.async ring (bf16); the f32 instance
+// stages synchronously through one buffer.
+template <typename T> struct Cfg;
+template <> struct Cfg<bf16> {
+  static constexpr int R = 64;
+  static constexpr int S = kBK + 8;
+  static constexpr int kStages = 3;
+};
+template <> struct Cfg<float> {
+  static constexpr int R = 32;
+  static constexpr int S = kBK + 1;
+  static constexpr int kStages = 1;
+};
+
+__host__ __device__ inline size_t align16(size_t v) { return (v + 15) & ~size_t(15); }
+
+struct Layout {
+  size_t ha, hb, ws, xs, wc, s, e, acc, stat, total;
+};
+
+template <typename T>
+__host__ __device__ inline Layout layout(int H, int A) {
+  constexpr int R = Cfg<T>::R;
+  constexpr int S = Cfg<T>::S;
+  Layout L;
+  size_t o = 0;
+  L.ha = o;   o = align16(o + sizeof(T) * R * (H + kHPad));
+  L.hb = o;   o = align16(o + sizeof(T) * R * (H + kHPad));
+  L.ws = o;   o = align16(o + sizeof(T) * Cfg<T>::kStages * kBN * S);
+  L.xs = o;   o = align16(o + sizeof(T) * Cfg<T>::kStages * R * S);
+  L.wc = o;   o = align16(o + sizeof(float) * 2 * A);
+  L.s = o;    o = align16(o + sizeof(float) * 2 * R);
+  L.e = o;    o = align16(o + sizeof(float) * 2 * R);
+  L.acc = o;  o = align16(o + sizeof(float) * 2 * H);
+  L.stat = o; o = align16(o + sizeof(float) * 8);
+  L.total = o;
+  return L;
+}
+
+__device__ __forceinline__ float to_f(float v) { return v; }
+__device__ __forceinline__ float to_f(bf16 v) { return __bfloat162float(v); }
+template <typename T> __device__ __forceinline__ T from_f(float v);
+template <> __device__ __forceinline__ float from_f<float>(float v) { return v; }
+template <> __device__ __forceinline__ bf16 from_f<bf16>(float v) { return __float2bfloat16(v); }
+
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+__device__ __forceinline__ float warp_max(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
+  return v;
+}
+
+__device__ __forceinline__ float sigmoidf(float v) { return 1.f / (1.f + expf(-v)); }
+
+// ---------------------------------------------------------------------------
+// Staging of one K-slice into shared memory.
+
+// bf16: 16-byte cp.async copies into a ring of kStages slices, so that the
+// next slices stream from L2 while the tensor cores work on this one.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, int src_bytes) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src), "r"(src_bytes));
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+template <int N>
+__device__ __forceinline__ void cp_async_wait() { asm volatile("cp.async.wait_group %0;\n" ::"n"(N)); }
+
+// ws[n][k] <- wt[n0 + n][k0 + k] and (kFromX) xs[r][k] <- x[row0 + r][k0 + k],
+// rows past the bag's end zero-filled; always commits one group
+template <bool kFromX>
+__device__ __forceinline__ void stage_async(const bf16* __restrict__ wt, int K, int n0, int k0, bf16* ws,
+                                            const bf16* __restrict__ x, int N, int D, int row0, bf16* xs) {
+  constexpr int S = Cfg<bf16>::S;
+  for (int i = threadIdx.x; i < kBN * (kBK / 8); i += kThreads) {
+    const int r = i / (kBK / 8), c = (i % (kBK / 8)) * 8;
+    cp_async16(ws + r * S + c, wt + (size_t)(n0 + r) * K + k0 + c, 16);
+  }
+  if (kFromX) {
+    for (int i = threadIdx.x; i < Cfg<bf16>::R * (kBK / 8); i += kThreads) {
+      const int r = i / (kBK / 8), c = (i % (kBK / 8)) * 8;
+      const bool ok = row0 + r < N;
+      cp_async16(xs + r * S + c, ok ? x + (size_t)(row0 + r) * D + k0 + c : x, ok ? 16 : 0);
+    }
+  }
+  cp_async_commit();
+}
+
+// f32: ws[n][k] <- wt[n0 + n][k0 + k], n < kBN, k < kBK
+__device__ __forceinline__ void stage_w(const float* __restrict__ wt, int K, int n0, int k0, float* ws) {
+  for (int i = threadIdx.x; i < kBN * (kBK / 4); i += kThreads) {
+    const int r = i / (kBK / 4), c = (i % (kBK / 4)) * 4;
+    const float4 v = __ldg(reinterpret_cast<const float4*>(wt + (size_t)(n0 + r) * K + k0 + c));
+    float* d = ws + r * Cfg<float>::S + c;
+    d[0] = v.x; d[1] = v.y; d[2] = v.z; d[3] = v.w;
+  }
+}
+
+// f32: xs[r][k] <- x[row0 + r][k0 + k]; rows past the bag's end read as zeros
+__device__ __forceinline__ void stage_x(const float* __restrict__ x, int N, int D, int row0, int k0, float* xs) {
+  constexpr int R = Cfg<float>::R;
+  for (int i = threadIdx.x; i < R * (kBK / 4); i += kThreads) {
+    const int r = i / (kBK / 4), c = (i % (kBK / 4)) * 4;
+    float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (row0 + r < N) v = __ldg(reinterpret_cast<const float4*>(x + (size_t)(row0 + r) * D + k0 + c));
+    float* d = xs + r * Cfg<float>::S + c;
+    d[0] = v.x; d[1] = v.y; d[2] = v.z; d[3] = v.w;
+  }
+}
+
+// ---------------------------------------------------------------------------
+// One GEMM pass: out[R, n0 : n0+kBN] of  A[R, K] . Wt[n0 : n0+kBN, K]^T.
+// A is the staged x tile (kFromX) or an activation buffer in shared memory.
+// kRelu epilogue: out[r][n0 + c] = T(relu(acc + bias)).
+// kGate epilogue: out[r][j] = T(tanh(u_j) * sigmoid(v_j)) over the
+// interleaved [Wa|Wb] columns (j = n0/2 + position within the u half).
+
+enum Epilogue { kRelu = 0, kGate = 1 };
+
+struct GemmArgs {
+  const void* x;  // bag base [N, D] (kFromX only)
+  int N, D, row0;
+  const void* a_s;  // activation buffer [R][lda] (not kFromX)
+  int lda, K;
+  const void* wt;  // [n_out, K]
+  const float* bias;
+  int n0;
+  void* ws;
+  void* xs;
+  void* out;  // [R][ldo]
+  int ldo;
+};
+
+// four 8x8 b16 matrices from shared memory; lane l gives the row address of
+// matrix l / 8, row l % 8
+__device__ __forceinline__ void ldsm_x4(uint32_t* r, const bf16* p) {
+  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(a));
+}
+
+__device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a, uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// bf16: 8 warps as 2 (rows) x 4 (cols); a warp owns 32 rows x 64 columns =
+// 2 x 8 m16n8 tiles. Fragment layouts are those of PTX mma.m16n8k16
+// (g = lane / 4, q = lane % 4): C rows g, g+8 at cols 2q (+1). A fragments
+// come from ldmatrix on the row-major A tile (matrices: rows 0-7 / 8-15 x
+// cols 0-7 / 8-15); B fragments from ldmatrix on the staged [n][k] slice,
+// whose rows are B's columns (two n-tiles per x4).
+template <int kEpi, bool kFromX>
+__device__ void gemm_pass(const GemmArgs& g, bf16*) {
+  constexpr int S = Cfg<bf16>::S;
+  constexpr int kStages = Cfg<bf16>::kStages;
+  constexpr int R = Cfg<bf16>::R;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int gr = lane >> 2, q = lane & 3;
+  const int wr = warp >> 2, wc = warp & 3;
+  bf16* ws = static_cast<bf16*>(g.ws);
+  bf16* xs = static_cast<bf16*>(g.xs);
+  const bf16* a_s = static_cast<const bf16*>(g.a_s);
+  const bf16* wt = static_cast<const bf16*>(g.wt);
+  const bf16* x = static_cast<const bf16*>(g.x);
+  const int n_steps = g.K / kBK;
+  auto issue = [&](int step) {
+    if (step < n_steps) {
+      const int slot = step % kStages;
+      stage_async<kFromX>(wt, g.K, g.n0, step * kBK, ws + slot * kBN * S, x, g.N, g.D, g.row0, xs + slot * R * S);
+    } else {
+      cp_async_commit();  // empty group: keeps one group per step for the wait count
+    }
+  };
+
+  float acc[2][8][4];
+#pragma unroll
+  for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+    for (int ni = 0; ni < 8; ++ni)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[mi][ni][e] = 0.f;
+
+  // the ring is free once every warp has left the previous pass
+  __syncthreads();
+#pragma unroll
+  for (int s = 0; s < kStages - 1; ++s) issue(s);
+  for (int step = 0; step < n_steps; ++step) {
+    cp_async_wait<kStages - 2>();  // this thread's copies of `step` have landed
+    __syncthreads();               // everyone's have, and slot (step - 1) is free
+    issue(step + kStages - 1);
+    const int slot = step % kStages;
+    const bf16* a_base = kFromX ? xs + slot * R * S : a_s + step * kBK;
+    const int la = kFromX ? S : g.lda;
+    const bf16* w_base = ws + slot * kBN * S;
+#pragma unroll
+    for (int kk = 0; kk < kBK; kk += 16) {
+      uint32_t af[2][4];
+#pragma unroll
+      for (int mi = 0; mi < 2; ++mi)
+        ldsm_x4(af[mi], a_base + (wr * 32 + mi * 16 + (lane & 15)) * la + kk + (lane >> 4) * 8);
+#pragma unroll
+      for (int np = 0; np < 4; ++np) {
+        uint32_t bf[4];  // b0, b1 of n-tile 2np, then of n-tile 2np + 1
+        ldsm_x4(bf, w_base + (wc * 64 + np * 16 + (lane >> 4) * 8 + (lane & 7)) * S + kk + ((lane >> 3) & 1) * 8);
+#pragma unroll
+        for (int mi = 0; mi < 2; ++mi) {
+          mma_bf16(acc[mi][2 * np], af[mi], bf[0], bf[1]);
+          mma_bf16(acc[mi][2 * np + 1], af[mi], bf[2], bf[3]);
+        }
+      }
+    }
+  }
+
+  bf16* out = static_cast<bf16*>(g.out);
+#pragma unroll
+  for (int mi = 0; mi < 2; ++mi) {
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf) {
+      const int row = wr * 32 + mi * 16 + gr + hf * 8;
+      if (kEpi == kRelu) {
+#pragma unroll
+        for (int ni = 0; ni < 8; ++ni) {
+          const int col = g.n0 + wc * 64 + ni * 8 + 2 * q;
+          const float v0 = fmaxf(acc[mi][ni][2 * hf] + __ldg(g.bias + col), 0.f);
+          const float v1 = fmaxf(acc[mi][ni][2 * hf + 1] + __ldg(g.bias + col + 1), 0.f);
+          *reinterpret_cast<__nv_bfloat162*>(out + row * g.ldo + col) = __floats2bfloat162_rn(v0, v1);
+        }
+      } else {
+#pragma unroll
+        for (int ni = 0; ni < 4; ++ni) {
+          const int cu = g.n0 + wc * 64 + ni * 8 + 2 * q;  // u column; v is 32 further
+          float gv[2];
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const float u = acc[mi][ni][2 * hf + e] + __ldg(g.bias + cu + e);
+            const float v = acc[mi][ni + 4][2 * hf + e] + __ldg(g.bias + cu + 32 + e);
+            gv[e] = tanhf(u) * sigmoidf(v);
+          }
+          const int j = g.n0 / 2 + wc * 32 + ni * 8 + 2 * q;
+          *reinterpret_cast<__nv_bfloat162*>(out + row * g.ldo + j) = __floats2bfloat162_rn(gv[0], gv[1]);
+        }
+      }
+    }
+  }
+}
+
+// f32: thread (tr = tid / 32, tc = tid % 32) owns rows tr + 8i (i < 4) and
+// columns tc + 32c (c < 8); columns tc + 64p and tc + 64p + 32 are u_j, v_j.
+template <int kEpi, bool kFromX>
+__device__ void gemm_pass(const GemmArgs& g, float*) {
+  constexpr int S = Cfg<float>::S;
+  const int tc = threadIdx.x & 31, tr = threadIdx.x >> 5;
+  float* ws = static_cast<float*>(g.ws);
+  float* xs = static_cast<float*>(g.xs);
+  const float* a_s = static_cast<const float*>(g.a_s);
+
+  float acc[4][8];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int c = 0; c < 8; ++c) acc[i][c] = 0.f;
+
+  for (int k0 = 0; k0 < g.K; k0 += kBK) {
+    __syncthreads();
+    stage_w(static_cast<const float*>(g.wt), g.K, g.n0, k0, ws);
+    if (kFromX) stage_x(static_cast<const float*>(g.x), g.N, g.D, g.row0, k0, xs);
+    __syncthreads();
+    const float* a_base = kFromX ? xs : a_s + k0;
+    const int la = kFromX ? S : g.lda;
+#pragma unroll 4
+    for (int kk = 0; kk < kBK; ++kk) {
+      float a[4], w[8];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) a[i] = a_base[(tr + 8 * i) * la + kk];
+#pragma unroll
+      for (int c = 0; c < 8; ++c) w[c] = ws[(tc + 32 * c) * S + kk];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int c = 0; c < 8; ++c) acc[i][c] = fmaf(a[i], w[c], acc[i][c]);
+    }
+  }
+
+  float* out = static_cast<float*>(g.out);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int row = tr + 8 * i;
+    if (kEpi == kRelu) {
+#pragma unroll
+      for (int c = 0; c < 8; ++c) {
+        const int col = g.n0 + tc + 32 * c;
+        out[row * g.ldo + col] = fmaxf(acc[i][c] + __ldg(g.bias + col), 0.f);
+      }
+    } else {
+#pragma unroll
+      for (int p = 0; p < 4; ++p) {
+        const int cu = g.n0 + tc + 64 * p;
+        const float u = acc[i][2 * p] + __ldg(g.bias + cu);
+        const float v = acc[i][2 * p + 1] + __ldg(g.bias + cu + 32);
+        out[row * g.ldo + g.n0 / 2 + 32 * p + tc] = tanhf(u) * sigmoidf(v);
+      }
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads, 1)
+pool_kernel(const T* __restrict__ x, const float* __restrict__ mask, int N, int D, int H, int A,
+            const T* __restrict__ w1t, const float* __restrict__ b1,
+            const T* __restrict__ w2t, const float* __restrict__ b2,
+            const T* __restrict__ wabt, const float* __restrict__ bab,
+            const T* __restrict__ wc, const float* __restrict__ bc,
+            int tiles_per_split, int n_splits,
+            float* __restrict__ scores, float* __restrict__ part_acc, float* __restrict__ part_stat) {
+  constexpr int R = Cfg<T>::R;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const Layout L = layout<T>(H, A);
+  T* ha = reinterpret_cast<T*>(smem + L.ha);
+  T* hb = reinterpret_cast<T*>(smem + L.hb);
+  float* wc_s = reinterpret_cast<float*>(smem + L.wc);
+  float* s_s = reinterpret_cast<float*>(smem + L.s);    // [R][2] raw scores
+  float* e_s = reinterpret_cast<float*>(smem + L.e);    // [R][2] e rounded to T
+  float* acc_s = reinterpret_cast<float*>(smem + L.acc);  // [2][H]
+  float* stat = reinterpret_cast<float*>(smem + L.stat);  // max[2], denom[2], corr[2]
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int split = blockIdx.x, b = blockIdx.y;
+  const int ldh = H + kHPad;
+  const T* xb = x + (size_t)b * N * D;
+  const float* mb = mask + (size_t)b * N;
+
+  for (int i = tid; i < 2 * A; i += kThreads) wc_s[i] = to_f(wc[i]);
+  for (int i = tid; i < 2 * H; i += kThreads) acc_s[i] = 0.f;
+  if (tid < 2) {
+    stat[tid] = kNegInf;
+    stat[2 + tid] = 0.f;
+  }
+  __syncthreads();
+
+  const int n_tiles = (N + R - 1) / R;
+  const int t_end = min(n_tiles, (split + 1) * tiles_per_split);
+  for (int tile = split * tiles_per_split; tile < t_end; ++tile) {
+    const int row0 = tile * R;
+    const bool live = tid < R && row0 + tid < N && mb[row0 + tid] > 0.f;
+    // classification mode skips tiles of pure padding (the online update is
+    // the identity there); scored mode writes every row's score
+    if (!__syncthreads_or(live) && scores == nullptr) continue;
+
+    GemmArgs g;
+    g.x = xb; g.N = N; g.D = D; g.row0 = row0;
+    g.ws = smem + L.ws; g.xs = smem + L.xs; g.ldo = ldh; g.lda = ldh;
+    // h1 = relu(x W1 + b1) -> ha
+    g.K = D; g.wt = w1t; g.bias = b1; g.out = ha; g.a_s = nullptr;
+    for (int n0 = 0; n0 < H; n0 += kBN) { g.n0 = n0; gemm_pass<kRelu, true>(g, (T*)nullptr); }
+    // h2 = relu(h1 W2 + b2) -> hb
+    g.K = H; g.wt = w2t; g.bias = b2; g.out = hb; g.a_s = ha;
+    for (int n0 = 0; n0 < H; n0 += kBN) { g.n0 = n0; gemm_pass<kRelu, false>(g, (T*)nullptr); }
+    // gated = tanh(h2 Wa + ba) * sigmoid(h2 Wb + bb) -> ha[:, :A]
+    g.wt = wabt; g.bias = bab; g.out = ha; g.a_s = hb;
+    for (int n0 = 0; n0 < 2 * A; n0 += kBN) { g.n0 = n0; gemm_pass<kGate, false>(g, (T*)nullptr); }
+    __syncthreads();
+
+    // scores s = gated Wc + bc, one warp per row
+    for (int r = warp; r < R; r += kThreads / 32) {
+      float s0 = 0.f, s1 = 0.f;
+      for (int j = lane; j < A; j += 32) {
+        const float gv = to_f(ha[r * ldh + j]);
+        s0 = fmaf(gv, wc_s[2 * j], s0);
+        s1 = fmaf(gv, wc_s[2 * j + 1], s1);
+      }
+      s0 = warp_sum(s0) + __ldg(bc);
+      s1 = warp_sum(s1) + __ldg(bc + 1);
+      if (lane == 0) {
+        s_s[2 * r] = s0;
+        s_s[2 * r + 1] = s1;
+        if (scores != nullptr && row0 + r < N) {
+          scores[((size_t)b * 2) * N + row0 + r] = s0;
+          scores[((size_t)b * 2 + 1) * N + row0 + r] = s1;
+        }
+      }
+    }
+    __syncthreads();
+
+    // online masked-softmax statistics, warp t for task t
+    if (warp < 2) {
+      const int t = warp;
+      float mx = kNegInf;
+      for (int r = lane; r < R; r += 32) {
+        if (row0 + r < N && mb[row0 + r] > 0.f) mx = fmaxf(mx, s_s[2 * r + t]);
+      }
+      mx = warp_max(mx);
+      const float m_prev = stat[t];
+      const float m_new = fmaxf(m_prev, mx);
+      const float m_safe = m_new <= kNegInf / 2 ? 0.f : m_new;
+      float sum = 0.f;
+      for (int r = lane; r < R; r += 32) {
+        float e = 0.f;
+        if (row0 + r < N && mb[row0 + r] > 0.f) e = expf(s_s[2 * r + t] - m_safe);
+        sum += e;
+        e_s[2 * r + t] = to_f(from_f<T>(e));
+      }
+      sum = warp_sum(sum);
+      const float corr = expf((m_prev <= kNegInf / 2 ? kNegInf : m_prev) - m_safe);
+      if (lane == 0) {
+        stat[t] = m_new;
+        stat[2 + t] = stat[2 + t] * corr + sum;
+        stat[4 + t] = corr;
+      }
+    }
+    __syncthreads();
+
+    // acc = acc * corr + e^T h2
+    for (int i = tid; i < 2 * H; i += kThreads) {
+      const int t = i >= H, h = i - t * H;
+      float a = acc_s[i] * stat[4 + t];
+      for (int r = 0; r < R; ++r) a = fmaf(e_s[2 * r + t], to_f(hb[r * ldh + h]), a);
+      acc_s[i] = a;
+    }
+  }
+  __syncthreads();
+
+  const size_t p = (size_t)b * n_splits + split;
+  for (int i = tid; i < 2 * H; i += kThreads) part_acc[p * 2 * H + i] = acc_s[i];
+  if (tid < 4) part_stat[p * 4 + tid] = stat[tid];
+}
+
+// Exact flash combine of a bag's split partials, then acc / max(denom, 1e-30).
+// Block (c, b) finishes the 32 outputs c*32.. of bag b's [2][H]; its warps
+// split the partials between them, so that a bag with many splits (one large
+// bag spread over the card) is combined by many SMs.
+constexpr int kCombineCols = 32;
+
+__global__ void __launch_bounds__(kThreads)
+pool_combine_kernel(const float* __restrict__ part_acc, const float* __restrict__ part_stat,
+                    int n_splits, int H, float* __restrict__ out) {
+  extern __shared__ float w_s[];  // [n_splits] rescale weights of this block's task
+  __shared__ float red[kThreads / 32][kCombineCols];
+  __shared__ float denom_s;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int b = blockIdx.y, i0 = blockIdx.x * kCombineCols;
+  const int t = i0 >= H;  // H % kCombineCols == 0: one task per block
+  const float* st = part_stat + (size_t)b * n_splits * 4;
+  if (warp == 0) {
+    float mx = kNegInf;
+    for (int s = lane; s < n_splits; s += 32) mx = fmaxf(mx, st[s * 4 + t]);
+    mx = warp_max(mx);
+    const float m_safe = mx <= kNegInf / 2 ? 0.f : mx;
+    float den = 0.f;
+    for (int s = lane; s < n_splits; s += 32) {
+      const float m = st[s * 4 + t];
+      const float w = expf((m <= kNegInf / 2 ? kNegInf : m) - m_safe);
+      w_s[s] = w;
+      den = fmaf(st[s * 4 + 2 + t], w, den);
+    }
+    den = warp_sum(den);
+    if (lane == 0) denom_s = fmaxf(den, 1e-30f);
+  }
+  __syncthreads();
+  float a = 0.f;
+  for (int s = warp; s < n_splits; s += kThreads / 32)
+    a = fmaf(part_acc[((size_t)b * n_splits + s) * 2 * H + i0 + lane], w_s[s], a);
+  red[warp][lane] = a;
+  __syncthreads();
+  if (warp == 0) {
+    float sum = 0.f;
+#pragma unroll
+    for (int w = 0; w < kThreads / 32; ++w) sum += red[w][lane];
+    out[(size_t)b * 2 * H + i0 + lane] = sum / denom_s;
+  }
+}
+
+template <typename T>
+int launch(const void* x, const float* mask, int B, int N, int D, int H, int A,
+           const void* w1t, const float* b1, const void* w2t, const float* b2,
+           const void* wabt, const float* bab, const void* wc, const float* bc,
+           int tiles_per_split, int n_splits,
+           float* scores, float* part_acc, float* part_stat, float* out, cudaStream_t stream) {
+  const size_t smem = layout<T>(H, A).total;
+  cudaError_t err = cudaFuncSetAttribute(pool_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  pool_kernel<T><<<dim3(n_splits, B), kThreads, smem, stream>>>(
+      static_cast<const T*>(x), mask, N, D, H, A,
+      static_cast<const T*>(w1t), b1, static_cast<const T*>(w2t), b2,
+      static_cast<const T*>(wabt), bab, static_cast<const T*>(wc), bc,
+      tiles_per_split, n_splits, scores, part_acc, part_stat);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  pool_combine_kernel<<<dim3(2 * H / kCombineCols, B), kThreads, sizeof(float) * n_splits, stream>>>(
+      part_acc, part_stat, n_splits, H, out);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" {
+
+// Rows per tile of the instance: 0 = float32, 1 = bfloat16.
+int toad_pool_rows_per_tile(int dtype) { return dtype == 1 ? Cfg<bf16>::R : Cfg<float>::R; }
+
+// Dynamic shared memory of the pooling kernel in bytes.
+long long toad_pool_smem_bytes(int dtype, int H, int A) {
+  return (long long)(dtype == 1 ? layout<bf16>(H, A).total : layout<float>(H, A).total);
+}
+
+// Launches the pooling and combine kernels on `stream`; returns the
+// cudaError_t of the launches (0 on success). Does not synchronise.
+int toad_pool_forward(int dtype, const void* x, const float* mask, int B, int N, int D, int H, int A,
+                      const void* w1t, const float* b1, const void* w2t, const float* b2,
+                      const void* wabt, const float* bab, const void* wc, const float* bc,
+                      int tiles_per_split, int n_splits,
+                      float* scores, float* part_acc, float* part_stat, float* out, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 1)
+    return launch<bf16>(x, mask, B, N, D, H, A, w1t, b1, w2t, b2, wabt, bab, wc, bc,
+                        tiles_per_split, n_splits, scores, part_acc, part_stat, out, s);
+  return launch<float>(x, mask, B, N, D, H, A, w1t, b1, w2t, b2, wabt, bab, wc, bc,
+                       tiles_per_split, n_splits, scores, part_acc, part_stat, out, s);
+}
+
+const char* toad_cuda_error_string(int err) { return cudaGetErrorString(static_cast<cudaError_t>(err)); }
+
+}  // extern "C"

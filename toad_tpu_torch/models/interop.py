@@ -1,0 +1,105 @@
+"""Weights in and out of the port's :class:`~toad_tpu_torch.models.toad_mil.ToadMIL`.
+
+Two sources:
+
+- a reference ``s_{fold}_checkpoint.pt`` state_dict (PyTorch counterpart of
+  :mod:`toad_tpu.models.torch_interop`). Its trunk and attention sit in one
+  ``nn.Sequential`` named ``attention_net`` whose indices shift with the
+  dropout flag: fc2 and the gated attention are ``attention_net.{2,4}``
+  without dropout and ``attention_net.{3,6}`` with it. ``nn.DataParallel``
+  leaves ``module.`` segments, which are stripped.
+- the JAX package's params pytree (:func:`params_from_jax`), with [in, out]
+  weights; it carries the weights across for every parity test.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Mapping
+
+import numpy as np
+import torch
+
+from toad_tpu_torch.config import ModelConfig
+
+# reference Linear name (after the attention_net index is resolved) -> port prefix
+_REFERENCE_NAMES = (
+    ("attention_net.0", "trunk.fc1"),
+    ("attention_net.{fc2}", "trunk.fc2"),
+    ("attention_net.{attn}.attention_a.0", "attn.a"),
+    ("attention_net.{attn}.attention_b.0", "attn.b"),
+    ("attention_net.{attn}.attention_c", "attn.c"),
+    ("classifier", "cls_head"),
+    ("site_classifier", "site_head"),
+)
+
+
+def _strip_module(sd: Mapping[str, Any]) -> dict[str, Any]:
+    return {k.replace(".module.", ".").removeprefix("module."): v for k, v in sd.items()}
+
+
+def _f32(v: Any) -> torch.Tensor:
+    if isinstance(v, torch.Tensor):
+        return v.detach().to("cpu", torch.float32)
+    return torch.from_numpy(np.array(v, np.float32))
+
+
+def _detect_indices(sd: Mapping[str, Any]) -> tuple[int, int]:
+    """(fc2_idx, attn_idx): (3, 6) when the model was built with dropout,
+    (2, 4) without."""
+    if any(k.startswith("attention_net.3.") for k in sd):
+        return 3, 6
+    if any(k.startswith("attention_net.2.") for k in sd):
+        return 2, 4
+    raise KeyError("state dict has no attention_net.{2|3}.* keys: not a TOAD checkpoint")
+
+
+def state_dict_from_reference(sd: Mapping[str, Any], config: ModelConfig | None = None) -> dict[str, torch.Tensor]:
+    """Reference state_dict -> the port's state_dict, f32. Strict on the keys
+    the model needs, tolerant of extras. A dict holding the model under
+    ``state_dict`` is unwrapped."""
+    if "state_dict" in sd and isinstance(sd["state_dict"], Mapping):
+        sd = sd["state_dict"]
+    sd = _strip_module(sd)
+    fc2, attn = _detect_indices(sd)
+    out: dict[str, torch.Tensor] = {}
+    for ref, port in _REFERENCE_NAMES:
+        ref = ref.format(fc2=fc2, attn=attn)
+        for part in ("weight", "bias"):
+            out[f"{port}.{part}"] = _f32(sd[f"{ref}.{part}"])
+    if config is not None:
+        check_shapes(out, config)
+    return out
+
+
+def reference_state_dict(sd: Mapping[str, torch.Tensor], dropout: bool = True) -> dict[str, torch.Tensor]:
+    """The port's state_dict -> the reference layout (``attention_net.{3,6}``
+    with ``dropout``, ``{2,4}`` without), as ``s_{fold}_checkpoint.pt`` holds it."""
+    fc2, attn = (3, 6) if dropout else (2, 4)
+    return {
+        f"{ref.format(fc2=fc2, attn=attn)}.{part}": sd[f"{port}.{part}"].detach().cpu().float()
+        for ref, port in _REFERENCE_NAMES
+        for part in ("weight", "bias")
+    }
+
+
+def params_from_jax(params: Mapping[str, Any]) -> dict[str, torch.Tensor]:
+    """JAX ToadMIL params pytree (numpy-convertible leaves, [in, out]
+    weights) -> the port's state_dict (f32, [out, in] weights)."""
+    groups = {"trunk": params["trunk"], "attn": params["attn"],
+              "cls_head": {"": params["cls_head"]}, "site_head": {"": params["site_head"]}}
+    out: dict[str, torch.Tensor] = {}
+    for group, lins in groups.items():
+        for name, lin in lins.items():
+            prefix = f"{group}.{name}" if name else group
+            out[f"{prefix}.weight"] = _f32(np.asarray(lin["w"], np.float32).T)
+            out[f"{prefix}.bias"] = _f32(lin["b"])
+    return out
+
+
+def check_shapes(sd: Mapping[str, torch.Tensor], c: ModelConfig) -> None:
+    got_h, got_in = sd["trunk.fc1.weight"].shape
+    if got_in != c.in_dim or got_h != c.hidden_dim:
+        raise ValueError(f"trunk fc1 shape {(got_in, got_h)} != config {(c.in_dim, c.hidden_dim)}")
+    got_cls = sd["cls_head.weight"].shape[0]
+    if got_cls != c.n_classes:
+        raise ValueError(f"checkpoint has {got_cls} classes, config expects {c.n_classes}")

@@ -1,0 +1,151 @@
+"""ToadMIL: attention MIL with two task heads, batched and masked.
+
+PyTorch counterpart of :mod:`toad_tpu.models.toad_mil` (the reference's
+``TOAD_fc_mtl_concat``, size 'big'):
+
+  trunk   : in_dim -> 512 relu -> 512 relu
+  attn    : gated tanh(W_a h) * sigmoid(W_b h) -> W_c -> [N, 2] scores
+  pooling : per-task masked softmax over N, weighted mean -> [2, 512]
+  concat  : patient sex appended -> [2, 513]
+  heads   : task 0 -> n_classes logits, task 1 -> site logits
+
+Submodules follow the JAX params pytree (``trunk.fc1``, ``attn.a``,
+``cls_head``...), so the state_dict keys name their JAX counterparts; each
+``nn.Linear`` keeps PyTorch's [out, in] weight layout. Init is the
+reference's Xavier-normal weights and zero biases, drawn from an explicit
+generator. This module is the eval forward; the dropout/training path is not
+ported yet.
+"""
+
+from __future__ import annotations
+
+from typing import Any, NamedTuple
+
+import torch
+from torch import nn
+
+from toad_tpu_torch.config import ModelConfig
+from toad_tpu_torch.ops import cuda_pool
+from toad_tpu_torch.ops.fused_pool import fused_trunk_attention_pool
+
+N_TASKS = 2
+
+
+class ToadOutputs(NamedTuple):
+    """Batched analog of the reference results dict."""
+
+    logits: torch.Tensor  # [B, n_classes]
+    y_prob: torch.Tensor  # [B, n_classes]
+    y_hat: torch.Tensor  # [B]
+    site_logits: torch.Tensor  # [B, 2]
+    site_prob: torch.Tensor  # [B, 2]
+    site_hat: torch.Tensor  # [B]
+    attention: torch.Tensor | None  # [B, T, N] raw (pre-softmax) scores, -inf at padding
+    features: torch.Tensor  # [B, T, H+1] pooled + sex slide representation
+
+
+def _linear(d_in: int, d_out: int, dtype: torch.dtype) -> nn.Linear:
+    # built on the meta device so that nn.Linear's own init draws nothing
+    # from the global generator; reset_parameters fills it
+    return nn.Linear(d_in, d_out, dtype=dtype, device="meta").to_empty(device="cpu")
+
+
+class ToadMIL(nn.Module):
+    """The MIL model. Built on the CPU; move it with ``.to(device)``."""
+
+    def __init__(self, config: ModelConfig, generator: torch.Generator | None = None):
+        super().__init__()
+        c = config
+        self.config = c
+        dt = getattr(torch, c.param_dtype)
+        self.trunk = nn.ModuleDict({
+            "fc1": _linear(c.in_dim, c.hidden_dim, dt),
+            "fc2": _linear(c.hidden_dim, c.hidden_dim, dt),
+        })
+        attn = {"a": _linear(c.hidden_dim, c.attn_dim, dt)}
+        if c.gate:
+            attn["b"] = _linear(c.hidden_dim, c.attn_dim, dt)
+        attn["c"] = _linear(c.attn_dim, N_TASKS, dt)
+        self.attn = nn.ModuleDict(attn)
+        self.cls_head = _linear(c.hidden_dim + 1, c.n_classes, dt)
+        self.site_head = _linear(c.hidden_dim + 1, c.n_site_classes, dt)
+        self._packed: dict[torch.dtype, tuple] = {}  # compute dtype -> (weights' key, kernel operands)
+        self.reset_parameters(generator if generator is not None else torch.Generator().manual_seed(0))
+
+    @torch.no_grad()
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        """Xavier-normal weights, zero biases (reference ``initialize_weights``)."""
+        for m in self.modules():
+            if isinstance(m, nn.Linear):
+                fan_out, fan_in = m.weight.shape
+                std = (2.0 / (fan_in + fan_out)) ** 0.5
+                m.weight.copy_(torch.randn(m.weight.shape, generator=generator) * std)
+                m.bias.zero_()
+
+    def pool_params(self) -> dict[str, Any]:
+        """The trunk and attention weights in the JAX params layout ([in, out]
+        views of the Linear weights), as the plain pool takes them."""
+
+        def lin(m: nn.Linear) -> dict[str, torch.Tensor]:
+            return {"w": m.weight.t(), "b": m.bias}
+
+        return {
+            "trunk": {k: lin(m) for k, m in self.trunk.items()},
+            "attn": {k: lin(m) for k, m in self.attn.items()},
+        }
+
+    def kernel_operands(self, compute_dtype: torch.dtype) -> cuda_pool.PoolOperands:
+        """The pooling kernel's packed weights, packed once per compute dtype
+        and re-packed only when a weight moves or changes in place."""
+        lins = {**self.trunk, **self.attn}
+        if torch.is_grad_enabled() and any(m.weight.requires_grad or m.bias.requires_grad for m in lins.values()):
+            raise RuntimeError("the pooling kernel is forward-only: call it under torch.no_grad() or inference_mode()")
+        key = tuple((p.device, p.data_ptr(), p._version) for m in lins.values() for p in (m.weight, m.bias))
+        hit = self._packed.get(compute_dtype)
+        if hit is None or hit[0] != key:
+            hit = (key, cuda_pool.pack_linears({k: (m.weight, m.bias) for k, m in lins.items()}, compute_dtype))
+            self._packed[compute_dtype] = hit
+        return hit[1]
+
+    def forward(
+        self,
+        x: torch.Tensor,  # [B, N, D]
+        mask: torch.Tensor,  # [B, N]
+        sex: torch.Tensor,  # [B] (0/1)
+        *,
+        need_attention: bool = True,
+        attention_only: bool = False,
+    ):
+        compute_dtype = getattr(torch, self.config.compute_dtype)
+        need_attention = need_attention or attention_only
+        # classification only: the kernel writes no [B, T, N] scores
+        m, scores = fused_trunk_attention_pool(
+            self.pool_params(), x, mask, compute_dtype=compute_dtype, with_scores=need_attention,
+            operands=self.kernel_operands(compute_dtype) if x.device.type == "cuda" else None,
+        )
+        return self._finish(m, scores, mask, sex, attention_only)
+
+    def _finish(self, m, scores, mask, sex, attention_only: bool):
+        """A_raw masking, sex concat, the two f32 heads, output pack.
+        ``scores`` are the raw task-major scores [B, T, N] or None."""
+        a_raw = None
+        if scores is not None:
+            # -inf at padding (reference A_raw)
+            a_raw = torch.where(mask[:, None, :] > 0, scores, float("-inf"))
+        if attention_only:
+            return a_raw[:, 0, :]
+
+        sex_col = sex.to(torch.float32)[:, None, None].expand(m.shape[0], N_TASKS, 1)
+        feats = torch.cat([m, sex_col], dim=-1)  # [B, T, H+1]
+        logits = feats[:, 0, :] @ self.cls_head.weight.float().t() + self.cls_head.bias.float()
+        site_logits = feats[:, 1, :] @ self.site_head.weight.float().t() + self.site_head.bias.float()
+        return ToadOutputs(
+            logits=logits,
+            y_prob=torch.softmax(logits, dim=-1),
+            y_hat=logits.argmax(dim=-1),
+            site_logits=site_logits,
+            site_prob=torch.softmax(site_logits, dim=-1),
+            site_hat=site_logits.argmax(dim=-1),
+            attention=a_raw,
+            features=feats,
+        )

@@ -1,0 +1,169 @@
+"""Wrapper of the fused pooling kernel ``csrc/pool.cu``.
+
+The kernel replaces the TPU kernel
+``toad_tpu/ops/pallas_pool.py::_pool_kernel_body`` (trunk MLP, gated
+attention scores and online masked-softmax pooling in one pass per bag). On
+an H100 it is tensor-core bound (~1,150 FLOP per byte of bf16 input against
+the card's ~295), so it keeps every intermediate on chip and streams weight
+slices from L2; the TPU's sequential per-bag grid becomes a split-N grid with
+an exact combine of the partial softmax statistics (see the notes in
+``csrc/pool.cu``). The TPU's bag-pair form (two bags merged per grid step to
+fill its matrix unit) has no counterpart here: on Hopper the split-N grid
+already keeps every SM busy with full row tiles.
+
+:func:`pack_params` lays the weights out for the kernel, once per model
+and compute dtype; :func:`pool` launches the kernel on CUDA tensors and
+raises on anything the kernel does not take. The plain version is
+:func:`toad_tpu_torch.ops.fused_pool.plain_pool`, which the CPU path runs
+and the chip check compares with.
+"""
+
+from __future__ import annotations
+
+from typing import Any, NamedTuple
+
+import torch
+
+from toad_tpu_torch.ops import _build
+
+LAUNCHES = 0  # kernel launches in this process (one per call of pool)
+
+N_TASKS = 2  # the kernel computes exactly the two task columns
+GATE_GROUP = 32  # [Wa|Wb] rows interleave in groups of this many (csrc/pool.cu)
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+_BLOCKS_PER_SM = 4  # grid target: several blocks per SM even for one bag
+
+
+class PoolOperands(NamedTuple):
+    """The kernel's weights: [out, in] in the compute dtype, biases f32, the
+    rows of [Wa|Wb] interleaved in groups of GATE_GROUP, Wc as [A, 2]."""
+
+    w1: torch.Tensor  # [H, D]
+    b1: torch.Tensor  # [H]
+    w2: torch.Tensor  # [H, H]
+    b2: torch.Tensor  # [H]
+    wab: torch.Tensor  # [2A, H]
+    bab: torch.Tensor  # [2A]
+    wc: torch.Tensor  # [A, 2]
+    bc: torch.Tensor  # [2]
+
+
+def _interleave_gate(t: torch.Tensor) -> torch.Tensor:
+    """[2A, ...] rows u_0..u_{A-1}, v_0..v_{A-1} -> for each group g of 32:
+    u rows g*32..g*32+31, then the v rows of the same j. Views and one copy
+    on the tensor's device (an index tensor would need a host-to-device copy
+    that waits for the stream)."""
+    a_dim = t.shape[0] // 2
+    return t.reshape(2, a_dim // GATE_GROUP, GATE_GROUP, *t.shape[1:]).transpose(0, 1).reshape(t.shape).contiguous()
+
+
+def pack_linears(lins: dict[str, tuple[torch.Tensor, torch.Tensor]], dtype: torch.dtype) -> PoolOperands:
+    """(weight [out, in], bias) pairs in nn.Linear layout, keyed fc1, fc2, a,
+    b, c -> the kernel's operands, on the weights' device."""
+    if "b" not in lins:
+        raise NotImplementedError(
+            "un-gated attention has no CUDA kernel yet (ROADMAP.md, TPU kernels to port: "
+            "K1 un-gated); reference checkpoints are always gated"
+        )
+
+    def w(name):
+        return lins[name][0].detach().to(dtype).contiguous()
+
+    def b(name):
+        return lins[name][1].detach().to(torch.float32).contiguous()
+
+    return PoolOperands(
+        w("fc1"), b("fc1"), w("fc2"), b("fc2"),
+        _interleave_gate(torch.cat([w("a"), w("b")])), _interleave_gate(torch.cat([b("a"), b("b")])),
+        w("c").t().contiguous(), b("c"),
+    )
+
+
+def pack_params(params: dict[str, Any], dtype: torch.dtype) -> PoolOperands:
+    """The JAX params layout ([in, out] weights) -> the kernel's operands."""
+    lins = {**params["trunk"], **params["attn"]}
+    return pack_linears({k: (torch.as_tensor(p["w"]).t(), torch.as_tensor(p["b"])) for k, p in lins.items()}, dtype)
+
+
+def split_plan(n_bags: int, n_rows: int, rows_per_tile: int, n_sms: int) -> tuple[int, int]:
+    """(tiles_per_split, n_splits): cut each bag's row tiles into contiguous
+    runs so that the grid has about ``_BLOCKS_PER_SM`` blocks per SM."""
+    n_tiles = -(-n_rows // rows_per_tile)
+    want = max(1, -(-_BLOCKS_PER_SM * n_sms // n_bags))
+    per = -(-n_tiles // min(n_tiles, want))
+    return per, -(-n_tiles // per)
+
+
+def pool(
+    ops: PoolOperands, x: torch.Tensor, mask: torch.Tensor, with_scores: bool
+) -> tuple[torch.Tensor, torch.Tensor | None]:
+    """Launch the fused pooling kernel: (M [B, 2, H] f32, raw scores
+    [B, 2, N] f32 or None), computing in the dtype of ``ops``. Scores are
+    written only when ``with_scores``; without them, row tiles that hold only
+    padding are skipped."""
+    global LAUNCHES
+    if x.device.type != "cuda":
+        raise ValueError(f"the CUDA pooling kernel needs CUDA tensors, got {x.device}")
+    dt = ops.w1.dtype
+    if dt not in _DTYPE_CODE:
+        raise TypeError(f"compute dtype {dt} not supported by the kernel (float32, bfloat16)")
+    if mask.device != x.device or any(t.device != x.device for t in ops):
+        raise ValueError(f"mask and kernel operands must be on {x.device}")
+    if any(t.dtype != dt for t in ops[0::2]) or any(t.dtype != torch.float32 or not t.is_contiguous() for t in ops[1::2]):
+        raise TypeError("operands must come from pack_params: weights in one dtype, f32 biases")
+    if x.dim() != 3:
+        raise ValueError(f"x must be [B, N, D], got {tuple(x.shape)}")
+    b_, n, d = x.shape
+    if tuple(mask.shape) != (b_, n):
+        raise ValueError(f"mask must be [{b_}, {n}], got {tuple(mask.shape)}")
+    if b_ == 0 or n == 0:
+        raise ValueError(f"empty batch {tuple(x.shape)}")
+    h_dim, a_dim = ops.w1.shape[0], ops.wc.shape[0]
+    if ops.wc.shape[1] != N_TASKS:
+        raise ValueError(f"the kernel computes {N_TASKS} task columns, operands have {ops.wc.shape[1]}")
+    if ops.w1.shape[1] != d or ops.w2.shape != (h_dim, h_dim) or ops.wab.shape != (2 * a_dim, h_dim):
+        raise ValueError(f"operand shapes do not fit D={d}, H={h_dim}, A={a_dim}")
+    if d % 32 or h_dim % 256 or a_dim % 128 or a_dim > h_dim:
+        raise ValueError(
+            f"widths D={d}, H={h_dim}, A={a_dim} not supported: need D % 32 == 0, "
+            "H % 256 == 0, A % 128 == 0 and A <= H"
+        )
+
+    dev = x.device
+    x = x.to(dt).contiguous()
+    mask = mask.to(torch.float32).contiguous()
+    for tensor in (x, *ops):
+        if tensor.data_ptr() % 16 or not tensor.is_contiguous():
+            raise ValueError("kernel operands must be contiguous and 16-byte aligned")
+    lib = _build.load_library()
+    code = _DTYPE_CODE[dt]
+    n_sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    per, n_splits = split_plan(b_, n, lib.toad_pool_rows_per_tile(code), n_sms)
+
+    m = torch.empty((b_, N_TASKS, h_dim), device=dev, dtype=torch.float32)
+    scores = torch.empty((b_, N_TASKS, n), device=dev, dtype=torch.float32) if with_scores else None
+    part_acc = torch.empty((b_ * n_splits * N_TASKS * h_dim,), device=dev, dtype=torch.float32)
+    part_stat = torch.empty((b_ * n_splits * 4,), device=dev, dtype=torch.float32)
+    with torch.cuda.device(dev):
+        err = lib.toad_pool_forward(
+            code, x.data_ptr(), mask.data_ptr(), b_, n, d, h_dim, a_dim,
+            *(tensor.data_ptr() for tensor in ops),
+            per, n_splits,
+            scores.data_ptr() if scores is not None else None, part_acc.data_ptr(), part_stat.data_ptr(),
+            m.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"pooling kernel launch failed: CUDA error {err} ({lib.toad_cuda_error_string(err).decode()})")
+    LAUNCHES += 1
+    return m, scores
+
+
+def smem_bytes(compute_dtype: torch.dtype, h_dim: int, a_dim: int) -> int:
+    """Dynamic shared memory one block of the kernel takes."""
+    return int(_build.load_library().toad_pool_smem_bytes(_DTYPE_CODE[compute_dtype], h_dim, a_dim))
+
+
+def flops_per_row(d: int, h_dim: int, a_dim: int) -> int:
+    """Multiply-add FLOPs the kernel spends on one row (GEMMs and scores)."""
+    return 2 * (d * h_dim + h_dim * h_dim + h_dim * 2 * a_dim + a_dim * N_TASKS + N_TASKS * h_dim)
+

@@ -1,0 +1,89 @@
+"""Fused trunk + gated attention + pooling over padded bags.
+
+PyTorch counterpart of :mod:`toad_tpu.ops.fused_pool`. Per bag:
+
+    h = relu(x @ W1 + b1); h = relu(h @ W2 + b2)          # trunk MLP
+    a = tanh(h @ Wa + ba); g = sigmoid(h @ Wb + bb)       # gate
+    s = (a * g) @ Wc + bc                                  # [N, T] scores
+    A = masked_softmax(s^T); M = A @ h                     # [T, H] pooled
+
+A CUDA tensor goes to the hand-written kernel (:mod:`.cuda_pool`); a CPU
+tensor goes to the plain version below. Nothing else chooses between them.
+``params`` is the JAX package's pytree layout: ``{"trunk": {"fc1": {"w",
+"b"}, "fc2": ...}, "attn": {"a", "b", "c"}}`` with [in, out] weights.
+"""
+
+from __future__ import annotations
+
+from typing import Any
+
+import torch
+
+from toad_tpu_torch.ops import cuda_pool
+from toad_tpu_torch.ops.pooling import masked_attention_pool
+
+
+def _trunk_scores(params: dict[str, Any], x: torch.Tensor, compute_dtype: torch.dtype = torch.float32):
+    """Trunk MLP then gated attention scores, the plain version.
+
+    x: [B, N, D] -> (h [B, N, H] in ``compute_dtype``, scores [B, N, T] f32).
+    Casts where the JAX version does: weights, biases and activations in the
+    compute dtype, the score head accumulated in f32.
+    """
+    dt = compute_dtype
+
+    def lin(p):
+        return p["w"].to(dt), p["b"].to(dt)
+
+    w1, b1 = lin(params["trunk"]["fc1"])
+    w2, b2 = lin(params["trunk"]["fc2"])
+    wa, ba = lin(params["attn"]["a"])
+    wc, bc = params["attn"]["c"]["w"].to(dt), params["attn"]["c"]["b"]
+
+    x = x.to(dt)
+    h = torch.relu(x @ w1 + b1)
+    h = torch.relu(h @ w2 + b2)
+    a = torch.tanh(h @ wa + ba)
+    if "b" in params["attn"]:
+        wb, bb = lin(params["attn"]["b"])
+        a = a * torch.sigmoid(h @ wb + bb)
+    # products of compute-dtype values are exact in f32: this is the JAX
+    # einsum with preferred_element_type=float32
+    scores = a.float() @ wc.float() + bc.to(dt).float()
+    return h, scores
+
+
+def plain_pool(
+    params: dict[str, Any], x: torch.Tensor, mask: torch.Tensor, compute_dtype: torch.dtype, with_scores: bool
+) -> tuple[torch.Tensor, torch.Tensor | None]:
+    """The plain version of the pool: (M [B, T, H] f32, raw scores [B, T, N]
+    f32 or None). It runs on the CPU and is what the kernel is held against."""
+    h, scores = _trunk_scores(params, x, compute_dtype)
+    m, _ = masked_attention_pool(scores, h, mask)
+    return m, (scores.transpose(1, 2) if with_scores else None)
+
+
+def fused_trunk_attention_pool(
+    params: dict[str, Any],
+    x: torch.Tensor,  # [B, N, D]
+    mask: torch.Tensor,  # [B, N]
+    *,
+    compute_dtype: torch.dtype = torch.float32,
+    with_scores: bool = False,
+    operands=None,
+) -> tuple[torch.Tensor, torch.Tensor | None]:
+    """Returns (M [B, T, H] pooled f32, raw task-major scores [B, T, N] f32,
+    or None unless ``with_scores``). The caller masks the scores (A_raw) or
+    softmaxes them. Without scores, the kernel writes none and skips row
+    tiles of pure padding.
+
+    On CUDA, ``operands`` are the kernel's packed weights
+    (:func:`.cuda_pool.pack_params`), packed once by the caller; without
+    them the call packs ``params`` itself."""
+    if x.device.type == "cuda":
+        if operands is None:
+            operands = cuda_pool.pack_params(params, compute_dtype)
+        return cuda_pool.pool(operands, x, mask, with_scores=with_scores)
+    if x.device.type != "cpu":
+        raise ValueError(f"no pooling path for device {x.device} (cuda or cpu)")
+    return plain_pool(params, x, mask, compute_dtype, with_scores)

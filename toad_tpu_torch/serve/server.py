@@ -1,0 +1,379 @@
+"""Online inference service: JSON over HTTP in front of the dynamic batcher.
+
+PyTorch counterpart of :mod:`toad_tpu.serve.server` (``/heatmap`` and int8
+requests are not ported yet). Stdlib ``ThreadingHTTPServer``: each request
+thread blocks on its Future while the single dispatch thread feeds the
+device, so concurrency in the HTTP layer becomes device batch size.
+
+API:
+
+- ``GET  /healthz`` -> ``{"status": "ok", "device": <GPU name or "cpu">}``
+- ``GET  /stats``   -> request/batch counters incl. mean batch size, and the
+  dispatch thread's seconds in batch assembly and in device forwards
+- ``POST /predict`` -> body is JSON with either
+    - ``features_b64``: base64 little-endian float32 ``[n*dim]`` + ``shape``, or
+    - ``features``: nested lists ``[n][dim]`` (convenience, slow), or
+    - ``bag_path``: server-side path to a ``.pt``/``.npy``/``.npz``/``.h5`` bag;
+  plus ``sex`` ("F"/"M"/0/1), optional ``top_k`` (default 5) and
+  ``attention`` (bool; include raw per-patch attention scores).
+- ``POST /predict`` with ``Content-Type: application/octet-stream``: the body
+  is the feature bytes; ``X-Toad-Shape: <n>,<dim>`` and ``X-Toad-Sex`` are
+  required, ``X-Toad-Dtype: float32|bfloat16``, ``X-Toad-Top-K`` and
+  ``X-Toad-Attention: 0|1`` optional. The response is the same JSON.
+
+Every POST body is capped at ``max_body_bytes`` (413 beyond it).
+"""
+
+from __future__ import annotations
+
+import base64
+import json
+import threading
+import time
+from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+from pathlib import Path
+from typing import Any, Mapping
+
+import numpy as np
+import torch
+
+from toad_tpu_torch.config import ModelConfig, TaskConfig
+from toad_tpu_torch.cli.common import parse_sex
+from toad_tpu_torch.data.bags import load_bag
+from toad_tpu_torch.ops import cuda_pool
+from toad_tpu_torch.pipeline.infer import SlidePrediction
+from toad_tpu_torch.serve.batcher import DynamicBatcher, ServeConfig
+
+
+def invert_labels(label_dict: dict) -> dict:
+    """index -> display name; the first name of an index wins (task label
+    dicts list the canonical spelling before its aliases)."""
+    inv: dict = {}
+    for name, idx in label_dict.items():
+        inv.setdefault(idx, name)
+    return inv
+
+
+class InferenceService:
+    """Checkpoint + task vocabulary + dynamic batcher, as one object."""
+
+    def __init__(
+        self,
+        params: Mapping[str, torch.Tensor],
+        model_cfg: ModelConfig,
+        serve_cfg: ServeConfig = ServeConfig(),
+        task: TaskConfig | None = None,
+        bag_root: Any = None,
+        device: str | torch.device = "cuda",
+    ):
+        self.model_cfg = model_cfg
+        self.batcher = DynamicBatcher(params, model_cfg, serve_cfg, device=device)
+        # bag_path requests may only read under this directory; None = no
+        # restriction (HTTP additionally requires a root beyond loopback)
+        self.bag_root: Path | None = Path(bag_root).resolve() if bag_root is not None else None
+        self.task = task
+        self.inv_labels: dict[int, str] | None = None
+        self.inv_site: dict[int, str] | None = None
+        if task is not None:
+            self.inv_labels = invert_labels(task.label_dicts[0])
+            if len(task.label_dicts) > 1:
+                self.inv_site = invert_labels(task.label_dicts[1])
+
+    @classmethod
+    def from_checkpoint(cls, ckpt_path, model_cfg: ModelConfig, serve_cfg: ServeConfig = ServeConfig(),
+                        task: TaskConfig | None = None, bag_root: Any = None,
+                        device: str | torch.device = "cuda") -> "InferenceService":
+        """A reference-layout ``s_k_checkpoint.pt``."""
+        from toad_tpu_torch.train.checkpoint import load_params_any
+
+        params = load_params_any(ckpt_path, model_cfg)
+        return cls(params, model_cfg, serve_cfg, task=task, bag_root=bag_root, device=device)
+
+    @property
+    def device_name(self) -> str:
+        dev = self.batcher.device
+        return torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
+
+    # -- prediction --------------------------------------------------------------
+
+    def _resolve_bag_path(self, bag_path) -> Path:
+        """Resolve a client-supplied bag path against ``bag_root`` and refuse
+        escapes (``..``, absolute paths, symlinks out of the root)."""
+        p = Path(bag_path)
+        if self.bag_root is None:
+            return p
+        resolved = (p if p.is_absolute() else self.bag_root / p).resolve()
+        if not resolved.is_relative_to(self.bag_root):
+            raise PermissionError("bag_path resolves outside the served bag root")
+        return resolved
+
+    def predict_features(self, features: Any, sex: int, top_k: int = 5, attention: bool = False) -> dict:
+        pred = self.batcher.predict(features, sex, attention=attention)
+        return self._to_json(pred, top_k, attention)
+
+    def predict_bag(self, bag_path, sex: int, top_k: int = 5, attention: bool = False) -> dict:
+        bag_path = self._resolve_bag_path(bag_path)
+        if not bag_path.exists():
+            raise FileNotFoundError(f"feature bag not found: {bag_path}")
+        return self.predict_features(np.asarray(load_bag(bag_path), np.float32), sex, top_k, attention)
+
+    def _to_json(self, pred: SlidePrediction, top_k: int, attention: bool) -> dict:
+        def label(i: int) -> str:
+            return self.inv_labels.get(i, str(i)) if self.inv_labels else str(i)
+
+        def site_label(i: int) -> str:
+            return self.inv_site.get(i, str(i)) if self.inv_site else str(i)
+
+        out = {
+            "y_hat": pred.y_hat,
+            "label": label(pred.y_hat),
+            "y_prob": [float(p) for p in pred.y_prob],
+            "topk": [[label(i), p] for i, p in pred.topk[:top_k]],
+            "site_hat": pred.site_hat,
+            "site_label": site_label(pred.site_hat),
+            "site_prob": [float(p) for p in pred.site_prob],
+        }
+        if attention:
+            out["attention"] = [float(a) for a in pred.attention]
+        return out
+
+    def stats(self) -> dict:
+        s = self.batcher.stats()
+        cfg = self.batcher.cfg
+        return {
+            "requests": s.requests,
+            "batches": s.batches,
+            "served": s.batched_slides,
+            "padded_slots": s.padded_slots,
+            "mean_batch_size": round(s.mean_batch_size, 3),
+            "assemble_s": s.assemble_s,
+            "forward_s": s.forward_s,
+            # fused pooling kernel launches in this process: shows that the
+            # served batches went through the CUDA kernel
+            "kernel_launches": cuda_pool.LAUNCHES,
+            "config": {
+                "buckets": list(self.batcher.buckets),
+                "max_batch": cfg.max_batch,
+                "max_wait_ms": cfg.max_wait_ms,
+                "temperature": cfg.temperature,
+                "transfer_dtype": cfg.transfer_dtype,
+                "device": self.device_name,
+            },
+        }
+
+    def close(self, timeout: float = 60.0) -> bool:
+        """True when the dispatch thread fully drained."""
+        return self.batcher.close(timeout)
+
+
+def _valid_shape(shape) -> bool:
+    return (
+        isinstance(shape, list)
+        and len(shape) == 2
+        and all(isinstance(v, int) and not isinstance(v, bool) and v > 0 for v in shape)
+    )
+
+
+def _decode_features(body: dict, in_dim: int) -> np.ndarray:
+    if "features_b64" in body:
+        shape = body.get("shape")
+        if not _valid_shape(shape):
+            raise ValueError("features_b64 requires 'shape': [n_patches, dim] (positive integers)")
+        if shape[1] != in_dim:
+            raise ValueError(f"feature dim {shape[1]} != model in_dim {in_dim}")
+        arr = np.frombuffer(bytearray(base64.b64decode(body["features_b64"])), dtype="<f4")
+        if arr.size != shape[0] * shape[1]:
+            raise ValueError(f"payload has {arr.size} floats, shape says {shape[0] * shape[1]}")
+        return arr.reshape(shape[0], shape[1])
+    if "features" in body:
+        arr = np.asarray(body["features"], np.float32)
+        if arr.ndim != 2 or arr.shape[1] != in_dim:
+            raise ValueError(f"features must be [n_patches, {in_dim}], got shape {arr.shape}")
+        return arr
+    raise ValueError("body needs one of: features_b64, features, bag_path")
+
+
+def _decode_raw_request(headers, body: bytearray, in_dim: int) -> torch.Tensor:
+    """Raw ``application/octet-stream`` body -> features [n, dim] (f32 or
+    bf16 tensor, a view of the body)."""
+    shape_hdr = headers.get("X-Toad-Shape")
+    if not shape_hdr:
+        raise ValueError("octet-stream predict requires 'X-Toad-Shape: <n_patches>,<dim>'")
+    try:
+        n, dim = (int(v) for v in shape_hdr.split(","))
+    except ValueError:
+        raise ValueError(f"malformed X-Toad-Shape {shape_hdr!r} (want '<n_patches>,<dim>')") from None
+    if n <= 0 or dim <= 0:
+        raise ValueError(f"X-Toad-Shape dims must be positive, got {n},{dim}")
+    if dim != in_dim:
+        raise ValueError(f"feature dim {dim} != model in_dim {in_dim}")
+    dtype = (headers.get("X-Toad-Dtype") or "float32").strip().lower()
+    if dtype in ("float32", "f32"):
+        if len(body) != n * dim * 4:
+            raise ValueError(f"body has {len(body)} bytes, shape {n},{dim} f32 needs {n * dim * 4}")
+        return torch.from_numpy(np.frombuffer(body, dtype="<f4").reshape(n, dim))
+    if dtype in ("bfloat16", "bf16"):
+        # half the wire bytes of f32; under bf16 compute the server would
+        # round the rows to bf16 anyway, so the client-side cast changes nothing
+        if len(body) != n * dim * 2:
+            raise ValueError(f"body has {len(body)} bytes, shape {n},{dim} bf16 needs {n * dim * 2}")
+        return torch.from_numpy(np.frombuffer(body, dtype="<i2").reshape(n, dim)).view(torch.bfloat16)
+    raise ValueError(f"unsupported X-Toad-Dtype {dtype!r} (float32 or bfloat16)")
+
+
+def _read_body(rfile, length: int) -> bytearray:
+    """The whole body into a writable buffer (tensors view it without a copy)."""
+    buf = bytearray(length)
+    view = memoryview(buf)
+    got = 0
+    while got < length:
+        k = rfile.readinto(view[got:])
+        if not k:
+            raise ValueError(f"body ended after {got} of {length} bytes")
+        got += k
+    return buf
+
+
+class DrainableHTTPServer(ThreadingHTTPServer):
+    """``ThreadingHTTPServer`` that can wait for in-request handler threads,
+    so that shutdown lets drained responses finish writing before exit."""
+
+    # listen backlog: socketserver's default of 5 resets connections when a
+    # burst of clients connects at once
+    request_queue_size = 128
+
+    def __init__(self, *args, **kwargs):
+        super().__init__(*args, **kwargs)
+        self._inflight = 0
+        self._inflight_cv = threading.Condition()
+
+    def request_began(self) -> None:
+        with self._inflight_cv:
+            self._inflight += 1
+
+    def request_done(self) -> None:
+        with self._inflight_cv:
+            self._inflight -= 1
+            self._inflight_cv.notify_all()
+
+    def drain_requests(self, timeout: float = 10.0) -> bool:
+        """Wait until no handler is mid-request; True if fully drained."""
+        deadline = time.monotonic() + timeout
+        with self._inflight_cv:
+            while self._inflight > 0:
+                remaining = deadline - time.monotonic()
+                if remaining <= 0:
+                    return False
+                self._inflight_cv.wait(remaining)
+        return True
+
+
+def make_http_server(
+    service: InferenceService,
+    host: str = "127.0.0.1",
+    port: int = 8000,
+    max_body_bytes: int = 1 << 30,
+) -> DrainableHTTPServer:
+    """Build (not start) the server; ``port=0`` picks a free port
+    (``server.server_address[1]``). The caller owns serve_forever/shutdown.
+
+    Server-side ``bag_path`` requests are honoured only when the service has
+    a ``bag_root`` or the server is bound to loopback."""
+    bag_paths_ok = service.bag_root is not None or host in ("127.0.0.1", "localhost", "::1")
+    in_dim = service.model_cfg.in_dim
+
+    class Handler(BaseHTTPRequestHandler):
+        # a client that stalls mid-body loses its connection instead of
+        # pinning a handler thread forever
+        timeout = 120
+
+        def log_message(self, *a):  # quiet; /stats has the counters
+            pass
+
+        def _send(self, code: int, obj: dict) -> None:
+            payload = json.dumps(obj).encode()
+            self.send_response(code)
+            self.send_header("Content-Type", "application/json")
+            self.send_header("Content-Length", str(len(payload)))
+            self.end_headers()
+            self.wfile.write(payload)
+
+        def do_GET(self):
+            self.server.request_began()
+            try:
+                if self.path == "/healthz":
+                    self._send(200, {"status": "ok", "device": service.device_name})
+                elif self.path == "/stats":
+                    self._send(200, service.stats())
+                else:
+                    self._send(404, {"error": f"unknown path {self.path}"})
+            finally:
+                self.server.request_done()
+
+        def do_POST(self):
+            self.server.request_began()
+            try:
+                self._handle_post()
+            finally:
+                self.server.request_done()
+
+        def _handle_post(self):
+            if self.path != "/predict":
+                self.close_connection = True  # the unread body must not parse as a request
+                self._send(404, {"error": f"unknown path {self.path}"})
+                return
+            try:
+                length = int(self.headers.get("Content-Length", 0) or 0)
+            except ValueError:
+                self.close_connection = True
+                self._send(400, {"error": "malformed Content-Length"})
+                return
+            if length > max_body_bytes:
+                self.close_connection = True
+                self._send(413, {"error": f"body {length} bytes exceeds cap {max_body_bytes}"})
+                return
+            ctype = (self.headers.get("Content-Type") or "").split(";")[0].strip().lower()
+            try:
+                body = _read_body(self.rfile, length)
+                if ctype == "application/octet-stream":
+                    sex = parse_sex(self.headers.get("X-Toad-Sex", ""))
+                    top_k = int(self.headers.get("X-Toad-Top-K", 5))
+                    attention = (self.headers.get("X-Toad-Attention") or "0").strip().lower() in ("1", "true", "yes")
+                    feats = _decode_raw_request(self.headers, body, in_dim)
+                    out = service.predict_features(feats, sex, top_k, attention)
+                else:
+                    req = json.loads(body or b"{}")
+                    sex = parse_sex(req.get("sex", ""))
+                    top_k = int(req.get("top_k", 5))
+                    attention = bool(req.get("attention", False))
+                    if "bag_path" in req:
+                        if not bag_paths_ok:
+                            self._send(403, {"error": "server-side bag_path disabled: start with --bag_root "
+                                                      "to serve bags on a network-exposed host"})
+                            return
+                        out = service.predict_bag(req["bag_path"], sex, top_k, attention)
+                    else:
+                        out = service.predict_features(_decode_features(req, in_dim), sex, top_k, attention)
+            except (ValueError, KeyError, json.JSONDecodeError) as e:
+                self._send(400, {"error": str(e)})
+                return
+            except PermissionError:
+                self._send(403, {"error": "bag_path outside the served bag root"})
+                return
+            except FileNotFoundError:
+                # no path echo: probing outside bag_root must not leak host structure
+                self._send(404, {"error": "feature bag not found"})
+                return
+            except Exception as e:  # device/runtime failure: report it, keep serving
+                self._send(500, {"error": f"{type(e).__name__}: {e}"})
+                return
+            self._send(200, out)
+
+    return DrainableHTTPServer((host, port), Handler)
+
+
+def serve_in_thread(service: InferenceService, host: str = "127.0.0.1", port: int = 0):
+    """Start the HTTP server on a daemon thread; returns (server, port)."""
+    server = make_http_server(service, host, port)
+    threading.Thread(target=server.serve_forever, name="toad-serve-http", daemon=True).start()
+    return server, server.server_address[1]
