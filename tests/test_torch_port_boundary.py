@@ -73,6 +73,29 @@ def test_config_and_registry_match_the_jax_package():
         registry.load_task("no_such_task")
 
 
+INT8_MODULES = (
+    "toad_tpu_torch.ops.quantize",
+    "toad_tpu_torch.ops.cuda_pool_int8",
+    "toad_tpu_torch.pipeline.featurize",
+    "toad_tpu_torch.cli.convert",
+)
+
+
+@pytest.mark.parametrize("module", INT8_MODULES)
+def test_int8_modules_import_neither_jax_nor_the_jax_package(probe, module):
+    """Each module of the int8 slice, imported alone in a fresh process,
+    loads no module of the JAX stack or of toad_tpu and builds no kernel."""
+    assert module in probe["modules"]
+    code = (
+        f"import importlib, json, sys; importlib.import_module({module!r}); "
+        "from toad_tpu_torch.ops import _build; "
+        f"print(json.dumps([m for m in sys.modules if m.split('.')[0] in {FORBIDDEN + ('toad_tpu',)!r}] "
+        "+ (['built'] if _build.is_loaded() else [])))"
+    )
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True, timeout=300, check=True)
+    assert json.loads(out.stdout.strip().splitlines()[-1]) == []
+
+
 def test_import_builds_no_kernel(probe):
     assert probe["built"] is False
 

@@ -2,7 +2,8 @@
 
 Loads a reference-layout ``s_{fold}_checkpoint.pt`` and serves ``POST
 /predict`` with dynamic batching (:mod:`toad_tpu_torch.serve`) on one
-device. On CUDA the fused pooling kernel is the path.
+device. On CUDA the fused pooling kernel is the path; with ``--int8``, the
+fused int8 pooling kernel.
 """
 
 from __future__ import annotations
@@ -28,6 +29,12 @@ def make_parser() -> argparse.ArgumentParser:
     p.add_argument("--max_wait_ms", type=float, default=5.0, help="batching window after first request")
     p.add_argument("--attention", action="store_true", help="compute attention scores on every request")
     p.add_argument("--bf16", action="store_true", help="bfloat16 compute")
+    p.add_argument(
+        "--int8", action="store_true",
+        help="quantized inference: bags quantized per row on the handler thread (or sent or stored "
+        "as int8), int8 host-to-device rows (4x fewer bytes than f32) and the int8 pooling kernel; "
+        "heads and softmax stay f32",
+    )
     p.add_argument(
         "--bf16_transfer", action="store_true",
         help="force bfloat16 host->device feature transfer even under f32 compute "
@@ -79,6 +86,7 @@ def main(argv=None) -> None:
         max_wait_ms=args.max_wait_ms,
         need_attention=args.attention,
         transfer_dtype="bfloat16" if args.bf16_transfer else "auto",
+        int8=args.int8,
         temperature=resolve_temperature(args.temperature, args.temperature_from),
     )
     service = InferenceService.from_checkpoint(
@@ -92,7 +100,8 @@ def main(argv=None) -> None:
     server = make_http_server(service, args.host, args.port, max_body_bytes=args.max_body_mb << 20)
     print(
         f"serving on http://{args.host}:{server.server_address[1]}  "
-        f"(POST /predict, GET /stats, GET /healthz) on {service.device_name}",
+        f"(POST /predict, GET /stats, GET /healthz) on {service.device_name}"
+        f"{', int8' if args.int8 else ''}",
         flush=True,
     )
 

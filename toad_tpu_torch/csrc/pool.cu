@@ -33,19 +33,13 @@
 //   32 (u rows g*32.., then v rows g*32..) so that a thread holds u_j and v_j
 //   of the same j; biases, mask and all outputs are f32.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "pool_common.cuh"
 
 namespace {
 
-typedef __nv_bfloat16 bf16;
-
-constexpr int kThreads = 256;  // 8 warps
 constexpr int kBN = 256;       // GEMM output columns per pass
 constexpr int kBK = 32;        // GEMM reduction depth per staged slice
 constexpr int kHPad = 8;       // row padding of the activation buffers
-constexpr float kNegInf = -1e30f;
 
 // Rows per tile, staging stride (elements) and staging depth per compute
 // dtype. bf16 rows are padded by 16 bytes (conflict-free ldmatrix, 16-byte
@@ -63,8 +57,6 @@ template <> struct Cfg<float> {
   static constexpr int S = kBK + 1;
   static constexpr int kStages = 1;
 };
-
-__host__ __device__ inline size_t align16(size_t v) { return (v + 15) & ~size_t(15); }
 
 struct Layout {
   size_t ha, hb, ws, xs, wc, s, e, acc, stat, total;
@@ -89,38 +81,11 @@ __host__ __device__ inline Layout layout(int H, int A) {
   return L;
 }
 
-__device__ __forceinline__ float to_f(float v) { return v; }
-__device__ __forceinline__ float to_f(bf16 v) { return __bfloat162float(v); }
-template <typename T> __device__ __forceinline__ T from_f(float v);
-template <> __device__ __forceinline__ float from_f<float>(float v) { return v; }
-template <> __device__ __forceinline__ bf16 from_f<bf16>(float v) { return __float2bfloat16(v); }
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-__device__ __forceinline__ float warp_max(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
-
-__device__ __forceinline__ float sigmoidf(float v) { return 1.f / (1.f + expf(-v)); }
-
 // ---------------------------------------------------------------------------
 // Staging of one K-slice into shared memory.
 
 // bf16: 16-byte cp.async copies into a ring of kStages slices, so that the
 // next slices stream from L2 while the tensor cores work on this one.
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, int src_bytes) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src), "r"(src_bytes));
-}
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-template <int N>
-__device__ __forceinline__ void cp_async_wait() { asm volatile("cp.async.wait_group %0;\n" ::"n"(N)); }
-
 // ws[n][k] <- wt[n0 + n][k0 + k] and (kFromX) xs[r][k] <- x[row0 + r][k0 + k],
 // rows past the bag's end zero-filled; always commits one group
 template <bool kFromX>
@@ -185,15 +150,6 @@ struct GemmArgs {
   void* out;  // [R][ldo]
   int ldo;
 };
-
-// four 8x8 b16 matrices from shared memory; lane l gives the row address of
-// matrix l / 8, row l % 8
-__device__ __forceinline__ void ldsm_x4(uint32_t* r, const bf16* p) {
-  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(a));
-}
 
 __device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a, uint32_t b0, uint32_t b1) {
   asm volatile(
@@ -443,92 +399,15 @@ pool_kernel(const T* __restrict__ x, const float* __restrict__ mask, int N, int 
     }
     __syncthreads();
 
-    // online masked-softmax statistics, warp t for task t
-    if (warp < 2) {
-      const int t = warp;
-      float mx = kNegInf;
-      for (int r = lane; r < R; r += 32) {
-        if (row0 + r < N && mb[row0 + r] > 0.f) mx = fmaxf(mx, s_s[2 * r + t]);
-      }
-      mx = warp_max(mx);
-      const float m_prev = stat[t];
-      const float m_new = fmaxf(m_prev, mx);
-      const float m_safe = m_new <= kNegInf / 2 ? 0.f : m_new;
-      float sum = 0.f;
-      for (int r = lane; r < R; r += 32) {
-        float e = 0.f;
-        if (row0 + r < N && mb[row0 + r] > 0.f) e = expf(s_s[2 * r + t] - m_safe);
-        sum += e;
-        e_s[2 * r + t] = to_f(from_f<T>(e));
-      }
-      sum = warp_sum(sum);
-      const float corr = expf((m_prev <= kNegInf / 2 ? kNegInf : m_prev) - m_safe);
-      if (lane == 0) {
-        stat[t] = m_new;
-        stat[2 + t] = stat[2 + t] * corr + sum;
-        stat[4 + t] = corr;
-      }
-    }
+    online_stats<R, T>(s_s, mb, row0, N, e_s, stat);
     __syncthreads();
-
-    // acc = acc * corr + e^T h2
-    for (int i = tid; i < 2 * H; i += kThreads) {
-      const int t = i >= H, h = i - t * H;
-      float a = acc_s[i] * stat[4 + t];
-      for (int r = 0; r < R; ++r) a = fmaf(e_s[2 * r + t], to_f(hb[r * ldh + h]), a);
-      acc_s[i] = a;
-    }
+    online_accumulate<R, T>(acc_s, e_s, stat, hb, ldh, H);
   }
   __syncthreads();
 
   const size_t p = (size_t)b * n_splits + split;
   for (int i = tid; i < 2 * H; i += kThreads) part_acc[p * 2 * H + i] = acc_s[i];
   if (tid < 4) part_stat[p * 4 + tid] = stat[tid];
-}
-
-// Exact flash combine of a bag's split partials, then acc / max(denom, 1e-30).
-// Block (c, b) finishes the 32 outputs c*32.. of bag b's [2][H]; its warps
-// split the partials between them, so that a bag with many splits (one large
-// bag spread over the card) is combined by many SMs.
-constexpr int kCombineCols = 32;
-
-__global__ void __launch_bounds__(kThreads)
-pool_combine_kernel(const float* __restrict__ part_acc, const float* __restrict__ part_stat,
-                    int n_splits, int H, float* __restrict__ out) {
-  extern __shared__ float w_s[];  // [n_splits] rescale weights of this block's task
-  __shared__ float red[kThreads / 32][kCombineCols];
-  __shared__ float denom_s;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int b = blockIdx.y, i0 = blockIdx.x * kCombineCols;
-  const int t = i0 >= H;  // H % kCombineCols == 0: one task per block
-  const float* st = part_stat + (size_t)b * n_splits * 4;
-  if (warp == 0) {
-    float mx = kNegInf;
-    for (int s = lane; s < n_splits; s += 32) mx = fmaxf(mx, st[s * 4 + t]);
-    mx = warp_max(mx);
-    const float m_safe = mx <= kNegInf / 2 ? 0.f : mx;
-    float den = 0.f;
-    for (int s = lane; s < n_splits; s += 32) {
-      const float m = st[s * 4 + t];
-      const float w = expf((m <= kNegInf / 2 ? kNegInf : m) - m_safe);
-      w_s[s] = w;
-      den = fmaf(st[s * 4 + 2 + t], w, den);
-    }
-    den = warp_sum(den);
-    if (lane == 0) denom_s = fmaxf(den, 1e-30f);
-  }
-  __syncthreads();
-  float a = 0.f;
-  for (int s = warp; s < n_splits; s += kThreads / 32)
-    a = fmaf(part_acc[((size_t)b * n_splits + s) * 2 * H + i0 + lane], w_s[s], a);
-  red[warp][lane] = a;
-  __syncthreads();
-  if (warp == 0) {
-    float sum = 0.f;
-#pragma unroll
-    for (int w = 0; w < kThreads / 32; ++w) sum += red[w][lane];
-    out[(size_t)b * 2 * H + i0 + lane] = sum / denom_s;
-  }
 }
 
 template <typename T>
@@ -547,9 +426,7 @@ int launch(const void* x, const float* mask, int B, int N, int D, int H, int A,
       tiles_per_split, n_splits, scores, part_acc, part_stat);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  pool_combine_kernel<<<dim3(2 * H / kCombineCols, B), kThreads, sizeof(float) * n_splits, stream>>>(
-      part_acc, part_stat, n_splits, H, out);
-  return (int)cudaGetLastError();
+  return launch_combine(part_acc, part_stat, n_splits, B, H, out, stream);
 }
 
 }  // namespace

@@ -1,0 +1,163 @@
+// Pieces shared by the fused pooling kernels csrc/pool.cu (K1, bf16/f32)
+// and csrc/pool_int8.cu (K2, int8): staging and fragment helpers, the
+// per-tile online masked-softmax update, and the exact combine of the
+// split-N partials. Everything sits in an anonymous namespace, so each
+// translation unit that includes this header gets its own copy.
+
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+typedef __nv_bfloat16 bf16;
+
+constexpr int kThreads = 256;  // 8 warps
+constexpr float kNegInf = -1e30f;
+
+__host__ __device__ inline size_t align16(size_t v) { return (v + 15) & ~size_t(15); }
+
+__device__ __forceinline__ float to_f(float v) { return v; }
+__device__ __forceinline__ float to_f(bf16 v) { return __bfloat162float(v); }
+template <typename T> __device__ __forceinline__ T from_f(float v);
+template <> __device__ __forceinline__ float from_f<float>(float v) { return v; }
+template <> __device__ __forceinline__ bf16 from_f<bf16>(float v) { return __float2bfloat16(v); }
+
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+__device__ __forceinline__ float warp_max(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
+  return v;
+}
+
+__device__ __forceinline__ float sigmoidf(float v) { return 1.f / (1.f + expf(-v)); }
+
+// 16-byte cp.async copy; src_bytes < 16 zero-fills the rest (0: all zeros)
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, int src_bytes) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src), "r"(src_bytes));
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+template <int N>
+__device__ __forceinline__ void cp_async_wait() { asm volatile("cp.async.wait_group %0;\n" ::"n"(N)); }
+
+// four 8x8 b16 matrices (8 rows of 16 bytes each) from shared memory; lane
+// l gives the row address of matrix l / 8, row l % 8
+__device__ __forceinline__ void ldsm_x4(uint32_t* r, const void* p) {
+  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(a));
+}
+
+// ---------------------------------------------------------------------------
+// Online masked softmax over one tile of R rows, the TPU kernels'
+// _online_update. stat holds max[2], denom[2], corr[2].
+
+// Warp t (t < 2) updates task t's running max and denominator from the raw
+// scores s_s [R][2] of the tile's live rows, and writes e = exp(s - max)
+// rounded to E (the TPU kernel's rounding point before e^T h) into e_s.
+template <int R, typename E>
+__device__ __forceinline__ void online_stats(const float* s_s, const float* mb, int row0, int N,
+                                             float* e_s, float* stat) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  if (warp >= 2) return;
+  const int t = warp;
+  float mx = kNegInf;
+  for (int r = lane; r < R; r += 32) {
+    if (row0 + r < N && mb[row0 + r] > 0.f) mx = fmaxf(mx, s_s[2 * r + t]);
+  }
+  mx = warp_max(mx);
+  const float m_prev = stat[t];
+  const float m_new = fmaxf(m_prev, mx);
+  const float m_safe = m_new <= kNegInf / 2 ? 0.f : m_new;
+  float sum = 0.f;
+  for (int r = lane; r < R; r += 32) {
+    float e = 0.f;
+    if (row0 + r < N && mb[row0 + r] > 0.f) e = expf(s_s[2 * r + t] - m_safe);
+    sum += e;
+    e_s[2 * r + t] = to_f(from_f<E>(e));
+  }
+  sum = warp_sum(sum);
+  const float corr = expf((m_prev <= kNegInf / 2 ? kNegInf : m_prev) - m_safe);
+  if (lane == 0) {
+    stat[t] = m_new;
+    stat[2 + t] = stat[2 + t] * corr + sum;
+    stat[4 + t] = corr;
+  }
+}
+
+// acc[2][H] = acc * corr + e^T h over the tile's R rows of h [R][ldh]
+template <int R, typename T>
+__device__ __forceinline__ void online_accumulate(float* acc_s, const float* e_s, const float* stat,
+                                                  const T* h, int ldh, int H) {
+  for (int i = threadIdx.x; i < 2 * H; i += kThreads) {
+    const int t = i >= H, c = i - t * H;
+    float a = acc_s[i] * stat[4 + t];
+    for (int r = 0; r < R; ++r) a = fmaf(e_s[2 * r + t], to_f(h[r * ldh + c]), a);
+    acc_s[i] = a;
+  }
+}
+
+// ---------------------------------------------------------------------------
+// Exact flash combine of a bag's split partials, then acc / max(denom, 1e-30).
+// Block (c, b) finishes the 32 outputs c*32.. of bag b's [2][H]; its warps
+// split the partials between them, so that a bag with many splits (one large
+// bag spread over the card) is combined by many SMs.
+constexpr int kCombineCols = 32;
+
+__global__ void __launch_bounds__(kThreads)
+pool_combine_kernel(const float* __restrict__ part_acc, const float* __restrict__ part_stat,
+                    int n_splits, int H, float* __restrict__ out) {
+  extern __shared__ float w_s[];  // [n_splits] rescale weights of this block's task
+  __shared__ float red[kThreads / 32][kCombineCols];
+  __shared__ float denom_s;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int b = blockIdx.y, i0 = blockIdx.x * kCombineCols;
+  const int t = i0 >= H;  // H % kCombineCols == 0: one task per block
+  const float* st = part_stat + (size_t)b * n_splits * 4;
+  if (warp == 0) {
+    float mx = kNegInf;
+    for (int s = lane; s < n_splits; s += 32) mx = fmaxf(mx, st[s * 4 + t]);
+    mx = warp_max(mx);
+    const float m_safe = mx <= kNegInf / 2 ? 0.f : mx;
+    float den = 0.f;
+    for (int s = lane; s < n_splits; s += 32) {
+      const float m = st[s * 4 + t];
+      const float w = expf((m <= kNegInf / 2 ? kNegInf : m) - m_safe);
+      w_s[s] = w;
+      den = fmaf(st[s * 4 + 2 + t], w, den);
+    }
+    den = warp_sum(den);
+    if (lane == 0) denom_s = fmaxf(den, 1e-30f);
+  }
+  __syncthreads();
+  float a = 0.f;
+  for (int s = warp; s < n_splits; s += kThreads / 32)
+    a = fmaf(part_acc[((size_t)b * n_splits + s) * 2 * H + i0 + lane], w_s[s], a);
+  red[warp][lane] = a;
+  __syncthreads();
+  if (warp == 0) {
+    float sum = 0.f;
+#pragma unroll
+    for (int w = 0; w < kThreads / 32; ++w) sum += red[w][lane];
+    out[(size_t)b * 2 * H + i0 + lane] = sum / denom_s;
+  }
+}
+
+// Launches the combine of B bags' partials into out [B][2][H]; returns the
+// launch's cudaError_t.
+inline int launch_combine(const float* part_acc, const float* part_stat, int n_splits, int B, int H,
+                          float* out, cudaStream_t stream) {
+  pool_combine_kernel<<<dim3(2 * H / kCombineCols, B), kThreads, sizeof(float) * n_splits, stream>>>(
+      part_acc, part_stat, n_splits, H, out);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace

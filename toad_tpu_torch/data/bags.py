@@ -1,8 +1,10 @@
 """Feature-bag readers: ``.pt`` (``torch.load``), ``.npy``, ``.npz`` and
 ``.h5`` (``features`` + ``coords``; needs h5py).
 
-Counterpart of :func:`toad_tpu.data.bags.load_bag`: the same on-disk
-contracts, returning numpy arrays.
+Counterpart of :mod:`toad_tpu.data.bags`: the same on-disk contracts,
+returning numpy arrays. int8 stores (:func:`save_int8_bag`) are ``.npz``
+files with ``features_int8`` [N, D] int8, ``scales`` [N] f32 and optionally
+``coords``, so a store written by either package reads in the other.
 """
 
 from __future__ import annotations
@@ -12,6 +14,8 @@ from pathlib import Path
 
 import numpy as np
 import torch
+
+from toad_tpu_torch.ops.quantize import quantize_rows_np
 
 
 def load_pt_tensor(path: str | os.PathLike) -> np.ndarray:
@@ -46,6 +50,32 @@ def _sidecar_coords(path: Path) -> np.ndarray | None:
     """Coords for formats that cannot embed them: a ``{stem}.coords.npy`` sibling."""
     p = path.with_suffix(".coords.npy")
     return np.load(p) if p.exists() else None
+
+
+def save_int8_bag(path: str | os.PathLike, features: np.ndarray, coords: np.ndarray | None = None) -> None:
+    """Write a row-quantized int8 bag: 4x smaller than f32, and the int8
+    serving path reads it without quantizing again (:func:`load_bag_quantized`)."""
+    path = Path(path)
+    if path.suffix.lower() != ".npz":
+        raise ValueError(f"int8 bags are .npz files, got {path}")
+    path.parent.mkdir(parents=True, exist_ok=True)
+    xq, scales = quantize_rows_np(features)
+    payload = {"features_int8": xq, "scales": scales}
+    if coords is not None:
+        payload["coords"] = coords
+    np.savez(path, **payload)
+
+
+def load_bag_quantized(path: str | os.PathLike):
+    """(xq int8 [N, D], scales f32 [N], coords or None) from an int8 bag, or
+    None if the file is not one (the caller then loads and quantizes)."""
+    path = Path(path)
+    if path.suffix.lower() != ".npz":
+        return None
+    z = np.load(path)
+    if "features_int8" not in z.files:
+        return None
+    return z["features_int8"], z["scales"], (z["coords"] if "coords" in z.files else None)
 
 
 def load_bag(path: str | os.PathLike, with_coords: bool = False):

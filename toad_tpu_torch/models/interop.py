@@ -9,7 +9,9 @@ Two sources:
   without dropout and ``attention_net.{3,6}`` with it. ``nn.DataParallel``
   leaves ``module.`` segments, which are stripped.
 - the JAX package's params pytree (:func:`params_from_jax`), with [in, out]
-  weights; it carries the weights across for every parity test.
+  weights; it carries the weights across for every parity test. Its int8
+  pooling weights (``toad_tpu.ops.quantize.quantize_pool_params``) cross with
+  :func:`qparams_from_jax`, so that both packages run the same integers.
 """
 
 from __future__ import annotations
@@ -93,6 +95,17 @@ def params_from_jax(params: Mapping[str, Any]) -> dict[str, torch.Tensor]:
             prefix = f"{group}.{name}" if name else group
             out[f"{prefix}.weight"] = _f32(np.asarray(lin["w"], np.float32).T)
             out[f"{prefix}.bias"] = _f32(lin["b"])
+    return out
+
+
+def qparams_from_jax(qparams: Mapping[str, Any]) -> dict[str, torch.Tensor]:
+    """The JAX int8 pooling weights (numpy-convertible leaves, keyed
+    ``w1q/sw1/b1, w2q/sw2/b2, wabq/swab/bab, wc/bc``, [in, out] layout) ->
+    the same dict of torch tensors: int8 weights stay int8, the rest f32."""
+    out: dict[str, torch.Tensor] = {}
+    for name, v in qparams.items():
+        arr = np.asarray(v)
+        out[name] = torch.from_numpy(np.array(arr, np.int8 if arr.dtype == np.int8 else np.float32))
     return out
 
 

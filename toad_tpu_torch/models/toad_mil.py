@@ -13,8 +13,8 @@ Submodules follow the JAX params pytree (``trunk.fc1``, ``attn.a``,
 ``cls_head``...), so the state_dict keys name their JAX counterparts; each
 ``nn.Linear`` keeps PyTorch's [out, in] weight layout. Init is the
 reference's Xavier-normal weights and zero biases, drawn from an explicit
-generator. This module is the eval forward; the dropout/training path is not
-ported yet.
+generator. This module is the eval forward (float, and int8 through
+:meth:`ToadMIL.forward_int8`); the dropout/training path is not ported yet.
 """
 
 from __future__ import annotations
@@ -25,8 +25,9 @@ import torch
 from torch import nn
 
 from toad_tpu_torch.config import ModelConfig
-from toad_tpu_torch.ops import cuda_pool
-from toad_tpu_torch.ops.fused_pool import fused_trunk_attention_pool
+from toad_tpu_torch.ops import cuda_pool, cuda_pool_int8
+from toad_tpu_torch.ops.fused_pool import fused_int8_pool, fused_trunk_attention_pool
+from toad_tpu_torch.ops.quantize import quantize_pool_params
 
 N_TASKS = 2
 
@@ -70,6 +71,7 @@ class ToadMIL(nn.Module):
         self.cls_head = _linear(c.hidden_dim + 1, c.n_classes, dt)
         self.site_head = _linear(c.hidden_dim + 1, c.n_site_classes, dt)
         self._packed: dict[torch.dtype, tuple] = {}  # compute dtype -> (weights' key, kernel operands)
+        self._int8: tuple | None = None  # (weights' key, int8 params, int8 kernel operands or None)
         self.reset_parameters(generator if generator is not None else torch.Generator().manual_seed(0))
 
     @torch.no_grad()
@@ -94,18 +96,35 @@ class ToadMIL(nn.Module):
             "attn": {k: lin(m) for k, m in self.attn.items()},
         }
 
+    def _pool_weights_key(self) -> tuple:
+        """Identifies the pooling weights' current values: a weight that moves
+        or changes in place changes the key."""
+        lins = {**self.trunk, **self.attn}
+        if torch.is_grad_enabled() and any(m.weight.requires_grad or m.bias.requires_grad for m in lins.values()):
+            raise RuntimeError("the pooling kernel is forward-only: call it under torch.no_grad() or inference_mode()")
+        return tuple((p.device, p.data_ptr(), p._version) for m in lins.values() for p in (m.weight, m.bias))
+
     def kernel_operands(self, compute_dtype: torch.dtype) -> cuda_pool.PoolOperands:
         """The pooling kernel's packed weights, packed once per compute dtype
         and re-packed only when a weight moves or changes in place."""
         lins = {**self.trunk, **self.attn}
-        if torch.is_grad_enabled() and any(m.weight.requires_grad or m.bias.requires_grad for m in lins.values()):
-            raise RuntimeError("the pooling kernel is forward-only: call it under torch.no_grad() or inference_mode()")
-        key = tuple((p.device, p.data_ptr(), p._version) for m in lins.values() for p in (m.weight, m.bias))
+        key = self._pool_weights_key()
         hit = self._packed.get(compute_dtype)
         if hit is None or hit[0] != key:
             hit = (key, cuda_pool.pack_linears({k: (m.weight, m.bias) for k, m in lins.items()}, compute_dtype))
             self._packed[compute_dtype] = hit
         return hit[1]
+
+    def int8_operands(self) -> tuple[dict[str, torch.Tensor], cuda_pool_int8.Int8PoolOperands | None]:
+        """(int8 pooling params, the int8 kernel's packed operands or None off
+        CUDA), quantized and packed once and again only when a weight moves
+        or changes in place."""
+        key = self._pool_weights_key()
+        if self._int8 is None or self._int8[0] != key:
+            qparams = quantize_pool_params(self.pool_params())
+            packed = cuda_pool_int8.pack_qparams(qparams) if self.trunk.fc1.weight.device.type == "cuda" else None
+            self._int8 = (key, qparams, packed)
+        return self._int8[1], self._int8[2]
 
     def forward(
         self,
@@ -123,6 +142,25 @@ class ToadMIL(nn.Module):
             self.pool_params(), x, mask, compute_dtype=compute_dtype, with_scores=need_attention,
             operands=self.kernel_operands(compute_dtype) if x.device.type == "cuda" else None,
         )
+        return self._finish(m, scores, mask, sex, attention_only)
+
+    def forward_int8(
+        self,
+        xq: torch.Tensor,  # [B, N, D] int8 (pre-quantized rows, ops/quantize.py)
+        sx: torch.Tensor,  # [B, N] f32 per-row scales
+        mask: torch.Tensor,  # [B, N]
+        sex: torch.Tensor,  # [B] (0/1)
+        *,
+        need_attention: bool = True,
+        attention_only: bool = False,
+    ):
+        """Quantized-inference forward, the counterpart of the JAX
+        ``ToadMIL.apply_int8``: the trunk and gate GEMMs run int8 (weights
+        quantized per column once, :meth:`int8_operands`); the heads and
+        softmax stay f32, so the outputs have :meth:`forward`'s contract."""
+        need_attention = need_attention or attention_only
+        qparams, operands = self.int8_operands()
+        m, scores = fused_int8_pool(qparams, xq, sx, mask, with_scores=need_attention, operands=operands)
         return self._finish(m, scores, mask, sex, attention_only)
 
     def _finish(self, m, scores, mask, sex, attention_only: bool):

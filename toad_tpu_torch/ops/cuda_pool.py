@@ -48,7 +48,7 @@ class PoolOperands(NamedTuple):
     bc: torch.Tensor  # [2]
 
 
-def _interleave_gate(t: torch.Tensor) -> torch.Tensor:
+def interleave_gate(t: torch.Tensor) -> torch.Tensor:
     """[2A, ...] rows u_0..u_{A-1}, v_0..v_{A-1} -> for each group g of 32:
     u rows g*32..g*32+31, then the v rows of the same j. Views and one copy
     on the tensor's device (an index tensor would need a host-to-device copy
@@ -74,7 +74,7 @@ def pack_linears(lins: dict[str, tuple[torch.Tensor, torch.Tensor]], dtype: torc
 
     return PoolOperands(
         w("fc1"), b("fc1"), w("fc2"), b("fc2"),
-        _interleave_gate(torch.cat([w("a"), w("b")])), _interleave_gate(torch.cat([b("a"), b("b")])),
+        interleave_gate(torch.cat([w("a"), w("b")])), interleave_gate(torch.cat([b("a"), b("b")])),
         w("c").t().contiguous(), b("c"),
     )
 
@@ -92,6 +92,19 @@ def split_plan(n_bags: int, n_rows: int, rows_per_tile: int, n_sms: int) -> tupl
     want = max(1, -(-_BLOCKS_PER_SM * n_sms // n_bags))
     per = -(-n_tiles // min(n_tiles, want))
     return per, -(-n_tiles // per)
+
+
+def launch_buffers(b_: int, n: int, h_dim: int, with_scores: bool, rows_per_tile: int, dev: torch.device):
+    """The split plan and the buffers a split-N pooling launch writes:
+    (tiles_per_split, n_splits, M [B, 2, H], scores [B, 2, N] or None,
+    partial acc, partial stats)."""
+    n_sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    per, n_splits = split_plan(b_, n, rows_per_tile, n_sms)
+    m = torch.empty((b_, N_TASKS, h_dim), device=dev, dtype=torch.float32)
+    scores = torch.empty((b_, N_TASKS, n), device=dev, dtype=torch.float32) if with_scores else None
+    part_acc = torch.empty((b_ * n_splits * N_TASKS * h_dim,), device=dev, dtype=torch.float32)
+    part_stat = torch.empty((b_ * n_splits * 4,), device=dev, dtype=torch.float32)
+    return per, n_splits, m, scores, part_acc, part_stat
 
 
 def pool(
@@ -137,13 +150,8 @@ def pool(
             raise ValueError("kernel operands must be contiguous and 16-byte aligned")
     lib = _build.load_library()
     code = _DTYPE_CODE[dt]
-    n_sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    per, n_splits = split_plan(b_, n, lib.toad_pool_rows_per_tile(code), n_sms)
-
-    m = torch.empty((b_, N_TASKS, h_dim), device=dev, dtype=torch.float32)
-    scores = torch.empty((b_, N_TASKS, n), device=dev, dtype=torch.float32) if with_scores else None
-    part_acc = torch.empty((b_ * n_splits * N_TASKS * h_dim,), device=dev, dtype=torch.float32)
-    part_stat = torch.empty((b_ * n_splits * 4,), device=dev, dtype=torch.float32)
+    per, n_splits, m, scores, part_acc, part_stat = launch_buffers(
+        b_, n, h_dim, with_scores, lib.toad_pool_rows_per_tile(code), dev)
     with torch.cuda.device(dev):
         err = lib.toad_pool_forward(
             code, x.data_ptr(), mask.data_ptr(), b_, n, d, h_dim, a_dim,

@@ -1,0 +1,127 @@
+"""Wrapper of the fused int8 pooling kernel ``csrc/pool_int8.cu``.
+
+The kernel replaces the TPU kernel
+``toad_tpu/ops/pallas_pool.py::_pool_kernel_body_int8`` (K2) and its
+bag-pair form ``_pool_kernel_body_int8_pair`` (K2b): int8 x int8 -> int32
+trunk and gate GEMMs on the tensor cores with per-row requantization inside
+the kernel, then K1's online masked-softmax pooling (see the notes in
+``csrc/pool_int8.cu``). K2b is a launch choice, not a second kernel: every
+batch, even or odd, runs the same split-N grid as K1.
+
+:func:`pack_qparams` lays the int8 weights out for the kernel, once per
+model; :func:`pool_int8` launches the kernel on CUDA tensors and raises on
+anything the kernel does not take. The plain version is
+:func:`toad_tpu_torch.ops.quantize.plain_int8_pool`.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from toad_tpu_torch.ops import _build
+from toad_tpu_torch.ops.cuda_pool import N_TASKS, interleave_gate, launch_buffers
+
+LAUNCHES = 0  # kernel launches in this process (one per call of pool_int8)
+
+HIDDEN = 512  # the kernel's trunk width: one GEMM pass covers a whole row
+
+
+class Int8PoolOperands(NamedTuple):
+    """The kernel's weights: int8 in nn.Linear layout [out, in] with f32
+    per-output scales and biases, the rows of [Wa|Wb] interleaved in groups
+    of 32 as for K1, Wc [A, 2] rounded to bf16 (``pallas_pool.py:368-369``)."""
+
+    w1: torch.Tensor  # [H, D] int8
+    sw1: torch.Tensor  # [H]
+    b1: torch.Tensor  # [H]
+    w2: torch.Tensor  # [H, H] int8
+    sw2: torch.Tensor  # [H]
+    b2: torch.Tensor  # [H]
+    wab: torch.Tensor  # [2A, H] int8
+    swab: torch.Tensor  # [2A]
+    bab: torch.Tensor  # [2A]
+    wc: torch.Tensor  # [A, 2] bf16
+    bc: torch.Tensor  # [2]
+
+
+def pack_qparams(qparams: dict[str, torch.Tensor]) -> Int8PoolOperands:
+    """:func:`~toad_tpu_torch.ops.quantize.quantize_pool_params` dict ([in,
+    out] int8 weights, per-column scales) -> the kernel's operands, on the
+    weights' device."""
+
+    def f32(name):
+        return qparams[name].to(torch.float32).contiguous()
+
+    return Int8PoolOperands(
+        qparams["w1q"].t().contiguous(), f32("sw1"), f32("b1"),
+        qparams["w2q"].t().contiguous(), f32("sw2"), f32("b2"),
+        interleave_gate(qparams["wabq"].t()), interleave_gate(f32("swab")), interleave_gate(f32("bab")),
+        qparams["wc"].to(torch.bfloat16).contiguous(), f32("bc"),
+    )
+
+
+def pool_int8(
+    ops: Int8PoolOperands, xq: torch.Tensor, sx: torch.Tensor, mask: torch.Tensor, with_scores: bool
+) -> tuple[torch.Tensor, torch.Tensor | None]:
+    """Launch the fused int8 pooling kernel: (M [B, 2, H] f32, raw scores
+    [B, 2, N] f32 or None). Scores are written only when ``with_scores``;
+    without them, row tiles that hold only padding are skipped."""
+    global LAUNCHES
+    if xq.device.type != "cuda":
+        raise ValueError(f"the CUDA int8 pooling kernel needs CUDA tensors, got {xq.device}")
+    if sx.device != xq.device or mask.device != xq.device or any(t.device != xq.device for t in ops):
+        raise ValueError(f"scales, mask and kernel operands must be on {xq.device}")
+    if xq.dtype != torch.int8:
+        raise TypeError(f"xq must be int8, got {xq.dtype}")
+    int8_ops = (ops.w1, ops.w2, ops.wab)
+    f32_ops = (ops.sw1, ops.b1, ops.sw2, ops.b2, ops.swab, ops.bab, ops.bc)
+    if (any(t.dtype != torch.int8 for t in int8_ops) or ops.wc.dtype != torch.bfloat16
+            or any(t.dtype != torch.float32 for t in f32_ops)):
+        raise TypeError("operands must come from pack_qparams: int8 weights, bf16 Wc, f32 scales and biases")
+    if xq.dim() != 3:
+        raise ValueError(f"xq must be [B, N, D], got {tuple(xq.shape)}")
+    b_, n, d = xq.shape
+    if tuple(sx.shape) != (b_, n) or tuple(mask.shape) != (b_, n):
+        raise ValueError(f"sx and mask must be [{b_}, {n}], got {tuple(sx.shape)} and {tuple(mask.shape)}")
+    if b_ == 0 or n == 0:
+        raise ValueError(f"empty batch {tuple(xq.shape)}")
+    h_dim, a_dim = ops.w1.shape[0], ops.wc.shape[0]
+    if ops.wc.shape[1] != N_TASKS:
+        raise ValueError(f"the kernel computes {N_TASKS} task columns, operands have {ops.wc.shape[1]}")
+    if ops.w1.shape[1] != d or ops.w2.shape != (h_dim, h_dim) or ops.wab.shape != (2 * a_dim, h_dim):
+        raise ValueError(f"operand shapes do not fit D={d}, H={h_dim}, A={a_dim}")
+    if d % 64 or h_dim != HIDDEN or a_dim % 128 or a_dim > h_dim:
+        raise ValueError(
+            f"widths D={d}, H={h_dim}, A={a_dim} not supported: need D % 64 == 0, "
+            f"H == {HIDDEN}, A % 128 == 0 and A <= H"
+        )
+
+    dev = xq.device
+    xq = xq.contiguous()
+    sx = sx.to(torch.float32).contiguous()
+    mask = mask.to(torch.float32).contiguous()
+    for tensor in (xq, sx, mask, *ops):
+        if tensor.data_ptr() % 16 or not tensor.is_contiguous():
+            raise ValueError("kernel operands must be contiguous and 16-byte aligned")
+    lib = _build.load_library()
+    per, n_splits, m, scores, part_acc, part_stat = launch_buffers(
+        b_, n, h_dim, with_scores, lib.toad_pool_int8_rows_per_tile(), dev)
+    with torch.cuda.device(dev):
+        err = lib.toad_pool_int8_forward(
+            xq.data_ptr(), sx.data_ptr(), mask.data_ptr(), b_, n, d, h_dim, a_dim,
+            *(tensor.data_ptr() for tensor in ops),
+            per, n_splits,
+            scores.data_ptr() if scores is not None else None, part_acc.data_ptr(), part_stat.data_ptr(),
+            m.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"int8 pooling kernel launch failed: CUDA error {err} ({lib.toad_cuda_error_string(err).decode()})")
+    LAUNCHES += 1
+    return m, scores
+
+
+def smem_bytes(a_dim: int) -> int:
+    """Dynamic shared memory one block of the kernel takes."""
+    return int(_build.load_library().toad_pool_int8_smem_bytes(a_dim))

@@ -7,8 +7,9 @@ PyTorch counterpart of :mod:`toad_tpu.ops.fused_pool`. Per bag:
     s = (a * g) @ Wc + bc                                  # [N, T] scores
     A = masked_softmax(s^T); M = A @ h                     # [T, H] pooled
 
-A CUDA tensor goes to the hand-written kernel (:mod:`.cuda_pool`); a CPU
-tensor goes to the plain version below. Nothing else chooses between them.
+A CUDA tensor goes to the hand-written kernel (:mod:`.cuda_pool`; the int8
+pool to :mod:`.cuda_pool_int8`); a CPU tensor goes to the plain version
+(below; the int8 one in :mod:`.quantize`). Nothing else chooses between them.
 ``params`` is the JAX package's pytree layout: ``{"trunk": {"fc1": {"w",
 "b"}, "fc2": ...}, "attn": {"a", "b", "c"}}`` with [in, out] weights.
 """
@@ -19,8 +20,9 @@ from typing import Any
 
 import torch
 
-from toad_tpu_torch.ops import cuda_pool
+from toad_tpu_torch.ops import cuda_pool, cuda_pool_int8
 from toad_tpu_torch.ops.pooling import masked_attention_pool
+from toad_tpu_torch.ops.quantize import plain_int8_pool
 
 
 def _trunk_scores(params: dict[str, Any], x: torch.Tensor, compute_dtype: torch.dtype = torch.float32):
@@ -87,3 +89,26 @@ def fused_trunk_attention_pool(
     if x.device.type != "cpu":
         raise ValueError(f"no pooling path for device {x.device} (cuda or cpu)")
     return plain_pool(params, x, mask, compute_dtype, with_scores)
+
+
+def fused_int8_pool(
+    qparams: dict[str, torch.Tensor],
+    xq: torch.Tensor,  # [B, N, D] int8
+    sx: torch.Tensor,  # [B, N] f32 per-row scales
+    mask: torch.Tensor,  # [B, N]
+    *,
+    with_scores: bool = False,
+    operands: cuda_pool_int8.Int8PoolOperands | None = None,
+) -> tuple[torch.Tensor, torch.Tensor | None]:
+    """The int8 pool over pre-quantized rows (``qparams`` from
+    :func:`.quantize.quantize_pool_params`), with the contract of
+    :func:`fused_trunk_attention_pool`. On CUDA, ``operands`` are the
+    kernel's packed weights (:func:`.cuda_pool_int8.pack_qparams`), packed
+    once by the caller; without them the call packs ``qparams`` itself."""
+    if xq.device.type == "cuda":
+        if operands is None:
+            operands = cuda_pool_int8.pack_qparams(qparams)
+        return cuda_pool_int8.pool_int8(operands, xq, sx, mask, with_scores=with_scores)
+    if xq.device.type != "cpu":
+        raise ValueError(f"no int8 pooling path for device {xq.device} (cuda or cpu)")
+    return plain_int8_pool(qparams, xq, sx, mask, with_scores)

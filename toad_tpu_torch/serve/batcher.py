@@ -1,7 +1,7 @@
 """Dynamic request batching for online MIL inference on one device.
 
-PyTorch counterpart of :mod:`toad_tpu.serve.batcher` (without int8,
-ensemble and mesh serving), with the same batching discipline:
+PyTorch counterpart of :mod:`toad_tpu.serve.batcher` (without ensemble and
+mesh serving), with the same batching discipline:
 
 - requests arrive on arbitrary threads and enqueue ``(features, sex, future)``;
 - one dispatch thread collects up to ``max_batch`` requests, waiting at most
@@ -12,7 +12,10 @@ ensemble and mesh serving), with the same batching discipline:
 
 The model's parameters are put on the device once. A batch is assembled in
 pinned host memory and copied with ``non_blocking=True``; it travels as
-bf16 iff the model computes in bf16 (``transfer_dtype='auto'``).
+bf16 iff the model computes in bf16 (``transfer_dtype='auto'``). In int8
+mode (``ServeConfig.int8``) requests are quantized per row on the handler
+thread (or arrive quantized), the batch travels as int8 rows plus f32 row
+scales, and the forward is :meth:`ToadMIL.forward_int8`.
 """
 
 from __future__ import annotations
@@ -31,6 +34,7 @@ from toad_tpu_torch.config import DEFAULT_BUCKETS, ModelConfig
 from toad_tpu_torch.data.batching import bucket_for, resolve_transfer_dtype
 from toad_tpu_torch.evaluate.calibration import apply_temperature
 from toad_tpu_torch.models.toad_mil import ToadMIL
+from toad_tpu_torch.ops.quantize import quantize_rows
 from toad_tpu_torch.pipeline.infer import SlidePrediction
 
 
@@ -47,18 +51,24 @@ class ServeConfig:
     # host->device feature dtype: 'auto' picks bfloat16 iff the model
     # computes in bf16; 'float32' is exact under f32 compute
     transfer_dtype: str = "auto"
+    # int8 quantized inference (ops/quantize.py): bags quantized per row on
+    # the handler thread, int8 host-to-device rows (4x fewer bytes than f32)
+    # and the int8 pooling kernel; heads and softmax stay f32. Overrides
+    # transfer_dtype.
+    int8: bool = False
     # calibrated temperature for class probabilities, applied on the host;
     # site probabilities stay raw
     temperature: float = 1.0
 
 
 class _Request(NamedTuple):
-    features: torch.Tensor  # [n, D] on the host, truncated to its bucket
+    features: torch.Tensor  # [n, D] on the host (int8 in int8 mode), truncated to its bucket
     n: int
     bucket: int
     sex: int
     attention: bool
     future: Future
+    scales: torch.Tensor | None = None  # [n] f32 per-row scales (int8 mode)
 
 
 class BatcherStats(NamedTuple):
@@ -147,17 +157,52 @@ class DynamicBatcher:
         n = int(features.shape[0])
         if n == 0:
             raise ValueError("empty bag")
-        return self._enqueue(features, n, int(sex), attention)
+        scales = None
+        if self.cfg.int8:
+            # quantize here, on the handler thread, so that the queue carries
+            # int8; after the head truncation, so that dropped rows cost nothing
+            features, scales = quantize_rows(features[: self.buckets[-1]])
+            n = int(features.shape[0])
+        return self._enqueue(features, scales, n, int(sex), attention)
 
     def predict(self, features: Any, sex: int, attention: bool | None = None) -> SlidePrediction:
         """Blocking convenience wrapper around :meth:`submit`."""
         return self.submit(features, sex, attention).result()
 
-    def _enqueue(self, features: torch.Tensor, n: int, sex: int, attention: bool | None) -> Future:
+    def submit_quantized(self, xq: Any, scales: Any, sex: int, attention: bool | None = None) -> Future:
+        """int8 mode only: enqueue pre-quantized rows ``[n, D]`` int8 and
+        their ``[n]`` f32 scales (from a client or an int8 bag store,
+        :func:`~toad_tpu_torch.data.bags.load_bag_quantized`), skipping the
+        handler-thread quantization."""
+        if not self.cfg.int8:
+            raise ValueError("submit_quantized requires ServeConfig(int8=True)")
+        if self._stop.is_set():
+            raise RuntimeError("batcher is closed")
+        xq = torch.as_tensor(xq)
+        if xq.dtype != torch.int8:
+            # a float bag passed here by mistake would truncate to garbage
+            # int8 values and be served as a confident wrong answer
+            raise TypeError(f"submit_quantized expects int8 rows (use submit() for float features), got dtype {xq.dtype}")
+        scales = torch.as_tensor(scales).to(torch.float32)
+        in_dim = self.model.config.in_dim
+        if xq.dim() != 2 or xq.shape[1] != in_dim:
+            raise ValueError(f"xq must be [n_patches, {in_dim}] int8, got {tuple(xq.shape)}")
+        if tuple(scales.shape) != (xq.shape[0],):
+            raise ValueError(f"scales must be [{xq.shape[0]}], got {tuple(scales.shape)}")
+        n = int(xq.shape[0])
+        if n == 0:
+            raise ValueError("empty bag")
+        return self._enqueue(xq, scales, n, int(sex), attention)
+
+    def _enqueue(
+        self, features: torch.Tensor, scales: torch.Tensor | None, n: int, sex: int, attention: bool | None
+    ) -> Future:
         """Bucket and head-truncate, then the close-race-safe enqueue."""
         bucket = bucket_for(n, self.buckets)
         if n > bucket:  # longer than the largest bucket: head-truncate (batcher policy)
             features, n = features[:bucket], bucket
+            if scales is not None:
+                scales = scales[:bucket]
         fut: Future = Future()
         want_attn = self.cfg.need_attention if attention is None else bool(attention)
         with self._submit_lock:
@@ -165,7 +210,7 @@ class DynamicBatcher:
                 raise RuntimeError("batcher is closed")
             with self._stats_lock:
                 self._requests += 1
-            self._queue.put(_Request(features, n, bucket, sex, want_attn, fut))
+            self._queue.put(_Request(features, n, bucket, sex, want_attn, fut, scales))
         return fut
 
     def stats(self) -> BatcherStats:
@@ -239,32 +284,38 @@ class DynamicBatcher:
     def _assemble(self, bucket: int, b_pad: int, group: Sequence[_Request]):
         """Zero-padded [b_pad, bucket, dim] host inputs (pinned when serving
         on CUDA); rows past len(group) are padding, with one live zero patch
-        that keeps their softmax finite."""
+        that keeps their softmax finite. In int8 mode also the [b_pad,
+        bucket] f32 row scales, 1/127 where a row is padding (any positive
+        scale is exact for a zero row), else None."""
         pin = self.device.type == "cuda"
         dim = self.model.config.in_dim
-        feats = torch.empty((b_pad, bucket, dim), dtype=self._feat_dtype, pin_memory=pin)
+        feat_dtype = torch.int8 if self.cfg.int8 else self._feat_dtype
+        feats = torch.empty((b_pad, bucket, dim), dtype=feat_dtype, pin_memory=pin)
         mask = torch.zeros((b_pad, bucket), dtype=torch.float32, pin_memory=pin)
         sex = torch.zeros((b_pad,), dtype=torch.int32, pin_memory=pin)
+        scales = torch.full((b_pad, bucket), 1.0 / 127.0, dtype=torch.float32, pin_memory=pin) if self.cfg.int8 else None
         for i, r in enumerate(group):
             feats[i, : r.n] = r.features  # f32 -> bf16 here rounds to nearest even
             feats[i, r.n :] = 0
             mask[i, : r.n] = 1.0
             sex[i] = r.sex
+            if scales is not None:
+                scales[i, : r.n] = r.scales
         feats[len(group) :] = 0
         mask[len(group) :, 0] = 1.0
-        return feats, mask, sex
+        return feats, mask, sex, scales
 
-    def _device_forward(self, feats, mask, sex, want_attn: bool):
-        """One forward on the device: (y_prob, site_prob, attention or a
-        placeholder), as host tensors."""
+    def _device_forward(self, feats, mask, sex, scales, want_attn: bool):
+        """One forward on the device (int8 when ``scales`` is given): (y_prob,
+        site_prob, attention or a placeholder), as host tensors."""
         dev = self.device
         with torch.inference_mode():
-            out = self.model(
-                feats.to(dev, non_blocking=True),
-                mask.to(dev, non_blocking=True),
-                sex.to(dev, non_blocking=True),
-                need_attention=want_attn,
-            )
+            feats, mask, sex = (t.to(dev, non_blocking=True) for t in (feats, mask, sex))
+            if scales is not None:
+                out = self.model.forward_int8(feats, scales.to(dev, non_blocking=True), mask, sex,
+                                              need_attention=want_attn)
+            else:
+                out = self.model(feats, mask, sex, need_attention=want_attn)
             # the non-ensemble arm of the JAX batcher's _combine: class softmax
             # of the f32 logits, raw attention scores
             y_prob = torch.softmax(out.logits.float(), dim=-1)

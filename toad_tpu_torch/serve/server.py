@@ -1,7 +1,7 @@
 """Online inference service: JSON over HTTP in front of the dynamic batcher.
 
-PyTorch counterpart of :mod:`toad_tpu.serve.server` (``/heatmap`` and int8
-requests are not ported yet). Stdlib ``ThreadingHTTPServer``: each request
+PyTorch counterpart of :mod:`toad_tpu.serve.server` (``/heatmap`` is not
+ported yet). Stdlib ``ThreadingHTTPServer``: each request
 thread blocks on its Future while the single dispatch thread feeds the
 device, so concurrency in the HTTP layer becomes device batch size.
 
@@ -12,14 +12,21 @@ API:
   dispatch thread's seconds in batch assembly and in device forwards
 - ``POST /predict`` -> body is JSON with either
     - ``features_b64``: base64 little-endian float32 ``[n*dim]`` + ``shape``, or
+    - ``features_int8_b64`` + ``scales_b64`` + ``shape``: rows quantized by
+      the client (``ops/quantize.py::quantize_rows_np``; int8 mode only), or
     - ``features``: nested lists ``[n][dim]`` (convenience, slow), or
-    - ``bag_path``: server-side path to a ``.pt``/``.npy``/``.npz``/``.h5`` bag;
+    - ``bag_path``: server-side path to a ``.pt``/``.npy``/``.npz``/``.h5`` bag
+      (in int8 mode an int8 ``.npz`` store is served as stored);
   plus ``sex`` ("F"/"M"/0/1), optional ``top_k`` (default 5) and
   ``attention`` (bool; include raw per-patch attention scores).
 - ``POST /predict`` with ``Content-Type: application/octet-stream``: the body
   is the feature bytes; ``X-Toad-Shape: <n>,<dim>`` and ``X-Toad-Sex`` are
-  required, ``X-Toad-Dtype: float32|bfloat16``, ``X-Toad-Top-K`` and
-  ``X-Toad-Attention: 0|1`` optional. The response is the same JSON.
+  required, ``X-Toad-Dtype: float32|bfloat16|int8``, ``X-Toad-Top-K`` and
+  ``X-Toad-Attention: 0|1`` optional. For ``int8`` (int8 mode only) the body
+  is ``n*dim`` int8 row bytes followed by ``n`` little-endian f32 row scales.
+  The response is the same JSON.
+
+An int8 payload sent to a server that is not in int8 mode answers 400.
 
 Every POST body is capped at ``max_body_bytes`` (413 beyond it).
 """
@@ -39,8 +46,8 @@ import torch
 
 from toad_tpu_torch.config import ModelConfig, TaskConfig
 from toad_tpu_torch.cli.common import parse_sex
-from toad_tpu_torch.data.bags import load_bag
-from toad_tpu_torch.ops import cuda_pool
+from toad_tpu_torch.data.bags import load_bag, load_bag_quantized
+from toad_tpu_torch.ops import cuda_pool, cuda_pool_int8
 from toad_tpu_torch.pipeline.infer import SlidePrediction
 from toad_tpu_torch.serve.batcher import DynamicBatcher, ServeConfig
 
@@ -111,10 +118,23 @@ class InferenceService:
         pred = self.batcher.predict(features, sex, attention=attention)
         return self._to_json(pred, top_k, attention)
 
+    def predict_quantized_features(
+        self, xq: Any, scales: Any, sex: int, top_k: int = 5, attention: bool = False
+    ) -> dict:
+        """Rows quantized by the client (int8 + per-row scales): 4x fewer wire
+        bytes than f32 and no handler-thread quantization. int8 mode only."""
+        pred = self.batcher.submit_quantized(xq, scales, sex, attention=attention).result()
+        return self._to_json(pred, top_k, attention)
+
     def predict_bag(self, bag_path, sex: int, top_k: int = 5, attention: bool = False) -> dict:
         bag_path = self._resolve_bag_path(bag_path)
         if not bag_path.exists():
             raise FileNotFoundError(f"feature bag not found: {bag_path}")
+        if self.batcher.cfg.int8:
+            # an int8 store is served as stored: its rows are the quantized rows
+            stored = load_bag_quantized(bag_path)
+            if stored is not None:
+                return self.predict_quantized_features(stored[0], stored[1], sex, top_k, attention)
         return self.predict_features(np.asarray(load_bag(bag_path), np.float32), sex, top_k, attention)
 
     def _to_json(self, pred: SlidePrediction, top_k: int, attention: bool) -> dict:
@@ -148,13 +168,15 @@ class InferenceService:
             "mean_batch_size": round(s.mean_batch_size, 3),
             "assemble_s": s.assemble_s,
             "forward_s": s.forward_s,
-            # fused pooling kernel launches in this process: shows that the
-            # served batches went through the CUDA kernel
+            # fused pooling kernel launches in this process (float and int8):
+            # show that the served batches went through the CUDA kernels
             "kernel_launches": cuda_pool.LAUNCHES,
+            "int8_kernel_launches": cuda_pool_int8.LAUNCHES,
             "config": {
                 "buckets": list(self.batcher.buckets),
                 "max_batch": cfg.max_batch,
                 "max_wait_ms": cfg.max_wait_ms,
+                "int8": cfg.int8,
                 "temperature": cfg.temperature,
                 "transfer_dtype": cfg.transfer_dtype,
                 "device": self.device_name,
@@ -190,12 +212,31 @@ def _decode_features(body: dict, in_dim: int) -> np.ndarray:
         if arr.ndim != 2 or arr.shape[1] != in_dim:
             raise ValueError(f"features must be [n_patches, {in_dim}], got shape {arr.shape}")
         return arr
-    raise ValueError("body needs one of: features_b64, features, bag_path")
+    raise ValueError("body needs one of: features_b64, features_int8_b64, features, bag_path")
 
 
-def _decode_raw_request(headers, body: bytearray, in_dim: int) -> torch.Tensor:
-    """Raw ``application/octet-stream`` body -> features [n, dim] (f32 or
-    bf16 tensor, a view of the body)."""
+def _decode_features_int8(body: dict, in_dim: int) -> tuple[np.ndarray, np.ndarray]:
+    """``features_int8_b64`` (int8 rows) + ``scales_b64`` (f32 per row) +
+    ``shape`` -> (xq [n, dim] int8, scales [n] f32)."""
+    shape = body.get("shape")
+    if not _valid_shape(shape):
+        raise ValueError("features_int8_b64 requires 'shape': [n_patches, dim] (positive integers)")
+    if shape[1] != in_dim:
+        raise ValueError(f"feature dim {shape[1]} != model in_dim {in_dim}")
+    if "scales_b64" not in body:
+        raise ValueError("features_int8_b64 requires 'scales_b64' (base64 f32 [n_patches])")
+    xq = np.frombuffer(bytearray(base64.b64decode(body["features_int8_b64"])), dtype=np.int8)
+    if xq.size != shape[0] * shape[1]:
+        raise ValueError(f"payload has {xq.size} int8 values, shape says {shape[0] * shape[1]}")
+    scales = np.frombuffer(bytearray(base64.b64decode(body["scales_b64"])), dtype="<f4")
+    if scales.size != shape[0]:
+        raise ValueError(f"scales_b64 has {scales.size} floats, shape says {shape[0]} rows")
+    return xq.reshape(shape[0], shape[1]), scales
+
+
+def _decode_raw_request(headers, body: bytearray, in_dim: int) -> tuple[torch.Tensor, torch.Tensor | None]:
+    """Raw ``application/octet-stream`` body -> (features [n, dim] f32, bf16
+    or int8, row scales [n] f32 for int8 else None), views of the body."""
     shape_hdr = headers.get("X-Toad-Shape")
     if not shape_hdr:
         raise ValueError("octet-stream predict requires 'X-Toad-Shape: <n_patches>,<dim>'")
@@ -211,14 +252,20 @@ def _decode_raw_request(headers, body: bytearray, in_dim: int) -> torch.Tensor:
     if dtype in ("float32", "f32"):
         if len(body) != n * dim * 4:
             raise ValueError(f"body has {len(body)} bytes, shape {n},{dim} f32 needs {n * dim * 4}")
-        return torch.from_numpy(np.frombuffer(body, dtype="<f4").reshape(n, dim))
+        return torch.from_numpy(np.frombuffer(body, dtype="<f4").reshape(n, dim)), None
     if dtype in ("bfloat16", "bf16"):
         # half the wire bytes of f32; under bf16 compute the server would
         # round the rows to bf16 anyway, so the client-side cast changes nothing
         if len(body) != n * dim * 2:
             raise ValueError(f"body has {len(body)} bytes, shape {n},{dim} bf16 needs {n * dim * 2}")
-        return torch.from_numpy(np.frombuffer(body, dtype="<i2").reshape(n, dim)).view(torch.bfloat16)
-    raise ValueError(f"unsupported X-Toad-Dtype {dtype!r} (float32 or bfloat16)")
+        return torch.from_numpy(np.frombuffer(body, dtype="<i2").reshape(n, dim)).view(torch.bfloat16), None
+    if dtype == "int8":
+        if len(body) != n * dim + n * 4:
+            raise ValueError(f"body has {len(body)} bytes, shape {n},{dim} int8+scales needs {n * dim + n * 4}")
+        xq = torch.from_numpy(np.frombuffer(body, dtype=np.int8, count=n * dim).reshape(n, dim))
+        # the scales start at byte n * dim, which need not be 4-byte aligned: copy them
+        return xq, torch.from_numpy(np.frombuffer(body, dtype="<f4", offset=n * dim).copy())
+    raise ValueError(f"unsupported X-Toad-Dtype {dtype!r} (float32, bfloat16 or int8)")
 
 
 def _read_body(rfile, length: int) -> bytearray:
@@ -339,8 +386,11 @@ def make_http_server(
                     sex = parse_sex(self.headers.get("X-Toad-Sex", ""))
                     top_k = int(self.headers.get("X-Toad-Top-K", 5))
                     attention = (self.headers.get("X-Toad-Attention") or "0").strip().lower() in ("1", "true", "yes")
-                    feats = _decode_raw_request(self.headers, body, in_dim)
-                    out = service.predict_features(feats, sex, top_k, attention)
+                    feats, scales = _decode_raw_request(self.headers, body, in_dim)
+                    if scales is not None:
+                        out = service.predict_quantized_features(feats, scales, sex, top_k, attention)
+                    else:
+                        out = service.predict_features(feats, sex, top_k, attention)
                 else:
                     req = json.loads(body or b"{}")
                     sex = parse_sex(req.get("sex", ""))
@@ -352,6 +402,9 @@ def make_http_server(
                                                       "to serve bags on a network-exposed host"})
                             return
                         out = service.predict_bag(req["bag_path"], sex, top_k, attention)
+                    elif "features_int8_b64" in req:
+                        xq, sx = _decode_features_int8(req, in_dim)
+                        out = service.predict_quantized_features(xq, sx, sex, top_k, attention)
                     else:
                         out = service.predict_features(_decode_features(req, in_dim), sex, top_k, attention)
             except (ValueError, KeyError, json.JSONDecodeError) as e:
