@@ -7,14 +7,16 @@ Run from the repository root on a machine with one Hopper card:
 Phases (each prints its lines; any failure raises and the exit code is not 0):
 
 1. CUDA present with compute capability (9, 0); the card's name and power limit.
-2. Build the fused pooling kernels (toad_tpu_torch/csrc/pool.cu, K1, and
-   pool_int8.cu, K2) with nvcc, one process per source; shared memory per
-   block and ptxas's register counts.
+2. Build the kernels (toad_tpu_torch/csrc/pool.cu, K1; pool_int8.cu, K2;
+   mha.cu, K3) with nvcc, one process per source, all started together;
+   shared memory per block and ptxas's register counts.
 3. K1 vs its plain PyTorch version at full TOAD width (D=1024, H=512,
    A=384, T=2), f32 and bf16, scored and classification modes, including a
    bag whose tiles past bucket/2+1 are padding and a fully-masked bag: M,
    raw scores and the heads' logits, within the tolerances stated below.
-   Then K2 (int8) vs plain_int8_pool on the same cases.
+   Then K2 (int8) vs plain_int8_pool on the same cases. Then K3 (the ViT
+   attention core) vs plain_mha at ViT-L/16 width (16 heads of 64), bf16 and
+   f32, B=64 x 197 tokens and B=3 x 257 tokens (a ragged last query block).
 4. Serve end to end: a reference-layout checkpoint and .pt bags from a seed,
    ``python -m toad_tpu_torch serve --bf16`` on port 0, a burst of 24
    concurrent requests over the octet-stream f32/bf16, JSON features_b64 and
@@ -30,10 +32,23 @@ Phases (each prints its lines; any failure raises and the exit code is not 0):
    handler thread) routes, each answer checked against the plain int8
    forward and the plain bf16 forward on the card; /stats must count int8
    kernel launches >= batches.
-5. Timing: kernel launches vs plain versions (CUDA events, median of 5 after
-   warm-up, in the order plain, kernel, kernel, plain) and the serving
-   bursts' requests/s and p50 latency, each with the card's name and power
-   limit.
+5. Featurize end to end (the main path of K3): two slides of seeded uint8
+   tiles (600 and 200 of 224 x 224 x 3, so that each slide's last batch is
+   padded) as .npz patch files, a seeded full-width, full-depth ViT-L/16
+   state_dict, then ``python -m toad_tpu_torch featurize --encoder vit
+   --format npz --batch_size 64`` as a child process. Its last JSON line,
+   each bag's shape and coords, its K3 launch count (24 per tile batch) and
+   its features against the same encoder with plain_mha in place of the
+   kernel on the card. Then ``--format int8`` for one slide, read back with
+   load_bag_quantized.
+6. Timing: kernel launches vs plain versions (CUDA events, median of 5 after
+   warm-up, in the order plain, kernel, kernel, plain), for K3 also the
+   library call F.scaled_dot_product_attention on the same qkv (timed only,
+   never used by the package), the encoder's time per batch of 64 tiles, and
+   the serving bursts' requests/s and p50 latency, each with the card's name
+   and power limit. Each kernel's bound (the least time the card could take:
+   the larger of its bytes over the memory rate and its operations over the
+   peak rate of their type) is computed from the shapes timed.
 
 The second-to-last line is the kernels' JSON record, the last line the device
 record. Weights and data are random, made from --seed.
@@ -43,8 +58,10 @@ from __future__ import annotations
 
 import argparse
 import base64
+import dataclasses
 import json
 import os
+import shutil
 import signal
 import statistics
 import subprocess
@@ -87,6 +104,31 @@ TOL_INT8_LOGITS = dict(atol=2e-3, rtol=2e-3)
 # served int8 answers: vs the plain int8 forward on the card, as TOL_PROB;
 # vs the plain bf16 forward, the quantization budget of tests/test_int8.py
 TOL_INT8_VS_BF16 = 0.02
+# K3 vs plain_mha. f32: both in full f32, summation order apart. bf16: the
+# same rounding points (f32 scores and softmax, p and the context rounded to
+# bf16), so a value differs only where summation order tips a rounding: one
+# bf16 ulp, at most 2^-7 = 7.8e-3 relative; atol for contexts that cancel
+# to near 0.
+TOL_MHA_F32 = dict(atol=5e-5, rtol=5e-5)
+TOL_MHA_BF16 = dict(atol=2e-3, rtol=1e-2)
+# ViT-L/16 features (f32, LayerNorm output of unit scale) from the featurize
+# child process vs the same encoder with plain_mha on the card. In f32 the
+# two paths agree to summation order (TOL_FEATURES_F32, checked on one batch).
+# In bf16 the one-ulp differences above pass through 24 bf16 blocks, and two
+# bf16 evaluations that differ anywhere end as far from each other as each is
+# from the f32 evaluation: measured on an H100 with these weights, mean
+# |difference| 1.0e-2 and at most 0.13 between the kernel and plain paths,
+# 1.2e-2 and 0.10 between either and f32. So: each value within about twice
+# the largest difference seen, and the mean |difference| within twice the
+# mean seen; a wrong head or a wrong row moves the mean by far more.
+TOL_FEATURES_F32 = dict(atol=1e-4, rtol=1e-4)
+TOL_FEATURES = dict(atol=0.25, rtol=3e-2)
+TOL_FEATURES_MEAN = 2e-2
+
+# Published dense peaks of one H100 SXM at its 700 W limit: device memory
+# bytes/s, and operations/s by operand type.
+PEAK_BYTES_S = 3.35e12
+PEAK_OPS_S = {"bf16": 989e12, "int8": 1979e12, "f32": 67e12}
 
 
 def log(msg: str) -> None:
@@ -157,7 +199,7 @@ def phase_device() -> tuple[str, str]:
 
 
 def phase_build(card: str) -> None:
-    from toad_tpu_torch.ops import _build, cuda_pool, cuda_pool_int8
+    from toad_tpu_torch.ops import _build, cuda_mha, cuda_pool, cuda_pool_int8
 
     t0 = time.perf_counter()
     _build.load_library()
@@ -166,7 +208,9 @@ def phase_build(card: str) -> None:
     log(f"phase 2 build: {_build.library_path().name} ready in {took:.2f} s ({how}); "
         f"pool smem/block bf16 {cuda_pool.smem_bytes(torch.bfloat16, 512, 384)} B, "
         f"f32 {cuda_pool.smem_bytes(torch.float32, 512, 384)} B, "
-        f"int8 {cuda_pool_int8.smem_bytes(384)} B [{card}]")
+        f"int8 {cuda_pool_int8.smem_bytes(384)} B; attention smem/block bf16 "
+        f"{cuda_mha.smem_bytes(torch.bfloat16, 197)} B (197 tokens), {cuda_mha.smem_bytes(torch.bfloat16, 257)} B (257), "
+        f"f32 {cuda_mha.smem_bytes(torch.float32, 197)} B (197) [{card}]")
     # ptxas -v: each kernel's registers and spills
     kernel = None
     for line in _build.build_log.splitlines():
@@ -174,7 +218,8 @@ def phase_build(card: str) -> None:
             kernel = line.split("'")[1]
         elif kernel is not None and ("registers" in line or "spill stores" in line):
             names = {"pool_int8_kernel": "K2 int8", "pool_kernelIf": "K1 f32", "pool_kernelI13": "K1 bf16",
-                     "pool_combine_kernel": "combine"}
+                     "pool_combine_kernel": "combine", "mha_bf16_kernelILi13": "K3 bf16 (up to 208 tokens)",
+                     "mha_bf16_kernelILi17": "K3 bf16 (up to 272 tokens)", "mha_f32_kernel": "K3 f32"}
             name = next((v for k, v in names.items() if k in kernel), kernel)
             log(f"phase 2 build: {name}: {line.split(':', 1)[-1].strip()}")
 
@@ -274,8 +319,44 @@ def phase_compare_int8(model, seed: int) -> float:
     return worst
 
 
-def cuda_ms(fn, reps: int = 5) -> float:
-    """Median of ``reps`` CUDA-event timings of fn() after two warm-up calls."""
+def phase_compare_mha(seed: int) -> float:
+    """K3 against plain_mha at ViT-L/16 width; also that a shape without an
+    instance raises and launches nothing."""
+    from toad_tpu_torch.ops import cuda_mha
+    from toad_tpu_torch.ops.vit_attention import fused_mha, plain_mha
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(seed + 2)
+    worst = 0.0
+    for dt, tol in ((torch.bfloat16, TOL_MHA_BF16), (torch.float32, TOL_MHA_F32)):
+        for b, n in ((64, 197), (3, 257)):
+            qkv = torch.randn(b, n, 3 * 16 * 64, device=dev, generator=g).to(dt)
+            with torch.inference_mode():
+                out = fused_mha(qkv, 16, 64)
+                ref = plain_mha(qkv, 16, 64)
+            torch.cuda.synchronize()
+            err = check_close(f"attention {str(dt)[6:]} B={b} N={n}", out, ref, tol)
+            log(f"phase 3 compare attention {str(dt)[6:]} B={b} N={n} H=16 Dh=64: max abs err {err:.2e} "
+                f"(tolerance {tol})")
+            worst = max(worst, err)
+    before = cuda_mha.LAUNCHES
+    for shape, heads, head_dim in (((1, 300, 3 * 1024), 16, 64), ((1, 197, 3 * 512), 16, 32)):
+        try:
+            fused_mha(torch.zeros(shape, device=dev, dtype=torch.bfloat16), heads, head_dim)
+        except ValueError as e:
+            log(f"phase 3 compare attention: unsupported shape raises: {e}")
+        else:
+            raise AssertionError(f"attention kernel took unsupported shape {shape}, head_dim {head_dim}")
+    if cuda_mha.LAUNCHES != before:
+        raise AssertionError("a refused shape counted as a launch")
+    return worst
+
+
+def cuda_ms(fn, reps: int = 5, inner: int = 1) -> float:
+    """Median of ``reps`` CUDA-event timings of fn() after two warm-up calls.
+    ``inner`` > 1 times that many back-to-back calls per reading and divides:
+    for a call of a fraction of a millisecond, whose single reading would be
+    mostly the idle card waiting for the launch."""
     for _ in range(2):
         fn()
     torch.cuda.synchronize()
@@ -283,33 +364,53 @@ def cuda_ms(fn, reps: int = 5) -> float:
     for _ in range(reps):
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         start.record()
-        fn()
+        for _ in range(inner):
+            fn()
         end.record()
         end.synchronize()
-        times.append(start.elapsed_time(end))
+        times.append(start.elapsed_time(end) / inner)
     return statistics.median(times)
 
 
-def time_pair(label: str, plain_fn, kernel_fn, ops_per_call: float, unit: str, gpu: str) -> tuple[float, float]:
+def time_pair(label: str, plain_fn, kernel_fn, work: dict, gpu: str, library_fn=None, inner: int = 1) -> dict:
     """Kernel vs plain version, timed plain, kernel, kernel, plain so that
-    drift on the card hits both alike: (kernel ms, plain ms), each the
-    better of its two medians."""
-    p1, k1, k2, p2 = (cuda_ms(fn) for fn in (plain_fn, kernel_fn, kernel_fn, plain_fn))
+    drift on the card hits both alike, each the better of its two medians;
+    ``library_fn`` (one PyTorch call computing the same function) is timed
+    between the kernel's two turns; ``inner`` as in :func:`cuda_ms`. ``work`` is the call's ``bytes`` (each
+    input read once, each output written once), ``ops`` and their ``kind``
+    (a key of PEAK_OPS_S). Returns the kernel record's ms, plain_ms,
+    library_ms, bound_ms and bound_by."""
+    fns = (plain_fn, kernel_fn, *((library_fn, library_fn) if library_fn else ()), kernel_fn, plain_fn)
+    p1, k1, *lib, k2, p2 = (cuda_ms(fn, inner=inner) for fn in fns)
     k, p = min(k1, k2), min(p1, p2)
-    rate = ops_per_call / (k * 1e-3) / 1e12
+    library = min(lib) if lib else None
+    t_bytes, t_ops = work["bytes"] / PEAK_BYTES_S * 1e3, work["ops"] / PEAK_OPS_S[work["kind"]] * 1e3
+    bound_ms, bound_by = max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+    unit = "TOP/s" if work["kind"] == "int8" else "TFLOP/s"
     verdict = "kernel faster" if k < p else "kernel SLOWER than plain"
-    log(f"phase 5 timing {label}: kernel {k:.3f} ms ({k1:.3f}/{k2:.3f}), plain {p:.3f} ms ({p1:.3f}/{p2:.3f}), "
-        f"{rate:.1f} {unit}, {verdict} [{gpu}]")
-    return k, p
+    lib_text = f", library call {library:.3f} ms ({lib[0]:.3f}/{lib[1]:.3f})" if lib else ""
+    log(f"phase 6 timing {label}: kernel {k:.3f} ms ({k1:.3f}/{k2:.3f}), plain {p:.3f} ms ({p1:.3f}/{p2:.3f})"
+        f"{lib_text}, {work['ops'] / (k * 1e-3) / 1e12:.1f} {unit}, {work['bytes'] / (k * 1e-3) / 1e9:.0f} GB/s, "
+        f"{verdict}; bound {bound_ms:.4f} ms by {bound_by} ({t_bytes:.4f} ms for {work['bytes'] / 1e6:.1f} MB, "
+        f"{t_ops:.4f} ms for {work['ops'] / 1e9:.1f} G{work['kind']} operations), kernel at "
+        f"{100 * bound_ms / k:.1f} % of it [{gpu}]")
+    return dict(ms=k, plain_ms=p, library_ms=library, bound_ms=bound_ms, bound_by=bound_by)
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
 
 
 def phase_timing(model, gpu: str) -> dict:
     """Kernel launches on pre-packed operands against the plain versions on
     pre-cast (or pre-quantized) weights: both leave out the weight
-    preparation a model does once. Returns {(kernel, B): (ms, plain ms)}."""
+    preparation a model does once. Returns {(kernel, B): time_pair's record}."""
+    import torch.nn.functional as F
+
     from toad_tpu_torch.ops import cuda_pool, cuda_pool_int8
     from toad_tpu_torch.ops.fused_pool import plain_pool
     from toad_tpu_torch.ops.quantize import plain_int8_pool, quantize_rows
+    from toad_tpu_torch.ops.vit_attention import fused_mha, plain_mha
 
     dev = torch.device("cuda")
     out = {}
@@ -317,6 +418,7 @@ def phase_timing(model, gpu: str) -> dict:
         x = torch.randn(b, n, 1024, device=dev)
         mask = torch.ones(b, n, device=dev)
         ops_per_call = cuda_pool.flops_per_row(1024, 512, 384) * b * n
+        out_bytes = b * 2 * 512 * 4  # M [B, 2, H] f32
         with torch.inference_mode():
             for dt in (torch.bfloat16, torch.float32):
                 xd = x.to(dt)
@@ -324,7 +426,8 @@ def phase_timing(model, gpu: str) -> dict:
                 out[(str(dt)[6:], b)] = time_pair(
                     f"pool {str(dt)[6:]} B={b} N={n} D=1024 classification",
                     lambda: plain_pool(params, xd, mask, dt, False), lambda: cuda_pool.pool(ops, xd, mask, False),
-                    ops_per_call, "TFLOP/s", gpu)
+                    dict(bytes=nbytes(xd, mask, *ops) + out_bytes, ops=ops_per_call,
+                         kind={torch.bfloat16: "bf16", torch.float32: "f32"}[dt]), gpu)
                 del xd
             xq, sx = quantize_rows(x)
             qparams, ops8 = model.int8_operands()
@@ -332,8 +435,19 @@ def phase_timing(model, gpu: str) -> dict:
                 f"pool int8 B={b} N={n} D=1024 classification",
                 lambda: plain_int8_pool(qparams, xq, sx, mask, False),
                 lambda: cuda_pool_int8.pool_int8(ops8, xq, sx, mask, False),
-                ops_per_call, "TOP/s", gpu)
+                dict(bytes=nbytes(xq, sx, mask, *ops8) + out_bytes, ops=ops_per_call, kind="int8"), gpu)
         del x, xq
+    # K3 at the shape a batch of 64 tiles of 224 px gives it, 24 times a batch (bf16: the main path)
+    b, n, heads, head_dim = 64, 197, 16, 64
+    for kind, dt in (("bf16", torch.bfloat16), ("f32", torch.float32)):
+        qkv = torch.randn(b, n, 3 * heads * head_dim, device=dev).to(dt)
+        q, k, v = qkv.view(b, n, 3, heads, head_dim).permute(2, 0, 3, 1, 4)  # [B, H, N, Dh] views for the library call
+        with torch.inference_mode():
+            out[("mha_" + kind, b)] = time_pair(
+                f"attention {kind} B={b} N={n} H={heads} Dh={head_dim}",
+                lambda: plain_mha(qkv, heads, head_dim), lambda: fused_mha(qkv, heads, head_dim),
+                dict(bytes=nbytes(qkv) + nbytes(qkv) // 3, ops=4 * b * heads * n * n * head_dim, kind=kind), gpu,
+                library_fn=lambda: F.scaled_dot_product_attention(q, k, v), inner=20)
     return out
 
 
@@ -488,12 +602,18 @@ def check_answers(model, reqs: list[dict], results: list, reference=plain_bf16_r
     return worst, near_ties
 
 
+def child_env() -> dict:
+    """The environment of a child process that imports the package from this checkout."""
+    env = dict(os.environ)
+    env["PYTHONPATH"] = str(REPO) + os.pathsep + env.get("PYTHONPATH", "")
+    return env
+
+
 class Server:
     """``python -m toad_tpu_torch serve --bf16`` on port 0 in a child process."""
 
     def __init__(self, ckpt: Path, bag_dir: Path, workdir: Path, extra: list[str]):
-        env = dict(os.environ)
-        env["PYTHONPATH"] = str(REPO) + os.pathsep + env.get("PYTHONPATH", "")
+        env = child_env()
         cmd = [sys.executable, "-m", "toad_tpu_torch", "serve", "--ckpt", str(ckpt), "--task", "dummy_mtl_concat",
                "--bf16", "--port", "0", "--bag_root", str(bag_dir), *extra]
         self.proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True, env=env, cwd=workdir)
@@ -632,8 +752,7 @@ def phase_serve_int8(model, seed: int, gpu: str, workdir: Path) -> dict:
     src, store = workdir / "bags8_f32", workdir / "bags8"
     src.mkdir()
     reqs = make_requests(seed + 1, src, ROUTES_INT8)
-    env = dict(os.environ)
-    env["PYTHONPATH"] = str(REPO) + os.pathsep + env.get("PYTHONPATH", "")
+    env = child_env()
     t0 = time.perf_counter()
     conv = subprocess.run([sys.executable, "-m", "toad_tpu_torch", "convert", "--data_dir", str(src), "--out_dir",
                            str(store), "--format", "int8"], capture_output=True, text=True, env=env, cwd=workdir,
@@ -680,6 +799,160 @@ def phase_serve_int8(model, seed: int, gpu: str, workdir: Path) -> dict:
                 rps=len(reqs) / wall, p50=statistics.median(lat), wall=wall)
 
 
+def seeded_vit(seed: int):
+    """ViT-L/16 at full width and depth with random weights from the seed.
+    The reference init (zero biases, LayerScale 1e-5) would hide the blocks
+    behind the residual stream: LayerScale of order 0.1-1 and nonzero biases
+    let every block, and so the attention kernel, move the features."""
+    from toad_tpu_torch.models.vit_encoder import ViTConfig, ViTEncoder
+
+    g = torch.Generator().manual_seed(seed)
+    enc = ViTEncoder(ViTConfig(), generator=g)
+    with torch.no_grad():
+        for name, p in enc.named_parameters():
+            leaf = name.rsplit(".", 1)[-1]
+            if leaf == "gamma":
+                p.copy_(0.1 + 0.9 * torch.rand(p.shape, generator=g))
+            elif leaf == "bias" or name == "cls_token":
+                p.copy_(torch.randn(p.shape, generator=g) * 0.05)
+    return enc.eval()
+
+
+def plain_attention_embed(enc, tiles: torch.Tensor) -> torch.Tensor:
+    """``enc.embed`` with plain_mha standing in for fused_mha: the reference
+    the kernel path is held against on the card."""
+    from toad_tpu_torch.models import vit_encoder
+    from toad_tpu_torch.ops.vit_attention import plain_mha
+
+    fused = vit_encoder.fused_mha
+    vit_encoder.fused_mha = plain_mha
+    try:
+        return enc.embed(tiles)
+    finally:
+        vit_encoder.fused_mha = fused
+
+
+def run_featurize(workdir: Path, weights: Path, patch_dir: Path, feat_dir: Path, fmt: str) -> tuple[dict, float]:
+    """``python -m toad_tpu_torch featurize --encoder vit`` as a user runs it,
+    in a child process: (its last JSON line, wall seconds)."""
+    env = child_env()
+    cmd = [sys.executable, "-m", "toad_tpu_torch", "featurize", "--encoder", "vit", "--weights", str(weights),
+           "--patch_dir", str(patch_dir), "--feat_dir", str(feat_dir), "--format", fmt, "--batch_size", "64"]
+    t0 = time.perf_counter()
+    run = subprocess.run(cmd, capture_output=True, text=True, env=env, cwd=workdir, timeout=600)
+    wall = time.perf_counter() - t0
+    if run.returncode != 0:
+        raise AssertionError(f"featurize failed ({run.returncode}):\n{run.stdout}{run.stderr}")
+    for line in run.stdout.strip().splitlines()[:-1]:
+        log(f"phase 5 featurize ({fmt}): {line}")
+    return json.loads(run.stdout.strip().splitlines()[-1]), wall
+
+
+def phase_featurize(seed: int, card: str, gpu: str, workdir: Path) -> dict:
+    """The featurization path at ViT-L/16's full width and depth."""
+    from toad_tpu_torch.data.bags import load_bag, load_bag_quantized
+    from toad_tpu_torch.models import vit_encoder
+    from toad_tpu_torch.ops import cuda_mha
+    from toad_tpu_torch.pipeline.featurize import iter_tile_batches
+
+    dev = torch.device("cuda")
+    batch_size, depth = 64, 24
+    t0 = time.perf_counter()
+    enc = seeded_vit(seed)
+    weights = workdir / "vit_l16.bin"
+    torch.save(enc.state_dict(), weights)
+    rng = np.random.default_rng(seed)
+    slides = {}
+    patch_dir, patch_dir8 = workdir / "patches", workdir / "patches_int8"
+    patch_dir.mkdir()
+    patch_dir8.mkdir()
+    for name, n in (("slide_a", 600), ("slide_b", 200)):
+        slides[name] = (rng.integers(0, 256, (n, 224, 224, 3), dtype=np.uint8),
+                        rng.integers(0, 100_000, (n, 2), dtype=np.int64))
+        np.savez(patch_dir / f"{name}.npz", imgs=slides[name][0], coords=slides[name][1])
+    shutil.copyfile(patch_dir / "slide_b.npz", patch_dir8 / "slide_b.npz")
+    n_batches = sum(-(-len(imgs) // batch_size) for imgs, _ in slides.values())
+    log(f"phase 5 featurize: ViT-L/16 state_dict ({enc.param_count() / 1e6:.1f} M parameters, "
+        f"{weights.stat().st_size / 1e6:.0f} MB) and {len(slides)} .npz patch files "
+        f"({', '.join(f'{len(v[0])} tiles' for v in slides.values())}) written in {time.perf_counter() - t0:.1f} s")
+
+    # main path: the CLI in a fresh process, whose launch count starts at 0
+    said, wall = run_featurize(workdir, weights, patch_dir, workdir / "feats", "npz")
+    want = {"slides": 2, "patches": 800, "shadowed_stale_bags": 0, "device": card, "batches": n_batches,
+            "attention_kernel_launches": depth * n_batches}
+    if {k: said.get(k) for k in want} != want or not said["patches_per_s"] > 0:
+        raise AssertionError(f"featurize's last line {said} does not say {want}")
+
+    # the same encoder on the card with plain_mha in place of the kernel
+    enc = enc.to(dev)
+    worst = 0.0
+    for name, (imgs, coords) in slides.items():
+        got, got_coords = load_bag(workdir / "feats" / f"{name}.npz", with_coords=True)
+        if got.shape != (len(imgs), 1024) or got.dtype != np.float32 or not np.array_equal(got_coords, coords):
+            raise AssertionError(f"{name}: bag {got.shape} {got.dtype} or its coords are not the slide's")
+        ref = torch.cat([plain_attention_embed(enc, torch.from_numpy(chunk).to(dev))[:valid]
+                         for chunk, valid in iter_tile_batches(imgs, batch_size)]).cpu()
+        err = check_close(f"{name} features", torch.from_numpy(got), ref, TOL_FEATURES)
+        mean_err = float((torch.from_numpy(got) - ref).abs().mean())
+        if mean_err > TOL_FEATURES_MEAN:
+            raise AssertionError(f"{name}: mean |features - plain-attention encoder| {mean_err:.3e} > {TOL_FEATURES_MEAN}")
+        worst = max(worst, err)
+        log(f"phase 5 featurize: {name} bag {got.shape}, coords equal, |features - plain-attention encoder| max "
+            f"{err:.2e} mean {mean_err:.2e} (features' max |value| {float(ref.abs().max()):.2f}; tolerance "
+            f"{TOL_FEATURES}, mean {TOL_FEATURES_MEAN})")
+
+    # in process: the kernel's count over one slide, and the encoder's time per batch
+    cuda_mha.LAUNCHES = 0
+    imgs_b = slides["slide_b"][0]
+    again = torch.cat([enc.embed(torch.from_numpy(chunk).to(dev))[:valid]
+                       for chunk, valid in iter_tile_batches(imgs_b, batch_size)])
+    torch.cuda.synchronize()
+    if cuda_mha.LAUNCHES != depth * -(-len(imgs_b) // batch_size):
+        raise AssertionError(f"in-process pass launched the attention kernel {cuda_mha.LAUNCHES} times")
+    check_close("slide_b features, second pass", again.cpu(), torch.from_numpy(load_bag(workdir / "feats" / "slide_b.npz")),
+                TOL_FEATURES)
+    batch = torch.from_numpy(imgs_b[:batch_size]).to(dev)
+    batch_ms = cuda_ms(lambda: enc.embed(batch))
+
+    # the same weights computing in f32: kernel path (the FMA instance) against plain path on one batch
+    enc32 = vit_encoder.ViTEncoder(dataclasses.replace(enc.config, compute_dtype="float32"), init=False)
+    enc32.load_state_dict(enc.state_dict(), assign=True)
+    enc32 = enc32.to(dev).eval()
+    feats32 = enc32.embed(batch)
+    err32 = check_close("f32 features", feats32, plain_attention_embed(enc32, batch), TOL_FEATURES_F32)
+    log(f"phase 5 featurize: f32 compute, one batch of {batch_size}: max |kernel path - plain-attention path| "
+        f"{err32:.2e} (tolerance {TOL_FEATURES_F32})")
+    # the encoder's own bf16 noise, the yardstick of TOL_FEATURES: bf16 against f32, both through the kernel
+    noise = (enc.embed(batch) - feats32).abs()
+    check_close("bf16 features vs f32 features", enc.embed(batch), feats32, TOL_FEATURES)
+    log(f"phase 5 featurize: bf16 compute against f32 compute on that batch (both through the kernel): "
+        f"max {float(noise.max()):.2e} mean {float(noise.mean()):.2e}")
+    del enc32, feats32
+
+    # int8 bags for one slide
+    said8, wall8 = run_featurize(workdir, weights, patch_dir8, workdir / "feats_int8", "int8")
+    stored = load_bag_quantized(workdir / "feats_int8" / "slide_b.npz")
+    if stored is None:
+        raise AssertionError("--format int8 did not write an int8 bag")
+    xq, scales, coords8 = stored
+    f32 = load_bag(workdir / "feats" / "slide_b.npz")
+    if xq.shape != (200, 1024) or xq.dtype != np.int8 or scales.shape != (200,) or not np.array_equal(coords8, slides["slide_b"][1]):
+        raise AssertionError(f"int8 bag: {xq.shape} {xq.dtype}, scales {scales.shape}, or coords differ")
+    # a row requantizes to within half a step of the features it was made from;
+    # those are a second run's, equal to the first's up to TOL_FEATURES
+    off = np.abs(xq.astype(np.float32) * scales[:, None] - f32) - 0.5 * scales[:, None]
+    if said8["attention_kernel_launches"] != depth * 4 or off.max() > TOL_FEATURES["atol"]:
+        raise AssertionError(f"int8 bag off its f32 features by {off.max():.3e} beyond half a step, or {said8}")
+    log(f"phase 5 featurize: int8 bag {xq.shape} + scales {scales.shape} read back with load_bag_quantized, within "
+        f"half a quantization step (+{max(off.max(), 0):.1e}) of the f32 bag; child process {wall8:.1f} s")
+    log(f"phase 5 featurize: {said['patches']} tiles in {said['batches']} batches of {batch_size}, attention kernel "
+        f"launches {said['attention_kernel_launches']} (= {depth} x batches), {said['patches_per_s']:.1f} tiles/s by the "
+        f"CLI's own clock (first-call setup included), child process {wall:.1f} s; in process {batch_ms:.2f} ms per "
+        f"batch = {batch_size / batch_ms * 1e3:.1f} tiles/s [{gpu}]")
+    return dict(launches=said["attention_kernel_launches"], batches=said["batches"], worst=worst,
+                cli_tiles_s=said["patches_per_s"], batch_ms=batch_ms, batch_size=batch_size, depth=depth)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
     ap.add_argument("--seed", type=int, default=0)
@@ -691,13 +964,21 @@ def main() -> int:
     model = seeded_model(args.seed).cuda().eval()
     worst = phase_compare(model, args.seed)
     worst8 = phase_compare_int8(model, args.seed)
+    worst_mha = phase_compare_mha(args.seed)
     with tempfile.TemporaryDirectory(prefix="toad_smoke_") as tmp:
         served = phase_serve(model, args.seed, gpu, Path(tmp))
     with tempfile.TemporaryDirectory(prefix="toad_smoke_int8_") as tmp:
         served8 = phase_serve_int8(model, args.seed, gpu, Path(tmp))
+    with tempfile.TemporaryDirectory(prefix="toad_smoke_vit_") as tmp:
+        featurized = phase_featurize(args.seed, card, gpu, Path(tmp))
     times = phase_timing(model, gpu)
+    mha = times[("mha_bf16", 64)]
+    log(f"phase 6 timing encoder: ViT-L/16 bf16, {featurized['batch_ms']:.2f} ms per batch of "
+        f"{featurized['batch_size']} tiles ({featurized['batch_size'] / featurized['batch_ms'] * 1e3:.1f} tiles/s); "
+        f"its {featurized['depth']} attention launches take {featurized['depth'] * mha['ms']:.2f} ms = "
+        f"{100 * featurized['depth'] * mha['ms'] / featurized['batch_ms']:.1f} % of it [{gpu}]")
     for label, res in (("bf16 compute", served), ("int8", served8)):
-        log(f"phase 5 timing serve ({label}): {res['rps']:.2f} requests/s, p50 latency {res['p50'] * 1e3:.1f} ms "
+        log(f"phase 6 timing serve ({label}): {res['rps']:.2f} requests/s, p50 latency {res['p50'] * 1e3:.1f} ms "
             f"over a burst of 24 concurrent requests (3,000-60,000 patches, default 5 ms batching window, "
             f"no warmup) [{gpu}]")
     record = {"kernels": [
@@ -708,8 +989,7 @@ def main() -> int:
             "replaces": "toad_tpu/ops/pallas_pool.py:93",
             "launches": served["launches"],
             "max_abs_err": worst,
-            "ms": times[("bfloat16", 32)][0],
-            "plain_ms": times[("bfloat16", 32)][1],
+            **times[("bfloat16", 32)],
         },
         {
             "name": "int8_trunk_attention_pool",
@@ -718,8 +998,16 @@ def main() -> int:
             "replaces": "toad_tpu/ops/pallas_pool.py:259",
             "launches": served8["launches"],
             "max_abs_err": worst8,
-            "ms": times[("int8", 32)][0],
-            "plain_ms": times[("int8", 32)][1],
+            **times[("int8", 32)],
+        },
+        {
+            "name": "vit_fused_mha",
+            "route": "cuda",
+            "source": "toad_tpu_torch/csrc/mha.cu",
+            "replaces": "toad_tpu/ops/vit_attention.py:42",
+            "launches": featurized["launches"],
+            "max_abs_err": worst_mha,
+            **mha,
         },
     ]}
     log(gpu)

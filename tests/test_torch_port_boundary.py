@@ -1,6 +1,6 @@
 """Import boundary of the PyTorch port: every toad_tpu_torch module imports
-without the JAX stack (jax, pandas, h5py, ml_dtypes, orbax, optax are absent
-on the GPU machine) and without building a kernel."""
+without the JAX stack (jax, pandas, h5py, ml_dtypes, orbax, optax and PIL are
+absent on the GPU machine) and without building a kernel."""
 
 import json
 import subprocess
@@ -10,7 +10,7 @@ from pathlib import Path
 import pytest
 
 REPO = Path(__file__).resolve().parent.parent
-FORBIDDEN = ("jax", "jaxlib", "pandas", "h5py", "ml_dtypes", "orbax", "optax")
+FORBIDDEN = ("jax", "jaxlib", "pandas", "h5py", "ml_dtypes", "orbax", "optax", "PIL")
 
 _PROBE = f"""
 import importlib, json, pkgutil, sys
@@ -79,12 +79,19 @@ INT8_MODULES = (
     "toad_tpu_torch.pipeline.featurize",
     "toad_tpu_torch.cli.convert",
 )
+VIT_MODULES = (
+    "toad_tpu_torch.ops.vit_attention",
+    "toad_tpu_torch.ops.cuda_mha",
+    "toad_tpu_torch.models.vit_encoder",
+    "toad_tpu_torch.cli.featurize",
+)
 
 
-@pytest.mark.parametrize("module", INT8_MODULES)
+@pytest.mark.parametrize("module", INT8_MODULES + VIT_MODULES)
 def test_int8_modules_import_neither_jax_nor_the_jax_package(probe, module):
-    """Each module of the int8 slice, imported alone in a fresh process,
-    loads no module of the JAX stack or of toad_tpu and builds no kernel."""
+    """Each module of the int8 and ViT featurization paths, imported alone
+    in a fresh process, loads no module of the JAX stack (h5py and PIL
+    included) or of toad_tpu and builds no kernel."""
     assert module in probe["modules"]
     code = (
         f"import importlib, json, sys; importlib.import_module({module!r}); "
@@ -105,7 +112,7 @@ def test_dispatcher_lists_only_ported_commands():
         [sys.executable, "-m", "toad_tpu_torch", "--help"], cwd=REPO, capture_output=True, text=True, timeout=120
     )
     assert out.returncode == 0
-    assert "serve" in out.stdout and "train" not in out.stdout
+    assert "serve" in out.stdout and "featurize" in out.stdout and "train" not in out.stdout
     bad = subprocess.run(
         [sys.executable, "-m", "toad_tpu_torch", "train"], cwd=REPO, capture_output=True, text=True, timeout=120
     )
@@ -119,4 +126,4 @@ def test_kernel_sources_are_packaged():
     assert "toad_tpu_torch*" in cfg["tool"]["setuptools"]["packages"]["find"]["include"]
     data = cfg["tool"]["setuptools"]["package-data"]["toad_tpu_torch"]
     assert "csrc/*.cu" in data and "tasks/*.json" in data
-    assert list((REPO / "toad_tpu_torch" / "csrc").glob("*.cu"))
+    assert {p.name for p in (REPO / "toad_tpu_torch" / "csrc").glob("*.cu")} >= {"pool.cu", "pool_int8.cu", "mha.cu"}

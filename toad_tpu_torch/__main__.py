@@ -10,6 +10,7 @@ import sys
 COMMANDS = {
     "serve": ("toad_tpu_torch.cli.serve", "online prediction HTTP server (dynamic batching)"),
     "convert": ("toad_tpu_torch.cli.convert", "re-encode a bag store (e.g. f32 .pt -> int8 .npz)"),
+    "featurize": ("toad_tpu_torch.cli.featurize", "patch tiles -> feature bags through the ViT encoder"),
 }
 
 

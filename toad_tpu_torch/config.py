@@ -1,5 +1,5 @@
 """Typed configuration the port needs: the padding ladder, the task and the
-model knobs.
+model knobs, the encoders' pixel statistics.
 
 Stdlib-only copies of the same names in :mod:`toad_tpu.config`, so that the
 port imports nothing of the JAX package. Fields and defaults are the same
@@ -16,6 +16,11 @@ from dataclasses import dataclass
 
 # the padding ladder every component defaults to (toad_tpu.config)
 DEFAULT_BUCKETS = (256, 512, 1024, 2048, 4096, 8192, 16384, 32768, 65536, 131072, 163840, 262144)
+
+# per-channel pixel statistics the tile encoders normalize with
+# (toad_tpu.models.resnet_encoder)
+IMAGENET_MEAN = (0.485, 0.456, 0.406)
+IMAGENET_STD = (0.229, 0.224, 0.225)
 
 
 @dataclass(frozen=True)

@@ -151,14 +151,6 @@ struct GemmArgs {
   int ldo;
 };
 
-__device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a, uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
 // bf16: 8 warps as 2 (rows) x 4 (cols); a warp owns 32 rows x 64 columns =
 // 2 x 8 m16n8 tiles. Fragment layouts are those of PTX mma.m16n8k16
 // (g = lane / 4, q = lane % 4): C rows g, g+8 at cols 2q (+1). A fragments

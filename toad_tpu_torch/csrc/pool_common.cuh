@@ -1,7 +1,7 @@
-// Pieces shared by the fused pooling kernels csrc/pool.cu (K1, bf16/f32)
-// and csrc/pool_int8.cu (K2, int8): staging and fragment helpers, the
-// per-tile online masked-softmax update, and the exact combine of the
-// split-N partials. Everything sits in an anonymous namespace, so each
+// Pieces shared by the kernels: staging and mma.sync fragment helpers (also
+// used by csrc/mha.cu, K3), and for the fused pooling kernels csrc/pool.cu
+// (K1, bf16/f32) and csrc/pool_int8.cu (K2, int8) the per-tile online
+// masked-softmax update and the exact combine of the split-N partials. Everything sits in an anonymous namespace, so each
 // translation unit that includes this header gets its own copy.
 
 #pragma once
@@ -54,6 +54,23 @@ __device__ __forceinline__ void ldsm_x4(uint32_t* r, const void* p) {
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
                : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
                : "r"(a));
+}
+// the same four matrices, each transposed on the way: a [k][n] row-major
+// tile in shared memory gives the col-major B fragments of mma.sync
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t* r, const void* p) {
+  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(a));
+}
+
+// c[16x8] += a[16x16] . b[16x8], bf16 operands, f32 accumulate
+__device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a, uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
 // ---------------------------------------------------------------------------

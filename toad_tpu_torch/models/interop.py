@@ -1,6 +1,8 @@
-"""Weights in and out of the port's :class:`~toad_tpu_torch.models.toad_mil.ToadMIL`.
+"""Weights in and out of the port's :class:`~toad_tpu_torch.models.toad_mil.ToadMIL`,
+and the JAX ViT encoder's weights into
+:class:`~toad_tpu_torch.models.vit_encoder.ViTEncoder` (:func:`vit_params_from_jax`).
 
-Two sources:
+Two sources for ToadMIL:
 
 - a reference ``s_{fold}_checkpoint.pt`` state_dict (PyTorch counterpart of
   :mod:`toad_tpu.models.torch_interop`). Its trunk and attention sit in one
@@ -106,6 +108,35 @@ def qparams_from_jax(qparams: Mapping[str, Any]) -> dict[str, torch.Tensor]:
     for name, v in qparams.items():
         arr = np.asarray(v)
         out[name] = torch.from_numpy(np.array(arr, np.int8 if arr.dtype == np.int8 else np.float32))
+    return out
+
+
+def vit_params_from_jax(params: Mapping[str, Any]) -> dict[str, torch.Tensor]:
+    """The JAX ViT encoder's params pytree (numpy-convertible leaves; weights
+    [in, out], the patch-embed kernel HWIO, LayerNorm as scale/bias) -> the
+    state_dict of the port's ``ViTEncoder`` (f32; nn.Linear [out, in], Conv2d
+    OIHW, timm's names)."""
+
+    def lin(prefix: str, p: Mapping[str, Any]) -> dict[str, torch.Tensor]:
+        return {f"{prefix}.weight": _f32(np.asarray(p["w"], np.float32).T), f"{prefix}.bias": _f32(p["b"])}
+
+    def norm(prefix: str, p: Mapping[str, Any]) -> dict[str, torch.Tensor]:
+        return {f"{prefix}.weight": _f32(p["scale"]), f"{prefix}.bias": _f32(p["bias"])}
+
+    out = {
+        "patch_embed.proj.weight": _f32(np.asarray(params["patch_embed"]["w"], np.float32).transpose(3, 2, 0, 1)),
+        "patch_embed.proj.bias": _f32(params["patch_embed"]["b"]),
+        "cls_token": _f32(params["cls_token"]),
+        "pos_embed": _f32(params["pos_embed"]),
+        **norm("norm", params["norm"]),
+    }
+    for i, blk in enumerate(params["blocks"]):
+        p = f"blocks.{i}"
+        out.update({**norm(f"{p}.norm1", blk["norm1"]), **lin(f"{p}.attn.qkv", blk["qkv"]),
+                    **lin(f"{p}.attn.proj", blk["proj"]), **norm(f"{p}.norm2", blk["norm2"]),
+                    **lin(f"{p}.mlp.fc1", blk["fc1"]), **lin(f"{p}.mlp.fc2", blk["fc2"])})
+        if "ls1" in blk:
+            out[f"{p}.ls1.gamma"], out[f"{p}.ls2.gamma"] = _f32(blk["ls1"]), _f32(blk["ls2"])
     return out
 
 

@@ -57,6 +57,13 @@ _SIGNATURES = {
          _p, _p, _p, _p, _p],  # scores, part_acc, part_stat, out, stream
         ctypes.c_int,
     ),
+    "toad_mha_head_dim": ([], ctypes.c_int),
+    "toad_mha_max_tokens": ([_i], ctypes.c_int),
+    "toad_mha_smem_bytes": ([_i, _i], ctypes.c_longlong),
+    "toad_mha_forward": (
+        [_i, _p, _p, _i, _i, _i, _i, ctypes.c_float, _p],  # dtype, qkv, out, B, N, H, Dh, scale, stream
+        ctypes.c_int,
+    ),
     "toad_cuda_error_string": ([_i], ctypes.c_char_p),
 }
 
