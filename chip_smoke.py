@@ -7,13 +7,21 @@ Run from the repository root on a machine with one Hopper card:
 Phases (each prints its lines; any failure raises and the exit code is not 0):
 
 1. CUDA present with compute capability (9, 0); the card's name and power limit.
-2. Build the kernels (toad_tpu_torch/csrc/pool.cu, K1; pool_int8.cu, K2;
-   mha.cu, K3) with nvcc, one process per source, all started together;
+2. Build the kernels (toad_tpu_torch/csrc/pool.cu, K1 and its partial mode
+   K1p; pool_common.cuh, the combines; pool_int8.cu, K2; mha.cu, K3) with nvcc, one process per source, all started together;
    shared memory per block and ptxas's register counts.
 3. K1 vs its plain PyTorch version at full TOAD width (D=1024, H=512,
    A=384, T=2), f32 and bf16, scored and classification modes, including a
    bag whose tiles past bucket/2+1 are padding and a fully-masked bag: M,
    raw scores and the heads' logits, within the tolerances stated below.
+   Then K1p: per shard pool_partial vs plain_pool_partial (max, denominator,
+   acc / denom), and bag_sharded_pool (K1p per shard, then the shard combine
+   kernel) vs its plain combine, vs K1 on the whole bag and vs plain_pool, for
+   B=1 and B=2 x 163,840 rows with 150,000 live in 2, 4 and 8 shards, a bag of
+   30,000 live rows in 8 shards (6 of them fully masked) and a fully masked
+   bag, f32 and bf16, within K1's tolerances; then bag_sharded_pool as a
+   caller uses it (the main path of K1p and the combine: their counts are
+   set to 0 before and read after).
    Then K2 (int8) vs plain_int8_pool on the same cases. Then K3 (the ViT
    attention core) vs plain_mha at ViT-L/16 width (16 heads of 64), bf16 and
    f32, B=64 x 197 tokens and B=3 x 257 tokens (a ragged last query block).
@@ -41,6 +49,21 @@ Phases (each prints its lines; any failure raises and the exit code is not 0):
    its features against the same encoder with plain_mha in place of the
    kernel on the card. Then ``--format int8`` for one slide, read back with
    load_bag_quantized.
+7. Train end to end (the trainer's validation and final passes are a main
+   path of K1): toad_tpu_torch.data.synthetic writes a seeded dataset at full
+   width (72 slides of 2,000-30,000 patches x 1024 as .npy, 18 origins with at
+   least 3 slides each), generate_splits writes one fold, then ``python -m
+   toad_tpu_torch train --max_epochs 3 --batch_size 4 --early_stopping
+   --resume`` (f32) as a child process, and a shorter run with ``--bf16
+   --drop_out``. Checked: exit code 0; every epoch's train and val loss
+   finite and the train loss falling; s_0_checkpoint.pt, splits_0.csv,
+   split_0_results.pkl and summary.csv written; the trainer's pooling-kernel
+   launches equal its eval batches; the checkpoint reloaded with
+   load_params_any into a fresh model on the card reproduces summary.csv's
+   test accuracy and AUC; one train step on the card against the same step
+   on the CPU from the same weights and batch (f32, dropout off, TF32 off:
+   torch.backends.cuda.matmul.allow_tf32 stays False): loss within 1e-4,
+   every gradient within 1e-3 of its largest entry.
 6. Timing: kernel launches vs plain versions (CUDA events, median of 5 after
    warm-up, in the order plain, kernel, kernel, plain), for K3 also the
    library call F.scaled_dot_product_attention on the same qkv (timed only,
@@ -218,7 +241,7 @@ def phase_build(card: str) -> None:
             kernel = line.split("'")[1]
         elif kernel is not None and ("registers" in line or "spill stores" in line):
             names = {"pool_int8_kernel": "K2 int8", "pool_kernelIf": "K1 f32", "pool_kernelI13": "K1 bf16",
-                     "pool_combine_kernel": "combine", "mha_bf16_kernelILi13": "K3 bf16 (up to 208 tokens)",
+                     "pool_combine_kernelILb1": "combine", "pool_combine_kernelILb0": "combine without division (K1p)", "mha_bf16_kernelILi13": "K3 bf16 (up to 208 tokens)",
                      "mha_bf16_kernelILi17": "K3 bf16 (up to 272 tokens)", "mha_f32_kernel": "K3 f32"}
             name = next((v for k, v in names.items() if k in kernel), kernel)
             log(f"phase 2 build: {name}: {line.split(':', 1)[-1].strip()}")
@@ -290,6 +313,85 @@ def phase_compare(model, seed: int) -> float:
                 outs[scored] = (mk, sk, lk, mp, sp, lp)
             worst = max(worst, check_modes(f"{label} {str(dt)[6:]}", mask, outs, tols))
     return worst
+
+
+def phase_compare_partial(model, seed: int) -> tuple[float, float]:
+    """K1p (the pooling kernel's partial mode) against plain_pool_partial per
+    shard, and bag_sharded_pool (K1p per shard, then the combine kernel)
+    against K1 on the whole bag and against plain_pool, on bags of 163,840
+    rows. Returns the largest error of (the shards' statistics, the
+    combined M)."""
+    from toad_tpu_torch.ops import cuda_pool
+    from toad_tpu_torch.ops.fused_pool import plain_pool, plain_pool_partial
+    from toad_tpu_torch.ops.pooling import NEG_INF
+    from toad_tpu_torch.parallel.bag_shard import bag_sharded_pool, plain_combine_partial_pool
+
+    dev = torch.device("cuda")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    params = model.pool_params()
+    g = torch.Generator(device=dev).manual_seed(seed + 3)
+    n = 163_840
+    # (label, live rows per bag, shard counts)
+    cases = (("B=1 150,000 live", (150_000,), (2, 4, 8)), ("B=2 150,000 live", (150_000, 150_000), (2, 4, 8)),
+             ("B=1 30,000 live", (30_000,), (8,)), ("B=2 one bag fully masked", (0, 150_000), (4,)))
+    worst_stats = worst_m = 0.0
+    for label, live, shard_counts in cases:
+        b = len(live)
+        x = torch.randn(b, n, 1024, device=dev, generator=g)
+        mask = torch.zeros(b, n, device=dev)
+        for i, rows in enumerate(live):
+            mask[i, :rows] = (torch.rand(rows, device=dev, generator=g) < 0.95).float()
+        for dt, tol_m, tol_s in ((torch.float32, TOL_F32, TOL_F32), (torch.bfloat16, TOL_BF16_M, TOL_BF16_S)):
+            name = f"{label} {str(dt)[6:]}"
+            with torch.inference_mode():
+                ops = model.kernel_operands(dt)
+                m_whole, _ = cuda_pool.pool(ops, x, mask, with_scores=False)
+                m_plain, _ = plain_pool(params, x, mask, dt, with_scores=False)
+                for n_shards in shard_counts:
+                    per = n // n_shards
+                    masked_shards, e_max, e_den, e_mean = 0, 0.0, 0.0, 0.0
+                    accs, stats = [], []
+                    for s in range(n_shards):
+                        xs, ms = x[:, s * per:(s + 1) * per], mask[:, s * per:(s + 1) * per]
+                        acc_k, st_k = cuda_pool.pool_partial(ops, xs, ms)
+                        acc_p, st_p = plain_pool_partial(params, xs, ms, dt)
+                        accs.append(acc_k)
+                        stats.append(st_k)
+                        dead = ms.sum(1) == 0  # [B]
+                        masked_shards += int(dead.sum())
+                        if dead.any() and not (bool((st_k[dead, 0] == NEG_INF).all()) and bool((st_k[dead, 1] == 0).all())
+                                               and bool((acc_k[dead] == 0).all())):
+                            raise AssertionError(f"{name} shard {s}/{n_shards}: a masked shard is not (NEG_INF, 0, 0)")
+                        if (~dead).any():
+                            lv = ~dead
+                            # the max as a score; the denominator, brought to the plain version's max,
+                            # relative to it (its error is the scores'); acc / denom, the shard's own pooled mean, as M
+                            e_max = max(e_max, check_close(f"{name} shard {s}/{n_shards} max", st_k[lv, 0], st_p[lv, 0], tol_s))
+                            den_k = st_k[lv, 1] * torch.exp(st_k[lv, 0] - st_p[lv, 0])
+                            e_den = max(e_den, check_close(f"{name} shard {s}/{n_shards} denom / plain denom",
+                                                           den_k / st_p[lv, 1], torch.ones_like(den_k), tol_s))
+                            e_mean = max(e_mean, check_close(
+                                f"{name} shard {s}/{n_shards} acc / denom", acc_k[lv] / st_k[lv, 1, :, None],
+                                acc_p[lv] / st_p[lv, 1, :, None], tol_m))
+                    m_sharded = bag_sharded_pool(ops, x, mask, n_shards)
+                    # the combine kernel alone, on the kernel's own partials, against its plain version
+                    e_comb = check_close(f"{name} {n_shards} shards combine vs plain combine", m_sharded,
+                                         plain_combine_partial_pool(torch.stack(accs), torch.stack(stats)), TOL_F32)
+                    e_whole = check_close(f"{name} {n_shards} shards vs K1 on the whole bag", m_sharded, m_whole, tol_m)
+                    e_plain = check_close(f"{name} {n_shards} shards vs plain_pool", m_sharded, m_plain, tol_m)
+                    dead_bags = mask.sum(1) == 0
+                    if dead_bags.any() and m_sharded[dead_bags].abs().max().item() != 0.0:
+                        raise AssertionError(f"{name}: a fully-masked bag pooled to nonzero M")
+                    torch.cuda.synchronize()
+                    worst_stats = max(worst_stats, e_max, e_mean)
+                    worst_m = max(worst_m, e_whole, e_plain, e_comb)
+                    log(f"phase 3 compare partial pool {name} N={n} in {n_shards} shards ({masked_shards} fully masked): "
+                        f"per shard vs plain_pool_partial max abs err of max {e_max:.2e}, of denom / plain denom "
+                        f"{e_den:.2e} (tolerance {tol_s}), of acc / denom {e_mean:.2e}; bag_sharded_pool vs its plain "
+                        f"combine {e_comb:.2e} (tolerance {TOL_F32}), vs K1 on the whole bag {e_whole:.2e}, "
+                        f"vs plain_pool {e_plain:.2e} (tolerance {tol_m})")
+        del x, mask
+    return worst_stats, worst_m
 
 
 def phase_compare_int8(model, seed: int) -> float:
@@ -953,6 +1055,268 @@ def phase_featurize(seed: int, card: str, gpu: str, workdir: Path) -> dict:
                 cli_tiles_s=said["patches_per_s"], batch_ms=batch_ms, batch_size=batch_size, depth=depth)
 
 
+def drive_bag_sharded(model, seed: int) -> dict:
+    """The main path of K1p and the shard combine: ``bag_sharded_pool`` as a
+    caller uses it (the params dict, bf16 compute) on one bag of 163,840
+    rows in 4 shards. The kernels' counts are set to 0 just before and read
+    just after."""
+    from toad_tpu_torch.ops import cuda_pool
+    from toad_tpu_torch.ops.fused_pool import plain_pool
+    from toad_tpu_torch.parallel.bag_shard import bag_sharded_pool
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(seed + 4)
+    n, n_shards = 163_840, 4
+    x = torch.randn(1, n, 1024, device=dev, generator=g).bfloat16()
+    mask = torch.zeros(1, n, device=dev)
+    mask[0, :150_000] = 1.0
+    with torch.inference_mode():
+        cuda_pool.PARTIAL_LAUNCHES = cuda_pool.COMBINE_LAUNCHES = 0
+        m = bag_sharded_pool(model.pool_params(), x, mask, n_shards, compute_dtype=torch.bfloat16)
+        torch.cuda.synchronize()
+        counts = dict(partial=cuda_pool.PARTIAL_LAUNCHES, combine=cuda_pool.COMBINE_LAUNCHES)
+        ref, _ = plain_pool(model.pool_params(), x, mask, torch.bfloat16, with_scores=False)
+    err = check_close("bag_sharded_pool (main path) vs plain_pool", m, ref, TOL_BF16_M)
+    if counts != dict(partial=n_shards, combine=1):
+        raise AssertionError(f"bag_sharded_pool in {n_shards} shards launched {counts}")
+    log(f"phase 3 bag_sharded_pool main path: B=1 N={n} bf16 in {n_shards} shards: partial-mode launches "
+        f"{counts['partial']}, combine launches {counts['combine']}, max abs err vs plain_pool {err:.2e} "
+        f"(tolerance {TOL_BF16_M})")
+    return counts
+
+
+def run_train(workdir: Path, exp_code: str, extra: list[str], timeout: int = 900) -> tuple[list[str], float]:
+    """``python -m toad_tpu_torch train`` as a user runs it, in a child
+    process: (its output lines, wall seconds)."""
+    cmd = [sys.executable, "-m", "toad_tpu_torch", "train", "--task", str(workdir / "tasks" / "dummy_mtl_concat.json"),
+           "--data_root_dir", str(workdir / "bags"), "--split_dir", str(workdir / "splits" / "dummy_mtl_concat_100"),
+           "--results_dir", str(workdir / "results"), "--exp_code", exp_code, "--k", "1", "--batch_size", "4", *extra]
+    t0 = time.perf_counter()
+    run = subprocess.run(cmd, capture_output=True, text=True, env=child_env(), cwd=workdir, timeout=timeout)
+    wall = time.perf_counter() - t0
+    if run.returncode != 0:
+        raise AssertionError(f"train failed ({run.returncode}):\n{run.stdout[-4000:]}{run.stderr[-4000:]}")
+    return run.stdout.splitlines(), wall
+
+
+def check_train_run(label: str, lines: list[str], results: Path, card: str, gpu: str, model_cfg, test_split,
+                    wall: float) -> dict:
+    """One training run's log and artefacts; its checkpoint reloaded on the
+    card must reproduce the trainer's own test error and AUC."""
+    import csv as csv_mod
+    import pickle
+    import re
+
+    from toad_tpu_torch.data.batching import BagBatcher, resolve_transfer_dtype
+    from toad_tpu_torch.evaluate.runner import make_eval_step, run_eval_pass
+    from toad_tpu_torch.models.toad_mil import ToadMIL
+    from toad_tpu_torch.ops import cuda_pool
+    from toad_tpu_torch.train.checkpoint import load_params_any
+
+    train_losses = [float(m.group(1)) for ln in lines if (m := re.search(r"epoch \d+: train cls_loss (\S+) ", ln))]
+    val_losses = [float(m.group(1)) for ln in lines if (m := re.search(r"epoch \d+: val cls_loss (\S+) ", ln))]
+    rates = [(float(m.group(1)), m.group(2)) for ln in lines if (m := re.search(r"\| (\S+) slides/s \(data wait (\S+)\)", ln))]
+    if not train_losses or len(train_losses) != len(val_losses) or not all(np.isfinite(train_losses + val_losses)):
+        raise AssertionError(f"{label}: losses missing or not finite: train {train_losses} val {val_losses}")
+    if len(train_losses) > 1 and not train_losses[-1] < train_losses[0]:
+        raise AssertionError(f"{label}: train loss did not fall: {train_losses}")
+    if not any(card in ln for ln in lines if "model params" in ln):
+        raise AssertionError(f"{label}: the trainer does not name the card {card}")
+    for name in ("s_0_checkpoint.pt", "splits_0.csv", "split_0_results.pkl", "summary.csv"):
+        if not (results / name).exists():
+            raise AssertionError(f"{label}: {results / name} missing")
+    counts = next((re.search(r"eval batches (\d+), pooling kernel launches (\d+)", ln) for ln in lines
+                   if "pooling kernel launches" in ln), None)
+    if counts is None:
+        raise AssertionError(f"{label}: the trainer reported no kernel launches")
+    eval_batches, launches = int(counts.group(1)), int(counts.group(2))
+    if eval_batches < 1 or launches != eval_batches:
+        raise AssertionError(f"{label}: pooling kernel launches {launches} != eval batches {eval_batches}")
+    with open(results / "summary.csv", newline="") as f:
+        summary = list(csv_mod.DictReader(f))
+    if len(summary) != 1 or list(summary[0])[:3] != ["", "folds", "cls_test_auc"]:
+        raise AssertionError(f"{label}: summary.csv columns {list(summary[0]) if summary else summary}")
+    with open(results / "split_0_results.pkl", "rb") as f:
+        per_slide = pickle.load(f)
+    if len(per_slide) != len(test_split):
+        raise AssertionError(f"{label}: split_0_results.pkl holds {len(per_slide)} slides, the test split {len(test_split)}")
+
+    # the checkpoint, reloaded into a fresh model on the card, over the test split
+    model = ToadMIL(model_cfg)
+    model.load_state_dict(load_params_any(results / "s_0_checkpoint.pt", model_cfg))
+    model = model.cuda().eval()
+    batcher = BagBatcher(test_split, batch_size=4, mode="sequential",
+                         transfer_dtype=resolve_transfer_dtype("auto", model_cfg.compute_dtype), device="cuda")
+    before = cuda_pool.LAUNCHES
+    test = run_eval_pass(make_eval_step(model), batcher, model_cfg.n_classes, "cuda")
+    if cuda_pool.LAUNCHES - before != test["n_batches"]:
+        raise AssertionError(f"{label}: reloaded eval pass launched the kernel {cuda_pool.LAUNCHES - before} times "
+                             f"for {test['n_batches']} batches")
+    acc, auc = float(summary[0]["cls_test_acc"]), float(summary[0]["cls_test_auc"])
+    # the same kernel on the same bags: equal up to the one argmax a near-tie could flip
+    if abs((1.0 - test["cls_error"]) - acc) > 1e-6 or abs(test["cls_auc"] - auc) > 1e-4:
+        raise AssertionError(f"{label}: reloaded checkpoint gives test acc {1.0 - test['cls_error']:.6f} auc "
+                             f"{test['cls_auc']:.6f}, summary.csv says {acc:.6f} / {auc:.6f}")
+    log(f"phase 7 train ({label}): {len(train_losses)} epochs, train cls_loss {train_losses[0]:.4f} -> "
+        f"{train_losses[-1]:.4f}, val cls_loss {val_losses[0]:.4f} -> {val_losses[-1]:.4f}; eval batches {eval_batches} "
+        f"= pooling kernel launches {launches}; s_0_checkpoint.pt reloaded with load_params_any reproduces test acc "
+        f"{acc:.4f} and auc {auc:.4f} (|d auc| {abs(test['cls_auc'] - auc):.1e}); slides/s and data-wait share per epoch: "
+        f"{', '.join(f'{r:.1f} ({w})' for r, w in rates)}; child process {wall:.1f} s [{gpu}]")
+    return dict(launches=launches, eval_batches=eval_batches, rates=rates, wall=wall)
+
+
+def check_step_against_cpu(dataset_split, model_cfg, seed: int) -> None:
+    """One train step (forward, backward, Adam) on the card against the same
+    step on the CPU from the same weights and batch: f32, dropout off, TF32
+    off (torch.backends.cuda.matmul.allow_tf32 = False, PyTorch's default)."""
+    from toad_tpu_torch.config import OptimConfig
+    from toad_tpu_torch.data.batching import BagBatcher
+    from toad_tpu_torch.evaluate.runner import batch_to_dict
+    from toad_tpu_torch.models.toad_mil import ToadMIL
+    from toad_tpu_torch.train.loop import make_loss_fn, make_train_step, unpack_metrics
+    from toad_tpu_torch.train.optim import make_optimizer
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    batch = next(iter(BagBatcher(dataset_split, batch_size=4, mode="sequential", prefetch=0, max_bag_size=8192)))
+    sides = {}
+    for dev in ("cpu", "cuda"):
+        model = ToadMIL(model_cfg, generator=torch.Generator().manual_seed(seed)).to(dev).train()
+        bd = batch_to_dict(batch, dev)
+        loss, _ = make_loss_fn(model, 0.75, 0.25)(bd, None)
+        loss.backward()
+        grads = {k: p.grad.detach().cpu().clone() for k, p in model.named_parameters()}
+        opt = make_optimizer(OptimConfig(), model.parameters())
+        stepped = unpack_metrics(make_train_step(model, opt, 0.75, 0.25)(bd, None))
+        sides[dev] = (float(loss.detach()), grads, stepped["loss"], {k: v.detach().cpu() for k, v in model.state_dict().items()})
+    (l_c, g_c, s_c, w_c), (l_g, g_g, s_g, w_g) = sides["cpu"], sides["cuda"]
+    # each gradient's error relative to its largest entry; attn.c.bias has no gradient but rounding noise (a
+    # softmax does not feel a shift of its scores), so a gradient's scale is floored at 1e-4 of the largest of all
+    floor = 1e-4 * max(float(g.abs().max()) for g in g_c.values())
+    worst, worst_name = max((float((g_g[k] - g_c[k]).abs().max() / g_c[k].abs().max().clamp_min(floor)), k) for k in g_c)
+    moved = max(float((w_g[k] - w_c[k]).abs().max()) for k in w_c)
+    if abs(l_g - l_c) > 1e-4 or abs(s_g - s_c) > 1e-4 or worst > 1e-3 or not all(torch.isfinite(g).all() for g in g_g.values()):
+        raise AssertionError(f"train step on the card vs the CPU: loss {l_g} vs {l_c}, worst relative gradient error {worst:.3e} ({worst_name})")
+    log(f"phase 7 train step, card vs CPU (f32, dropout off, TF32 off, B=4 x {batch.bucket} x 1024): |loss difference| "
+        f"{abs(l_g - l_c):.2e} (tolerance 1e-4), largest gradient error relative to the gradient's largest entry "
+        f"{worst:.2e} ({worst_name}; tolerance 1e-3), parameters after one Adam step differ by at most {moved:.2e}")
+
+
+def phase_train(seed: int, card: str, gpu: str, workdir: Path) -> dict:
+    """The training path at TOAD's full width: a seeded synthetic dataset,
+    one fold, ``python -m toad_tpu_torch train`` in a child process (f32 with
+    early stopping and resume, then a shorter bf16 run with dropout)."""
+    import dataclasses as dc
+
+    from toad_tpu_torch.config import ModelConfig
+    from toad_tpu_torch.data.splits import generate_splits, save_split_columnar, split_file
+    from toad_tpu_torch.data.synthetic import dummy_task, write_dummy_bags, write_dummy_csv
+    from toad_tpu_torch.data.wsi_dataset import WSIBagDataset
+
+    t0 = time.perf_counter()
+    csv_path = workdir / "dataset_csv" / "dummy_dataset.csv"
+    for manifest_seed in range(seed, seed + 1000):  # the first seed whose manifest has 3 slides of every origin
+        manifest = write_dummy_csv(csv_path, n_patients=36, max_slides_per_patient=3, seed=manifest_seed)
+        per_class = np.unique([r["label"] for r in manifest], return_counts=True)[1]
+        if len(per_class) == 18 and per_class.min() >= 3:
+            break
+    else:
+        raise AssertionError("no manifest with 3 slides of every origin")
+    task = dummy_task(str(csv_path))
+    (workdir / "tasks").mkdir()
+    (workdir / "tasks" / "dummy_mtl_concat.json").write_text(task.to_json())
+    write_dummy_bags(workdir / "bags", manifest, task, n_patches_range=(2000, 30000), dim=1024, fmt="npy", seed=seed)
+    ds = WSIBagDataset(task, data_dir=str(workdir / "bags"))
+    counts = np.array([len(c) for c in ds.slide_cls_ids])
+    spec = next(generate_splits(ds.slide_cls_ids, np.maximum(counts // 4, 1), np.maximum(counts // 4, 1), ds.n_slides,
+                                n_splits=1, seed=seed + 1))
+    spec.validate_disjoint()
+    split_dir = workdir / "splits" / "dummy_mtl_concat_100"
+    split_dir.mkdir(parents=True)
+    save_split_columnar({k: list(ds.slide_ids[getattr(spec, k)]) for k in ("train", "val", "test")},
+                        split_file(split_dir, 0))
+    train_split, _, test_split = ds.return_splits_from_csv(split_file(split_dir, 0))
+    n_bytes = sum(f.stat().st_size for f in (workdir / "bags").iterdir())
+    log(f"phase 7 train: {ds.n_slides} slides of 2,000-30,000 patches x 1024 ({n_bytes / 1e9:.2f} GB of .npy bags, "
+        f"18 origins with at least {per_class.min()} slides each; manifest seed {manifest_seed}), one fold: train "
+        f"{len(spec.train)} / val {len(spec.val)} / test {len(spec.test)}; written in {time.perf_counter() - t0:.1f} s")
+
+    cfg32 = ModelConfig(in_dim=1024, n_classes=18)
+    lines, wall = run_train(workdir, "smoke_f32", ["--max_epochs", "3", "--early_stopping", "--resume"])
+    main_run = check_train_run("f32, early stopping, resume", lines, workdir / "results" / "smoke_f32_s1", card, gpu,
+                               cfg32, test_split, wall)
+    lines, wall = run_train(workdir, "smoke_bf16", ["--max_epochs", "2", "--bf16", "--drop_out"])
+    check_train_run("bf16, dropout", lines, workdir / "results" / "smoke_bf16_s1", card, gpu,
+                    dc.replace(cfg32, compute_dtype="bfloat16", dropout=True), test_split, wall)
+    check_step_against_cpu(train_split, cfg32, seed)
+    return main_run
+
+
+def phase_timing_train(gpu: str, seed: int) -> dict:
+    """K1p and the combine against their plain versions, the sharded pool
+    against K1 in one launch, and the train step (forward + backward + Adam)."""
+    from toad_tpu_torch.config import ModelConfig, OptimConfig
+    from toad_tpu_torch.models.toad_mil import ToadMIL
+    from toad_tpu_torch.ops import cuda_pool
+    from toad_tpu_torch.ops.fused_pool import plain_pool, plain_pool_partial
+    from toad_tpu_torch.parallel.bag_shard import bag_sharded_pool, plain_combine_partial_pool
+    from toad_tpu_torch.train.loop import make_train_step
+    from toad_tpu_torch.train.optim import make_optimizer
+
+    dev = torch.device("cuda")
+    out = {}
+    model = seeded_model(seed).cuda().eval()
+    n, n_shards = 163_840, 4
+    per = n // n_shards
+    mask = torch.ones(1, n, device=dev)
+    with torch.inference_mode():
+        for dt, kind in ((torch.bfloat16, "bf16"), (torch.float32, "f32")):
+            x = torch.randn(1, n, 1024, device=dev).to(dt)
+            ops, params = model.kernel_operands(dt), cast_params(model.pool_params(), dt)
+            xs, ms = x[:, :per], mask[:, :per]
+            out[("partial_" + kind, 1)] = time_pair(
+                f"partial pool {kind} B=1 N={per} D=1024 (one shard of {n_shards})",
+                lambda: plain_pool_partial(params, xs, ms, dt), lambda: cuda_pool.pool_partial(ops, xs, ms),
+                dict(bytes=nbytes(xs, ms, *ops) + (2 * 512 + 4) * 4, ops=cuda_pool.flops_per_row(1024, 512, 384) * per,
+                     kind=kind), gpu)
+            # the whole sharded pool (4 partial launches + the combine) against K1 in one launch on the same bag
+            t_plain = cuda_ms(lambda: plain_pool(params, x, mask, dt, False))
+            t_whole = cuda_ms(lambda: cuda_pool.pool(ops, x, mask, False))
+            t_shard = cuda_ms(lambda: bag_sharded_pool(ops, x, mask, n_shards))
+            t_shard8 = cuda_ms(lambda: bag_sharded_pool(ops, x, mask, 8))
+            t_whole2 = cuda_ms(lambda: cuda_pool.pool(ops, x, mask, False))
+            log(f"phase 6 timing bag_sharded_pool {kind} B=1 N={n}: {n_shards} shards {t_shard:.3f} ms, 8 shards "
+                f"{t_shard8:.3f} ms, K1 in one launch {min(t_whole, t_whole2):.3f} ms ({t_whole:.3f}/{t_whole2:.3f}), "
+                f"plain_pool {t_plain:.3f} ms [{gpu}]")
+            out[("sharded_" + kind, 1)] = dict(shards4=t_shard, shards8=t_shard8, whole=min(t_whole, t_whole2), plain=t_plain)
+            del x
+        acc = torch.randn(n_shards, 1, 2, 512, device=dev)
+        stats = torch.stack([torch.randn(n_shards, 1, 2, device=dev), torch.rand(n_shards, 1, 2, device=dev) + 1.0], dim=2)
+        out[("combine", 1)] = time_pair(
+            f"shard combine S={n_shards} B=1 H=512", lambda: plain_combine_partial_pool(acc, stats),
+            lambda: cuda_pool.combine_shards(acc, stats),
+            dict(bytes=nbytes(acc, stats) + 2 * 512 * 4, ops=3 * n_shards * 2 * 512, kind="f32"), gpu, inner=50)
+
+    # the train step: forward + backward + Adam, plain autograd (no hand-written kernel, as in the JAX package)
+    for kind in ("float32", "bfloat16"):
+        for b, n_rows in ((4, 8192), (1, 65536)):
+            tm = ToadMIL(ModelConfig(in_dim=1024, n_classes=18, compute_dtype=kind),
+                         generator=torch.Generator().manual_seed(seed)).cuda().train()
+            step = make_train_step(tm, make_optimizer(OptimConfig(), tm.parameters()), 0.75, 0.25)
+            batch = {"features": torch.randn(b, n_rows, 1024, device=dev).to(getattr(torch, kind)),
+                     "patch_mask": torch.ones(b, n_rows, device=dev), "bag_mask": torch.ones(b, device=dev),
+                     "label": torch.arange(b, device=dev) % 18, "site": torch.arange(b, device=dev) % 2,
+                     "sex": torch.arange(b, device=dev) % 2}
+            torch.cuda.reset_peak_memory_stats()
+            ms = cuda_ms(lambda: step(batch, None))
+            flops = 3 * cuda_pool.flops_per_row(1024, 512, 384) * b * n_rows  # forward + two backward products
+            log(f"phase 6 timing train step {kind} B={b} N={n_rows} D=1024 (forward + backward + Adam, plain autograd): "
+                f"{ms:.3f} ms, {flops / (ms * 1e-3) / 1e12:.1f} TFLOP/s at 3x the forward's operations, peak device "
+                f"memory {torch.cuda.max_memory_allocated() / 1e9:.2f} GB [{gpu}]")
+            out[("step_" + kind, b)] = ms
+            del tm, step, batch
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
     ap.add_argument("--seed", type=int, default=0)
@@ -963,6 +1327,8 @@ def main() -> int:
     phase_build(gpu)
     model = seeded_model(args.seed).cuda().eval()
     worst = phase_compare(model, args.seed)
+    worst_partial, worst_sharded = phase_compare_partial(model, args.seed)
+    sharded = drive_bag_sharded(model, args.seed)
     worst8 = phase_compare_int8(model, args.seed)
     worst_mha = phase_compare_mha(args.seed)
     with tempfile.TemporaryDirectory(prefix="toad_smoke_") as tmp:
@@ -971,7 +1337,10 @@ def main() -> int:
         served8 = phase_serve_int8(model, args.seed, gpu, Path(tmp))
     with tempfile.TemporaryDirectory(prefix="toad_smoke_vit_") as tmp:
         featurized = phase_featurize(args.seed, card, gpu, Path(tmp))
+    with tempfile.TemporaryDirectory(prefix="toad_smoke_train_") as tmp:
+        trained = phase_train(args.seed, card, gpu, Path(tmp))
     times = phase_timing(model, gpu)
+    times.update(phase_timing_train(gpu, args.seed))
     mha = times[("mha_bf16", 64)]
     log(f"phase 6 timing encoder: ViT-L/16 bf16, {featurized['batch_ms']:.2f} ms per batch of "
         f"{featurized['batch_size']} tiles ({featurized['batch_size'] / featurized['batch_ms'] * 1e3:.1f} tiles/s); "
@@ -1009,7 +1378,27 @@ def main() -> int:
             "max_abs_err": worst_mha,
             **mha,
         },
+        {
+            "name": "fused_pool_partial",
+            "route": "cuda",
+            "source": "toad_tpu_torch/csrc/pool.cu",
+            "replaces": "toad_tpu/ops/pallas_pool.py:636",
+            "launches": sharded["partial"],
+            "max_abs_err": worst_partial,
+            **times[("partial_bf16", 1)],
+        },
+        {
+            "name": "combine_partial_pool",
+            "route": "cuda",
+            "source": "toad_tpu_torch/csrc/pool_common.cuh",
+            "replaces": "toad_tpu/parallel/bag_shard.py:28",
+            "launches": sharded["combine"],
+            "max_abs_err": worst_sharded,
+            **times[("combine", 1)],
+        },
     ]}
+    log(f"phase 7 train: the trainer's validation and final passes launched the pooling kernel "
+        f"{trained['launches']} times for {trained['eval_batches']} eval batches")
     log(gpu)
     log(json.dumps(record))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": card, "count": torch.cuda.device_count()}}))

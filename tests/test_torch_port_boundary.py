@@ -55,10 +55,27 @@ def test_config_and_registry_match_the_jax_package():
     from toad_tpu_torch import config, registry
 
     assert config.DEFAULT_BUCKETS == jax_config.DEFAULT_BUCKETS
-    for port_cls, jax_cls, skip in ((config.ModelConfig, jax_config.ModelConfig, {"use_pallas"}),
-                                    (config.TaskConfig, jax_config.TaskConfig, set())):
-        want = {(f.name, f.type, f.default) for f in dataclasses.fields(jax_cls) if f.name not in skip}
-        assert {(f.name, f.type, f.default) for f in dataclasses.fields(port_cls)} == want
+    # the fields with nothing behind them in the port yet, by name
+    not_ported = {
+        "ModelConfig": {"use_pallas"},
+        "TaskConfig": set(),
+        "OptimConfig": set(),
+        "DataConfig": {"native"},
+        "TrainConfig": {"rss_restart_gb", "profile_dir", "debug_checks", "data_shards", "bag_shards"},
+        "SplitConfig": set(),
+    }
+    for name, skip in not_ported.items():
+        port_cls, jax_cls = getattr(config, name), getattr(jax_config, name)
+        assert skip <= {f.name for f in dataclasses.fields(jax_cls)}
+        want = [(f.name, f.type, f.default) for f in dataclasses.fields(jax_cls) if f.name not in skip]
+        assert [(f.name, f.type, f.default) for f in dataclasses.fields(port_cls)] == want  # same order too
+    # nested defaults and the settings echo
+    port_train, jax_train = config.TrainConfig(), jax_config.TrainConfig()
+    assert dataclasses.asdict(port_train.optim) == dataclasses.asdict(jax_train.optim)
+    assert set(jax_train.settings_dict()) - set(port_train.settings_dict()) == not_ported["TrainConfig"]
+    assert port_train.settings_dict()["num_splits"] == jax_train.settings_dict()["num_splits"]
+    for args in ((10, -1, -1), (10, 2, 5), (3, -1, 2)):
+        assert config.fold_range(*args) == jax_config.fold_range(*args)
     for size in ("small", "big"):
         port, ref = config.ModelConfig(size_arg=size), jax_config.ModelConfig(size_arg=size)
         assert (port.hidden_dim, port.attn_dim) == (ref.hidden_dim, ref.attn_dim)
@@ -87,9 +104,35 @@ VIT_MODULES = (
 )
 
 
-@pytest.mark.parametrize("module", INT8_MODULES + VIT_MODULES)
+TRAIN_MODULES = (
+    "toad_tpu_torch.config",
+    "toad_tpu_torch.utils",
+    "toad_tpu_torch.utils.rng",
+    "toad_tpu_torch.utils.io",
+    "toad_tpu_torch.utils.logging",
+    "toad_tpu_torch.data.bags",
+    "toad_tpu_torch.data.wsi_dataset",
+    "toad_tpu_torch.data.splits",
+    "toad_tpu_torch.data.synthetic",
+    "toad_tpu_torch.data.batching",
+    "toad_tpu_torch.evaluate.metrics",
+    "toad_tpu_torch.evaluate.runner",
+    "toad_tpu_torch.train.optim",
+    "toad_tpu_torch.train.checkpoint",
+    "toad_tpu_torch.train.loop",
+    "toad_tpu_torch.cli.common",
+    "toad_tpu_torch.cli.train",
+    "toad_tpu_torch.cli.create_splits",
+    "toad_tpu_torch.cli.make_dummy",
+    "toad_tpu_torch.parallel",
+    "toad_tpu_torch.parallel.bag_shard",
+    "toad_tpu_torch.models.interop",
+)
+
+
+@pytest.mark.parametrize("module", INT8_MODULES + VIT_MODULES + TRAIN_MODULES)
 def test_int8_modules_import_neither_jax_nor_the_jax_package(probe, module):
-    """Each module of the int8 and ViT featurization paths, imported alone
+    """Each module of the int8, ViT featurization and training paths, imported alone
     in a fresh process, loads no module of the JAX stack (h5py and PIL
     included) or of toad_tpu and builds no kernel."""
     assert module in probe["modules"]
@@ -112,9 +155,10 @@ def test_dispatcher_lists_only_ported_commands():
         [sys.executable, "-m", "toad_tpu_torch", "--help"], cwd=REPO, capture_output=True, text=True, timeout=120
     )
     assert out.returncode == 0
-    assert "serve" in out.stdout and "featurize" in out.stdout and "train" not in out.stdout
+    listed = {line.split()[0] for line in out.stdout.splitlines() if line.startswith("  ")}
+    assert listed == {"serve", "featurize", "convert", "train", "create-splits", "make-dummy"}
     bad = subprocess.run(
-        [sys.executable, "-m", "toad_tpu_torch", "train"], cwd=REPO, capture_output=True, text=True, timeout=120
+        [sys.executable, "-m", "toad_tpu_torch", "eval"], cwd=REPO, capture_output=True, text=True, timeout=120
     )
     assert bad.returncode == 2 and "unknown command" in bad.stderr
 
@@ -127,3 +171,16 @@ def test_kernel_sources_are_packaged():
     data = cfg["tool"]["setuptools"]["package-data"]["toad_tpu_torch"]
     assert "csrc/*.cu" in data and "tasks/*.json" in data
     assert {p.name for p in (REPO / "toad_tpu_torch" / "csrc").glob("*.cu")} >= {"pool.cu", "pool_int8.cu", "mha.cu"}
+
+
+def test_no_source_line_imports_jax_or_the_jax_package():
+    """The grep of the port's sources and of chip_smoke.py: no import
+    statement names jax or toad_tpu, also not inside a function."""
+    import re
+
+    pattern = re.compile(r"^\s*(import|from)\s+(jax|toad_tpu)(\.|\s|$)")
+    files = [*(REPO / "toad_tpu_torch").rglob("*.py"), REPO / "chip_smoke.py"]
+    assert len(files) > 40
+    hits = [f"{f.relative_to(REPO)}:{i}" for f in files for i, line in enumerate(f.read_text().splitlines(), 1)
+            if pattern.match(line)]
+    assert hits == []

@@ -8,6 +8,9 @@ from __future__ import annotations
 import sys
 
 COMMANDS = {
+    "make-dummy": ("toad_tpu_torch.cli.make_dummy", "generate a synthetic fixture (csv + bags + task JSON)"),
+    "create-splits": ("toad_tpu_torch.cli.create_splits", "stratified k-fold split files"),
+    "train": ("toad_tpu_torch.cli.train", "k-fold training"),
     "serve": ("toad_tpu_torch.cli.serve", "online prediction HTTP server (dynamic batching)"),
     "convert": ("toad_tpu_torch.cli.convert", "re-encode a bag store (e.g. f32 .pt -> int8 .npz)"),
     "featurize": ("toad_tpu_torch.cli.featurize", "patch tiles -> feature bags through the ViT encoder"),

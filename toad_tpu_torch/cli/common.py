@@ -1,4 +1,6 @@
-"""Shared CLI plumbing (the serving subset of :mod:`toad_tpu.cli.common`)."""
+"""Shared CLI plumbing: task loading, dataset construction, settings echo,
+bucket ladders, the serving temperature (counterpart of
+:mod:`toad_tpu.cli.common`)."""
 
 from __future__ import annotations
 
@@ -18,21 +20,83 @@ def parse_sex(value) -> int:
     return m[key]
 
 
-def add_buckets_arg(p: argparse.ArgumentParser) -> None:
+def add_task_arg(p: argparse.ArgumentParser) -> None:
+    from toad_tpu_torch.registry import list_tasks
+
     p.add_argument(
-        "--buckets", type=str, default=None, metavar="LIST",
+        "--task",
+        type=str,
+        required=True,
+        help=f"task name from the registry or path to a task JSON (available: {list_tasks()})",
+    )
+    p.add_argument("--csv_path", type=str, default=None, help="override the task's csv path")
+
+
+def require_data_root(args) -> None:
+    """Fail fast when a bag-reading command starts without --data_root_dir:
+    otherwise the omission only surfaces at the first bag access, inside a
+    prefetch worker."""
+    d = getattr(args, "data_root_dir", None)
+    if d is None:
+        raise SystemExit("error: --data_root_dir is required (directory containing feature bags)")
+    if not Path(d).is_dir():
+        raise SystemExit(f"error: --data_root_dir {d!r} is not a directory")
+
+
+def build_dataset(args, data_dir=None, print_info: bool = True):
+    """(task, WSIBagDataset) from --task / --csv_path."""
+    from toad_tpu_torch.data.wsi_dataset import WSIBagDataset
+    from toad_tpu_torch.registry import load_task
+
+    task = load_task(args.task)
+    ds = WSIBagDataset(
+        task,
+        csv_path=args.csv_path,
+        data_dir=data_dir,
+        seed=getattr(args, "seed", 7),
+        print_info=print_info,
+    )
+    return task, ds
+
+
+def echo_settings(path: str | os.PathLike, settings: dict) -> None:
+    from toad_tpu_torch.utils.io import write_settings
+
+    write_settings(path, settings)
+    print("################# Settings ###################")
+    for k, v in settings.items():
+        print(f"{k}:  {v}")
+
+
+def add_buckets_arg(p: argparse.ArgumentParser, auto: bool = False) -> None:
+    extra = ", or 'auto' to derive quantile rungs from the dataset's real patch counts (metadata reads only)" if auto else ""
+    p.add_argument(
+        "--buckets", type=str, default=None, metavar="LIST" + ("|auto" if auto else ""),
         help="bucket ladder override: comma-separated bag lengths (positive integers; "
-        "the CUDA kernel masks ragged row tiles, so no multiple is required)",
+        f"the CUDA kernel masks ragged row tiles, so no multiple is required){extra}",
     )
 
 
-def resolve_buckets(value: str | None) -> tuple[int, ...] | None:
-    """--buckets: None (keep the default ladder) or an explicit comma list,
-    sorted and validated."""
+def resolve_buckets(value: str | None, dataset=None, *, patient_bags: bool = False) -> tuple[int, ...] | None:
+    """--buckets: None (keep the default ladder), an explicit comma list,
+    sorted and validated, or 'auto': a quantile ladder over the whole
+    dataset's real patch counts (rounded up to multiples of 128), so that
+    every fold and split shares one set of shapes."""
     if not value:
         return None
     if value.strip().lower() == "auto":
-        raise SystemExit("--buckets auto needs a dataset scan, which this package does not port yet; give a list")
+        if dataset is None:
+            raise SystemExit("--buckets auto needs a dataset (use an explicit list here)")
+        from toad_tpu_torch.data.batching import auto_bucket_ladder
+
+        split = dataset.subset(range(dataset.n_slides))
+        if patient_bags:
+            from toad_tpu_torch.data.wsi_dataset import PatientBagSplit
+
+            split = PatientBagSplit(split)
+        ladder = auto_bucket_ladder(split)
+        print(f"auto bucket ladder ({len(split)} bags): {list(ladder)}")
+        return ladder
     try:
         ladder = tuple(int(x) for x in value.split(","))
     except ValueError:

@@ -1,0 +1,218 @@
+"""``python -m toad_tpu_torch train``: k-fold training entry point.
+
+Counterpart of :mod:`toad_tpu.cli.train`: the flags of the reference
+``main_mtl_concat.py`` plus --batch_size, --bf16, --buckets, --resume and
+--device. Produces the reference's results layout:
+``results/{exp_code}_s{seed}/`` with ``experiment_{exp_code}.txt``, per-fold
+``splits_{i}.csv``, ``s_{i}_checkpoint.pt`` (reference layout, what ``serve
+--ckpt`` reads), ``split_{i}_results.pkl``, and ``summary.csv``.
+
+Training runs on the card unless ``--device cpu`` is given; validation and
+the final passes go through the hand-written pooling kernel there. Flags of
+the JAX CLI with nothing behind them here are answered with an error that
+names where ROADMAP.md queues them; ``--pallas`` and ``--compile_cache``
+have no counterpart (the kernel is the path on CUDA; nothing is compiled
+ahead of a run).
+"""
+
+from __future__ import annotations
+
+import argparse
+import csv
+import json
+from pathlib import Path
+
+from toad_tpu_torch.cli.common import add_task_arg, build_dataset, echo_settings, require_data_root, resolve_buckets
+from toad_tpu_torch.config import DataConfig, ModelConfig, OptimConfig, TrainConfig, fold_range
+from toad_tpu_torch.utils.io import save_pkl
+from toad_tpu_torch.utils.logging import make_writer
+from toad_tpu_torch.utils.rng import seed_everything
+
+SUMMARY_COLUMNS = (
+    "folds", "cls_test_auc", "cls_val_auc", "cls_test_acc", "cls_val_acc",
+    "site_test_auc", "site_val_auc", "site_test_acc", "site_val_acc",
+)
+
+# flags of the JAX CLI that are not ported: (flag, its "off" value, where ROADMAP.md queues it)
+_NOT_PORTED = (
+    ("data_shards", 1, "multi-GPU (ROADMAP.md queue 6)"),
+    ("bag_shards", 1, "multi-GPU (ROADMAP.md queue 6; one card pools a long bag in pieces with "
+                      "toad_tpu_torch.parallel.bag_shard.bag_sharded_pool)"),
+    ("fold_devices", 1, "multi-GPU (ROADMAP.md queue 6)"),
+    ("profile", None, "profiling and debugging tools (ROADMAP.md queue 8)"),
+    ("debug_checks", False, "profiling and debugging tools (ROADMAP.md queue 8)"),
+    ("debug_nans", False, "profiling and debugging tools (ROADMAP.md queue 8)"),
+    ("rss_restart_gb", None, "profiling and debugging tools (ROADMAP.md queue 8)"),
+)
+
+
+def make_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(description="Configurations for WSI training")
+    add_task_arg(p)
+    p.add_argument("--data_root_dir", type=str, default=None, help="directory containing feature bags")
+    p.add_argument("--max_epochs", type=int, default=200)
+    p.add_argument("--lr", type=float, default=1e-4)
+    p.add_argument("--reg", type=float, default=1e-5, help="weight decay")
+    p.add_argument("--seed", type=int, default=1)
+    p.add_argument("--k", type=int, default=10)
+    p.add_argument("--k_start", type=int, default=-1)
+    p.add_argument("--k_end", type=int, default=-1)
+    p.add_argument("--results_dir", default="./results")
+    p.add_argument("--split_dir", type=str, default=None)
+    p.add_argument("--log_data", action="store_true", default=False)
+    p.add_argument("--testing", action="store_true", default=False, help="1%% subsample dry run")
+    p.add_argument("--early_stopping", action="store_true", default=False)
+    p.add_argument("--opt", type=str, choices=["adam", "sgd"], default="adam")
+    p.add_argument("--drop_out", action="store_true", default=False)
+    p.add_argument("--exp_code", type=str, required=True)
+    p.add_argument("--weighted_sample", action="store_true", default=False)
+    p.add_argument("--encoding_size", type=int, default=1024, help="patch feature dimension")
+    p.add_argument("--batch_size", type=int, default=8, help="bags per step (1 = reference semantics)")
+    p.add_argument("--max_bag_size", type=int, default=None)
+    p.add_argument("--buckets", type=str, default=None, metavar="LIST|auto",
+                   help="bucket ladder: comma-separated sizes, or 'auto' to derive quantile rungs from the "
+                        "dataset's real patch counts (metadata reads only; cuts the padding of the default ladder)")
+    p.add_argument("--bf16", action="store_true", default=False, help="bfloat16 compute (parameters stay float32)")
+    p.add_argument("--resume", action="store_true", default=False,
+                   help="preemption-tolerant per-epoch state snapshots + resume")
+    p.add_argument("--patient_bags", action="store_true", default=False, help="concat each patient's slides into one bag")
+    p.add_argument("--bf16_transfer", action="store_true", default=False,
+                   help="force bfloat16 feature transfer even under f32 compute (half the host-to-device bytes; "
+                        "on automatically with --bf16)")
+    p.add_argument("--device", type=str, default="cuda", help="cuda (default), cuda:<i> or cpu")
+    # flags of the JAX CLI that are not ported; accepted so that they can be refused by name
+    p.add_argument("--data_shards", type=int, default=1, help="not ported")
+    p.add_argument("--bag_shards", type=int, default=1, help="not ported")
+    p.add_argument("--fold_devices", type=int, default=1, help="not ported")
+    p.add_argument("--rss_restart_gb", type=float, default=None, help="not ported")
+    p.add_argument("--profile", type=str, default=None, help="not ported")
+    p.add_argument("--native_io", type=str, choices=["auto", "on", "off"], default="auto",
+                   help="'on' is not ported (no native loader); auto and off read bags with numpy and torch")
+    p.add_argument("--debug_checks", action="store_true", default=False, help="not ported")
+    p.add_argument("--debug_nans", action="store_true", default=False, help="not ported")
+    return p
+
+
+def refuse_unported(args) -> None:
+    for flag, off, where in _NOT_PORTED:
+        if getattr(args, flag) != off:
+            raise SystemExit(f"error: --{flag} is not ported to this package yet: {where}")
+    if args.native_io == "on":
+        raise SystemExit("error: --native_io on: the native bag loader is not ported to this package (ROADMAP.md)")
+
+
+def config_from_args(args, n_classes: int, bucket_sizes: tuple[int, ...] | None = None) -> TrainConfig:
+    return TrainConfig(
+        exp_code=args.exp_code,
+        task=args.task,
+        results_dir=args.results_dir,
+        split_dir=args.split_dir,
+        max_epochs=args.max_epochs,
+        seed=args.seed,
+        k=args.k,
+        k_start=args.k_start,
+        k_end=args.k_end,
+        early_stopping=args.early_stopping,
+        resume=args.resume,
+        log_data=args.log_data,
+        testing=args.testing,
+        model=ModelConfig(
+            in_dim=args.encoding_size,
+            n_classes=n_classes,
+            dropout=args.drop_out,
+            compute_dtype="bfloat16" if args.bf16 else "float32",
+        ),
+        optim=OptimConfig(name=args.opt, lr=args.lr, weight_decay=args.reg),
+        data=DataConfig(
+            data_dir=args.data_root_dir,
+            batch_size=args.batch_size,
+            **({"bucket_sizes": bucket_sizes} if bucket_sizes else {}),
+            max_bag_size=args.max_bag_size,
+            weighted_sample=args.weighted_sample,
+            testing_frac=0.01 if args.testing else None,
+            patient_bags=args.patient_bags,
+            # default 'auto': bf16 transfer iff --bf16 compute (numerically
+            # invisible there, half the bytes); the flag forces it on
+            transfer_dtype="bfloat16" if args.bf16_transfer else "auto",
+        ),
+    )
+
+
+def write_summary(path: Path, rows: list[dict]) -> None:
+    """``summary.csv`` as pandas writes the JAX CLI's: an unnamed index
+    column, then one column per metric."""
+    with open(path, "w", newline="") as f:
+        w = csv.writer(f, lineterminator="\n")
+        w.writerow(["", *SUMMARY_COLUMNS])
+        for i, row in enumerate(rows):
+            # pandas writes a missing value (an AUC over one class) as an empty cell
+            w.writerow([i, *("" if isinstance(row[c], float) and row[c] != row[c] else row[c] for c in SUMMARY_COLUMNS)])
+
+
+def main(argv=None):
+    from toad_tpu_torch.train.loop import FoldTrainer, resolve_device
+
+    args = make_parser().parse_args(argv)
+    refuse_unported(args)
+    try:
+        device = resolve_device(args.device)
+    except (RuntimeError, ValueError) as e:
+        raise SystemExit(f"error: --device {args.device}: {e}") from None
+    seed_everything(args.seed)
+    require_data_root(args)
+    task, dataset = build_dataset(args, data_dir=args.data_root_dir)
+    buckets = resolve_buckets(args.buckets, dataset, patient_bags=args.patient_bags)
+    cfg = config_from_args(args, n_classes=task.n_classes[0], bucket_sizes=buckets)
+
+    results_dir = Path(args.results_dir) / f"{args.exp_code}_s{args.seed}"
+    results_dir.mkdir(parents=True, exist_ok=True)
+
+    split_dir = Path(args.split_dir) if args.split_dir else Path("splits") / f"{task.name}_100"
+    if not split_dir.is_dir():
+        raise FileNotFoundError(f"split dir not found: {split_dir} (run python -m toad_tpu_torch create-splits first)")
+
+    settings = cfg.settings_dict()
+    settings["split_dir"] = str(split_dir)
+    settings["device"] = str(device)
+    echo_settings(results_dir / f"experiment_{args.exp_code}.txt", settings)
+
+    folds = fold_range(args.k, args.k_start, args.k_end)
+
+    def load_fold_splits(i: int):
+        splits = dataset.return_splits_from_csv(split_dir / f"splits_{i}.csv")
+        if any(s is None for s in splits):
+            raise ValueError(f"fold {i}: empty split in {split_dir / f'splits_{i}.csv'}")
+        return splits
+
+    def finish_fold(i: int, r: dict) -> dict:
+        save_pkl(results_dir / f"split_{i}_results.pkl", r["results"])
+        row = {"folds": i, **{c: r[c] for c in SUMMARY_COLUMNS[1:]}}
+        if args.resume:
+            (results_dir / f"fold_{i}_summary.json").write_text(json.dumps(row))
+        return row
+
+    rows_by_fold: dict[int, dict] = {}
+    for i in folds:
+        fold_summary = results_dir / f"fold_{i}_summary.json"
+        if args.resume and fold_summary.exists():
+            # the fold finished in an earlier (preempted) run: do not retrain it
+            rows_by_fold[i] = json.loads(fold_summary.read_text())
+            print(f"fold {i}: already complete ({fold_summary}), skipping")
+            continue
+        seed_everything(args.seed)
+        splits = load_fold_splits(i)
+        writer = make_writer(str(results_dir / str(i)), enabled=args.log_data)
+        trainer = FoldTrainer(cfg, fold=i, results_dir=results_dir, writer=writer, device=device)
+        r = trainer.train(*splits, log_fn=lambda msg: print(msg, flush=True))
+        writer.close()
+        rows_by_fold[i] = finish_fold(i, r)
+
+    rows = [rows_by_fold[i] for i in folds]
+    name = "summary.csv" if len(folds) == args.k else f"summary_partial_{folds.start}_{folds.stop}.csv"
+    write_summary(results_dir / name, rows)
+    print(f"finished! wrote {results_dir / name}")
+    return rows
+
+
+if __name__ == "__main__":
+    main()

@@ -1,18 +1,22 @@
-"""Typed configuration the port needs: the padding ladder, the task and the
-model knobs, the encoders' pixel statistics.
+"""Typed configuration the port needs: the padding ladder, the task, model,
+optimizer, data, training and split knobs, the encoders' pixel statistics.
 
 Stdlib-only copies of the same names in :mod:`toad_tpu.config`, so that the
 port imports nothing of the JAX package. Fields and defaults are the same
-(``tests/test_torch_port_boundary.py`` holds them equal), except that
-``ModelConfig.use_pallas`` has no counterpart: on CUDA the kernel is the
-path.
+(``tests/test_torch_port_boundary.py`` holds them equal), except the fields
+with nothing behind them here: ``ModelConfig.use_pallas`` (on CUDA the
+kernel is the path), ``DataConfig.native`` (no native loader),
+``TrainConfig.rss_restart_gb``, ``profile_dir``, ``debug_checks``,
+``data_shards`` and ``bag_shards`` (ROADMAP.md: profiling and debugging
+tools, multi-GPU).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import json
-from dataclasses import dataclass
+from dataclasses import dataclass, field
+from typing import Any
 
 # the padding ladder every component defaults to (toad_tpu.config)
 DEFAULT_BUCKETS = (256, 512, 1024, 2048, 4096, 8192, 16384, 32768, 65536, 131072, 163840, 262144)
@@ -76,3 +80,98 @@ class ModelConfig:
     @property
     def attn_dim(self) -> int:
         return {"small": 256, "big": 384}[self.size_arg]
+
+
+@dataclass(frozen=True)
+class OptimConfig:
+    """Optimizer knobs with torch semantics (reference ``utils/utils.py:63-70``)."""
+
+    name: str = "adam"  # adam | sgd
+    lr: float = 1e-4
+    weight_decay: float = 1e-5  # torch-style L2-in-gradient, NOT decoupled
+    momentum: float = 0.9  # sgd only
+    b1: float = 0.9
+    b2: float = 0.999
+    eps: float = 1e-8
+
+
+@dataclass(frozen=True)
+class DataConfig:
+    """Bag loading + bucketed batching.
+
+    ``batch_size=1`` with ``bucket_sizes=None`` reproduces the reference's
+    bag-at-a-time semantics (``utils/utils.py:37-61``); larger batches with
+    bucketed padding are the throughput mode.
+    """
+
+    data_dir: str | dict[str, str] | None = None
+    batch_size: int = 1
+    bucket_sizes: tuple[int, ...] = DEFAULT_BUCKETS
+    max_bag_size: int | None = None  # truncate bags longer than this
+    use_h5: bool = False
+    prefetch: int = 2
+    weighted_sample: bool = False
+    testing_frac: float | None = None  # reference --testing: 1% subsample
+    patient_bags: bool = False  # concat all of a patient's slides into one bag
+    # host->device feature dtype: 'bfloat16' halves the bytes copied; 'auto'
+    # picks bfloat16 iff the model computes in bf16 (the features are cast
+    # round-to-nearest-even either side of the copy, so casting on the host
+    # is numerically invisible there); 'float32' is exact
+    transfer_dtype: str = "auto"
+
+
+@dataclass(frozen=True)
+class TrainConfig:
+    """One experiment (k folds). Defaults mirror ``main_mtl_concat.py:83-106``."""
+
+    exp_code: str = "exp"
+    task: str = "dummy_mtl_concat"
+    results_dir: str = "./results"
+    split_dir: str | None = None
+    max_epochs: int = 200
+    seed: int = 1
+    k: int = 10
+    k_start: int = -1
+    k_end: int = -1
+    early_stopping: bool = False
+    patience: int = 20
+    min_stop_epoch: int = 50
+    cls_loss_weight: float = 0.75
+    site_loss_weight: float = 0.25
+    log_data: bool = False
+    testing: bool = False
+    # preemption tolerance: snapshot the full training state (model, optimizer,
+    # generator and early-stop state) every `resume_every` epochs and continue
+    # from it on restart, a capability the reference lacks
+    resume: bool = False
+    resume_every: int = 1
+    model: ModelConfig = field(default_factory=ModelConfig)
+    optim: OptimConfig = field(default_factory=OptimConfig)
+    data: DataConfig = field(default_factory=DataConfig)
+
+    def settings_dict(self) -> dict[str, Any]:
+        d = dataclasses.asdict(self)
+        d["num_splits"] = self.k
+        return d
+
+
+@dataclass(frozen=True)
+class SplitConfig:
+    """Split creation. Defaults mirror ``create_splits.py:9-18,43-45``."""
+
+    task: str = "dummy_mtl_concat"
+    seed: int = 1
+    k: int = 10
+    label_frac: float = 1.0
+    val_frac: float = 0.1
+    test_frac: float = 0.2
+    hold_out_test: bool = False
+    split_code: str | None = None
+    split_root: str = "splits"
+
+
+def fold_range(k: int, k_start: int, k_end: int) -> range:
+    """Resolve the [k_start, k_end) fold window (reference ``main_mtl_concat.py:28-35``)."""
+    start = 0 if k_start == -1 else k_start
+    end = k if k_end == -1 else k_end
+    return range(start, end)

@@ -20,7 +20,8 @@
 // row tile's h1, h2 and gated activations stay in shared memory. The TPU's
 // sequential grid (state carried across a bag's tiles) becomes a split-N
 // grid: block (split, bag) runs a contiguous range of row tiles and writes a
-// partial (acc, max, denom); pool_combine_kernel merges the partials exactly,
+// partial (acc, max, denom); pool_combine_kernel merges the partials exactly
+// (and, in partial mode, leaves the division to the cross-shard combine),
 // spread over 2H/32 blocks per bag so that one large bag combines in parallel.
 // The bf16 instance uses mma.sync m16n8k16 (f32 accumulate) fed by ldmatrix,
 // with a 3-deep cp.async ring of weight/input slices; the f32 instance uses
@@ -407,7 +408,7 @@ int launch(const void* x, const float* mask, int B, int N, int D, int H, int A,
            const void* w1t, const float* b1, const void* w2t, const float* b2,
            const void* wabt, const float* bab, const void* wc, const float* bc,
            int tiles_per_split, int n_splits,
-           float* scores, float* part_acc, float* part_stat, float* out, cudaStream_t stream) {
+           float* scores, float* part_acc, float* part_stat, float* out, float* stat_out, cudaStream_t stream) {
   const size_t smem = layout<T>(H, A).total;
   cudaError_t err = cudaFuncSetAttribute(pool_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
@@ -418,6 +419,11 @@ int launch(const void* x, const float* mask, int B, int N, int D, int H, int A,
       tiles_per_split, n_splits, scores, part_acc, part_stat);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
+  // partial mode (K1p, the TPU kernel's stats_out_ref form): the same merge
+  // of the split partials without the division, so that `out` and `stat_out`
+  // are one unnormalised (acc, max, denom) per bag for a later combine
+  if (stat_out != nullptr)
+    return launch_combine_strided<false>(part_acc, part_stat, n_splits, n_splits, 1, B, H, 0.f, out, stat_out, stream);
   return launch_combine(part_acc, part_stat, n_splits, B, H, out, stream);
 }
 
@@ -443,9 +449,37 @@ int toad_pool_forward(int dtype, const void* x, const float* mask, int B, int N,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 1)
     return launch<bf16>(x, mask, B, N, D, H, A, w1t, b1, w2t, b2, wabt, bab, wc, bc,
-                        tiles_per_split, n_splits, scores, part_acc, part_stat, out, s);
+                        tiles_per_split, n_splits, scores, part_acc, part_stat, out, nullptr, s);
   return launch<float>(x, mask, B, N, D, H, A, w1t, b1, w2t, b2, wabt, bab, wc, bc,
-                       tiles_per_split, n_splits, scores, part_acc, part_stat, out, s);
+                       tiles_per_split, n_splits, scores, part_acc, part_stat, out, nullptr, s);
+}
+
+// The pooling kernel in partial mode (classification only, no scores): writes
+// acc [B][2][H] = sum over the live rows of exp(s - max) h and stats [B][2][2]
+// = (max[2], denom[2]) instead of the pooled mean; max = -1e30, denom = 0 and
+// acc = 0 where no row is live. Replaces the TPU kernel's partial form
+// (toad_tpu/ops/pallas_pool.py::pallas_pool_partial).
+int toad_pool_partial_forward(int dtype, const void* x, const float* mask, int B, int N, int D, int H, int A,
+                              const void* w1t, const float* b1, const void* w2t, const float* b2,
+                              const void* wabt, const float* bab, const void* wc, const float* bc,
+                              int tiles_per_split, int n_splits,
+                              float* part_acc, float* part_stat, float* acc, float* stats, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (stats == nullptr) return (int)cudaErrorInvalidValue;
+  if (dtype == 1)
+    return launch<bf16>(x, mask, B, N, D, H, A, w1t, b1, w2t, b2, wabt, bab, wc, bc,
+                        tiles_per_split, n_splits, nullptr, part_acc, part_stat, acc, stats, s);
+  return launch<float>(x, mask, B, N, D, H, A, w1t, b1, w2t, b2, wabt, bab, wc, bc,
+                       tiles_per_split, n_splits, nullptr, part_acc, part_stat, acc, stats, s);
+}
+
+// Combines the partials of S shards of B bags, acc [S][B][2][H] and stats
+// [S][B][2][2] as toad_pool_partial_forward writes them, into the pooled
+// out [B][2][H] = sum_s acc_s w_s / max(sum_s denom_s w_s, 1e-12): the
+// cross-shard combine of toad_tpu/parallel/bag_shard.py::combine_partial_pool.
+int toad_pool_combine_shards(const float* acc, const float* stats, int S, int B, int H, float* out, void* stream) {
+  return launch_combine_strided<true>(acc, stats, S, 1, B, B, H, 1e-12f, out, nullptr,
+                                      static_cast<cudaStream_t>(stream));
 }
 
 const char* toad_cuda_error_string(int err) { return cudaGetErrorString(static_cast<cudaError_t>(err)); }

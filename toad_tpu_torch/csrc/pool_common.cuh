@@ -123,58 +123,88 @@ __device__ __forceinline__ void online_accumulate(float* acc_s, const float* e_s
 }
 
 // ---------------------------------------------------------------------------
-// Exact flash combine of a bag's split partials, then acc / max(denom, 1e-30).
+// Exact flash combine of one bag's partials (acc [2][H], max[2], denom[2]).
+// Partial s of bag b sits at index b * stride_b + s * stride_s of part_acc
+// (x 2H floats) and part_stat (x 4 floats), which covers both users:
+//   - the split-N partials of one launch, [B][n_splits]: stride_b = n_splits,
+//     stride_s = 1;
+//   - the shard partials of a bag-sharded pool, [S][B]: stride_b = 1,
+//     stride_s = B (the TPU version's pmax / psum over the bag axis).
+// With gmax the largest max (0 where every partial is masked) and
+// w_s = exp(max_s - gmax) (0 for a masked partial):
+//   kDivide:  out = sum_s acc_s w_s / max(sum_s denom_s w_s, eps);
+//   !kDivide: out = sum_s acc_s w_s and stat_out[b] = (max[2], denom[2]) =
+//             (largest max, sum_s denom_s w_s): one unnormalised partial,
+//             itself an input of a later combine. A bag without live rows
+//             gives max = kNegInf, denom = 0, acc = 0.
 // Block (c, b) finishes the 32 outputs c*32.. of bag b's [2][H]; its warps
 // split the partials between them, so that a bag with many splits (one large
 // bag spread over the card) is combined by many SMs.
 constexpr int kCombineCols = 32;
 
+template <bool kDivide>
 __global__ void __launch_bounds__(kThreads)
 pool_combine_kernel(const float* __restrict__ part_acc, const float* __restrict__ part_stat,
-                    int n_splits, int H, float* __restrict__ out) {
-  extern __shared__ float w_s[];  // [n_splits] rescale weights of this block's task
+                    int n_parts, int stride_b, int stride_s, int H, float eps,
+                    float* __restrict__ out, float* __restrict__ stat_out) {
+  extern __shared__ float w_s[];  // [n_parts] rescale weights of this block's task
   __shared__ float red[kThreads / 32][kCombineCols];
   __shared__ float denom_s;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int b = blockIdx.y, i0 = blockIdx.x * kCombineCols;
   const int t = i0 >= H;  // H % kCombineCols == 0: one task per block
-  const float* st = part_stat + (size_t)b * n_splits * 4;
+  const size_t p0 = (size_t)b * stride_b;
   if (warp == 0) {
     float mx = kNegInf;
-    for (int s = lane; s < n_splits; s += 32) mx = fmaxf(mx, st[s * 4 + t]);
+    for (int s = lane; s < n_parts; s += 32) mx = fmaxf(mx, part_stat[(p0 + (size_t)s * stride_s) * 4 + t]);
     mx = warp_max(mx);
     const float m_safe = mx <= kNegInf / 2 ? 0.f : mx;
     float den = 0.f;
-    for (int s = lane; s < n_splits; s += 32) {
-      const float m = st[s * 4 + t];
+    for (int s = lane; s < n_parts; s += 32) {
+      const float* st = part_stat + (p0 + (size_t)s * stride_s) * 4;
+      const float m = st[t];
       const float w = expf((m <= kNegInf / 2 ? kNegInf : m) - m_safe);
       w_s[s] = w;
-      den = fmaf(st[s * 4 + 2 + t], w, den);
+      den = fmaf(st[2 + t], w, den);
     }
     den = warp_sum(den);
-    if (lane == 0) denom_s = fmaxf(den, 1e-30f);
+    if (lane == 0) {
+      denom_s = kDivide ? fmaxf(den, eps) : 1.f;
+      if (!kDivide && i0 == t * H) {  // the first block of each task writes its statistics
+        stat_out[(size_t)b * 4 + t] = mx;
+        stat_out[(size_t)b * 4 + 2 + t] = den;
+      }
+    }
   }
   __syncthreads();
   float a = 0.f;
-  for (int s = warp; s < n_splits; s += kThreads / 32)
-    a = fmaf(part_acc[((size_t)b * n_splits + s) * 2 * H + i0 + lane], w_s[s], a);
+  for (int s = warp; s < n_parts; s += kThreads / 32)
+    a = fmaf(part_acc[(p0 + (size_t)s * stride_s) * 2 * H + i0 + lane], w_s[s], a);
   red[warp][lane] = a;
   __syncthreads();
   if (warp == 0) {
     float sum = 0.f;
 #pragma unroll
     for (int w = 0; w < kThreads / 32; ++w) sum += red[w][lane];
-    out[(size_t)b * 2 * H + i0 + lane] = sum / denom_s;
+    out[(size_t)b * 2 * H + i0 + lane] = kDivide ? sum / denom_s : sum;
   }
 }
 
-// Launches the combine of B bags' partials into out [B][2][H]; returns the
-// launch's cudaError_t.
+// Launches the combine of B bags' partials into out [B][2][H] (and, without
+// the division, stat_out [B][2][2]); returns the launch's cudaError_t.
+template <bool kDivide>
+inline int launch_combine_strided(const float* part_acc, const float* part_stat, int n_parts, int stride_b,
+                                  int stride_s, int B, int H, float eps, float* out, float* stat_out,
+                                  cudaStream_t stream) {
+  pool_combine_kernel<kDivide><<<dim3(2 * H / kCombineCols, B), kThreads, sizeof(float) * n_parts, stream>>>(
+      part_acc, part_stat, n_parts, stride_b, stride_s, H, eps, out, stat_out);
+  return (int)cudaGetLastError();
+}
+
+// The combine that ends a split-N pooling launch: acc / max(denom, 1e-30).
 inline int launch_combine(const float* part_acc, const float* part_stat, int n_splits, int B, int H,
                           float* out, cudaStream_t stream) {
-  pool_combine_kernel<<<dim3(2 * H / kCombineCols, B), kThreads, sizeof(float) * n_splits, stream>>>(
-      part_acc, part_stat, n_splits, H, out);
-  return (int)cudaGetLastError();
+  return launch_combine_strided<true>(part_acc, part_stat, n_splits, n_splits, 1, B, H, 1e-30f, out, nullptr, stream);
 }
 
 }  // namespace

@@ -46,6 +46,59 @@ def load_h5_bag(path: str | os.PathLike, with_coords: bool = False):
     return (features, coords) if with_coords else features
 
 
+def bag_path(data_dir: str | os.PathLike, slide_id: str, use_h5: bool = False) -> Path:
+    """The on-disk bag file of a slide: the requested format first, then any
+    of .pt, .h5, .npy, .npz, so that converted stores just work."""
+    d = Path(data_dir)
+    preferred = ".h5" if use_h5 else ".pt"
+    for ext in dict.fromkeys([preferred, ".pt", ".h5", ".npy", ".npz"]):
+        p = d / f"{slide_id}{ext}"
+        if p.exists():
+            return p
+    return d / f"{slide_id}{preferred}"  # let the open fail with a clear path
+
+
+def bag_shape(path: str | os.PathLike) -> tuple[int, ...]:
+    """(n_patches, dim) from file metadata without reading the payload: .npy
+    from the memory-mapped header, .npz from the zip member's npy header, .pt
+    from a memory-mapped ``torch.load``, .h5 from the dataset's shape. Serves
+    the batcher's exact ``__len__`` and the auto bucket ladder at O(1) IO per
+    bag."""
+    path = Path(path)
+    ext = path.suffix.lower()
+    if ext == ".npy":
+        return tuple(np.load(path, mmap_mode="r").shape)
+    if ext == ".pt":
+        obj = torch.load(path, map_location="cpu", weights_only=True, mmap=True)
+        if isinstance(obj, dict):
+            obj = next((obj[k] for k in ("features", "feats", "x") if k in obj), None)
+        if not isinstance(obj, torch.Tensor):
+            raise ValueError(f"{path}: expected a tensor or a dict with a 'features' entry")
+        return tuple(obj.shape)
+    if ext == ".npz":
+        import zipfile
+
+        with zipfile.ZipFile(path) as zf:
+            names = zf.namelist()
+            member = next((w for w in ("features_int8.npy", "features.npy") if w in names), names[0])
+            with zf.open(member) as fp:
+                version = np.lib.format.read_magic(fp)
+                read_header = {
+                    (1, 0): np.lib.format.read_array_header_1_0,
+                    (2, 0): np.lib.format.read_array_header_2_0,
+                }[version]
+                shape, _, _ = read_header(fp)
+        return tuple(shape)
+    if ext == ".h5":
+        try:
+            import h5py
+        except ImportError as e:
+            raise ImportError(f"reading {path} needs h5py, which is not installed; store bags as .pt or .npy") from e
+        with h5py.File(path, "r") as f:
+            return tuple(f["features"].shape)
+    raise ValueError(f"unsupported bag format: {path}")
+
+
 def _sidecar_coords(path: Path) -> np.ndarray | None:
     """Coords for formats that cannot embed them: a ``{stem}.coords.npy`` sibling."""
     p = path.with_suffix(".coords.npy")

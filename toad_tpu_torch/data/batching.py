@@ -1,11 +1,78 @@
-"""Bucketed padding helpers (counterparts of the ones in
-:mod:`toad_tpu.data.batching` that serving needs)."""
+"""Bucketed bag batching with padding masks, threaded prefetch and a pinned
+host-to-device feed.
+
+PyTorch counterpart of :mod:`toad_tpu.data.batching` (its generic numpy
+path; the native C++ loader and the int8 wire are not ported):
+
+- each bag's length N is rounded up to a bucket size; bags in a batch share
+  one bucket, so the device sees a small, fixed set of shapes;
+- a batch is ``[B, N_bucket, D]`` features + ``[B, N_bucket]`` patch mask +
+  ``[B]`` bag-validity mask (partial final batches are padded with bags of
+  ``bag_mask`` 0 and an all-zero patch mask, never ragged);
+- bag IO runs in a thread pool and finished batches are queued ahead of the
+  training step by a producer thread.
+
+Sampling modes mirror the reference: sequential, shuffled, class-balanced
+with replacement, and the 1% ``--testing`` subsample. The epoch's order is
+drawn from ``np.random.RandomState`` exactly as the JAX package draws it, so
+both packages see the same batches in the same order.
+
+With a CUDA ``device`` the producer thread also starts the copy to the card:
+the features go (cast to the transfer dtype on the way) into one of a small
+ring of pinned host buffers, from there with ``non_blocking=True`` on a side
+stream, and an event recorded behind the copy travels with the batch; the
+consumer's stream waits on it (:meth:`BagBatch.wait`). A ring slot is
+refilled only after the event of its last copy has completed.
+"""
 
 from __future__ import annotations
 
-from typing import Sequence
+import queue
+import threading
+from collections import deque
+from concurrent.futures import ThreadPoolExecutor
+from dataclasses import dataclass
+from typing import Callable, Iterator, Sequence
 
 import numpy as np
+import torch
+
+from toad_tpu_torch.config import DEFAULT_BUCKETS
+
+
+@dataclass
+class BagBatch:
+    """One batch of padded bags. ``features`` and ``patch_mask`` are numpy
+    arrays on the host or, once placed by the batcher's device feed (or cast
+    to bf16 for the transfer), torch tensors; the small per-bag fields stay
+    numpy arrays on the host, where the eval pass reads them."""
+
+    features: np.ndarray | torch.Tensor  # [B, N, D] float32, or the transfer dtype
+    patch_mask: np.ndarray | torch.Tensor  # [B, N] float32 (1 = real patch)
+    bag_mask: np.ndarray  # [B] float32 (1 = real bag)
+    label: np.ndarray  # [B] int32
+    site: np.ndarray  # [B] int32
+    sex: np.ndarray  # [B] int32
+    indices: np.ndarray  # [B] int64: positions within the split (-1 = pad)
+    ready: "torch.cuda.Event | None" = None  # recorded behind the copy to the card
+
+    @property
+    def batch_size(self) -> int:
+        return self.features.shape[0]
+
+    @property
+    def bucket(self) -> int:
+        return self.features.shape[1]
+
+    def wait(self) -> None:
+        """Make the current CUDA stream wait for this batch's copy to the
+        card, and tell the allocator that the stream uses its tensors."""
+        if self.ready is not None:
+            stream = torch.cuda.current_stream(self.features.device)
+            stream.wait_event(self.ready)
+            self.features.record_stream(stream)
+            self.patch_mask.record_stream(stream)
+            self.ready = None
 
 
 def bucket_for(n: int, buckets: Sequence[int]) -> int:
@@ -15,6 +82,58 @@ def bucket_for(n: int, buckets: Sequence[int]) -> int:
         if n <= b:
             return b
     return buckets[-1]
+
+
+def suggest_buckets(counts: np.ndarray, max_buckets: int = 6, multiple_of: int = 128) -> list[int]:
+    """Quantile ladder rounded up to multiples of ``multiple_of``,
+    deduplicated, capped at ``max_buckets`` rungs. Every bag fits the top
+    rung by construction (q=1.0 is included)."""
+    if len(counts) == 0:
+        return []
+    qs = np.linspace(0, 1, max_buckets + 1)[1:]
+    m = max(int(multiple_of), 1)
+    rungs = sorted({int(np.ceil(np.quantile(counts, q) / m) * m) for q in qs})
+    return [max(r, m) for r in rungs]
+
+
+def auto_bucket_ladder(split, max_buckets: int = 6, multiple_of: int = 128) -> tuple[int, ...]:
+    """Derive a bucket ladder from the split's real patch-count distribution
+    using metadata-only reads (:func:`toad_tpu_torch.data.bags.bag_shape`).
+    A data-derived ladder cuts the padding the default ladder pays on skewed
+    archives. Works for a ``WSIBagSplit`` (per-slide counts) and a
+    ``PatientBagSplit`` (the group's slides summed)."""
+    from toad_tpu_torch.data.bags import bag_shape
+
+    def n_or_none(path):
+        try:
+            return bag_shape(path)[0]
+        except (OSError, ValueError, KeyError, ImportError, RuntimeError):
+            return None  # missing or unreadable: left out of the ladder's statistics
+
+    groups = getattr(split, "groups", None)
+    skipped = 0
+    if groups is not None:  # patient-concat bags: sum the group's slides
+        parent = split.parent
+        slide_n = [n_or_none(parent.bag_file(i)) for i in range(len(parent))]
+        out_counts = []
+        for g in groups:
+            ns = [slide_n[int(i)] for i in g]
+            if any(v is None for v in ns):
+                skipped += 1
+                continue
+            out_counts.append(int(sum(ns)))
+        counts = np.array(out_counts)
+    else:
+        ns = [n_or_none(split.bag_file(i)) for i in range(len(split))]
+        skipped = sum(v is None for v in ns)
+        counts = np.array([v for v in ns if v is not None])
+    if skipped:
+        # a run does not fail over bags that its splits may never touch
+        print(f"auto bucket ladder: skipped {skipped} missing/unreadable bag(s)")
+    ladder = suggest_buckets(counts, max_buckets=max_buckets, multiple_of=multiple_of)
+    if not ladder:
+        raise ValueError("auto bucket ladder: no readable bags in the split")
+    return tuple(ladder)
 
 
 def _pad_bag(feats: np.ndarray, bucket: int) -> tuple[np.ndarray, np.ndarray]:
@@ -36,3 +155,334 @@ def resolve_transfer_dtype(transfer_dtype: str, compute_dtype: str) -> str:
     if transfer_dtype != "auto":
         return transfer_dtype
     return "bfloat16" if compute_dtype == "bfloat16" else "float32"
+
+
+_TRANSFER_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+class _DeviceFeed:
+    """The pinned ring and side stream of one epoch's copies to a CUDA device."""
+
+    # a prefetch queue of depth d holds d + 1 batches on the card; batches of
+    # giant bags (163,840 x 1024 x B) must not multiply there, so those stay
+    # on the host and are copied when the step takes them
+    MAX_BYTES = 512 * 1024 * 1024
+
+    def __init__(self, device: torch.device, dtype: torch.dtype, slots: int) -> None:
+        self.device = device
+        self.dtype = dtype
+        self.stream = torch.cuda.Stream(device)
+        self.buffers: list[torch.Tensor | None] = [None] * slots
+        self.events: list[torch.cuda.Event | None] = [None] * slots
+        self.turn = 0
+
+    def _slot(self, nbytes: int) -> tuple[torch.Tensor, int]:
+        i = self.turn % len(self.buffers)
+        self.turn += 1
+        if self.events[i] is not None:
+            self.events[i].synchronize()  # the copy out of this slot has finished
+        if self.buffers[i] is None or self.buffers[i].numel() < nbytes:
+            self.buffers[i] = torch.empty(nbytes, dtype=torch.uint8, pin_memory=True)
+        return self.buffers[i], i
+
+    def place(self, b: BagBatch) -> BagBatch:
+        feats = b.features if isinstance(b.features, torch.Tensor) else torch.from_numpy(b.features)
+        mask = torch.from_numpy(b.patch_mask)
+        n_f = feats.numel() * self.dtype.itemsize
+        if n_f > self.MAX_BYTES:
+            return b
+        buf, i = self._slot(n_f + mask.numel() * 4)
+        host_f = buf[:n_f].view(self.dtype).view(feats.shape)
+        host_m = buf[n_f:n_f + mask.numel() * 4].view(torch.float32).view(mask.shape)
+        host_f.copy_(feats)  # casts to the transfer dtype on the way
+        host_m.copy_(mask)
+        with torch.cuda.stream(self.stream):
+            b.features = host_f.to(self.device, non_blocking=True)
+            b.patch_mask = host_m.to(self.device, non_blocking=True)
+            b.ready = torch.cuda.Event()
+            b.ready.record(self.stream)
+        self.events[i] = b.ready
+        return b
+
+
+class BagBatcher:
+    """Iterate a split as :class:`BagBatch`es.
+
+    Parameters
+    ----------
+    split:
+        a ``WSIBagSplit`` (anything with ``__len__``, ``load_bag(i)``,
+        ``labels/sites/sexes`` arrays and ``class_weights()``).
+    batch_size:
+        bags per batch. 1 reproduces reference semantics exactly.
+    bucket_sizes:
+        padding ladder; None pools bags by exact length (reference-parity
+        mode, meant for ``batch_size=1``; a warning is emitted otherwise).
+    mode:
+        'sequential' | 'shuffle' | 'weighted'.
+    transfer_dtype:
+        'float32' or 'bfloat16' (cast on the host, in the producer thread).
+    device:
+        None or a CPU device leaves the batches on the host; a CUDA device
+        makes the producer thread start each batch's copy to the card.
+    """
+
+    def __init__(
+        self,
+        split,
+        batch_size: int = 1,
+        bucket_sizes: Sequence[int] | None = DEFAULT_BUCKETS,
+        mode: str = "sequential",
+        seed: int = 0,
+        testing_frac: float | None = None,
+        max_bag_size: int | None = None,
+        num_workers: int = 8,
+        prefetch: int = 2,
+        feature_dim: int | None = None,
+        transfer_dtype: str = "float32",
+        device: str | torch.device | None = None,
+    ) -> None:
+        self.split = split
+        self.batch_size = int(batch_size)
+        self.bucket_sizes = tuple(bucket_sizes) if bucket_sizes else None
+        self.mode = mode
+        self.seed = seed
+        self.testing_frac = testing_frac
+        self.max_bag_size = max_bag_size
+        self.num_workers = num_workers
+        self.prefetch = prefetch
+        self.feature_dim = feature_dim
+        if transfer_dtype == "auto":
+            raise ValueError(
+                "transfer_dtype='auto' must be resolved against the model's "
+                "compute dtype before constructing a BagBatcher: call "
+                "resolve_transfer_dtype(dtype, model_compute_dtype)"
+            )
+        if transfer_dtype not in _TRANSFER_DTYPES:
+            raise ValueError(f"transfer_dtype {transfer_dtype!r} not supported (float32, bfloat16)")
+        self.transfer_dtype = transfer_dtype
+        self.device = torch.device(device) if device is not None else None
+        if self.bucket_sizes is None and self.batch_size > 1:
+            import warnings
+
+            warnings.warn(
+                "bucket_sizes=None pools bags by exact length; at batch_size"
+                f"={self.batch_size} batches only fill when bags share a length"
+                " (rare for real WSIs): pass a bucket ladder for throughput",
+                stacklevel=2,
+            )
+        self._lengths: list | None | bool = False  # False = not yet probed
+        self._epoch = 0
+
+    def _bag_lengths(self) -> list | None:
+        """Per-bag row counts from file metadata (no payload reads), probed
+        once; None when the split has no files or any bag is unreadable."""
+        if self._lengths is not False:
+            return self._lengths
+        from toad_tpu_torch.data.bags import bag_shape
+
+        def rows(path) -> int:
+            shape = bag_shape(path)
+            if len(shape) != 2:
+                raise ValueError(f"{path}: shape {shape}, expected [N, D]")
+            return int(shape[0])
+
+        try:
+            if hasattr(self.split, "bag_file"):
+                self._lengths = [rows(self.split.bag_file(i)) for i in range(len(self.split))]
+            elif hasattr(self.split, "groups") and hasattr(getattr(self.split, "parent", None), "bag_file"):
+                # multi-file bags (PatientBagSplit): the group's slides summed
+                self._lengths = [sum(rows(self.split.parent.bag_file(int(j))) for j in g) for g in self.split.groups]
+            else:
+                self._lengths = None
+        except (OSError, ValueError, KeyError, ImportError, RuntimeError):
+            self._lengths = None
+        return self._lengths
+
+    def _epoch_rng(self) -> np.random.RandomState:
+        return np.random.RandomState((self.seed * 1_000_003 + self._epoch) % (2**31 - 1))
+
+    def __len__(self) -> int:
+        """Batch count for the current epoch (``set_epoch``): exact whenever
+        bag lengths are readable from file metadata, since bucket grouping
+        does not depend on the order and weighted/testing draws replay this
+        epoch's rng stream. Otherwise ceil(n_bags / batch_size), a lower
+        bound (bucket grouping can only split batches)."""
+        order = self._order(self._epoch_rng())
+        approx = (len(order) + self.batch_size - 1) // self.batch_size
+        lengths = self._bag_lengths()
+        if lengths is None:
+            return approx
+        counts: dict[int, int] = {}
+        for i in order:
+            n = lengths[int(i)]
+            if self.max_bag_size is not None:
+                n = min(n, self.max_bag_size)
+            b = n if self.bucket_sizes is None else bucket_for(n, self.bucket_sizes)
+            counts[b] = counts.get(b, 0) + 1
+        return sum((c + self.batch_size - 1) // self.batch_size for c in counts.values())
+
+    @property
+    def n_bags(self) -> int:
+        return len(self._order(np.random.RandomState(0)))
+
+    def set_epoch(self, epoch: int) -> None:
+        self._epoch = int(epoch)
+
+    def _order(self, rng: np.random.RandomState) -> np.ndarray:
+        n = len(self.split)
+        if self.testing_frac is not None:
+            ids = rng.choice(np.arange(n), int(n * self.testing_frac), replace=False)
+            return np.sort(ids)
+        if self.mode == "sequential":
+            return np.arange(n)
+        if self.mode == "shuffle":
+            return rng.permutation(n)
+        if self.mode == "weighted":
+            w = self.split.class_weights()
+            p = w / w.sum()
+            return rng.choice(np.arange(n), size=n, replace=True, p=p)
+        raise ValueError(f"unknown mode {self.mode!r}")
+
+    def _load(self, i: int) -> tuple[int, np.ndarray]:
+        feats = self.split.load_bag(int(i))
+        feats = np.asarray(feats, dtype=np.float32)
+        if feats.ndim != 2:
+            raise ValueError(f"bag {i} has shape {feats.shape}, expected [N, D]")
+        if self.feature_dim is not None and feats.shape[1] != self.feature_dim:
+            raise ValueError(f"bag {i} has feature dim {feats.shape[1]}, expected {self.feature_dim}")
+        if self.max_bag_size is not None and feats.shape[0] > self.max_bag_size:
+            feats = feats[: self.max_bag_size]
+        return i, feats
+
+    def _assemble(self, group: list[tuple[int, np.ndarray]], bucket: int) -> BagBatch:
+        b = self.batch_size
+        d = group[0][1].shape[1]
+        feats = np.zeros((b, bucket, d), dtype=np.float32)
+        pmask = np.zeros((b, bucket), dtype=np.float32)
+        bmask = np.zeros((b,), dtype=np.float32)
+        label = np.zeros((b,), dtype=np.int32)
+        site = np.zeros((b,), dtype=np.int32)
+        sex = np.zeros((b,), dtype=np.int32)
+        idxs = np.full((b,), -1, dtype=np.int64)
+        for j, (i, bag) in enumerate(group):
+            feats[j], pmask[j] = _pad_bag(bag, bucket)
+            bmask[j] = 1.0
+            label[j] = self.split.labels[i]
+            site[j] = self.split.sites[i]
+            sex[j] = self.split.sexes[i]
+            idxs[j] = i
+        return BagBatch(feats, pmask, bmask, label, site, sex, idxs)
+
+    def _batches_raw(self) -> Iterator[BagBatch]:
+        order = self._order(self._epoch_rng())
+        pools: dict[int, list[tuple[int, np.ndarray]]] = {}
+
+        with ThreadPoolExecutor(max_workers=self.num_workers) as ex:
+            # a bounded window of loads in flight, not ex.map over the whole
+            # epoch: map holds every finished bag that was not yet taken, so a
+            # consumer slower than the disk would gather the epoch's bags in
+            # host memory. FIFO keeps the load order.
+            idx_iter = iter(order)
+            pending: deque = deque()
+
+            def _submit_one() -> None:
+                i = next(idx_iter, None)
+                if i is not None:
+                    pending.append(ex.submit(self._load, int(i)))
+
+            try:
+                for _ in range(2 * self.num_workers):
+                    _submit_one()
+                while pending:
+                    i, feats = pending.popleft().result()
+                    _submit_one()
+                    n = feats.shape[0]
+                    bucket = n if self.bucket_sizes is None else bucket_for(n, self.bucket_sizes)
+                    pools.setdefault(bucket, []).append((i, feats))
+                    if len(pools[bucket]) == self.batch_size:
+                        yield self._assemble(pools.pop(bucket), bucket)
+                # flush partials, padded to full batch shape with bag_mask=0
+                for bucket in sorted(pools):
+                    group = pools[bucket]
+                    if group:
+                        yield self._assemble(group, bucket)
+            finally:
+                for fut in pending:  # the consumer stopped early: drop the loads not yet started
+                    fut.cancel()
+
+    def _convert(self, b: BagBatch) -> BagBatch:
+        if self.transfer_dtype != "float32":
+            # cast in the producer, so that the queued batches are half the
+            # size and the cast overlaps the device's work
+            b.features = torch.from_numpy(b.features).to(_TRANSFER_DTYPES[self.transfer_dtype])
+        return b
+
+    def __iter__(self) -> Iterator[BagBatch]:
+        def src() -> Iterator[BagBatch]:
+            finish = self._convert
+            if self.device is not None and self.device.type == "cuda":
+                # the feed's copy into the pinned buffer casts, so the batch needs no separate cast
+                finish = _DeviceFeed(self.device, _TRANSFER_DTYPES[self.transfer_dtype],
+                                     max(int(self.prefetch or 0), 1) + 1).place
+            raw = self._batches_raw()
+            try:
+                for b in raw:
+                    yield finish(b)
+            finally:
+                raw.close()  # shuts the loaders' thread pool down
+
+        if self.prefetch and self.prefetch > 0:
+            yield from _prefetch_iter(src, self.prefetch)
+        else:
+            yield from src()
+
+
+def _prefetch_iter(make_iter: Callable[[], Iterator], depth: int) -> Iterator:
+    """Run an iterator in a background thread, keeping ``depth`` items ready.
+    If the consumer abandons the generator (an exception in the step, an
+    epoch stopped early), the producer sees the stop event, closes its
+    source (which shuts the loaders' thread pool down) and ends, instead of
+    blocking forever on the bounded queue; the consumer joins it."""
+    q: queue.Queue = queue.Queue(maxsize=depth)
+    sentinel = object()
+    error: list[BaseException] = []
+    stop = threading.Event()
+
+    def _put(item) -> bool:
+        while not stop.is_set():
+            try:
+                q.put(item, timeout=0.1)
+                return True
+            except queue.Full:
+                continue
+        return False
+
+    def worker():
+        it = None
+        try:
+            it = make_iter()
+            for item in it:
+                if not _put(item):
+                    return
+        except BaseException as e:  # handed to the consumer, which raises it
+            error.append(e)
+        finally:
+            close = getattr(it, "close", None)
+            if close is not None:
+                close()
+            _put(sentinel)
+
+    t = threading.Thread(target=worker, name="bag-prefetch", daemon=True)
+    t.start()
+    try:
+        while True:
+            item = q.get()
+            if item is sentinel:
+                if error:
+                    raise error[0]
+                return
+            yield item
+    finally:
+        stop.set()
+        t.join(timeout=30)

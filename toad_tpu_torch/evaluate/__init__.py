@@ -1,1 +1,1 @@
-"""Calibration."""
+"""Evaluation: metrics, the shared eval pass, calibration."""

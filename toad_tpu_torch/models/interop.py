@@ -11,7 +11,9 @@ Two sources for ToadMIL:
   without dropout and ``attention_net.{3,6}`` with it. ``nn.DataParallel``
   leaves ``module.`` segments, which are stripped.
 - the JAX package's params pytree (:func:`params_from_jax`), with [in, out]
-  weights; it carries the weights across for every parity test. Its int8
+  weights; it carries the weights across for every parity test, and
+  :func:`params_to_jax_layout` and :func:`optimizer_state_from_jax` carry
+  parameters back and optimizer state across for the training ones. Its int8
   pooling weights (``toad_tpu.ops.quantize.quantize_pool_params``) cross with
   :func:`qparams_from_jax`, so that both packages run the same integers.
 """
@@ -83,6 +85,7 @@ def reference_state_dict(sd: Mapping[str, torch.Tensor], dropout: bool = True) -
         f"{ref.format(fc2=fc2, attn=attn)}.{part}": sd[f"{port}.{part}"].detach().cpu().float()
         for ref, port in _REFERENCE_NAMES
         for part in ("weight", "bias")
+        if f"{port}.{part}" in sd  # an un-gated model has no attn.b
     }
 
 
@@ -98,6 +101,51 @@ def params_from_jax(params: Mapping[str, Any]) -> dict[str, torch.Tensor]:
             out[f"{prefix}.weight"] = _f32(np.asarray(lin["w"], np.float32).T)
             out[f"{prefix}.bias"] = _f32(lin["b"])
     return out
+
+
+def params_to_jax_layout(model: torch.nn.Module) -> dict[str, Any]:
+    """The model's parameters as the nested numpy dict of the JAX
+    ``ToadMIL.init`` (f32, [in, out] weights), so that both packages'
+    parameters can be compared leaf by leaf."""
+    sd = {k: v.detach().cpu().float().numpy() for k, v in model.state_dict().items()}
+
+    def lin(prefix: str) -> dict[str, np.ndarray]:
+        return {"w": np.ascontiguousarray(sd[f"{prefix}.weight"].T), "b": sd[f"{prefix}.bias"]}
+
+    groups = {g: sorted({k.split(".")[1] for k in sd if k.startswith(g + ".")}) for g in ("trunk", "attn")}
+    return {
+        **{g: {name: lin(f"{g}.{name}") for name in names} for g, names in groups.items()},
+        "cls_head": lin("cls_head"),
+        "site_head": lin("site_head"),
+    }
+
+
+def optimizer_state_from_jax(opt_state: Any, model: torch.nn.Module) -> dict[int, dict[str, torch.Tensor]]:
+    """The state of the JAX package's optimizer (the optax chain of
+    ``toad_tpu.train.optim.make_optimizer``, its leaves numpy-convertible)
+    -> the ``state`` entry of the port optimizer's ``state_dict()``, keyed by
+    the position of each parameter in ``model.parameters()``: Adam's ``mu``,
+    ``nu`` and ``count`` become ``exp_avg``, ``exp_avg_sq`` and ``step``,
+    SGD's ``trace`` becomes ``momentum_buffer``; weights go [in, out] ->
+    [out, in]. Load it with::
+
+        sd = optimizer.state_dict()
+        sd["state"] = optimizer_state_from_jax(opt_state, model)
+        optimizer.load_state_dict(sd)
+    """
+    parts = opt_state if isinstance(opt_state, (tuple, list)) else (opt_state,)
+    adam = next((p for p in parts if hasattr(p, "mu") and hasattr(p, "nu")), None)
+    sgd = next((p for p in parts if hasattr(p, "trace")), None)
+    if adam is None and sgd is None:
+        raise ValueError("optimizer state holds neither Adam's mu/nu nor SGD's trace")
+    trees = ({"exp_avg": params_from_jax(adam.mu), "exp_avg_sq": params_from_jax(adam.nu)} if adam is not None
+             else {"momentum_buffer": params_from_jax(sgd.trace)})
+    state: dict[int, dict[str, torch.Tensor]] = {}
+    for i, (name, p) in enumerate(model.named_parameters()):
+        state[i] = {k: tree[name].to(p.device) for k, tree in trees.items()}
+        if adam is not None:
+            state[i]["step"] = torch.tensor(float(np.asarray(adam.count)), dtype=torch.float32)
+    return state
 
 
 def qparams_from_jax(qparams: Mapping[str, Any]) -> dict[str, torch.Tensor]:

@@ -13,8 +13,15 @@ Submodules follow the JAX params pytree (``trunk.fc1``, ``attn.a``,
 ``cls_head``...), so the state_dict keys name their JAX counterparts; each
 ``nn.Linear`` keeps PyTorch's [out, in] weight layout. Init is the
 reference's Xavier-normal weights and zero biases, drawn from an explicit
-generator. This module is the eval forward (float, and int8 through
-:meth:`ToadMIL.forward_int8`); the dropout/training path is not ported yet.
+generator.
+
+Three forwards, as in the JAX package: the eval forward (the hand-written
+pooling kernel on CUDA, the plain version on the CPU; int8 through
+:meth:`ToadMIL.forward_int8`), and with ``train=True`` the training forward,
+which is plain tensor code under autograd (the JAX package trains through
+its XLA path too: no pooling kernel has a backward), with the reference's
+four dropout sites when ``config.dropout``. The kernel path is forward-only
+and raises when called with gradients enabled.
 """
 
 from __future__ import annotations
@@ -26,7 +33,8 @@ from torch import nn
 
 from toad_tpu_torch.config import ModelConfig
 from toad_tpu_torch.ops import cuda_pool, cuda_pool_int8
-from toad_tpu_torch.ops.fused_pool import fused_int8_pool, fused_trunk_attention_pool
+from toad_tpu_torch.ops.fused_pool import _trunk_scores, fused_int8_pool, fused_trunk_attention_pool
+from toad_tpu_torch.ops.pooling import masked_attention_pool
 from toad_tpu_torch.ops.quantize import quantize_pool_params
 
 N_TASKS = 2
@@ -132,17 +140,48 @@ class ToadMIL(nn.Module):
         mask: torch.Tensor,  # [B, N]
         sex: torch.Tensor,  # [B] (0/1)
         *,
+        train: bool = False,
+        generator: torch.Generator | None = None,
         need_attention: bool = True,
         attention_only: bool = False,
     ):
+        """``train=True`` is the differentiable forward: parameters stay f32
+        and are cast to the compute dtype inside, under autograd; with
+        ``config.dropout`` the masks of the four dropout sites are drawn from
+        ``generator``, which must live on ``x``'s device. Otherwise the eval
+        forward: the kernel on CUDA (forward-only), the plain version on the
+        CPU."""
         compute_dtype = getattr(torch, self.config.compute_dtype)
         need_attention = need_attention or attention_only
+        if train:
+            m, scores = self._forward_train(x, mask, compute_dtype, generator)
+            return self._finish(m, scores.transpose(1, 2) if need_attention else None, mask, sex, attention_only)
         # classification only: the kernel writes no [B, T, N] scores
         m, scores = fused_trunk_attention_pool(
             self.pool_params(), x, mask, compute_dtype=compute_dtype, with_scores=need_attention,
             operands=self.kernel_operands(compute_dtype) if x.device.type == "cuda" else None,
         )
         return self._finish(m, scores, mask, sex, attention_only)
+
+    def _forward_train(self, x, mask, compute_dtype: torch.dtype, generator: torch.Generator | None):
+        """Trunk, scores and pooling as plain tensor code; dropout p =
+        ``config.dropout_rate`` after each trunk ReLU, after tanh and after
+        sigmoid when ``config.dropout``. ``F.dropout`` takes no generator, so
+        each mask is drawn with ``torch.rand(..., generator=g) < keep`` and
+        the kept values are scaled by 1 / keep."""
+        drop = None
+        if self.config.dropout:
+            if generator is None:
+                raise ValueError("dropout requires a generator in train mode")
+            keep = 1.0 - self.config.dropout_rate
+
+            def drop(site, v):
+                kept = torch.rand(v.shape, device=v.device, generator=generator) < keep
+                return torch.where(kept, v / keep, torch.zeros((), dtype=v.dtype, device=v.device))
+
+        h, scores = _trunk_scores(self.pool_params(), x, compute_dtype, drop=drop)
+        m, _ = masked_attention_pool(scores, h, mask)
+        return m, scores
 
     def forward_int8(
         self,

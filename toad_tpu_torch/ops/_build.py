@@ -47,6 +47,14 @@ _SIGNATURES = {
          _p, _p, _p, _p, _p],  # scores, part_acc, part_stat, out, stream
         ctypes.c_int,
     ),
+    "toad_pool_partial_forward": (
+        [_i, _p, _p, _i, _i, _i, _i, _i,  # dtype, x, mask, B, N, D, H, A
+         _p, _p, _p, _p, _p, _p, _p, _p,  # w1t, b1, w2t, b2, wabt, bab, wc, bc
+         _i, _i,  # tiles_per_split, n_splits
+         _p, _p, _p, _p, _p],  # part_acc, part_stat, acc, stats, stream
+        ctypes.c_int,
+    ),
+    "toad_pool_combine_shards": ([_p, _p, _i, _i, _i, _p, _p], ctypes.c_int),  # acc, stats, S, B, H, out, stream
     "toad_pool_int8_rows_per_tile": ([], ctypes.c_int),
     "toad_pool_int8_smem_bytes": ([_i], ctypes.c_longlong),
     "toad_pool_int8_forward": (

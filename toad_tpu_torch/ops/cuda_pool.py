@@ -15,7 +15,11 @@ already keeps every SM busy with full row tiles.
 and compute dtype; :func:`pool` launches the kernel on CUDA tensors and
 raises on anything the kernel does not take. The plain version is
 :func:`toad_tpu_torch.ops.fused_pool.plain_pool`, which the CPU path runs
-and the chip check compares with.
+and the chip check compares with. :func:`pool_partial` is the same launch
+ending without the division (the TPU kernel's partial form,
+``pallas_pool_partial``), one shard's share of a bag too long for one piece;
+:func:`combine_shards` merges the shards' partials
+(:mod:`toad_tpu_torch.parallel.bag_shard`).
 """
 
 from __future__ import annotations
@@ -27,6 +31,8 @@ import torch
 from toad_tpu_torch.ops import _build
 
 LAUNCHES = 0  # kernel launches in this process (one per call of pool)
+PARTIAL_LAUNCHES = 0  # launches of the kernel's partial mode (one per call of pool_partial)
+COMBINE_LAUNCHES = 0  # launches of the cross-shard combine (one per call of combine_shards)
 
 N_TASKS = 2  # the kernel computes exactly the two task columns
 GATE_GROUP = 32  # [Wa|Wb] rows interleave in groups of this many (csrc/pool.cu)
@@ -107,14 +113,9 @@ def launch_buffers(b_: int, n: int, h_dim: int, with_scores: bool, rows_per_tile
     return per, n_splits, m, scores, part_acc, part_stat
 
 
-def pool(
-    ops: PoolOperands, x: torch.Tensor, mask: torch.Tensor, with_scores: bool
-) -> tuple[torch.Tensor, torch.Tensor | None]:
-    """Launch the fused pooling kernel: (M [B, 2, H] f32, raw scores
-    [B, 2, N] f32 or None), computing in the dtype of ``ops``. Scores are
-    written only when ``with_scores``; without them, row tiles that hold only
-    padding are skipped."""
-    global LAUNCHES
+def _prepare(ops: PoolOperands, x: torch.Tensor, mask: torch.Tensor):
+    """The checks every launch of the pooling kernel makes; returns (x in the
+    operands' dtype, f32 mask, both contiguous, and B, N, D, H, A)."""
     if x.device.type != "cuda":
         raise ValueError(f"the CUDA pooling kernel needs CUDA tensors, got {x.device}")
     dt = ops.w1.dtype
@@ -141,15 +142,31 @@ def pool(
             f"widths D={d}, H={h_dim}, A={a_dim} not supported: need D % 32 == 0, "
             "H % 256 == 0, A % 128 == 0 and A <= H"
         )
-
-    dev = x.device
     x = x.to(dt).contiguous()
     mask = mask.to(torch.float32).contiguous()
     for tensor in (x, *ops):
         if tensor.data_ptr() % 16 or not tensor.is_contiguous():
             raise ValueError("kernel operands must be contiguous and 16-byte aligned")
+    return x, mask, b_, n, d, h_dim, a_dim
+
+
+def _raise_on(err: int, lib, what: str) -> None:
+    if err != 0:
+        raise RuntimeError(f"{what} launch failed: CUDA error {err} ({lib.toad_cuda_error_string(err).decode()})")
+
+
+def pool(
+    ops: PoolOperands, x: torch.Tensor, mask: torch.Tensor, with_scores: bool
+) -> tuple[torch.Tensor, torch.Tensor | None]:
+    """Launch the fused pooling kernel: (M [B, 2, H] f32, raw scores
+    [B, 2, N] f32 or None), computing in the dtype of ``ops``. Scores are
+    written only when ``with_scores``; without them, row tiles that hold only
+    padding are skipped."""
+    global LAUNCHES
+    x, mask, b_, n, d, h_dim, a_dim = _prepare(ops, x, mask)
+    dev = x.device
     lib = _build.load_library()
-    code = _DTYPE_CODE[dt]
+    code = _DTYPE_CODE[ops.w1.dtype]
     per, n_splits, m, scores, part_acc, part_stat = launch_buffers(
         b_, n, h_dim, with_scores, lib.toad_pool_rows_per_tile(code), dev)
     with torch.cuda.device(dev):
@@ -160,10 +177,74 @@ def pool(
             scores.data_ptr() if scores is not None else None, part_acc.data_ptr(), part_stat.data_ptr(),
             m.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,
         )
-    if err != 0:
-        raise RuntimeError(f"pooling kernel launch failed: CUDA error {err} ({lib.toad_cuda_error_string(err).decode()})")
+    _raise_on(err, lib, "pooling kernel")
     LAUNCHES += 1
     return m, scores
+
+
+def pool_partial(
+    ops: PoolOperands, x: torch.Tensor, mask: torch.Tensor, out: tuple[torch.Tensor, torch.Tensor] | None = None
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Launch the pooling kernel in partial mode on one shard of the patch
+    dimension (x [B, N_local, D], mask [B, N_local]): (acc [B, 2, H] f32 =
+    sum over the live rows of exp(s - max) h, stats [B, 2, 2] f32 with
+    ``stats[:, 0]`` = max and ``stats[:, 1]`` = denom per task), the pooled
+    mean's numerator and denominator before the division. A shard without
+    live rows gives max = NEG_INF, denom = 0, acc = 0. :func:`combine_shards`
+    makes the result of several shards' partials. ``out`` = (acc, stats)
+    are contiguous f32 tensors of those shapes to write into (for instance
+    one shard's slot of the stacked buffers); without it new ones are made."""
+    global PARTIAL_LAUNCHES
+    x, mask, b_, n, d, h_dim, a_dim = _prepare(ops, x, mask)
+    dev = x.device
+    lib = _build.load_library()
+    code = _DTYPE_CODE[ops.w1.dtype]
+    per, n_splits, acc, _, part_acc, part_stat = launch_buffers(
+        b_, n, h_dim, False, lib.toad_pool_rows_per_tile(code), dev)
+    if out is None:
+        stats = torch.empty((b_, 2, N_TASKS), device=dev, dtype=torch.float32)
+    else:
+        acc, stats = out
+        for t, shape in ((acc, (b_, N_TASKS, h_dim)), (stats, (b_, 2, N_TASKS))):
+            if tuple(t.shape) != shape or t.dtype != torch.float32 or t.device != dev or not t.is_contiguous():
+                raise ValueError(f"out must be contiguous f32 {shape} on {dev}, got {tuple(t.shape)} {t.dtype} {t.device}")
+    with torch.cuda.device(dev):
+        err = lib.toad_pool_partial_forward(
+            code, x.data_ptr(), mask.data_ptr(), b_, n, d, h_dim, a_dim,
+            *(tensor.data_ptr() for tensor in ops),
+            per, n_splits, part_acc.data_ptr(), part_stat.data_ptr(),
+            acc.data_ptr(), stats.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,
+        )
+    _raise_on(err, lib, "partial pooling kernel")
+    PARTIAL_LAUNCHES += 1
+    return acc, stats
+
+
+def combine_shards(acc: torch.Tensor, stats: torch.Tensor) -> torch.Tensor:
+    """Launch the cross-shard combine: acc [S, B, 2, H] and stats
+    [S, B, 2, 2] from :func:`pool_partial` -> pooled M [B, 2, H] f32 =
+    sum_s acc_s w_s / max(sum_s denom_s w_s, 1e-12) with w_s = exp(max_s -
+    max over shards), 0 for a shard without live rows."""
+    global COMBINE_LAUNCHES
+    if acc.device.type != "cuda" or stats.device != acc.device:
+        raise ValueError(f"the CUDA combine needs CUDA tensors on one device, got {acc.device} and {stats.device}")
+    if acc.dim() != 4 or acc.shape[2] != N_TASKS or tuple(stats.shape) != (*acc.shape[:2], 2, N_TASKS):
+        raise ValueError(f"need acc [S, B, 2, H] and stats [S, B, 2, 2], got {tuple(acc.shape)} and {tuple(stats.shape)}")
+    if acc.dtype != torch.float32 or stats.dtype != torch.float32:
+        raise TypeError("partials are float32")
+    s_, b_, _, h_dim = acc.shape
+    if s_ == 0 or b_ == 0 or h_dim % 32:
+        raise ValueError(f"empty partials or H % 32 != 0: {tuple(acc.shape)}")
+    acc, stats = acc.contiguous(), stats.contiguous()
+    dev = acc.device
+    lib = _build.load_library()
+    m = torch.empty((b_, N_TASKS, h_dim), device=dev, dtype=torch.float32)
+    with torch.cuda.device(dev):
+        err = lib.toad_pool_combine_shards(
+            acc.data_ptr(), stats.data_ptr(), s_, b_, h_dim, m.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+    _raise_on(err, lib, "shard combine kernel")
+    COMBINE_LAUNCHES += 1
+    return m
 
 
 def smem_bytes(compute_dtype: torch.dtype, h_dim: int, a_dim: int) -> int:

@@ -21,18 +21,25 @@ from typing import Any
 import torch
 
 from toad_tpu_torch.ops import cuda_pool, cuda_pool_int8
-from toad_tpu_torch.ops.pooling import masked_attention_pool
+from toad_tpu_torch.ops.pooling import NEG_INF, masked_attention_pool
 from toad_tpu_torch.ops.quantize import plain_int8_pool
 
 
-def _trunk_scores(params: dict[str, Any], x: torch.Tensor, compute_dtype: torch.dtype = torch.float32):
+def _trunk_scores(params: dict[str, Any], x: torch.Tensor, compute_dtype: torch.dtype = torch.float32, drop=None):
     """Trunk MLP then gated attention scores, the plain version.
 
     x: [B, N, D] -> (h [B, N, H] in ``compute_dtype``, scores [B, N, T] f32).
     Casts where the JAX version does: weights, biases and activations in the
-    compute dtype, the score head accumulated in f32.
+    compute dtype, the score head accumulated in f32. Differentiable: the
+    training forward runs it under autograd.
+
+    ``drop(site, value)`` is an optional hook applied at the reference's four
+    dropout positions (after each trunk ReLU, after tanh, after sigmoid), so
+    that this one definition serves the eval path (``drop=None``) and the
+    training path.
     """
     dt = compute_dtype
+    d = drop if drop is not None else (lambda site, v: v)
 
     def lin(p):
         return p["w"].to(dt), p["b"].to(dt)
@@ -43,12 +50,12 @@ def _trunk_scores(params: dict[str, Any], x: torch.Tensor, compute_dtype: torch.
     wc, bc = params["attn"]["c"]["w"].to(dt), params["attn"]["c"]["b"]
 
     x = x.to(dt)
-    h = torch.relu(x @ w1 + b1)
-    h = torch.relu(h @ w2 + b2)
-    a = torch.tanh(h @ wa + ba)
+    h = d(0, torch.relu(x @ w1 + b1))
+    h = d(1, torch.relu(h @ w2 + b2))
+    a = d(2, torch.tanh(h @ wa + ba))
     if "b" in params["attn"]:
         wb, bb = lin(params["attn"]["b"])
-        a = a * torch.sigmoid(h @ wb + bb)
+        a = a * d(3, torch.sigmoid(h @ wb + bb))
     # products of compute-dtype values are exact in f32: this is the JAX
     # einsum with preferred_element_type=float32
     scores = a.float() @ wc.float() + bc.to(dt).float()
@@ -89,6 +96,53 @@ def fused_trunk_attention_pool(
     if x.device.type != "cpu":
         raise ValueError(f"no pooling path for device {x.device} (cuda or cpu)")
     return plain_pool(params, x, mask, compute_dtype, with_scores)
+
+
+def plain_pool_partial(
+    params: dict[str, Any], x: torch.Tensor, mask: torch.Tensor, compute_dtype: torch.dtype
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """The plain version of the pool's partial mode on one shard of the patch
+    dimension, the counterpart of ``toad_tpu.ops.pallas_pool.xla_pool_partial``
+    without its padding of the task axis: (acc [B, T, H] f32 = sum over the
+    live rows of exp(s - max) h, stats [B, 2, T] f32 with ``stats[:, 0]`` =
+    max, NEG_INF where no row is live, and ``stats[:, 1]`` = denom)."""
+    h, scores = _trunk_scores(params, x, compute_dtype)
+    live = mask[:, :, None] > 0
+    s = torch.where(live, scores, NEG_INF)  # [B, N, T]
+    mx = s.amax(dim=1)  # [B, T]
+    safe = torch.where(mx <= NEG_INF / 2, 0.0, mx)
+    e = torch.exp(s - safe[:, None, :]) * live
+    acc = torch.bmm(e.transpose(1, 2), h.float())  # [B, T, H]
+    return acc, torch.stack([mx, e.sum(dim=1)], dim=1)
+
+
+def fused_pool_partial(
+    params: dict[str, Any],
+    x: torch.Tensor,  # [B, N_local, D], one shard of the patch dimension
+    mask: torch.Tensor,  # [B, N_local]
+    *,
+    compute_dtype: torch.dtype = torch.float32,
+    operands=None,
+    out: tuple[torch.Tensor, torch.Tensor] | None = None,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Shard-local pooling statistics (acc [B, T, H], stats [B, 2, T]), see
+    :func:`plain_pool_partial`; a CUDA tensor goes to the kernel's partial
+    mode (:func:`.cuda_pool.pool_partial`, which can write into ``out``), a
+    CPU tensor to the plain version.
+    :func:`toad_tpu_torch.parallel.bag_shard.combine_partial_pool` makes the
+    pooled result of the shards' statistics."""
+    if x.device.type == "cuda":
+        if operands is None:
+            operands = cuda_pool.pack_params(params, compute_dtype)
+        return cuda_pool.pool_partial(operands, x, mask, out=out)
+    if x.device.type != "cpu":
+        raise ValueError(f"no pooling path for device {x.device} (cuda or cpu)")
+    acc, stats = plain_pool_partial(params, x, mask, compute_dtype)
+    if out is not None:
+        out[0].copy_(acc)
+        out[1].copy_(stats)
+        return out
+    return acc, stats
 
 
 def fused_int8_pool(

@@ -50,15 +50,7 @@ from toad_tpu_torch.data.bags import load_bag, load_bag_quantized
 from toad_tpu_torch.ops import cuda_pool, cuda_pool_int8
 from toad_tpu_torch.pipeline.infer import SlidePrediction
 from toad_tpu_torch.serve.batcher import DynamicBatcher, ServeConfig
-
-
-def invert_labels(label_dict: dict) -> dict:
-    """index -> display name; the first name of an index wins (task label
-    dicts list the canonical spelling before its aliases)."""
-    inv: dict = {}
-    for name, idx in label_dict.items():
-        inv.setdefault(idx, name)
-    return inv
+from toad_tpu_torch.utils import invert_labels
 
 
 class InferenceService:

@@ -1,1 +1,1 @@
-"""Checkpoint loading."""
+"""Fold training: optimizer, checkpoints, the per-fold loop."""
