@@ -54,7 +54,7 @@ Phases (each prints its lines; any failure raises and the exit code is not 0):
    width (72 slides of 2,000-30,000 patches x 1024 as .npy, 18 origins with at
    least 3 slides each), generate_splits writes one fold, then ``python -m
    toad_tpu_torch train --max_epochs 3 --batch_size 4 --early_stopping
-   --resume`` (f32) as a child process, and a shorter run with ``--bf16
+   --resume`` (f32) as a child process, and a run of one epoch with ``--bf16
    --drop_out``. Checked: exit code 0; every epoch's train and val loss
    finite and the train loss falling; s_0_checkpoint.pt, splits_0.csv,
    split_0_results.pkl and summary.csv written; the trainer's pooling-kernel
@@ -64,6 +64,26 @@ Phases (each prints its lines; any failure raises and the exit code is not 0):
    on the CPU from the same weights and batch (f32, dropout off, TF32 off:
    torch.backends.cuda.matmul.allow_tf32 stays False): loss within 1e-4,
    every gradient within 1e-3 of its largest entry.
+8. Evaluate end to end (``eval`` is a main path of K1 and, with ``--int8``,
+   of K2), inside phase 7's work directory, each command a child process as
+   a user runs it: ``python -m toad_tpu_torch eval --models_exp_code
+   smoke_f32_s1 --k 1 --batch_size 4`` on the test split: fold_0.csv holds
+   the test split's slides in split order under the reference's columns, and
+   summary.csv reproduces the trainer's own test accuracy (1e-6) and AUC
+   (1e-4); pooling kernel launches = eval batches. The same with ``--bf16
+   --drop_out`` on the bf16 run. With ``--int8``: the int8 kernel's launches
+   = eval batches and none of the float kernel, the wire is int8, every
+   probability within 0.02 of the f32 run's; with ``--int8 --transfer_dtype
+   float32`` (rows quantized on the card) within 1e-6 of the int8-wire run.
+   Once ``--split all --calibrate --bootstrap 200``: the confusion matrix,
+   the calibration report (a finite positive temperature) and the intervals
+   (each brackets its point value) parse; ``report --dir`` on that directory
+   gives n_folds 1 and the summary's means in its last JSON line. In
+   process: evaluate_split on the card against evaluate_split on the CPU from
+   the same checkpoint (f32, bags cut to 8,192 rows): probabilities within
+   1e-4; a second pass on the card reuses the first one's pinned ring and no
+   producer thread is left. Reported: slides/s and data-wait share of each pass by the CLI's
+   own clock, the bytes each wire carried, the peak device memory.
 6. Timing: kernel launches vs plain versions (CUDA events, median of 5 after
    warm-up, in the order plain, kernel, kernel, plain), for K3 also the
    library call F.scaled_dot_product_attention on the same qkv (timed only,
@@ -248,11 +268,13 @@ def phase_build(card: str) -> None:
 
 
 def compare_cases(g: torch.Generator) -> list:
-    """(label, B, N, mask) at the serving shapes, a bag at bucket/2+1 and a
-    fully-masked bag between live ones."""
+    """(label, B, N, mask) at the serving shapes, at two shapes that only
+    ``eval`` sends (a rung of an ``--buckets auto`` ladder: a multiple of 128
+    that is no power of two, and a ``--patient_bags`` bucket past 65,536
+    rows), a bag at bucket/2+1 and a fully-masked bag between live ones."""
     dev = torch.device("cuda")
     cases = []
-    for b, n in ((1, 8192), (3, 8192), (32, 8192), (1, 65536)):
+    for b, n in ((1, 8192), (3, 8192), (32, 8192), (1, 65536), (4, 29568), (2, 131072)):
         cases.append((f"B={b} N={n}", b, n, (torch.rand(b, n, device=dev, generator=g) < 0.9).float()))
     tail = torch.zeros(2, 8192, device=dev)
     tail[0, : 8192 // 2 + 1] = 1.0  # bag at bucket/2+1: every later tile is padding
@@ -1244,11 +1266,191 @@ def phase_train(seed: int, card: str, gpu: str, workdir: Path) -> dict:
     lines, wall = run_train(workdir, "smoke_f32", ["--max_epochs", "3", "--early_stopping", "--resume"])
     main_run = check_train_run("f32, early stopping, resume", lines, workdir / "results" / "smoke_f32_s1", card, gpu,
                                cfg32, test_split, wall)
-    lines, wall = run_train(workdir, "smoke_bf16", ["--max_epochs", "2", "--bf16", "--drop_out"])
+    lines, wall = run_train(workdir, "smoke_bf16", ["--max_epochs", "1", "--bf16", "--drop_out"])
     check_train_run("bf16, dropout", lines, workdir / "results" / "smoke_bf16_s1", card, gpu,
                     dc.replace(cfg32, compute_dtype="bfloat16", dropout=True), test_split, wall)
     check_step_against_cpu(train_split, cfg32, seed)
-    return main_run
+    return dict(main_run, dataset=ds, test_split=test_split, model_cfg=cfg32)
+
+
+EVAL_COLUMNS = ["slide_id", "sex", "Y", "Y_hat", "site", "site_hat", *[f"p_{c}" for c in range(18)], "site_p"]
+TOL_EVAL_INT8_VS_F32 = 0.02  # eval --int8 probabilities vs eval in f32: the quantization budget of tests/test_int8.py
+TOL_EVAL_WIRE_VS_DEVICE = 1e-6  # rows quantized in the producer thread vs on the card: the quantizers are exact twins
+TOL_EVAL_CARD_VS_CPU = 1e-4  # evaluate_split on the card (K1, f32) vs on the CPU (plain version, f32): summation order
+
+
+def read_csv_rows(path: Path) -> list[dict]:
+    import csv as csv_mod
+
+    with open(path, newline="") as f:
+        return list(csv_mod.DictReader(f))
+
+
+def run_eval(workdir: Path, models: str, save_code: str, extra: list[str], timeout: int = 600) -> dict:
+    """``python -m toad_tpu_torch eval`` as a user runs it, in a child process
+    in ``workdir``. Returns what its own lines report (batches, launches by
+    kernel, each pass's bags, seconds, slides/s, data-wait share, wire and
+    bytes; peak device memory) and its output directory."""
+    import re
+
+    cmd = [sys.executable, "-m", "toad_tpu_torch", "eval", "--task", str(workdir / "tasks" / "dummy_mtl_concat.json"),
+           "--data_root_dir", str(workdir / "bags"), "--results_dir", str(workdir / "results"), "--models_exp_code", models,
+           "--save_exp_code", save_code, "--k", "1", "--batch_size", "4", *extra]
+    t0 = time.perf_counter()
+    run = subprocess.run(cmd, capture_output=True, text=True, env=child_env(), cwd=workdir, timeout=timeout)
+    wall = time.perf_counter() - t0
+    if run.returncode != 0:
+        raise AssertionError(f"eval {extra} failed ({run.returncode}):\n{run.stdout[-4000:]}{run.stderr[-4000:]}")
+    counts = re.search(r"\[fold 0\] eval batches (\d+), pooling kernel launches (\d+) \(float kernel (\d+), int8 kernel (\d+)\), "
+                       r"peak device memory (\S+) GB on (.+)", run.stdout)
+    passes = [dict(what=m.group(1), bags=int(m.group(2)), seconds=float(m.group(3)), rate=float(m.group(4)),
+                   wait=m.group(5), wire=m.group(6), bytes=int(m.group(7)))
+              for m in re.finditer(r"\[fold 0\] (\w+) pass: (\d+) bags in (\S+) s, (\S+) slides/s \(data wait (\S+)\), "
+                                   r"wire (\w+), (\d+) bytes to the device", run.stdout)]
+    if counts is None or not passes:
+        raise AssertionError(f"eval {extra}: no batch, launch or pass line in its output:\n{run.stdout[-3000:]}")
+    return dict(batches=int(counts.group(1)), launches=int(counts.group(2)), k1=int(counts.group(3)), k2=int(counts.group(4)),
+                peak_gb=float(counts.group(5)), card=counts.group(6).strip(), passes=passes, wall=wall,
+                out=workdir / "eval_results" / f"EVAL_{save_code}", stdout=run.stdout)
+
+
+def check_eval_run(label: str, ev: dict, kernel: str, trainer_summary: Path | None, test_ids: list[str], card: str, gpu: str) -> np.ndarray:
+    """One ``eval`` run on the test split: schema and order of fold_0.csv,
+    launches of the right kernel = eval batches, and (given the trainer's
+    summary.csv) the trainer's own test accuracy and AUC. Returns the
+    probabilities [N, 19] (classes, then site_p)."""
+    rows = read_csv_rows(ev["out"] / "fold_0.csv")
+    if list(rows[0]) != EVAL_COLUMNS or [r["slide_id"] for r in rows] != test_ids:
+        raise AssertionError(f"eval ({label}): fold_0.csv columns {list(rows[0])} or slide order differ from the test split's")
+    probs = np.array([[float(r[c]) for c in EVAL_COLUMNS[6:]] for r in rows])
+    if not np.isfinite(probs).all() or np.abs(probs[:, :18].sum(1) - 1.0).max() > 1e-4:
+        raise AssertionError(f"eval ({label}): probabilities not finite or not summing to 1")
+    want = dict(k1=ev["batches"], k2=0) if kernel == "float" else dict(k1=0, k2=ev["batches"])
+    if ev["batches"] < 1 or dict(k1=ev["k1"], k2=ev["k2"]) != want or ev["card"] != card:
+        raise AssertionError(f"eval ({label}): {ev['batches']} eval batches but float kernel launches {ev['k1']}, int8 kernel "
+                             f"launches {ev['k2']} on {ev['card']}")
+    summary = read_csv_rows(ev["out"] / "summary.csv")
+    if len(summary) != 1 or list(summary[0])[:3] != ["", "folds", "cls_test_auc"]:
+        raise AssertionError(f"eval ({label}): summary.csv columns {list(summary[0]) if summary else summary}")
+    agree = ""
+    if trainer_summary is not None:
+        trained = read_csv_rows(trainer_summary)[0]
+        d_acc = abs(float(summary[0]["cls_test_acc"]) - float(trained["cls_test_acc"]))
+        d_auc = abs(float(summary[0]["cls_test_auc"]) - float(trained["cls_test_auc"]))
+        if d_acc > 1e-6 or d_auc > 1e-4:
+            raise AssertionError(f"eval ({label}): test acc {summary[0]['cls_test_acc']} auc {summary[0]['cls_test_auc']}, the "
+                                 f"trainer's summary.csv says {trained['cls_test_acc']} / {trained['cls_test_auc']}")
+        agree = (f"summary.csv reproduces the trainer's test acc {float(trained['cls_test_acc']):.4f} (|d| {d_acc:.1e}) and auc "
+                 f"{float(trained['cls_test_auc']):.4f} (|d| {d_auc:.1e}); ")
+    p = ev["passes"][0]
+    log(f"phase 8 eval ({label}): fold_0.csv holds the test split's {len(rows)} slides in split order; {agree}eval batches "
+        f"{ev['batches']} = {kernel} pooling kernel launches {ev['launches']}; {p['rate']:.1f} slides/s (data wait {p['wait']}) by the "
+        f"CLI's clock, wire {p['wire']}, {p['bytes']} bytes to the card, peak device memory {ev['peak_gb']:.2f} GB; child process "
+        f"{ev['wall']:.1f} s [{gpu}]")
+    return probs
+
+
+def phase_eval(trained: dict, card: str, gpu: str, workdir: Path) -> dict:
+    """The evaluation path at TOAD's full width on phase 7's dataset, fold and
+    results dirs: ``eval`` in f32, bf16 and int8 as child processes, one run
+    with calibration and bootstrap intervals, ``report``, and the engine on
+    the card against the engine on the CPU."""
+    import math
+
+    from toad_tpu_torch.evaluate.engine import evaluate_checkpoint
+
+    test_split = trained["test_split"]
+    test_ids = [str(s) for s in test_split.slide_ids]
+    results = workdir / "results"
+
+    ev32 = run_eval(workdir, "smoke_f32_s1", "f32", [])
+    p32 = check_eval_run("f32", ev32, "float", results / "smoke_f32_s1" / "summary.csv", test_ids, card, gpu)
+    ev16 = run_eval(workdir, "smoke_bf16_s1", "bf16", ["--bf16", "--drop_out"])
+    check_eval_run("bf16, dropout layout", ev16, "float", results / "smoke_bf16_s1" / "summary.csv", test_ids, card, gpu)
+    ev8 = run_eval(workdir, "smoke_f32_s1", "int8", ["--int8"])
+    p8 = check_eval_run("int8, int8 wire", ev8, "int8", None, test_ids, card, gpu)
+    ev8d = run_eval(workdir, "smoke_f32_s1", "int8_dev", ["--int8", "--transfer_dtype", "float32"])
+    p8d = check_eval_run("int8, float32 wire, rows quantized on the card", ev8d, "int8", None, test_ids, card, gpu)
+    wires = {k: e["passes"][0]["wire"] for k, e in (("f32", ev32), ("bf16", ev16), ("int8", ev8), ("int8_dev", ev8d))}
+    if wires != dict(f32="float32", bf16="bfloat16", int8="int8", int8_dev="float32"):
+        raise AssertionError(f"eval: the batcher's wires were {wires}")
+    d_q, d_w = float(np.abs(p8 - p32).max()), float(np.abs(p8d - p8).max())
+    if d_q > TOL_EVAL_INT8_VS_F32 or d_w > TOL_EVAL_WIRE_VS_DEVICE:
+        raise AssertionError(f"eval --int8: probabilities differ from the f32 run's by {d_q:.3e} (tolerance {TOL_EVAL_INT8_VS_F32}), "
+                             f"int8 wire vs quantization on the card by {d_w:.3e} (tolerance {TOL_EVAL_WIRE_VS_DEVICE})")
+    b32, b16, b8 = (e["passes"][0]["bytes"] for e in (ev32, ev16, ev8))
+    log(f"phase 8 eval --int8: every probability within {d_q:.2e} of the f32 run's (tolerance {TOL_EVAL_INT8_VS_F32}); rows "
+        f"quantized in the producer thread vs on the card differ by {d_w:.1e} (tolerance {TOL_EVAL_WIRE_VS_DEVICE}: the quantizers "
+        f"are exact twins); bytes to the card f32 {b32}, bf16 {b16} ({b32 / b16:.2f}x fewer), int8 {b8} ({b32 / b8:.2f}x fewer); peak "
+        f"device memory with rows quantized on the card {ev8d['peak_gb']:.2f} GB against {ev8['peak_gb']:.2f} GB on the int8 wire [{gpu}]")
+
+    # once with everything around the pass: the whole dataset, a temperature from the val split, bootstrap intervals
+    ev_all = run_eval(workdir, "smoke_f32_s1", "all", ["--split", "all", "--calibrate", "--bootstrap", "200"])
+    if ev_all["k1"] != ev_all["batches"] or [p["what"] for p in ev_all["passes"]] != ["eval", "val"]:
+        raise AssertionError(f"eval --split all --calibrate: {ev_all['batches']} batches, {ev_all['k1']} launches, passes {ev_all['passes']}")
+    out = ev_all["out"]
+    n_all = len(read_csv_rows(out / "fold_0.csv"))
+    confusion = read_csv_rows(out / "fold_0_confusion.csv")
+    n_conf = sum(int(v) for r in confusion for k, v in r.items() if k != "")
+    calib = json.loads((out / "fold_0_calibration.json").read_text())
+    cis = json.loads((out / "fold_0_ci.json").read_text())
+    summary = read_csv_rows(out / "summary.csv")[0]
+    if n_all != trained["dataset"].n_slides or len(confusion) != 18 or n_conf != n_all:
+        raise AssertionError(f"eval --split all: {n_all} slides scored, the confusion matrix counts {n_conf} in {len(confusion)} rows")
+    t = calib["temperature"]
+    if not (math.isfinite(t) and t > 0 and all(math.isfinite(calib[k]) for k in ("ece_before", "ece_after", "nll_before", "nll_after"))):
+        raise AssertionError(f"eval --calibrate: {calib}")
+    points = {"cls_auc": "cls_test_auc", "cls_acc": "cls_test_acc", "cls_top3_acc": "cls_top3_acc", "site_auc": "site_test_auc"}
+    for name, col in points.items():
+        lo, hi, point = cis[name]["lo"], cis[name]["hi"], float(summary[col])
+        if not (lo <= point <= hi) or float(summary[f"{name}_ci_lo"]) != lo or float(summary[f"{name}_ci_hi"]) != hi:
+            raise AssertionError(f"eval --bootstrap: {name} interval [{lo}, {hi}] does not bracket {point} or is not in summary.csv")
+    rep = subprocess.run([sys.executable, "-m", "toad_tpu_torch", "report", "--dir", str(out)], capture_output=True, text=True,
+                         env=child_env(), cwd=workdir, timeout=300)
+    if rep.returncode != 0:
+        raise AssertionError(f"report failed ({rep.returncode}):\n{rep.stdout[-2000:]}{rep.stderr[-2000:]}")
+    flat = json.loads(rep.stdout.strip().splitlines()[-1])
+    if flat["n_folds"] != 1 or any(abs(flat[f"{col}_mean"] - float(summary[col])) > 1e-12 for col in points.values()) \
+            or abs(flat["calibration_temperature_mean"] - t) > 1e-12:
+        raise AssertionError(f"report: {flat} against summary.csv {summary}")
+    pa, pv = ev_all["passes"]
+    log(f"phase 8 eval --split all --calibrate --bootstrap 200: {n_all} slides, {ev_all['batches']} batches = pooling kernel launches "
+        f"{ev_all['k1']}; temperature {t:.3f} (ece {calib['ece_before']:.4f} -> {calib['ece_after']:.4f}); intervals bracket their "
+        f"points (cls auc {float(summary['cls_test_auc']):.4f} in [{cis['cls_auc']['lo']:.4f}, {cis['cls_auc']['hi']:.4f}]); report: "
+        f"n_folds 1 and the summary's means; eval pass {pa['rate']:.1f} slides/s (data wait {pa['wait']}), val pass {pv['rate']:.1f} "
+        f"slides/s (data wait {pv['wait']}); child process {ev_all['wall']:.1f} s [{gpu}]")
+
+    # in process: the engine on the card against the engine on the CPU, the same checkpoint and bags (cut to 8,192 rows)
+    kw = dict(batch_size=4, max_bag_size=8192)
+    ckpt = results / "smoke_f32_s1" / "s_0_checkpoint.pt"
+    def pinned_bytes() -> int | None:
+        """Pinned host memory PyTorch holds (rings in use and blocks cached for reuse), where it reports it."""
+        stats = torch.cuda.host_memory_stats() if hasattr(torch.cuda, "host_memory_stats") else {}
+        return stats.get("allocated_bytes.current")
+
+    on_card = evaluate_checkpoint(ckpt, test_split, trained["model_cfg"], **kw)
+    pinned_first = pinned_bytes()
+    # a second pass builds a second batcher and a second pinned ring (as eval --calibrate does): the first
+    # ring's slots must have been given back, so that the process holds no more pinned memory than before
+    again = evaluate_checkpoint(ckpt, test_split, trained["model_cfg"], **kw)
+    pinned_second = pinned_bytes()
+    d_again = float(np.abs(again.probs() - on_card.probs()).max())
+    if d_again > TOL_EVAL_WIRE_VS_DEVICE or (pinned_first is not None and pinned_second > pinned_first):
+        raise AssertionError(f"a second eval pass in one process: probabilities differ by {d_again:.3e}, "
+                             f"pinned host memory {pinned_first} -> {pinned_second} bytes")
+    leftover = [t.name for t in threading.enumerate() if t.name == "bag-prefetch"]
+    if leftover:
+        raise AssertionError(f"producer threads left after the eval passes: {leftover}")
+    on_cpu = evaluate_checkpoint(ckpt, test_split, trained["model_cfg"], device="cpu", **kw)
+    d_cpu = max(float(np.abs(on_card.probs() - on_cpu.probs()).max()), float(np.abs(on_card.df["site_p"] - on_cpu.df["site_p"]).max()))
+    if d_cpu > TOL_EVAL_CARD_VS_CPU or list(on_card.df["slide_id"]) != list(on_cpu.df["slide_id"]):
+        raise AssertionError(f"evaluate_split on the card vs the CPU: probabilities differ by {d_cpu:.3e} (tolerance {TOL_EVAL_CARD_VS_CPU})")
+    log(f"phase 8 evaluate_split, card vs CPU (f32, {len(test_ids)} bags cut to 8,192 rows, batch 4): probabilities differ by at most "
+        f"{d_cpu:.2e} (tolerance {TOL_EVAL_CARD_VS_CPU}); cls auc {on_card.cls_auc:.4f} vs {on_cpu.cls_auc:.4f}; a second pass on "
+        f"the card gives the same probabilities (|d| {d_again:.1e}) and leaves pinned host memory at {pinned_first} -> {pinned_second} bytes (the first "
+        f"ring's slots are reused), no producer thread left")
+    runs = dict(f32=ev32, bf16=ev16, int8=ev8, int8_dev=ev8d, all=ev_all)
+    return dict(k1_launches=ev32["k1"] + ev16["k1"] + ev_all["k1"], k2_launches=ev8["k2"] + ev8d["k2"], runs=runs)
 
 
 def phase_timing_train(gpu: str, seed: int) -> dict:
@@ -1322,6 +1524,7 @@ def main() -> int:
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args()
 
+    t_start = time.perf_counter()
     card, gpu = phase_device()
     log(gpu)
     phase_build(gpu)
@@ -1339,6 +1542,7 @@ def main() -> int:
         featurized = phase_featurize(args.seed, card, gpu, Path(tmp))
     with tempfile.TemporaryDirectory(prefix="toad_smoke_train_") as tmp:
         trained = phase_train(args.seed, card, gpu, Path(tmp))
+        evaluated = phase_eval(trained, card, gpu, Path(tmp))
     times = phase_timing(model, gpu)
     times.update(phase_timing_train(gpu, args.seed))
     mha = times[("mha_bf16", 64)]
@@ -1356,7 +1560,7 @@ def main() -> int:
             "route": "cuda",
             "source": "toad_tpu_torch/csrc/pool.cu",
             "replaces": "toad_tpu/ops/pallas_pool.py:93",
-            "launches": served["launches"],
+            "launches": served["launches"] + evaluated["k1_launches"],  # the bf16 serving burst and the eval passes
             "max_abs_err": worst,
             **times[("bfloat16", 32)],
         },
@@ -1365,7 +1569,7 @@ def main() -> int:
             "route": "cuda",
             "source": "toad_tpu_torch/csrc/pool_int8.cu",
             "replaces": "toad_tpu/ops/pallas_pool.py:259",
-            "launches": served8["launches"],
+            "launches": served8["launches"] + evaluated["k2_launches"],  # the int8 serving burst and eval --int8
             "max_abs_err": worst8,
             **times[("int8", 32)],
         },
@@ -1399,6 +1603,10 @@ def main() -> int:
     ]}
     log(f"phase 7 train: the trainer's validation and final passes launched the pooling kernel "
         f"{trained['launches']} times for {trained['eval_batches']} eval batches")
+    log(f"phase 8 eval: the eval passes launched the float pooling kernel {evaluated['k1_launches']} times and the int8 "
+        f"pooling kernel {evaluated['k2_launches']} times, one per eval batch (serving bursts: {served['launches']} and "
+        f"{served8['launches']})")
+    log(f"all phases: {time.perf_counter() - t_start:.1f} s")
     log(gpu)
     log(json.dumps(record))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": card, "count": torch.cuda.device_count()}}))

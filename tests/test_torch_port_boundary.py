@@ -130,9 +130,20 @@ TRAIN_MODULES = (
 )
 
 
-@pytest.mark.parametrize("module", INT8_MODULES + VIT_MODULES + TRAIN_MODULES)
+EVAL_MODULES = (
+    "toad_tpu_torch.evaluate",
+    "toad_tpu_torch.evaluate.calibration",
+    "toad_tpu_torch.evaluate.engine",
+    "toad_tpu_torch.cli.evaluate",
+    "toad_tpu_torch.cli.report",
+    "toad_tpu_torch.cli.validate",
+    "toad_tpu_torch.__main__",
+)
+
+
+@pytest.mark.parametrize("module", INT8_MODULES + VIT_MODULES + TRAIN_MODULES + EVAL_MODULES)
 def test_int8_modules_import_neither_jax_nor_the_jax_package(probe, module):
-    """Each module of the int8, ViT featurization and training paths, imported alone
+    """Each module of the int8, ViT featurization, training and evaluation paths, imported alone
     in a fresh process, loads no module of the JAX stack (h5py and PIL
     included) or of toad_tpu and builds no kernel."""
     assert module in probe["modules"]
@@ -156,9 +167,12 @@ def test_dispatcher_lists_only_ported_commands():
     )
     assert out.returncode == 0
     listed = {line.split()[0] for line in out.stdout.splitlines() if line.startswith("  ")}
-    assert listed == {"serve", "featurize", "convert", "train", "create-splits", "make-dummy"}
+    assert listed == {"serve", "featurize", "convert", "train", "create-splits", "make-dummy", "eval", "report", "validate"}
+    from toad_tpu.__main__ import COMMANDS as JAX_COMMANDS
+
+    assert listed < set(JAX_COMMANDS) and len(listed) == 9 and len(JAX_COMMANDS) == 14
     bad = subprocess.run(
-        [sys.executable, "-m", "toad_tpu_torch", "eval"], cwd=REPO, capture_output=True, text=True, timeout=120
+        [sys.executable, "-m", "toad_tpu_torch", "infer"], cwd=REPO, capture_output=True, text=True, timeout=120
     )
     assert bad.returncode == 2 and "unknown command" in bad.stderr
 

@@ -308,7 +308,8 @@ def test_bucket_helpers_equal(env):
     with pytest.raises(ValueError, match="resolve_transfer_dtype"):
         batching.BagBatcher(split, transfer_dtype="auto")
     with pytest.raises(ValueError, match="not supported"):
-        batching.BagBatcher(split, transfer_dtype="int8")
+        batching.BagBatcher(split, transfer_dtype="float16")
+    assert batching.BagBatcher(split, transfer_dtype="int8").transfer_dtype == "int8"  # the quantized eval's wire
 
 
 def _prefetch_threads():

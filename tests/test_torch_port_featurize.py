@@ -283,8 +283,9 @@ def test_cli_refuses_what_is_not_ported_or_not_there(slide, tmp_path):
     assert resnet.returncode == 2 and "not ported yet" in resnet.stderr
     both = _cli("--encoder", "vit", "--patch_dir", patch_dir, "--tile_dir", patch_dir, "--feat_dir", "feats", cwd=tmp_path)
     assert both.returncode != 0 and "exactly one of --patch_dir" in both.stderr
-    for gone in ("--data_shards", "--profile", "--compile_cache", "--no_fold_bn"):
-        assert gone not in _cli("--help", cwd=tmp_path).stdout
+    for gone in (["--data_shards", "2"], ["--profile", "d"], ["--compile_cache", "d"], ["--no_fold_bn"]):
+        run = _cli("--device", "cpu", "--encoder", "vit", "--patch_dir", patch_dir, "--feat_dir", "feats", *gone, cwd=tmp_path)
+        assert run.returncode != 0 and f"{gone[0]} is not ported to this package" in run.stderr  # refused by name
     if not torch.cuda.is_available():
         # the card is the default: without one, and without --device cpu, nothing runs on the CPU silently
         no_card = _cli("--encoder", "vit", "--patch_dir", patch_dir, "--feat_dir", "feats", cwd=tmp_path)

@@ -335,8 +335,11 @@ def test_run_eval_pass_matches_jax(env):
     ids = [env["splits"][0].slide_ids[int(i)] for i in res["indices"]]
     ours, theirs = patient_results_from_pass(res, ids), jax_runner.patient_results_from_pass(want, ids)
     assert list(ours) == list(theirs) and ours[ids[0]]["cls_label"] == theirs[ids[0]]["cls_label"]
-    with pytest.raises(NotImplementedError, match="int8"):
-        make_eval_step(_port_model(params), int8=True)
+    # the int8 step over the int8 wire: the same pass within the quantization budget of tests/test_int8.py
+    res8 = run_eval_pass(make_eval_step(_port_model(params).eval(), int8=True),
+                         batching.BagBatcher(env["splits"][0], transfer_dtype="int8", **kw), N_CLS, "cpu")
+    np.testing.assert_allclose(res8["y_prob"], res["y_prob"], atol=0.02)
+    np.testing.assert_array_equal(res8["indices"], res["indices"])
 
 
 def test_metrics_are_the_jax_package_s(env):

@@ -11,6 +11,9 @@ COMMANDS = {
     "make-dummy": ("toad_tpu_torch.cli.make_dummy", "generate a synthetic fixture (csv + bags + task JSON)"),
     "create-splits": ("toad_tpu_torch.cli.create_splits", "stratified k-fold split files"),
     "train": ("toad_tpu_torch.cli.train", "k-fold training"),
+    "eval": ("toad_tpu_torch.cli.evaluate", "evaluate checkpoints (fold_k.csv, summary.csv)"),
+    "report": ("toad_tpu_torch.cli.report", "aggregate k-fold metrics (mean/std across folds)"),
+    "validate": ("toad_tpu_torch.cli.validate", "pre-flight dataset + bag-store checks"),
     "serve": ("toad_tpu_torch.cli.serve", "online prediction HTTP server (dynamic batching)"),
     "convert": ("toad_tpu_torch.cli.convert", "re-encode a bag store (e.g. f32 .pt -> int8 .npz)"),
     "featurize": ("toad_tpu_torch.cli.featurize", "patch tiles -> feature bags through the ViT encoder"),
@@ -38,8 +41,8 @@ def main(argv: list[str] | None = None) -> int:
     import importlib
 
     module = importlib.import_module(COMMANDS[cmd][0])
-    module.main(rest)
-    return 0
+    rc = module.main(rest)
+    return rc if isinstance(rc, int) else 0  # validate's exit status gates pipelines; other commands return their results
 
 
 if __name__ == "__main__":

@@ -68,6 +68,18 @@ def echo_settings(path: str | os.PathLike, settings: dict) -> None:
         print(f"{k}:  {v}")
 
 
+def refuse_flags(args, table) -> None:
+    """Exit, naming the flag, when a flag of the JAX CLI with nothing behind
+    it here was given. ``table`` rows are (flag, the value that means "not
+    given", where ROADMAP.md queues it or why it has no counterpart)."""
+    for flag, off, where in table:
+        if getattr(args, flag) != off:
+            raise SystemExit(f"error: --{flag} is not ported to this package: {where}")
+
+
+XLA_ONLY = "it configures XLA and has no counterpart here (on CUDA the hand-written kernels are always the path)"
+
+
 def add_buckets_arg(p: argparse.ArgumentParser, auto: bool = False) -> None:
     extra = ", or 'auto' to derive quantile rungs from the dataset's real patch counts (metadata reads only)" if auto else ""
     p.add_argument(

@@ -18,6 +18,16 @@ import sys
 import zipfile
 from pathlib import Path
 
+from toad_tpu_torch.cli.common import XLA_ONLY, refuse_flags
+
+# flags of the JAX CLI that are not ported: (flag, its "off" value, where ROADMAP.md queues it)
+_NOT_PORTED = (
+    ("data_shards", None, "multi-GPU (ROADMAP.md queue 1.7)"),
+    ("profile", None, "profiling and debugging tools (ROADMAP.md queue 1.6)"),
+    ("no_fold_bn", False, "the ResNet-50 encoder (ROADMAP.md queue 1.5)"),
+    ("compile_cache", None, XLA_ONLY),
+)
+
 
 def make_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(prog="python -m toad_tpu_torch featurize", description=__doc__)
@@ -38,11 +48,17 @@ def make_parser() -> argparse.ArgumentParser:
     p.add_argument("--no_bf16", action="store_true", help="compute in float32 instead of bfloat16")
     p.add_argument("--skip_done", action="store_true", help="skip slides whose bag already exists")
     p.add_argument("--device", type=str, default="cuda", help="cuda (default), cuda:<i> or cpu")
+    # flags of the JAX CLI that are not ported; accepted so that they can be refused by name
+    p.add_argument("--data_shards", type=int, default=None, help="not ported")
+    p.add_argument("--profile", type=str, default=None, help="not ported")
+    p.add_argument("--no_fold_bn", action="store_true", help="not ported (goes with the ResNet-50 encoder)")
+    p.add_argument("--compile_cache", type=str, default=None, help="no counterpart: nothing is compiled ahead of a run")
     return p
 
 
 def main(argv=None) -> None:
     args = make_parser().parse_args(argv)
+    refuse_flags(args, _NOT_PORTED)
     if (args.patch_dir is None) == (args.tile_dir is None):
         raise SystemExit("give exactly one of --patch_dir (patch files) or --tile_dir (tile images)")
     if args.encoder != "vit":

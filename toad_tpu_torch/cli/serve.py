@@ -13,6 +13,18 @@ import signal
 import threading
 import time
 
+from toad_tpu_torch.cli.common import XLA_ONLY, refuse_flags
+
+# flags of the JAX CLI that are not ported: (flag, its "off" value, where ROADMAP.md queues it)
+_NOT_PORTED = (
+    ("ensemble", False, "ensemble serving (ROADMAP.md queue 1.4)"),
+    ("data_shards", None, "multi-GPU (ROADMAP.md queue 1.7)"),
+    ("bag_shards", None, "multi-GPU (ROADMAP.md queue 1.7)"),
+    ("max_rss_gb", None, "profiling and debugging tools (ROADMAP.md queue 1.6)"),
+    ("pallas", False, XLA_ONLY),
+    ("compile_cache", None, XLA_ONLY),
+)
+
 
 def make_parser() -> argparse.ArgumentParser:
     from toad_tpu_torch.cli.common import add_buckets_arg, add_temperature_from_arg
@@ -54,11 +66,19 @@ def make_parser() -> argparse.ArgumentParser:
         help="run the serving shapes once before accepting traffic: 'all' (every "
         "bucket) or comma-separated bucket sizes, each at batch 1 and max_batch",
     )
+    # flags of the JAX CLI that are not ported; accepted so that they can be refused by name
+    p.add_argument("--ensemble", action="store_true", help="not ported")
+    p.add_argument("--data_shards", type=int, default=None, help="not ported")
+    p.add_argument("--bag_shards", type=int, default=None, help="not ported")
+    p.add_argument("--max_rss_gb", type=float, default=None, help="not ported")
+    p.add_argument("--pallas", action="store_true", help="no counterpart: the kernel is always the path on CUDA")
+    p.add_argument("--compile_cache", type=str, default=None, help="no counterpart: nothing is compiled ahead of a run")
     return p
 
 
 def main(argv=None) -> None:
     args = make_parser().parse_args(argv)
+    refuse_flags(args, _NOT_PORTED)
 
     import torch
 

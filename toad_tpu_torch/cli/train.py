@@ -18,13 +18,19 @@ ahead of a run).
 from __future__ import annotations
 
 import argparse
-import csv
 import json
 from pathlib import Path
 
-from toad_tpu_torch.cli.common import add_task_arg, build_dataset, echo_settings, require_data_root, resolve_buckets
+from toad_tpu_torch.cli.common import (
+    add_task_arg,
+    build_dataset,
+    echo_settings,
+    refuse_flags,
+    require_data_root,
+    resolve_buckets,
+)
 from toad_tpu_torch.config import DataConfig, ModelConfig, OptimConfig, TrainConfig, fold_range
-from toad_tpu_torch.utils.io import save_pkl
+from toad_tpu_torch.utils.io import save_pkl, write_rows_csv
 from toad_tpu_torch.utils.logging import make_writer
 from toad_tpu_torch.utils.rng import seed_everything
 
@@ -94,9 +100,7 @@ def make_parser() -> argparse.ArgumentParser:
 
 
 def refuse_unported(args) -> None:
-    for flag, off, where in _NOT_PORTED:
-        if getattr(args, flag) != off:
-            raise SystemExit(f"error: --{flag} is not ported to this package yet: {where}")
+    refuse_flags(args, _NOT_PORTED)
     if args.native_io == "on":
         raise SystemExit("error: --native_io on: the native bag loader is not ported to this package (ROADMAP.md)")
 
@@ -140,13 +144,9 @@ def config_from_args(args, n_classes: int, bucket_sizes: tuple[int, ...] | None 
 
 def write_summary(path: Path, rows: list[dict]) -> None:
     """``summary.csv`` as pandas writes the JAX CLI's: an unnamed index
-    column, then one column per metric."""
-    with open(path, "w", newline="") as f:
-        w = csv.writer(f, lineterminator="\n")
-        w.writerow(["", *SUMMARY_COLUMNS])
-        for i, row in enumerate(rows):
-            # pandas writes a missing value (an AUC over one class) as an empty cell
-            w.writerow([i, *("" if isinstance(row[c], float) and row[c] != row[c] else row[c] for c in SUMMARY_COLUMNS)])
+    column, then one column per metric (a missing value, an AUC over one
+    class, as an empty cell)."""
+    write_rows_csv(path, rows, SUMMARY_COLUMNS)
 
 
 def main(argv=None):

@@ -2,7 +2,7 @@
 host-to-device feed.
 
 PyTorch counterpart of :mod:`toad_tpu.data.batching` (its generic numpy
-path; the native C++ loader and the int8 wire are not ported):
+path; the native C++ loader is not ported):
 
 - each bag's length N is rounded up to a bucket size; bags in a batch share
   one bucket, so the device sees a small, fixed set of shapes;
@@ -16,6 +16,11 @@ Sampling modes mirror the reference: sequential, shuffled, class-balanced
 with replacement, and the 1% ``--testing`` subsample. The epoch's order is
 drawn from ``np.random.RandomState`` exactly as the JAX package draws it, so
 both packages see the same batches in the same order.
+
+Three wires carry the features to the device: float32, bfloat16 (cast on the
+host) and, for quantized evaluation only, int8: the real rows of every bag
+are quantized per row in the producer thread and travel with their f32
+scales, a quarter of the float32 bytes.
 
 With a CUDA ``device`` the producer thread also starts the copy to the card:
 the features go (cast to the transfer dtype on the way) into one of a small
@@ -38,16 +43,17 @@ import numpy as np
 import torch
 
 from toad_tpu_torch.config import DEFAULT_BUCKETS
+from toad_tpu_torch.ops.quantize import quantize_rows_np
 
 
 @dataclass
 class BagBatch:
-    """One batch of padded bags. ``features`` and ``patch_mask`` are numpy
-    arrays on the host or, once placed by the batcher's device feed (or cast
-    to bf16 for the transfer), torch tensors; the small per-bag fields stay
-    numpy arrays on the host, where the eval pass reads them."""
+    """One batch of padded bags. ``features``, ``patch_mask`` and ``scales``
+    are numpy arrays on the host or, once placed by the batcher's device feed
+    (or cast to bf16 for the transfer), torch tensors; the small per-bag
+    fields stay numpy arrays on the host, where the eval pass reads them."""
 
-    features: np.ndarray | torch.Tensor  # [B, N, D] float32, or the transfer dtype
+    features: np.ndarray | torch.Tensor  # [B, N, D] float32, or the transfer dtype (int8 on the int8 wire)
     patch_mask: np.ndarray | torch.Tensor  # [B, N] float32 (1 = real patch)
     bag_mask: np.ndarray  # [B] float32 (1 = real bag)
     label: np.ndarray  # [B] int32
@@ -55,6 +61,7 @@ class BagBatch:
     sex: np.ndarray  # [B] int32
     indices: np.ndarray  # [B] int64: positions within the split (-1 = pad)
     ready: "torch.cuda.Event | None" = None  # recorded behind the copy to the card
+    scales: np.ndarray | torch.Tensor | None = None  # [B, N] f32 per-row quantization scales (int8 wire only)
 
     @property
     def batch_size(self) -> int:
@@ -70,9 +77,17 @@ class BagBatch:
         if self.ready is not None:
             stream = torch.cuda.current_stream(self.features.device)
             stream.wait_event(self.ready)
-            self.features.record_stream(stream)
-            self.patch_mask.record_stream(stream)
+            for t in (self.features, self.patch_mask, self.scales):
+                if t is not None:
+                    t.record_stream(stream)
             self.ready = None
+
+    @property
+    def wire_bytes(self) -> int:
+        """Bytes of the planes that cross to the device: features, patch
+        mask and, on the int8 wire, scales."""
+        return sum(int(np.prod(t.shape)) * (t.element_size() if isinstance(t, torch.Tensor) else t.dtype.itemsize)
+                   for t in (self.features, self.patch_mask, self.scales) if t is not None)
 
 
 def bucket_for(n: int, buckets: Sequence[int]) -> int:
@@ -157,7 +172,34 @@ def resolve_transfer_dtype(transfer_dtype: str, compute_dtype: str) -> str:
     return "bfloat16" if compute_dtype == "bfloat16" else "float32"
 
 
-_TRANSFER_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+_TRANSFER_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16, "int8": torch.int8}
+PAD_SCALE = np.float32(1.0 / 127.0)  # scale of a padding row on the int8 wire (its q is 0: exact under any positive scale)
+
+
+def plane_offsets(plane_bytes: Sequence[int], align: int = 16) -> tuple[list[int], int]:
+    """Byte offsets of planes laid one behind another in a staging buffer,
+    each start rounded up to ``align``, and the buffer's size. An int8 plane
+    can end at any byte; the f32 planes behind it are viewed as float32 (4-byte
+    alignment) and the int8 pooling kernel wants 16-byte-aligned operands."""
+    offsets, end = [], 0
+    for n in plane_bytes:
+        start = -(-end // align) * align
+        offsets.append(start)
+        end = start + int(n)
+    return offsets, end
+
+
+def stage_planes(buf: torch.Tensor, planes: Sequence[tuple[torch.Tensor, torch.dtype]],
+                 offsets: Sequence[int]) -> list[torch.Tensor]:
+    """Copy each ``(tensor, dtype)`` plane into the uint8 buffer ``buf`` at
+    its byte offset, cast to ``dtype`` on the way; returns the buffer's typed
+    views, in order."""
+    views = []
+    for (t, dt), start in zip(planes, offsets):
+        view = buf[start:start + t.numel() * dt.itemsize].view(dt).view(t.shape)
+        view.copy_(t)
+        views.append(view)
+    return views
 
 
 class _DeviceFeed:
@@ -186,19 +228,28 @@ class _DeviceFeed:
         return self.buffers[i], i
 
     def place(self, b: BagBatch) -> BagBatch:
-        feats = b.features if isinstance(b.features, torch.Tensor) else torch.from_numpy(b.features)
-        mask = torch.from_numpy(b.patch_mask)
-        n_f = feats.numel() * self.dtype.itemsize
-        if n_f > self.MAX_BYTES:
+        """One pinned slot per batch: the features in the wire dtype, then (int8
+        wire) the f32 scales, then the f32 patch mask; one event behind the
+        copies. The size guard counts the wire's bytes, so an int8 batch may
+        be four times as long as a float32 one and still go ahead of the step."""
+
+        def tensor(a) -> torch.Tensor:
+            return a if isinstance(a, torch.Tensor) else torch.from_numpy(a)
+
+        planes = [(tensor(b.features), self.dtype)]
+        if b.scales is not None:
+            planes.append((tensor(b.scales), torch.float32))
+        planes.append((tensor(b.patch_mask), torch.float32))
+        if planes[0][0].numel() * self.dtype.itemsize > self.MAX_BYTES:
             return b
-        buf, i = self._slot(n_f + mask.numel() * 4)
-        host_f = buf[:n_f].view(self.dtype).view(feats.shape)
-        host_m = buf[n_f:n_f + mask.numel() * 4].view(torch.float32).view(mask.shape)
-        host_f.copy_(feats)  # casts to the transfer dtype on the way
-        host_m.copy_(mask)
+        offsets, total = plane_offsets([t.numel() * dt.itemsize for t, dt in planes])
+        buf, i = self._slot(total)
+        staged = stage_planes(buf, planes, offsets)  # casts to the transfer dtype on the way
         with torch.cuda.stream(self.stream):
-            b.features = host_f.to(self.device, non_blocking=True)
-            b.patch_mask = host_m.to(self.device, non_blocking=True)
+            on_card = [v.to(self.device, non_blocking=True) for v in staged]
+            b.features, b.patch_mask = on_card[0], on_card[-1]
+            if b.scales is not None:
+                b.scales = on_card[1]
             b.ready = torch.cuda.Event()
             b.ready.record(self.stream)
         self.events[i] = b.ready
@@ -221,7 +272,9 @@ class BagBatcher:
     mode:
         'sequential' | 'shuffle' | 'weighted'.
     transfer_dtype:
-        'float32' or 'bfloat16' (cast on the host, in the producer thread).
+        'float32', 'bfloat16' (cast on the host, in the producer thread) or
+        'int8' (rows quantized per row in the producer thread, with their
+        scales in ``BagBatch.scales``; for a quantized eval step only).
     device:
         None or a CPU device leaves the batches on the host; a CUDA device
         makes the producer thread start each batch's copy to the card.
@@ -259,7 +312,7 @@ class BagBatcher:
                 "resolve_transfer_dtype(dtype, model_compute_dtype)"
             )
         if transfer_dtype not in _TRANSFER_DTYPES:
-            raise ValueError(f"transfer_dtype {transfer_dtype!r} not supported (float32, bfloat16)")
+            raise ValueError(f"transfer_dtype {transfer_dtype!r} not supported (float32, bfloat16, int8)")
         self.transfer_dtype = transfer_dtype
         self.device = torch.device(device) if device is not None else None
         if self.bucket_sizes is None and self.batch_size > 1:
@@ -412,9 +465,23 @@ class BagBatcher:
                     fut.cancel()
 
     def _convert(self, b: BagBatch) -> BagBatch:
-        if self.transfer_dtype != "float32":
-            # cast in the producer, so that the queued batches are half the
-            # size and the cast overlaps the device's work
+        """The batch in the transfer dtype, converted in the producer thread,
+        so that the queued batches are already small and the conversion
+        overlaps the device's work."""
+        if self.transfer_dtype == "int8":
+            # Quantize only the real rows (padding is trailing by construction,
+            # _pad_bag), so that a bag just over a bucket does not double the
+            # abs/max/rint work; padding stays q = 0 under PAD_SCALE.
+            # quantize_rows_np gives the same bytes as quantize_rows on the device.
+            n_bags, n, d = b.features.shape
+            q = np.zeros((n_bags, n, d), np.int8)
+            s = np.full((n_bags, n), PAD_SCALE, np.float32)
+            for i in range(n_bags):
+                live = int(b.patch_mask[i].sum())
+                if live:
+                    q[i, :live], s[i, :live] = quantize_rows_np(b.features[i, :live])
+            b.features, b.scales = q, s
+        elif self.transfer_dtype != "float32":
             b.features = torch.from_numpy(b.features).to(_TRANSFER_DTYPES[self.transfer_dtype])
         return b
 
@@ -422,9 +489,13 @@ class BagBatcher:
         def src() -> Iterator[BagBatch]:
             finish = self._convert
             if self.device is not None and self.device.type == "cuda":
-                # the feed's copy into the pinned buffer casts, so the batch needs no separate cast
-                finish = _DeviceFeed(self.device, _TRANSFER_DTYPES[self.transfer_dtype],
-                                     max(int(self.prefetch or 0), 1) + 1).place
+                feed = _DeviceFeed(self.device, _TRANSFER_DTYPES[self.transfer_dtype],
+                                   max(int(self.prefetch or 0), 1) + 1)
+                if self.transfer_dtype == "int8":  # quantized here, then placed
+                    def finish(b):
+                        return feed.place(self._convert(b))
+                else:  # the feed's copy into the pinned buffer casts, so the batch needs no separate cast
+                    finish = feed.place
             raw = self._batches_raw()
             try:
                 for b in raw:

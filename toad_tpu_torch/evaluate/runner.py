@@ -4,11 +4,13 @@ PyTorch counterpart of :mod:`toad_tpu.evaluate.runner`, used by the
 trainer's epoch validation and final passes (reference
 ``validate``/``summary``). The step runs the model's eval forward under
 ``torch.inference_mode()`` in classification mode (no attention returned),
-which on CUDA is the hand-written pooling kernel. The int8 eval step is not
-ported yet (ROADMAP.md, eval engine and CLIs).
+which on CUDA is the hand-written pooling kernel; the int8 step runs the
+quantized forward, on CUDA the hand-written int8 pooling kernel.
 """
 
 from __future__ import annotations
+
+import time
 
 import numpy as np
 import torch
@@ -17,6 +19,7 @@ import torch.nn.functional as F
 from toad_tpu_torch.data.batching import BagBatch, BagBatcher
 from toad_tpu_torch.evaluate.metrics import binary_auc, ovr_aucs
 from toad_tpu_torch.models.toad_mil import ToadMIL
+from toad_tpu_torch.ops.quantize import quantize_rows
 
 
 def batch_to_dict(b: BagBatch, device: str | torch.device) -> dict[str, torch.Tensor]:
@@ -30,7 +33,7 @@ def batch_to_dict(b: BagBatch, device: str | torch.device) -> dict[str, torch.Te
         t = a if isinstance(a, torch.Tensor) else torch.from_numpy(a)
         return t.to(device, non_blocking=True)
 
-    return {
+    d = {
         "features": put(b.features),
         "patch_mask": put(b.patch_mask),
         "bag_mask": put(b.bag_mask),
@@ -38,20 +41,38 @@ def batch_to_dict(b: BagBatch, device: str | torch.device) -> dict[str, torch.Te
         "site": put(b.site).long(),
         "sex": put(b.sex),
     }
+    if b.scales is not None:  # int8 wire: rows quantized in the producer thread
+        d["scales"] = put(b.scales)
+    return d
 
 
 def make_eval_step(model: ToadMIL, int8: bool = False):
     """``step(batch_dict) -> dict`` of per-bag outputs, all on the model's
-    device, computed without gradients."""
+    device, computed without gradients.
+
+    ``int8=True`` runs the quantized forward (``ToadMIL.forward_int8``): rows
+    and scales as the int8 wire brought them, or quantized here on the device
+    when the batch is float; the trunk and gate GEMMs run int8, the heads and
+    metrics stay f32. The model quantizes its pooling weights once and again
+    whenever a weight changes, so the step follows a checkpoint loaded into
+    the model later. An un-gated model fails here, not at the first batch."""
     if int8:
-        raise NotImplementedError("the int8 eval step is not ported yet (ROADMAP.md: eval engine and CLIs)")
+        with torch.inference_mode():
+            model.int8_operands()  # quantizes the weights now; raises for an un-gated model
 
     def step(batch: dict[str, torch.Tensor]) -> dict[str, torch.Tensor]:
         with torch.inference_mode():
-            out = model(
-                batch["features"], batch["patch_mask"], batch["sex"],
-                train=False, need_attention=False,  # eval discards attention: the kernel writes no [B, T, N] scores
-            )
+            if int8:
+                if "scales" in batch:
+                    xq, sx = batch["features"], batch["scales"]
+                else:
+                    xq, sx = quantize_rows(batch["features"])
+                out = model.forward_int8(xq, sx, batch["patch_mask"], batch["sex"], need_attention=False)
+            else:
+                out = model(
+                    batch["features"], batch["patch_mask"], batch["sex"],
+                    train=False, need_attention=False,  # eval discards attention: the kernel writes no [B, T, N] scores
+                )
             return {
                 "y_prob": out.y_prob,
                 "y_hat": out.y_hat,
@@ -65,14 +86,21 @@ def make_eval_step(model: ToadMIL, int8: bool = False):
 
 
 def run_eval_pass(eval_step, batcher: BagBatcher, n_classes: int, device: str | torch.device):
-    """One no-grad pass: per-slide probs/preds + mean losses + AUCs on the host."""
+    """One no-grad pass: per-slide probs/preds + mean losses + AUCs on the
+    host; also the pass's batches, the bytes its batches sent over the wire,
+    its seconds and those of them spent waiting for the batcher."""
     probs, labels, sites, site_probs, preds, site_preds, sexes, indices = [], [], [], [], [], [], [], []
     cls_loss_sum = 0.0
     site_loss_sum = 0.0
     n_total = 0
     n_batches = 0
+    wire_bytes = 0
+    t_data = 0.0  # host time blocked on the input pipeline
+    t0 = t_fetch = time.perf_counter()
     for b in batcher:
+        t_data += time.perf_counter() - t_fetch
         n_batches += 1
+        wire_bytes += b.wire_bytes
         out = eval_step(batch_to_dict(b, device))
         keep = b.bag_mask > 0
         out = {k: v.cpu().numpy() for k, v in out.items()}
@@ -87,6 +115,9 @@ def run_eval_pass(eval_step, batcher: BagBatcher, n_classes: int, device: str | 
         cls_loss_sum += float(out["cls_ce"][keep].sum())
         site_loss_sum += float(out["site_ce"][keep].sum())
         n_total += int(keep.sum())
+        t_fetch = time.perf_counter()
+    t_data += time.perf_counter() - t_fetch  # the wait that ended the iteration
+    seconds = time.perf_counter() - t0
 
     probs = np.concatenate(probs) if probs else np.zeros((0, n_classes))
     res = {
@@ -100,6 +131,9 @@ def run_eval_pass(eval_step, batcher: BagBatcher, n_classes: int, device: str | 
         "indices": np.concatenate(indices) if indices else np.zeros((0,), np.int64),
         "n": n_total,
         "n_batches": n_batches,
+        "wire_bytes": wire_bytes,
+        "seconds": seconds,
+        "data_wait_s": t_data,
         "cls_loss": cls_loss_sum / max(n_total, 1),
         "site_loss": site_loss_sum / max(n_total, 1),
     }

@@ -187,6 +187,10 @@ class FoldTrainer:
 
     def _batcher(self, split, training: bool) -> BagBatcher:
         d = self.cfg.data
+        if d.transfer_dtype == "int8":
+            # int8 is an eval wire (evaluate_split int8=True): the train step
+            # has no dequantization, so int8 rows would train as raw integers
+            raise ValueError("transfer_dtype='int8' is eval-only; training supports 'auto'/'float32'/'bfloat16'")
         mode = ("weighted" if d.weighted_sample else "shuffle") if training else "sequential"
         return BagBatcher(
             split,
