@@ -8,7 +8,8 @@ Phases (each prints its lines; any failure raises and the exit code is not 0):
 
 1. CUDA present with compute capability (9, 0); the card's name and power limit.
 2. Build the kernels (toad_tpu_torch/csrc/pool.cu, K1 and its partial mode
-   K1p; pool_common.cuh, the combines; pool_int8.cu, K2; mha.cu, K3) with nvcc, one process per source, all started together;
+   K1p; pool_common.cuh, the combines; pool_int8.cu, K2; mha.cu, K3;
+   stage.cu, KS) with nvcc, one process per source, all started together;
    shared memory per block and ptxas's register counts.
 3. K1 vs its plain PyTorch version at full TOAD width (D=1024, H=512,
    A=384, T=2), f32 and bf16, scored and classification modes, including a
@@ -41,7 +42,7 @@ Phases (each prints its lines; any failure raises and the exit code is not 0):
    forward and the plain bf16 forward on the card; /stats must count int8
    kernel launches >= batches.
 5. Featurize end to end (the main path of K3): two slides of seeded uint8
-   tiles (600 and 200 of 224 x 224 x 3, so that each slide's last batch is
+   tiles (136 and 200 of 224 x 224 x 3, so that each slide's last batch is
    padded) as .npz patch files, a seeded full-width, full-depth ViT-L/16
    state_dict, then ``python -m toad_tpu_torch featurize --encoder vit
    --format npz --batch_size 64`` as a child process. Its last JSON line,
@@ -92,6 +93,24 @@ Phases (each prints its lines; any failure raises and the exit code is not 0):
    and power limit. Each kernel's bound (the least time the card could take:
    the larger of its bytes over the memory rate and its operations over the
    peak rate of their type) is computed from the shapes timed.
+9. The truncated ResNet-50 (run after phase 5): KS, the fused bottleneck
+   stage kernel (toad_tpu_torch/csrc/stage.cu), against plain_stage at full
+   width for layer1, layer2 and layer3, B=64 at 256 px and B=3 at 224 px
+   (edge tiles masked), bf16 and f32 (TF32 off), and refused shapes raise
+   without a launch; fused_stage over the BN-folded encoder's three stages
+   on the stem's output of 64 seeded tiles (the main path of KS, 13
+   launches, counted from 0); KS, plain_stage and the encoder's cuDNN blocks
+   timed per stage and for the three, each with its bound; the encoder's ms
+   per batch of 64 split by stem (stem_s2d on and off), stages and pool.
+   Then featurization with the default encoder: a seeded 2048 x 3072 slide
+   with a near-white region through tiling.tile_image, a second slide of
+   200 seeded tiles, both as .npz patch files, a seeded torchvision-layout
+   state_dict (.pth), then ``python -m toad_tpu_torch featurize --weights
+   ... --format npz --batch_size 64`` without ``--encoder`` as a child
+   process: its last JSON line, each bag's shape and coords, its features
+   against the same encoder in process (within the encoder's own bf16 noise
+   against f32 compute), and the f32 encoder on the card against the CPU on
+   8 tiles; tiles/s by the CLI's clock and warm.
 
 The second-to-last line is the kernels' JSON record, the last line the device
 record. Weights and data are random, made from --seed.
@@ -167,6 +186,16 @@ TOL_MHA_BF16 = dict(atol=2e-3, rtol=1e-2)
 TOL_FEATURES_F32 = dict(atol=1e-4, rtol=1e-4)
 TOL_FEATURES = dict(atol=0.25, rtol=3e-2)
 TOL_FEATURES_MEAN = 2e-2
+# KS vs plain_stage, relative to the largest |output| of the stage. f32: both
+# in full f32 (no TF32), summation order apart (measured on an H100: 2e-6).
+# bf16: the same rounding points, but a summation-order difference that tips
+# one bf16 rounding of h1 or h2 passes through the next product (measured:
+# up to 1.2e-2 of the largest output, on layer3).
+TOL_STAGE_F32 = 1e-4
+TOL_STAGE_BF16 = 2e-2
+# the ResNet-50 encoder in f32 (TF32 off) on the card vs the CPU, relative to
+# the largest |feature|: summation order through 13 blocks
+TOL_RESNET_F32 = 1e-4
 
 # Published dense peaks of one H100 SXM at its 700 W limit: device memory
 # bytes/s, and operations/s by operand type.
@@ -262,7 +291,9 @@ def phase_build(card: str) -> None:
         elif kernel is not None and ("registers" in line or "spill stores" in line):
             names = {"pool_int8_kernel": "K2 int8", "pool_kernelIf": "K1 f32", "pool_kernelI13": "K1 bf16",
                      "pool_combine_kernelILb1": "combine", "pool_combine_kernelILb0": "combine without division (K1p)", "mha_bf16_kernelILi13": "K3 bf16 (up to 208 tokens)",
-                     "mha_bf16_kernelILi17": "K3 bf16 (up to 272 tokens)", "mha_f32_kernel": "K3 f32"}
+                     "mha_bf16_kernelILi17": "K3 bf16 (up to 272 tokens)", "mha_f32_kernel": "K3 f32",
+                     **{f"stage_block_kernelI{m}Li{w}E": f"KS {d} ({16 * w}-pixel tiles)"
+                        for m, d in (("f", "f32"), ("13__nv_bfloat16", "bf16")) for w in (1, 2, 4)}}
             name = next((v for k, v in names.items() if k in kernel), kernel)
             log(f"phase 2 build: {name}: {line.split(':', 1)[-1].strip()}")
 
@@ -990,7 +1021,7 @@ def phase_featurize(seed: int, card: str, gpu: str, workdir: Path) -> dict:
     patch_dir, patch_dir8 = workdir / "patches", workdir / "patches_int8"
     patch_dir.mkdir()
     patch_dir8.mkdir()
-    for name, n in (("slide_a", 600), ("slide_b", 200)):
+    for name, n in (("slide_a", 136), ("slide_b", 200)):
         slides[name] = (rng.integers(0, 256, (n, 224, 224, 3), dtype=np.uint8),
                         rng.integers(0, 100_000, (n, 2), dtype=np.int64))
         np.savez(patch_dir / f"{name}.npz", imgs=slides[name][0], coords=slides[name][1])
@@ -1002,8 +1033,8 @@ def phase_featurize(seed: int, card: str, gpu: str, workdir: Path) -> dict:
 
     # main path: the CLI in a fresh process, whose launch count starts at 0
     said, wall = run_featurize(workdir, weights, patch_dir, workdir / "feats", "npz")
-    want = {"slides": 2, "patches": 800, "shadowed_stale_bags": 0, "device": card, "batches": n_batches,
-            "attention_kernel_launches": depth * n_batches}
+    want = {"slides": 2, "patches": sum(len(imgs) for imgs, _ in slides.values()), "shadowed_stale_bags": 0,
+            "device": card, "batches": n_batches, "attention_kernel_launches": depth * n_batches}
     if {k: said.get(k) for k in want} != want or not said["patches_per_s"] > 0:
         raise AssertionError(f"featurize's last line {said} does not say {want}")
 
@@ -1075,6 +1106,306 @@ def phase_featurize(seed: int, card: str, gpu: str, workdir: Path) -> dict:
         f"batch = {batch_size / batch_ms * 1e3:.1f} tiles/s [{gpu}]")
     return dict(launches=said["attention_kernel_launches"], batches=said["batches"], worst=worst,
                 cli_tiles_s=said["patches_per_s"], batch_ms=batch_ms, batch_size=batch_size, depth=depth)
+
+
+def seeded_resnet(seed: int):
+    """The truncated ResNet-50 at full width with random weights from the
+    seed, unfolded, in torchvision's layout. The reference init (BN gamma 1,
+    beta 0, mean 0, var 1) would make folding a no-op: random statistics and
+    affine terms give every folded bias and scale something to do."""
+    from toad_tpu_torch.config import EncoderConfig
+    from toad_tpu_torch.models.resnet_encoder import ResNetEncoder
+
+    g = torch.Generator().manual_seed(seed)
+    enc = ResNetEncoder(EncoderConfig(), generator=g)
+    with torch.no_grad():
+        for name, t in [*enc.named_parameters(), *enc.named_buffers()]:
+            if name.endswith("running_var"):
+                t.copy_(0.5 + torch.rand(t.shape, generator=g))
+            elif name.endswith("running_mean") or (name.endswith("bias") and t.dim() == 1):
+                t.copy_(torch.randn(t.shape, generator=g) * 0.1)
+            elif name.endswith("weight") and t.dim() == 1:  # BN scale
+                t.copy_(0.5 + torch.rand(t.shape, generator=g))
+    return enc.eval()
+
+
+def stage_input(enc, tiles: torch.Tensor) -> torch.Tensor:
+    """The stem's output on uint8 tiles: layer1's input, NHWC."""
+    dt = getattr(torch, enc.config.compute_dtype)
+    w = enc._weights(dt)
+    with torch.no_grad():
+        return enc._stem(w, enc.preprocess(tiles).to(dt)).permute(0, 2, 3, 1)
+
+
+def phase_compare_stage(enc, seed: int) -> tuple[float, float]:
+    """KS against plain_stage on the card at full width, for layer1, layer2
+    and layer3: B=64 at 256 px (maps 64, 32, 16) and B=3 at 224 px (56, 28,
+    14: edge tiles masked), bf16 and f32 (TF32 off). Each stage takes the
+    plain output of the one before; layer1 takes the stem's output on seeded
+    tiles. Returns the largest (absolute, relative) error of bf16, the main
+    path's dtype."""
+    from toad_tpu_torch.ops import fused_stage as fs
+
+    dev = next(enc.parameters()).device
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    g = torch.Generator(device=dev).manual_seed(seed + 9)
+    worst_abs = worst_rel = 0.0
+    for dt, tol in ((torch.bfloat16, TOL_STAGE_BF16), (torch.float32, TOL_STAGE_F32)):
+        for b, px in ((64, 256), (3, 224)):
+            x = stage_input(enc, torch.randint(0, 256, (b, px, px, 3), device=dev, dtype=torch.uint8, generator=g))
+            x = x.to(dt)
+            for (stage, stride), name in zip(enc.stages(), ("layer1", "layer2", "layer3")):
+                with torch.inference_mode():
+                    got = fs.fused_stage(stage, x, first_stride=stride, compute_dtype=dt)
+                    want = fs.plain_stage(stage, x, stride, dt)
+                torch.cuda.synchronize()
+                scale = float(want.float().abs().max())
+                err = check_close(f"stage {name} {str(dt)[6:]} B={b} {px} px", got, want, dict(atol=tol * scale, rtol=0.0))
+                width = stage[0].conv1.weight.shape[0]
+                log(f"phase 9 compare stage {name} {str(dt)[6:]} B={b} x {tuple(x.shape)} -> {tuple(got.shape)}: max abs "
+                    f"err {err:.3e} = {err / scale:.2e} of the largest |output| {scale:.1f} (tolerance {tol:g} of it); "
+                    f"tiles {fs.tile(dt, width, stride)} (first block) and {fs.tile(dt, width, 1)}, "
+                    f"{fs.smem_bytes(dt, width, stride)} / {fs.smem_bytes(dt, width, 1)} B shared memory a block")
+                if dt == torch.bfloat16:
+                    worst_abs, worst_rel = max(worst_abs, err), max(worst_rel, err / scale)
+                x = want
+    before = fs.LAUNCHES
+    identity, downsample = fs.stage_weights(enc.layer1, torch.bfloat16)[1], fs.stage_weights(enc.layer2, torch.bfloat16)[0]
+    # an identity skip at stride 2; a map whose side is not a multiple of the stride; a width of 96
+    for ops, shape, stride in ((identity, (1, 48, 48, 256), 2), (downsample, (1, 7, 7, 256), 2),
+                               (identity._replace(w1=torch.zeros(256, 96, device=dev, dtype=torch.bfloat16)),
+                                (1, 8, 8, 256), 1)):
+        try:
+            fs.stage_block(ops, torch.zeros(shape, device=dev, dtype=torch.bfloat16), stride)
+        except ValueError as e:
+            log(f"phase 9 compare stage: unsupported shape raises: {e}")
+        else:
+            raise AssertionError(f"stage kernel took {shape} at stride {stride}")
+    if fs.LAUNCHES != before:
+        raise AssertionError("a refused shape counted as a launch")
+    return worst_abs, worst_rel
+
+
+def drive_fused_stage(enc, seed: int) -> dict:
+    """The main path of KS, the probe's path: fused_stage over the folded
+    encoder's layer1, layer2 and layer3 on the stem's output of a batch of 64
+    seeded tiles of 256 px, bf16, as a caller uses it. The count is set to 0
+    just before and read just after; the features pooled from its output are
+    held against those of plain_stage and of the encoder's own cuDNN blocks."""
+    from toad_tpu_torch.ops import fused_stage as fs
+
+    dev = next(enc.parameters()).device
+    g = torch.Generator(device=dev).manual_seed(seed + 10)
+    x0 = stage_input(enc, torch.randint(0, 256, (64, 256, 256, 3), device=dev, dtype=torch.uint8, generator=g))
+    fs.LAUNCHES = 0
+    x = x0
+    for stage, stride in enc.stages():
+        x = fs.fused_stage(stage, x, first_stride=stride)
+    torch.cuda.synchronize()
+    launches = fs.LAUNCHES
+    want = sum(len(stage) for stage, _ in enc.stages())
+    if launches != want:
+        raise AssertionError(f"fused_stage over three stages launched KS {launches} times, not {want}")
+    feats = x.float().mean(dim=(1, 2))
+    plain = x0
+    cudnn = x0.permute(0, 3, 1, 2)
+    with torch.inference_mode():
+        for stage, stride in enc.stages():
+            plain = fs.plain_stage(stage, plain, stride, torch.bfloat16)
+            cudnn = enc.run_stage(stage, cudnn, stride)
+    f_plain, f_cudnn = plain.float().mean(dim=(1, 2)), cudnn.float().mean(dim=(2, 3))
+    scale = float(f_plain.abs().max())
+    err = check_close("fused_stage features vs plain_stage", feats, f_plain, dict(atol=TOL_STAGE_BF16 * scale, rtol=0.0))
+    # the encoder's blocks round each conv and its bias add to bf16 (the JAX encoder's points), the stage
+    # keeps them in f32: a different rounding, so this is the bf16 noise between the two, not a tolerance
+    noise = float((feats - f_cudnn).abs().max())
+    log(f"phase 9 fused stages: {launches} KS launches over layer1-3 (B=64, 256 px, bf16); pooled features vs "
+        f"plain_stage max abs err {err:.3e} ({err / scale:.2e} of the largest |feature| {scale:.1f}), vs the "
+        f"encoder's cuDNN blocks {noise:.3e} ({noise / scale:.2e}; other rounding points)")
+    if noise > 0.1 * scale:
+        raise AssertionError(f"fused stages far from the encoder's own blocks: {noise:.3e} of {scale:.1f}")
+    return dict(launches=launches, x0=x0)
+
+
+def phase_timing_stage(enc, x0: torch.Tensor, gpu: str) -> dict:
+    """KS, plain_stage and the encoder's cuDNN blocks for each stage and for
+    the three together (bf16, B=64 at 256 px), each with its bound; then the
+    encoder's time per batch of 64 split by stem, stages and pool, the stem
+    with stem_s2d on and off."""
+    from toad_tpu_torch.ops import fused_stage as fs
+
+    dev = next(enc.parameters()).device
+    dt = torch.bfloat16
+    out = {}
+    xs, total_ops, total_bytes = {}, 0, 0
+    x = x0
+    with torch.inference_mode():
+        for (stage, stride), name in zip(enc.stages(), ("layer1", "layer2", "layer3")):
+            xs[name] = x
+            ops = fs.stage_weights(stage, dt)
+            flops = moved = 0
+            shape = tuple(x.shape)
+            for i, o in enumerate(ops):
+                s = stride if i == 0 else 1
+                f, m = fs.block_work(o, shape, s)
+                flops, moved = flops + f, moved + m
+                shape = (shape[0], shape[1] // s, shape[2] // s, o.w3.shape[1])
+            total_ops, total_bytes = total_ops + flops, total_bytes + moved
+            xc = x.permute(0, 3, 1, 2)
+            out[name] = time_pair(
+                f"stage {name} bf16 B={x.shape[0]} {tuple(x.shape[1:])} ({len(ops)} blocks, one launch each)",
+                lambda: fs.plain_stage(stage, x, stride, dt), lambda: fs.fused_stage(stage, x, first_stride=stride),
+                dict(bytes=moved, ops=flops, kind="bf16"), gpu, library_fn=lambda: enc.run_stage(stage, xc, stride))
+            x = fs.fused_stage(stage, x, first_stride=stride)
+
+        def all_stages_cudnn():
+            y = x0.permute(0, 3, 1, 2)  # the encoder's blocks keep NCHW (channels_last memory) from stage to stage
+            for stage, stride in enc.stages():
+                y = enc.run_stage(stage, y, stride)
+            return y
+
+        def all_stages(fn):
+            def run():
+                y = x0
+                for stage, stride in enc.stages():
+                    y = fn(stage, y, stride)
+                return y
+            return run
+
+        out["all"] = time_pair(
+            "stages layer1-3 bf16 B=64 at 256 px (13 launches)",
+            all_stages(lambda st, y, s: fs.plain_stage(st, y, s, dt)),
+            all_stages(lambda st, y, s: fs.fused_stage(st, y, first_stride=s)),
+            dict(bytes=total_bytes, ops=total_ops, kind="bf16"), gpu, library_fn=all_stages_cudnn)
+
+        # the encoder's batch, split
+        tiles = torch.randint(0, 256, (64, 256, 256, 3), device=dev, dtype=torch.uint8)
+        w = enc._weights(dt)
+        xn = enc.preprocess(tiles).to(dt)
+        t_pre = cuda_ms(lambda: enc.preprocess(tiles).to(dt))
+        t_stem = cuda_ms(lambda: enc._stem(w, xn))
+        enc.config = dataclasses.replace(enc.config, stem_s2d=False)
+        t_stem_plain = cuda_ms(lambda: enc._stem(w, xn))
+        enc.config = dataclasses.replace(enc.config, stem_s2d=True)
+        t_stages = [cuda_ms(lambda: enc.run_stage(stage, xs[name].permute(0, 3, 1, 2), stride))
+                    for (stage, stride), name in zip(enc.stages(), ("layer1", "layer2", "layer3"))]
+        last = x.permute(0, 3, 1, 2)
+        t_pool = cuda_ms(lambda: last.float().mean(dim=(2, 3)), inner=20)
+        t_batch = cuda_ms(lambda: enc.embed(tiles))
+    stem_flops = 2 * 64 * 128 * 128 * 7 * 7 * 3 * 64
+    log(f"phase 9 timing encoder: ResNet-50 layer1-3 bf16, {t_batch:.3f} ms per batch of 64 tiles of 256 px "
+        f"({64 / t_batch * 1e3:.1f} tiles/s): preprocess {t_pre:.3f} ms, stem + max-pool {t_stem:.3f} ms with "
+        f"stem_s2d ({t_stem_plain:.3f} ms without; {stem_flops / 1e9:.1f} GFLOP), layer1 {t_stages[0]:.3f}, layer2 "
+        f"{t_stages[1]:.3f}, layer3 {t_stages[2]:.3f} ms (cuDNN blocks), pool {t_pool:.3f} ms [{gpu}]")
+    out["encoder"] = dict(batch=t_batch, pre=t_pre, stem=t_stem, stem_plain=t_stem_plain, stages=t_stages, pool=t_pool)
+    return out
+
+
+def phase_featurize_resnet(enc, seed: int, card: str, gpu: str, workdir: Path) -> dict:
+    """Featurization with the default encoder: a seeded slide through
+    tiling.tile_image (in process: the card's machine has no Pillow), a
+    second slide of 200 seeded tiles, a seeded torchvision-layout state_dict,
+    then ``python -m toad_tpu_torch featurize`` without ``--encoder`` as a
+    child process."""
+    from toad_tpu_torch.data.bags import load_bag
+    from toad_tpu_torch.models.resnet_encoder import encoder_from_state_dict, load_torchvision_weights
+    from toad_tpu_torch.pipeline.featurize import TileEmbedder
+    from toad_tpu_torch.pipeline.tiling import tile_image
+
+    dev = torch.device("cuda")
+    batch_size = 64
+    rng = np.random.default_rng(seed + 9)
+    t0 = time.perf_counter()
+    image = rng.integers(0, 256, (2048, 3072, 3), dtype=np.uint8)
+    image[:1024, :1280] = rng.integers(236, 256, (1024, 1280, 1), dtype=np.uint8)  # near-white background
+    imgs_a, coords_a = tile_image(image, patch_size=256)
+    grid = (2048 // 256) * (3072 // 256)
+    if not 0 < len(imgs_a) < grid:
+        raise AssertionError(f"the tissue filter kept {len(imgs_a)} of {grid} tiles")
+    slides = {"slide_a": (imgs_a, coords_a),
+              "slide_b": (rng.integers(0, 256, (200, 256, 256, 3), dtype=np.uint8),
+                          rng.integers(0, 100_000, (200, 2), dtype=np.int64))}
+    patch_dir = workdir / "patches"
+    patch_dir.mkdir()
+    for name, (imgs, coords) in slides.items():
+        np.savez(patch_dir / f"{name}.npz", imgs=imgs, coords=coords)
+    sd = dict(seeded_resnet(seed).state_dict())
+    sd.update({"fc.weight": torch.zeros(1000, 8), "fc.bias": torch.zeros(1000),
+               "layer4.0.conv1.weight": torch.zeros(8, 8, 1, 1), "bn1.num_batches_tracked": torch.tensor(0)})
+    weights = workdir / "resnet50.pth"
+    torch.save({"state_dict": {f"module.{k}": v for k, v in sd.items()}}, weights)
+    n_batches = sum(-(-len(v[0]) // batch_size) for v in slides.values())
+    log(f"phase 9 featurize: tile_image kept {len(imgs_a)} of {grid} tiles of a 2048 x 3072 slide; 2 .npz patch "
+        f"files ({len(imgs_a)} and 200 tiles of 256 px), a torchvision-layout state_dict ({weights.stat().st_size / 1e6:.0f} "
+        f"MB, module./state_dict wrapped, with layer4/fc keys) written in {time.perf_counter() - t0:.1f} s")
+
+    cmd = [sys.executable, "-m", "toad_tpu_torch", "featurize", "--weights", str(weights), "--patch_dir",
+           str(patch_dir), "--feat_dir", str(workdir / "feats"), "--format", "npz", "--batch_size", str(batch_size)]
+    t0 = time.perf_counter()
+    run = subprocess.run(cmd, capture_output=True, text=True, env=child_env(), cwd=workdir, timeout=600)
+    wall = time.perf_counter() - t0
+    if run.returncode != 0:
+        raise AssertionError(f"featurize failed ({run.returncode}):\n{run.stdout}{run.stderr}")
+    for line in run.stdout.strip().splitlines()[:-1]:
+        log(f"phase 9 featurize: {line}")
+    said = json.loads(run.stdout.strip().splitlines()[-1])
+    want = {"slides": 2, "patches": len(imgs_a) + 200, "shadowed_stale_bags": 0, "device": card, "batches": n_batches,
+            "attention_kernel_launches": 0}
+    if {k: said.get(k) for k in want} != want or not said["patches_per_s"] > 0:
+        raise AssertionError(f"featurize's last line {said} does not say {want}")
+
+    # the same weights in process on the card: bf16 features, and the encoder's own bf16 noise against f32
+    loaded = load_torchvision_weights(weights, enc.config)
+    embedder = TileEmbedder(encoder_from_state_dict(loaded, enc.config).to(dev).eval(), batch_size=batch_size)
+    torch.backends.cudnn.allow_tf32 = False
+    enc32 = encoder_from_state_dict(loaded, dataclasses.replace(enc.config, compute_dtype="float32")).to(dev)
+    embedder32 = TileEmbedder(enc32, batch_size=batch_size)
+    worst = 0.0
+    for name, (imgs, coords) in slides.items():
+        got, got_coords = load_bag(workdir / "feats" / f"{name}.npz", with_coords=True)
+        if got.shape != (len(imgs), 1024) or got.dtype != np.float32 or not np.array_equal(got_coords, coords):
+            raise AssertionError(f"{name}: bag {got.shape} {got.dtype} or its coords are not tile_image's")
+        ref = embedder.embed_all(imgs)
+        noise = np.abs(ref - embedder32.embed_all(imgs))
+        err = np.abs(got - ref)
+        if err.max() > noise.max() or err.mean() > noise.mean():
+            raise AssertionError(f"{name}: |CLI - in process| max {err.max():.3e} mean {err.mean():.3e} beyond the "
+                                 f"encoder's bf16 noise max {noise.max():.3e} mean {noise.mean():.3e}")
+        worst = max(worst, float(err.max()))
+        log(f"phase 9 featurize: {name} bag {got.shape}, coords equal to tile_image's, |CLI - same encoder in process| "
+            f"max {err.max():.3e} mean {err.mean():.3e} (within the bf16 noise against f32 compute: max "
+            f"{noise.max():.3e} mean {noise.mean():.3e}; features' max |value| {np.abs(ref).max():.2f})")
+
+    # f32 on the card against the CPU on 8 tiles, TF32 off
+    tiles8 = torch.from_numpy(slides["slide_b"][0][:8])
+    on_card = enc32.embed(tiles8.to(dev)).cpu()
+    on_cpu = enc32.cpu().embed(tiles8)
+    scale = float(on_cpu.abs().max())
+    err32 = check_close("f32 features card vs CPU", on_card, on_cpu, dict(atol=TOL_RESNET_F32 * scale, rtol=0.0))
+    log(f"phase 9 featurize: f32 encoder on the card vs the CPU, 8 tiles: max abs err {err32:.3e} = "
+        f"{err32 / scale:.2e} of the largest |feature| (tolerance {TOL_RESNET_F32:g} of it; TF32 off)")
+    batch = torch.from_numpy(slides["slide_b"][0][:batch_size]).to(dev)
+    batch_ms = cuda_ms(lambda: embedder.encoder.embed(batch))
+    log(f"phase 9 featurize: {said['patches']} tiles in {said['batches']} batches of {batch_size}, "
+        f"{said['patches_per_s']:.1f} tiles/s by the CLI's own clock (first-call setup included), child process "
+        f"{wall:.1f} s; warm in process {batch_ms:.3f} ms per batch = {batch_size / batch_ms * 1e3:.1f} tiles/s [{gpu}]")
+    del enc32, embedder, embedder32
+    return dict(cli_tiles_s=said["patches_per_s"], batch_ms=batch_ms, worst=worst, wall=wall)
+
+
+def phase_resnet(seed: int, card: str, gpu: str, workdir: Path, dev: torch.device = torch.device("cuda")) -> dict:
+    """Phase 9: KS against plain_stage, its main path, timings, and
+    featurization with the default encoder."""
+    t0 = time.perf_counter()
+    enc = seeded_resnet(seed).fold_bn().to(dev)
+    worst_abs, worst_rel = phase_compare_stage(enc, seed)
+    driven = drive_fused_stage(enc, seed)
+    times = phase_timing_stage(enc, driven.pop("x0"), gpu)
+    featurized = phase_featurize_resnet(enc, seed, card, gpu, workdir)
+    torch.backends.cudnn.allow_tf32 = False
+    log(f"phase 9: {time.perf_counter() - t0:.1f} s")
+    return dict(launches=driven["launches"], worst=worst_abs, worst_rel=worst_rel, times=times, featurized=featurized)
 
 
 def drive_bag_sharded(model, seed: int) -> dict:
@@ -1525,26 +1856,40 @@ def main() -> int:
     args = ap.parse_args()
 
     t_start = time.perf_counter()
+
+    def elapsed(after: str) -> None:
+        log(f"elapsed after {after}: {time.perf_counter() - t_start:.1f} s")
+
     card, gpu = phase_device()
     log(gpu)
     phase_build(gpu)
+    elapsed("phase 2")
     model = seeded_model(args.seed).cuda().eval()
     worst = phase_compare(model, args.seed)
     worst_partial, worst_sharded = phase_compare_partial(model, args.seed)
     sharded = drive_bag_sharded(model, args.seed)
     worst8 = phase_compare_int8(model, args.seed)
     worst_mha = phase_compare_mha(args.seed)
+    elapsed("phase 3")
     with tempfile.TemporaryDirectory(prefix="toad_smoke_") as tmp:
         served = phase_serve(model, args.seed, gpu, Path(tmp))
     with tempfile.TemporaryDirectory(prefix="toad_smoke_int8_") as tmp:
         served8 = phase_serve_int8(model, args.seed, gpu, Path(tmp))
+    elapsed("phase 4")
     with tempfile.TemporaryDirectory(prefix="toad_smoke_vit_") as tmp:
         featurized = phase_featurize(args.seed, card, gpu, Path(tmp))
+    elapsed("phase 5")
+    with tempfile.TemporaryDirectory(prefix="toad_smoke_resnet_") as tmp:
+        resnet = phase_resnet(args.seed, card, gpu, Path(tmp))
+    elapsed("phase 9")
     with tempfile.TemporaryDirectory(prefix="toad_smoke_train_") as tmp:
         trained = phase_train(args.seed, card, gpu, Path(tmp))
+        elapsed("phase 7")
         evaluated = phase_eval(trained, card, gpu, Path(tmp))
+    elapsed("phase 8")
     times = phase_timing(model, gpu)
     times.update(phase_timing_train(gpu, args.seed))
+    elapsed("phase 6")
     mha = times[("mha_bf16", 64)]
     log(f"phase 6 timing encoder: ViT-L/16 bf16, {featurized['batch_ms']:.2f} ms per batch of "
         f"{featurized['batch_size']} tiles ({featurized['batch_size'] / featurized['batch_ms'] * 1e3:.1f} tiles/s); "
@@ -1600,12 +1945,26 @@ def main() -> int:
             "max_abs_err": worst_sharded,
             **times[("combine", 1)],
         },
+        {
+            "name": "resnet_fused_bottleneck_stage",
+            "route": "cuda",
+            "source": "toad_tpu_torch/csrc/stage.cu",
+            "replaces": "experiments/pallas_stage_fusion.py:100",
+            "launches": resnet["launches"],  # fused_stage over layer1-3: one launch per bottleneck block
+            "max_abs_err": resnet["worst"],
+            **resnet["times"]["all"],
+        },
     ]}
     log(f"phase 7 train: the trainer's validation and final passes launched the pooling kernel "
         f"{trained['launches']} times for {trained['eval_batches']} eval batches")
     log(f"phase 8 eval: the eval passes launched the float pooling kernel {evaluated['k1_launches']} times and the int8 "
         f"pooling kernel {evaluated['k2_launches']} times, one per eval batch (serving bursts: {served['launches']} and "
         f"{served8['launches']})")
+    enc_t, st = resnet["times"]["encoder"], resnet["times"]
+    log(f"phase 9 timing summary: KS / plain_stage / cuDNN stage, bound (ms), bf16 B=64 at 256 px: " + "; ".join(
+        f"{k} {st[k]['ms']:.3f} / {st[k]['plain_ms']:.3f} / {st[k]['library_ms']:.3f}, {st[k]['bound_ms']:.4f} by "
+        f"{st[k]['bound_by']}" for k in ("layer1", "layer2", "layer3", "all")) + f"; the encoder {enc_t['batch']:.3f} ms "
+        f"a batch, ResNet featurize {resnet['featurized']['cli_tiles_s']:.1f} tiles/s by the CLI's clock [{gpu}]")
     log(f"all phases: {time.perf_counter() - t_start:.1f} s")
     log(gpu)
     log(json.dumps(record))

@@ -63,6 +63,7 @@ def test_config_and_registry_match_the_jax_package():
         "DataConfig": {"native"},
         "TrainConfig": {"rss_restart_gb", "profile_dir", "debug_checks", "data_shards", "bag_shards"},
         "SplitConfig": set(),
+        "EncoderConfig": set(),
     }
     for name, skip in not_ported.items():
         port_cls, jax_cls = getattr(config, name), getattr(jax_config, name)
@@ -76,6 +77,14 @@ def test_config_and_registry_match_the_jax_package():
     assert port_train.settings_dict()["num_splits"] == jax_train.settings_dict()["num_splits"]
     for args in ((10, -1, -1), (10, 2, 5), (3, -1, 2)):
         assert config.fold_range(*args) == jax_config.fold_range(*args)
+    port_enc, ref_enc = config.EncoderConfig(), jax_config.EncoderConfig()
+    assert (port_enc.stage_widths, port_enc.out_dim) == (ref_enc.stage_widths, ref_enc.out_dim) == ((64, 128, 256), 1024)
+    import numpy as np
+
+    from toad_tpu.models import resnet_encoder as jax_resnet
+
+    assert np.array_equal(np.float32(config.IMAGENET_MEAN), jax_resnet.IMAGENET_MEAN)
+    assert np.array_equal(np.float32(config.IMAGENET_STD), jax_resnet.IMAGENET_STD)
     for size in ("small", "big"):
         port, ref = config.ModelConfig(size_arg=size), jax_config.ModelConfig(size_arg=size)
         assert (port.hidden_dim, port.attn_dim) == (ref.hidden_dim, ref.attn_dim)
@@ -130,6 +139,14 @@ TRAIN_MODULES = (
 )
 
 
+RESNET_MODULES = (
+    "toad_tpu_torch.models.resnet_encoder",
+    "toad_tpu_torch.ops.fused_stage",
+    "toad_tpu_torch.pipeline.tiling",
+    "toad_tpu_torch.cli.tile",
+)
+
+
 EVAL_MODULES = (
     "toad_tpu_torch.evaluate",
     "toad_tpu_torch.evaluate.calibration",
@@ -141,9 +158,9 @@ EVAL_MODULES = (
 )
 
 
-@pytest.mark.parametrize("module", INT8_MODULES + VIT_MODULES + TRAIN_MODULES + EVAL_MODULES)
+@pytest.mark.parametrize("module", INT8_MODULES + VIT_MODULES + TRAIN_MODULES + EVAL_MODULES + RESNET_MODULES)
 def test_int8_modules_import_neither_jax_nor_the_jax_package(probe, module):
-    """Each module of the int8, ViT featurization, training and evaluation paths, imported alone
+    """Each module of the int8, ViT and ResNet featurization, training and evaluation paths, imported alone
     in a fresh process, loads no module of the JAX stack (h5py and PIL
     included) or of toad_tpu and builds no kernel."""
     assert module in probe["modules"]
@@ -167,10 +184,11 @@ def test_dispatcher_lists_only_ported_commands():
     )
     assert out.returncode == 0
     listed = {line.split()[0] for line in out.stdout.splitlines() if line.startswith("  ")}
-    assert listed == {"serve", "featurize", "convert", "train", "create-splits", "make-dummy", "eval", "report", "validate"}
+    assert listed == {"serve", "featurize", "convert", "train", "create-splits", "make-dummy", "eval", "report", "validate",
+                      "tile"}
     from toad_tpu.__main__ import COMMANDS as JAX_COMMANDS
 
-    assert listed < set(JAX_COMMANDS) and len(listed) == 9 and len(JAX_COMMANDS) == 14
+    assert listed < set(JAX_COMMANDS) and len(listed) == 10 and len(JAX_COMMANDS) == 14
     bad = subprocess.run(
         [sys.executable, "-m", "toad_tpu_torch", "infer"], cwd=REPO, capture_output=True, text=True, timeout=120
     )
@@ -184,7 +202,7 @@ def test_kernel_sources_are_packaged():
     assert "toad_tpu_torch*" in cfg["tool"]["setuptools"]["packages"]["find"]["include"]
     data = cfg["tool"]["setuptools"]["package-data"]["toad_tpu_torch"]
     assert "csrc/*.cu" in data and "tasks/*.json" in data
-    assert {p.name for p in (REPO / "toad_tpu_torch" / "csrc").glob("*.cu")} >= {"pool.cu", "pool_int8.cu", "mha.cu"}
+    assert {p.name for p in (REPO / "toad_tpu_torch" / "csrc").glob("*.cu")} >= {"pool.cu", "pool_int8.cu", "mha.cu", "stage.cu"}
 
 
 def test_no_source_line_imports_jax_or_the_jax_package():

@@ -940,13 +940,21 @@ def test_cli_validate_matches_the_jax_cli(trained, capsys, broken, tmp_path):
     ("serve", ["--ckpt", "c.pt"], ["--compile_cache", "d"], "configures XLA"),
     ("featurize", ["--feat_dir", "f", "--patch_dir", "p", "--encoder", "vit"], ["--data_shards", "2"], "queue 1.7"),
     ("featurize", ["--feat_dir", "f", "--patch_dir", "p", "--encoder", "vit"], ["--profile", "d"], "queue 1.6"),
+    # queue 1.5 (the ResNet-50 encoder) is ported: its flag is now taken, not refused
     ("featurize", ["--feat_dir", "f", "--patch_dir", "p", "--encoder", "vit"], ["--no_fold_bn"], "queue 1.5"),
     ("featurize", ["--feat_dir", "f", "--patch_dir", "p", "--encoder", "vit"], ["--compile_cache", "d"], "configures XLA"),
 ])
 def test_serve_and_featurize_refuse_unported_flags_by_name(cli, base, flags, says):
     import importlib
 
+    from toad_tpu_torch.cli.common import refuse_flags
+
     module = importlib.import_module(f"toad_tpu_torch.cli.{cli}")
+    if says == "queue 1.5":
+        args = module.make_parser().parse_args([*base, *flags])
+        refuse_flags(args, module._NOT_PORTED)  # does not exit
+        assert args.no_fold_bn is True and module.make_parser().parse_args(base).no_fold_bn is False
+        return
     with pytest.raises(SystemExit) as e:
         module.main([*base, *flags, "--device", "cpu"])
     assert f"{flags[0]} is not ported to this package" in str(e.value) and says in str(e.value)

@@ -277,20 +277,25 @@ def test_cli_tile_dir_route(tile_dir, jax_bag, weights_file, tmp_path):
 
 def test_cli_refuses_what_is_not_ported_or_not_there(slide, tmp_path):
     patch_dir = str(slide[3].parent)
-    default = _cli("--device", "cpu", "--patch_dir", patch_dir, "--feat_dir", "feats", cwd=tmp_path)
-    assert default.returncode == 2 and "ResNet-50 encoder is not ported yet" in default.stderr
-    resnet = _cli("--device", "cpu", "--encoder", "resnet50", "--patch_dir", patch_dir, "--feat_dir", "feats", cwd=tmp_path)
-    assert resnet.returncode == 2 and "not ported yet" in resnet.stderr
+    # the default encoder, the ported ResNet-50, runs (random init at full width), folded or not
+    default = _cli("--device", "cpu", "--patch_dir", patch_dir, "--feat_dir", "feats", "--format", "npy", cwd=tmp_path)
+    assert default.returncode == 0, default.stderr
+    assert "random encoder init" in default.stdout and load_bag(tmp_path / "feats" / "s1.npy").shape == (N_TILES, 1024)
+    resnet = _cli("--device", "cpu", "--encoder", "resnet50", "--no_fold_bn", "--patch_dir", patch_dir, "--feat_dir",
+                  "feats_unfolded", "--format", "npy", cwd=tmp_path)
+    assert resnet.returncode == 0, resnet.stderr
+    np.testing.assert_allclose(load_bag(tmp_path / "feats_unfolded" / "s1.npy"), load_bag(tmp_path / "feats" / "s1.npy"),
+                               rtol=0.1, atol=0.1)  # bf16: folded and unfolded round at other places
     both = _cli("--encoder", "vit", "--patch_dir", patch_dir, "--tile_dir", patch_dir, "--feat_dir", "feats", cwd=tmp_path)
     assert both.returncode != 0 and "exactly one of --patch_dir" in both.stderr
-    for gone in (["--data_shards", "2"], ["--profile", "d"], ["--compile_cache", "d"], ["--no_fold_bn"]):
+    for gone in (["--data_shards", "2"], ["--profile", "d"], ["--compile_cache", "d"]):
         run = _cli("--device", "cpu", "--encoder", "vit", "--patch_dir", patch_dir, "--feat_dir", "feats", *gone, cwd=tmp_path)
         assert run.returncode != 0 and f"{gone[0]} is not ported to this package" in run.stderr  # refused by name
     if not torch.cuda.is_available():
         # the card is the default: without one, and without --device cpu, nothing runs on the CPU silently
-        no_card = _cli("--encoder", "vit", "--patch_dir", patch_dir, "--feat_dir", "feats", cwd=tmp_path)
+        no_card = _cli("--encoder", "vit", "--patch_dir", patch_dir, "--feat_dir", "feats_no_card", cwd=tmp_path)
         assert no_card.returncode not in (0, 2) and "CUDA is not available" in no_card.stderr
-        assert not (tmp_path / "feats").exists()
+        assert not (tmp_path / "feats_no_card").exists()
 
 
 def test_cli_refuses_two_patch_files_for_one_slide(slide, weights_file, tmp_path):

@@ -16,7 +16,8 @@ COMMANDS = {
     "validate": ("toad_tpu_torch.cli.validate", "pre-flight dataset + bag-store checks"),
     "serve": ("toad_tpu_torch.cli.serve", "online prediction HTTP server (dynamic batching)"),
     "convert": ("toad_tpu_torch.cli.convert", "re-encode a bag store (e.g. f32 .pt -> int8 .npz)"),
-    "featurize": ("toad_tpu_torch.cli.featurize", "patch tiles -> feature bags through the ViT encoder"),
+    "tile": ("toad_tpu_torch.cli.tile", "raster slides -> patch files (tissue-filtered grid)"),
+    "featurize": ("toad_tpu_torch.cli.featurize", "patch files -> feature bags (ResNet-50 / ViT-L)"),
 }
 
 

@@ -3,18 +3,15 @@
 Every patch file in ``--patch_dir`` (CLAM layout: ``imgs`` [N, H, W, 3] uint8
 + ``coords``; ``{slide_id}.h5``, or ``{slide_id}.npz`` with the same keys
 where h5py is absent), or every per-slide subdirectory of tile images in
-``--tile_dir``, is embedded through the ViT encoder and written to
-``--feat_dir`` as a feature bag usable by serving and inference. The same
-command as ``python -m toad_tpu featurize``; the ResNet-50 encoder, which is
-still the default there and here, is not ported yet, so ``--encoder vit`` must
-be given.
+``--tile_dir``, is embedded through the truncated ResNet-50 (the default) or
+the ViT encoder and written to ``--feat_dir`` as a feature bag usable by
+serving and inference. The same command as ``python -m toad_tpu featurize``.
 """
 
 from __future__ import annotations
 
 import argparse
 import json
-import sys
 import zipfile
 from pathlib import Path
 
@@ -24,7 +21,6 @@ from toad_tpu_torch.cli.common import XLA_ONLY, refuse_flags
 _NOT_PORTED = (
     ("data_shards", None, "multi-GPU (ROADMAP.md queue 1.7)"),
     ("profile", None, "profiling and debugging tools (ROADMAP.md queue 1.6)"),
-    ("no_fold_bn", False, "the ResNet-50 encoder (ROADMAP.md queue 1.5)"),
     ("compile_cache", None, XLA_ONLY),
 )
 
@@ -41,17 +37,18 @@ def make_parser() -> argparse.ArgumentParser:
                    help="bag format; 'int8' writes row-quantized .npz bags (4x smaller, "
                         "loads transparently, feeds --int8 serving without requantization)")
     p.add_argument("--encoder", type=str, choices=["resnet50", "vit"], default="resnet50",
-                   help="patch encoder family: truncated ResNet-50 (not ported yet) or UNI-style ViT-L")
+                   help="patch encoder family: truncated ResNet-50 or UNI-style ViT-L")
     p.add_argument("--weights", type=str, default=None,
-                   help="encoder weights: timm ViT .bin (random init if omitted)")
+                   help="encoder weights: torchvision resnet50 .pth or timm ViT .bin (random init if omitted)")
     p.add_argument("--batch_size", type=int, default=64)
-    p.add_argument("--no_bf16", action="store_true", help="compute in float32 instead of bfloat16")
+    p.add_argument("--no_bf16", action="store_true",
+                   help="compute in float32 instead of bfloat16 (TF32 off for the ResNet's cuDNN convs)")
+    p.add_argument("--no_fold_bn", action="store_true", help="keep the ResNet's BatchNorm unfolded")
     p.add_argument("--skip_done", action="store_true", help="skip slides whose bag already exists")
     p.add_argument("--device", type=str, default="cuda", help="cuda (default), cuda:<i> or cpu")
     # flags of the JAX CLI that are not ported; accepted so that they can be refused by name
     p.add_argument("--data_shards", type=int, default=None, help="not ported")
     p.add_argument("--profile", type=str, default=None, help="not ported")
-    p.add_argument("--no_fold_bn", action="store_true", help="not ported (goes with the ResNet-50 encoder)")
     p.add_argument("--compile_cache", type=str, default=None, help="no counterpart: nothing is compiled ahead of a run")
     return p
 
@@ -61,16 +58,9 @@ def main(argv=None) -> None:
     refuse_flags(args, _NOT_PORTED)
     if (args.patch_dir is None) == (args.tile_dir is None):
         raise SystemExit("give exactly one of --patch_dir (patch files) or --tile_dir (tile images)")
-    if args.encoder != "vit":
-        print(f"error: --encoder {args.encoder}: the ResNet-50 encoder is not ported yet; pass --encoder vit",
-              file=sys.stderr)
-        raise SystemExit(2)
-
-    import dataclasses
 
     import torch
 
-    from toad_tpu_torch.models.vit_encoder import ViTConfig, ViTEncoder, encoder_from_state_dict, load_timm_weights
     from toad_tpu_torch.pipeline.featurize import PATCH_FILE_EXTS, TileEmbedder
 
     device = torch.device(args.device)
@@ -79,15 +69,7 @@ def main(argv=None) -> None:
     if device.type not in ("cuda", "cpu"):
         raise SystemExit(f"error: --device must be cuda, cuda:<i> or cpu, got {args.device!r}")
 
-    compute_dtype = "float32" if args.no_bf16 else "bfloat16"
-    if args.weights:
-        sd, cfg = load_timm_weights(args.weights)
-        cfg = dataclasses.replace(cfg, compute_dtype=compute_dtype)
-        encoder = encoder_from_state_dict(sd, cfg)
-        print(f"loaded ViT weights from {args.weights} (width {cfg.width}, depth {cfg.depth})")
-    else:
-        print("WARNING: no --weights given; using random ViT-L init (features are untrained)")
-        encoder = ViTEncoder(ViTConfig(compute_dtype=compute_dtype), torch.Generator().manual_seed(0))
+    encoder = _vit(args) if args.encoder == "vit" else _resnet(args)
     embedder = TileEmbedder(encoder.to(device).eval(), batch_size=args.batch_size)
 
     feat_dir = Path(args.feat_dir)
@@ -107,6 +89,40 @@ def main(argv=None) -> None:
         if twice:
             raise SystemExit(f"patch files in more than one format for {twice}: both would write {twice[0]}.*; keep one")
     _run_all(args, files, feat_dir, embedder)
+
+
+def _vit(args):
+    import dataclasses
+
+    import torch
+
+    from toad_tpu_torch.models.vit_encoder import ViTConfig, ViTEncoder, encoder_from_state_dict, load_timm_weights
+
+    compute_dtype = "float32" if args.no_bf16 else "bfloat16"
+    if args.weights:
+        sd, cfg = load_timm_weights(args.weights)
+        cfg = dataclasses.replace(cfg, compute_dtype=compute_dtype)
+        print(f"loaded ViT weights from {args.weights} (width {cfg.width}, depth {cfg.depth})")
+        return encoder_from_state_dict(sd, cfg)
+    print("WARNING: no --weights given; using random ViT-L init (features are untrained)")
+    return ViTEncoder(ViTConfig(compute_dtype=compute_dtype), torch.Generator().manual_seed(0))
+
+
+def _resnet(args):
+    import torch
+
+    from toad_tpu_torch.config import EncoderConfig
+    from toad_tpu_torch.models.resnet_encoder import ResNetEncoder, encoder_from_state_dict, load_torchvision_weights
+
+    cfg = EncoderConfig(compute_dtype="float32" if args.no_bf16 else "bfloat16", fold_bn=not args.no_fold_bn)
+    if args.no_bf16:
+        torch.backends.cudnn.allow_tf32 = False  # f32 means f32: cuDNN's convs would otherwise run in TF32
+    if args.weights:
+        sd = load_torchvision_weights(args.weights, cfg)
+        print(f"loaded encoder weights from {args.weights}")
+        return encoder_from_state_dict(sd, cfg)  # BN folded by TileEmbedder when cfg.fold_bn
+    print("WARNING: no --weights given; using random encoder init (features are untrained)")
+    return ResNetEncoder(cfg, torch.Generator().manual_seed(0))
 
 
 def _bag_matches_format(path: Path, int8: bool) -> bool:

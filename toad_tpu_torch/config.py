@@ -1,5 +1,6 @@
 """Typed configuration the port needs: the padding ladder, the task, model,
-optimizer, data, training and split knobs, the encoders' pixel statistics.
+ResNet-50 encoder, optimizer, data, training and split knobs, the encoders'
+pixel statistics.
 
 Stdlib-only copies of the same names in :mod:`toad_tpu.config`, so that the
 port imports nothing of the JAX package. Fields and defaults are the same
@@ -80,6 +81,31 @@ class ModelConfig:
     @property
     def attn_dim(self) -> int:
         return {"small": 256, "big": 384}[self.size_arg]
+
+
+@dataclass(frozen=True)
+class EncoderConfig:
+    """Truncated ResNet-50 patch encoder (reference ``models/resnet_custom.py``:
+    stem + layers 1-3, no layer4/fc, GAP -> 1024-d; ``:62-70,96-109``)."""
+
+    blocks: tuple[int, ...] = (3, 4, 6)  # bottleneck counts per stage (truncated)
+    stem_width: int = 64
+    expansion: int = 4
+    bn_eps: float = 1e-5
+    param_dtype: str = "float32"
+    compute_dtype: str = "bfloat16"
+    fold_bn: bool = True  # fold inference BN into conv weights
+    # the 7x7/2 stem conv as space-to-depth(2) + a 4x4/1 conv: the same
+    # arithmetic on 12 input channels instead of 3
+    stem_s2d: bool = True
+
+    @property
+    def stage_widths(self) -> tuple[int, ...]:
+        return tuple(self.stem_width * (2**i) for i in range(len(self.blocks)))
+
+    @property
+    def out_dim(self) -> int:
+        return self.stage_widths[-1] * self.expansion  # 256*4 = 1024 truncated
 
 
 @dataclass(frozen=True)

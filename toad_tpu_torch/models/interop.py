@@ -1,6 +1,8 @@
 """Weights in and out of the port's :class:`~toad_tpu_torch.models.toad_mil.ToadMIL`,
-and the JAX ViT encoder's weights into
-:class:`~toad_tpu_torch.models.vit_encoder.ViTEncoder` (:func:`vit_params_from_jax`).
+and the JAX encoders' weights into
+:class:`~toad_tpu_torch.models.vit_encoder.ViTEncoder` (:func:`vit_params_from_jax`)
+and :class:`~toad_tpu_torch.models.resnet_encoder.ResNetEncoder`
+(:func:`resnet_params_from_jax`).
 
 Two sources for ToadMIL:
 
@@ -185,6 +187,39 @@ def vit_params_from_jax(params: Mapping[str, Any]) -> dict[str, torch.Tensor]:
                     **lin(f"{p}.mlp.fc1", blk["fc1"]), **lin(f"{p}.mlp.fc2", blk["fc2"])})
         if "ls1" in blk:
             out[f"{p}.ls1.gamma"], out[f"{p}.ls2.gamma"] = _f32(blk["ls1"]), _f32(blk["ls2"])
+    return out
+
+
+def resnet_params_from_jax(params: Mapping[str, Any]) -> dict[str, torch.Tensor]:
+    """The JAX ResNet-50 encoder's params pytree (numpy-convertible leaves;
+    conv kernels HWIO), unfolded (``bn``/``bnX`` dicts of scale, bias, mean,
+    var) or BN-folded (``bias``/``biasX``) -> the state_dict of the port's
+    ``ResNetEncoder`` in the same form (f32; OIHW, torchvision's names)."""
+
+    def conv(prefix: str, w: Any) -> dict[str, torch.Tensor]:
+        return {f"{prefix}.weight": _f32(np.asarray(w, np.float32).transpose(3, 2, 0, 1))}
+
+    def bn(prefix: str, p: Mapping[str, Any]) -> dict[str, torch.Tensor]:
+        return {f"{prefix}.weight": _f32(p["scale"]), f"{prefix}.bias": _f32(p["bias"]),
+                f"{prefix}.running_mean": _f32(p["mean"]), f"{prefix}.running_var": _f32(p["var"])}
+
+    def conv_bn(conv_name: str, bn_name: str, w: Any, p: Mapping[str, Any], bn_key: str, bias_key: str):
+        out = conv(conv_name, w)
+        if bn_key in p:
+            out.update(bn(bn_name, p[bn_key]))
+        else:
+            out[f"{conv_name}.bias"] = _f32(p[bias_key])
+        return out
+
+    out = conv_bn("conv1", "bn1", params["stem"]["conv"], params["stem"], "bn", "bias")
+    for layer in sorted(k for k in params if k.startswith("layer")):
+        for b, blk in enumerate(params[layer]):
+            p = f"{layer}.{b}"
+            for i in (1, 2, 3):
+                out.update(conv_bn(f"{p}.conv{i}", f"{p}.bn{i}", blk[f"conv{i}"], blk, f"bn{i}", f"bias{i}"))
+            if "downsample" in blk:
+                d = blk["downsample"]
+                out.update(conv_bn(f"{p}.downsample.0", f"{p}.downsample.1", d["conv"], d, "bn", "bias"))
     return out
 
 

@@ -72,6 +72,13 @@ _SIGNATURES = {
         [_i, _p, _p, _i, _i, _i, _i, ctypes.c_float, _p],  # dtype, qkv, out, B, N, H, Dh, scale, stream
         ctypes.c_int,
     ),
+    "toad_stage_tile": ([_i, _i, _i], ctypes.c_int),  # dtype, width, stride
+    "toad_stage_smem_bytes": ([_i, _i, _i], ctypes.c_longlong),
+    "toad_stage_block_forward": (
+        [_i, _p, _p, _i, _i, _i, _i, _i, _i, _i,  # dtype, x, out, B, H, W, Cin, width, Cout, stride
+         _p, _p, _p, _p, _p, _p, _p, _p, _p],  # w1, b1, w2, b2, w3, b3, wd, bd, stream
+        ctypes.c_int,
+    ),
     "toad_cuda_error_string": ([_i], ctypes.c_char_p),
 }
 

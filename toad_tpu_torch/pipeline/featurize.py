@@ -2,7 +2,7 @@
 
 PyTorch counterpart of :mod:`toad_tpu.pipeline.featurize`. A CLAM-style patch
 file (``imgs`` [N, H, W, 3] uint8 + ``coords`` [N, 2]) streams through the
-ViT encoder in fixed-size batches, and the resulting bag is written in any
+truncated ResNet-50 or the ViT encoder in fixed-size batches, and the resulting bag is written in any
 supported format. The patch file is an ``.h5`` (needs h5py, tiles stream from
 disk) or an ``.npz`` with the same two keys (read whole), so that the path
 also runs where h5py is absent. A directory of tile images is the other
@@ -28,6 +28,7 @@ import numpy as np
 import torch
 
 from toad_tpu_torch.data.bags import save_int8_bag
+from toad_tpu_torch.models.resnet_encoder import ResNetEncoder
 from toad_tpu_torch.models.vit_encoder import ViTEncoder
 
 PATCH_FILE_EXTS = (".h5", ".npz")
@@ -78,12 +79,17 @@ def iter_tile_batches(imgs, batch_size: int) -> Iterator[tuple[np.ndarray, int]]
 
 class TileEmbedder:
     """uint8 tiles -> features with a fixed batch shape, on the device the
-    encoder lives on. The counterpart of the JAX ``TileEmbedder``; its mesh
-    (tile batches sharded over several devices) is not ported yet."""
+    encoder lives on, through either encoder's ``embed``. The counterpart of
+    the JAX ``TileEmbedder``; a ResNet encoder whose config asks for it
+    (``fold_bn``) has its BN folded once here, as the JAX ``make_embedder``
+    folds it. Its mesh (tile batches sharded over several devices) is not
+    ported yet."""
 
     _STAGES = 2  # pinned staging buffers: the host fills one while the other's copy is in flight
 
-    def __init__(self, encoder: ViTEncoder, batch_size: int = 128):
+    def __init__(self, encoder: ResNetEncoder | ViTEncoder, batch_size: int = 128):
+        if isinstance(encoder, ResNetEncoder) and encoder.config.fold_bn:
+            encoder.fold_bn()
         self.encoder = encoder
         self.config = encoder.config
         self.batch_size = batch_size
