@@ -71,12 +71,13 @@ Phases (each prints its lines; any failure raises and the exit code is not 0):
    smoke_f32_s1 --k 1 --batch_size 4`` on the test split: fold_0.csv holds
    the test split's slides in split order under the reference's columns, and
    summary.csv reproduces the trainer's own test accuracy (1e-6) and AUC
-   (1e-4); pooling kernel launches = eval batches. The same with ``--bf16
-   --drop_out`` on the bf16 run. With ``--int8``: the int8 kernel's launches
-   = eval batches and none of the float kernel, the wire is int8, every
-   probability within 0.02 of the f32 run's; with ``--int8 --transfer_dtype
-   float32`` (rows quantized on the card) within 1e-6 of the int8-wire run.
-   Once ``--split all --calibrate --bootstrap 200``: the confusion matrix,
+   (1e-4); pooling kernel launches = eval batches. With ``--int8``: the
+   int8 kernel's launches = eval batches and none of the float kernel, the
+   wire is int8, every probability within 0.02 of the f32 run's; with
+   ``--int8 --transfer_dtype float32`` (rows quantized on the card) within
+   1e-6 of the int8-wire run. Once ``--bf16 --drop_out --split all
+   --calibrate --bootstrap 200`` on the bf16 run: the bf16 wire, the
+   confusion matrix,
    the calibration report (a finite positive temperature) and the intervals
    (each brackets its point value) parse; ``report --dir`` on that directory
    gives n_folds 1 and the summary's means in its last JSON line. In
@@ -111,6 +112,27 @@ Phases (each prints its lines; any failure raises and the exit code is not 0):
    against the same encoder in process (within the encoder's own bf16 noise
    against f32 compute), and the f32 encoder on the card against the CPU on
    8 tiles; tiles/s by the CLI's clock and warm.
+10. The pooling-kernel probes (run after phase 8): every kernel instance of
+   toad_tpu_torch/csrc/pool_probe.cu (P1 full, exp2, nogate, nosoftmax,
+   trunkonly; P2 b2) and csrc/pool_int8_probe.cu (P3/P4 int8_chain,
+   int8_gemms, int8_inquant, int8_inquant_bf16, int8_h_only) against its
+   plain version at full width with seeded biases and a seeded Wc over all
+   8 task columns, B=4 x 4,096 rows (a ragged bag, a fully masked one, one
+   live on 2,500 rows; int8_gemms also with b1 pushing h1 past 127) and at
+   the main path's B=32 x 8,192 (the same kinds of bag; there every block
+   runs several row tiles, checked from the split plans), each task row
+   within TOL_PROBE of its own largest |output|; a wrong gate or uniform
+   softmax weights move the plain output by at least PROBE_SEPARATION x
+   TOL_PROBE; refused shapes raise without a launch; K1 at 2,048-row splits
+   against its default plan and plain_pool on a bag of 131,072 rows; each
+   instance timed against its plain version at B=32 x 8,192 with its
+   bound. Then the main path, each
+   count from 0: ``toad_tpu_torch.experiments.mfu_probe.main()``,
+   ``int8_probe.main()`` (and its two by-name variants) and
+   ``longbag_probe.main()`` in process at their default sizes (B=32 x
+   8,192, k=24; 131,072 rows), every JSON line parsed, every kernel
+   instance launched; and ``python -m toad_tpu_torch.experiments.mfu_probe
+   --variants full --k 4 --runs 1`` as a child process.
 
 The second-to-last line is the kernels' JSON record, the last line the device
 record. Weights and data are random, made from --seed.
@@ -196,6 +218,22 @@ TOL_STAGE_BF16 = 2e-2
 # the ResNet-50 encoder in f32 (TF32 off) on the card vs the CPU, relative to
 # the largest |feature|: summation order through 13 blocks
 TOL_RESNET_F32 = 1e-4
+# The probe kernels (phase 10) vs their plain versions, each task row of the
+# output [B, 8, H] relative to its own largest |value|. Both round at the same
+# points (bias added to the f32 sums, then bf16), so they differ where
+# summation order tips one bf16 rounding of h1, h2, gated or e (and, int8, one
+# requantized step), and by the online softmax's running max against the
+# bag's max. Measured on an H100: at most 2.9e-4 of a row's largest |value|
+# (B=32 x 8,192; trunkonly 1e-5). The compare's Wc fills all 8 task columns
+# (scale 0.5: scores of O(1) spread), so that every row depends on the gate
+# and the softmax; the smoke checks that a wrong gate (nogate's) or uniform
+# softmax weights move the plain output by at least PROBE_SEPARATION times
+# this tolerance (measured: about 100 times).
+TOL_PROBE = 1e-3
+PROBE_SEPARATION = 10
+# K1 at 2,048-row splits vs its default plan on the same bag: other splits
+# round e to bf16 against other running maxes, K1's bf16 budget.
+TOL_SPLIT = TOL_BF16_M
 
 # Published dense peaks of one H100 SXM at its 700 W limit: device memory
 # bytes/s, and operations/s by operand type.
@@ -271,7 +309,7 @@ def phase_device() -> tuple[str, str]:
 
 
 def phase_build(card: str) -> None:
-    from toad_tpu_torch.ops import _build, cuda_mha, cuda_pool, cuda_pool_int8
+    from toad_tpu_torch.ops import _build, cuda_mha, cuda_pool, cuda_pool_int8, probe_pool, probe_pool_int8
 
     t0 = time.perf_counter()
     _build.load_library()
@@ -282,7 +320,8 @@ def phase_build(card: str) -> None:
         f"f32 {cuda_pool.smem_bytes(torch.float32, 512, 384)} B, "
         f"int8 {cuda_pool_int8.smem_bytes(384)} B; attention smem/block bf16 "
         f"{cuda_mha.smem_bytes(torch.bfloat16, 197)} B (197 tokens), {cuda_mha.smem_bytes(torch.bfloat16, 257)} B (257), "
-        f"f32 {cuda_mha.smem_bytes(torch.float32, 197)} B (197) [{card}]")
+        f"f32 {cuda_mha.smem_bytes(torch.float32, 197)} B (197); probe smem/block bf16 {probe_pool.smem_bytes()} B, "
+        f"int8 {probe_pool_int8.smem_bytes()} B [{card}]")
     # ptxas -v: each kernel's registers and spills
     kernel = None
     for line in _build.build_log.splitlines():
@@ -290,10 +329,17 @@ def phase_build(card: str) -> None:
             kernel = line.split("'")[1]
         elif kernel is not None and ("registers" in line or "spill stores" in line):
             names = {"pool_int8_kernel": "K2 int8", "pool_kernelIf": "K1 f32", "pool_kernelI13": "K1 bf16",
-                     "pool_combine_kernelILb1": "combine", "pool_combine_kernelILb0": "combine without division (K1p)", "mha_bf16_kernelILi13": "K3 bf16 (up to 208 tokens)",
+                     "pool_combine_kernelILi2ELb1": "combine", "pool_combine_kernelILi2ELb0": "combine without division (K1p)",
+                     "pool_combine_kernelILi8ELb1": "probe combine (8 tasks)", "mha_bf16_kernelILi13": "K3 bf16 (up to 208 tokens)",
                      "mha_bf16_kernelILi17": "K3 bf16 (up to 272 tokens)", "mha_f32_kernel": "K3 f32",
                      **{f"stage_block_kernelI{m}Li{w}E": f"KS {d} ({16 * w}-pixel tiles)"
-                        for m, d in (("f", "f32"), ("13__nv_bfloat16", "bf16")) for w in (1, 2, 4)}}
+                        for m, d in (("f", "f32"), ("13__nv_bfloat16", "bf16")) for w in (1, 2, 4)},
+                     **{f"probe_pool_kernelILi{i}ELi1E": f"P1 {v}"
+                        for i, v in enumerate(("full", "exp2", "nogate", "nosoftmax", "trunkonly"))},
+                     "probe_pool_kernelILi0ELi2E": "P2 b2",
+                     **{f"probe_int8_kernelILi{i}ELi{r}E": f"P3/P4 {v}" for i, r, v in (
+                         (0, 0, "int8_chain"), (0, 2, "int8_gemms"), (1, 0, "int8_inquant"),
+                         (2, 1, "int8_inquant_bf16"), (3, 1, "int8_h_only"))}}
             name = next((v for k, v in names.items() if k in kernel), kernel)
             log(f"phase 2 build: {name}: {line.split(':', 1)[-1].strip()}")
 
@@ -539,9 +585,13 @@ def time_pair(label: str, plain_fn, kernel_fn, work: dict, gpu: str, library_fn=
     p1, k1, *lib, k2, p2 = (cuda_ms(fn, inner=inner) for fn in fns)
     k, p = min(k1, k2), min(p1, p2)
     library = min(lib) if lib else None
-    t_bytes, t_ops = work["bytes"] / PEAK_BYTES_S * 1e3, work["ops"] / PEAK_OPS_S[work["kind"]] * 1e3
+    # ops: a count of one kind, or {kind: count} for a kernel whose products mix operand types
+    ops_by_kind = work["ops"] if isinstance(work["ops"], dict) else {work["kind"]: work["ops"]}
+    work = dict(work, ops=sum(ops_by_kind.values()), kind="+".join(ops_by_kind))
+    t_bytes = work["bytes"] / PEAK_BYTES_S * 1e3
+    t_ops = sum(n / PEAK_OPS_S[kind] for kind, n in ops_by_kind.items()) * 1e3
     bound_ms, bound_by = max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
-    unit = "TOP/s" if work["kind"] == "int8" else "TFLOP/s"
+    unit = "TOP/s" if "int8" in ops_by_kind else "TFLOP/s"
     verdict = "kernel faster" if k < p else "kernel SLOWER than plain"
     lib_text = f", library call {library:.3f} ms ({lib[0]:.3f}/{lib[1]:.3f})" if lib else ""
     log(f"phase 6 timing {label}: kernel {k:.3f} ms ({k1:.3f}/{k2:.3f}), plain {p:.3f} ms ({p1:.3f}/{p2:.3f})"
@@ -1683,9 +1733,9 @@ def check_eval_run(label: str, ev: dict, kernel: str, trainer_summary: Path | No
 
 def phase_eval(trained: dict, card: str, gpu: str, workdir: Path) -> dict:
     """The evaluation path at TOAD's full width on phase 7's dataset, fold and
-    results dirs: ``eval`` in f32, bf16 and int8 as child processes, one run
-    with calibration and bootstrap intervals, ``report``, and the engine on
-    the card against the engine on the CPU."""
+    results dirs: ``eval`` in f32 and int8 (both wires) as child processes,
+    one run in bf16 with calibration and bootstrap intervals, ``report``, and
+    the engine on the card against the engine on the CPU."""
     import math
 
     from toad_tpu_torch.evaluate.engine import evaluate_checkpoint
@@ -1696,29 +1746,30 @@ def phase_eval(trained: dict, card: str, gpu: str, workdir: Path) -> dict:
 
     ev32 = run_eval(workdir, "smoke_f32_s1", "f32", [])
     p32 = check_eval_run("f32", ev32, "float", results / "smoke_f32_s1" / "summary.csv", test_ids, card, gpu)
-    ev16 = run_eval(workdir, "smoke_bf16_s1", "bf16", ["--bf16", "--drop_out"])
-    check_eval_run("bf16, dropout layout", ev16, "float", results / "smoke_bf16_s1" / "summary.csv", test_ids, card, gpu)
     ev8 = run_eval(workdir, "smoke_f32_s1", "int8", ["--int8"])
     p8 = check_eval_run("int8, int8 wire", ev8, "int8", None, test_ids, card, gpu)
     ev8d = run_eval(workdir, "smoke_f32_s1", "int8_dev", ["--int8", "--transfer_dtype", "float32"])
     p8d = check_eval_run("int8, float32 wire, rows quantized on the card", ev8d, "int8", None, test_ids, card, gpu)
-    wires = {k: e["passes"][0]["wire"] for k, e in (("f32", ev32), ("bf16", ev16), ("int8", ev8), ("int8_dev", ev8d))}
-    if wires != dict(f32="float32", bf16="bfloat16", int8="int8", int8_dev="float32"):
+    wires = {k: e["passes"][0]["wire"] for k, e in (("f32", ev32), ("int8", ev8), ("int8_dev", ev8d))}
+    if wires != dict(f32="float32", int8="int8", int8_dev="float32"):
         raise AssertionError(f"eval: the batcher's wires were {wires}")
     d_q, d_w = float(np.abs(p8 - p32).max()), float(np.abs(p8d - p8).max())
     if d_q > TOL_EVAL_INT8_VS_F32 or d_w > TOL_EVAL_WIRE_VS_DEVICE:
         raise AssertionError(f"eval --int8: probabilities differ from the f32 run's by {d_q:.3e} (tolerance {TOL_EVAL_INT8_VS_F32}), "
                              f"int8 wire vs quantization on the card by {d_w:.3e} (tolerance {TOL_EVAL_WIRE_VS_DEVICE})")
-    b32, b16, b8 = (e["passes"][0]["bytes"] for e in (ev32, ev16, ev8))
+    b32, b8 = (e["passes"][0]["bytes"] for e in (ev32, ev8))
     log(f"phase 8 eval --int8: every probability within {d_q:.2e} of the f32 run's (tolerance {TOL_EVAL_INT8_VS_F32}); rows "
         f"quantized in the producer thread vs on the card differ by {d_w:.1e} (tolerance {TOL_EVAL_WIRE_VS_DEVICE}: the quantizers "
-        f"are exact twins); bytes to the card f32 {b32}, bf16 {b16} ({b32 / b16:.2f}x fewer), int8 {b8} ({b32 / b8:.2f}x fewer); peak "
+        f"are exact twins); bytes to the card f32 {b32}, int8 {b8} ({b32 / b8:.2f}x fewer); peak "
         f"device memory with rows quantized on the card {ev8d['peak_gb']:.2f} GB against {ev8['peak_gb']:.2f} GB on the int8 wire [{gpu}]")
 
-    # once with everything around the pass: the whole dataset, a temperature from the val split, bootstrap intervals
-    ev_all = run_eval(workdir, "smoke_f32_s1", "all", ["--split", "all", "--calibrate", "--bootstrap", "200"])
-    if ev_all["k1"] != ev_all["batches"] or [p["what"] for p in ev_all["passes"]] != ["eval", "val"]:
-        raise AssertionError(f"eval --split all --calibrate: {ev_all['batches']} batches, {ev_all['k1']} launches, passes {ev_all['passes']}")
+    # once with everything around the pass, on the bf16 run's checkpoint (dropout layout) in bf16: the whole
+    # dataset, a temperature from the val split, bootstrap intervals
+    ev_all = run_eval(workdir, "smoke_bf16_s1", "all", ["--bf16", "--drop_out", "--split", "all", "--calibrate", "--bootstrap", "200"])
+    if ev_all["k1"] != ev_all["batches"] or ev_all["k2"] or [p["what"] for p in ev_all["passes"]] != ["eval", "val"] \
+            or ev_all["passes"][0]["wire"] != "bfloat16" or ev_all["card"] != card:
+        raise AssertionError(f"eval --bf16 --split all --calibrate: {ev_all['batches']} batches, {ev_all['k1']} launches, passes "
+                             f"{ev_all['passes']} on {ev_all['card']}")
     out = ev_all["out"]
     n_all = len(read_csv_rows(out / "fold_0.csv"))
     confusion = read_csv_rows(out / "fold_0_confusion.csv")
@@ -1745,11 +1796,11 @@ def phase_eval(trained: dict, card: str, gpu: str, workdir: Path) -> dict:
             or abs(flat["calibration_temperature_mean"] - t) > 1e-12:
         raise AssertionError(f"report: {flat} against summary.csv {summary}")
     pa, pv = ev_all["passes"]
-    log(f"phase 8 eval --split all --calibrate --bootstrap 200: {n_all} slides, {ev_all['batches']} batches = pooling kernel launches "
+    log(f"phase 8 eval --bf16 --drop_out --split all --calibrate --bootstrap 200 (the bf16 run): {n_all} slides, {ev_all['batches']} batches = pooling kernel launches "
         f"{ev_all['k1']}; temperature {t:.3f} (ece {calib['ece_before']:.4f} -> {calib['ece_after']:.4f}); intervals bracket their "
         f"points (cls auc {float(summary['cls_test_auc']):.4f} in [{cis['cls_auc']['lo']:.4f}, {cis['cls_auc']['hi']:.4f}]); report: "
         f"n_folds 1 and the summary's means; eval pass {pa['rate']:.1f} slides/s (data wait {pa['wait']}), val pass {pv['rate']:.1f} "
-        f"slides/s (data wait {pv['wait']}); child process {ev_all['wall']:.1f} s [{gpu}]")
+        f"slides/s (data wait {pv['wait']}), wire bfloat16; child process {ev_all['wall']:.1f} s [{gpu}]")
 
     # in process: the engine on the card against the engine on the CPU, the same checkpoint and bags (cut to 8,192 rows)
     kw = dict(batch_size=4, max_bag_size=8192)
@@ -1780,8 +1831,8 @@ def phase_eval(trained: dict, card: str, gpu: str, workdir: Path) -> dict:
         f"{d_cpu:.2e} (tolerance {TOL_EVAL_CARD_VS_CPU}); cls auc {on_card.cls_auc:.4f} vs {on_cpu.cls_auc:.4f}; a second pass on "
         f"the card gives the same probabilities (|d| {d_again:.1e}) and leaves pinned host memory at {pinned_first} -> {pinned_second} bytes (the first "
         f"ring's slots are reused), no producer thread left")
-    runs = dict(f32=ev32, bf16=ev16, int8=ev8, int8_dev=ev8d, all=ev_all)
-    return dict(k1_launches=ev32["k1"] + ev16["k1"] + ev_all["k1"], k2_launches=ev8["k2"] + ev8d["k2"], runs=runs)
+    runs = dict(f32=ev32, int8=ev8, int8_dev=ev8d, all=ev_all)
+    return dict(k1_launches=ev32["k1"] + ev_all["k1"], k2_launches=ev8["k2"] + ev8d["k2"], runs=runs)
 
 
 def phase_timing_train(gpu: str, seed: int) -> dict:
@@ -1850,6 +1901,280 @@ def phase_timing_train(gpu: str, seed: int) -> dict:
     return out
 
 
+def check_probe(name: str, got: torch.Tensor, want: torch.Tensor, tol: float) -> tuple[float, float]:
+    """For a probe output [B, 8, H]: (max abs error, the largest error of a
+    task row relative to that row's largest |want|); raises above ``tol``
+    relative, on a shape mismatch or a non-finite value."""
+    got, want = got.float(), want.float()
+    if got.shape != want.shape:
+        raise AssertionError(f"{name}: shape {tuple(got.shape)} != {tuple(want.shape)}")
+    if not torch.isfinite(got).all():
+        raise AssertionError(f"{name}: non-finite values")
+    diff = (got - want).abs()
+    rel = (diff.amax(dim=(0, 2)) / want.abs().amax(dim=(0, 2)).clamp_min(1e-30)).max().item()
+    if rel > tol:
+        raise AssertionError(f"{name}: max abs err {diff.max().item():.3e}, {rel:.3e} of a task row's largest output, over {tol}")
+    return diff.max().item(), rel
+
+
+def probe_operands(seed: int, dev: torch.device):
+    """The probes' trunk and gate weights with seeded biases (so that the bias
+    paths are compared) and a seeded Wc over all 8 task columns (the probes'
+    own has 2, the rest zero): (bf16 params, the same with bc shifted by +3
+    for nosoftmax, whose denominators then stay positive and its outputs O(1),
+    int8 qparams, h_only qparams, int8 qparams whose b1 pushes half of h1 past
+    127)."""
+    from toad_tpu_torch.ops import probe_pool, probe_pool_int8
+
+    g = torch.Generator(device=dev).manual_seed(seed + 10)
+
+    def bias(n, shift=0.0):
+        return torch.randn(n, device=dev, generator=g) * 0.05 + shift
+
+    w1, _, w2, _, wab, _, _, _ = probe_pool.probe_weights(0, dev)
+    wc = (torch.randn(384, 8, device=dev, generator=g) * 0.5).to(torch.bfloat16)
+    params = (w1, bias(512), w2, bias(512), wab, bias(768), wc, bias(8))
+    params_pos = params[:7] + (params[7] + 3.0,)
+    qbias = (bias(512), bias(512), bias(768), bias(8))
+
+    def q(h_only, b1_shift=0.0):
+        qp = list(probe_pool_int8.probe_qparams(0, h_only=h_only, device=dev))
+        qp[2], qp[5], qp[8], qp[9], qp[10] = qbias[0].clone(), qbias[1], qbias[2], wc, qbias[3]
+        qp[2][:256] += b1_shift
+        return tuple(qp)
+
+    return params, params_pos, q(False), q(True), q(False, 150.0)
+
+
+def phase_probes(seed: int, gpu: str) -> dict:
+    """Phase 10, the pooling-kernel probes: every instance of the two probe
+    kernels against its plain version, K1 at 2,048-row splits against its
+    default plan, each timed against its plain version at the probes' shape;
+    then the probes' main() in process (the main path: counts from 0) and
+    one child process as a user starts it."""
+    import contextlib
+    import io
+
+    from toad_tpu_torch.experiments import int8_probe, longbag_probe, mfu_probe
+    from toad_tpu_torch.ops import _build, cuda_pool, probe_pool, probe_pool_int8
+    from toad_tpu_torch.ops.cuda_pool import split_plan
+    from toad_tpu_torch.ops.fused_pool import plain_pool
+    from toad_tpu_torch.ops.quantize import quantize_rows
+
+    t0 = time.perf_counter()
+    dev = torch.device("cuda")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    model = seeded_model(seed).cuda().eval()  # outside inference_mode: its weights keep their version counters
+    params, params_pos, qp, qp_h, qp_sat = probe_operands(seed, dev)
+    ops, ops_pos = probe_pool.pack_probe_params(params), probe_pool.pack_probe_params(params_pos)
+    qops = {False: probe_pool_int8.pack_probe_qparams(qp), True: probe_pool_int8.pack_probe_qparams(qp_h)}
+    ops_sat = probe_pool_int8.pack_probe_qparams(qp_sat)
+
+    def int8_args(variant, x):
+        h_only = variant == "int8_h_only"
+        xs = quantize_rows(x.float()) if variant in probe_pool_int8.PREQUANTIZED else (x, None)
+        return (qp_h if h_only else qp), qops[h_only], xs
+
+    def compare(x, mask, label):
+        """Every kernel instance against its plain version on (x, mask), bag 1
+        fully masked: the largest error of each, and the plain outputs."""
+        errs, wants = {}, {}
+        cases = [(v, lambda v=v: probe_pool.probe_pool(ops_pos if v == "nosoftmax" else ops, x, mask, v, tile),
+                  lambda v=v: probe_pool.plain_probe_pool(params_pos if v == "nosoftmax" else params, x, mask, v, tile))
+                 for v in probe_pool.KERNEL_VARIANTS]
+        for v in probe_pool_int8.VARIANTS:
+            q, o, (xin, sx) = int8_args(v, x)
+            cases.append((v, lambda o=o, xin=xin, sx=sx, v=v: probe_pool_int8.probe_pool_int8(o, xin, sx, mask, v),
+                          lambda q=q, xin=xin, sx=sx, v=v: probe_pool_int8.plain_probe_pool_int8(q, xin, sx, mask, v)))
+        for variant, kernel, plain in cases:
+            got, want = kernel(), plain()
+            torch.cuda.synchronize()
+            err, rel = check_probe(f"probe {variant} {label}", got, want, TOL_PROBE)
+            if variant != "trunkonly" and got[1].abs().max().item() != 0.0:  # trunkonly ignores the mask, as the probe does
+                raise AssertionError(f"probe {variant} {label}: the fully masked bag pooled to nonzero M")
+            errs[variant], wants[variant] = err, want
+            log(f"phase 10 compare probe {variant} {label}: max abs err {err:.3e}, {rel:.2e} of its task row's largest "
+                f"|output| at most (tolerance {TOL_PROBE})")
+        return errs, wants
+
+    # 1. kernel vs plain, B=4 x 4,096: bag 0 ragged, bag 1 fully masked, bag 2 ragged, bag 3 live on 2,500 rows
+    g = torch.Generator(device=dev).manual_seed(seed + 11)
+    b, n, tile = 4, 4096, 1024
+    x = torch.randn(b, n, 1024, device=dev, generator=g).to(torch.bfloat16)
+    mask = (torch.rand(b, n, device=dev, generator=g) < 0.9).float()
+    mask[1] = 0.0
+    mask[3, 2500:] = 0.0
+    with torch.inference_mode():
+        errs, wants = compare(x, mask, f"B={b} N={n}")
+        # the limit separates a wrong kernel: a wrong gate, or softmax weights that ignore the scores
+        wrong = {"nogate's gate": wants["nogate"],
+                 "uniform softmax weights": probe_pool.plain_probe_pool(
+                     params[:6] + (torch.zeros_like(params[6]), torch.zeros_like(params[7])), x, mask, "full", tile)}
+        for what, other in wrong.items():
+            d = ((other - wants["full"]).abs().amax(dim=(0, 2)) / wants["full"].abs().amax(dim=(0, 2))).min().item()
+            if d < PROBE_SEPARATION * TOL_PROBE:
+                raise AssertionError(f"probe compare: {what} moves the plain output by only {d:.2e} of a task row's largest "
+                                     f"|value|, under {PROBE_SEPARATION} x the tolerance {TOL_PROBE}")
+            log(f"phase 10 compare probe: {what} would move full's output by {d:.2e} of its task row's largest |value| in the "
+                f"least moved row ({d / TOL_PROBE:.0f} x the tolerance {TOL_PROBE})")
+        xq, sx = quantize_rows(x.float())
+        err, rel = check_probe("probe int8_gemms, h1 past 127", probe_pool_int8.probe_pool_int8(ops_sat, xq, sx, mask, "int8_gemms"),
+                               probe_pool_int8.plain_probe_pool_int8(qp_sat, xq, sx, mask, "int8_gemms"), TOL_PROBE)
+        errs["int8_gemms"] = max(errs["int8_gemms"], err)
+        log(f"phase 10 compare probe int8_gemms with b1 pushing h1 past 127 (the saturating cast): max abs err "
+            f"{err:.3e}, {rel:.2e} of its task row's largest |output| at most")
+        before = probe_pool.LAUNCHES
+        for bad, kw in (((3, 4096), dict(variant="b2", tile=1024)), ((4, 4096), dict(variant="full", tile=1000))):
+            try:
+                probe_pool.probe_pool(ops, x[: bad[0]], mask[: bad[0]], **kw)
+            except ValueError as e:
+                log(f"phase 10 compare probe: refused without a launch: {e}")
+            else:
+                raise AssertionError(f"the probe kernel took {bad} {kw}")
+        if probe_pool.LAUNCHES != before:
+            raise AssertionError("a refused probe call counted as a launch")
+
+        # 2. K1 at 2,048-row splits (the long-bag probe's tiling) vs its default plan and the plain version
+        k1_ops, k1_params = model.kernel_operands(torch.bfloat16), cast_params(model.pool_params(), torch.bfloat16)
+        xl = torch.randn(1, 131072, 1024, device=dev, generator=g).to(torch.bfloat16)
+        ml = (torch.rand(1, 131072, device=dev, generator=g) < 0.95).float()
+        m_split, _ = cuda_pool.pool(k1_ops, xl, ml, False, rows_per_split=2048)
+        m_default, _ = cuda_pool.pool(k1_ops, xl, ml, False)
+        m_plain, _ = plain_pool(k1_params, xl, ml, torch.bfloat16, False)
+        torch.cuda.synchronize()
+        e_split = check_close("K1 at 2,048-row splits vs its default plan", m_split, m_default, TOL_SPLIT)
+        e_split_plain = check_close("K1 at 2,048-row splits vs plain_pool", m_split, m_plain, TOL_BF16_M)
+        errs["split_2048"] = max(e_split, e_split_plain)
+        log(f"phase 10 compare K1 B=1 N=131072 bf16 at 2,048-row splits (64 splits of 32 tiles): vs the default plan "
+            f"{e_split:.3e}, vs plain_pool {e_split_plain:.3e} (tolerance {TOL_SPLIT})")
+
+        # 3. kernel vs plain at the main path's shape, B=32 x 8,192, where each block runs several row tiles
+        # (the running max and sums rescaled across tiles) and some blocks of the ragged bag see only padding:
+        # bag 0 ragged, bag 1 fully masked, bag 3 live on 2,500 rows
+        bt, nt = 32, 8192
+        lib, n_sms = _build.load_library(), torch.cuda.get_device_properties(dev).multi_processor_count
+        plans = {"single-bag instances": split_plan(bt, nt, lib.toad_probe_pool_rows_per_tile(0), n_sms),
+                 "b2": split_plan(bt // 2, nt, lib.toad_probe_pool_rows_per_tile(1), n_sms),
+                 "int8": split_plan(bt, nt, lib.toad_probe_int8_rows_per_tile(), n_sms)}
+        if min(per for per, _ in plans.values()) < 2:
+            raise AssertionError(f"the compare at B={bt} N={nt} runs one row tile a block: {plans}")
+        xt = torch.randn(bt, nt, 1024, device=dev, generator=g).to(torch.bfloat16)
+        mc = torch.ones(bt, nt, device=dev)
+        mc[0] = (torch.rand(nt, device=dev, generator=g) < 0.9).float()
+        mc[1] = 0.0
+        mc[3, 2500:] = 0.0
+        errs_main, _ = compare(xt, mc, f"B={bt} N={nt}")
+        errs = {k: max(v, errs_main.get(k, 0.0)) for k, v in errs.items()}
+        log(f"phase 10 compare probe at B={bt} N={nt}: (row tiles a block, blocks a bag) " +
+            ", ".join(f"{k} {v}" for k, v in plans.items()))
+        del mc
+
+        # 4. timing at the probes' shape, B=32 x 8,192 (kernel vs plain, bound from the work each instance does)
+        times = {}
+        mt = torch.ones(bt, nt, device=dev)
+        out_bytes = bt * 8 * 512 * 4
+        for variant in probe_pool.KERNEL_VARIANTS:
+            p, o = (params_pos, ops_pos) if variant == "nosoftmax" else (params, ops)
+            times[variant] = time_pair(
+                f"probe {variant} B={bt} N={nt}", lambda p=p, v=variant: probe_pool.plain_probe_pool(p, xt, mt, v, tile),
+                lambda o=o, v=variant: probe_pool.probe_pool(o, xt, mt, v, tile),
+                dict(bytes=nbytes(xt, mt, *o) + out_bytes, ops=probe_pool.ops_per_row(variant) * bt * nt, kind="bf16"), gpu)
+        for variant in probe_pool_int8.VARIANTS:
+            q, o, (xin, sx) = int8_args(variant, xt)
+            inputs = (xin, mt) + ((sx,) if sx is not None else ())
+            times[variant] = time_pair(
+                f"probe {variant} B={bt} N={nt}",
+                lambda q=q, xin=xin, sx=sx, v=variant: probe_pool_int8.plain_probe_pool_int8(q, xin, sx, mt, v),
+                lambda o=o, xin=xin, sx=sx, v=variant: probe_pool_int8.probe_pool_int8(o, xin, sx, mt, v),
+                dict(bytes=nbytes(*inputs, *o) + out_bytes,
+                     ops={k: v * bt * nt for k, v in probe_pool_int8.ops_per_row(variant).items()}), gpu)
+            del xin, sx
+        del xt
+        ml1 = torch.ones(1, 131072, device=dev)
+        times["split_2048"] = time_pair(
+            "K1 bf16 B=1 N=131072 at 2,048-row splits", lambda: plain_pool(k1_params, xl, ml1, torch.bfloat16, False),
+            lambda: cuda_pool.pool(k1_ops, xl, ml1, False, rows_per_split=2048),
+            dict(bytes=nbytes(xl, ml1, *k1_ops) + 2 * 512 * 4, ops=cuda_pool.flops_per_row(1024, 512, 384) * 131072,
+                 kind="bf16"), gpu)
+        t_default = cuda_ms(lambda: cuda_pool.pool(k1_ops, xl, ml1, False))
+        log(f"phase 10 timing K1 bf16 B=1 N=131072 under its default plan: {t_default:.3f} ms [{gpu}]")
+        del xl, model
+    elapsed_compare = time.perf_counter() - t0
+
+    # 5. the main path: the probes' entry points in process, each kernel's count from 0
+    def run_main(fn, argv):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = fn(argv)
+        if rc != 0:
+            raise AssertionError(f"{fn.__module__}.main({argv}) returned {rc}")
+        lines = [json.loads(line) for line in buf.getvalue().splitlines() if line.strip()]
+        for line in lines:
+            log(f"phase 10 {fn.__module__.rsplit('.', 1)[-1]} {' '.join(argv)}: {json.dumps(line)} [{gpu}]")
+        return lines
+
+    probe_pool.reset_launches()
+    mfu_lines = run_main(mfu_probe.main, [])
+    launches = {("mfu", k): v for k, v in probe_pool.INSTANCE_LAUNCHES.items()}
+    if [line["variant"] for line in mfu_lines] != mfu_probe.DEFAULT_VARIANTS.split(","):
+        raise AssertionError(f"mfu_probe printed {len(mfu_lines)} lines for {mfu_probe.DEFAULT_VARIANTS}")
+    probe_pool.reset_launches()
+    probe_pool_int8.reset_launches()
+    int8_lines = run_main(int8_probe.main, []) + run_main(int8_probe.main, ["--variants", "int8_inquant_bf16,int8_h_only"])
+    launches[("int8", "bf16")] = probe_pool.INSTANCE_LAUNCHES["full"]
+    launches.update({("int8", k): v for k, v in probe_pool_int8.INSTANCE_LAUNCHES.items()})
+    if len(int8_lines) != 6:
+        raise AssertionError(f"int8_probe printed {len(int8_lines)} lines for 6 variants")
+    cuda_pool.LAUNCHES = 0
+    long_lines = run_main(longbag_probe.main, [])
+    launches[("long", "split_2048")] = long_lines[-1]["k1_launches"]
+    if [line["arm"] for line in long_lines] != ["full_bump", "element_bump", "split_2048"] or cuda_pool.LAUNCHES != sum(
+            line["k1_launches"] for line in long_lines):
+        raise AssertionError(f"longbag_probe's arms or K1 launches do not add up: {long_lines}, {cuda_pool.LAUNCHES}")
+    for line in mfu_lines + int8_lines + long_lines:
+        rate = line.get("tflops_counted", line.get("tops_counted"))
+        if not (rate and rate > 0 and line["device"] == torch.cuda.get_device_name(0)):
+            raise AssertionError(f"a probe line without a positive rate on the card: {line}")
+    zero = [k for k, v in launches.items() if v == 0]
+    if zero:
+        raise AssertionError(f"probe kernels never launched on the main path: {zero}")
+    by_probe = {probe: {k: v for (p, k), v in launches.items() if p == probe} for probe in ("mfu", "int8")}
+    log(f"phase 10 main path launches (counted from 0 before each probe): mfu_probe {by_probe['mfu']}, "
+        f"int8_probe {by_probe['int8']}, longbag_probe K1 at 2,048-row splits "
+        f"{launches[('long', 'split_2048')]} (K1 in all its arms {cuda_pool.LAUNCHES})")
+
+    # 6. one child process as a user starts it
+    t_child = time.perf_counter()
+    out = subprocess.run([sys.executable, "-m", "toad_tpu_torch.experiments.mfu_probe", "--variants", "full", "--k", "4",
+                          "--runs", "1"], cwd=REPO, env=child_env(), capture_output=True, text=True, timeout=300)
+    if out.returncode != 0:
+        raise AssertionError(f"python -m toad_tpu_torch.experiments.mfu_probe failed ({out.returncode}):\n{out.stderr[-3000:]}")
+    child = json.loads(out.stdout.strip().splitlines()[-1])
+    if child["variant"] != "full" or not child["tflops_counted"] > 0:
+        raise AssertionError(f"unexpected child line {child}")
+    log(f"phase 10 child process `python -m toad_tpu_torch.experiments.mfu_probe --variants full --k 4 --runs 1`: "
+        f"{json.dumps(child)} in {time.perf_counter() - t_child:.1f} s [{gpu}]")
+    log(f"phase 10: {time.perf_counter() - t0:.1f} s (comparisons and timing {elapsed_compare:.1f} s)")
+    return dict(errs=errs, times=times, launches=launches)
+
+
+def probe_records(probes: dict) -> list[dict]:
+    """The kernels line's entries of phase 10: each kernel instance with the
+    TPU kernel it replaces, its launches on the main path, its error and its
+    times (P5, the int8 probe's bf16 baseline, is full's instance)."""
+    pool_src, int8_src = "toad_tpu_torch/csrc/pool_probe.cu", "toad_tpu_torch/csrc/pool_int8_probe.cu"
+    rows = [(f"probe_pool_{v}", pool_src, "experiments/mfu_probe.py:52", ("mfu", v), v)
+            for v in ("full", "exp2", "nogate", "nosoftmax", "trunkonly")]
+    rows += [("probe_pool_b2", pool_src, "experiments/mfu_probe.py:162", ("mfu", "b2"), "b2"),
+             ("probe_pool_bf16 (full's instance)", pool_src, "experiments/int8_probe.py:238", ("int8", "bf16"), "full")]
+    rows += [(f"probe_{v}", int8_src, f"experiments/int8_probe.py:{59 if v in ('int8_chain', 'int8_gemms') else 134}",
+              ("int8", v), v) for v in ("int8_chain", "int8_gemms", "int8_inquant", "int8_inquant_bf16", "int8_h_only")]
+    rows += [("pool_rows_per_split_2048 (K1)", "toad_tpu_torch/csrc/pool.cu", "experiments/longbag_probe.py:127",
+              ("long", "split_2048"), "split_2048")]
+    return [dict(name=name, route="cuda", source=src, replaces=rep, launches=probes["launches"][key],
+                 max_abs_err=probes["errs"][which], **probes["times"][which]) for name, src, rep, key, which in rows]
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
     ap.add_argument("--seed", type=int, default=0)
@@ -1887,6 +2212,8 @@ def main() -> int:
         elapsed("phase 7")
         evaluated = phase_eval(trained, card, gpu, Path(tmp))
     elapsed("phase 8")
+    probes = phase_probes(args.seed, gpu)
+    elapsed("phase 10")
     times = phase_timing(model, gpu)
     times.update(phase_timing_train(gpu, args.seed))
     elapsed("phase 6")
@@ -1954,6 +2281,7 @@ def main() -> int:
             "max_abs_err": resnet["worst"],
             **resnet["times"]["all"],
         },
+        *probe_records(probes),
     ]}
     log(f"phase 7 train: the trainer's validation and final passes launched the pooling kernel "
         f"{trained['launches']} times for {trained['eval_batches']} eval batches")

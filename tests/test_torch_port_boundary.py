@@ -158,7 +158,18 @@ EVAL_MODULES = (
 )
 
 
-@pytest.mark.parametrize("module", INT8_MODULES + VIT_MODULES + TRAIN_MODULES + EVAL_MODULES + RESNET_MODULES)
+PROBE_MODULES = (
+    "toad_tpu_torch.ops.probe_pool",
+    "toad_tpu_torch.ops.probe_pool_int8",
+    "toad_tpu_torch.experiments",
+    "toad_tpu_torch.experiments.mfu_probe",
+    "toad_tpu_torch.experiments.int8_probe",
+    "toad_tpu_torch.experiments.longbag_probe",
+)
+
+
+@pytest.mark.parametrize("module", INT8_MODULES + VIT_MODULES + TRAIN_MODULES + EVAL_MODULES + RESNET_MODULES
+                         + PROBE_MODULES)
 def test_int8_modules_import_neither_jax_nor_the_jax_package(probe, module):
     """Each module of the int8, ViT and ResNet featurization, training and evaluation paths, imported alone
     in a fresh process, loads no module of the JAX stack (h5py and PIL

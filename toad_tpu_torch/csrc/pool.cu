@@ -34,24 +34,21 @@
 //   32 (u rows g*32.., then v rows g*32..) so that a thread holds u_j and v_j
 //   of the same j; biases, mask and all outputs are f32.
 
-#include "pool_common.cuh"
+#include "pool_trunk.cuh"
 
 namespace {
 
-constexpr int kBN = 256;       // GEMM output columns per pass
-constexpr int kBK = 32;        // GEMM reduction depth per staged slice
 constexpr int kHPad = 8;       // row padding of the activation buffers
 
 // Rows per tile, staging stride (elements) and staging depth per compute
-// dtype. bf16 rows are padded by 16 bytes (conflict-free ldmatrix, 16-byte
-// aligned cp.async); f32 rows by one word (conflict-free column reads).
-// kStages: slices in flight in the cp.async ring (bf16); the f32 instance
-// stages synchronously through one buffer.
+// dtype. bf16: gemm_pass_bf16's (pool_trunk.cuh), rows padded by 16 bytes;
+// f32 rows by one word (conflict-free column reads), staged synchronously
+// through one buffer.
 template <typename T> struct Cfg;
 template <> struct Cfg<bf16> {
-  static constexpr int R = 64;
-  static constexpr int S = kBK + 8;
-  static constexpr int kStages = 3;
+  static constexpr int R = kTileRows;
+  static constexpr int S = kSBf16;
+  static constexpr int kStages = kRingBf16;
 };
 template <> struct Cfg<float> {
   static constexpr int R = 32;
@@ -83,29 +80,8 @@ __host__ __device__ inline Layout layout(int H, int A) {
 }
 
 // ---------------------------------------------------------------------------
-// Staging of one K-slice into shared memory.
-
-// bf16: 16-byte cp.async copies into a ring of kStages slices, so that the
-// next slices stream from L2 while the tensor cores work on this one.
-// ws[n][k] <- wt[n0 + n][k0 + k] and (kFromX) xs[r][k] <- x[row0 + r][k0 + k],
-// rows past the bag's end zero-filled; always commits one group
-template <bool kFromX>
-__device__ __forceinline__ void stage_async(const bf16* __restrict__ wt, int K, int n0, int k0, bf16* ws,
-                                            const bf16* __restrict__ x, int N, int D, int row0, bf16* xs) {
-  constexpr int S = Cfg<bf16>::S;
-  for (int i = threadIdx.x; i < kBN * (kBK / 8); i += kThreads) {
-    const int r = i / (kBK / 8), c = (i % (kBK / 8)) * 8;
-    cp_async16(ws + r * S + c, wt + (size_t)(n0 + r) * K + k0 + c, 16);
-  }
-  if (kFromX) {
-    for (int i = threadIdx.x; i < Cfg<bf16>::R * (kBK / 8); i += kThreads) {
-      const int r = i / (kBK / 8), c = (i % (kBK / 8)) * 8;
-      const bool ok = row0 + r < N;
-      cp_async16(xs + r * S + c, ok ? x + (size_t)(row0 + r) * D + k0 + c : x, ok ? 16 : 0);
-    }
-  }
-  cp_async_commit();
-}
+// Staging of one K-slice of the f32 instance into shared memory (the bf16
+// instance's is stage_bf16, in pool_trunk.cuh).
 
 // f32: ws[n][k] <- wt[n0 + n][k0 + k], n < kBN, k < kBK
 __device__ __forceinline__ void stage_w(const float* __restrict__ wt, int K, int n0, int k0, float* ws) {
@@ -132,11 +108,9 @@ __device__ __forceinline__ void stage_x(const float* __restrict__ x, int N, int 
 // ---------------------------------------------------------------------------
 // One GEMM pass: out[R, n0 : n0+kBN] of  A[R, K] . Wt[n0 : n0+kBN, K]^T.
 // A is the staged x tile (kFromX) or an activation buffer in shared memory.
-// kRelu epilogue: out[r][n0 + c] = T(relu(acc + bias)).
-// kGate epilogue: out[r][j] = T(tanh(u_j) * sigmoid(v_j)) over the
+// kEpiRelu epilogue: out[r][n0 + c] = T(relu(acc + bias)).
+// kEpiTanh epilogue: out[r][j] = T(tanh(u_j) * sigmoid(v_j)) over the
 // interleaved [Wa|Wb] columns (j = n0/2 + position within the u half).
-
-enum Epilogue { kRelu = 0, kGate = 1 };
 
 struct GemmArgs {
   const void* x;  // bag base [N, D] (kFromX only)
@@ -152,105 +126,13 @@ struct GemmArgs {
   int ldo;
 };
 
-// bf16: 8 warps as 2 (rows) x 4 (cols); a warp owns 32 rows x 64 columns =
-// 2 x 8 m16n8 tiles. Fragment layouts are those of PTX mma.m16n8k16
-// (g = lane / 4, q = lane % 4): C rows g, g+8 at cols 2q (+1). A fragments
-// come from ldmatrix on the row-major A tile (matrices: rows 0-7 / 8-15 x
-// cols 0-7 / 8-15); B fragments from ldmatrix on the staged [n][k] slice,
-// whose rows are B's columns (two n-tiles per x4).
+// bf16: gemm_pass_bf16 (pool_trunk.cuh) on one bag
 template <int kEpi, bool kFromX>
 __device__ void gemm_pass(const GemmArgs& g, bf16*) {
-  constexpr int S = Cfg<bf16>::S;
-  constexpr int kStages = Cfg<bf16>::kStages;
-  constexpr int R = Cfg<bf16>::R;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int gr = lane >> 2, q = lane & 3;
-  const int wr = warp >> 2, wc = warp & 3;
-  bf16* ws = static_cast<bf16*>(g.ws);
-  bf16* xs = static_cast<bf16*>(g.xs);
-  const bf16* a_s = static_cast<const bf16*>(g.a_s);
-  const bf16* wt = static_cast<const bf16*>(g.wt);
-  const bf16* x = static_cast<const bf16*>(g.x);
-  const int n_steps = g.K / kBK;
-  auto issue = [&](int step) {
-    if (step < n_steps) {
-      const int slot = step % kStages;
-      stage_async<kFromX>(wt, g.K, g.n0, step * kBK, ws + slot * kBN * S, x, g.N, g.D, g.row0, xs + slot * R * S);
-    } else {
-      cp_async_commit();  // empty group: keeps one group per step for the wait count
-    }
-  };
-
-  float acc[2][8][4];
-#pragma unroll
-  for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-    for (int ni = 0; ni < 8; ++ni)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[mi][ni][e] = 0.f;
-
-  // the ring is free once every warp has left the previous pass
-  __syncthreads();
-#pragma unroll
-  for (int s = 0; s < kStages - 1; ++s) issue(s);
-  for (int step = 0; step < n_steps; ++step) {
-    cp_async_wait<kStages - 2>();  // this thread's copies of `step` have landed
-    __syncthreads();               // everyone's have, and slot (step - 1) is free
-    issue(step + kStages - 1);
-    const int slot = step % kStages;
-    const bf16* a_base = kFromX ? xs + slot * R * S : a_s + step * kBK;
-    const int la = kFromX ? S : g.lda;
-    const bf16* w_base = ws + slot * kBN * S;
-#pragma unroll
-    for (int kk = 0; kk < kBK; kk += 16) {
-      uint32_t af[2][4];
-#pragma unroll
-      for (int mi = 0; mi < 2; ++mi)
-        ldsm_x4(af[mi], a_base + (wr * 32 + mi * 16 + (lane & 15)) * la + kk + (lane >> 4) * 8);
-#pragma unroll
-      for (int np = 0; np < 4; ++np) {
-        uint32_t bf[4];  // b0, b1 of n-tile 2np, then of n-tile 2np + 1
-        ldsm_x4(bf, w_base + (wc * 64 + np * 16 + (lane >> 4) * 8 + (lane & 7)) * S + kk + ((lane >> 3) & 1) * 8);
-#pragma unroll
-        for (int mi = 0; mi < 2; ++mi) {
-          mma_bf16(acc[mi][2 * np], af[mi], bf[0], bf[1]);
-          mma_bf16(acc[mi][2 * np + 1], af[mi], bf[2], bf[3]);
-        }
-      }
-    }
-  }
-
-  bf16* out = static_cast<bf16*>(g.out);
-#pragma unroll
-  for (int mi = 0; mi < 2; ++mi) {
-#pragma unroll
-    for (int hf = 0; hf < 2; ++hf) {
-      const int row = wr * 32 + mi * 16 + gr + hf * 8;
-      if (kEpi == kRelu) {
-#pragma unroll
-        for (int ni = 0; ni < 8; ++ni) {
-          const int col = g.n0 + wc * 64 + ni * 8 + 2 * q;
-          const float v0 = fmaxf(acc[mi][ni][2 * hf] + __ldg(g.bias + col), 0.f);
-          const float v1 = fmaxf(acc[mi][ni][2 * hf + 1] + __ldg(g.bias + col + 1), 0.f);
-          *reinterpret_cast<__nv_bfloat162*>(out + row * g.ldo + col) = __floats2bfloat162_rn(v0, v1);
-        }
-      } else {
-#pragma unroll
-        for (int ni = 0; ni < 4; ++ni) {
-          const int cu = g.n0 + wc * 64 + ni * 8 + 2 * q;  // u column; v is 32 further
-          float gv[2];
-#pragma unroll
-          for (int e = 0; e < 2; ++e) {
-            const float u = acc[mi][ni][2 * hf + e] + __ldg(g.bias + cu + e);
-            const float v = acc[mi][ni + 4][2 * hf + e] + __ldg(g.bias + cu + 32 + e);
-            gv[e] = tanhf(u) * sigmoidf(v);
-          }
-          const int j = g.n0 / 2 + wc * 32 + ni * 8 + 2 * q;
-          *reinterpret_cast<__nv_bfloat162*>(out + row * g.ldo + j) = __floats2bfloat162_rn(gv[0], gv[1]);
-        }
-      }
-    }
-  }
+  const bf16* xb[1] = {static_cast<const bf16*>(g.x)};
+  gemm_pass_bf16<kEpi, kFromX, 1>(static_cast<const bf16*>(g.wt), g.K, g.n0, g.bias, static_cast<const bf16*>(g.a_s),
+                                  g.lda, xb, g.N, g.D, g.row0, static_cast<bf16*>(g.ws), static_cast<bf16*>(g.xs),
+                                  static_cast<bf16*>(g.out), g.ldo);
 }
 
 // f32: thread (tr = tid / 32, tc = tid % 32) owns rows tr + 8i (i < 4) and
@@ -294,7 +176,7 @@ __device__ void gemm_pass(const GemmArgs& g, float*) {
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int row = tr + 8 * i;
-    if (kEpi == kRelu) {
+    if (kEpi == kEpiRelu) {
 #pragma unroll
       for (int c = 0; c < 8; ++c) {
         const int col = g.n0 + tc + 32 * c;
@@ -362,13 +244,13 @@ pool_kernel(const T* __restrict__ x, const float* __restrict__ mask, int N, int 
     g.ws = smem + L.ws; g.xs = smem + L.xs; g.ldo = ldh; g.lda = ldh;
     // h1 = relu(x W1 + b1) -> ha
     g.K = D; g.wt = w1t; g.bias = b1; g.out = ha; g.a_s = nullptr;
-    for (int n0 = 0; n0 < H; n0 += kBN) { g.n0 = n0; gemm_pass<kRelu, true>(g, (T*)nullptr); }
+    for (int n0 = 0; n0 < H; n0 += kBN) { g.n0 = n0; gemm_pass<kEpiRelu, true>(g, (T*)nullptr); }
     // h2 = relu(h1 W2 + b2) -> hb
     g.K = H; g.wt = w2t; g.bias = b2; g.out = hb; g.a_s = ha;
-    for (int n0 = 0; n0 < H; n0 += kBN) { g.n0 = n0; gemm_pass<kRelu, false>(g, (T*)nullptr); }
+    for (int n0 = 0; n0 < H; n0 += kBN) { g.n0 = n0; gemm_pass<kEpiRelu, false>(g, (T*)nullptr); }
     // gated = tanh(h2 Wa + ba) * sigmoid(h2 Wb + bb) -> ha[:, :A]
     g.wt = wabt; g.bias = bab; g.out = ha; g.a_s = hb;
-    for (int n0 = 0; n0 < 2 * A; n0 += kBN) { g.n0 = n0; gemm_pass<kGate, false>(g, (T*)nullptr); }
+    for (int n0 = 0; n0 < 2 * A; n0 += kBN) { g.n0 = n0; gemm_pass<kEpiTanh, false>(g, (T*)nullptr); }
     __syncthreads();
 
     // scores s = gated Wc + bc, one warp per row
@@ -423,7 +305,8 @@ int launch(const void* x, const float* mask, int B, int N, int D, int H, int A,
   // of the split partials without the division, so that `out` and `stat_out`
   // are one unnormalised (acc, max, denom) per bag for a later combine
   if (stat_out != nullptr)
-    return launch_combine_strided<false>(part_acc, part_stat, n_splits, n_splits, 1, B, H, 0.f, out, stat_out, stream);
+    return launch_combine_strided<2, false>(part_acc, part_stat, n_splits, n_splits, 1, B, H, 0.f, 0.f, out, stat_out,
+                                            stream);
   return launch_combine(part_acc, part_stat, n_splits, B, H, out, stream);
 }
 
@@ -478,7 +361,7 @@ int toad_pool_partial_forward(int dtype, const void* x, const float* mask, int B
 // out [B][2][H] = sum_s acc_s w_s / max(sum_s denom_s w_s, 1e-12): the
 // cross-shard combine of toad_tpu/parallel/bag_shard.py::combine_partial_pool.
 int toad_pool_combine_shards(const float* acc, const float* stats, int S, int B, int H, float* out, void* stream) {
-  return launch_combine_strided<true>(acc, stats, S, 1, B, B, H, 1e-12f, out, nullptr,
+  return launch_combine_strided<2, true>(acc, stats, S, 1, B, B, H, 1e-12f, 0.f, out, nullptr,
                                       static_cast<cudaStream_t>(stream));
 }
 

@@ -1,7 +1,9 @@
 // Pieces shared by the kernels: staging and mma.sync fragment helpers (also
-// used by csrc/mha.cu, K3), and for the fused pooling kernels csrc/pool.cu
-// (K1, bf16/f32) and csrc/pool_int8.cu (K2, int8) the per-tile online
-// masked-softmax update and the exact combine of the split-N partials. Everything sits in an anonymous namespace, so each
+// used by csrc/mha.cu, K3, and csrc/stage.cu, KS), and for the fused pooling
+// kernels csrc/pool.cu (K1, bf16/f32) and csrc/pool_int8.cu (K2, int8) the
+// per-tile online masked-softmax update, and for those and the pooling
+// probes the exact combine of the split-N partials (their trunk is in
+// pool_trunk.cuh). Everything sits in an anonymous namespace, so each
 // translation unit that includes this header gets its own copy.
 
 #pragma once
@@ -123,88 +125,95 @@ __device__ __forceinline__ void online_accumulate(float* acc_s, const float* e_s
 }
 
 // ---------------------------------------------------------------------------
-// Exact flash combine of one bag's partials (acc [2][H], max[2], denom[2]).
-// Partial s of bag b sits at index b * stride_b + s * stride_s of part_acc
-// (x 2H floats) and part_stat (x 4 floats), which covers both users:
+// Exact flash combine of one bag's partials (acc [T][H], max[T], denom[T]) of
+// T task columns (2 for K1, K1p and K2; 8 for the probes). Partial s of bag b
+// sits at index b * stride_b + s * stride_s of part_acc (x T*H floats) and
+// part_stat (x 2T floats), which covers both users:
 //   - the split-N partials of one launch, [B][n_splits]: stride_b = n_splits,
 //     stride_s = 1;
 //   - the shard partials of a bag-sharded pool, [S][B]: stride_b = 1,
 //     stride_s = B (the TPU version's pmax / psum over the bag axis).
 // With gmax the largest max (0 where every partial is masked) and
-// w_s = exp(max_s - gmax) (0 for a masked partial):
-//   kDivide:  out = sum_s acc_s w_s / max(sum_s denom_s w_s, eps);
-//   !kDivide: out = sum_s acc_s w_s and stat_out[b] = (max[2], denom[2]) =
+// w_s = exp(max_s - gmax) (0 for a masked partial; 1 for the probes' plain
+// sums, whose max is 0):
+//   kDivide:  out = sum_s acc_s w_s / den, den = divisor where divisor > 0
+//             (the probes' trunkonly: its count of row tiles), else
+//             max(sum_s denom_s w_s, eps);
+//   !kDivide: out = sum_s acc_s w_s and stat_out[b] = (max[T], denom[T]) =
 //             (largest max, sum_s denom_s w_s): one unnormalised partial,
 //             itself an input of a later combine. A bag without live rows
 //             gives max = kNegInf, denom = 0, acc = 0.
-// Block (c, b) finishes the 32 outputs c*32.. of bag b's [2][H]; its warps
+// Block (c, b) finishes the 32 outputs c*32.. of bag b's [T][H]; its warps
 // split the partials between them, so that a bag with many splits (one large
 // bag spread over the card) is combined by many SMs.
 constexpr int kCombineCols = 32;
 
-template <bool kDivide>
+template <int T, bool kDivide>
 __global__ void __launch_bounds__(kThreads)
 pool_combine_kernel(const float* __restrict__ part_acc, const float* __restrict__ part_stat,
-                    int n_parts, int stride_b, int stride_s, int H, float eps,
+                    int n_parts, int stride_b, int stride_s, int H, float eps, float divisor,
                     float* __restrict__ out, float* __restrict__ stat_out) {
   extern __shared__ float w_s[];  // [n_parts] rescale weights of this block's task
   __shared__ float red[kThreads / 32][kCombineCols];
   __shared__ float denom_s;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int b = blockIdx.y, i0 = blockIdx.x * kCombineCols;
-  const int t = i0 >= H;  // H % kCombineCols == 0: one task per block
+  const int t = i0 / H;  // H % kCombineCols == 0: one task per block
   const size_t p0 = (size_t)b * stride_b;
   if (warp == 0) {
     float mx = kNegInf;
-    for (int s = lane; s < n_parts; s += 32) mx = fmaxf(mx, part_stat[(p0 + (size_t)s * stride_s) * 4 + t]);
+    for (int s = lane; s < n_parts; s += 32) mx = fmaxf(mx, part_stat[(p0 + (size_t)s * stride_s) * 2 * T + t]);
     mx = warp_max(mx);
     const float m_safe = mx <= kNegInf / 2 ? 0.f : mx;
     float den = 0.f;
     for (int s = lane; s < n_parts; s += 32) {
-      const float* st = part_stat + (p0 + (size_t)s * stride_s) * 4;
+      const float* st = part_stat + (p0 + (size_t)s * stride_s) * 2 * T;
       const float m = st[t];
       const float w = expf((m <= kNegInf / 2 ? kNegInf : m) - m_safe);
       w_s[s] = w;
-      den = fmaf(st[2 + t], w, den);
+      den = fmaf(st[T + t], w, den);
     }
     den = warp_sum(den);
     if (lane == 0) {
-      denom_s = kDivide ? fmaxf(den, eps) : 1.f;
+      denom_s = kDivide ? (divisor > 0.f ? divisor : fmaxf(den, eps)) : 1.f;
       if (!kDivide && i0 == t * H) {  // the first block of each task writes its statistics
-        stat_out[(size_t)b * 4 + t] = mx;
-        stat_out[(size_t)b * 4 + 2 + t] = den;
+        stat_out[(size_t)b * 2 * T + t] = mx;
+        stat_out[(size_t)b * 2 * T + T + t] = den;
       }
     }
   }
   __syncthreads();
   float a = 0.f;
   for (int s = warp; s < n_parts; s += kThreads / 32)
-    a = fmaf(part_acc[(p0 + (size_t)s * stride_s) * 2 * H + i0 + lane], w_s[s], a);
+    a = fmaf(part_acc[(p0 + (size_t)s * stride_s) * T * H + i0 + lane], w_s[s], a);
   red[warp][lane] = a;
   __syncthreads();
   if (warp == 0) {
     float sum = 0.f;
 #pragma unroll
     for (int w = 0; w < kThreads / 32; ++w) sum += red[w][lane];
-    out[(size_t)b * 2 * H + i0 + lane] = kDivide ? sum / denom_s : sum;
+    out[(size_t)b * T * H + i0 + lane] = kDivide ? sum / denom_s : sum;
   }
 }
 
-// Launches the combine of B bags' partials into out [B][2][H] (and, without
-// the division, stat_out [B][2][2]); returns the launch's cudaError_t.
-template <bool kDivide>
+// Launches the combine of B bags' partials into out [B][T][H] (and, without
+// the division, stat_out [B][2][T]); returns the launch's cudaError_t.
+template <int T, bool kDivide>
 inline int launch_combine_strided(const float* part_acc, const float* part_stat, int n_parts, int stride_b,
-                                  int stride_s, int B, int H, float eps, float* out, float* stat_out,
-                                  cudaStream_t stream) {
-  pool_combine_kernel<kDivide><<<dim3(2 * H / kCombineCols, B), kThreads, sizeof(float) * n_parts, stream>>>(
-      part_acc, part_stat, n_parts, stride_b, stride_s, H, eps, out, stat_out);
+                                  int stride_s, int B, int H, float eps, float divisor, float* out,
+                                  float* stat_out, cudaStream_t stream) {
+  pool_combine_kernel<T, kDivide><<<dim3(T * H / kCombineCols, B), kThreads, sizeof(float) * n_parts, stream>>>(
+      part_acc, part_stat, n_parts, stride_b, stride_s, H, eps, divisor, out, stat_out);
   return (int)cudaGetLastError();
 }
 
-// The combine that ends a split-N pooling launch: acc / max(denom, 1e-30).
+// The combine that ends a split-N pooling launch of T task columns:
+// acc / max(denom, 1e-30), or acc / divisor where divisor > 0.
+template <int T = 2>
 inline int launch_combine(const float* part_acc, const float* part_stat, int n_splits, int B, int H,
-                          float* out, cudaStream_t stream) {
-  return launch_combine_strided<true>(part_acc, part_stat, n_splits, n_splits, 1, B, H, 1e-30f, out, nullptr, stream);
+                          float* out, cudaStream_t stream, float divisor = 0.f) {
+  return launch_combine_strided<T, true>(part_acc, part_stat, n_splits, n_splits, 1, B, H, 1e-30f, divisor, out,
+                                         nullptr, stream);
 }
 
 }  // namespace

@@ -37,7 +37,10 @@
 // shared memory, and the partials of the four column warps are summed in a
 // fixed order. The integer GEMMs use mma.sync m16n8k32 s8 (s32 accumulate)
 // fed by ldmatrix: int8 fragments have the byte layout of K1's bf16 ones.
-// A first kernel: no wgmma, TMA or warp specialisation yet.
+// The GEMM and its epilogues are pool_trunk.cuh's (gemm8, requant_epilogue
+// with the JAX quantizer, gate_epilogue and reduce_scores at 2 task columns),
+// shared with the int8 probe kernel. A first kernel: no wgmma, TMA or warp
+// specialisation yet.
 //
 // Layout contract (the Python wrapper ops/cuda_pool_int8.py prepares it):
 //   xq [B, N, D] int8, sx [B, N] and mask [B, N] f32; int8 weights in
@@ -45,19 +48,12 @@
 //   rows of [Wa|Wb]q (and their scales and biases) interleaved in groups of
 //   32 as for K1; Wc [A, 2] bf16, bc [2] f32; H == 512.
 
-#include "pool_common.cuh"
+#include "pool_trunk.cuh"
 
 namespace {
 
-constexpr int kR8 = 64;             // rows per tile
-constexpr int kH8 = 512;            // trunk width: one GEMM pass covers a whole row
-constexpr int kBK8 = 64;            // reduction depth (bytes) per staged slice
-constexpr int kS8 = kBK8 + 16;      // staged row stride: conflict-free ldmatrix, 16-byte cp.async
-constexpr int kStages8 = 2;         // slices in flight in the cp.async ring
-constexpr int kLdAct = kH8 + 16;    // int8 activation row stride (bytes)
-constexpr int kLdH2 = kH8 + 8;      // bf16 h2 row stride (elements)
-constexpr int kGateCols = 256;      // interleaved [Wa|Wb] columns per gate pass
-constexpr int kColWarps = 4;
+constexpr int kR8 = kTileRows;  // rows per tile
+constexpr int kH8 = kTrunkH;    // trunk width: one GEMM pass covers a whole row
 
 struct Layout8 {
   size_t ws, xs, act, h2, wc, rs, rmax, spart, s, e, acc, stat, total;
@@ -82,228 +78,6 @@ __host__ __device__ inline Layout8 layout8(int A) {
   return L;
 }
 
-__device__ __forceinline__ void mma_s8(int* c, const uint32_t* a, uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// Stage one K-slice: ws[n][k] <- wt[n0 + n][k0 + k] for n < NT * 32 and
-// (kFromX) xs[r][k] <- x[row0 + r][k0 + k], rows past the bag's end
-// zero-filled; always commits one group.
-template <int NT, bool kFromX>
-__device__ __forceinline__ void stage8(const int8_t* __restrict__ wt, int K, int n0, int k0, int8_t* ws,
-                                       const int8_t* __restrict__ x, int N, int D, int row0, int8_t* xs) {
-  constexpr int kChunks = kBK8 / 16;
-  for (int i = threadIdx.x; i < NT * 32 * kChunks; i += kThreads) {
-    const int r = i / kChunks, c = (i % kChunks) * 16;
-    cp_async16(ws + r * kS8 + c, wt + (size_t)(n0 + r) * K + k0 + c, 16);
-  }
-  if (kFromX) {
-    for (int i = threadIdx.x; i < kR8 * kChunks; i += kThreads) {
-      const int r = i / kChunks, c = (i % kChunks) * 16;
-      const bool ok = row0 + r < N;
-      cp_async16(xs + r * kS8 + c, ok ? x + (size_t)(row0 + r) * D + k0 + c : x, ok ? 16 : 0);
-    }
-  }
-  cp_async_commit();
-}
-
-// acc = A[kR8, K] . Wt[n0 : n0 + NT*32, K]^T as int32. A is the staged x
-// tile (kFromX) or the int8 activation buffer a_s [kR8][kLdAct]. Warp
-// (wr, wc) owns rows wr*32 + mi*16 + {g, g+8} and columns
-// n0 + wc*NT*8 + ni*8 + 2q (+1) (g = lane / 4, q = lane % 4), the PTX
-// m16n8k32 accumulator layout.
-template <int NT, bool kFromX>
-__device__ __forceinline__ void gemm8(int (&acc)[2][NT][4], const int8_t* __restrict__ wt, int K, int n0,
-                                      const int8_t* a_s, const int8_t* __restrict__ x, int N, int D, int row0,
-                                      int8_t* ws, int8_t* xs) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int wr = warp / kColWarps, wc = warp % kColWarps;
-  const int n_steps = K / kBK8;
-  auto issue = [&](int step) {
-    if (step < n_steps) {
-      const int slot = step % kStages8;
-      stage8<NT, kFromX>(wt, K, n0, step * kBK8, ws + slot * kH8 * kS8, x, N, D, row0, xs + slot * kR8 * kS8);
-    } else {
-      cp_async_commit();  // empty group: keeps one group per step for the wait count
-    }
-  };
-#pragma unroll
-  for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-    for (int ni = 0; ni < NT; ++ni)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[mi][ni][e] = 0;
-
-  // the ring is free, and the previous epilogue's writes to a_s are
-  // visible, once every warp has arrived here
-  __syncthreads();
-#pragma unroll
-  for (int s = 0; s < kStages8 - 1; ++s) issue(s);
-  for (int step = 0; step < n_steps; ++step) {
-    cp_async_wait<kStages8 - 2>();  // this thread's copies of `step` have landed
-    __syncthreads();                // everyone's have, and slot (step - 1) is free
-    issue(step + kStages8 - 1);
-    const int slot = step % kStages8;
-    const int8_t* a_base = kFromX ? xs + slot * kR8 * kS8 : a_s + step * kBK8;
-    const int la = kFromX ? kS8 : kLdAct;
-    const int8_t* w_base = ws + slot * kH8 * kS8;
-#pragma unroll
-    for (int kk = 0; kk < kBK8; kk += 32) {
-      uint32_t af[2][4];
-#pragma unroll
-      for (int mi = 0; mi < 2; ++mi)
-        ldsm_x4(af[mi], a_base + (wr * 32 + mi * 16 + (lane & 15)) * la + kk + (lane >> 4) * 16);
-#pragma unroll
-      for (int np = 0; np < NT / 2; ++np) {
-        uint32_t bf[4];  // b0, b1 of n-tile 2np, then of n-tile 2np + 1
-        ldsm_x4(bf, w_base + (wc * NT * 8 + np * 16 + (lane >> 4) * 8 + (lane & 7)) * kS8 + kk +
-                        ((lane >> 3) & 1) * 16);
-#pragma unroll
-        for (int mi = 0; mi < 2; ++mi) {
-          mma_s8(acc[mi][2 * np], af[mi], bf[0], bf[1]);
-          mma_s8(acc[mi][2 * np + 1], af[mi], bf[2], bf[3]);
-        }
-      }
-    }
-  }
-}
-
-// f32(y) * (s_row * s_col) + b, each step rounded (no FMA contraction)
-__device__ __forceinline__ float dequant(int y, float s_row, float s_col, float b) {
-  return __fadd_rn(__fmul_rn(static_cast<float>(y), __fmul_rn(s_row, s_col)), b);
-}
-
-// Trunk epilogue over all kH8 columns: h = relu(dequant(acc)), h2 (kToBf16)
-// rounded to bf16 for the pooling, then per-row requantization into act and
-// the row scales into rs. rmax [kR8] must be zero on entry.
-template <bool kToBf16>
-__device__ __forceinline__ void requant_epilogue(int (&acc)[2][16][4], const float* __restrict__ s_col,
-                                                 const float* __restrict__ bias, float* rs, float* rmax,
-                                                 int8_t* act, bf16* h2) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int g = lane >> 2, q = lane & 3;
-  const int wr = warp / kColWarps, wc = warp % kColWarps;
-  float v[2][16][4];
-#pragma unroll
-  for (int mi = 0; mi < 2; ++mi) {
-#pragma unroll
-    for (int hf = 0; hf < 2; ++hf) {
-      const int row = wr * 32 + mi * 16 + g + hf * 8;
-      const float s_row = rs[row];
-      float mx = 0.f;
-#pragma unroll
-      for (int ni = 0; ni < 16; ++ni) {
-        const int col = wc * 128 + ni * 8 + 2 * q;
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const float h = fmaxf(dequant(acc[mi][ni][2 * hf + e], s_row, __ldg(s_col + col + e), __ldg(bias + col + e)), 0.f);
-          v[mi][ni][2 * hf + e] = h;
-          mx = fmaxf(mx, h);
-        }
-        if (kToBf16)
-          *reinterpret_cast<__nv_bfloat162*>(h2 + row * kLdH2 + col) =
-              __floats2bfloat162_rn(v[mi][ni][2 * hf], v[mi][ni][2 * hf + 1]);
-      }
-      // the four lanes of a quad hold the same row
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
-      if (q == 0) atomicMax(reinterpret_cast<int*>(rmax + row), __float_as_int(mx));
-    }
-  }
-  // every row's amax is known, and every warp has finished reading act (the
-  // GEMM's input) and rs
-  __syncthreads();
-#pragma unroll
-  for (int mi = 0; mi < 2; ++mi) {
-#pragma unroll
-    for (int hf = 0; hf < 2; ++hf) {
-      const int row = wr * 32 + mi * 16 + g + hf * 8;
-      const float scale = __fdiv_rn(fmaxf(rmax[row], 1e-6f), 127.f);
-#pragma unroll
-      for (int ni = 0; ni < 16; ++ni) {
-        const int col = wc * 128 + ni * 8 + 2 * q;
-        int qv[2];
-#pragma unroll
-        for (int e = 0; e < 2; ++e)
-          qv[e] = __float2int_rn(fminf(fmaxf(rintf(__fdiv_rn(v[mi][ni][2 * hf + e], scale)), -127.f), 127.f));
-        *reinterpret_cast<uint16_t*>(act + row * kLdAct + col) =
-            static_cast<uint16_t>((qv[0] & 0xff) | ((qv[1] & 0xff) << 8));
-      }
-      if (wc == 0 && q == 0) rs[row] = scale;
-    }
-  }
-}
-
-// Gate epilogue of one pass over interleaved [Wa|Wb] columns n0..n0+255:
-// warp column wc holds u_j in n-tiles 0-3 and v_j (32 columns further) in
-// n-tiles 4-7 for j = n0/2 + wc*32 + ni*8 + 2q (+1); gated is rounded to
-// bf16 and folded into the thread's partial scores sacc[mi][hf][t].
-__device__ __forceinline__ void gate_epilogue(int (&acc)[2][8][4], int n0, const float* rs,
-                                              const float* __restrict__ swab, const float* __restrict__ bab,
-                                              const float* wc_s, float (&sacc)[2][2][2]) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int g = lane >> 2, q = lane & 3;
-  const int wr = warp / kColWarps, wc = warp % kColWarps;
-#pragma unroll
-  for (int mi = 0; mi < 2; ++mi) {
-#pragma unroll
-    for (int hf = 0; hf < 2; ++hf) {
-      const float s_row = rs[wr * 32 + mi * 16 + g + hf * 8];
-#pragma unroll
-      for (int ni = 0; ni < 4; ++ni) {
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const int cu = n0 + wc * 64 + ni * 8 + 2 * q + e;
-          const float u = dequant(acc[mi][ni][2 * hf + e], s_row, __ldg(swab + cu), __ldg(bab + cu));
-          const float v = dequant(acc[mi][ni + 4][2 * hf + e], s_row, __ldg(swab + cu + 32), __ldg(bab + cu + 32));
-          const float gv = __bfloat162float(__float2bfloat16(tanhf(u) * sigmoidf(v)));
-          const int j = n0 / 2 + wc * 32 + ni * 8 + 2 * q + e;
-          sacc[mi][hf][0] = fmaf(gv, wc_s[2 * j], sacc[mi][hf][0]);
-          sacc[mi][hf][1] = fmaf(gv, wc_s[2 * j + 1], sacc[mi][hf][1]);
-        }
-      }
-    }
-  }
-}
-
-// s = sum of the partial scores + bc, in a fixed order: the quad's lanes,
-// then the four column warps. Writes s_s [kR8][2] and the live rows' raw
-// scores (scored mode).
-__device__ __forceinline__ void reduce_scores(float (&sacc)[2][2][2], float* spart, const float* __restrict__ bc,
-                                              float* s_s, float* scores, int b, int N, int row0) {
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int g = lane >> 2, q = lane & 3;
-  const int wr = warp / kColWarps, wc = warp % kColWarps;
-#pragma unroll
-  for (int mi = 0; mi < 2; ++mi) {
-#pragma unroll
-    for (int hf = 0; hf < 2; ++hf) {
-#pragma unroll
-      for (int t = 0; t < 2; ++t) {
-        float v = sacc[mi][hf][t];
-        v += __shfl_xor_sync(0xffffffffu, v, 1);
-        v += __shfl_xor_sync(0xffffffffu, v, 2);
-        if (q == 0) spart[(wc * kR8 + wr * 32 + mi * 16 + g + hf * 8) * 2 + t] = v;
-      }
-    }
-  }
-  __syncthreads();
-  if (tid < 2 * kR8) {
-    const int r = tid >> 1, t = tid & 1;
-    float s = 0.f;
-#pragma unroll
-    for (int w = 0; w < kColWarps; ++w) s += spart[(w * kR8 + r) * 2 + t];
-    s += __ldg(bc + t);
-    s_s[2 * r + t] = s;
-    if (scores != nullptr && row0 + r < N) scores[((size_t)b * 2 + t) * N + row0 + r] = s;
-  }
-  __syncthreads();
-}
-
 __global__ void __launch_bounds__(kThreads, 1)
 pool_int8_kernel(const int8_t* __restrict__ xq, const float* __restrict__ sx, const float* __restrict__ mask,
                  int N, int D, int A,
@@ -315,9 +89,9 @@ pool_int8_kernel(const int8_t* __restrict__ xq, const float* __restrict__ sx, co
                  float* __restrict__ scores, float* __restrict__ part_acc, float* __restrict__ part_stat) {
   extern __shared__ __align__(16) unsigned char smem[];
   const Layout8 L = layout8(A);
-  int8_t* ws = reinterpret_cast<int8_t*>(smem + L.ws);
-  int8_t* xs = reinterpret_cast<int8_t*>(smem + L.xs);
-  int8_t* act = reinterpret_cast<int8_t*>(smem + L.act);
+  u8* ws = smem + L.ws;
+  u8* xs = smem + L.xs;
+  u8* act = smem + L.act;
   bf16* h2 = reinterpret_cast<bf16*>(smem + L.h2);
   float* wc_s = reinterpret_cast<float*>(smem + L.wc);
   float* rs = reinterpret_cast<float*>(smem + L.rs);
@@ -330,7 +104,7 @@ pool_int8_kernel(const int8_t* __restrict__ xq, const float* __restrict__ sx, co
 
   const int tid = threadIdx.x;
   const int split = blockIdx.x, b = blockIdx.y;
-  const int8_t* xb = xq + (size_t)b * N * D;
+  const u8* xb = reinterpret_cast<const u8*>(xq) + (size_t)b * N * D;
   const float* sb = sx + (size_t)b * N;
   const float* mb = mask + (size_t)b * N;
 
@@ -358,19 +132,19 @@ pool_int8_kernel(const int8_t* __restrict__ xq, const float* __restrict__ sx, co
 
     int acc[2][16][4];
     // h1 = relu(dequant(xq W1q)) -> act (int8), rs <- its row scales
-    gemm8<16, true>(acc, w1t, D, 0, nullptr, xb, N, D, row0, ws, xs);
-    requant_epilogue<false>(acc, sw1, b1, rs, rmax, act, nullptr);
+    gemm8<16, true, false>(acc, reinterpret_cast<const u8*>(w1t), D, 0, nullptr, 0, xb, N, D, row0, ws, xs);
+    requant_epilogue<kReqF32, false>(acc, sw1, b1, rs, rmax, act, nullptr);
     // h2 = relu(dequant(h1q W2q)) -> h2 (bf16) and act (int8), rs <- its row scales
-    gemm8<16, false>(acc, w2t, kH8, 0, act, nullptr, N, D, row0, ws, xs);
-    requant_epilogue<true>(acc, sw2, b2, rs, rmax + kR8, act, h2);
+    gemm8<16, false, false>(acc, reinterpret_cast<const u8*>(w2t), kH8, 0, act, kLdAct, nullptr, N, D, row0, ws, xs);
+    requant_epilogue<kReqF32, true>(acc, sw2, b2, rs, rmax + kR8, act, h2);
     // scores from the gate, pass by pass
     float sacc[2][2][2] = {};
     for (int n0 = 0; n0 < 2 * A; n0 += kGateCols) {
       int accg[2][8][4];
-      gemm8<8, false>(accg, wabt, kH8, n0, act, nullptr, N, D, row0, ws, xs);
-      gate_epilogue(accg, n0, rs, swab, bab, wc_s, sacc);
+      gemm8<8, false, false>(accg, reinterpret_cast<const u8*>(wabt), kH8, n0, act, kLdAct, nullptr, N, D, row0, ws, xs);
+      gate_epilogue<2>(accg, n0, rs, swab, bab, wc_s, sacc);
     }
-    reduce_scores(sacc, spart, bc, s_s, scores, b, N, row0);
+    reduce_scores<2>(sacc, spart, bc, s_s, scores, b, N, row0);
 
     online_stats<kR8, bf16>(s_s, mb, row0, N, e_s, stat);
     __syncthreads();

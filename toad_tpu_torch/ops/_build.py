@@ -65,6 +65,25 @@ _SIGNATURES = {
          _p, _p, _p, _p, _p],  # scores, part_acc, part_stat, out, stream
         ctypes.c_int,
     ),
+    "toad_probe_pool_rows_per_tile": ([_i], ctypes.c_int),  # pair
+    "toad_probe_pool_smem_bytes": ([_i], ctypes.c_longlong),  # A
+    "toad_probe_pool_forward": (
+        [_i, _i, _p, _p, _i, _i, _i, _i, _i,  # variant, pair, x, mask, B, N, D, H, A
+         _p, _p, _p, _p, _p, _p, _p, _p,  # w1t, b1, w2t, b2, wabt, bab, wc, bc
+         _i, _i, _i,  # probe_tiles, tiles_per_split, n_splits
+         _p, _p, _p, _p],  # part_acc, part_stat, out, stream
+        ctypes.c_int,
+    ),
+    "toad_probe_int8_rows_per_tile": ([], ctypes.c_int),
+    "toad_probe_int8_smem_bytes": ([_i], ctypes.c_longlong),  # A
+    "toad_probe_int8_forward": (
+        [_i, _p, _p, _p, _i, _i, _i, _i, _i,  # variant, x, sx, mask, B, N, D, H, A
+         _p, _p, _p, _p, _p, _p, _p, _p, _p,  # w1t, sw1, b1, w2t, sw2, b2, wabt, swab, bab
+         _p, _p,  # wc, bc
+         _i, _i,  # tiles_per_split, n_splits
+         _p, _p, _p, _p],  # part_acc, part_stat, out, stream
+        ctypes.c_int,
+    ),
     "toad_mha_head_dim": ([], ctypes.c_int),
     "toad_mha_max_tokens": ([_i], ctypes.c_int),
     "toad_mha_smem_bytes": ([_i, _i], ctypes.c_longlong),

@@ -100,12 +100,28 @@ def split_plan(n_bags: int, n_rows: int, rows_per_tile: int, n_sms: int) -> tupl
     return per, -(-n_tiles // per)
 
 
-def launch_buffers(b_: int, n: int, h_dim: int, with_scores: bool, rows_per_tile: int, dev: torch.device):
-    """The split plan and the buffers a split-N pooling launch writes:
-    (tiles_per_split, n_splits, M [B, 2, H], scores [B, 2, N] or None,
-    partial acc, partial stats)."""
-    n_sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    per, n_splits = split_plan(b_, n, rows_per_tile, n_sms)
+def fixed_split_plan(n_rows: int, rows_per_tile: int, rows_per_split: int) -> tuple[int, int]:
+    """(tiles_per_split, n_splits) that cut each bag into runs of
+    ``rows_per_split`` rows (the last may be shorter); ValueError unless that
+    is a positive multiple of the kernel's row tile."""
+    if rows_per_split <= 0 or rows_per_split % rows_per_tile:
+        raise ValueError(f"rows_per_split={rows_per_split} must be a positive multiple of the kernel's "
+                         f"{rows_per_tile}-row tile")
+    per = rows_per_split // rows_per_tile
+    return per, -(-n_rows // rows_per_split)
+
+
+def launch_buffers(b_: int, n: int, h_dim: int, with_scores: bool, rows_per_tile: int, dev: torch.device,
+                   rows_per_split: int | None = None):
+    """The split plan (:func:`split_plan`, or :func:`fixed_split_plan` for a
+    given ``rows_per_split``) and the buffers a split-N pooling launch
+    writes: (tiles_per_split, n_splits, M [B, 2, H], scores [B, 2, N] or
+    None, partial acc, partial stats)."""
+    if rows_per_split is None:
+        n_sms = torch.cuda.get_device_properties(dev).multi_processor_count
+        per, n_splits = split_plan(b_, n, rows_per_tile, n_sms)
+    else:
+        per, n_splits = fixed_split_plan(n, rows_per_tile, rows_per_split)
     m = torch.empty((b_, N_TASKS, h_dim), device=dev, dtype=torch.float32)
     scores = torch.empty((b_, N_TASKS, n), device=dev, dtype=torch.float32) if with_scores else None
     part_acc = torch.empty((b_ * n_splits * N_TASKS * h_dim,), device=dev, dtype=torch.float32)
@@ -156,19 +172,22 @@ def _raise_on(err: int, lib, what: str) -> None:
 
 
 def pool(
-    ops: PoolOperands, x: torch.Tensor, mask: torch.Tensor, with_scores: bool
+    ops: PoolOperands, x: torch.Tensor, mask: torch.Tensor, with_scores: bool, *, rows_per_split: int | None = None
 ) -> tuple[torch.Tensor, torch.Tensor | None]:
     """Launch the fused pooling kernel: (M [B, 2, H] f32, raw scores
     [B, 2, N] f32 or None), computing in the dtype of ``ops``. Scores are
     written only when ``with_scores``; without them, row tiles that hold only
-    padding are skipped."""
+    padding are skipped. ``rows_per_split`` cuts each bag into blocks of that
+    many rows (a multiple of the kernel's row tile: 64 in bf16, 32 in f32)
+    instead of :func:`split_plan`'s; 2,048 is the long-bag probe's tiling
+    (``experiments/longbag_probe.py::pool_tile2048``)."""
     global LAUNCHES
     x, mask, b_, n, d, h_dim, a_dim = _prepare(ops, x, mask)
     dev = x.device
     lib = _build.load_library()
     code = _DTYPE_CODE[ops.w1.dtype]
     per, n_splits, m, scores, part_acc, part_stat = launch_buffers(
-        b_, n, h_dim, with_scores, lib.toad_pool_rows_per_tile(code), dev)
+        b_, n, h_dim, with_scores, lib.toad_pool_rows_per_tile(code), dev, rows_per_split)
     with torch.cuda.device(dev):
         err = lib.toad_pool_forward(
             code, x.data_ptr(), mask.data_ptr(), b_, n, d, h_dim, a_dim,
