@@ -165,6 +165,13 @@ PROBE_MODULES = (
     "toad_tpu_torch.experiments.mfu_probe",
     "toad_tpu_torch.experiments.int8_probe",
     "toad_tpu_torch.experiments.longbag_probe",
+    "toad_tpu_torch.experiments.vit_probe_common",
+    "toad_tpu_torch.experiments.vit_softmax_probe",
+    "toad_tpu_torch.experiments.vit_attn_probe",
+    "toad_tpu_torch.experiments.vit_ceiling2_probe",
+    "toad_tpu_torch.experiments.vit_elementwise_probe",
+    "toad_tpu_torch.experiments.vit_profile",
+    "toad_tpu_torch.experiments.vit_int8_probe",
 )
 
 

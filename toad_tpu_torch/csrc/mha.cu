@@ -29,6 +29,20 @@
 // query row at a time, lanes over keys for the scores and over head columns
 // for P V. A first kernel: no wgmma or TMA yet, and the 4 query blocks of an
 // (image, head) each stage the same K and V (from L2 after the first).
+//
+// P7, the softmax variant of experiments/vit_softmax_probe.py::_mha_kernel_new,
+// is a second instance of both kernels (template argument SM = kSoftmaxP7):
+//     c = Dh^-1/2 * log2(e) (formed in f64 by the caller, passed as f32);
+//     qs = q * c in f32, rounded to the input dtype;  s = qs k^T (f32);
+//     p = exp2(s - rowmax) kept in f32;  denom = sum of that f32 p;
+//     o = p (rounded to the input dtype) v, f32 accumulate;  o / denom (a true
+//     division) rounded once.
+// The rescale of q happens on the A fragments in registers, element by
+// element, so no pass over shared memory and no barrier is added; the
+// unrounded f32 p feeds the row sum, its bf16 rounding the P V product; the
+// division uses __fdiv_rn (the build has no fast-math flags). Padded key
+// columns are -inf before the row max (exp2 -> 0) and padded V rows zero, as
+// in K3. Same launch shape, shared memory and bound as K3.
 
 #include "pool_common.cuh"
 
@@ -41,6 +55,8 @@ constexpr int kLd = kDh + 8;      // bf16 row stride in shared memory: 144 B, co
 constexpr int kLdF = kDh + 1;     // f32 row stride: conflict-free reads down a column
 constexpr int kMaxKeyTiles = 17;  // bf16: 16-key tiles whose scores one thread holds (N <= 272)
 constexpr int kMaxSmem = 232448;  // dynamic shared memory a block can opt in to on sm_90
+constexpr int kSoftmaxK3 = 0;     // softmax of K3: scale after q k^T, exp, p normalised before rounding
+constexpr int kSoftmaxP7 = 1;     // softmax of P7: q pre-scaled by c, exp2, the context divided at the end
 
 __host__ __device__ inline int round_up(int v, int m) { return (v + m - 1) / m * m; }
 
@@ -56,13 +72,20 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<const uint32_t*>(&v);
 }
 
+// two packed bf16 values times c in f32, each rounded back to bf16
+__device__ __forceinline__ uint32_t scale_bf16x2(uint32_t v, float c) {
+  const __nv_bfloat162 x = *reinterpret_cast<const __nv_bfloat162*>(&v);
+  return pack_bf16(__low2float(x) * c, __high2float(x) * c);
+}
+
 // ---------------------------------------------------------------------------
 // bf16: KT = number of 16-key tiles the instance unrolls (a thread holds
 // 8 * KT scores of its two rows); tiles past the sequence's own are skipped.
 // Fragment layouts are those of PTX mma.m16n8k16 (g = lane / 4, q = lane % 4):
 // C rows g, g+8 at cols 2q (+1); the C fragments of two neighbouring 8-key
 // score tiles are exactly the A fragment of the 16-key step of P V.
-template <int KT>
+// SM: kSoftmaxK3 (scale = Dh^-1/2) or kSoftmaxP7 (scale = c, see the top).
+template <int KT, int SM>
 __global__ void __launch_bounds__(kMhaThreads)
 mha_bf16_kernel(const bf16* __restrict__ qkv, bf16* __restrict__ out, int N, int H, int n_qt, float scale) {
   extern __shared__ __align__(16) unsigned char smem[];
@@ -103,11 +126,18 @@ mha_bf16_kernel(const bf16* __restrict__ qkv, bf16* __restrict__ out, int N, int
   const int wrow = warp * 16;
   const bool live = row0 + wrow < N;  // a warp whose 16 rows all lie past the end only helps staging
   float s[KT][2][4];
+  float den[2];  // P7: the rows' f32 sums of p, the divisors of the context
   if (live) {
     uint32_t qf[kDh / 16][4];
 #pragma unroll
     for (int kk = 0; kk < kDh / 16; ++kk)
       ldsm_x4(qf[kk], q_s + (wrow + (lane & 15)) * kLd + kk * 16 + (lane >> 4) * 8);
+    if constexpr (SM == kSoftmaxP7) {
+#pragma unroll
+      for (int kk = 0; kk < kDh / 16; ++kk)
+#pragma unroll
+        for (int r = 0; r < 4; ++r) qf[kk][r] = scale_bf16x2(qf[kk][r], scale);
+    }
 #pragma unroll
     for (int kt = 0; kt < KT; ++kt) {
 #pragma unroll
@@ -135,7 +165,7 @@ mha_bf16_kernel(const bf16* __restrict__ qkv, bf16* __restrict__ out, int N, int
 #pragma unroll
           for (int e = 0; e < 4; ++e) {
             const int col = kt * 16 + hf * 8 + 2 * q + (e & 1);
-            const float v = col < N ? s[kt][hf][e] * scale : -INFINITY;
+            const float v = col < N ? (SM == kSoftmaxK3 ? s[kt][hf][e] * scale : s[kt][hf][e]) : -INFINITY;
             s[kt][hf][e] = v;
             mx[e >> 1] = fmaxf(mx[e >> 1], v);
           }
@@ -154,26 +184,29 @@ mha_bf16_kernel(const bf16* __restrict__ qkv, bf16* __restrict__ out, int N, int
         for (int hf = 0; hf < 2; ++hf)
 #pragma unroll
           for (int e = 0; e < 4; ++e) {
-            const float p = expf(s[kt][hf][e] - mx[e >> 1]);
+            const float p = SM == kSoftmaxK3 ? expf(s[kt][hf][e] - mx[e >> 1]) : exp2f(s[kt][hf][e] - mx[e >> 1]);
             s[kt][hf][e] = p;
             sum[e >> 1] += p;
           }
       }
     }
-    float inv[2];  // one IEEE division per row; a division per score cost a third of the kernel's time
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
       sum[r] += __shfl_xor_sync(0xffffffffu, sum[r], 1);
       sum[r] += __shfl_xor_sync(0xffffffffu, sum[r], 2);
-      inv[r] = 1.f / sum[r];
+      den[r] = sum[r];
     }
+    if constexpr (SM == kSoftmaxK3) {
+      // one IEEE division per row; a division per score cost a third of the kernel's time
+      const float inv[2] = {1.f / sum[0], 1.f / sum[1]};
 #pragma unroll
-    for (int kt = 0; kt < KT; ++kt) {
-      if (kt < n_kt) {
+      for (int kt = 0; kt < KT; ++kt) {
+        if (kt < n_kt) {
 #pragma unroll
-        for (int hf = 0; hf < 2; ++hf)
+          for (int hf = 0; hf < 2; ++hf)
 #pragma unroll
-          for (int e = 0; e < 4; ++e) s[kt][hf][e] = s[kt][hf][e] * inv[e >> 1];
+            for (int e = 0; e < 4; ++e) s[kt][hf][e] = s[kt][hf][e] * inv[e >> 1];
+        }
       }
     }
   }
@@ -203,6 +236,13 @@ mha_bf16_kernel(const bf16* __restrict__ qkv, bf16* __restrict__ out, int N, int
     }
   }
 
+  if constexpr (SM == kSoftmaxP7) {
+#pragma unroll
+    for (int nt = 0; nt < kDh / 8; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) o[nt][e] = __fdiv_rn(o[nt][e], den[e >> 1]);
+  }
+
   // the warp's 16 query rows in shared memory are spent (they sit in qf):
   // stage the context there and write whole 128-byte head rows
   bf16* st = q_s + wrow * kLd;
@@ -225,7 +265,8 @@ mha_bf16_kernel(const bf16* __restrict__ qkv, bf16* __restrict__ out, int N, int
 // f32: K and V of the head in shared memory; a warp takes its 16 query rows
 // one at a time, the row's q in registers. Lane j computes the scores of
 // keys j, j + 32, .. into the warp's row buffer p_s, then head columns j and
-// j + 32 of p V.
+// j + 32 of p V. SM as in the bf16 kernel.
+template <int SM>
 __global__ void __launch_bounds__(kMhaThreads)
 mha_f32_kernel(const float* __restrict__ qkv, float* __restrict__ out, int N, int H, int n_qt, float scale) {
   extern __shared__ __align__(16) unsigned char smem[];
@@ -258,30 +299,39 @@ mha_f32_kernel(const float* __restrict__ qkv, float* __restrict__ out, int N, in
       const float4 v = __ldg(reinterpret_cast<const float4*>(base + (size_t)row * ld + c));
       qr[c] = v.x; qr[c + 1] = v.y; qr[c + 2] = v.z; qr[c + 3] = v.w;
     }
+    if constexpr (SM == kSoftmaxP7) {
+#pragma unroll
+      for (int c = 0; c < kDh; ++c) qr[c] = qr[c] * scale;
+    }
     float mx = -INFINITY;
     for (int key = lane; key < N; key += 32) {
       float acc = 0.f;
 #pragma unroll
       for (int d = 0; d < kDh; ++d) acc = fmaf(qr[d], k_s[key * kLdF + d], acc);
-      acc *= scale;
+      if constexpr (SM == kSoftmaxK3) acc *= scale;
       p_s[key] = acc;
       mx = fmaxf(mx, acc);
     }
     mx = warp_max(mx);
     float sum = 0.f;
     for (int key = lane; key < N; key += 32) {
-      const float e = expf(p_s[key] - mx);
+      const float e = SM == kSoftmaxK3 ? expf(p_s[key] - mx) : exp2f(p_s[key] - mx);
       p_s[key] = e;
       sum += e;
     }
     sum = warp_sum(sum);
-    for (int key = lane; key < N; key += 32) p_s[key] = p_s[key] / sum;
+    if constexpr (SM == kSoftmaxK3)
+      for (int key = lane; key < N; key += 32) p_s[key] = p_s[key] / sum;
     __syncwarp();
     float o0 = 0.f, o1 = 0.f;
     for (int key = 0; key < N; ++key) {
       const float p = p_s[key];
       o0 = fmaf(p, v_s[key * kLdF + lane], o0);
       o1 = fmaf(p, v_s[key * kLdF + lane + 32], o1);
+    }
+    if constexpr (SM == kSoftmaxP7) {
+      o0 = __fdiv_rn(o0, sum);
+      o1 = __fdiv_rn(o1, sum);
     }
     float* orow = out + ((size_t)b * N + row) * D + h * kDh;
     orow[lane] = o0;
@@ -322,17 +372,25 @@ int toad_mha_max_tokens(int dtype) {
 long long toad_mha_smem_bytes(int dtype, int N) { return (long long)(dtype == 1 ? smem_bf16(N) : smem_f32(N)); }
 
 // Launches the attention kernel on `stream` over qkv [B, N, 3*H*64] into out
-// [B, N, H*64]; returns the launch's cudaError_t (0 on success;
-// cudaErrorInvalidValue for a shape no instance takes). Does not synchronise.
-int toad_mha_forward(int dtype, const void* qkv, void* out, int B, int N, int H, int head_dim, float scale,
-                     void* stream) {
-  if (head_dim != kDh || B < 1 || N < 1 || H < 1 || H > 65535 || N > toad_mha_max_tokens(dtype))
+// [B, N, H*64]: softmax 0 = K3 (scale = Dh^-1/2), 1 = P7 (scale = c, see the
+// top); returns the launch's cudaError_t (0 on success; cudaErrorInvalidValue
+// for a shape no instance takes). Does not synchronise.
+int toad_mha_forward(int softmax, int dtype, const void* qkv, void* out, int B, int N, int H, int head_dim,
+                     float scale, void* stream) {
+  if ((softmax != kSoftmaxK3 && softmax != kSoftmaxP7) || head_dim != kDh || B < 1 || N < 1 || H < 1 ||
+      H > 65535 || N > toad_mha_max_tokens(dtype))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype != 1) return launch_mha<float>(mha_f32_kernel, smem_f32(N), qkv, out, B, N, H, scale, s);
+  const bool p7 = softmax == kSoftmaxP7;
+  if (dtype != 1)
+    return launch_mha<float>(p7 ? mha_f32_kernel<kSoftmaxP7> : mha_f32_kernel<kSoftmaxK3>, smem_f32(N), qkv, out,
+                             B, N, H, scale, s);
   // the smaller instance spares registers where the sequence allows it (N <= 208: ViT at 224 px)
-  if (N <= 13 * 16) return launch_mha<bf16>(mha_bf16_kernel<13>, smem_bf16(N), qkv, out, B, N, H, scale, s);
-  return launch_mha<bf16>(mha_bf16_kernel<kMaxKeyTiles>, smem_bf16(N), qkv, out, B, N, H, scale, s);
+  if (N <= 13 * 16)
+    return launch_mha<bf16>(p7 ? mha_bf16_kernel<13, kSoftmaxP7> : mha_bf16_kernel<13, kSoftmaxK3>, smem_bf16(N),
+                            qkv, out, B, N, H, scale, s);
+  return launch_mha<bf16>(p7 ? mha_bf16_kernel<kMaxKeyTiles, kSoftmaxP7> : mha_bf16_kernel<kMaxKeyTiles, kSoftmaxK3>,
+                          smem_bf16(N), qkv, out, B, N, H, scale, s);
 }
 
 }  // extern "C"

@@ -1,11 +1,18 @@
-"""The pooling-kernel probes on the card (:mod:`.mfu_probe`, :mod:`.int8_probe`,
-:mod:`.longbag_probe`), counterparts of the TPU probes of the same names in
-``experiments/``. Each runs as ``python -m toad_tpu_torch.experiments.NAME``
-and prints one JSON line per variant or arm."""
+"""The probes on the card, counterparts of the TPU probes of the same names in
+``experiments/``: the pooling-kernel probes (:mod:`.mfu_probe`,
+:mod:`.int8_probe`, :mod:`.longbag_probe`) and the ViT-L decomposition
+probes (:mod:`.vit_softmax_probe`, :mod:`.vit_attn_probe`,
+:mod:`.vit_ceiling2_probe`, :mod:`.vit_elementwise_probe`,
+:mod:`.vit_profile`, :mod:`.vit_int8_probe`, with their harness
+:mod:`.vit_probe_common`). Each runs as ``python -m
+toad_tpu_torch.experiments.NAME`` and prints one JSON line per variant or
+arm."""
 
 from __future__ import annotations
 
 import torch
+
+PEAK_BF16 = 989.0  # TFLOP/s, dense bf16, H100 SXM at 700 W
 
 
 def resolve_device(name: str) -> torch.device:

@@ -35,11 +35,9 @@ import sys
 
 import torch
 
-from toad_tpu_torch.experiments import device_name, resolve_device, time_chain
+from toad_tpu_torch.experiments import PEAK_BF16, device_name, resolve_device, time_chain
 from toad_tpu_torch.ops import probe_pool
 from toad_tpu_torch.ops.probe_pool import A, D, H
-
-PEAK_BF16 = 989.0  # TFLOP/s, dense bf16, H100 SXM at 700 W
 DEFAULT_VARIANTS = "full,fusedab,exp2,nogate,nosoftmax,trunkonly,eager,b2"
 
 

@@ -25,10 +25,11 @@ feature width.
 
 from __future__ import annotations
 
+import functools
 import math
 import os
 from dataclasses import dataclass
-from typing import Any, Mapping
+from typing import Any, Callable, Mapping
 
 import numpy as np
 import torch
@@ -86,6 +87,35 @@ def _resolve_gelu(c: ViTConfig) -> bool:
     if c.gelu == "auto":
         return c.compute_dtype == "bfloat16"
     return c.gelu == "tanh"
+
+
+def _layer_norm(x: torch.Tensor, ln: nn.Module, eps: float) -> torch.Tensor:
+    """LayerNorm in f32 with the biased variance over the last axis, by the
+    parameters of ``ln`` (a LayerNorm module): x in any dtype -> f32."""
+    return F.layer_norm(x.float(), (x.shape[-1],), ln.weight, ln.bias, eps)
+
+
+def _block(x: torch.Tensor, bw: dict[str, Any], norms: tuple, c: ViTConfig, dt: torch.dtype,
+           attn: Callable[[torch.Tensor], torch.Tensor], tanh_gelu: bool, layer_norm=_layer_norm) -> torch.Tensor:
+    """One pre-norm block on tokens ``x`` [B, N, width] in ``dt``: ``bw`` the
+    block's weights in ``dt`` (:meth:`ViTEncoder._weights`), ``norms`` its
+    (norm1, norm2), ``attn`` the attention core, qkv [B, N, 3*width] ->
+    context [B, N, width]. ``layer_norm(x, ln, eps)`` is the normalisation
+    (the probes swap it out); its result is cast to ``dt``."""
+    h = layer_norm(x, norms[0], c.ln_eps).to(dt)
+    qkv = h @ bw["qkv"][0].t() + bw["qkv"][1]
+    o = attn(qkv)
+    o = o @ bw["proj"][0].t() + bw["proj"][1]
+    if "ls1" in bw:
+        o = o * bw["ls1"]
+    x = x + o
+
+    h = layer_norm(x, norms[1], c.ln_eps).to(dt)
+    h = F.gelu(h @ bw["fc1"][0].t() + bw["fc1"][1], approximate="tanh" if tanh_gelu else "none")
+    h = h @ bw["fc2"][0].t() + bw["fc2"][1]
+    if "ls2" in bw:
+        h = h * bw["ls2"]
+    return x + h
 
 
 # ---------------------------------------------------------------------------
@@ -263,38 +293,29 @@ class ViTEncoder(nn.Module):
         """Normalized float tiles [B, H, W, 3] -> cls features [B, width] f32."""
         c = self.config
         dt = getattr(torch, c.compute_dtype)
+        w = self._weights(dt)
+        tokens = self._embed_tokens(x, w, dt)
+        attn = functools.partial(fused_mha, heads=c.heads, head_dim=c.head_dim)
+        tanh_gelu = _resolve_gelu(c)
+        for blk, bw in zip(self.blocks, w["blocks"]):
+            tokens = _block(tokens, bw, (blk.norm1, blk.norm2), c, dt, attn, tanh_gelu)
+        return _layer_norm(tokens[:, 0, :], self.norm, c.ln_eps)
+
+    def _embed_tokens(self, x: torch.Tensor, w: dict[str, Any], dt: torch.dtype) -> torch.Tensor:
+        """Normalized float tiles [B, H, W, 3] -> tokens [B, 1 + gh*gw, width]
+        in ``dt``: the patch embedding, the cls token first, the position
+        embedding (resized to the grid) added."""
+        c = self.config
         b, hh, ww, _ = x.shape
         if hh % c.patch_size or ww % c.patch_size:
             raise ValueError(f"tile {hh}x{ww} not divisible by patch size {c.patch_size}")
         gh, gw = hh // c.patch_size, ww // c.patch_size
-        w = self._weights(dt)
-        approximate = "tanh" if _resolve_gelu(c) else "none"
-
         pw, pb = w["patch"]
         # NHWC -> NCHW as a view: the convolution reads it channels-last
         tokens = F.conv2d(x.to(dt).permute(0, 3, 1, 2), pw, stride=c.patch_size) + pb[None, :, None, None]
         tokens = tokens.flatten(2).transpose(1, 2)  # [B, gh*gw, width]
         tokens = torch.cat([w["cls"].expand(b, 1, c.width), tokens], dim=1)
-        tokens = tokens + self._pos(w, dt, gh, gw)
-
-        for blk, bw in zip(self.blocks, w["blocks"]):
-            h = F.layer_norm(tokens.float(), (c.width,), blk.norm1.weight, blk.norm1.bias, c.ln_eps).to(dt)
-            qkv = h @ bw["qkv"][0].t() + bw["qkv"][1]
-            o = fused_mha(qkv, c.heads, c.head_dim)
-            o = o @ bw["proj"][0].t() + bw["proj"][1]
-            if c.layerscale:
-                o = o * bw["ls1"]
-            tokens = tokens + o
-
-            h = F.layer_norm(tokens.float(), (c.width,), blk.norm2.weight, blk.norm2.bias, c.ln_eps).to(dt)
-            h = F.gelu(h @ bw["fc1"][0].t() + bw["fc1"][1], approximate=approximate)
-            h = h @ bw["fc2"][0].t() + bw["fc2"][1]
-            if c.layerscale:
-                h = h * bw["ls2"]
-            tokens = tokens + h
-
-        out = F.layer_norm(tokens[:, 0, :].float(), (c.width,), self.norm.weight, self.norm.bias, c.ln_eps)
-        return out
+        return tokens + self._pos(w, dt, gh, gw)
 
     forward = apply
 

@@ -88,7 +88,7 @@ _SIGNATURES = {
     "toad_mha_max_tokens": ([_i], ctypes.c_int),
     "toad_mha_smem_bytes": ([_i, _i], ctypes.c_longlong),
     "toad_mha_forward": (
-        [_i, _p, _p, _i, _i, _i, _i, ctypes.c_float, _p],  # dtype, qkv, out, B, N, H, Dh, scale, stream
+        [_i, _i, _p, _p, _i, _i, _i, _i, ctypes.c_float, _p],  # softmax, dtype, qkv, out, B, N, H, Dh, scale, stream
         ctypes.c_int,
     ),
     "toad_stage_tile": ([_i, _i, _i], ctypes.c_int),  # dtype, width, stride

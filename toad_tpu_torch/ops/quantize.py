@@ -42,11 +42,12 @@ def quantize_rows_np(x: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
     return q, scale.astype(np.float32)
 
 
-def _quantize(x: torch.Tensor, dim: int) -> tuple[torch.Tensor, torch.Tensor]:
-    """int8 values and f32 scales of ``x`` with one scale per slice along ``dim``."""
+def _quantize(x: torch.Tensor, dim: int, floor: float = AMAX_FLOOR) -> tuple[torch.Tensor, torch.Tensor]:
+    """int8 values and f32 scales of ``x`` with one scale per slice along
+    ``dim``; ``floor`` bounds amax from below."""
     x = x.detach().to(torch.float32)
     amax = x.abs().amax(dim=dim)
-    scale = amax.clamp_min(AMAX_FLOOR) / torch.full_like(amax, QMAX)
+    scale = amax.clamp_min(floor) / torch.full_like(amax, QMAX)
     q = torch.round(x / scale.unsqueeze(dim)).clamp_(-QMAX, QMAX).to(torch.int8)
     return q, scale
 
