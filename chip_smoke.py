@@ -27,7 +27,12 @@ Phases (each prints its lines; any failure raises and the exit code is not 0):
    Then K2 (int8) vs plain_int8_pool on the same cases. Then K3 (the ViT
    attention core) vs plain_mha at ViT-L/16 width (16 heads of 64), bf16 and
    f32, B=64 x 197 tokens and B=3 x 257 tokens (a ragged last query block),
-   in bf16 also B=128 and B=8 x 197 (the ViT probes' shapes, phase 11).
+   in bf16 also B=128 and B=8 x 197 (the ViT probes' shapes, phase 11),
+   then one launch each at ragged shapes, N in (1, 15, 16, 17, 63, 64, 65,
+   193, 197, 208, 209, 257, 272) x B in (1, 3) x H in (1, 16), both dtypes
+   (one-row last query tiles, both instances, one- and two-buffer plans,
+   unit counts no multiple of the persistent grid), and P7 against
+   plain_mha_new at N = 17 and 257 (TOL_P7_SHARE).
 4. Serve end to end: a reference-layout checkpoint and .pt bags from a seed,
    ``python -m toad_tpu_torch serve --bf16`` on port 0, a burst of 24
    concurrent requests over the octet-stream f32/bf16, JSON features_b64 and
@@ -50,8 +55,12 @@ Phases (each prints its lines; any failure raises and the exit code is not 0):
    --format npz --batch_size 64`` as a child process. Its last JSON line,
    each bag's shape and coords, its K3 launch count (24 per tile batch) and
    its features against the same encoder with plain_mha in place of the
-   kernel on the card. Then ``--format int8`` for one slide, read back with
-   load_bag_quantized.
+   kernel on the card. Then, with cuDNN's TF32 flag at PyTorch's default
+   (every earlier phase puts back the flags it sets), the f32 encoder's patch
+   tokens against the same convolution under cudnn.flags(allow_tf32=False)
+   (TOL_FEATURES_F32; the TF32 convolution's difference is logged) and its
+   features through the kernel against plain_mha on one batch. Then
+   ``--format int8`` for one slide, read back with load_bag_quantized.
 7. Train end to end (the trainer's validation and final passes are a main
    path of K1): toad_tpu_torch.data.synthetic writes a seeded dataset at full
    width (72 slides of 2,000-30,000 patches x 1024 as .npy, 18 origins with at
@@ -165,6 +174,7 @@ from __future__ import annotations
 import argparse
 import base64
 import dataclasses
+import functools
 import json
 import os
 import shutil
@@ -287,6 +297,21 @@ def gpu_line() -> str:
     return out.splitlines()[0]
 
 
+def restores_tf32(phase):
+    """Runs ``phase`` and puts both TF32 flags (``torch.backends.cuda.matmul``
+    and ``torch.backends.cudnn``) back as it found them, whatever it set: a
+    phase that turns TF32 off for its own comparisons leaves the next phase
+    PyTorch's defaults."""
+    @functools.wraps(phase)
+    def run(*args, **kwargs):
+        found = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+        try:
+            return phase(*args, **kwargs)
+        finally:
+            torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = found
+    return run
+
+
 def check_close(name: str, got: torch.Tensor, want: torch.Tensor, tol: dict) -> float:
     got, want = got.float(), want.float()
     if got.shape != want.shape:
@@ -352,9 +377,10 @@ def phase_build(card: str) -> None:
     log(f"phase 2 build: {_build.library_path().name} ready in {took:.2f} s ({how}); "
         f"pool smem/block bf16 {cuda_pool.smem_bytes(torch.bfloat16, 512, 384)} B, "
         f"f32 {cuda_pool.smem_bytes(torch.float32, 512, 384)} B, "
-        f"int8 {cuda_pool_int8.smem_bytes(384)} B; attention smem/block bf16 "
-        f"{cuda_mha.smem_bytes(torch.bfloat16, 197)} B (197 tokens), {cuda_mha.smem_bytes(torch.bfloat16, 257)} B (257), "
-        f"f32 {cuda_mha.smem_bytes(torch.float32, 197)} B (197); probe smem/block bf16 {probe_pool.smem_bytes()} B, "
+        f"int8 {cuda_pool_int8.smem_bytes(384)} B; attention smem/block (one (image, head) buffer, two where they "
+        f"fit) bf16 {cuda_mha.smem_bytes(torch.bfloat16, 197)} B (197 tokens), {cuda_mha.smem_bytes(torch.bfloat16, 257)} "
+        f"B (257), f32 {cuda_mha.smem_bytes(torch.float32, 197)} B (197), {cuda_mha.smem_bytes(torch.float32, 257)} B "
+        f"(257); probe smem/block bf16 {probe_pool.smem_bytes()} B, "
         f"int8 {probe_pool_int8.smem_bytes()} B [{card}]")
     # ptxas -v: each kernel's registers and spills
     kernel = None
@@ -367,7 +393,8 @@ def phase_build(card: str) -> None:
                      "pool_combine_kernelILi8ELb1": "probe combine (8 tasks)",
                      **{f"mha_bf16_kernelILi{kt}ELi{sm}E": f"{k} bf16 (up to {16 * kt} tokens)"
                         for kt in (13, 17) for sm, k in ((0, "K3"), (1, "P7"))},
-                     "mha_f32_kernelILi0E": "K3 f32", "mha_f32_kernelILi1E": "P7 f32",
+                     **{f"mha_f32_kernelILi{kpl}ELi{sm}E": f"{k} f32 (up to {8 * kpl} tokens)"
+                        for kpl in (26, 34) for sm, k in ((0, "K3"), (1, "P7"))},
                      **{f"stage_block_kernelI{m}Li{w}E": f"KS {d} ({16 * w}-pixel tiles)"
                         for m, d in (("f", "f32"), ("13__nv_bfloat16", "bf16")) for w in (1, 2, 4)},
                      **{f"probe_pool_kernelILi{i}ELi1E": f"P1 {v}"
@@ -420,6 +447,7 @@ def check_modes(label: str, mask, outs: dict, tols: tuple) -> float:
     return worst
 
 
+@restores_tf32
 def phase_compare(model, seed: int) -> float:
     from toad_tpu_torch.ops import cuda_pool
     from toad_tpu_torch.ops.fused_pool import plain_pool
@@ -450,6 +478,7 @@ def phase_compare(model, seed: int) -> float:
     return worst
 
 
+@restores_tf32
 def phase_compare_partial(model, seed: int) -> tuple[float, float]:
     """K1p (the pooling kernel's partial mode) against plain_pool_partial per
     shard, and bag_sharded_pool (K1p per shard, then the combine kernel)
@@ -557,10 +586,11 @@ def phase_compare_int8(model, seed: int) -> float:
 
 
 def phase_compare_mha(seed: int) -> float:
-    """K3 against plain_mha at ViT-L/16 width; also that a shape without an
-    instance raises and launches nothing."""
+    """K3 against plain_mha at ViT-L/16 width and at ragged shapes (P7 at two
+    of them); also that a shape without an instance raises and launches
+    nothing."""
     from toad_tpu_torch.ops import cuda_mha
-    from toad_tpu_torch.ops.vit_attention import fused_mha, plain_mha
+    from toad_tpu_torch.ops.vit_attention import fused_mha, fused_mha_new, plain_mha, plain_mha_new
 
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(seed + 2)
@@ -578,6 +608,38 @@ def phase_compare_mha(seed: int) -> float:
             log(f"phase 3 compare attention {str(dt)[6:]} B={b} N={n} H=16 Dh=64: max abs err {err:.2e} "
                 f"(tolerance {tol})")
             worst = max(worst, err)
+    # ragged shapes, one launch each: a one-row last query tile (N = 1, 17, 65, 193, 209, 257), whole tiles
+    # (16, 64, 208, 272), the 17-key-tile bf16 instance and the one-buffer plans (N > 208), and unit counts
+    # (B x H = 1, 3, 16, 48) that are no multiple of the persistent grid
+    ragged = (1, 15, 16, 17, 63, 64, 65, 193, 197, 208, 209, 257, 272)
+    errs = {}
+    for dt, tol in ((torch.bfloat16, TOL_MHA_BF16), (torch.float32, TOL_MHA_F32)):
+        for n in ragged:
+            for b in (1, 3):
+                for heads in (1, 16):
+                    qkv = torch.randn(b, n, 3 * heads * 64, device=dev, generator=g).to(dt)
+                    with torch.inference_mode():
+                        out, ref = fused_mha(qkv, heads, 64), plain_mha(qkv, heads, 64)
+                    torch.cuda.synchronize()
+                    err = check_close(f"attention {str(dt)[6:]} B={b} N={n} H={heads}", out, ref, tol)
+                    errs[str(dt)[6:]] = max(errs.get(str(dt)[6:], 0.0), err)
+                    worst = max(worst, err)
+    log(f"phase 3 compare attention, ragged N in {ragged} x B in (1, 3) x H in (1, 16): max abs err "
+        + ", ".join(f"{k} {v:.2e}" for k, v in errs.items()) + f" (tolerance bf16 {TOL_MHA_BF16}, f32 {TOL_MHA_F32})")
+    # P7 at two of them: a one-row tail in the 13-tile instance, and in the 17-tile one-buffer instance
+    for dt, tol in ((torch.bfloat16, TOL_MHA_BF16), (torch.float32, TOL_MHA_F32)):
+        for n in (17, 257):
+            qkv = torch.randn(3, n, 3 * 16 * 64, device=dev, generator=g).to(dt)
+            with torch.inference_mode():
+                got, want = fused_mha_new(qkv, 16, 64), plain_mha_new(qkv, 16, 64)
+            torch.cuda.synchronize()
+            label = f"P7 {str(dt)[6:]} B=3 N={n}"
+            err = check_close(label, got, want, tol)
+            share = (got != want).float().mean().item()
+            if dt == torch.bfloat16 and share > TOL_P7_SHARE:
+                raise AssertionError(f"{label}: {share:.3e} of the elements differ from plain_mha_new, over {TOL_P7_SHARE}")
+            log(f"phase 3 compare {label} H=16 vs plain_mha_new: max abs err {err:.2e} (tolerance {tol}), "
+                f"{share:.2e} of the elements differ (limit {TOL_P7_SHARE} in bf16)")
     before = cuda_mha.LAUNCHES
     for shape, heads, head_dim in (((1, 300, 3 * 1024), 16, 64), ((1, 197, 3 * 512), 16, 32)):
         try:
@@ -692,6 +754,48 @@ def phase_timing(model, gpu: str) -> dict:
                 dict(bytes=nbytes(qkv) + nbytes(qkv) // 3, ops=4 * b * heads * n * n * head_dim, kind=kind), gpu,
                 library_fn=lambda: F.scaled_dot_product_attention(q, k, v), inner=20)
     return out
+
+
+def time_attention() -> dict:
+    """K3 (bf16 and f32), P7 (bf16) and F.scaled_dot_product_attention at the
+    main path's B=64 x 197, H=16, Dh=64 (CUDA events, 20 launches a reading):
+    the times ``--attention-ab`` compares across trees."""
+    import torch.nn.functional as F
+
+    from toad_tpu_torch.ops.vit_attention import fused_mha, fused_mha_new
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(0)
+    b, n, heads, head_dim = 64, 197, 16, 64
+    out = {}
+    for kind, dt in (("bf16", torch.bfloat16), ("f32", torch.float32)):
+        qkv = torch.randn(b, n, 3 * heads * head_dim, device=dev, generator=g).to(dt)
+        q, k, v = qkv.view(b, n, 3, heads, head_dim).permute(2, 0, 3, 1, 4)
+        with torch.inference_mode():
+            out[f"k3_{kind}_ms"] = cuda_ms(lambda: fused_mha(qkv, heads, head_dim), inner=20)
+            if dt == torch.bfloat16:
+                out["p7_bf16_ms"] = cuda_ms(lambda: fused_mha_new(qkv, heads, head_dim), inner=20)
+            out[f"sdpa_{kind}_ms"] = cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v), inner=20)
+    return out
+
+
+def attention_ab(parent: Path, gpu: str) -> None:
+    """The attention kernel of another tree (``parent``, a checkout of the
+    package) against this one's on the same card: each tree's
+    :func:`time_attention` in a child process, in the order parent, this,
+    this, parent."""
+    runs = []
+    for label, root in (("parent", parent), ("this", REPO), ("this", REPO), ("parent", parent)):
+        run = subprocess.run([sys.executable, str(REPO / "chip_smoke.py"), "--time-attention", str(root)],
+                             capture_output=True, text=True, env=child_env(), timeout=900)
+        if run.returncode != 0:
+            raise AssertionError(f"--time-attention {root} failed ({run.returncode}):\n{run.stdout}{run.stderr[-3000:]}")
+        runs.append((label, json.loads(run.stdout.strip().splitlines()[-1])))
+        log(f"attention A/B {label} tree ({root}): {json.dumps(runs[-1][1])} [{gpu}]")
+    for key in runs[0][1]:
+        best = {lab: min(r[key] for l2, r in runs if l2 == lab) for lab in ("parent", "this")}
+        log(f"attention A/B {key}: parent {best['parent']:.4f}, this tree {best['this']:.4f} "
+            f"(parent / this {best['parent'] / best['this']:.2f}) [{gpu}]")
 
 
 def _post(url: str, data: bytes, headers: dict) -> dict:
@@ -1075,6 +1179,32 @@ def plain_attention_embed(enc, tiles: torch.Tensor) -> torch.Tensor:
         vit_encoder.fused_mha = fused
 
 
+def check_patch_tokens(enc32, batch: torch.Tensor) -> tuple[float, float]:
+    """The f32 encoder's patch tokens (``_embed_tokens``, which turns cuDNN's
+    TF32 off itself) against the same convolution under an explicit
+    ``cudnn.flags(allow_tf32=False)``, the global flag left as it is. Returns
+    (their largest difference, that of the same convolution in TF32): the
+    second is the error the guard keeps out."""
+    import torch.nn.functional as F
+
+    c, cd = enc32.config, torch.backends.cudnn
+    w = enc32._weights(torch.float32)
+    pw, pb = w["patch"]
+    with torch.no_grad():
+        x = enc32.preprocess(batch)
+        got = enc32._embed_tokens(x, w, torch.float32)[:, 1:]
+        pos = enc32._pos(w, torch.float32, x.shape[1] // c.patch_size, x.shape[2] // c.patch_size)[:, 1:]
+
+        def conv(tf32: bool) -> torch.Tensor:
+            with cd.flags(enabled=cd.enabled, benchmark=cd.benchmark, deterministic=cd.deterministic, allow_tf32=tf32):
+                t = F.conv2d(x.permute(0, 3, 1, 2), pw, stride=c.patch_size) + pb[None, :, None, None]
+            return t.flatten(2).transpose(1, 2) + pos
+
+        exact, in_tf32 = conv(False), conv(True)
+    err = check_close("f32 patch tokens vs the convolution without TF32", got, exact, TOL_FEATURES_F32)
+    return err, (in_tf32 - exact).abs().max().item()
+
+
 def run_featurize(workdir: Path, weights: Path, patch_dir: Path, feat_dir: Path, fmt: str) -> tuple[dict, float]:
     """``python -m toad_tpu_torch featurize --encoder vit`` as a user runs it,
     in a child process: (its last JSON line, wall seconds)."""
@@ -1157,10 +1287,21 @@ def phase_featurize(seed: int, card: str, gpu: str, workdir: Path) -> dict:
     batch = torch.from_numpy(imgs_b[:batch_size]).to(dev)
     batch_ms = cuda_ms(lambda: enc.embed(batch))
 
-    # the same weights computing in f32: kernel path (the FMA instance) against plain path on one batch
+    # the same weights computing in f32, with cuDNN's TF32 flag at PyTorch's default (True) as a caller
+    # leaves it: the encoder turns it off for its own convolution (checked directly on the patch tokens),
+    # then the kernel path (the FMA instance) against the plain path on one batch
+    if not torch.backends.cudnn.allow_tf32:
+        raise AssertionError("torch.backends.cudnn.allow_tf32 is not at PyTorch's default (True) in phase 5: "
+                             "an earlier phase left TF32 off, and the f32 checks below would not see the encoder's guard")
     enc32 = vit_encoder.ViTEncoder(dataclasses.replace(enc.config, compute_dtype="float32"), init=False)
     enc32.load_state_dict(enc.state_dict(), assign=True)
     enc32 = enc32.to(dev).eval()
+    err_tok, tf32_err = check_patch_tokens(enc32, batch)
+    if not torch.backends.cudnn.allow_tf32:
+        raise AssertionError("the f32 encoder did not put torch.backends.cudnn.allow_tf32 back")
+    log(f"phase 5 featurize: f32 patch tokens (cuDNN TF32 flag True outside the encoder) vs the same convolution "
+        f"under cudnn.flags(allow_tf32=False): max abs err {err_tok:.2e} (tolerance {TOL_FEATURES_F32}); the same "
+        f"convolution in TF32 is off by {tf32_err:.2e}, the error the encoder's guard keeps out [{gpu}]")
     feats32 = enc32.embed(batch)
     err32 = check_close("f32 features", feats32, plain_attention_embed(enc32, batch), TOL_FEATURES_F32)
     log(f"phase 5 featurize: f32 compute, one batch of {batch_size}: max |kernel path - plain-attention path| "
@@ -1225,6 +1366,7 @@ def stage_input(enc, tiles: torch.Tensor) -> torch.Tensor:
         return enc._stem(w, enc.preprocess(tiles).to(dt)).permute(0, 2, 3, 1)
 
 
+@restores_tf32
 def phase_compare_stage(enc, seed: int) -> tuple[float, float]:
     """KS against plain_stage on the card at full width, for layer1, layer2
     and layer3: B=64 at 256 px (maps 64, 32, 16) and B=3 at 224 px (56, 28,
@@ -1446,7 +1588,6 @@ def phase_featurize_resnet(enc, seed: int, card: str, gpu: str, workdir: Path) -
     # the same weights in process on the card: bf16 features, and the encoder's own bf16 noise against f32
     loaded = load_torchvision_weights(weights, enc.config)
     embedder = TileEmbedder(encoder_from_state_dict(loaded, enc.config).to(dev).eval(), batch_size=batch_size)
-    torch.backends.cudnn.allow_tf32 = False
     enc32 = encoder_from_state_dict(loaded, dataclasses.replace(enc.config, compute_dtype="float32")).to(dev)
     embedder32 = TileEmbedder(enc32, batch_size=batch_size)
     worst = 0.0
@@ -1491,7 +1632,6 @@ def phase_resnet(seed: int, card: str, gpu: str, workdir: Path, dev: torch.devic
     driven = drive_fused_stage(enc, seed)
     times = phase_timing_stage(enc, driven.pop("x0"), gpu)
     featurized = phase_featurize_resnet(enc, seed, card, gpu, workdir)
-    torch.backends.cudnn.allow_tf32 = False
     log(f"phase 9: {time.perf_counter() - t0:.1f} s")
     return dict(launches=driven["launches"], worst=worst_abs, worst_rel=worst_rel, times=times, featurized=featurized)
 
@@ -1606,6 +1746,7 @@ def check_train_run(label: str, lines: list[str], results: Path, card: str, gpu:
     return dict(launches=launches, eval_batches=eval_batches, rates=rates, wall=wall)
 
 
+@restores_tf32
 def check_step_against_cpu(dataset_split, model_cfg, seed: int) -> None:
     """One train step (forward, backward, Adam) on the card against the same
     step on the CPU from the same weights and batch: f32, dropout off, TF32
@@ -2003,6 +2144,7 @@ def probe_operands(seed: int, dev: torch.device):
     return params, params_pos, q(False), q(True), q(False, 150.0)
 
 
+@restores_tf32
 def phase_probes(seed: int, gpu: str) -> dict:
     """Phase 10, the pooling-kernel probes: every instance of the two probe
     kernels against its plain version, K1 at 2,048-row splits against its
@@ -2308,6 +2450,7 @@ def compare_p7(seed: int) -> dict:
     return worst
 
 
+@restores_tf32
 def phase_vit_probes(seed: int, gpu: str) -> dict:
     """Phase 11, the ViT-L decomposition probes: P7 against its plain version
     (and K3 against P7's plain version), P7 timed against its plain version,
@@ -2392,9 +2535,28 @@ def phase_vit_probes(seed: int, gpu: str) -> dict:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--attention-ab", type=Path, metavar="PARENT",
+                    help="only phases 1-2, the attention comparisons of phases 3 and 11, then the attention kernel "
+                         "of the package checkout PARENT timed against this tree's (parent, this, this, parent)")
+    ap.add_argument("--time-attention", type=Path, metavar="ROOT", help=argparse.SUPPRESS)
     args = ap.parse_args()
 
+    if args.time_attention is not None:  # a child of --attention-ab: the package under ROOT
+        if not torch.cuda.is_available():
+            raise SystemExit("chip_smoke: torch.cuda.is_available() is False: this check needs a CUDA GPU")
+        sys.path.insert(0, str(args.time_attention.resolve()))
+        print(json.dumps(time_attention()))
+        return 0
     t_start = time.perf_counter()
+    if args.attention_ab is not None:
+        card, gpu = phase_device()
+        log(gpu)
+        phase_build(gpu)
+        phase_compare_mha(args.seed)
+        compare_p7(args.seed)
+        attention_ab(args.attention_ab.resolve(), gpu)
+        log(f"all phases: {time.perf_counter() - t_start:.1f} s")
+        return 0
 
     def elapsed(after: str) -> None:
         log(f"elapsed after {after}: {time.perf_counter() - t_start:.1f} s")

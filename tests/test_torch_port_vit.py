@@ -18,7 +18,7 @@ from toad_tpu.ops import vit_attention as jax_attention
 from toad_tpu_torch.models import vit_encoder as port_vit
 from toad_tpu_torch.models.interop import vit_params_from_jax
 from toad_tpu_torch.ops import _build, cuda_mha
-from toad_tpu_torch.ops.vit_attention import fused_mha, plain_mha
+from toad_tpu_torch.ops.vit_attention import fused_mha, fused_mha_new, plain_mha, plain_mha_new
 
 TINY = dict(patch_size=8, width=128, depth=2, heads=2, pretrain_img_size=32)
 # f32: both sides compute in full f32, summation order apart.
@@ -97,9 +97,11 @@ def test_plain_mha_rounding_points():
 @pytest.mark.cuda
 def test_attention_kernel_matches_plain_on_card(cuda_device):
     """Runs only on a CUDA machine: K3 against plain_mha at ViT-L's head
-    geometry, a ragged last query block, both dtypes; refused shapes raise."""
+    geometry, a ragged last query block, both dtypes, then at ragged shapes
+    (and P7 against plain_mha_new at two of them); refused shapes raise."""
     g = torch.Generator(device=cuda_device).manual_seed(0)
-    for dtype, tol in ((torch.float32, dict(rtol=5e-5, atol=5e-5)), (torch.bfloat16, dict(rtol=1e-2, atol=2e-3))):
+    tols = {torch.float32: dict(rtol=5e-5, atol=5e-5), torch.bfloat16: dict(rtol=1e-2, atol=2e-3)}
+    for dtype, tol in tols.items():
         for b, n in ((3, 197), (2, 257)):
             qkv = torch.randn(b, n, 3 * 16 * 64, device=cuda_device, generator=g).to(dtype)
             before = cuda_mha.LAUNCHES
@@ -107,6 +109,21 @@ def test_attention_kernel_matches_plain_on_card(cuda_device):
             torch.cuda.synchronize()
             assert cuda_mha.LAUNCHES == before + 1
             torch.testing.assert_close(out.float(), plain_mha(qkv, 16, 64).float(), **tol)
+        # ragged shapes, one launch each: one-row last query tiles, both instances (N <= 208 and
+        # N > 208), unit counts B x H that are no multiple of the persistent grid
+        for n in (1, 15, 16, 17, 63, 64, 65, 193, 197, 208, 209, 257, 272):
+            for b in (1, 3):
+                for heads in (1, 16):
+                    qkv = torch.randn(b, n, 3 * heads * 64, device=cuda_device, generator=g).to(dtype)
+                    torch.testing.assert_close(fused_mha(qkv, heads, 64).float(), plain_mha(qkv, heads, 64).float(),
+                                               **tol)
+        # P7 at two of them: at most one ulp, and in bf16 in at most 2 % of the elements
+        for n in (17, 257):
+            qkv = torch.randn(3, n, 3 * 16 * 64, device=cuda_device, generator=g).to(dtype)
+            got, want = fused_mha_new(qkv, 16, 64), plain_mha_new(qkv, 16, 64)
+            torch.testing.assert_close(got.float(), want.float(), **tol)
+            if dtype == torch.bfloat16:
+                assert (got != want).float().mean().item() <= 0.02
     with pytest.raises(ValueError, match="head_dim 32 not supported"):
         fused_mha(torch.zeros(1, 8, 3 * 2 * 32, device=cuda_device), 2, 32)
     with pytest.raises(ValueError, match="at most 272"):

@@ -42,7 +42,7 @@ def make_parser() -> argparse.ArgumentParser:
                    help="encoder weights: torchvision resnet50 .pth or timm ViT .bin (random init if omitted)")
     p.add_argument("--batch_size", type=int, default=64)
     p.add_argument("--no_bf16", action="store_true",
-                   help="compute in float32 instead of bfloat16 (TF32 off for the ResNet's cuDNN convs)")
+                   help="compute in float32 instead of bfloat16 (the encoders run their cuDNN convs without TF32)")
     p.add_argument("--no_fold_bn", action="store_true", help="keep the ResNet's BatchNorm unfolded")
     p.add_argument("--skip_done", action="store_true", help="skip slides whose bag already exists")
     p.add_argument("--device", type=str, default="cuda", help="cuda (default), cuda:<i> or cpu")
@@ -115,8 +115,6 @@ def _resnet(args):
     from toad_tpu_torch.models.resnet_encoder import ResNetEncoder, encoder_from_state_dict, load_torchvision_weights
 
     cfg = EncoderConfig(compute_dtype="float32" if args.no_bf16 else "bfloat16", fold_bn=not args.no_fold_bn)
-    if args.no_bf16:
-        torch.backends.cudnn.allow_tf32 = False  # f32 means f32: cuDNN's convs would otherwise run in TF32
     if args.weights:
         sd = load_torchvision_weights(args.weights, cfg)
         print(f"loaded encoder weights from {args.weights}")

@@ -67,12 +67,8 @@ def main(argv: list[str] | None = None) -> int:
             g = torch.Generator(device=dev).manual_seed(9)
             tiles = torch.rand(TRUTH_TILES, args.hw, args.hw, 3, generator=g, device=dev)
             c32 = dataclasses.replace(C, compute_dtype="float32")
-            cudnn_tf32 = torch.backends.cudnn.allow_tf32
-            torch.backends.cudnn.allow_tf32 = False  # the truth's patch embedding in full f32
-            try:
-                truth = make_vit_fwd(c32, enc, make_block(c32, heads(plain_mha, C), tanh_gelu=False))(tiles)
-            finally:
-                torch.backends.cudnn.allow_tf32 = cudnn_tf32
+            # (the encoder runs the truth's f32 patch embedding without TF32 itself)
+            truth = make_vit_fwd(c32, enc, make_block(c32, heads(plain_mha, C), tanh_gelu=False))(tiles)
             sc = truth.abs().mean().item()
             f_new, f_old = fwd_new(tiles.to(torch.bfloat16)), fwd_old(tiles.to(torch.bfloat16))
             emit({"arm": "deviation", "feature_scale": sc,

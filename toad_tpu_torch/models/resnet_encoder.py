@@ -21,8 +21,9 @@ average pool to 1024-d per tile (reference ``models/resnet_custom.py:62-70,
   computed in f32) is added in the compute dtype, the pool's mean is taken in
   f32. The weights are cast once per compute dtype and again only when one
   changes. The convolutions themselves go to cuDNN on the card; with f32
-  compute they run in TF32 unless ``torch.backends.cudnn.allow_tf32`` is
-  False (``featurize --no_bf16`` sets it False).
+  compute each runs with ``torch.backends.cudnn.allow_tf32`` False
+  (:func:`toad_tpu_torch.models.exact_f32_convs`), so in full f32 and not in
+  cuDNN's default TF32, and the flag is put back after it.
 """
 
 from __future__ import annotations
@@ -36,6 +37,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from toad_tpu_torch.config import IMAGENET_MEAN, IMAGENET_STD, EncoderConfig
+from toad_tpu_torch.models import exact_f32_convs
 
 
 class _Conv(nn.Module):
@@ -223,7 +225,8 @@ class ResNetEncoder(nn.Module):
     def _conv(self, w: dict, x: torch.Tensor, conv: _Conv, bn: _BN | None, relu: bool,
               stride: int = 1, padding: int = 0) -> torch.Tensor:
         """conv in the compute dtype, then + bias (folded) or BN, then ReLU."""
-        out = F.conv2d(x, w[id(conv)], stride=stride, padding=padding)
+        with exact_f32_convs(x.dtype):
+            out = F.conv2d(x, w[id(conv)], stride=stride, padding=padding)
         out = self._affine(w, out, conv, bn)
         return out.relu_() if relu else out
 
@@ -237,11 +240,12 @@ class ResNetEncoder(nn.Module):
     def _stem(self, w: dict, x: torch.Tensor) -> torch.Tensor:
         """Normalized tiles [B, H, W, 3] in the compute dtype -> the stem's
         output, NCHW in channels_last memory."""
-        if self.config.stem_s2d and x.shape[1] % 2 == 0 and x.shape[2] % 2 == 0:
-            x2 = space_to_depth2(x).permute(0, 3, 1, 2)  # channels_last view
-            out = F.conv2d(F.pad(x2, (2, 1, 2, 1)), w[("s2d", id(self.conv1))])
-        else:
-            out = F.conv2d(x.permute(0, 3, 1, 2), w[id(self.conv1)], stride=2, padding=3)
+        with exact_f32_convs(x.dtype):
+            if self.config.stem_s2d and x.shape[1] % 2 == 0 and x.shape[2] % 2 == 0:
+                x2 = space_to_depth2(x).permute(0, 3, 1, 2)  # channels_last view
+                out = F.conv2d(F.pad(x2, (2, 1, 2, 1)), w[("s2d", id(self.conv1))])
+            else:
+                out = F.conv2d(x.permute(0, 3, 1, 2), w[id(self.conv1)], stride=2, padding=3)
         out = self._affine(w, out.contiguous(memory_format=torch.channels_last), self.conv1, self.bn1).relu_()
         return F.max_pool2d(out, 3, 2, 1)  # pads with -inf, as the JAX reduce_window
 

@@ -37,6 +37,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from toad_tpu_torch.config import IMAGENET_MEAN, IMAGENET_STD
+from toad_tpu_torch.models import exact_f32_convs
 from toad_tpu_torch.ops.vit_attention import fused_mha
 
 
@@ -311,8 +312,9 @@ class ViTEncoder(nn.Module):
             raise ValueError(f"tile {hh}x{ww} not divisible by patch size {c.patch_size}")
         gh, gw = hh // c.patch_size, ww // c.patch_size
         pw, pb = w["patch"]
-        # NHWC -> NCHW as a view: the convolution reads it channels-last
-        tokens = F.conv2d(x.to(dt).permute(0, 3, 1, 2), pw, stride=c.patch_size) + pb[None, :, None, None]
+        # NHWC -> NCHW as a view: the convolution reads it channels-last; in f32 without TF32
+        with exact_f32_convs(dt):
+            tokens = F.conv2d(x.to(dt).permute(0, 3, 1, 2), pw, stride=c.patch_size) + pb[None, :, None, None]
         tokens = tokens.flatten(2).transpose(1, 2)  # [B, gh*gw, width]
         tokens = torch.cat([w["cls"].expand(b, 1, c.width), tokens], dim=1)
         return tokens + self._pos(w, dt, gh, gw)

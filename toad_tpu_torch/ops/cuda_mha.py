@@ -6,9 +6,11 @@ softmax(q k^T Dh^-1/2) v with f32 scores and softmax, the probabilities
 rounded to the input dtype, f32 context accumulation, heads concatenated. On
 an H100 it is memory-bound (N/2 FLOP per byte of bf16 qkv and context, ~99 at
 197 tokens against the card's ~295), so it reads qkv once, keeps scores and
-probabilities on chip and writes the context once; one block per (image,
-head, 64 query rows) takes the place of the TPU kernel's loop over images and
-heads inside a sequential grid step (see the notes in ``csrc/mha.cu``).
+probabilities on chip and writes the context once. A persistent grid (one
+block an SM) takes the place of the TPU kernel's loop over images and heads
+inside a sequential grid step: each block walks (image, head) units, stages a
+unit's Q, K and V into shared memory once with a producer warp while its
+consumer warps compute the unit before (see the notes in ``csrc/mha.cu``).
 
 :func:`mha` launches the kernel on a CUDA tensor and raises on anything the
 kernel does not take. The plain version is
@@ -66,10 +68,9 @@ def mha(qkv: torch.Tensor, heads: int, head_dim: int, variant: str = "k3") -> to
         )
     max_tokens = lib.toad_mha_max_tokens(code)
     if n > max_tokens:
-        why = ("a query row's scores over all keys are held in registers" if code == 1
-               else "a head's K and V must fit in one block's shared memory")
         raise ValueError(
-            f"{n} tokens not supported: the {str(qkv.dtype)[6:]} attention kernel takes at most {max_tokens} ({why})"
+            f"{n} tokens not supported: the {str(qkv.dtype)[6:]} attention kernel takes at most {max_tokens} "
+            "(a query row's scores over all keys are held in registers)"
         )
     qkv = qkv.contiguous()
     out = torch.empty((b, n, heads * head_dim), device=qkv.device, dtype=qkv.dtype)
@@ -93,5 +94,6 @@ def mha(qkv: torch.Tensor, heads: int, head_dim: int, variant: str = "k3") -> to
 
 
 def smem_bytes(dtype: torch.dtype, n_tokens: int) -> int:
-    """Dynamic shared memory one block of the kernel takes."""
+    """Dynamic shared memory one block of the kernel takes: one (image,
+    head)'s buffer, twice where two fit."""
     return int(_build.load_library().toad_mha_smem_bytes(_DTYPE_CODE[dtype], n_tokens))
