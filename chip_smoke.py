@@ -395,8 +395,10 @@ def phase_build(card: str) -> None:
                         for kt in (13, 17) for sm, k in ((0, "K3"), (1, "P7"))},
                      **{f"mha_f32_kernelILi{kpl}ELi{sm}E": f"{k} f32 (up to {8 * kpl} tokens)"
                         for kpl in (26, 34) for sm, k in ((0, "K3"), (1, "P7"))},
-                     **{f"stage_block_kernelI{m}Li{w}E": f"KS {d} ({16 * w}-pixel tiles)"
-                        for m, d in (("f", "f32"), ("13__nv_bfloat16", "bf16")) for w in (1, 2, 4)},
+                     **{f"stage_block_kernelI{m}Li{wm}ELi{mt}ELi{mb}E":
+                        f"KS {d} ({16 * wm * mt}-pixel tiles, registers for {mb} CTA{'s' if mb > 1 else ''} an SM)"
+                        for m, d in (("f", "f32"), ("13__nv_bfloat16", "bf16"))
+                        for wm, mt in ((1, 1), (2, 1), (4, 1), (4, 2)) for mb in (1, 2)},
                      **{f"probe_pool_kernelILi{i}ELi1E": f"P1 {v}"
                         for i, v in enumerate(("full", "exp2", "nogate", "nosoftmax", "trunkonly"))},
                      "probe_pool_kernelILi0ELi2E": "P2 b2",
@@ -779,23 +781,115 @@ def time_attention() -> dict:
     return out
 
 
-def attention_ab(parent: Path, gpu: str) -> None:
-    """The attention kernel of another tree (``parent``, a checkout of the
-    package) against this one's on the same card: each tree's
-    :func:`time_attention` in a child process, in the order parent, this,
-    this, parent."""
+def ab_runs(flag: str, what: str, parent: Path, gpu: str) -> list[tuple[str, dict]]:
+    """Another tree (``parent``, a checkout of the package) against this one
+    on the same card: ``chip_smoke.py FLAG ROOT`` in a child process for each,
+    in the order parent, this, this, parent. Logs each run's numbers and, for
+    each, the better of each tree's two; returns the runs' records."""
     runs = []
     for label, root in (("parent", parent), ("this", REPO), ("this", REPO), ("parent", parent)):
-        run = subprocess.run([sys.executable, str(REPO / "chip_smoke.py"), "--time-attention", str(root)],
+        run = subprocess.run([sys.executable, str(REPO / "chip_smoke.py"), flag, str(root)],
                              capture_output=True, text=True, env=child_env(), timeout=900)
         if run.returncode != 0:
-            raise AssertionError(f"--time-attention {root} failed ({run.returncode}):\n{run.stdout}{run.stderr[-3000:]}")
+            raise AssertionError(f"{flag} {root} failed ({run.returncode}):\n{run.stdout}{run.stderr[-3000:]}")
         runs.append((label, json.loads(run.stdout.strip().splitlines()[-1])))
-        log(f"attention A/B {label} tree ({root}): {json.dumps(runs[-1][1])} [{gpu}]")
-    for key in runs[0][1]:
-        best = {lab: min(r[key] for l2, r in runs if l2 == lab) for lab in ("parent", "this")}
-        log(f"attention A/B {key}: parent {best['parent']:.4f}, this tree {best['this']:.4f} "
+        numbers = {k: v for k, v in runs[-1][1].items() if isinstance(v, (int, float))}
+        log(f"{what} A/B {label} tree ({root}): {json.dumps(numbers)} [{gpu}]")
+    keys = dict.fromkeys(k for _, r in runs for k, v in r.items() if isinstance(v, (int, float)))
+    for key in keys:
+        best = {lab: min((r[key] for l2, r in runs if l2 == lab and key in r), default=None)
+                for lab in ("parent", "this")}
+        if best["parent"] is None:
+            log(f"{what} A/B {key}: this tree {best['this']:.4f} (not in the parent) [{gpu}]")
+            continue
+        log(f"{what} A/B {key}: parent {best['parent']:.4f}, this tree {best['this']:.4f} "
             f"(parent / this {best['parent'] / best['this']:.2f}) [{gpu}]")
+    return runs
+
+
+# Plans timed against the default in --stage-ab, on the first block of their
+# width and stride (bf16, B=64 at 256 px): (width, stride, th, tw, rows, stages).
+STAGE_AB_PLANS = (
+    (64, 1, 8, 8, 112, 3),
+    (128, 2, 8, 8, 192, 2),    # 64 pixels a CTA at stride 2
+    (128, 1, 8, 8, 112, 2),    # 64 pixels a CTA
+    (128, 1, 8, 16, 192, 3),   # one halo pass, one CTA an SM
+    (256, 2, 8, 8, 64, 3),
+    (256, 1, 8, 16, 192, 2),
+)
+
+
+def time_stage(seed: int = 0) -> dict:
+    """KS per block and per stage at B=64 x 256 px in bf16, with the encoder's
+    cuDNN stage beside it (CUDA events, 5 launches a reading, 20 for a block), and a sha256 of
+    every block's bf16 and f32 output on seeded inputs (B=64 at 256 px, B=3 at
+    224 px; each block takes the kernel's output of the block before; and
+    :func:`streamed_ds_block`'s): what
+    ``--stage-ab`` compares across trees. Where the package has plans, each of
+    STAGE_AB_PLANS is timed too, and its output's digest must be the default
+    plan's."""
+    import hashlib
+
+    from toad_tpu_torch.ops import fused_stage as fs
+
+    def digest(t: torch.Tensor) -> str:
+        return hashlib.sha256(t.contiguous().view(torch.uint8).cpu().numpy().tobytes()).hexdigest()[:16]
+
+    dev = torch.device("cuda")
+    enc = seeded_resnet(seed).fold_bn().to(dev)
+    g = torch.Generator(device=dev).manual_seed(seed + 13)
+    out, digests, alts_timed = {}, {}, set()
+    names = ("layer1", "layer2", "layer3")
+    with torch.inference_mode():
+        for dt in (torch.bfloat16, torch.float32):
+            for b, px in ((64, 256), (3, 224)):
+                x = stage_input(enc, torch.randint(0, 256, (b, px, px, 3), device=dev, dtype=torch.uint8, generator=g))
+                x = x.to(dt)
+                timed = dt == torch.bfloat16 and b == 64
+                for (stage, stride), name in zip(enc.stages(), names):
+                    if timed:
+                        out[f"ks_{name}_ms"] = cuda_ms(lambda: fs.fused_stage(stage, x, first_stride=stride), inner=5)
+                        xc = x.permute(0, 3, 1, 2)
+                        out[f"cudnn_{name}_ms"] = cuda_ms(lambda: enc.run_stage(stage, xc, stride), inner=5)
+                    for i, ops in enumerate(fs.stage_weights(stage, dt)):
+                        s = stride if i == 0 else 1
+                        y = fs.stage_block(ops, x, s)
+                        key = f"{name}.{i} {str(dt)[6:]} B={b} {px}px"
+                        digests[key] = digest(y)
+                        if timed:
+                            out[f"{name}.{i}_ms"] = cuda_ms(lambda: fs.stage_block(ops, x, s), inner=20)
+                            width = ops.w1.shape[1]
+                            for alt in STAGE_AB_PLANS if hasattr(fs, "plan") else ():
+                                if alt[:2] != (width, s) or alt in alts_timed:
+                                    continue
+                                alts_timed.add(alt)
+                                p = fs.StagePlan(*alt[2:4], fs.halo_rows(alt[2], alt[3], s), *alt[4:],
+                                                 fs.plan_bytes(dt, *alt))
+                                tag = f"{name}.{i} plan {p.th}x{p.tw} rows {p.rows} slots {p.stages}"
+                                if digest(fs.stage_block(ops, x, s, p)) != digests[key]:
+                                    raise AssertionError(f"{tag}: output differs from the default plan's")
+                                out[f"{tag} ms"] = cuda_ms(lambda: fs.stage_block(ops, x, s, p), inner=20)
+                        x = y
+        for dt in (torch.bfloat16, torch.float32):
+            ops, x = streamed_ds_block(dt, g)
+            digests[f"streamed downsample {str(dt)[6:]}"] = digest(fs.stage_block(ops, x, 2))
+    torch.cuda.synchronize()
+    out["digests"] = digests
+    return out
+
+
+def stage_ab(parent: Path, gpu: str) -> None:
+    """KS of another tree against this one's: :func:`time_stage` in each
+    (:func:`ab_runs`); every block's bf16 and f32 output must be the same bits
+    in both trees."""
+    runs = ab_runs("--time-stage", "stage", parent, gpu)
+    want = runs[0][1]["digests"]
+    for label, r in runs[1:]:
+        differ = sorted(k for k in want if r["digests"].get(k) != want[k])
+        if differ or r["digests"].keys() != want.keys():
+            raise AssertionError(f"stage A/B: the {label} tree's outputs differ from the parent's at {differ}")
+    log(f"stage A/B: all {len(want)} outputs (13 blocks, bf16 and f32, B=64 at 256 px and B=3 at 224 px; the streamed "
+        f"downsample block in both dtypes) have the same sha256 in both trees, in all four runs")
 
 
 def _post(url: str, data: bytes, headers: dict) -> dict:
@@ -1366,6 +1460,26 @@ def stage_input(enc, tiles: torch.Tensor) -> torch.Tensor:
         return enc._stem(w, enc.preprocess(tiles).to(dt)).permute(0, 2, 3, 1)
 
 
+def streamed_ds_block(dt: torch.dtype, g: torch.Generator):
+    """A downsample block that is no ResNet-50 block (Cin 1024, width 128,
+    stride 2), with seeded weights on the card: its A rows x[::2, ::2, :]
+    do not fit next to the output tile in shared memory, so KS streams them
+    through the ring once a column group, the path no ResNet-50 block takes.
+    Returns the operands and an input x [2, 16, 16, 1024]."""
+    from toad_tpu_torch.ops import fused_stage as fs
+
+    dev = torch.device("cuda")
+
+    def w(*shape):
+        return (torch.randn(*shape, device=dev, generator=g) / shape[-2] ** 0.5).to(dt)
+
+    def b(n):
+        return torch.randn(n, device=dev, generator=g) * 0.1
+
+    ops = fs.BlockOperands(w(1024, 128), b(128), w(9, 128, 128), b(128), w(128, 512), b(512), w(1024, 512), b(512))
+    return ops, torch.relu(torch.randn(2, 16, 16, 1024, device=dev, generator=g)).to(dt)
+
+
 @restores_tf32
 def phase_compare_stage(enc, seed: int) -> tuple[float, float]:
     """KS against plain_stage on the card at full width, for layer1, layer2
@@ -1393,13 +1507,24 @@ def phase_compare_stage(enc, seed: int) -> tuple[float, float]:
                 scale = float(want.float().abs().max())
                 err = check_close(f"stage {name} {str(dt)[6:]} B={b} {px} px", got, want, dict(atol=tol * scale, rtol=0.0))
                 width = stage[0].conv1.weight.shape[0]
+                first, rest = fs.plan(dt, width, stride), fs.plan(dt, width, 1)
                 log(f"phase 9 compare stage {name} {str(dt)[6:]} B={b} x {tuple(x.shape)} -> {tuple(got.shape)}: max abs "
                     f"err {err:.3e} = {err / scale:.2e} of the largest |output| {scale:.1f} (tolerance {tol:g} of it); "
-                    f"tiles {fs.tile(dt, width, stride)} (first block) and {fs.tile(dt, width, 1)}, "
-                    f"{fs.smem_bytes(dt, width, stride)} / {fs.smem_bytes(dt, width, 1)} B shared memory a block")
+                    f"plans: first block {first}, {first.tiles(*got.shape[1:3])} tiles an image; the others {rest}, "
+                    f"{rest.tiles(*got.shape[1:3])} tiles an image")
                 if dt == torch.bfloat16:
                     worst_abs, worst_rel = max(worst_abs, err), max(worst_rel, err / scale)
                 x = want
+    for dt, tol in ((torch.bfloat16, TOL_STAGE_BF16), (torch.float32, TOL_STAGE_F32)):
+        ops, x = streamed_ds_block(dt, g)
+        with torch.inference_mode():
+            got, want = fs.stage_block(ops, x, 2), fs.plain_block(ops, x, 2)
+        torch.cuda.synchronize()
+        scale = float(want.float().abs().max())
+        err = check_close(f"stage streamed downsample {str(dt)[6:]}", got, want, dict(atol=tol * scale, rtol=0.0))
+        log(f"phase 9 compare stage: a downsample block streamed through the ring (Cin 1024, width 128, stride 2, "
+            f"{str(dt)[6:]}, x {tuple(x.shape)}): max abs err {err:.3e} = {err / scale:.2e} of the largest |output| "
+            f"{scale:.1f} (tolerance {tol:g} of it)")
     before = fs.LAUNCHES
     identity, downsample = fs.stage_weights(enc.layer1, torch.bfloat16)[1], fs.stage_weights(enc.layer2, torch.bfloat16)[0]
     # an identity skip at stride 2; a map whose side is not a multiple of the stride; a width of 96
@@ -2539,22 +2664,32 @@ def main() -> int:
                     help="only phases 1-2, the attention comparisons of phases 3 and 11, then the attention kernel "
                          "of the package checkout PARENT timed against this tree's (parent, this, this, parent)")
     ap.add_argument("--time-attention", type=Path, metavar="ROOT", help=argparse.SUPPRESS)
+    ap.add_argument("--stage-ab", type=Path, metavar="PARENT",
+                    help="only phases 1-2 and the stage comparisons of phase 9, then the stage kernel of the package "
+                         "checkout PARENT timed against this tree's (parent, this, this, parent), their outputs "
+                         "required to be the same bits")
+    ap.add_argument("--time-stage", type=Path, metavar="ROOT", help=argparse.SUPPRESS)
     args = ap.parse_args()
 
-    if args.time_attention is not None:  # a child of --attention-ab: the package under ROOT
+    child = args.time_attention or args.time_stage  # a child of --attention-ab or --stage-ab: the package under ROOT
+    if child is not None:
         if not torch.cuda.is_available():
             raise SystemExit("chip_smoke: torch.cuda.is_available() is False: this check needs a CUDA GPU")
-        sys.path.insert(0, str(args.time_attention.resolve()))
-        print(json.dumps(time_attention()))
+        sys.path.insert(0, str(child.resolve()))
+        print(json.dumps(time_attention() if args.time_attention else time_stage(args.seed)))
         return 0
     t_start = time.perf_counter()
-    if args.attention_ab is not None:
+    if args.attention_ab is not None or args.stage_ab is not None:
         card, gpu = phase_device()
         log(gpu)
         phase_build(gpu)
-        phase_compare_mha(args.seed)
-        compare_p7(args.seed)
-        attention_ab(args.attention_ab.resolve(), gpu)
+        if args.attention_ab is not None:
+            phase_compare_mha(args.seed)
+            compare_p7(args.seed)
+            ab_runs("--time-attention", "attention", args.attention_ab.resolve(), gpu)
+        if args.stage_ab is not None:
+            phase_compare_stage(seeded_resnet(args.seed).fold_bn().cuda(), args.seed)
+            stage_ab(args.stage_ab.resolve(), gpu)
         log(f"all phases: {time.perf_counter() - t_start:.1f} s")
         return 0
 

@@ -10,6 +10,7 @@ plain version is held against the probe ``experiments/pallas_stage_fusion.py``
 card (the ``cuda`` test)."""
 
 import importlib.util
+import itertools
 import json
 from pathlib import Path
 
@@ -325,15 +326,17 @@ def test_block_work_counts_each_conv_at_its_resolution():
 
 @pytest.mark.cuda
 def test_stage_kernel_matches_plain_on_card():
-    """Runs only on a CUDA machine: KS against plain_stage at full width on a
-    ragged map (14: edge tiles masked), both dtypes, one launch a block."""
+    """Runs only on a CUDA machine: KS against plain_stage at full width, both
+    dtypes, one launch a block, on the maps of 224-px tiles (56, 28, 14: the
+    plans' edge tiles ragged) at B=1 and 2 and of 256-px tiles at B=1."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA GPU: the hand-written kernel has no CPU mode")
     torch.backends.cudnn.allow_tf32 = False
     enc = port_resnet.ResNetEncoder(EncoderConfig(), torch.Generator().manual_seed(0)).fold_bn().cuda()
     g = torch.Generator(device="cuda").manual_seed(0)
-    for dt, tol in ((torch.float32, 1e-4), (torch.bfloat16, 2e-2)):
-        x = torch.relu(torch.randn(2, 56, 56, 64, device="cuda", generator=g)).to(dt)
+    for (dt, tol), (b, side) in itertools.product(((torch.float32, 1e-4), (torch.bfloat16, 2e-2)),
+                                                  ((2, 56), (1, 56), (1, 64))):
+        x = torch.relu(torch.randn(b, side, side, 64, device="cuda", generator=g)).to(dt)
         for stage, stride in enc.stages():
             before = fs.LAUNCHES
             got = fs.fused_stage(stage, x, first_stride=stride, compute_dtype=dt)

@@ -23,6 +23,7 @@ is not wired into the encoder: ``featurize`` runs its convs through cuDNN.
 
 from __future__ import annotations
 
+import functools
 import weakref
 from typing import NamedTuple
 
@@ -34,8 +35,110 @@ from toad_tpu_torch.ops import _build
 LAUNCHES = 0  # kernel launches in this process (one per bottleneck block)
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+_ELEM = {torch.float32: 4, torch.bfloat16: 2}
 WIDTHS = (64, 128, 256)  # the truncated ResNet-50's stage widths
 IN_CHANNELS = (64, 256, 512, 1024)
+
+# What csrc/stage.cu's instances take: the depth of a staged chunk and the
+# columns of a GEMM pass (kKC, kNB), a CTA's dynamic shared memory (kSmemMax),
+# the halo rows its phase-1 accumulator holds (kRows1Bf16, kRows1F32), the
+# output pixels a CTA of its phase-2/3 instances, and the cp.async ring's slots.
+CHUNK = 64
+SMEM_MAX = 232_448
+PASS_ROWS_MAX = {torch.bfloat16: 192, torch.float32: 160}
+TILE_PIXELS = {torch.bfloat16: (16, 32, 64, 128), torch.float32: (16, 32, 64)}
+MAX_STAGES = 4
+
+
+class StagePlan(NamedTuple):
+    """How KS cuts one block: a CTA computes a ``th`` x ``tw`` tile of output
+    pixels, the tile's input halo of ``halo`` rows (padded to 16) runs phase 1
+    in passes of at most ``rows`` rows, the weights stream through a ring of
+    ``stages`` cp.async slots, and the CTA takes ``smem`` bytes of shared
+    memory."""
+
+    th: int
+    tw: int
+    halo: int
+    rows: int
+    stages: int
+    smem: int
+
+    @property
+    def passes(self) -> int:
+        return -(-self.halo // self.rows)
+
+    def tiles(self, ho: int, wo: int) -> tuple[int, int]:
+        """The CTAs a launch has for each image of an ho x wo output map: (rows, columns) of tiles."""
+        return -(-ho // self.th), -(-wo // self.tw)
+
+    def __str__(self) -> str:
+        return (f"{self.th}x{self.tw} px, {self.passes} pass{'es' if self.passes > 1 else ''} of <= {self.rows} of "
+                f"{self.halo} halo rows, {self.stages} slots, {self.smem} B")
+
+
+# (th, tw, rows, stages) by (width, stride), chosen by timing plans against
+# each other on the card (chip_smoke.py --stage-ab; PERF.md §6). bf16: 128
+# output pixels a CTA in layer2-3, but 64 at layer3's stride 2, whose 8x16
+# halo would not fit; layer1 keeps the first kernel's 8x8. Two ring slots
+# where the bytes of a third buy a second CTA an SM or fewer halo passes,
+# three where they buy nothing else. f32: the first kernel's tiles (the
+# largest of 8x8, 4x8, 4x4 whose halo the f32 accumulator holds and whose
+# shared memory in its layout left two CTAs an SM, else the smallest that
+# fit), in one pass through a ring of 2 slots.
+_PLANS = {
+    torch.bfloat16: {(64, 1): (8, 8, 112, 2), (64, 2): (8, 8, 192, 2), (128, 1): (8, 16, 64, 2),
+                     (128, 2): (8, 16, 128, 2), (256, 1): (8, 16, 192, 3), (256, 2): (8, 8, 128, 2)},
+    torch.float32: {(64, 1): (4, 8, 64, 2), (64, 2): (4, 4, 96, 2), (128, 1): (4, 4, 48, 2),
+                    (128, 2): (4, 4, 96, 2), (256, 1): (4, 4, 48, 2), (256, 2): (4, 4, 96, 2)},
+}
+
+
+def halo_rows(th: int, tw: int, stride: int) -> int:
+    """The input pixels a th x tw output tile's 3x3 conv reads, padded to 16 rows."""
+    m1 = (stride * (th - 1) + 3) * (stride * (tw - 1) + 3)
+    return -(-m1 // 16) * 16
+
+
+def plan_bytes(compute_dtype: torch.dtype, width: int, stride: int, th: int, tw: int, rows: int, stages: int) -> int:
+    """A CTA's shared memory under a plan, stage.cu's ``layout``: h1 (in phase 3
+    the downsample's A ring or the identity's two skip tiles, and an output
+    tile), h2 (in phase 1 its A ring), the weights' ring, then the halo,
+    subsample and output offsets as int32. Rows are padded by 16 bytes."""
+    elem = _ELEM[compute_dtype]
+    pad = 16 // elem
+    m1p, m2 = halo_rows(th, tw, stride), th * tw
+    r1 = max(m1p * (width + pad), (stages + 1) * m2 * (CHUNK + pad))
+    r2 = max(m2 * (width + pad), stages * rows * (CHUNK + pad))
+    ring = stages * CHUNK * (CHUNK + pad)
+    return elem * (r1 + r2 + ring) + 4 * (m1p + 2 * m2)
+
+
+@functools.lru_cache(maxsize=None)
+def plan(compute_dtype: torch.dtype, width: int, stride: int) -> StagePlan:
+    """The plan KS launches a block of this width and stride with."""
+    th, tw, rows, stages = _PLANS[compute_dtype][(width, stride)]
+    return StagePlan(th, tw, halo_rows(th, tw, stride), rows, stages,
+                     plan_bytes(compute_dtype, width, stride, th, tw, rows, stages))
+
+
+def check_plan(p: StagePlan, compute_dtype: torch.dtype, width: int, stride: int) -> None:
+    """Raises ValueError for a plan the kernel refuses (stage.cu's ``launch_block``)."""
+    want = plan_bytes(compute_dtype, width, stride, p.th, p.tw, p.rows, p.stages)
+    fault = None
+    if p.th < 1 or p.tw < 1 or p.th * p.tw not in TILE_PIXELS[compute_dtype]:
+        fault = f"a tile of {TILE_PIXELS[compute_dtype]} pixels"
+    elif p.rows < 16 or p.rows % 16 or p.rows > PASS_ROWS_MAX[compute_dtype]:
+        fault = f"passes of a multiple of 16 rows up to {PASS_ROWS_MAX[compute_dtype]}"
+    elif not 2 <= p.stages <= MAX_STAGES:
+        fault = f"2 to {MAX_STAGES} slots"
+    elif p.halo != halo_rows(p.th, p.tw, stride) or p.smem != want:
+        fault = f"the halo and shared memory of its layout ({halo_rows(p.th, p.tw, stride)} rows, {want} B)"
+    elif want > SMEM_MAX:
+        fault = f"at most {SMEM_MAX} B of shared memory"
+    if fault is not None:
+        raise ValueError(f"fused_stage: no {str(compute_dtype)[6:]} kernel instance takes the plan {p} at width "
+                         f"{width}, stride {stride}: it needs {fault}")
 
 
 class BlockOperands(NamedTuple):
@@ -133,9 +236,10 @@ def check_block(ops: BlockOperands, x: torch.Tensor, stride: int) -> None:
         raise ValueError(f"fused_stage: at most 65,535 images a launch: {shape}")
 
 
-def stage_block(ops: BlockOperands, x: torch.Tensor, stride: int) -> torch.Tensor:
+def stage_block(ops: BlockOperands, x: torch.Tensor, stride: int, tile_plan: StagePlan | None = None) -> torch.Tensor:
     """Launch KS for one block: x [B, H, W, Cin] on a CUDA device in the
-    operands' dtype -> [B, H/s, W/s, Cout]."""
+    operands' dtype -> [B, H/s, W/s, Cout], under ``tile_plan`` (default:
+    :func:`plan`; another is for timing plans against each other)."""
     global LAUNCHES
     if x.device.type != "cuda":
         raise ValueError(f"the CUDA stage kernel needs a CUDA tensor, got {x.device}")
@@ -144,6 +248,8 @@ def stage_block(ops: BlockOperands, x: torch.Tensor, stride: int) -> torch.Tenso
     check_block(ops, x, stride)
     b, h, w, cin = x.shape
     width, cout = ops.w1.shape[1], ops.w3.shape[1]
+    p = plan(x.dtype, width, stride) if tile_plan is None else tile_plan
+    check_plan(p, x.dtype, width, stride)
     x = x.contiguous()
     out = torch.empty((b, h // stride, w // stride, cout), device=x.device, dtype=x.dtype)
     tensors = [x, out, *(t for t in ops if t is not None)]
@@ -155,10 +261,11 @@ def stage_block(ops: BlockOperands, x: torch.Tensor, stride: int) -> torch.Tenso
     ptr = [t.data_ptr() if t is not None else None for t in ops]
     with torch.cuda.device(x.device):
         err = lib.toad_stage_block_forward(
-            _DTYPE_CODE[x.dtype], x.data_ptr(), out.data_ptr(), b, h, w, cin, width, cout, stride, *ptr,
-            torch.cuda.current_stream(x.device).cuda_stream)
+            _DTYPE_CODE[x.dtype], x.data_ptr(), out.data_ptr(), b, h, w, cin, width, cout, stride,
+            p.th, p.tw, p.rows, p.stages, p.smem, *ptr, torch.cuda.current_stream(x.device).cuda_stream)
     if err != 0:
-        raise RuntimeError(f"stage kernel launch failed: CUDA error {err} ({lib.toad_cuda_error_string(err).decode()})")
+        raise RuntimeError(f"stage kernel launch failed for x {tuple(x.shape)}, width {width}, Cout {cout}, stride "
+                           f"{stride}, plan {p}: CUDA error {err} ({lib.toad_cuda_error_string(err).decode()})")
     LAUNCHES += 1
     return out
 
@@ -194,17 +301,6 @@ def fused_stage(stage: nn.Module, x: torch.Tensor, *, first_stride: int = 1,
     for ops, stride in blocks:
         x = plain_block(ops, x, stride)
     return x
-
-
-def tile(compute_dtype: torch.dtype, width: int, stride: int) -> tuple[int, int]:
-    """The output tile (rows, columns) one block of the kernel computes."""
-    code = int(_build.load_library().toad_stage_tile(_DTYPE_CODE[compute_dtype], width, stride))
-    return code // 256, code % 256
-
-
-def smem_bytes(compute_dtype: torch.dtype, width: int, stride: int) -> int:
-    """Dynamic shared memory one block of the kernel takes."""
-    return int(_build.load_library().toad_stage_smem_bytes(_DTYPE_CODE[compute_dtype], width, stride))
 
 
 def block_work(ops: BlockOperands, x_shape: tuple, stride: int) -> tuple[int, int]:
