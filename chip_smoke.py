@@ -374,6 +374,15 @@ def phase_build(card: str) -> None:
     _build.load_library()
     took = time.perf_counter() - t0
     how = f"nvcc {_build.build_seconds:.2f} s" if _build.build_seconds is not None else "found built in _build/"
+    lib = _build.load_library()
+    for dt, code in ((torch.bfloat16, 1), (torch.float32, 0)):
+        p = cuda_pool.plan(dt, 512, 384)
+        lib_smem = cuda_pool.smem_bytes(dt, 512, 384)
+        if (p.rows, p.smem) != (lib.toad_pool_rows_per_tile(code), lib_smem) or p.smem > cuda_pool.MAX_SMEM:
+            raise AssertionError(f"K1 {dt}: the Python plan {p} disagrees with the library (rows "
+                                 f"{lib.toad_pool_rows_per_tile(code)}, smem {lib_smem} B)")
+        log(f"phase 2 build: K1 {str(dt)[6:]} plan at H=512 A=384: {p.rows} rows a tile, {p.threads} threads, "
+            f"{p.slots} ring slots, {p.smem} B of shared memory (the library agrees)")
     log(f"phase 2 build: {_build.library_path().name} ready in {took:.2f} s ({how}); "
         f"pool smem/block bf16 {cuda_pool.smem_bytes(torch.bfloat16, 512, 384)} B, "
         f"f32 {cuda_pool.smem_bytes(torch.float32, 512, 384)} B, "
@@ -382,31 +391,38 @@ def phase_build(card: str) -> None:
         f"B (257), f32 {cuda_mha.smem_bytes(torch.float32, 197)} B (197), {cuda_mha.smem_bytes(torch.float32, 257)} B "
         f"(257); probe smem/block bf16 {probe_pool.smem_bytes()} B, "
         f"int8 {probe_pool_int8.smem_bytes()} B [{card}]")
-    # ptxas -v: each kernel's registers and spills
+    for kernel, line in ptxas_lines(_build.build_log):
+        names = {"pool_int8_kernel": "K2 int8", "pool_kernelIf": "K1 f32",
+                 "pool_kernel_bf16": "K1 bf16 (128-row tiles, 8 warps)", "pool_combine_kernelILi2ELb1": "combine",
+                 "pool_combine_kernelILi2ELb0": "combine without division (K1p)",
+                 "pool_combine_kernelILi8ELb1": "probe combine (8 tasks)",
+                 **{f"mha_bf16_kernelILi{kt}ELi{sm}E": f"{k} bf16 (up to {16 * kt} tokens)"
+                    for kt in (13, 17) for sm, k in ((0, "K3"), (1, "P7"))},
+                 **{f"mha_f32_kernelILi{kpl}ELi{sm}E": f"{k} f32 (up to {8 * kpl} tokens)"
+                    for kpl in (26, 34) for sm, k in ((0, "K3"), (1, "P7"))},
+                 **{f"stage_block_kernelI{m}Li{wm}ELi{mt}ELi{mb}E":
+                    f"KS {d} ({16 * wm * mt}-pixel tiles, registers for {mb} CTA{'s' if mb > 1 else ''} an SM)"
+                    for m, d in (("f", "f32"), ("13__nv_bfloat16", "bf16"))
+                    for wm, mt in ((1, 1), (2, 1), (4, 1), (4, 2)) for mb in (1, 2)},
+                 **{f"probe_pool_kernelILi{i}ELi1E": f"P1 {v}"
+                    for i, v in enumerate(("full", "exp2", "nogate", "nosoftmax", "trunkonly"))},
+                 "probe_pool_kernelILi0ELi2E": "P2 b2",
+                 **{f"probe_int8_kernelILi{i}ELi{r}E": f"P3/P4 {v}" for i, r, v in (
+                     (0, 0, "int8_chain"), (0, 2, "int8_gemms"), (1, 0, "int8_inquant"),
+                     (2, 1, "int8_inquant_bf16"), (3, 1, "int8_h_only"))}}
+        name = next((v for k, v in names.items() if k in kernel), kernel)
+        log(f"phase 2 build: {name}: {line}")
+
+
+def ptxas_lines(build_log: str):
+    """(mangled kernel name, line) for each line of ptxas -v about a kernel's
+    registers or spills in ``build_log``."""
     kernel = None
-    for line in _build.build_log.splitlines():
+    for line in build_log.splitlines():
         if "Compiling entry function" in line:
             kernel = line.split("'")[1]
         elif kernel is not None and ("registers" in line or "spill stores" in line):
-            names = {"pool_int8_kernel": "K2 int8", "pool_kernelIf": "K1 f32", "pool_kernelI13": "K1 bf16",
-                     "pool_combine_kernelILi2ELb1": "combine", "pool_combine_kernelILi2ELb0": "combine without division (K1p)",
-                     "pool_combine_kernelILi8ELb1": "probe combine (8 tasks)",
-                     **{f"mha_bf16_kernelILi{kt}ELi{sm}E": f"{k} bf16 (up to {16 * kt} tokens)"
-                        for kt in (13, 17) for sm, k in ((0, "K3"), (1, "P7"))},
-                     **{f"mha_f32_kernelILi{kpl}ELi{sm}E": f"{k} f32 (up to {8 * kpl} tokens)"
-                        for kpl in (26, 34) for sm, k in ((0, "K3"), (1, "P7"))},
-                     **{f"stage_block_kernelI{m}Li{wm}ELi{mt}ELi{mb}E":
-                        f"KS {d} ({16 * wm * mt}-pixel tiles, registers for {mb} CTA{'s' if mb > 1 else ''} an SM)"
-                        for m, d in (("f", "f32"), ("13__nv_bfloat16", "bf16"))
-                        for wm, mt in ((1, 1), (2, 1), (4, 1), (4, 2)) for mb in (1, 2)},
-                     **{f"probe_pool_kernelILi{i}ELi1E": f"P1 {v}"
-                        for i, v in enumerate(("full", "exp2", "nogate", "nosoftmax", "trunkonly"))},
-                     "probe_pool_kernelILi0ELi2E": "P2 b2",
-                     **{f"probe_int8_kernelILi{i}ELi{r}E": f"P3/P4 {v}" for i, r, v in (
-                         (0, 0, "int8_chain"), (0, 2, "int8_gemms"), (1, 0, "int8_inquant"),
-                         (2, 1, "int8_inquant_bf16"), (3, 1, "int8_h_only"))}}
-            name = next((v for k, v in names.items() if k in kernel), kernel)
-            log(f"phase 2 build: {name}: {line.split(':', 1)[-1].strip()}")
+            yield kernel, line.split(":", 1)[-1].strip()
 
 
 def compare_cases(g: torch.Generator) -> list:
@@ -890,6 +906,139 @@ def stage_ab(parent: Path, gpu: str) -> None:
             raise AssertionError(f"stage A/B: the {label} tree's outputs differ from the parent's at {differ}")
     log(f"stage A/B: all {len(want)} outputs (13 blocks, bf16 and f32, B=64 at 256 px and B=3 at 224 px; the streamed "
         f"downsample block in both dtypes) have the same sha256 in both trees, in all four runs")
+
+
+# K1's shapes in --pool-ab: (B, N) of the smoke's timing, the eval rung of compare_cases, K1p's shard, P6's bag
+POOL_AB_SHAPES = ((32, 8192), (1, 65536), (4, 29568))
+POOL_AB_PARTIAL = (1, 40960)
+POOL_AB_SPLIT = (1, 131072)
+
+
+def time_pool(seed: int = 0) -> dict:
+    """K1 bf16 in classification and scored mode at POOL_AB_SHAPES, K1p at
+    POOL_AB_PARTIAL, P6 (K1 at 2,048-row splits) at POOL_AB_SPLIT and K1 f32
+    at B=32 x 8,192 (the control), on seeded inputs with 90 % of the rows
+    live (CUDA events; 5 readings of one launch, K1p of 5 launches): what
+    ``--pool-ab`` compares across trees. Saves the bf16 outputs (M, scores,
+    K1p's acc and stats) under _work/pool_ab/ and returns their path with
+    a sha256 of every output that must be the same bits in both trees: K1
+    f32 (both modes, and K1p), K2 (both modes) and P1 full."""
+    import hashlib
+
+    from toad_tpu_torch.ops import cuda_pool, cuda_pool_int8, probe_pool
+    from toad_tpu_torch.ops.quantize import quantize_rows
+
+    def digest(t: torch.Tensor) -> str:
+        return hashlib.sha256(t.contiguous().view(torch.uint8).cpu().numpy().tobytes()).hexdigest()[:16]
+
+    dev = torch.device("cuda")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    model = seeded_model(seed).cuda().eval()
+    g = torch.Generator(device=dev).manual_seed(seed + 17)
+    out, digests, saved = {}, {}, {}
+
+    def inputs(b, n, dt):
+        x = torch.randn(b, n, 1024, device=dev, generator=g).to(dt)
+        return x, (torch.rand(b, n, device=dev, generator=g) < 0.9).float()
+
+    with torch.inference_mode():
+        ops16, ops32 = model.kernel_operands(torch.bfloat16), model.kernel_operands(torch.float32)
+        for b, n in POOL_AB_SHAPES:
+            x, mask = inputs(b, n, torch.bfloat16)
+            for scored in (False, True):
+                tag = f"K1 bf16 {'scored' if scored else 'classification'} B={b} N={n}"
+                saved[f"{tag} M"], s = cuda_pool.pool(ops16, x, mask, scored)
+                if scored:
+                    saved[f"{tag} scores"] = s
+                out[f"{tag} ms"] = cuda_ms(lambda: cuda_pool.pool(ops16, x, mask, scored))
+            del x
+        b, n = POOL_AB_PARTIAL
+        x, mask = inputs(b, n, torch.bfloat16)
+        tag = f"K1p bf16 B={b} N={n}"
+        saved[f"{tag} acc"], saved[f"{tag} stats"] = cuda_pool.pool_partial(ops16, x, mask)
+        out[f"{tag} ms"] = cuda_ms(lambda: cuda_pool.pool_partial(ops16, x, mask), inner=5)
+        x32 = x.float()
+        digests.update(zip((f"K1p f32 B={b} N={n} acc", f"K1p f32 B={b} N={n} stats"),
+                           map(digest, cuda_pool.pool_partial(ops32, x32, mask))))
+        del x, x32
+        b, n = POOL_AB_SPLIT
+        x, mask = inputs(b, n, torch.bfloat16)
+        saved[f"P6 bf16 B={b} N={n} M"], _ = cuda_pool.pool(ops16, x, mask, False, rows_per_split=2048)
+        out[f"P6 bf16 B={b} N={n} ms"] = cuda_ms(lambda: cuda_pool.pool(ops16, x, mask, False, rows_per_split=2048))
+        del x
+        x, mask = inputs(32, 8192, torch.float32)
+        for scored in (False, True):
+            m, s = cuda_pool.pool(ops32, x, mask, scored)
+            digests[f"K1 f32 {'scored' if scored else 'classification'} B=32 N=8192 M"] = digest(m)
+            if scored:
+                digests["K1 f32 scored B=32 N=8192 scores"] = digest(s)
+        out["K1 f32 classification B=32 N=8192 ms"] = cuda_ms(lambda: cuda_pool.pool(ops32, x, mask, False))
+        x, mask = x[:4, :4096].contiguous(), mask[:4, :4096].contiguous()
+        mask[1] = 0.0
+        xq, sx = quantize_rows(x)
+        _, ops8 = model.int8_operands()
+        for scored in (False, True):
+            m, s = cuda_pool_int8.pool_int8(ops8, xq, sx, mask, scored)
+            digests[f"K2 {'scored' if scored else 'classification'} B=4 N=4096 M"] = digest(m)
+            if scored:
+                digests["K2 scored B=4 N=4096 scores"] = digest(s)
+        params = probe_operands(seed, dev)[0]
+        digests["P1 full B=4 N=4096 tile 1024"] = digest(
+            probe_pool.probe_pool(probe_pool.pack_probe_params(params), x.to(torch.bfloat16), mask, "full", 1024))
+        del x, xq
+    torch.cuda.synchronize()
+    from toad_tpu_torch.ops import _build
+
+    # ptxas's lines of K1's bf16 instance (this tree's and the 64-row kernel's), where this process built them
+    out["k1_ptxas"] = [line for kernel, line in ptxas_lines(_build.build_log)
+                       if "pool_kernel_bf16" in kernel or "pool_kernelI13" in kernel]
+    path = REPO / "_work" / "pool_ab" / f"outputs_{os.getpid()}.pt"
+    path.parent.mkdir(parents=True, exist_ok=True)
+    torch.save({k: v.cpu() for k, v in saved.items()}, path)
+    out["digests"] = digests
+    out["saved"] = str(path)
+    return out
+
+
+def pool_ab(parent: Path, gpu: str) -> None:
+    """K1 of another tree against this one's: :func:`time_pool` in each
+    (:func:`ab_runs`). K1 f32, K1p f32, K2 and P1 must be the same bits in
+    both trees; K1's bf16 scores within 1e-4 of the parent's largest |score|,
+    its bf16 M, K1p's acc / denom and P6's M within TOL_BF16_M of the parent's."""
+    runs = ab_runs("--time-pool", "pool", parent, gpu)
+    for label, r in runs:
+        if r["k1_ptxas"]:
+            log(f"pool A/B {label} tree: K1 bf16 ptxas: {'; '.join(r['k1_ptxas'])}")
+    want = runs[0][1]["digests"]
+    for label, r in runs[1:]:
+        differ = sorted(k for k in want if r["digests"].get(k) != want[k])
+        if differ or r["digests"].keys() != want.keys():
+            raise AssertionError(f"pool A/B: the {label} tree's outputs differ from the parent's at {differ}")
+    ref = torch.load(runs[0][1]["saved"])
+    worst = {}
+    for label, r in runs[1:]:
+        got = torch.load(r["saved"])
+        if got.keys() != ref.keys():
+            raise AssertionError(f"pool A/B: the {label} tree saved {sorted(got)}, the parent {sorted(ref)}")
+        for key, want_t in ref.items():
+            if key.endswith("scores"):
+                err = (got[key] - want_t).abs().max().item() / want_t.abs().max().item()
+                if err > 1e-4:
+                    raise AssertionError(f"pool A/B {label} {key}: {err:.3e} of the parent's largest |score|, "
+                                         "over 1e-4")
+            elif key.endswith("acc"):  # K1p: acc / denom, the shard's own pooled mean, as M
+                stats = key[:-3] + "stats"
+                err = check_close(f"pool A/B {label} {key} / denom", got[key] / got[stats][:, 1, :, None],
+                                  want_t / ref[stats][:, 1, :, None], TOL_BF16_M)
+                check_close(f"pool A/B {label} {stats} max", got[stats][:, 0], ref[stats][:, 0], TOL_BF16_S)
+            elif key.endswith("M"):
+                err = check_close(f"pool A/B {label} {key}", got[key], want_t, TOL_BF16_M)
+            else:
+                continue
+            worst[key] = max(worst.get(key, 0.0), err)
+    log("pool A/B: " + "; ".join(f"{k} {v:.3e}" for k, v in worst.items()) + " (scores: relative to the parent's "
+        f"largest |score|, limit 1e-4; the rest max abs err within {TOL_BF16_M})")
+    log(f"pool A/B: all {len(want)} digests (K1 f32, K1p f32, K2, P1 full) equal the parent's in all four runs")
 
 
 def _post(url: str, data: bytes, headers: dict) -> dict:
@@ -2369,8 +2518,9 @@ def phase_probes(seed: int, gpu: str) -> dict:
         e_split = check_close("K1 at 2,048-row splits vs its default plan", m_split, m_default, TOL_SPLIT)
         e_split_plain = check_close("K1 at 2,048-row splits vs plain_pool", m_split, m_plain, TOL_BF16_M)
         errs["split_2048"] = max(e_split, e_split_plain)
-        log(f"phase 10 compare K1 B=1 N=131072 bf16 at 2,048-row splits (64 splits of 32 tiles): vs the default plan "
-            f"{e_split:.3e}, vs plain_pool {e_split_plain:.3e} (tolerance {TOL_SPLIT})")
+        p6_per, p6_splits = cuda_pool.fixed_split_plan(131072, cuda_pool.plan(torch.bfloat16, 512, 384).rows, 2048)
+        log(f"phase 10 compare K1 B=1 N=131072 bf16 at 2,048-row splits ({p6_splits} splits of {p6_per} tiles): vs the "
+            f"default plan {e_split:.3e}, vs plain_pool {e_split_plain:.3e} (tolerance {TOL_SPLIT})")
 
         # 3. kernel vs plain at the main path's shape, B=32 x 8,192, where each block runs several row tiles
         # (the running max and sums rescaled across tiles) and some blocks of the ragged bag see only padding:
@@ -2669,17 +2819,25 @@ def main() -> int:
                          "checkout PARENT timed against this tree's (parent, this, this, parent), their outputs "
                          "required to be the same bits")
     ap.add_argument("--time-stage", type=Path, metavar="ROOT", help=argparse.SUPPRESS)
+    ap.add_argument("--pool-ab", type=Path, metavar="PARENT",
+                    help="only phases 1-2 and the K1 and K1p comparisons of phase 3, then K1 (bf16 and f32), K1p and "
+                         "P6 of the package checkout PARENT timed against this tree's (parent, this, this, parent), "
+                         "K1 f32, K2 and P1 required to be the same bits and K1 bf16 close to the parent's")
+    ap.add_argument("--time-pool", type=Path, metavar="ROOT", help=argparse.SUPPRESS)
     args = ap.parse_args()
 
-    child = args.time_attention or args.time_stage  # a child of --attention-ab or --stage-ab: the package under ROOT
+    # a child of --attention-ab, --stage-ab or --pool-ab: the package under ROOT
+    child = args.time_attention or args.time_stage or args.time_pool
     if child is not None:
         if not torch.cuda.is_available():
             raise SystemExit("chip_smoke: torch.cuda.is_available() is False: this check needs a CUDA GPU")
         sys.path.insert(0, str(child.resolve()))
-        print(json.dumps(time_attention() if args.time_attention else time_stage(args.seed)))
+        timer = time_attention if args.time_attention else functools.partial(
+            time_stage if args.time_stage else time_pool, args.seed)
+        print(json.dumps(timer()))
         return 0
     t_start = time.perf_counter()
-    if args.attention_ab is not None or args.stage_ab is not None:
+    if args.attention_ab is not None or args.stage_ab is not None or args.pool_ab is not None:
         card, gpu = phase_device()
         log(gpu)
         phase_build(gpu)
@@ -2690,6 +2848,11 @@ def main() -> int:
         if args.stage_ab is not None:
             phase_compare_stage(seeded_resnet(args.seed).fold_bn().cuda(), args.seed)
             stage_ab(args.stage_ab.resolve(), gpu)
+        if args.pool_ab is not None:
+            model = seeded_model(args.seed).cuda().eval()
+            phase_compare(model, args.seed)
+            phase_compare_partial(model, args.seed)
+            pool_ab(args.pool_ab.resolve(), gpu)
         log(f"all phases: {time.perf_counter() - t_start:.1f} s")
         return 0
 

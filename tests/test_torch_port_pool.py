@@ -221,16 +221,34 @@ def test_kernel_wrapper_refuses_cpu_tensors_without_building(params):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_kernel_matches_plain_on_card(params, dtype, cuda_device):
-    """Runs only on a CUDA machine: the kernel against its plain version."""
-    x, mask = _data(3, 1000, seed=5)
-    mask[1] = 0.0
+@pytest.mark.parametrize("scored", [True, False], ids=["scored", "classification"])
+@pytest.mark.parametrize("b,n", [(3, 1000), (1, 127), (1, 128), (1, 129)])
+def test_kernel_matches_plain_on_card(params, dtype, scored, b, n, cuda_device):
+    """Runs only on a CUDA machine: the kernel against its plain version in
+    both modes, on a batch with a fully masked bag and on single bags ragged
+    at the bf16 instance's 128-row tile; in classification mode also K1p (the
+    partial mode) against plain_pool_partial."""
+    from toad_tpu_torch.ops.fused_pool import plain_pool_partial
+
+    x, mask = _data(b, n, seed=5)
+    if b > 1:
+        mask[1] = 0.0
     tp = jax.tree.map(lambda v: v.to(cuda_device), _torch_params(params))
     xt, mt = torch.from_numpy(x).to(cuda_device), torch.from_numpy(mask).to(cuda_device)
     dt = getattr(torch, dtype)
+    ops = cuda_pool.pack_params(tp, dt)
     with torch.inference_mode():
-        mk, sk = cuda_pool.pool(cuda_pool.pack_params(tp, dt), xt, mt, True)
-        mp, sp = plain_pool(tp, xt, mt, dt, True)
+        mk, sk = cuda_pool.pool(ops, xt, mt, scored)
+        mp, sp = plain_pool(tp, xt, mt, dt, scored)
+        acc_k, st_k = cuda_pool.pool_partial(ops, xt, mt)
+        acc_p, st_p = plain_pool_partial(tp, xt, mt, dt)
     tol = dict(rtol=2e-3, atol=2e-3) if dtype == "float32" else dict(rtol=2e-2, atol=2e-2)
     torch.testing.assert_close(mk, mp, **tol)
-    torch.testing.assert_close(sk, sp, **tol)
+    if scored:
+        torch.testing.assert_close(sk, sp, **tol)
+    else:
+        assert sk is None
+        live = mt.sum(1) > 0
+        torch.testing.assert_close(st_k[live, 0], st_p[live, 0], **tol)  # the max, a score
+        torch.testing.assert_close(acc_k[live] / st_k[live, 1, :, None], acc_p[live] / st_p[live, 1, :, None], **tol)
+        assert bool((acc_k[~live] == 0).all()) and bool((st_k[~live, 1] == 0).all())

@@ -13,20 +13,49 @@
 // is rounded to the compute dtype before e^T h2.
 //
 // What bounds it on an H100: about 2.4 MFLOP per 1024-d row against 2 KB of
-// bf16 input, ~1,150 FLOP/byte, far above the card's ~295, so it is
-// tensor-core bound, not HBM bound. The 2.3 MB (bf16) of weights do not fit
-// in shared memory, so each GEMM streams 256-column x 32-deep weight slices
-// from L2 (where all weights stay resident) through shared memory, while the
-// row tile's h1, h2 and gated activations stay in shared memory. The TPU's
-// sequential grid (state carried across a bag's tiles) becomes a split-N
-// grid: block (split, bag) runs a contiguous range of row tiles and writes a
-// partial (acc, max, denom); pool_combine_kernel merges the partials exactly
-// (and, in partial mode, leaves the division to the cross-shard combine),
-// spread over 2H/32 blocks per bag so that one large bag combines in parallel.
-// The bf16 instance uses mma.sync m16n8k16 (f32 accumulate) fed by ldmatrix,
-// with a 3-deep cp.async ring of weight/input slices; the f32 instance uses
-// FMA so that f32 stays f32 (no TF32) and stages synchronously. A first
-// kernel: no wgmma, TMA or warp specialisation yet.
+// bf16 input, ~1,150 FLOP/byte, far above the card's ~295, so the bound is
+// the tensor cores, not HBM. The 2.3 MB (bf16) of weights do not fit in
+// shared memory (the TPU kernel keeps them all in VMEM), so each GEMM streams
+// 256-column x 32-deep weight slices from L2 through a cp.async ring while
+// the tile's activations stay in shared memory: every row tile costs one pass
+// over all of the weights. With 64-row tiles (the first kernel) that was 9.66
+// GB from L2 at B=32 x 8,192, and each slice fed 64 x 256 x 32 products
+// between two barriers (14 % of the bound, PERF.md §6).
+//
+// The bf16 instance runs 128-row tiles, one CTA an SM, 8 warps of 64 x 64
+// warp tiles (16 warps of 32 x 64 were 2-4 % slower): each staged slice feeds
+// twice the rows, which halves the weight stream and doubles the products
+// under each barrier. Shared memory limits the tile, since h1 and h2 of 128
+// rows take 130 KB each, so they share one region:
+//   - GEMM1 writes h1 there;
+//   - GEMM2's first 256-column pass keeps its output as packed bf16 (the
+//     stash: half in registers, half in the x ring, idle in GEMM2) while the
+//     second pass still reads h1; both halves of h2 go over the dead h1 after
+//     a barrier;
+//   - the gate pass never writes `gated`: its epilogue rounds each value to
+//     bf16 and folds it into per-row partial scores against Wc, summed over
+//     the quad and then over the column warps in the x ring.
+// Each h1, h2 and gated value is the same sequence of k16 products as in the
+// 64-row kernel, so they keep its bits; the f32 summation order of the scores
+// and the rows grouped into one online-softmax update move. The plan (rows,
+// threads, ring slots, shared memory) is ops/cuda_pool.plan; the bf16
+// instance takes H = 256 or 512. What bounds it now (PERF.md §6, PR 14):
+// neither the L2 stream nor the products alone. A build without the copies
+// keeps 72 % of the time, one without the products and ldmatrix 66 %, one
+// without ldmatrix 97 %; a 2-slot ring, 16 warps or a ring run on across the
+// passes change it by a few %. mma.sync behind a barrier every 32-deep slice
+// (about 32 % of the bf16 peak alone) and the L2 stream overlap only in part:
+// wgmma and one L2 read for several CTAs (TMA multicast) are what is left.
+//
+// The TPU's sequential grid (state carried across a bag's tiles) becomes a
+// split-N grid: block (split, bag) runs a contiguous range of row tiles and
+// writes a partial (acc, max, denom); pool_combine_kernel merges the partials
+// exactly (and, in partial mode, leaves the division to the cross-shard
+// combine), spread over 2H/32 blocks per bag so that one large bag combines
+// in parallel. The bf16 grid fills whole waves of one CTA an SM
+// (cuda_pool.wave_split_plan). The f32 instance keeps the first design:
+// 32-row tiles, 8 warps, FMA so that f32 stays f32 (no TF32), staged
+// synchronously. No wgmma, TMA or warp specialisation.
 //
 // Layout contract (the Python wrapper ops/cuda_pool.py prepares it):
 //   x [B, N, D] and weights in the compute dtype T, weights in nn.Linear
@@ -40,16 +69,10 @@ namespace {
 
 constexpr int kHPad = 8;       // row padding of the activation buffers
 
-// Rows per tile, staging stride (elements) and staging depth per compute
-// dtype. bf16: gemm_pass_bf16's (pool_trunk.cuh), rows padded by 16 bytes;
-// f32 rows by one word (conflict-free column reads), staged synchronously
-// through one buffer.
+// Rows per tile, staging stride (elements) and staging depth of the f32
+// instance: rows padded by one word (conflict-free column reads), staged
+// synchronously through one buffer. The bf16 instance's are below.
 template <typename T> struct Cfg;
-template <> struct Cfg<bf16> {
-  static constexpr int R = kTileRows;
-  static constexpr int S = kSBf16;
-  static constexpr int kStages = kRingBf16;
-};
 template <> struct Cfg<float> {
   static constexpr int R = 32;
   static constexpr int S = kBK + 1;
@@ -80,8 +103,7 @@ __host__ __device__ inline Layout layout(int H, int A) {
 }
 
 // ---------------------------------------------------------------------------
-// Staging of one K-slice of the f32 instance into shared memory (the bf16
-// instance's is stage_bf16, in pool_trunk.cuh).
+// Staging of one K-slice of the f32 instance into shared memory.
 
 // f32: ws[n][k] <- wt[n0 + n][k0 + k], n < kBN, k < kBK
 __device__ __forceinline__ void stage_w(const float* __restrict__ wt, int K, int n0, int k0, float* ws) {
@@ -125,15 +147,6 @@ struct GemmArgs {
   void* out;  // [R][ldo]
   int ldo;
 };
-
-// bf16: gemm_pass_bf16 (pool_trunk.cuh) on one bag
-template <int kEpi, bool kFromX>
-__device__ void gemm_pass(const GemmArgs& g, bf16*) {
-  const bf16* xb[1] = {static_cast<const bf16*>(g.x)};
-  gemm_pass_bf16<kEpi, kFromX, 1>(static_cast<const bf16*>(g.wt), g.K, g.n0, g.bias, static_cast<const bf16*>(g.a_s),
-                                  g.lda, xb, g.N, g.D, g.row0, static_cast<bf16*>(g.ws), static_cast<bf16*>(g.xs),
-                                  static_cast<bf16*>(g.out), g.ldo);
-}
 
 // f32: thread (tr = tid / 32, tc = tid % 32) owns rows tr + 8i (i < 4) and
 // columns tc + 32c (c < 8); columns tc + 64p and tc + 64p + 32 are u_j, v_j.
@@ -285,20 +298,334 @@ pool_kernel(const T* __restrict__ x, const float* __restrict__ mask, int N, int 
   if (tid < 4) part_stat[p * 4 + tid] = stat[tid];
 }
 
+// ---------------------------------------------------------------------------
+// The bf16 instance: 128-row tiles, one CTA an SM, warps arranged as
+// 128 / (16 kMi) (rows) x 4 (columns). Warp (wr, wc) owns rows wr*16*kMi +
+// mi*16 + {g, g+8} (mi < kMi) and columns wc*64 + ni*8 + 2q (+1) of each
+// 256-column pass (g = lane / 4, q = lane % 4), the accumulator layout of
+// mma.m16n8k16.
+
+constexpr int kRowsBf16 = 128;  // rows a tile
+constexpr int kMi = 4;          // m16 tiles a warp: 64 x 64 warp tiles, 8 warps (kMi = 2: 16 warps)
+constexpr int kThreadsBf16 = 32 * kColWarps * kRowsBf16 / (16 * kMi);
+constexpr int kSlotsBf16 = 3;   // slots of the cp.async ring: two slices in flight
+// GEMM2's first pass waits for the second in its stash, 16 kMi packed
+// registers a thread; the first half of the warp's row blocks waits in the x
+// ring instead (idle in GEMM2), so that the second pass keeps its registers.
+constexpr int kStashSmem = 8 * kMi;
+
+// One region h [128][H + kHPad] holds h1, then h2; the weight ring ws
+// [slots][256][kSBf16] and the x ring xs [slots][128][kSBf16], which after
+// GEMM1 (until the next tile's) holds half of GEMM2's stash [kStashSmem]
+// [threads], then the score scratch: the column warps' partial scores
+// [4][128][2], s [128][2] and e [128][2]; the running acc [2][H] and stat
+// (max[2], denom[2], corr[2]). Wc is read from device memory (3 KB, cached).
+struct LayoutBf16 {
+  size_t h, ws, xs, acc, stat, total;
+};
+
+__host__ __device__ inline LayoutBf16 layout_bf16(int H) {
+  LayoutBf16 L;
+  size_t o = 0;
+  L.h = o;    o = align16(o + sizeof(bf16) * kRowsBf16 * (H + kHPad));
+  L.ws = o;   o = align16(o + sizeof(bf16) * kSlotsBf16 * kBN * kSBf16);
+  const size_t ring = sizeof(bf16) * kSlotsBf16 * kRowsBf16 * kSBf16;
+  const size_t stash = sizeof(uint32_t) * kStashSmem * kThreadsBf16;
+  L.xs = o;   o = align16(o + (ring > stash ? ring : stash));
+  L.acc = o;  o = align16(o + sizeof(float) * 2 * H);
+  L.stat = o; o = align16(o + sizeof(float) * 8);
+  L.total = o;
+  return L;
+}
+
+// ws[n][k] <- wt[n0 + n][k0 + k] (n < 256, k < 32) and (kFromX) xs[r][k] <-
+// x[row0 + r][k0 + k] (r < 128), rows past the bag's end N zero-filled, in
+// 16-byte copies; commits one group.
+template <bool kFromX>
+__device__ __forceinline__ void stage_slice(const bf16* __restrict__ wt, int K, int n0, int k0, bf16* ws,
+                                            const bf16* __restrict__ x, int N, int D, int row0, bf16* xs) {
+  constexpr int kChunks = kBK / 8;
+#pragma unroll
+  for (int j = 0; j < kBN * kChunks / kThreadsBf16; ++j) {
+    const int i = threadIdx.x + j * kThreadsBf16;
+    const int r = i / kChunks, c = (i % kChunks) * 8;
+    cp_async16(ws + r * kSBf16 + c, wt + (size_t)(n0 + r) * K + k0 + c, 16);
+  }
+  if (kFromX) {
+#pragma unroll
+    for (int j = 0; j < kRowsBf16 * kChunks / kThreadsBf16; ++j) {
+      const int i = threadIdx.x + j * kThreadsBf16;
+      const int r = i / kChunks, c = (i % kChunks) * 8;
+      const bool ok = row0 + r < N;
+      cp_async16(xs + r * kSBf16 + c, ok ? x + (size_t)(row0 + r) * D + k0 + c : x, ok ? 16 : 0);
+    }
+  }
+  cp_async_commit();
+}
+
+// acc = A[128, K] . Wt[n0 : n0 + 256, K]^T, A the staged x tile (kFromX) or
+// h [128][ldh]. A fragments come from ldmatrix on the row-major A tile, B
+// fragments from ldmatrix on the staged [n][k] slice (two n-tiles an x4).
+// Each output is the same sequence of k16 products (k ascending) as in the
+// 64-row pass gemm_pass_bf16, so it has the same bits.
+template <bool kFromX>
+__device__ __forceinline__ void gemm_rows128(float (&acc)[kMi][8][4], const bf16* __restrict__ wt, int K, int n0,
+                                             const bf16* h, int ldh, const bf16* __restrict__ x, int N, int D,
+                                             int row0, bf16* ws, bf16* xs) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int wr = warp >> 2, wc = warp & 3;
+  const int n_steps = K / kBK;
+  auto issue = [&](int step) {
+    if (step < n_steps) {
+      const int slot = step % kSlotsBf16;
+      stage_slice<kFromX>(wt, K, n0, step * kBK, ws + slot * kBN * kSBf16, x, N, D, row0,
+                          xs + slot * kRowsBf16 * kSBf16);
+    } else {
+      cp_async_commit();  // empty group: keeps one group per step for the wait count
+    }
+  };
+#pragma unroll
+  for (int mi = 0; mi < kMi; ++mi)
+#pragma unroll
+    for (int ni = 0; ni < 8; ++ni)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[mi][ni][e] = 0.f;
+
+  // the ring is free, and the previous epilogue's writes to h are visible,
+  // once every warp has arrived here
+  __syncthreads();
+#pragma unroll
+  for (int s = 0; s < kSlotsBf16 - 1; ++s) issue(s);
+  for (int step = 0; step < n_steps; ++step) {
+    cp_async_wait<kSlotsBf16 - 2>();  // this thread's copies of `step` have landed
+    __syncthreads();                  // everyone's have, and slot (step - 1) is free
+    issue(step + kSlotsBf16 - 1);
+    const int slot = step % kSlotsBf16;
+    const bf16* a_base = kFromX ? xs + slot * kRowsBf16 * kSBf16 : h + step * kBK;
+    const int la = kFromX ? kSBf16 : ldh;
+    const bf16* w_base = ws + slot * kBN * kSBf16;
+#pragma unroll
+    for (int kk = 0; kk < kBK; kk += 16) {
+      uint32_t af[kMi][4];
+#pragma unroll
+      for (int mi = 0; mi < kMi; ++mi)
+        ldsm_x4(af[mi], a_base + (wr * 16 * kMi + mi * 16 + (lane & 15)) * la + kk + (lane >> 4) * 8);
+#pragma unroll
+      for (int np = 0; np < 4; ++np) {
+        uint32_t bf[4];  // b0, b1 of n-tile 2np, then of n-tile 2np + 1
+        ldsm_x4(bf, w_base + (wc * 64 + np * 16 + (lane >> 4) * 8 + (lane & 7)) * kSBf16 + kk + ((lane >> 3) & 1) * 8);
+#pragma unroll
+        for (int mi = 0; mi < kMi; ++mi) {
+          mma_bf16(acc[mi][2 * np], af[mi], bf[0], bf[1]);
+          mma_bf16(acc[mi][2 * np + 1], af[mi], bf[2], bf[3]);
+        }
+      }
+    }
+  }
+}
+
+// The ReLU epilogue of columns n0..n0+255: packed bf16(relu(acc + bias)),
+// out[mi][ni][hf] = the pair of row (mi, hf) in n-tile ni.
+__device__ __forceinline__ void relu_pack(const float (&acc)[kMi][8][4], const float* __restrict__ bias, int n0,
+                                          uint32_t (&out)[kMi][8][2]) {
+  const int lane = threadIdx.x & 31, wc = (threadIdx.x >> 5) & 3;
+#pragma unroll
+  for (int mi = 0; mi < kMi; ++mi)
+#pragma unroll
+    for (int ni = 0; ni < 8; ++ni) {
+      const int col = n0 + wc * 64 + ni * 8 + 2 * (lane & 3);
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf) {
+        const float v0 = fmaxf(acc[mi][ni][2 * hf] + __ldg(bias + col), 0.f);
+        const float v1 = fmaxf(acc[mi][ni][2 * hf + 1] + __ldg(bias + col + 1), 0.f);
+        const __nv_bfloat162 p = __floats2bfloat162_rn(v0, v1);
+        out[mi][ni][hf] = *reinterpret_cast<const uint32_t*>(&p);
+      }
+    }
+}
+
+// h[row][n0 + col] <- the packed pairs of relu_pack
+__device__ __forceinline__ void store_packed(const uint32_t (&v)[kMi][8][2], int n0, bf16* h, int ldh) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int wr = warp >> 2, wc = warp & 3;
+#pragma unroll
+  for (int mi = 0; mi < kMi; ++mi)
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf) {
+      const int row = wr * 16 * kMi + mi * 16 + (lane >> 2) + hf * 8;
+#pragma unroll
+      for (int ni = 0; ni < 8; ++ni)
+        *reinterpret_cast<uint32_t*>(h + row * ldh + n0 + wc * 64 + ni * 8 + 2 * (lane & 3)) = v[mi][ni][hf];
+    }
+}
+
+// The gate epilogue of interleaved [Wa|Wb] columns n0..n0+255: warp column wc
+// holds u_j in n-tiles 0-3 and v_j (32 columns further) in n-tiles 4-7 for
+// j = n0/2 + wc*32 + ni*8 + 2q (+1). gated_j = bf16(tanh(u_j) sigmoid(v_j))
+// (the TPU kernel's rounding point) is folded into the thread's partial
+// scores sacc[mi][hf][t] += gated_j Wc[j][t]; it never reaches shared memory.
+__device__ __forceinline__ void gate_fold(const float (&acc)[kMi][8][4], const float* __restrict__ bias,
+                                          const bf16* __restrict__ wc_g, int n0, float (&sacc)[kMi][2][2]) {
+  const int lane = threadIdx.x & 31, wc = (threadIdx.x >> 5) & 3;
+  float2 w[4][2];
+#pragma unroll
+  for (int ni = 0; ni < 4; ++ni)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int j = n0 / 2 + wc * 32 + ni * 8 + 2 * (lane & 3) + e;
+      const unsigned raw = __ldg(reinterpret_cast<const unsigned*>(wc_g) + j);  // Wc[j][0], Wc[j][1]
+      w[ni][e] = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw));
+    }
+#pragma unroll
+  for (int mi = 0; mi < kMi; ++mi)
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf)
+#pragma unroll
+      for (int ni = 0; ni < 4; ++ni)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int cu = n0 + wc * 64 + ni * 8 + 2 * (lane & 3) + e;  // u column; v is 32 further
+          const float gv = bf16_round(gate<kEpiTanh>(acc[mi][ni][2 * hf + e] + __ldg(bias + cu),
+                                                     acc[mi][ni + 4][2 * hf + e] + __ldg(bias + cu + 32)));
+          sacc[mi][hf][0] = fmaf(gv, w[ni][e].x, sacc[mi][hf][0]);
+          sacc[mi][hf][1] = fmaf(gv, w[ni][e].y, sacc[mi][hf][1]);
+        }
+}
+
+__global__ void __launch_bounds__(kThreadsBf16, 1)
+pool_kernel_bf16(const bf16* __restrict__ x, const float* __restrict__ mask, int N, int D, int H, int A,
+                 const bf16* __restrict__ w1t, const float* __restrict__ b1,
+                 const bf16* __restrict__ w2t, const float* __restrict__ b2,
+                 const bf16* __restrict__ wabt, const float* __restrict__ bab,
+                 const bf16* __restrict__ wc, const float* __restrict__ bc,
+                 int tiles_per_split, int n_splits,
+                 float* __restrict__ scores, float* __restrict__ part_acc, float* __restrict__ part_stat) {
+  constexpr int R = kRowsBf16;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const LayoutBf16 L = layout_bf16(H);
+  bf16* h = reinterpret_cast<bf16*>(smem + L.h);
+  bf16* ws = reinterpret_cast<bf16*>(smem + L.ws);
+  bf16* xs = reinterpret_cast<bf16*>(smem + L.xs);
+  float* spart = reinterpret_cast<float*>(smem + L.xs);  // [4][R][2] partial scores of the column warps
+  float* s_s = spart + kColWarps * R * 2;                  // [R][2] raw scores
+  float* e_s = s_s + R * 2;                                // [R][2] e rounded to bf16
+  float* acc_s = reinterpret_cast<float*>(smem + L.acc);   // [2][H]
+  float* stat = reinterpret_cast<float*>(smem + L.stat);   // max[2], denom[2], corr[2]
+
+  const int tid = threadIdx.x;
+  const int split = blockIdx.x, b = blockIdx.y;
+  const int ldh = H + kHPad;
+  const bf16* xb = x + (size_t)b * N * D;
+  const float* mb = mask + (size_t)b * N;
+
+  for (int i = tid; i < 2 * H; i += kThreadsBf16) acc_s[i] = 0.f;
+  if (tid < 2) {
+    stat[tid] = kNegInf;
+    stat[2 + tid] = 0.f;
+  }
+  __syncthreads();
+
+  const int n_tiles = (N + R - 1) / R;
+  const int t_end = min(n_tiles, (split + 1) * tiles_per_split);
+  for (int tile = split * tiles_per_split; tile < t_end; ++tile) {
+    const int row0 = tile * R;
+    const bool live = tid < R && row0 + tid < N && mb[row0 + tid] > 0.f;
+    // classification mode skips tiles of pure padding (the online update is
+    // the identity there); scored mode writes every row's score
+    if (!__syncthreads_or(live) && scores == nullptr) continue;
+
+    float acc[kMi][8][4];
+    uint32_t packed[kMi][8][2];
+    // h1 = relu(x W1 + b1) -> h
+    for (int n0 = 0; n0 < H; n0 += kBN) {
+      gemm_rows128<true>(acc, w1t, D, n0, nullptr, 0, xb, N, D, row0, ws, xs);
+      relu_pack(acc, b1, n0, packed);
+      store_packed(packed, n0, h, ldh);
+    }
+    // h2 = relu(h1 W2 + b2) -> h, over h1 once every warp has read all of it:
+    // at H = 512 the first pass's columns wait (the stash), the second row
+    // block's in registers, the first's in the x ring
+    constexpr int kHalf = kMi / 2;
+    uint32_t stash[kHalf][8][2];
+    uint32_t* stash_s = reinterpret_cast<uint32_t*>(xs);  // [kStashSmem][threads]
+    if (H == 2 * kBN) {
+      gemm_rows128<false>(acc, w2t, H, 0, h, ldh, nullptr, N, D, row0, ws, xs);
+      relu_pack(acc, b2, 0, packed);
+#pragma unroll
+      for (int mi = 0; mi < kHalf; ++mi)
+#pragma unroll
+        for (int ni = 0; ni < 8; ++ni)
+#pragma unroll
+          for (int hf = 0; hf < 2; ++hf) {
+            stash_s[((mi * 8 + ni) * 2 + hf) * kThreadsBf16 + tid] = packed[mi][ni][hf];
+            stash[mi][ni][hf] = packed[kHalf + mi][ni][hf];
+          }
+    }
+    gemm_rows128<false>(acc, w2t, H, H - kBN, h, ldh, nullptr, N, D, row0, ws, xs);
+    relu_pack(acc, b2, H - kBN, packed);
+    __syncthreads();
+    if (H == 2 * kBN) {
+      uint32_t first[kMi][8][2];
+#pragma unroll
+      for (int mi = 0; mi < kHalf; ++mi)
+#pragma unroll
+        for (int ni = 0; ni < 8; ++ni)
+#pragma unroll
+          for (int hf = 0; hf < 2; ++hf) {
+            first[mi][ni][hf] = stash_s[((mi * 8 + ni) * 2 + hf) * kThreadsBf16 + tid];
+            first[kHalf + mi][ni][hf] = stash[mi][ni][hf];
+          }
+      store_packed(first, 0, h, ldh);
+    }
+    store_packed(packed, H - kBN, h, ldh);
+    // gated = bf16(tanh(h2 Wa + ba) * sigmoid(h2 Wb + bb)), folded into the scores
+    float sacc[kMi][2][2] = {};
+    for (int n0 = 0; n0 < 2 * A; n0 += kBN) {
+      gemm_rows128<false>(acc, wabt, H, n0, h, ldh, nullptr, N, D, row0, ws, xs);
+      gate_fold(acc, bab, wc, n0, sacc);
+    }
+    // s = gated Wc + bc: the quad, then the four column warps (the x ring is
+    // idle until the next tile's GEMM1, past two barriers)
+    reduce_scores<2, R, kThreadsBf16, kMi>(sacc, spart, bc, s_s, scores, b, N, row0);
+
+    online_stats<R, bf16>(s_s, mb, row0, N, e_s, stat);
+    __syncthreads();
+    online_accumulate<R, bf16, kThreadsBf16>(acc_s, e_s, stat, h, ldh, H);
+  }
+  __syncthreads();
+
+  const size_t p = (size_t)b * n_splits + split;
+  for (int i = tid; i < 2 * H; i += kThreadsBf16) part_acc[p * 2 * H + i] = acc_s[i];
+  if (tid < 4) part_stat[p * 4 + tid] = stat[tid];
+}
+
 template <typename T>
 int launch(const void* x, const float* mask, int B, int N, int D, int H, int A,
            const void* w1t, const float* b1, const void* w2t, const float* b2,
            const void* wabt, const float* bab, const void* wc, const float* bc,
            int tiles_per_split, int n_splits,
            float* scores, float* part_acc, float* part_stat, float* out, float* stat_out, cudaStream_t stream) {
-  const size_t smem = layout<T>(H, A).total;
-  cudaError_t err = cudaFuncSetAttribute(pool_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  pool_kernel<T><<<dim3(n_splits, B), kThreads, smem, stream>>>(
-      static_cast<const T*>(x), mask, N, D, H, A,
-      static_cast<const T*>(w1t), b1, static_cast<const T*>(w2t), b2,
-      static_cast<const T*>(wabt), bab, static_cast<const T*>(wc), bc,
-      tiles_per_split, n_splits, scores, part_acc, part_stat);
+  cudaError_t err;
+  if constexpr (std::is_same<T, bf16>::value) {
+    if (H != kBN && H != 2 * kBN) return (int)cudaErrorInvalidValue;  // the plan's BF16_WIDTHS
+    const size_t smem = layout_bf16(H).total;
+    err = cudaFuncSetAttribute(pool_kernel_bf16, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    pool_kernel_bf16<<<dim3(n_splits, B), kThreadsBf16, smem, stream>>>(
+        static_cast<const bf16*>(x), mask, N, D, H, A,
+        static_cast<const bf16*>(w1t), b1, static_cast<const bf16*>(w2t), b2,
+        static_cast<const bf16*>(wabt), bab, static_cast<const bf16*>(wc), bc,
+        tiles_per_split, n_splits, scores, part_acc, part_stat);
+  } else {
+    const size_t smem = layout<T>(H, A).total;
+    err = cudaFuncSetAttribute(pool_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    pool_kernel<T><<<dim3(n_splits, B), kThreads, smem, stream>>>(
+        static_cast<const T*>(x), mask, N, D, H, A,
+        static_cast<const T*>(w1t), b1, static_cast<const T*>(w2t), b2,
+        static_cast<const T*>(wabt), bab, static_cast<const T*>(wc), bc,
+        tiles_per_split, n_splits, scores, part_acc, part_stat);
+  }
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   // partial mode (K1p, the TPU kernel's stats_out_ref form): the same merge
@@ -315,11 +642,11 @@ int launch(const void* x, const float* mask, int B, int N, int D, int H, int A,
 extern "C" {
 
 // Rows per tile of the instance: 0 = float32, 1 = bfloat16.
-int toad_pool_rows_per_tile(int dtype) { return dtype == 1 ? Cfg<bf16>::R : Cfg<float>::R; }
+int toad_pool_rows_per_tile(int dtype) { return dtype == 1 ? kRowsBf16 : Cfg<float>::R; }
 
 // Dynamic shared memory of the pooling kernel in bytes.
 long long toad_pool_smem_bytes(int dtype, int H, int A) {
-  return (long long)(dtype == 1 ? layout<bf16>(H, A).total : layout<float>(H, A).total);
+  return (long long)(dtype == 1 ? layout_bf16(H).total : layout<float>(H, A).total);
 }
 
 // Launches the pooling and combine kernels on `stream`; returns the

@@ -16,7 +16,7 @@ namespace {
 
 typedef __nv_bfloat16 bf16;
 
-constexpr int kThreads = 256;  // 8 warps
+constexpr int kThreads = 256;  // 8 warps (K1's bf16 instance derives its own from its warp tile)
 constexpr float kNegInf = -1e30f;
 
 __host__ __device__ inline size_t align16(size_t v) { return (v + 15) & ~size_t(15); }
@@ -112,11 +112,12 @@ __device__ __forceinline__ void online_stats(const float* s_s, const float* mb, 
   }
 }
 
-// acc[2][H] = acc * corr + e^T h over the tile's R rows of h [R][ldh]
-template <int R, typename T>
+// acc[2][H] = acc * corr + e^T h over the tile's R rows of h [R][ldh], by a
+// block of NT threads
+template <int R, typename T, int NT = kThreads>
 __device__ __forceinline__ void online_accumulate(float* acc_s, const float* e_s, const float* stat,
                                                   const T* h, int ldh, int H) {
-  for (int i = threadIdx.x; i < 2 * H; i += kThreads) {
+  for (int i = threadIdx.x; i < 2 * H; i += NT) {
     const int t = i >= H, c = i - t * H;
     float a = acc_s[i] * stat[4 + t];
     for (int r = 0; r < R; ++r) a = fmaf(e_s[2 * r + t], to_f(h[r * ldh + c]), a);

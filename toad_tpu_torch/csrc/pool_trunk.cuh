@@ -1,9 +1,13 @@
 // The trunk and gate of the fused pooling kernels, shared by csrc/pool.cu
 // (K1 and its partial mode), csrc/pool_int8.cu (K2), csrc/pool_probe.cu
-// (P1/P2/P5) and csrc/pool_int8_probe.cu (P3/P4). All of them run 64-row
-// tiles through 8 warps arranged as 2 (rows) x 4 (columns), with weights
-// streamed from L2 through a cp.async ring and the tile's activations in
-// shared memory:
+// (P1/P2/P5) and csrc/pool_int8_probe.cu (P3/P4). K2 and the probes run
+// 64-row tiles through 8 warps arranged as 2 (rows) x 4 (columns), with
+// weights streamed from L2 through a cp.async ring and the tile's activations
+// in shared memory. Each tile streams all of the weights from L2, so the
+// rows a staged slice feeds set the L2 traffic and the products between two
+// barriers: K1's bf16 instance (csrc/pool.cu) has its own 128-row GEMM of
+// 64 x 64 warp tiles and shares only the gate, reduce_scores (rows, threads
+// and warp tile as template parameters) and pool_common.cuh. Here:
 //   - bf16: gemm_pass_bf16, one 256-column pass of mma.sync m16n8k16 fed by
 //     ldmatrix (3-deep ring of 32-deep slices), with a ReLU or gate epilogue;
 //   - int8: gemm8, int8 (m16n8k32 s8, int32 sums) or bf16 (m16n8k16, f32
@@ -438,16 +442,18 @@ __device__ __forceinline__ void gate_epilogue(int (&acc)[2][8][4], int n0, const
 }
 
 // s = sum of the partial scores + bc, in a fixed order: the quad's lanes,
-// then the four column warps, into s_s [64][T]; where scores is not null,
-// also the raw scores [B][T][N] of the tile's rows inside the bag.
-template <int T>
-__device__ __forceinline__ void reduce_scores(float (&sacc)[2][2][T], float* spart, const float* __restrict__ bc,
+// then the four column warps, into s_s [R][T]; where scores is not null,
+// also the raw scores [B][T][N] of the tile's rows inside the bag. R rows of
+// NT threads, warp w owning MI m16 tiles from row (w / 4)*16*MI (K1's bf16
+// instance: 128 rows, its own thread count and MI).
+template <int T, int R = kTileRows, int NT = kThreads, int MI = 2>
+__device__ __forceinline__ void reduce_scores(float (&sacc)[MI][2][T], float* spart, const float* __restrict__ bc,
                                               float* s_s, float* scores, int b, int N, int row0) {
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int g = lane >> 2, q = lane & 3;
   const int wr = warp / kColWarps, wc = warp % kColWarps;
 #pragma unroll
-  for (int mi = 0; mi < 2; ++mi) {
+  for (int mi = 0; mi < MI; ++mi) {
 #pragma unroll
     for (int hf = 0; hf < 2; ++hf) {
 #pragma unroll
@@ -455,16 +461,16 @@ __device__ __forceinline__ void reduce_scores(float (&sacc)[2][2][T], float* spa
         float v = sacc[mi][hf][t];
         v += __shfl_xor_sync(0xffffffffu, v, 1);
         v += __shfl_xor_sync(0xffffffffu, v, 2);
-        if (q == 0) spart[(wc * kTileRows + wr * 32 + mi * 16 + g + hf * 8) * T + t] = v;
+        if (q == 0) spart[(wc * R + wr * 16 * MI + mi * 16 + g + hf * 8) * T + t] = v;
       }
     }
   }
   __syncthreads();
-  for (int i = tid; i < kTileRows * T; i += kThreads) {
+  for (int i = tid; i < R * T; i += NT) {
     const int r = i / T, t = i % T;
     float s = 0.f;
 #pragma unroll
-    for (int w = 0; w < kColWarps; ++w) s += spart[(w * kTileRows + r) * T + t];
+    for (int w = 0; w < kColWarps; ++w) s += spart[(w * R + r) * T + t];
     s += __ldg(bc + t);
     s_s[i] = s;
     if (scores != nullptr && row0 + r < N) scores[((size_t)b * T + t) * N + row0 + r] = s;

@@ -11,8 +11,11 @@ an exact combine of the partial softmax statistics (see the notes in
 fill its matrix unit) has no counterpart here: on Hopper the split-N grid
 already keeps every SM busy with full row tiles.
 
-:func:`pack_params` lays the weights out for the kernel, once per model
-and compute dtype; :func:`pool` launches the kernel on CUDA tensors and
+:func:`plan` gives each instance's row tile, threads, ring slots and shared
+memory (the bf16 instance: 128-row tiles, h1 and h2 in one shared region, the
+grid in whole waves of one CTA an SM by :func:`wave_split_plan`; the f32
+instance: the first kernel's 32-row tiles). :func:`pack_params` lays the
+weights out for the kernel, once per model and compute dtype; :func:`pool` launches the kernel on CUDA tensors and
 raises on anything the kernel does not take. The plain version is
 :func:`toad_tpu_torch.ops.fused_pool.plain_pool`, which the CPU path runs
 and the chip check compares with. :func:`pool_partial` is the same launch
@@ -24,6 +27,7 @@ ending without the division (the TPU kernel's partial form,
 
 from __future__ import annotations
 
+import functools
 from typing import Any, NamedTuple
 
 import torch
@@ -37,7 +41,9 @@ COMBINE_LAUNCHES = 0  # launches of the cross-shard combine (one per call of com
 N_TASKS = 2  # the kernel computes exactly the two task columns
 GATE_GROUP = 32  # [Wa|Wb] rows interleave in groups of this many (csrc/pool.cu)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-_BLOCKS_PER_SM = 4  # grid target: several blocks per SM even for one bag
+_BLOCKS_PER_SM = 4  # grid target of split_plan: several blocks per SM even for one bag
+BF16_WIDTHS = (256, 512)  # trunk widths H whose bf16 layout fits one CTA's shared memory
+MAX_SMEM = 232_448  # dynamic shared memory one CTA may take on the card (227 KB)
 
 
 class PoolOperands(NamedTuple):
@@ -91,6 +97,48 @@ def pack_params(params: dict[str, Any], dtype: torch.dtype) -> PoolOperands:
     return pack_linears({k: (torch.as_tensor(p["w"]).t(), torch.as_tensor(p["b"])) for k, p in lins.items()}, dtype)
 
 
+class PoolPlan(NamedTuple):
+    """How the kernel runs one compute dtype at one width (``csrc/pool.cu``'s
+    ``Cfg`` and ``layout``; the launcher and ``toad_pool_smem_bytes`` /
+    ``toad_pool_rows_per_tile`` agree with it)."""
+
+    rows: int  # rows of a tile
+    threads: int  # threads of a CTA
+    slots: int  # slots of the cp.async ring (1: staged synchronously)
+    smem: int  # dynamic shared memory of a CTA, bytes
+
+
+def _align16(n: int) -> int:
+    return (n + 15) & ~15
+
+
+def plan(compute_dtype: torch.dtype, h_dim: int, a_dim: int) -> PoolPlan:
+    """The kernel's plan for (compute dtype, H, A); ValueError where the
+    layout does not fit a CTA's shared memory (in bf16: H outside
+    ``BF16_WIDTHS``), TypeError for a dtype without an instance."""
+    if compute_dtype == torch.bfloat16:
+        if h_dim not in BF16_WIDTHS:
+            raise ValueError(f"H={h_dim} not supported in bfloat16: the kernel's tile of h1 and h2 fits shared "
+                             f"memory only at H in {BF16_WIDTHS}")
+        # one region for h1 and h2, the weight and x rings (staged rows: 32 bf16 + 8 of padding; the x
+        # ring also holds 32 of GEMM2's 64 stash registers a thread, then the score scratch), the running
+        # acc and stats; Wc stays in device memory
+        rows, threads, slots, stride = 128, 256, 3, 40
+        parts = (2 * rows * (h_dim + 8), 2 * slots * 256 * stride, max(2 * slots * rows * stride, 4 * 32 * threads),
+                 4 * 2 * h_dim, 4 * 8)
+    elif compute_dtype == torch.float32:
+        rows, threads, slots, stride = 32, 256, 1, 33  # staged rows: 32 f32 + one word
+        parts = (4 * rows * (h_dim + 8), 4 * rows * (h_dim + 8), 4 * 256 * stride, 4 * rows * stride,
+                 4 * 2 * a_dim, 4 * 2 * rows, 4 * 2 * rows, 4 * 2 * h_dim, 4 * 8)
+    else:
+        raise TypeError(f"compute dtype {compute_dtype} not supported by the kernel (float32, bfloat16)")
+    smem = sum(map(_align16, parts))
+    if smem > MAX_SMEM:
+        raise ValueError(f"H={h_dim}, A={a_dim} not supported in {compute_dtype}: a CTA would need {smem} B of "
+                         f"shared memory, over the card's {MAX_SMEM}")
+    return PoolPlan(rows, threads, slots, smem)
+
+
 def split_plan(n_bags: int, n_rows: int, rows_per_tile: int, n_sms: int) -> tuple[int, int]:
     """(tiles_per_split, n_splits): cut each bag's row tiles into contiguous
     runs so that the grid has about ``_BLOCKS_PER_SM`` blocks per SM."""
@@ -98,6 +146,25 @@ def split_plan(n_bags: int, n_rows: int, rows_per_tile: int, n_sms: int) -> tupl
     want = max(1, -(-_BLOCKS_PER_SM * n_sms // n_bags))
     per = -(-n_tiles // min(n_tiles, want))
     return per, -(-n_tiles // per)
+
+
+@functools.lru_cache(maxsize=256)
+def wave_split_plan(n_bags: int, n_rows: int, rows_per_tile: int, n_sms: int) -> tuple[int, int]:
+    """(tiles_per_split, n_splits) for a kernel that holds an SM with one CTA
+    (K1's bf16 instance): the grid runs in ceil(blocks / n_sms) waves of up to
+    ``tiles_per_split`` tiles each, and the plan takes the fewest tile-times
+    that way, and of those the fewest splits. Where a bag's tiles allow, that
+    is one whole wave of the fair share, ceil(tiles / n_sms) tiles a CTA."""
+    n_tiles = -(-n_rows // rows_per_tile)
+    best = None
+    for splits in range(1, n_tiles + 1):
+        per = -(-n_tiles // splits)
+        if -(-n_tiles // per) != splits:  # the same runs as a smaller split count
+            continue
+        cost = -(-n_bags * splits // n_sms) * per
+        if best is None or cost < best[0]:
+            best = (cost, per, splits)
+    return best[1], best[2]
 
 
 def fixed_split_plan(n_rows: int, rows_per_tile: int, rows_per_split: int) -> tuple[int, int]:
@@ -112,14 +179,15 @@ def fixed_split_plan(n_rows: int, rows_per_tile: int, rows_per_split: int) -> tu
 
 
 def launch_buffers(b_: int, n: int, h_dim: int, with_scores: bool, rows_per_tile: int, dev: torch.device,
-                   rows_per_split: int | None = None):
-    """The split plan (:func:`split_plan`, or :func:`fixed_split_plan` for a
-    given ``rows_per_split``) and the buffers a split-N pooling launch
-    writes: (tiles_per_split, n_splits, M [B, 2, H], scores [B, 2, N] or
-    None, partial acc, partial stats)."""
+                   rows_per_split: int | None = None, splitter=split_plan):
+    """The split plan (``splitter``: :func:`split_plan` or
+    :func:`wave_split_plan`; :func:`fixed_split_plan` for a given
+    ``rows_per_split``) and the buffers a split-N pooling launch writes:
+    (tiles_per_split, n_splits, M [B, 2, H], scores [B, 2, N] or None,
+    partial acc, partial stats)."""
     if rows_per_split is None:
         n_sms = torch.cuda.get_device_properties(dev).multi_processor_count
-        per, n_splits = split_plan(b_, n, rows_per_tile, n_sms)
+        per, n_splits = splitter(b_, n, rows_per_tile, n_sms)
     else:
         per, n_splits = fixed_split_plan(n, rows_per_tile, rows_per_split)
     m = torch.empty((b_, N_TASKS, h_dim), device=dev, dtype=torch.float32)
@@ -130,15 +198,13 @@ def launch_buffers(b_: int, n: int, h_dim: int, with_scores: bool, rows_per_tile
 
 
 def _prepare(ops: PoolOperands, x: torch.Tensor, mask: torch.Tensor):
-    """The checks every launch of the pooling kernel makes; returns (x in the
-    operands' dtype, f32 mask, both contiguous, and B, N, D, H, A)."""
-    if x.device.type != "cuda":
-        raise ValueError(f"the CUDA pooling kernel needs CUDA tensors, got {x.device}")
+    """The checks every launch of the pooling kernel makes, the shapes and
+    widths before the devices (so that a width the kernel does not take is
+    refused before anything is built); returns (x in the operands' dtype, f32
+    mask, both contiguous, B, N, D, H, A and the kernel's plan)."""
     dt = ops.w1.dtype
     if dt not in _DTYPE_CODE:
         raise TypeError(f"compute dtype {dt} not supported by the kernel (float32, bfloat16)")
-    if mask.device != x.device or any(t.device != x.device for t in ops):
-        raise ValueError(f"mask and kernel operands must be on {x.device}")
     if any(t.dtype != dt for t in ops[0::2]) or any(t.dtype != torch.float32 or not t.is_contiguous() for t in ops[1::2]):
         raise TypeError("operands must come from pack_params: weights in one dtype, f32 biases")
     if x.dim() != 3:
@@ -158,12 +224,23 @@ def _prepare(ops: PoolOperands, x: torch.Tensor, mask: torch.Tensor):
             f"widths D={d}, H={h_dim}, A={a_dim} not supported: need D % 32 == 0, "
             "H % 256 == 0, A % 128 == 0 and A <= H"
         )
+    kernel_plan = plan(dt, h_dim, a_dim)
+    if x.device.type != "cuda":
+        raise ValueError(f"the CUDA pooling kernel needs CUDA tensors, got {x.device}")
+    if mask.device != x.device or any(t.device != x.device for t in ops):
+        raise ValueError(f"mask and kernel operands must be on {x.device}")
     x = x.to(dt).contiguous()
     mask = mask.to(torch.float32).contiguous()
     for tensor in (x, *ops):
         if tensor.data_ptr() % 16 or not tensor.is_contiguous():
             raise ValueError("kernel operands must be contiguous and 16-byte aligned")
-    return x, mask, b_, n, d, h_dim, a_dim
+    return x, mask, b_, n, d, h_dim, a_dim, kernel_plan
+
+
+def _splitter(compute_dtype: torch.dtype):
+    """The default split plan of an instance: whole waves for the bf16 one,
+    which holds an SM with one CTA; split_plan for f32."""
+    return wave_split_plan if compute_dtype == torch.bfloat16 else split_plan
 
 
 def _raise_on(err: int, lib, what: str) -> None:
@@ -178,16 +255,17 @@ def pool(
     [B, 2, N] f32 or None), computing in the dtype of ``ops``. Scores are
     written only when ``with_scores``; without them, row tiles that hold only
     padding are skipped. ``rows_per_split`` cuts each bag into blocks of that
-    many rows (a multiple of the kernel's row tile: 64 in bf16, 32 in f32)
-    instead of :func:`split_plan`'s; 2,048 is the long-bag probe's tiling
+    many rows (a multiple of the kernel's row tile, :func:`plan`'s rows)
+    instead of the default plan's (:func:`wave_split_plan` in bf16,
+    :func:`split_plan` in f32); 2,048 is the long-bag probe's tiling
     (``experiments/longbag_probe.py::pool_tile2048``)."""
     global LAUNCHES
-    x, mask, b_, n, d, h_dim, a_dim = _prepare(ops, x, mask)
+    x, mask, b_, n, d, h_dim, a_dim, kernel_plan = _prepare(ops, x, mask)
     dev = x.device
     lib = _build.load_library()
     code = _DTYPE_CODE[ops.w1.dtype]
     per, n_splits, m, scores, part_acc, part_stat = launch_buffers(
-        b_, n, h_dim, with_scores, lib.toad_pool_rows_per_tile(code), dev, rows_per_split)
+        b_, n, h_dim, with_scores, kernel_plan.rows, dev, rows_per_split, _splitter(ops.w1.dtype))
     with torch.cuda.device(dev):
         err = lib.toad_pool_forward(
             code, x.data_ptr(), mask.data_ptr(), b_, n, d, h_dim, a_dim,
@@ -214,12 +292,12 @@ def pool_partial(
     are contiguous f32 tensors of those shapes to write into (for instance
     one shard's slot of the stacked buffers); without it new ones are made."""
     global PARTIAL_LAUNCHES
-    x, mask, b_, n, d, h_dim, a_dim = _prepare(ops, x, mask)
+    x, mask, b_, n, d, h_dim, a_dim, kernel_plan = _prepare(ops, x, mask)
     dev = x.device
     lib = _build.load_library()
     code = _DTYPE_CODE[ops.w1.dtype]
     per, n_splits, acc, _, part_acc, part_stat = launch_buffers(
-        b_, n, h_dim, False, lib.toad_pool_rows_per_tile(code), dev)
+        b_, n, h_dim, False, kernel_plan.rows, dev, splitter=_splitter(ops.w1.dtype))
     if out is None:
         stats = torch.empty((b_, 2, N_TASKS), device=dev, dtype=torch.float32)
     else:
@@ -267,7 +345,8 @@ def combine_shards(acc: torch.Tensor, stats: torch.Tensor) -> torch.Tensor:
 
 
 def smem_bytes(compute_dtype: torch.dtype, h_dim: int, a_dim: int) -> int:
-    """Dynamic shared memory one block of the kernel takes."""
+    """Dynamic shared memory one block of the kernel takes, as the library
+    computes it (:func:`plan`'s ``smem`` must agree)."""
     return int(_build.load_library().toad_pool_smem_bytes(_DTYPE_CODE[compute_dtype], h_dim, a_dim))
 
 
