@@ -1,15 +1,18 @@
 """The pooling kernel's plans (``toad_tpu_torch.ops.cuda_pool``).
 
 K1 (``csrc/pool.cu``) runs its bf16 instance on 128-row tiles with 8 warps
-of 64 x 64 warp tiles, h1 and h2 in one shared region, and its f32 instance on the first
-kernel's 32-row tiles. ``plan`` gives each instance's rows, threads, ring
-slots and shared memory as the library computes them (``chip_smoke.py``
-phase 2 asserts that the two agree on the card), and refuses a width whose
-layout does not fit a CTA. The bf16 grid fills whole waves of one CTA an SM
-(``wave_split_plan``); the f32 instance, K2 and the probes keep
-``split_plan``. No card is needed: the plans are arithmetic.
+of 64 x 64 warp tiles and its f32 instance on 64-row tiles with 8 warps of
+32 x H/4, each with h1 and h2 in one shared region; the f32 products are
+3xTF32 (each operand split into two TF32 halves). ``plan`` gives each
+instance's rows, threads, ring slots and shared memory as the library
+computes them (``chip_smoke.py`` phase 2 asserts that the two agree on the
+card), and refuses a width whose layout does not fit a CTA. Both grids fill
+whole waves of one CTA an SM (``wave_split_plan``); K2 and the probes keep
+``split_plan``. No card is needed: the plans are arithmetic, and the 3xTF32
+numerics are modelled here on the CPU.
 """
 
+import numpy as np
 import pytest
 import torch
 
@@ -66,11 +69,38 @@ def test_wrapper_refuses_those_widths_before_building(h_dim):
     assert not _build.is_loaded()
 
 
-@pytest.mark.parametrize("h_dim,a_dim,smem", [(512, 384, 178_848), (512, 256, 177_824), (256, 128, 109_216)])
+@pytest.mark.parametrize("h_dim,a_dim,smem", [(512, 384, 221_216), (512, 256, 221_216), (256, 128, 112_672)])
 def test_f32_plan_is_the_first_kernels(h_dim, a_dim, smem):
-    """32-row tiles, 8 warps, staged synchronously: h1 and h2 [32][H + 8],
-    one 256 x 33 weight slice, one 32 x 33 x slice, Wc, s, e, acc, stats."""
-    assert cuda_pool.plan(F32, h_dim, a_dim) == cuda_pool.PoolPlan(32, 256, 1, smem)
+    """The f32 instance's plan: 64-row tiles, 8 warps, a 2-slot ring. One
+    region [64][H + 4] for x slices, h1 and h2, the ring [2][H][16 + 4], the
+    column warps' partial scores, s, e, acc and stats; Wc stays in device
+    memory, so A does not change it. Within one CTA's shared memory."""
+    p = cuda_pool.plan(F32, h_dim, a_dim)
+    assert p == cuda_pool.PoolPlan(64, 256, 2, smem)
+    assert p.smem <= cuda_pool.MAX_SMEM
+    region = 4 * p.rows * (h_dim + 4)
+    assert region < p.smem < 2 * region  # h1 and h2 take turns in one region
+
+
+@pytest.mark.parametrize("h_dim", [768, 1024])
+def test_f32_plan_refuses_widths_whose_layout_does_not_fit(h_dim):
+    with pytest.raises(ValueError, match=f"H={h_dim} not supported in float32"):
+        cuda_pool.plan(F32, h_dim, 384)
+    ops = _operands(h_dim, 384, 64, F32)
+    with pytest.raises(ValueError, match=f"H={h_dim} not supported in float32"):
+        cuda_pool.pool(ops, torch.zeros(1, 8, 64), torch.ones(1, 8), False)
+    assert not _build.is_loaded()
+
+
+@pytest.mark.parametrize("b,n", [(32, 8192), (4, 29568), (1, 40960)])
+def test_f32_plan_halves_the_tiles_and_fills_whole_waves(b, n):
+    """At the smoke's, the eval rung's and K1p's shapes: half the first
+    kernel's 32-row tiles, one CTA an SM for at most ceil(tiles / SMs) tiles."""
+    rows = cuda_pool.plan(F32, 512, 384).rows
+    per, splits = cuda_pool.wave_split_plan(b, n, rows, N_SMS)
+    tiles = b * _tiles(n, rows)
+    assert 2 * tiles == b * _tiles(n, 32)
+    assert _cost(b, splits, per) == -(-tiles // N_SMS)
 
 
 @pytest.mark.parametrize("b,n", SHAPES)
@@ -103,10 +133,10 @@ def test_wave_split_plan_is_the_fewest_tile_times(b, n):
 
 
 def test_default_split_plans_by_instance():
-    """The bf16 instance takes whole waves; f32 keeps split_plan, as K2 and
-    the probes do (each calls it with its own row tile)."""
+    """Both instances hold an SM with one CTA and take whole waves; K2 and
+    the probes keep split_plan (each calls it with its own row tile)."""
     assert cuda_pool._splitter(BF16) is cuda_pool.wave_split_plan
-    assert cuda_pool._splitter(F32) is cuda_pool.split_plan
+    assert cuda_pool._splitter(F32) is cuda_pool.wave_split_plan
     assert cuda_pool.split_plan(1, 40960, 64, N_SMS) == (2, 320)  # several blocks an SM, as before
 
 
@@ -120,3 +150,96 @@ def test_fixed_split_plan_refuses_what_is_no_multiple_of_the_tile(rows_per_split
     rows = cuda_pool.plan(BF16, 512, 384).rows
     with pytest.raises(ValueError, match="multiple of the kernel's 128-row tile"):
         cuda_pool.fixed_split_plan(131072, rows, rows_per_split)
+
+
+# -- the numerics of the f32 instance's products --------------------------------
+
+
+def _tf32(v: torch.Tensor) -> torch.Tensor:
+    """cvt.rna.tf32.f32 on the bit pattern: round the 23-bit mantissa to 10
+    bits, to nearest with ties away from zero (add 0x1000, clear the low 13
+    bits; finite values)."""
+    return ((v.view(torch.int32) + 0x1000) & -0x2000).view(torch.float32)
+
+
+def _truncated(v: torch.Tensor) -> torch.Tensor:
+    """An f32 operand as the tensor cores read it as tf32: the low 13 bits of
+    the mantissa dropped."""
+    return (v.view(torch.int32) & -0x2000).view(torch.float32)
+
+
+def _toward_zero(v: torch.Tensor) -> torch.Tensor:
+    """f64 -> f32 rounded toward zero, as the tensor cores round the f32 sums
+    they write."""
+    f = v.float()
+    over = f.double().abs() > v.abs()
+    return torch.where(over, torch.nextafter(f, torch.zeros_like(f)), f)
+
+
+def _tensor_core(a: torch.Tensor, b: torch.Tensor, pairs, slice_depth: int | None = None) -> torch.Tensor:
+    """C = A B in k8 steps as mma.sync m16n8k8 takes them: each step adds the
+    products of each (a part, b part) pair, in order, to an f32 sum, exactly
+    and then rounded toward zero. With ``slice_depth`` the steps of each
+    slice of that depth go to a sum of their own, started at 0, which is
+    added to C once (an f32 add, rounded to nearest), as the kernel does;
+    without it they go straight to C."""
+    acc = torch.zeros(a.shape[0], b.shape[1], dtype=torch.float32)
+    part = torch.zeros_like(acc)
+    for k0 in range(0, a.shape[1], 8):
+        for pa, pb in pairs:
+            prod = pa(a[:, k0:k0 + 8]).double() @ pb(b[k0:k0 + 8]).double()
+            if slice_depth is None:
+                acc = _toward_zero(acc.double() + prod)
+            else:
+                part = _toward_zero(part.double() + prod)
+        if slice_depth is not None and (k0 + 8) % slice_depth == 0:
+            acc, part = (acc.double() + part.double()).float(), torch.zeros_like(part)
+    return acc
+
+
+def test_3xtf32_is_as_accurate_as_f32_fma_and_one_tf32_product_is_not():
+    """The model of the f32 instance's products on seeded 64 x 1024 x 128
+    operands, against the f64 product, relative to its largest output:
+    3xTF32 (small.big + big.small + big.big, big = tf32(x) rounded to
+    nearest, small = x - big, which the kernel passes as it is and the tensor
+    cores truncate) in 16-deep slices stays within 2x of sequential f32 FMA
+    over k. Summed straight into one running sum, the truncation of every
+    step gathers a bias over K that misses it 5x or more; one TF32 product
+    misses it by 50x or more."""
+    rng = np.random.default_rng(15)
+    a = torch.from_numpy(rng.standard_normal((64, 1024)).astype(np.float32))
+    b = torch.from_numpy((0.03 * rng.standard_normal((1024, 128))).astype(np.float32))
+    want = a.double() @ b.double()
+    scale = want.abs().max().item()
+
+    fma = torch.zeros(64, 128, dtype=torch.float32)
+    for k in range(a.shape[1]):  # one rounding a step: the f64 sum of an exact product, rounded to f32
+        fma = (fma.double() + a[:, k:k + 1].double() * b[k:k + 1].double()).float()
+
+    def small(v):
+        return _truncated(v - _tf32(v))
+
+    three = ((small, _tf32), (_tf32, small), (_tf32, _tf32))
+    sliced = _tensor_core(a, b, three, slice_depth=16)
+    running = _tensor_core(a, b, three)
+    one = _tensor_core(a, b, ((_tf32, _tf32),), slice_depth=16)
+    err_fma, err_sliced, err_running, err_one = (
+        (c.double() - want).abs().max().item() / scale for c in (fma, sliced, running, one))
+    assert 0 < err_fma < 1e-5
+    assert err_sliced <= 2 * err_fma
+    assert err_running >= 5 * err_fma
+    assert err_one >= 50 * err_fma
+
+
+def test_tf32_split_is_exact_and_rounds_to_nearest():
+    """big + small recovers x to within small's truncation to tf32; big keeps
+    10 mantissa bits, rounded half away from zero: the kernel's bits + 0x1000,
+    read with the low 13 bits dropped, is the same value."""
+    x = torch.tensor([1.0, 1.0 + 2.0 ** -11, 1.0 + 2.0 ** -10 + 2.0 ** -11, -(1.0 + 2.0 ** -11), 3.14159265])
+    big = _tf32(x)
+    assert big.tolist()[:4] == [1.0, 1.0 + 2.0 ** -10, 1.0 + 2.0 ** -9, -(1.0 + 2.0 ** -10)]
+    assert not (big.view(torch.int32) & 0x1FFF).any()
+    rest = x - big  # exact in f32
+    assert ((big.double() + rest.double()) == x.double()).all()
+    assert ((big.double() + _truncated(rest).double() - x.double()).abs() <= x.double().abs() * 2.0 ** -21).all()
+    assert torch.equal(_truncated((x.view(torch.int32) + 0x1000).view(torch.float32)), big)

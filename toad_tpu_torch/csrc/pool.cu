@@ -52,10 +52,31 @@
 // writes a partial (acc, max, denom); pool_combine_kernel merges the partials
 // exactly (and, in partial mode, leaves the division to the cross-shard
 // combine), spread over 2H/32 blocks per bag so that one large bag combines
-// in parallel. The bf16 grid fills whole waves of one CTA an SM
-// (cuda_pool.wave_split_plan). The f32 instance keeps the first design:
-// 32-row tiles, 8 warps, FMA so that f32 stays f32 (no TF32), staged
-// synchronously. No wgmma, TMA or warp specialisation.
+// in parallel. Both instances hold an SM with one CTA, and their grids fill
+// whole waves (cuda_pool.wave_split_plan). No wgmma, TMA or warp
+// specialisation.
+//
+// The f32 instance (the default of serve, eval and the f32 trainer's
+// passes) keeps f32 f32: Hopper has no f32 tensor-core product, and a single
+// TF32 product is off by ~1e-3. Its f32 weights are 4.72 MB, twice bf16's,
+// and h1 or h2 of 64 rows already take 132 KB, so it runs 64-row tiles, 8
+// warps as 2 (rows) x 4 (columns), and each trunk GEMM as one pass over all
+// H columns (32 x 128 warp tiles, 128 f32 sums a thread): the pass's output
+// reaches shared memory only after its last slice, so h1 and h2 take turns
+// in one region, and GEMM1's x slices ride in that region while it is dead.
+// Weights come through a 2-slot cp.async ring of H-column x 16-deep slices.
+// The gate runs in 256-column passes that fold gated values into per-row
+// scores in registers, as the bf16 instance does. The products are
+// error-compensated TF32 ("3xTF32"): each f32 operand splits in registers
+// into big = x rounded to tf32 and small = x - big (exact in f32, read as
+// tf32 by truncation), and each m16n8k8 step accumulates small.big +
+// big.small + big.big in f32. The tensor cores
+// truncate the sums they write, so each 16-deep slice sums into registers
+// of its own that one f32 add folds into the running sum: a running sum
+// that keeps its sign would gather the truncation's bias over all of K (10x
+// f32 FMA's error on the card); so summed it is as accurate as f32 FMA
+// (PERF.md §6). Against the first kernel's 32-row tiles this halves the
+// weight stream from L2.
 //
 // Layout contract (the Python wrapper ops/cuda_pool.py prepares it):
 //   x [B, N, D] and weights in the compute dtype T, weights in nn.Linear
@@ -67,175 +88,258 @@
 
 namespace {
 
-constexpr int kHPad = 8;       // row padding of the activation buffers
+constexpr int kHPad = 8;       // row padding of the bf16 activation region
 
-// Rows per tile, staging stride (elements) and staging depth of the f32
-// instance: rows padded by one word (conflict-free column reads), staged
-// synchronously through one buffer. The bf16 instance's are below.
-template <typename T> struct Cfg;
-template <> struct Cfg<float> {
-  static constexpr int R = 32;
-  static constexpr int S = kBK + 1;
-  static constexpr int kStages = 1;
+// ---------------------------------------------------------------------------
+// The f32 instance. Warp (wr, wc) owns rows wr*32 + mi*16 + {g, g+8} (mi < 2)
+// and columns wc*8*NT + ni*8 + 2q (+1) (ni < NT) of a pass of 32*NT columns
+// (g = lane / 4, q = lane % 4), the accumulator layout of mma.m16n8k8.
+
+constexpr int kRowsF32 = 64;        // rows a tile
+constexpr int kBKF32 = 16;          // reduction depth of a staged slice
+constexpr int kSF32 = kBKF32 + 4;   // staged row stride (words): 16-byte copies, conflict-free fragment loads
+constexpr int kHPadF32 = 4;         // row padding of the f32 region: H + 4 puts rows g on banks 4g
+constexpr int kSlotsF32 = 2;        // slots of the cp.async ring: one slice in flight
+constexpr int kGatePass = 256;      // interleaved [Wa|Wb] columns a gate pass
+static_assert(kRowsF32 * kBKF32 / 4 == kThreads, "one 16-byte x copy a thread a slice");
+
+// One region h [64][H + 4] holds GEMM1's x slices, then h1, then h2; the
+// weight ring ws [2][H][20]; the column warps' partial scores [4][64][2], s
+// [64][2] and e [64][2]; the running acc [2][H] and stat (max[2], denom[2],
+// corr[2]). Wc is read from device memory.
+struct LayoutF32 {
+  size_t h, ws, spart, s, e, acc, stat, total;
 };
 
-struct Layout {
-  size_t ha, hb, ws, xs, wc, s, e, acc, stat, total;
-};
-
-template <typename T>
-__host__ __device__ inline Layout layout(int H, int A) {
-  constexpr int R = Cfg<T>::R;
-  constexpr int S = Cfg<T>::S;
-  Layout L;
+__host__ __device__ inline LayoutF32 layout_f32(int H) {
+  LayoutF32 L;
   size_t o = 0;
-  L.ha = o;   o = align16(o + sizeof(T) * R * (H + kHPad));
-  L.hb = o;   o = align16(o + sizeof(T) * R * (H + kHPad));
-  L.ws = o;   o = align16(o + sizeof(T) * Cfg<T>::kStages * kBN * S);
-  L.xs = o;   o = align16(o + sizeof(T) * Cfg<T>::kStages * R * S);
-  L.wc = o;   o = align16(o + sizeof(float) * 2 * A);
-  L.s = o;    o = align16(o + sizeof(float) * 2 * R);
-  L.e = o;    o = align16(o + sizeof(float) * 2 * R);
-  L.acc = o;  o = align16(o + sizeof(float) * 2 * H);
-  L.stat = o; o = align16(o + sizeof(float) * 8);
+  L.h = o;     o = align16(o + sizeof(float) * kRowsF32 * (H + kHPadF32));
+  L.ws = o;    o = align16(o + sizeof(float) * kSlotsF32 * H * kSF32);
+  L.spart = o; o = align16(o + sizeof(float) * kColWarps * kRowsF32 * 2);
+  L.s = o;     o = align16(o + sizeof(float) * kRowsF32 * 2);
+  L.e = o;     o = align16(o + sizeof(float) * kRowsF32 * 2);
+  L.acc = o;   o = align16(o + sizeof(float) * 2 * H);
+  L.stat = o;  o = align16(o + sizeof(float) * 8);
   L.total = o;
   return L;
 }
 
-// ---------------------------------------------------------------------------
-// Staging of one K-slice of the f32 instance into shared memory.
-
-// f32: ws[n][k] <- wt[n0 + n][k0 + k], n < kBN, k < kBK
-__device__ __forceinline__ void stage_w(const float* __restrict__ wt, int K, int n0, int k0, float* ws) {
-  for (int i = threadIdx.x; i < kBN * (kBK / 4); i += kThreads) {
-    const int r = i / (kBK / 4), c = (i % (kBK / 4)) * 4;
-    const float4 v = __ldg(reinterpret_cast<const float4*>(wt + (size_t)(n0 + r) * K + k0 + c));
-    float* d = ws + r * Cfg<float>::S + c;
-    d[0] = v.x; d[1] = v.y; d[2] = v.z; d[3] = v.w;
+// ws[n][k] <- wt[n0 + n][k0 + k] (n < NC, k < 16) and (kFromX) xs[r][k] <-
+// x[row0 + r][k0 + k] (r < 64), rows past the bag's end N zero-filled, in
+// 16-byte copies; commits one group.
+template <int NC, bool kFromX>
+__device__ __forceinline__ void stage_f32(const float* __restrict__ wt, int K, int n0, int k0, float* ws,
+                                          const float* __restrict__ x, int N, int D, int row0, float* xs) {
+  constexpr int kChunks = kBKF32 / 4;
+#pragma unroll
+  for (int j = 0; j < NC * kChunks / kThreads; ++j) {
+    const int i = threadIdx.x + j * kThreads;
+    const int r = i / kChunks, c = (i % kChunks) * 4;
+    cp_async16(ws + r * kSF32 + c, wt + (size_t)(n0 + r) * K + k0 + c, 16);
   }
+  if (kFromX) {
+    const int r = threadIdx.x / kChunks, c = (threadIdx.x % kChunks) * 4;
+    const bool ok = row0 + r < N;
+    cp_async16(xs + r * kSF32 + c, ok ? x + (size_t)(row0 + r) * D + k0 + c : x, ok ? 16 : 0);
+  }
+  cp_async_commit();
 }
 
-// f32: xs[r][k] <- x[row0 + r][k0 + k]; rows past the bag's end read as zeros
-__device__ __forceinline__ void stage_x(const float* __restrict__ x, int N, int D, int row0, int k0, float* xs) {
-  constexpr int R = Cfg<float>::R;
-  for (int i = threadIdx.x; i < R * (kBK / 4); i += kThreads) {
-    const int r = i / (kBK / 4), c = (i % (kBK / 4)) * 4;
-    float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (row0 + r < N) v = __ldg(reinterpret_cast<const float4*>(x + (size_t)(row0 + r) * D + k0 + c));
-    float* d = xs + r * Cfg<float>::S + c;
-    d[0] = v.x; d[1] = v.y; d[2] = v.z; d[3] = v.w;
-  }
+// c[16x8] += a[16x8] . b[8x8], tf32 operands (each f32's low 13 bits dropped), f32 sums
+__device__ __forceinline__ void mma_tf32(float* c, const uint32_t* a, uint32_t b0, uint32_t b1) {
+  asm(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-// ---------------------------------------------------------------------------
-// One GEMM pass: out[R, n0 : n0+kBN] of  A[R, K] . Wt[n0 : n0+kBN, K]^T.
-// A is the staged x tile (kFromX) or an activation buffer in shared memory.
-// kEpiRelu epilogue: out[r][n0 + c] = T(relu(acc + bias)).
-// kEpiTanh epilogue: out[r][j] = T(tanh(u_j) * sigmoid(v_j)) over the
-// interleaved [Wa|Wb] columns (j = n0/2 + position within the u half).
+// v = big + small as two tf32 operands. The tensor cores read the top 19
+// bits of a tf32 operand and drop the low 13, so big = bits + 0x1000 reads as
+// v rounded to nearest, ties away, as cvt.rna.tf32.f32 would round it, and
+// small = v - that (exact in f32) reads as itself truncated: three
+// instructions, where two cvt.rna compile to compares and selects on sm_90a
+// (the kernel was 1.16x slower with them, PERF.md §6)
+__device__ __forceinline__ void split_tf32(float v, uint32_t& big, uint32_t& small) {
+  big = __float_as_uint(v) + 0x1000u;
+  small = __float_as_uint(v - __uint_as_float(big & 0xffffe000u));
+}
 
-struct GemmArgs {
-  const void* x;  // bag base [N, D] (kFromX only)
-  int N, D, row0;
-  const void* a_s;  // activation buffer [R][lda] (not kFromX)
-  int lda, K;
-  const void* wt;  // [n_out, K]
-  const float* bias;
-  int n0;
-  void* ws;
-  void* xs;
-  void* out;  // [R][ldo]
-  int ldo;
-};
-
-// f32: thread (tr = tid / 32, tc = tid % 32) owns rows tr + 8i (i < 4) and
-// columns tc + 32c (c < 8); columns tc + 64p and tc + 64p + 32 are u_j, v_j.
-template <int kEpi, bool kFromX>
-__device__ void gemm_pass(const GemmArgs& g, float*) {
-  constexpr int S = Cfg<float>::S;
-  const int tc = threadIdx.x & 31, tr = threadIdx.x >> 5;
-  float* ws = static_cast<float*>(g.ws);
-  float* xs = static_cast<float*>(g.xs);
-  const float* a_s = static_cast<const float*>(g.a_s);
-
-  float acc[4][8];
+// acc += A[64, 16] . W[32*NT columns, 16]^T over one staged slice in 3xTF32:
+// a_base the slice's row 0 (row stride la), w_base its column 0 of the pass
+// (stride kSF32); m16n8k8 fragments loaded as f32 and split in registers,
+// the small products first.
+template <int NT>
+__device__ __forceinline__ void slice_product(float (&acc)[2][NT][4], const float* a_base, int la,
+                                              const float* w_base) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int wr = warp >> 2, wc = warp & 3, g = lane >> 2, q = lane & 3;
+  const float* a_row = a_base + (wr * 32 + g) * la;
+  const float* w_col = w_base + (wc * 8 * NT) * kSF32;
+  uint32_t ab[2][2][4], as[2][2][4];  // a fragments of k8 step s, m-tile mi: big, small
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int s = 0; s < 2; ++s)
 #pragma unroll
-    for (int c = 0; c < 8; ++c) acc[i][c] = 0.f;
-
-  for (int k0 = 0; k0 < g.K; k0 += kBK) {
-    __syncthreads();
-    stage_w(static_cast<const float*>(g.wt), g.K, g.n0, k0, ws);
-    if (kFromX) stage_x(static_cast<const float*>(g.x), g.N, g.D, g.row0, k0, xs);
-    __syncthreads();
-    const float* a_base = kFromX ? xs : a_s + k0;
-    const int la = kFromX ? S : g.lda;
-#pragma unroll 4
-    for (int kk = 0; kk < kBK; ++kk) {
-      float a[4], w[8];
+    for (int mi = 0; mi < 2; ++mi)
 #pragma unroll
-      for (int i = 0; i < 4; ++i) a[i] = a_base[(tr + 8 * i) * la + kk];
+      for (int r = 0; r < 4; ++r)  // (g, q), (g+8, q), (g, q+4), (g+8, q+4)
+        split_tf32(a_row[(mi * 16 + (r & 1) * 8) * la + 8 * s + q + (r >> 1) * 4], ab[s][mi][r], as[s][mi][r]);
+  // four n-tiles at a time, eight independent sums between two products
+  // into one. The slice's products go to sums of their own, added to acc
+  // once: the tensor cores truncate each sum they write, and a running sum
+  // that kept its sign would gather that bias over all K
 #pragma unroll
-      for (int c = 0; c < 8; ++c) w[c] = ws[(tc + 32 * c) * S + kk];
+  for (int n4 = 0; n4 < NT; n4 += 4) {
+    float part[2][4][4] = {};
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+    for (int s = 0; s < 2; ++s) {
+      uint32_t bb[4][2], bs[4][2];  // b0 (k = q), b1 (k = q + 4) of column (n4 + j)*8 + g
 #pragma unroll
-        for (int c = 0; c < 8; ++c) acc[i][c] = fmaf(a[i], w[c], acc[i][c]);
-    }
-  }
-
-  float* out = static_cast<float*>(g.out);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = tr + 8 * i;
-    if (kEpi == kEpiRelu) {
-#pragma unroll
-      for (int c = 0; c < 8; ++c) {
-        const int col = g.n0 + tc + 32 * c;
-        out[row * g.ldo + col] = fmaxf(acc[i][c] + __ldg(g.bias + col), 0.f);
+      for (int j = 0; j < 4; ++j) {
+        const float* w = w_col + ((n4 + j) * 8 + g) * kSF32 + 8 * s + q;
+        split_tf32(w[0], bb[j][0], bs[j][0]);
+        split_tf32(w[4], bb[j][1], bs[j][1]);
       }
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int mi = 0; mi < 2; ++mi) mma_tf32(part[mi][j], as[s][mi], bb[j][0], bb[j][1]);
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int mi = 0; mi < 2; ++mi) mma_tf32(part[mi][j], ab[s][mi], bs[j][0], bs[j][1]);
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int mi = 0; mi < 2; ++mi) mma_tf32(part[mi][j], ab[s][mi], bb[j][0], bb[j][1]);
+    }
+#pragma unroll
+    for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[mi][n4 + j][e] += part[mi][j][e];
+  }
+}
+
+// acc = A[64, K] . Wt[n0 : n0 + 32*NT, K]^T in one pass over K, A the staged
+// x tile (kFromX; its slices ride in xs) or h [64][ldh].
+template <int NT, bool kFromX>
+__device__ __forceinline__ void gemm_rows64(float (&acc)[2][NT][4], const float* __restrict__ wt, int K, int n0,
+                                            const float* h, int ldh, const float* __restrict__ x, int N, int D,
+                                            int row0, float* ws, float* xs) {
+  constexpr int NC = kColWarps * 8 * NT;
+  const int n_steps = K / kBKF32;
+  auto issue = [&](int step) {
+    if (step < n_steps) {
+      const int slot = step % kSlotsF32;
+      stage_f32<NC, kFromX>(wt, K, n0, step * kBKF32, ws + slot * NC * kSF32, x, N, D, row0,
+                            xs + slot * kRowsF32 * kSF32);
     } else {
-#pragma unroll
-      for (int p = 0; p < 4; ++p) {
-        const int cu = g.n0 + tc + 64 * p;
-        const float u = acc[i][2 * p] + __ldg(g.bias + cu);
-        const float v = acc[i][2 * p + 1] + __ldg(g.bias + cu + 32);
-        out[row * g.ldo + g.n0 / 2 + 32 * p + tc] = tanhf(u) * sigmoidf(v);
-      }
+      cp_async_commit();  // empty group: keeps one group per step for the wait count
     }
+  };
+#pragma unroll
+  for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+    for (int ni = 0; ni < NT; ++ni)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[mi][ni][e] = 0.f;
+
+  // the ring and the x slots are free, and the previous epilogue's writes to
+  // h are visible, once every warp has arrived here
+  __syncthreads();
+#pragma unroll
+  for (int s = 0; s < kSlotsF32 - 1; ++s) issue(s);
+  for (int step = 0; step < n_steps; ++step) {
+    cp_async_wait<kSlotsF32 - 2>();  // this thread's copies of `step` have landed
+    __syncthreads();                 // everyone's have, and slot (step - 1) is free
+    issue(step + kSlotsF32 - 1);
+    const int slot = step % kSlotsF32;
+    slice_product<NT>(acc, kFromX ? xs + slot * kRowsF32 * kSF32 : h + step * kBKF32, kFromX ? kSF32 : ldh,
+                      ws + slot * NC * kSF32);
   }
 }
 
-// ---------------------------------------------------------------------------
+// h[row][col] <- relu(acc + bias) over the pass's 32*NT columns
+template <int NT>
+__device__ __forceinline__ void store_relu(const float (&acc)[2][NT][4], const float* __restrict__ bias, float* h,
+                                           int ldh) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int wr = warp >> 2, wc = warp & 3, g = lane >> 2, q = lane & 3;
+#pragma unroll
+  for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf) {
+      const int row = wr * 32 + mi * 16 + g + hf * 8;
+#pragma unroll
+      for (int ni = 0; ni < NT; ++ni) {
+        const int col = wc * 8 * NT + ni * 8 + 2 * q;
+        *reinterpret_cast<float2*>(h + row * ldh + col) =
+            make_float2(fmaxf(acc[mi][ni][2 * hf] + __ldg(bias + col), 0.f),
+                        fmaxf(acc[mi][ni][2 * hf + 1] + __ldg(bias + col + 1), 0.f));
+      }
+    }
+}
 
-template <typename T>
+// The gate epilogue of interleaved [Wa|Wb] columns n0..n0+255: warp column wc
+// holds u_j in n-tiles 0-3 and v_j (32 columns further) in n-tiles 4-7 for
+// j = n0/2 + wc*32 + ni*8 + 2q (+1). gated_j = tanh(u_j) sigmoid(v_j) (f32)
+// is folded into the thread's partial scores sacc[mi][hf][t] += gated_j
+// Wc[j][t]; it never reaches shared memory.
+__device__ __forceinline__ void gate_fold_f32(const float (&acc)[2][8][4], const float* __restrict__ bias,
+                                              const float* __restrict__ wc_g, int n0, float (&sacc)[2][2][2]) {
+  const int lane = threadIdx.x & 31, wc = (threadIdx.x >> 5) & 3;
+  float2 w[4][2];
+#pragma unroll
+  for (int ni = 0; ni < 4; ++ni)
+#pragma unroll
+    for (int e = 0; e < 2; ++e)
+      w[ni][e] = __ldg(reinterpret_cast<const float2*>(wc_g) + n0 / 2 + wc * 32 + ni * 8 + 2 * (lane & 3) + e);
+#pragma unroll
+  for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf)
+#pragma unroll
+      for (int ni = 0; ni < 4; ++ni)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int cu = n0 + wc * 64 + ni * 8 + 2 * (lane & 3) + e;  // u column; v is 32 further
+          const float gv = gate<kEpiTanh>(acc[mi][ni][2 * hf + e] + __ldg(bias + cu),
+                                          acc[mi][ni + 4][2 * hf + e] + __ldg(bias + cu + 32));
+          sacc[mi][hf][0] = fmaf(gv, w[ni][e].x, sacc[mi][hf][0]);
+          sacc[mi][hf][1] = fmaf(gv, w[ni][e].y, sacc[mi][hf][1]);
+        }
+}
+
+// NT = H / 32: the trunk GEMMs' n-tiles a warp
+template <int NT>
 __global__ void __launch_bounds__(kThreads, 1)
-pool_kernel(const T* __restrict__ x, const float* __restrict__ mask, int N, int D, int H, int A,
-            const T* __restrict__ w1t, const float* __restrict__ b1,
-            const T* __restrict__ w2t, const float* __restrict__ b2,
-            const T* __restrict__ wabt, const float* __restrict__ bab,
-            const T* __restrict__ wc, const float* __restrict__ bc,
-            int tiles_per_split, int n_splits,
-            float* __restrict__ scores, float* __restrict__ part_acc, float* __restrict__ part_stat) {
-  constexpr int R = Cfg<T>::R;
+pool_kernel_f32(const float* __restrict__ x, const float* __restrict__ mask, int N, int D, int H, int A,
+                const float* __restrict__ w1t, const float* __restrict__ b1,
+                const float* __restrict__ w2t, const float* __restrict__ b2,
+                const float* __restrict__ wabt, const float* __restrict__ bab,
+                const float* __restrict__ wc, const float* __restrict__ bc,
+                int tiles_per_split, int n_splits,
+                float* __restrict__ scores, float* __restrict__ part_acc, float* __restrict__ part_stat) {
+  constexpr int R = kRowsF32;
   extern __shared__ __align__(16) unsigned char smem[];
-  const Layout L = layout<T>(H, A);
-  T* ha = reinterpret_cast<T*>(smem + L.ha);
-  T* hb = reinterpret_cast<T*>(smem + L.hb);
-  float* wc_s = reinterpret_cast<float*>(smem + L.wc);
-  float* s_s = reinterpret_cast<float*>(smem + L.s);    // [R][2] raw scores
-  float* e_s = reinterpret_cast<float*>(smem + L.e);    // [R][2] e rounded to T
-  float* acc_s = reinterpret_cast<float*>(smem + L.acc);  // [2][H]
-  float* stat = reinterpret_cast<float*>(smem + L.stat);  // max[2], denom[2], corr[2]
+  const LayoutF32 L = layout_f32(H);
+  float* h = reinterpret_cast<float*>(smem + L.h);
+  float* ws = reinterpret_cast<float*>(smem + L.ws);
+  float* spart = reinterpret_cast<float*>(smem + L.spart);  // [4][R][2] partial scores of the column warps
+  float* s_s = reinterpret_cast<float*>(smem + L.s);        // [R][2] raw scores
+  float* e_s = reinterpret_cast<float*>(smem + L.e);        // [R][2] e
+  float* acc_s = reinterpret_cast<float*>(smem + L.acc);    // [2][H]
+  float* stat = reinterpret_cast<float*>(smem + L.stat);    // max[2], denom[2], corr[2]
 
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int tid = threadIdx.x;
   const int split = blockIdx.x, b = blockIdx.y;
-  const int ldh = H + kHPad;
-  const T* xb = x + (size_t)b * N * D;
+  const int ldh = H + kHPadF32;
+  const float* xb = x + (size_t)b * N * D;
   const float* mb = mask + (size_t)b * N;
 
-  for (int i = tid; i < 2 * A; i += kThreads) wc_s[i] = to_f(wc[i]);
   for (int i = tid; i < 2 * H; i += kThreads) acc_s[i] = 0.f;
   if (tid < 2) {
     stat[tid] = kNegInf;
@@ -252,44 +356,30 @@ pool_kernel(const T* __restrict__ x, const float* __restrict__ mask, int N, int 
     // the identity there); scored mode writes every row's score
     if (!__syncthreads_or(live) && scores == nullptr) continue;
 
-    GemmArgs g;
-    g.x = xb; g.N = N; g.D = D; g.row0 = row0;
-    g.ws = smem + L.ws; g.xs = smem + L.xs; g.ldo = ldh; g.lda = ldh;
-    // h1 = relu(x W1 + b1) -> ha
-    g.K = D; g.wt = w1t; g.bias = b1; g.out = ha; g.a_s = nullptr;
-    for (int n0 = 0; n0 < H; n0 += kBN) { g.n0 = n0; gemm_pass<kEpiRelu, true>(g, (T*)nullptr); }
-    // h2 = relu(h1 W2 + b2) -> hb
-    g.K = H; g.wt = w2t; g.bias = b2; g.out = hb; g.a_s = ha;
-    for (int n0 = 0; n0 < H; n0 += kBN) { g.n0 = n0; gemm_pass<kEpiRelu, false>(g, (T*)nullptr); }
-    // gated = tanh(h2 Wa + ba) * sigmoid(h2 Wb + bb) -> ha[:, :A]
-    g.wt = wabt; g.bias = bab; g.out = ha; g.a_s = hb;
-    for (int n0 = 0; n0 < 2 * A; n0 += kBN) { g.n0 = n0; gemm_pass<kEpiTanh, false>(g, (T*)nullptr); }
-    __syncthreads();
-
-    // scores s = gated Wc + bc, one warp per row
-    for (int r = warp; r < R; r += kThreads / 32) {
-      float s0 = 0.f, s1 = 0.f;
-      for (int j = lane; j < A; j += 32) {
-        const float gv = to_f(ha[r * ldh + j]);
-        s0 = fmaf(gv, wc_s[2 * j], s0);
-        s1 = fmaf(gv, wc_s[2 * j + 1], s1);
-      }
-      s0 = warp_sum(s0) + __ldg(bc);
-      s1 = warp_sum(s1) + __ldg(bc + 1);
-      if (lane == 0) {
-        s_s[2 * r] = s0;
-        s_s[2 * r + 1] = s1;
-        if (scores != nullptr && row0 + r < N) {
-          scores[((size_t)b * 2) * N + row0 + r] = s0;
-          scores[((size_t)b * 2 + 1) * N + row0 + r] = s1;
-        }
-      }
+    {
+      float acc[2][NT][4];
+      // h1 = relu(x W1 + b1) -> h, once every warp has read its last x slice there
+      gemm_rows64<NT, true>(acc, w1t, D, 0, nullptr, 0, xb, N, D, row0, ws, h);
+      __syncthreads();
+      store_relu<NT>(acc, b1, h, ldh);
+      // h2 = relu(h1 W2 + b2) -> h, over h1 once every warp has read all of it
+      gemm_rows64<NT, false>(acc, w2t, H, 0, h, ldh, nullptr, N, D, row0, ws, nullptr);
+      __syncthreads();
+      store_relu<NT>(acc, b2, h, ldh);
     }
-    __syncthreads();
+    // gated = tanh(h2 Wa + ba) * sigmoid(h2 Wb + bb), folded into the scores
+    float sacc[2][2][2] = {};
+    for (int n0 = 0; n0 < 2 * A; n0 += kGatePass) {
+      float acc[2][8][4];
+      gemm_rows64<8, false>(acc, wabt, H, n0, h, ldh, nullptr, N, D, row0, ws, nullptr);
+      gate_fold_f32(acc, bab, wc, n0, sacc);
+    }
+    // s = gated Wc + bc: the quad, then the four column warps
+    reduce_scores<2>(sacc, spart, bc, s_s, scores, b, N, row0);
 
-    online_stats<R, T>(s_s, mb, row0, N, e_s, stat);
+    online_stats<R, float>(s_s, mb, row0, N, e_s, stat);
     __syncthreads();
-    online_accumulate<R, T>(acc_s, e_s, stat, hb, ldh, H);
+    online_accumulate<R, float>(acc_s, e_s, stat, h, ldh, H);
   }
   __syncthreads();
 
@@ -607,7 +697,7 @@ int launch(const void* x, const float* mask, int B, int N, int D, int H, int A,
            float* scores, float* part_acc, float* part_stat, float* out, float* stat_out, cudaStream_t stream) {
   cudaError_t err;
   if constexpr (std::is_same<T, bf16>::value) {
-    if (H != kBN && H != 2 * kBN) return (int)cudaErrorInvalidValue;  // the plan's BF16_WIDTHS
+    if (H != kBN && H != 2 * kBN) return (int)cudaErrorInvalidValue;  // the plan's TRUNK_WIDTHS
     const size_t smem = layout_bf16(H).total;
     err = cudaFuncSetAttribute(pool_kernel_bf16, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
@@ -617,13 +707,15 @@ int launch(const void* x, const float* mask, int B, int N, int D, int H, int A,
         static_cast<const bf16*>(wabt), bab, static_cast<const bf16*>(wc), bc,
         tiles_per_split, n_splits, scores, part_acc, part_stat);
   } else {
-    const size_t smem = layout<T>(H, A).total;
-    err = cudaFuncSetAttribute(pool_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (H != kBN && H != 2 * kBN) return (int)cudaErrorInvalidValue;  // the plan's TRUNK_WIDTHS
+    const size_t smem = layout_f32(H).total;
+    auto kernel = H == kBN ? pool_kernel_f32<kBN / 32> : pool_kernel_f32<2 * kBN / 32>;
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
-    pool_kernel<T><<<dim3(n_splits, B), kThreads, smem, stream>>>(
-        static_cast<const T*>(x), mask, N, D, H, A,
-        static_cast<const T*>(w1t), b1, static_cast<const T*>(w2t), b2,
-        static_cast<const T*>(wabt), bab, static_cast<const T*>(wc), bc,
+    kernel<<<dim3(n_splits, B), kThreads, smem, stream>>>(
+        static_cast<const float*>(x), mask, N, D, H, A,
+        static_cast<const float*>(w1t), b1, static_cast<const float*>(w2t), b2,
+        static_cast<const float*>(wabt), bab, static_cast<const float*>(wc), bc,
         tiles_per_split, n_splits, scores, part_acc, part_stat);
   }
   err = cudaGetLastError();
@@ -642,11 +734,11 @@ int launch(const void* x, const float* mask, int B, int N, int D, int H, int A,
 extern "C" {
 
 // Rows per tile of the instance: 0 = float32, 1 = bfloat16.
-int toad_pool_rows_per_tile(int dtype) { return dtype == 1 ? kRowsBf16 : Cfg<float>::R; }
+int toad_pool_rows_per_tile(int dtype) { return dtype == 1 ? kRowsBf16 : kRowsF32; }
 
 // Dynamic shared memory of the pooling kernel in bytes.
 long long toad_pool_smem_bytes(int dtype, int H, int A) {
-  return (long long)(dtype == 1 ? layout_bf16(H).total : layout<float>(H, A).total);
+  return (long long)(dtype == 1 ? layout_bf16(H).total : layout_f32(H).total);
 }
 
 // Launches the pooling and combine kernels on `stream`; returns the

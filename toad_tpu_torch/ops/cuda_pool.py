@@ -12,9 +12,11 @@ fill its matrix unit) has no counterpart here: on Hopper the split-N grid
 already keeps every SM busy with full row tiles.
 
 :func:`plan` gives each instance's row tile, threads, ring slots and shared
-memory (the bf16 instance: 128-row tiles, h1 and h2 in one shared region, the
-grid in whole waves of one CTA an SM by :func:`wave_split_plan`; the f32
-instance: the first kernel's 32-row tiles). :func:`pack_params` lays the
+memory: the bf16 instance 128-row tiles, the f32 instance 64-row tiles with
+its products as error-compensated TF32 (3xTF32: each f32 operand split into
+two TF32 halves, three tensor-core products summed in f32), each with h1 and
+h2 in one shared region; both run their grid in whole waves of one CTA an
+SM (:func:`wave_split_plan`). :func:`pack_params` lays the
 weights out for the kernel, once per model and compute dtype; :func:`pool` launches the kernel on CUDA tensors and
 raises on anything the kernel does not take. The plain version is
 :func:`toad_tpu_torch.ops.fused_pool.plain_pool`, which the CPU path runs
@@ -42,7 +44,7 @@ N_TASKS = 2  # the kernel computes exactly the two task columns
 GATE_GROUP = 32  # [Wa|Wb] rows interleave in groups of this many (csrc/pool.cu)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _BLOCKS_PER_SM = 4  # grid target of split_plan: several blocks per SM even for one bag
-BF16_WIDTHS = (256, 512)  # trunk widths H whose bf16 layout fits one CTA's shared memory
+TRUNK_WIDTHS = (256, 512)  # trunk widths H whose layouts fit one CTA's shared memory
 MAX_SMEM = 232_448  # dynamic shared memory one CTA may take on the card (227 KB)
 
 
@@ -113,25 +115,28 @@ def _align16(n: int) -> int:
 
 
 def plan(compute_dtype: torch.dtype, h_dim: int, a_dim: int) -> PoolPlan:
-    """The kernel's plan for (compute dtype, H, A); ValueError where the
-    layout does not fit a CTA's shared memory (in bf16: H outside
-    ``BF16_WIDTHS``), TypeError for a dtype without an instance."""
+    """The kernel's plan for (compute dtype, H, A); ValueError for H outside
+    ``TRUNK_WIDTHS`` (a layout that does not fit a CTA's shared memory),
+    TypeError for a dtype without an instance."""
+    if compute_dtype not in _DTYPE_CODE:
+        raise TypeError(f"compute dtype {compute_dtype} not supported by the kernel (float32, bfloat16)")
+    if h_dim not in TRUNK_WIDTHS:
+        raise ValueError(f"H={h_dim} not supported in {str(compute_dtype)[6:]}: the kernel's tile of h1 and h2 fits "
+                         f"shared memory only at H in {TRUNK_WIDTHS}")
     if compute_dtype == torch.bfloat16:
-        if h_dim not in BF16_WIDTHS:
-            raise ValueError(f"H={h_dim} not supported in bfloat16: the kernel's tile of h1 and h2 fits shared "
-                             f"memory only at H in {BF16_WIDTHS}")
         # one region for h1 and h2, the weight and x rings (staged rows: 32 bf16 + 8 of padding; the x
         # ring also holds 32 of GEMM2's 64 stash registers a thread, then the score scratch), the running
         # acc and stats; Wc stays in device memory
         rows, threads, slots, stride = 128, 256, 3, 40
         parts = (2 * rows * (h_dim + 8), 2 * slots * 256 * stride, max(2 * slots * rows * stride, 4 * 32 * threads),
                  4 * 2 * h_dim, 4 * 8)
-    elif compute_dtype == torch.float32:
-        rows, threads, slots, stride = 32, 256, 1, 33  # staged rows: 32 f32 + one word
-        parts = (4 * rows * (h_dim + 8), 4 * rows * (h_dim + 8), 4 * 256 * stride, 4 * rows * stride,
-                 4 * 2 * a_dim, 4 * 2 * rows, 4 * 2 * rows, 4 * 2 * h_dim, 4 * 8)
     else:
-        raise TypeError(f"compute dtype {compute_dtype} not supported by the kernel (float32, bfloat16)")
+        # one region for GEMM1's x slices, h1 and h2 (rows of H + 4 words), the weight ring of H-column x
+        # 16-deep slices (rows of 16 + 4 words), the column warps' partial scores, s, e, the running acc
+        # and stats; Wc stays in device memory
+        rows, threads, slots, stride = 64, 256, 2, 20
+        parts = (4 * rows * (h_dim + 4), 4 * slots * h_dim * stride, 4 * 4 * rows * 2, 4 * rows * 2, 4 * rows * 2,
+                 4 * 2 * h_dim, 4 * 8)
     smem = sum(map(_align16, parts))
     if smem > MAX_SMEM:
         raise ValueError(f"H={h_dim}, A={a_dim} not supported in {compute_dtype}: a CTA would need {smem} B of "
@@ -151,7 +156,7 @@ def split_plan(n_bags: int, n_rows: int, rows_per_tile: int, n_sms: int) -> tupl
 @functools.lru_cache(maxsize=256)
 def wave_split_plan(n_bags: int, n_rows: int, rows_per_tile: int, n_sms: int) -> tuple[int, int]:
     """(tiles_per_split, n_splits) for a kernel that holds an SM with one CTA
-    (K1's bf16 instance): the grid runs in ceil(blocks / n_sms) waves of up to
+    (both instances of K1): the grid runs in ceil(blocks / n_sms) waves of up to
     ``tiles_per_split`` tiles each, and the plan takes the fewest tile-times
     that way, and of those the fewest splits. Where a bag's tiles allow, that
     is one whole wave of the fair share, ceil(tiles / n_sms) tiles a CTA."""
@@ -238,9 +243,10 @@ def _prepare(ops: PoolOperands, x: torch.Tensor, mask: torch.Tensor):
 
 
 def _splitter(compute_dtype: torch.dtype):
-    """The default split plan of an instance: whole waves for the bf16 one,
-    which holds an SM with one CTA; split_plan for f32."""
-    return wave_split_plan if compute_dtype == torch.bfloat16 else split_plan
+    """The default split plan of an instance: whole waves, since both the
+    bf16 and the f32 instance hold an SM with one CTA (K2 and the probes,
+    several CTAs an SM, keep :func:`split_plan`)."""
+    return wave_split_plan
 
 
 def _raise_on(err: int, lib, what: str) -> None:
@@ -256,8 +262,7 @@ def pool(
     written only when ``with_scores``; without them, row tiles that hold only
     padding are skipped. ``rows_per_split`` cuts each bag into blocks of that
     many rows (a multiple of the kernel's row tile, :func:`plan`'s rows)
-    instead of the default plan's (:func:`wave_split_plan` in bf16,
-    :func:`split_plan` in f32); 2,048 is the long-bag probe's tiling
+    instead of the default plan's (:func:`wave_split_plan`); 2,048 is the long-bag probe's tiling
     (``experiments/longbag_probe.py::pool_tile2048``)."""
     global LAUNCHES
     x, mask, b_, n, d, h_dim, a_dim, kernel_plan = _prepare(ops, x, mask)
