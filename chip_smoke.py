@@ -420,6 +420,12 @@ def phase_build(card: str) -> None:
                                  f"{lib.toad_pool_rows_per_tile(code)}, smem {lib_smem} B)")
         log(f"phase 2 build: K1 {str(dt)[6:]} plan at H=512 A=384: {p.rows} rows a tile, {p.threads} threads, "
             f"{p.slots} ring slots, {p.smem} B of shared memory (the library agrees)")
+    p8, lib_smem8 = cuda_pool_int8.plan(384), cuda_pool_int8.smem_bytes(384)
+    if (p8.rows, p8.smem) != (lib.toad_pool_int8_rows_per_tile(), lib_smem8) or p8.smem > cuda_pool.MAX_SMEM:
+        raise AssertionError(f"K2: the Python plan {p8} disagrees with the library (rows "
+                             f"{lib.toad_pool_int8_rows_per_tile()}, smem {lib_smem8} B)")
+    log(f"phase 2 build: K2 int8 plan at H=512 A=384: {p8.rows} rows a tile, {p8.threads} threads, {p8.slots} ring "
+        f"slots of {cuda_pool_int8.SLOT_BYTES} B, {p8.smem} B of shared memory (the library agrees)")
     log(f"phase 2 build: {_build.library_path().name} ready in {took:.2f} s ({how}); "
         f"pool smem/block bf16 {cuda_pool.smem_bytes(torch.bfloat16, 512, 384)} B, "
         f"f32 {cuda_pool.smem_bytes(torch.float32, 512, 384)} B, "
@@ -429,7 +435,8 @@ def phase_build(card: str) -> None:
         f"(257); probe smem/block bf16 {probe_pool.smem_bytes()} B, "
         f"int8 {probe_pool_int8.smem_bytes()} B [{card}]")
     for kernel, line in ptxas_lines(_build.build_log):
-        names = {"pool_int8_kernel": "K2 int8", "pool_kernel_f32ILi16": "K1 f32 (64-row tiles, 8 warps, H=512)",
+        names = {"pool_int8_kernel": "K2 int8 (64-row tiles, one 3-slot weight stream)",
+                 "pool_kernel_f32ILi16": "K1 f32 (64-row tiles, 8 warps, H=512)",
                  "pool_kernel_f32ILi8": "K1 f32 (64-row tiles, 8 warps, H=256)",
                  "pool_kernel_bf16": "K1 bf16 (128-row tiles, 8 warps)", "pool_combine_kernelILi2ELb1": "combine",
                  "pool_combine_kernelILi2ELb0": "combine without division (K1p)",
@@ -978,34 +985,31 @@ def stage_ab(parent: Path, gpu: str) -> None:
         f"downsample block in both dtypes) have the same sha256 in both trees, in all four runs")
 
 
-# K1's shapes in --pool-ab: (B, N) of the smoke's timing, the eval rung of compare_cases, K1p's shard, P6's bag
+# K2's shapes in --pool-ab: (B, N) of the smoke's timing, one bag of a long
+# eval bucket, the eval rung of compare_cases; the controls' shapes: K1p's
+# shard, P6's bag, and the probes' small batch
 POOL_AB_SHAPES = ((32, 8192), (1, 65536), (4, 29568))
 POOL_AB_PARTIAL = (1, 40960)
 POOL_AB_SPLIT = (1, 131072)
-# K1 f32's outputs in this tree against the parent's, relative to the
-# parent's largest |value| of each: the products' summation order moves (the
-# scores' sum over the column warps, 64 rows to an online-softmax update, the
-# split plan, and 3xTF32 against f32 FMA), each far below f32's ~1e-6 error
-# against f64 at these widths
-TOL_POOL_AB_F32 = 1e-5
+POOL_AB_PROBE = (4, 4096)
 
 
 def time_pool(seed: int = 0) -> dict:
-    """K1 f32 (the subject) in classification mode at POOL_AB_SHAPES and K1p
-    f32 at POOL_AB_PARTIAL, with the bf16 controls: K1 bf16 in both modes at
-    POOL_AB_SHAPES, K1p bf16 and P6 (K1 bf16 at 2,048-row splits) at
-    POOL_AB_SPLIT, on seeded inputs with 90 % of the rows live (CUDA events;
-    5 readings of one launch, K1p of 5 launches): what ``--pool-ab`` compares
-    across trees. Saves K1 f32's outputs (M in both modes, scores, K1p's acc
-    and stats) under _work/pool_ab/ and returns their path, the largest
-    error of K1 f32 and of the plain f32 version against plain_pool_f64 at B=32
-    x 8,192, and a sha256 of every output that must be the same bits in both
-    trees: K1 bf16 (both modes, every shape), K1p bf16, P6, K2 (both modes)
-    and P1 full."""
+    """K2 (the subject) in classification mode at POOL_AB_SHAPES and in scored
+    mode at B=32 x 8,192, on seeded inputs with 90 % of the rows live (CUDA
+    events, 5 readings of one launch): what ``--pool-ab`` compares across
+    trees. Saves K2's M in classification mode at each shape under
+    _work/pool_ab/ and returns its path, and a sha256 of every output that
+    must be the same bits in both trees: K2's scores at every shape, K2's M
+    under :func:`~toad_tpu_torch.ops.cuda_pool.split_plan`'s split (passed
+    where the package's ``pool_int8`` takes a split, else its own default),
+    and the controls K1 bf16 and f32 in both modes at every shape, K1p in both
+    dtypes, P6, P1 full and P4 int8_chain. Also ptxas's lines of K2 where this
+    process built it."""
     import hashlib
+    import inspect
 
-    from toad_tpu_torch.ops import cuda_pool, cuda_pool_int8, probe_pool
-    from toad_tpu_torch.ops.fused_pool import plain_pool
+    from toad_tpu_torch.ops import _build, cuda_pool, cuda_pool_int8, probe_pool, probe_pool_int8
     from toad_tpu_torch.ops.quantize import quantize_rows
 
     def digest(t: torch.Tensor) -> str:
@@ -1014,8 +1018,9 @@ def time_pool(seed: int = 0) -> dict:
     dev = torch.device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False
     model = seeded_model(seed).cuda().eval()
-    params = model.pool_params()
     g = torch.Generator(device=dev).manual_seed(seed + 17)
+    n_sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    takes_split = "split" in inspect.signature(cuda_pool_int8.pool_int8).parameters
     out, digests, saved = {}, {}, {}
 
     def inputs(b, n):
@@ -1023,66 +1028,53 @@ def time_pool(seed: int = 0) -> dict:
         return x, (torch.rand(b, n, device=dev, generator=g) < 0.9).float()
 
     with torch.inference_mode():
-        ops16, ops32 = model.kernel_operands(torch.bfloat16), model.kernel_operands(torch.float32)
+        _, ops8 = model.int8_operands()
+        ops = {dt: model.kernel_operands(dt) for dt in (torch.bfloat16, torch.float32)}
         for b, n in POOL_AB_SHAPES:
             x, mask = inputs(b, n)
-            x16 = x.to(torch.bfloat16)
+            xq, sx = quantize_rows(x)
             for scored in (False, True):
                 shape = f"{'scored' if scored else 'classification'} B={b} N={n}"
-                m, s = cuda_pool.pool(ops16, x16, mask, scored)
-                digests[f"K1 bf16 {shape} M"] = digest(m)
+                m, s = cuda_pool_int8.pool_int8(ops8, xq, sx, mask, scored)
                 if scored:
-                    digests[f"K1 bf16 {shape} scores"] = digest(s)
-                out[f"K1 bf16 {shape} ms"] = cuda_ms(lambda: cuda_pool.pool(ops16, x16, mask, scored))
-                saved[f"K1 f32 {shape} M"], s = cuda_pool.pool(ops32, x, mask, scored)
-                if scored:
-                    saved[f"K1 f32 {shape} scores"] = s
+                    digests[f"K2 {shape} scores"] = digest(s)
                 else:
-                    out[f"K1 f32 {shape} ms"] = cuda_ms(lambda: cuda_pool.pool(ops32, x, mask, False))
-            if (b, n) == (32, 8192):
-                m64, s64 = plain_pool_f64(params, x, mask)
-                mp, sp = plain_pool(params, x, mask, torch.float32, True)
-                for who, m, s in (("K1 f32", saved[f"K1 f32 scored B={b} N={n} M"], saved[f"K1 f32 scored B={b} N={n} scores"]),
-                                  ("plain f32", mp, sp)):
-                    out[f"{who} B={b} N={n} M err vs f64"] = (m.double() - m64).abs().max().item()
-                    out[f"{who} B={b} N={n} scores err vs f64"] = (s.double() - s64).abs().max().item()
-                del m64, s64, mp, sp
-            del x, x16
+                    saved[f"K2 {shape} M"] = m
+                if takes_split:
+                    m = cuda_pool_int8.pool_int8(ops8, xq, sx, mask, scored,
+                                                 split=cuda_pool.split_plan(b, n, 64, n_sms))[0]
+                digests[f"K2 {shape} M at split_plan"] = digest(m)
+                if not scored or (b, n) == (32, 8192):
+                    out[f"K2 {shape} ms"] = cuda_ms(lambda: cuda_pool_int8.pool_int8(ops8, xq, sx, mask, scored))
+                for dt in (torch.bfloat16, torch.float32):
+                    m, s = cuda_pool.pool(ops[dt], x.to(dt), mask, scored)
+                    digests[f"K1 {str(dt)[6:]} {shape} M"] = digest(m)
+                    if scored:
+                        digests[f"K1 {str(dt)[6:]} {shape} scores"] = digest(s)
+            del x, xq
         b, n = POOL_AB_PARTIAL
         x, mask = inputs(b, n)
-        x16 = x.to(torch.bfloat16)
-        tag = f"K1p bf16 B={b} N={n}"
-        digests.update(zip((f"{tag} acc", f"{tag} stats"), map(digest, cuda_pool.pool_partial(ops16, x16, mask))))
-        out[f"{tag} ms"] = cuda_ms(lambda: cuda_pool.pool_partial(ops16, x16, mask), inner=5)
-        tag = f"K1p f32 B={b} N={n}"
-        saved[f"{tag} acc"], saved[f"{tag} stats"] = cuda_pool.pool_partial(ops32, x, mask)
-        out[f"{tag} ms"] = cuda_ms(lambda: cuda_pool.pool_partial(ops32, x, mask), inner=5)
-        del x, x16
+        for dt in (torch.bfloat16, torch.float32):
+            tag = f"K1p {str(dt)[6:]} B={b} N={n}"
+            digests.update(zip((f"{tag} acc", f"{tag} stats"),
+                               map(digest, cuda_pool.pool_partial(ops[dt], x.to(dt), mask))))
         b, n = POOL_AB_SPLIT
         x, mask = inputs(b, n)
-        x16 = x.to(torch.bfloat16)
-        digests[f"P6 bf16 B={b} N={n} M"] = digest(cuda_pool.pool(ops16, x16, mask, False, rows_per_split=2048)[0])
-        out[f"P6 bf16 B={b} N={n} ms"] = cuda_ms(lambda: cuda_pool.pool(ops16, x16, mask, False, rows_per_split=2048))
-        del x, x16
-        x, mask = inputs(4, 4096)
+        digests[f"P6 bf16 B={b} N={n} M"] = digest(
+            cuda_pool.pool(ops[torch.bfloat16], x.to(torch.bfloat16), mask, False, rows_per_split=2048)[0])
+        del x
+        x, mask = inputs(*POOL_AB_PROBE)
         mask[1] = 0.0
+        params, _, qp, _, _ = probe_operands(seed, dev)
+        tag = f"B={POOL_AB_PROBE[0]} N={POOL_AB_PROBE[1]}"
+        digests[f"P1 full {tag} tile 1024"] = digest(
+            probe_pool.probe_pool(probe_pool.pack_probe_params(params), x.to(torch.bfloat16), mask, "full", 1024))
         xq, sx = quantize_rows(x)
-        _, ops8 = model.int8_operands()
-        for scored in (False, True):
-            m, s = cuda_pool_int8.pool_int8(ops8, xq, sx, mask, scored)
-            digests[f"K2 {'scored' if scored else 'classification'} B=4 N=4096 M"] = digest(m)
-            if scored:
-                digests["K2 scored B=4 N=4096 scores"] = digest(s)
-        probe_params = probe_operands(seed, dev)[0]
-        digests["P1 full B=4 N=4096 tile 1024"] = digest(
-            probe_pool.probe_pool(probe_pool.pack_probe_params(probe_params), x.to(torch.bfloat16), mask, "full", 1024))
+        digests[f"P4 int8_chain {tag}"] = digest(
+            probe_pool_int8.probe_pool_int8(probe_pool_int8.pack_probe_qparams(qp), xq, sx, mask, "int8_chain"))
         del x, xq
     torch.cuda.synchronize()
-    from toad_tpu_torch.ops import _build
-
-    # ptxas's lines of K1's instances (this tree's and the parent's kernels), where this process built them
-    out["k1_ptxas"] = [line for kernel, line in ptxas_lines(_build.build_log)
-                       if any(k in kernel for k in ("pool_kernel_bf16", "pool_kernel_f32", "pool_kernelIf"))]
+    out["k2_ptxas"] = [line for kernel, line in ptxas_lines(_build.build_log) if "pool_int8_kernel" in kernel]
     path = REPO / "_work" / "pool_ab" / f"outputs_{os.getpid()}.pt"
     path.parent.mkdir(parents=True, exist_ok=True)
     torch.save({k: v.cpu() for k, v in saved.items()}, path)
@@ -1092,14 +1084,14 @@ def time_pool(seed: int = 0) -> dict:
 
 
 def pool_ab(parent: Path, gpu: str) -> None:
-    """K1 of another tree against this one's: :func:`time_pool` in each
-    (:func:`ab_runs`). K1 bf16, K1p bf16, P6, K2 and P1 must be the same bits
-    in both trees; K1 f32's M and scores, and K1p f32's acc, max and denom,
-    within TOL_POOL_AB_F32 of the parent's largest |value| of each."""
+    """K2 of another tree against this one's: :func:`time_pool` in each
+    (:func:`ab_runs`). Every digest must be the same bits in both trees, and
+    K2's M under each tree's default split within TOL_INT8_M of the parent's
+    (the splits differ: e is rounded to bf16 against other running maxes)."""
     runs = ab_runs("--time-pool", "pool", parent, gpu)
     for label, r in runs:
-        if r["k1_ptxas"]:
-            log(f"pool A/B {label} tree: K1 ptxas: {'; '.join(r['k1_ptxas'])}")
+        if r["k2_ptxas"]:
+            log(f"pool A/B {label} tree: K2 ptxas: {'; '.join(r['k2_ptxas'])}")
     want = runs[0][1]["digests"]
     for label, r in runs[1:]:
         differ = sorted(k for k in want if r["digests"].get(k) != want[k])
@@ -1112,23 +1104,12 @@ def pool_ab(parent: Path, gpu: str) -> None:
         if got.keys() != ref.keys():
             raise AssertionError(f"pool A/B: the {label} tree saved {sorted(got)}, the parent {sorted(ref)}")
         for key, want_t in ref.items():
-            # K1p's stats: the max (a score) and the denominator, each on its own scale
-            parts = {f"{key} max": (got[key][:, 0], want_t[:, 0]), f"{key} denom": (got[key][:, 1], want_t[:, 1])} \
-                if key.endswith("stats") else {key: (got[key], want_t)}
-            for name, (a, w) in parts.items():
-                err = (a.double() - w.double()).abs().max().item() / w.abs().max().item()
-                if not err <= TOL_POOL_AB_F32:
-                    raise AssertionError(f"pool A/B {label} {name}: {err:.3e} of the parent's largest |value|, "
-                                         f"over {TOL_POOL_AB_F32}")
-                worst[name] = max(worst.get(name, 0.0), err)
-    log("pool A/B: " + "; ".join(f"{k} {v:.3e}" for k, v in worst.items()) + " (K1 f32 against the parent, relative to "
-        f"the parent's largest |value|, limit {TOL_POOL_AB_F32})")
-    for label, r in runs:
-        log(f"pool A/B {label} tree: at B=32 N=8192 against plain_pool_f64, K1 f32 M "
-            f"{r['K1 f32 B=32 N=8192 M err vs f64']:.3e} scores {r['K1 f32 B=32 N=8192 scores err vs f64']:.3e}; plain "
-            f"f32 M {r['plain f32 B=32 N=8192 M err vs f64']:.3e} scores {r['plain f32 B=32 N=8192 scores err vs f64']:.3e}")
-    log(f"pool A/B: all {len(want)} digests (K1 bf16 in both modes at every shape, K1p bf16, P6, K2, P1 full) equal "
-        "the parent's in all four runs")
+            worst[key] = max(worst.get(key, 0.0), check_close(f"pool A/B {label} {key}", got[key], want_t, TOL_INT8_M))
+    log("pool A/B: " + "; ".join(f"{k} {v:.3e}" for k, v in worst.items()) + " (K2 under each tree's default split "
+        f"against the parent's, max abs err, tolerance {TOL_INT8_M})")
+    log(f"pool A/B: all {len(want)} digests (K2's scores at every shape and its M at split_plan's split; K1 bf16 and "
+        "f32 in both modes at every shape, K1p in both dtypes, P6, P1 full, P4 int8_chain) equal the parent's in all "
+        "four runs")
 
 
 def _post(url: str, data: bytes, headers: dict) -> dict:
@@ -2912,10 +2893,10 @@ def main() -> int:
                          "required to be the same bits")
     ap.add_argument("--time-stage", type=Path, metavar="ROOT", help=argparse.SUPPRESS)
     ap.add_argument("--pool-ab", type=Path, metavar="PARENT",
-                    help="only phases 1-2 and the K1 and K1p comparisons of phase 3, then K1 (f32 and bf16), K1p and "
-                         "P6 of the package checkout PARENT timed against this tree's (parent, this, this, parent), "
-                         "K1 bf16, K1p bf16, P6, K2 and P1 required to be the same bits and K1 f32 close to the "
-                         "parent's")
+                    help="only phases 1-2 and the K2 comparisons of phase 3, then K2 of the package checkout PARENT "
+                         "timed against this tree's (parent, this, this, parent), K2's scores, its M at the parent's "
+                         "split and the controls (K1, K1p, P6, P1 full, P4 int8_chain) required to be the same bits "
+                         "and K2's M close to the parent's")
     ap.add_argument("--time-pool", type=Path, metavar="ROOT", help=argparse.SUPPRESS)
     args = ap.parse_args()
 
@@ -2942,9 +2923,7 @@ def main() -> int:
             phase_compare_stage(seeded_resnet(args.seed).fold_bn().cuda(), args.seed)
             stage_ab(args.stage_ab.resolve(), gpu)
         if args.pool_ab is not None:
-            model = seeded_model(args.seed).cuda().eval()
-            phase_compare(model, args.seed)
-            phase_compare_partial(model, args.seed)
+            phase_compare_int8(seeded_model(args.seed).cuda().eval(), args.seed)
             pool_ab(args.pool_ab.resolve(), gpu)
         log(f"all phases: {time.perf_counter() - t_start:.1f} s")
         return 0

@@ -593,9 +593,9 @@ def test_cli_resume_skips_finished_folds(cli_run):
 
 
 @pytest.mark.parametrize("flags,says", [
-    (["--data_shards", "2"], "queue 6"), (["--bag_shards", "4"], "queue 6"), (["--fold_devices", "2"], "queue 6"),
-    (["--profile", "p"], "queue 8"), (["--debug_checks"], "queue 8"), (["--debug_nans"], "queue 8"),
-    (["--rss_restart_gb", "4", "--resume"], "queue 8"), (["--native_io", "on"], "native bag loader"),
+    (["--data_shards", "2"], "queue 1.7"), (["--bag_shards", "4"], "queue 1.7"), (["--fold_devices", "2"], "queue 1.7"),
+    (["--profile", "p"], "queue 1.6"), (["--debug_checks"], "queue 1.6"), (["--debug_nans"], "queue 1.6"),
+    (["--rss_restart_gb", "4", "--resume"], "queue 1.6"), (["--native_io", "on"], "native bag loader"),
 ])
 def test_cli_refuses_unported_flags_by_name(flags, says):
     from toad_tpu_torch.cli import train as cli_train

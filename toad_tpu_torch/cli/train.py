@@ -41,14 +41,14 @@ SUMMARY_COLUMNS = (
 
 # flags of the JAX CLI that are not ported: (flag, its "off" value, where ROADMAP.md queues it)
 _NOT_PORTED = (
-    ("data_shards", 1, "multi-GPU (ROADMAP.md queue 6)"),
-    ("bag_shards", 1, "multi-GPU (ROADMAP.md queue 6; one card pools a long bag in pieces with "
+    ("data_shards", 1, "multi-GPU (ROADMAP.md queue 1.7)"),
+    ("bag_shards", 1, "multi-GPU (ROADMAP.md queue 1.7; one card pools a long bag in pieces with "
                       "toad_tpu_torch.parallel.bag_shard.bag_sharded_pool)"),
-    ("fold_devices", 1, "multi-GPU (ROADMAP.md queue 6)"),
-    ("profile", None, "profiling and debugging tools (ROADMAP.md queue 8)"),
-    ("debug_checks", False, "profiling and debugging tools (ROADMAP.md queue 8)"),
-    ("debug_nans", False, "profiling and debugging tools (ROADMAP.md queue 8)"),
-    ("rss_restart_gb", None, "profiling and debugging tools (ROADMAP.md queue 8)"),
+    ("fold_devices", 1, "multi-GPU (ROADMAP.md queue 1.7)"),
+    ("profile", None, "profiling and debugging tools (ROADMAP.md queue 1.6)"),
+    ("debug_checks", False, "profiling and debugging tools (ROADMAP.md queue 1.6)"),
+    ("debug_nans", False, "profiling and debugging tools (ROADMAP.md queue 1.6)"),
+    ("rss_restart_gb", None, "profiling and debugging tools (ROADMAP.md queue 1.6)"),
 )
 
 

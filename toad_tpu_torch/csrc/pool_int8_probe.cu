@@ -25,8 +25,9 @@
 // version (ops/probe_pool_int8.py).
 //
 // What bounds it on an H100: ~2.4 MOP per 1024-d row against 1 KB of int8
-// (2 KB of bf16) input: tensor-core bound, as K2. The design is K2's
-// (csrc/pool_int8.cu), and so are its GEMM and epilogues (pool_trunk.cuh:
+// (2 KB of bf16) input: tensor-core bound, as K2. The design is the one K2
+// (csrc/pool_int8.cu) had before its one weight stream and its division-free
+// quantizer, and so are its GEMM and epilogues (pool_trunk.cuh:
 // gemm8, requant_epilogue with the quantizer as a template parameter,
 // gate_epilogue and reduce_scores at 8 task columns): one GEMM pass over all
 // 512 trunk columns so that each row's amax is known in registers (quad

@@ -1,6 +1,8 @@
 // The trunk and gate of the fused pooling kernels, shared by csrc/pool.cu
-// (K1 and its partial mode), csrc/pool_int8.cu (K2), csrc/pool_probe.cu
-// (P1/P2/P5) and csrc/pool_int8_probe.cu (P3/P4). K2 and the probes run
+// (K1 and its partial mode), csrc/pool_int8.cu (K2: the int8 mma, the
+// dequantization, the gate epilogue and reduce_scores; its weight stream and
+// requantization are its own), csrc/pool_probe.cu (P1/P2/P5) and
+// csrc/pool_int8_probe.cu (P3/P4). The probes run
 // 64-row tiles through 8 warps arranged as 2 (rows) x 4 (columns), with
 // weights streamed from L2 through a cp.async ring and the tile's activations
 // in shared memory. Each tile streams all of the weights from L2, so the

@@ -8,8 +8,13 @@ the kernel, then K1's online masked-softmax pooling (see the notes in
 ``csrc/pool_int8.cu``). K2b is a launch choice, not a second kernel: every
 batch, even or odd, runs the same split-N grid as K1.
 
-:func:`pack_qparams` lays the int8 weights out for the kernel, once per
-model; :func:`pool_int8` launches the kernel on CUDA tensors and raises on
+:func:`plan` gives the kernel's row tile, threads, ring slots and shared
+memory, :func:`layout` its shared-memory regions, :func:`swizzle` the byte
+order of its ring slots and :func:`stream_schedule` the slices its one
+weight stream stages a tile, each mirroring the kernel. :func:`pack_qparams`
+lays the int8 weights out for the kernel, once per model; :func:`pool_int8`
+launches the kernel on CUDA tensors in whole waves of one CTA an SM
+(:func:`~toad_tpu_torch.ops.cuda_pool.wave_split_plan`) and raises on
 anything the kernel does not take. The plain version is
 :func:`toad_tpu_torch.ops.quantize.plain_int8_pool`.
 """
@@ -21,11 +26,87 @@ from typing import NamedTuple
 import torch
 
 from toad_tpu_torch.ops import _build
-from toad_tpu_torch.ops.cuda_pool import N_TASKS, interleave_gate, launch_buffers
+from toad_tpu_torch.ops.cuda_pool import MAX_SMEM, N_TASKS, interleave_gate, launch_buffers, wave_split_plan
 
 LAUNCHES = 0  # kernel launches in this process (one per call of pool_int8)
 
 HIDDEN = 512  # the kernel's trunk width: one GEMM pass covers a whole row
+ROWS = 64  # rows of a tile: each trunk GEMM keeps 64 x 512 int32 sums in registers
+THREADS = 256  # 8 warps, 2 (rows) x 4 (columns)
+RING_SLOTS = 3  # slots of the weight ring: two slices in flight
+SLOT_BYTES = 32_768  # a weight slot: 512 trunk rows x 64 B, or 256 gate rows x 128 B
+TRUNK_DEPTH = 64  # bytes of the reduction a trunk slice covers (and an x slice: 64 rows x 64 B)
+GATE_COLS = 256  # interleaved [Wa|Wb] rows of a gate slice (one gate pass)
+GATE_DEPTH = 128  # bytes of the reduction a gate slice covers
+LD_ACT = HIDDEN + 16  # row stride (bytes) of the int8 activations h1q / h2q
+LD_H2 = HIDDEN + 8  # row stride (bf16 elements) of h2
+COL_WARPS = 4
+
+
+class Int8PoolPlan(NamedTuple):
+    """How the kernel runs at one width (``csrc/pool_int8.cu``'s constants and
+    ``layout8``; the launcher and ``toad_pool_int8_smem_bytes`` /
+    ``toad_pool_int8_rows_per_tile`` agree with it)."""
+
+    rows: int  # rows of a tile
+    threads: int  # threads of a CTA
+    slots: int  # slots of the weight ring
+    smem: int  # dynamic shared memory of a CTA, bytes
+
+
+def layout(a_dim: int) -> dict[str, tuple[int, int]]:
+    """The kernel's shared-memory regions in its order, name -> (offset,
+    bytes), each 16-byte aligned, as ``layout8`` lays them out: the weight
+    ring, the x ring (both swizzled), h1q/h2q, h2 in bf16, Wc in f32, the row
+    scales, each column warp's row amax, the column warps' partial scores,
+    s, e, the running acc and the stats. Every region has its own bytes:
+    none is reused while another is live."""
+    sizes = {
+        "ws": RING_SLOTS * SLOT_BYTES, "xs": RING_SLOTS * ROWS * TRUNK_DEPTH,
+        "act": ROWS * LD_ACT, "h2": 2 * ROWS * LD_H2, "wc": 4 * N_TASKS * a_dim, "rs": 4 * ROWS, "amax": 4 * COL_WARPS * ROWS,
+        "spart": 4 * COL_WARPS * ROWS * N_TASKS, "s": 4 * N_TASKS * ROWS, "e": 4 * N_TASKS * ROWS,
+        "acc": 4 * N_TASKS * HIDDEN, "stat": 4 * 8,
+    }
+    out, offset = {}, 0
+    for name, size in sizes.items():
+        out[name] = (offset, size)
+        offset += -(-size // 16) * 16
+    return out
+
+
+def plan(a_dim: int) -> Int8PoolPlan:
+    """The kernel's plan at attention width A (H = 512); ValueError for an A
+    the kernel does not take or whose layout does not fit a CTA's shared
+    memory."""
+    if a_dim <= 0 or a_dim % 128 or a_dim > HIDDEN:
+        raise ValueError(f"A={a_dim} not supported by the int8 kernel: need A % 128 == 0 and 0 < A <= {HIDDEN}")
+    regions = layout(a_dim)
+    smem = max(offset + -(-size // 16) * 16 for offset, size in regions.values())
+    if smem > MAX_SMEM:
+        raise ValueError(f"A={a_dim} not supported by the int8 kernel: a CTA would need {smem} B of shared memory "
+                         f"with {RING_SLOTS} ring slots, over the card's {MAX_SMEM}")
+    return Int8PoolPlan(ROWS, THREADS, RING_SLOTS, smem)
+
+
+def swizzle(offset: int) -> int:
+    """Where byte ``offset`` of a ring slot is stored (the kernel's ``swz``):
+    its 16-byte chunk index (bits 4-6) XOR its 128-byte line index mod 8
+    (bits 7-9), so that the 8 rows of 64 or 128 bytes one ldmatrix phase
+    reads at one chunk fall in 8 different bank groups."""
+    return offset ^ ((offset >> 3) & 0x70)
+
+
+def stream_schedule(d: int, a_dim: int) -> list[tuple[str, int, int, int, int]]:
+    """The slices one tile's weight stream stages, in order (the kernel's
+    ``stage_slice``): (GEMM, first weight row, first reduction byte, rows,
+    bytes a row). D/64 of W1 (each with the x tile's same 64 bytes), 8 of W2,
+    then 2A/256 gate passes of 4 slices of 256 interleaved [Wa|Wb] rows. Every
+    slice fills one slot."""
+    out = [("w1", 0, k0, HIDDEN, TRUNK_DEPTH) for k0 in range(0, d, TRUNK_DEPTH)]
+    out += [("w2", 0, k0, HIDDEN, TRUNK_DEPTH) for k0 in range(0, HIDDEN, TRUNK_DEPTH)]
+    out += [("wab", n0, k0, GATE_COLS, GATE_DEPTH)
+            for n0 in range(0, 2 * a_dim, GATE_COLS) for k0 in range(0, HIDDEN, GATE_DEPTH)]
+    return out
 
 
 class Int8PoolOperands(NamedTuple):
@@ -63,11 +144,15 @@ def pack_qparams(qparams: dict[str, torch.Tensor]) -> Int8PoolOperands:
 
 
 def pool_int8(
-    ops: Int8PoolOperands, xq: torch.Tensor, sx: torch.Tensor, mask: torch.Tensor, with_scores: bool
+    ops: Int8PoolOperands, xq: torch.Tensor, sx: torch.Tensor, mask: torch.Tensor, with_scores: bool, *,
+    split: tuple[int, int] | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor | None]:
     """Launch the fused int8 pooling kernel: (M [B, 2, H] f32, raw scores
     [B, 2, N] f32 or None). Scores are written only when ``with_scores``;
-    without them, row tiles that hold only padding are skipped."""
+    without them, row tiles that hold only padding are skipped. ``split`` =
+    (tiles_per_split, n_splits) runs each bag in those runs of row tiles in
+    place of the default whole-wave plan; the scores do not depend on it, M
+    only by the rounding of e to bf16 against each run's running max."""
     global LAUNCHES
     if xq.device.type != "cuda":
         raise ValueError(f"the CUDA int8 pooling kernel needs CUDA tensors, got {xq.device}")
@@ -97,6 +182,11 @@ def pool_int8(
             f"widths D={d}, H={h_dim}, A={a_dim} not supported: need D % 64 == 0, "
             f"H == {HIDDEN}, A % 128 == 0 and A <= H"
         )
+    if split is not None:
+        per, n_splits = split
+        n_tiles = -(-n // ROWS)
+        if per < 1 or not per * (n_splits - 1) < n_tiles <= per * n_splits:
+            raise ValueError(f"split {split} does not cover the {n_tiles} row tiles once without an empty run")
 
     dev = xq.device
     xq = xq.contiguous()
@@ -106,8 +196,9 @@ def pool_int8(
         if tensor.data_ptr() % 16 or not tensor.is_contiguous():
             raise ValueError("kernel operands must be contiguous and 16-byte aligned")
     lib = _build.load_library()
+    splitter = wave_split_plan if split is None else lambda *_: split
     per, n_splits, m, scores, part_acc, part_stat = launch_buffers(
-        b_, n, h_dim, with_scores, lib.toad_pool_int8_rows_per_tile(), dev)
+        b_, n, h_dim, with_scores, lib.toad_pool_int8_rows_per_tile(), dev, splitter=splitter)
     with torch.cuda.device(dev):
         err = lib.toad_pool_int8_forward(
             xq.data_ptr(), sx.data_ptr(), mask.data_ptr(), b_, n, d, h_dim, a_dim,
@@ -123,5 +214,6 @@ def pool_int8(
 
 
 def smem_bytes(a_dim: int) -> int:
-    """Dynamic shared memory one block of the kernel takes."""
+    """Dynamic shared memory one block of the kernel takes, as the library
+    computes it (:func:`plan`'s ``smem`` must agree)."""
     return int(_build.load_library().toad_pool_int8_smem_bytes(a_dim))
