@@ -11,7 +11,8 @@ Phases (each prints its lines; any failure raises and the exit code is not 0):
    K1p; pool_common.cuh, the combines; pool_int8.cu, K2; mha.cu, K3 and P7;
    stage.cu, KS; pool_probe.cu and pool_int8_probe.cu, P1-P5) with nvcc, one
    process per source, all started together; shared memory per block and
-   ptxas's register counts.
+   ptxas's register counts. Beside them, the native bag loader
+   (toad_tpu_torch/csrc/bagio.cpp, host C++) with g++; its command is logged.
 3. K1 vs its plain PyTorch version at full TOAD width (D=1024, H=512,
    A=384, T=2), f32 and bf16, scored and classification modes, including a
    bag whose tiles past bucket/2+1 are padding and a fully-masked bag: M,
@@ -70,7 +71,9 @@ Phases (each prints its lines; any failure raises and the exit code is not 0):
    least 3 slides each), generate_splits writes one fold, then ``python -m
    toad_tpu_torch train --max_epochs 3 --batch_size 4 --early_stopping
    --resume`` (f32) as a child process, and a run of one epoch with ``--bf16
-   --drop_out``. Checked: exit code 0; every epoch's train and val loss
+   --drop_out``, both at ``--native_io auto``, so the .npy cohort goes through
+   the native feed. Checked: exit code 0; every pass (train, val, final)
+   logs the native feed; every epoch's train and val loss
    finite and the train loss falling; s_0_checkpoint.pt, splits_0.csv,
    split_0_results.pkl and summary.csv written; the trainer's pooling-kernel
    launches equal its eval batches; the checkpoint reloaded with
@@ -99,8 +102,16 @@ Phases (each prints its lines; any failure raises and the exit code is not 0):
    process: evaluate_split on the card against evaluate_split on the CPU from
    the same checkpoint (f32, bags cut to 8,192 rows): probabilities within
    1e-4; a second pass on the card reuses the first one's pinned ring and no
-   producer thread is left. Reported: slides/s and data-wait share of each pass by the CLI's
-   own clock, the bytes each wire carried, the peak device memory.
+   producer thread is left. Every pass, in the children and in process, must
+   have run the native feed. Then, in process, the native feed against the
+   numpy feed on the card (BagBatcher native='on' against 'off' over the test
+   split, each wire: float32, bfloat16, int8): the same batch order and
+   metadata, every plane equal bit for bit; and the producer's own rate (one
+   pass over all 72 slides, the consumer only waiting for each batch's copy,
+   in turns numpy, native, native, numpy, float32 and bfloat16 wires; warm
+   page cache). Reported: slides/s and data-wait share of each pass by the CLI's
+   own clock, the bytes each wire carried, the peak device memory, the
+   producer's batches/s and GB/s.
 6. Timing: kernel launches vs plain versions (CUDA events, median of 5 after
    warm-up, in the order plain, kernel, kernel, plain), for K3 also the
    library call F.scaled_dot_product_attention on the same qkv (timed only,
@@ -180,6 +191,7 @@ import argparse
 import base64
 import dataclasses
 import functools
+import itertools
 import json
 import os
 import shutil
@@ -405,11 +417,30 @@ def phase_device() -> tuple[str, str]:
 
 
 def phase_build(card: str) -> None:
+    from toad_tpu_torch import native
     from toad_tpu_torch.ops import _build, cuda_mha, cuda_pool, cuda_pool_int8, probe_pool, probe_pool_int8
 
+    # the native bag loader (host C++, g++) builds in a thread while nvcc builds the kernels
+    bagio: dict = {}
+    def build_bagio() -> None:
+        try:
+            t = time.perf_counter()
+            native.get_lib()
+            bagio["seconds"] = time.perf_counter() - t
+        except BaseException as e:  # raised below, in this thread
+            bagio["error"] = e
+
+    loader = threading.Thread(target=build_bagio, name="bagio-build")
+    loader.start()
     t0 = time.perf_counter()
     _build.load_library()
     took = time.perf_counter() - t0
+    loader.join()
+    if "error" in bagio:
+        raise bagio["error"]
+    how8 = (f"`{' '.join(native.build_command)}` in {native.build_seconds:.2f} s" if native.build_command
+            else "found built in _build/")
+    log(f"phase 2 build: native bag loader {native.library_path().name} ready in {bagio['seconds']:.2f} s ({how8})")
     how = f"nvcc {_build.build_seconds:.2f} s" if _build.build_seconds is not None else "found built in _build/"
     lib = _build.load_library()
     for dt, code in ((torch.bfloat16, 1), (torch.float32, 0)):
@@ -2048,6 +2079,10 @@ def check_train_run(label: str, lines: list[str], results: Path, card: str, gpu:
         raise AssertionError(f"{label}: train loss did not fall: {train_losses}")
     if not any(card in ln for ln in lines if "model params" in ln):
         raise AssertionError(f"{label}: the trainer does not name the card {card}")
+    # the .npy cohort goes through the native feed under --native_io auto: every train, val and final pass says so
+    feeds = [w for ln in lines if " feed " in ln for w in re.findall(r"(?:feed|val|test) (native|numpy)\b", ln)]
+    if len(feeds) != 2 * len(train_losses) + 2 or set(feeds) != {"native"}:
+        raise AssertionError(f"{label}: the trainer's passes did not all run the native feed: {feeds}")
     for name in ("s_0_checkpoint.pt", "splits_0.csv", "split_0_results.pkl", "summary.csv"):
         if not (results / name).exists():
             raise AssertionError(f"{label}: {results / name} missing")
@@ -2087,7 +2122,8 @@ def check_train_run(label: str, lines: list[str], results: Path, card: str, gpu:
         f"{train_losses[-1]:.4f}, val cls_loss {val_losses[0]:.4f} -> {val_losses[-1]:.4f}; eval batches {eval_batches} "
         f"= pooling kernel launches {launches}; s_0_checkpoint.pt reloaded with load_params_any reproduces test acc "
         f"{acc:.4f} and auc {auc:.4f} (|d auc| {abs(test['cls_auc'] - auc):.1e}); slides/s and data-wait share per epoch: "
-        f"{', '.join(f'{r:.1f} ({w})' for r, w in rates)}; child process {wall:.1f} s [{gpu}]")
+        f"{', '.join(f'{r:.1f} ({w})' for r, w in rates)}; every pass ran the native feed ({len(feeds)} logged); "
+        f"child process {wall:.1f} s [{gpu}]")
     return dict(launches=launches, eval_batches=eval_batches, rates=rates, wall=wall)
 
 
@@ -2195,8 +2231,8 @@ def read_csv_rows(path: Path) -> list[dict]:
 def run_eval(workdir: Path, models: str, save_code: str, extra: list[str], timeout: int = 600) -> dict:
     """``python -m toad_tpu_torch eval`` as a user runs it, in a child process
     in ``workdir``. Returns what its own lines report (batches, launches by
-    kernel, each pass's bags, seconds, slides/s, data-wait share, wire and
-    bytes; peak device memory) and its output directory."""
+    kernel, each pass's bags, seconds, slides/s, data-wait share, wire, bytes
+    and feed; peak device memory) and its output directory."""
     import re
 
     cmd = [sys.executable, "-m", "toad_tpu_torch", "eval", "--task", str(workdir / "tasks" / "dummy_mtl_concat.json"),
@@ -2210,9 +2246,9 @@ def run_eval(workdir: Path, models: str, save_code: str, extra: list[str], timeo
     counts = re.search(r"\[fold 0\] eval batches (\d+), pooling kernel launches (\d+) \(float kernel (\d+), int8 kernel (\d+)\), "
                        r"peak device memory (\S+) GB on (.+)", run.stdout)
     passes = [dict(what=m.group(1), bags=int(m.group(2)), seconds=float(m.group(3)), rate=float(m.group(4)),
-                   wait=m.group(5), wire=m.group(6), bytes=int(m.group(7)))
+                   wait=m.group(5), wire=m.group(6), bytes=int(m.group(7)), feed=m.group(8))
               for m in re.finditer(r"\[fold 0\] (\w+) pass: (\d+) bags in (\S+) s, (\S+) slides/s \(data wait (\S+)\), "
-                                   r"wire (\w+), (\d+) bytes to the device", run.stdout)]
+                                   r"wire (\w+), (\d+) bytes to the device, feed (\w+)", run.stdout)]
     if counts is None or not passes:
         raise AssertionError(f"eval {extra}: no batch, launch or pass line in its output:\n{run.stdout[-3000:]}")
     return dict(batches=int(counts.group(1)), launches=int(counts.group(2)), k1=int(counts.group(3)), k2=int(counts.group(4)),
@@ -2220,11 +2256,19 @@ def run_eval(workdir: Path, models: str, save_code: str, extra: list[str], timeo
                 out=workdir / "eval_results" / f"EVAL_{save_code}", stdout=run.stdout)
 
 
+def check_native_feed(label: str, ev: dict) -> None:
+    """Every pass of an ``eval`` child ran the native feed (the .npy cohort
+    under the engine's native='auto')."""
+    if any(p["feed"] != "native" for p in ev["passes"]):
+        raise AssertionError(f"eval ({label}): a pass did not run the native feed: {[p['feed'] for p in ev['passes']]}")
+
+
 def check_eval_run(label: str, ev: dict, kernel: str, trainer_summary: Path | None, test_ids: list[str], card: str, gpu: str) -> np.ndarray:
     """One ``eval`` run on the test split: schema and order of fold_0.csv,
-    launches of the right kernel = eval batches, and (given the trainer's
-    summary.csv) the trainer's own test accuracy and AUC. Returns the
-    probabilities [N, 19] (classes, then site_p)."""
+    launches of the right kernel = eval batches, every pass through the
+    native feed, and (given the trainer's summary.csv) the trainer's own test
+    accuracy and AUC. Returns the probabilities [N, 19] (classes, then site_p)."""
+    check_native_feed(label, ev)
     rows = read_csv_rows(ev["out"] / "fold_0.csv")
     if list(rows[0]) != EVAL_COLUMNS or [r["slide_id"] for r in rows] != test_ids:
         raise AssertionError(f"eval ({label}): fold_0.csv columns {list(rows[0])} or slide order differ from the test split's")
@@ -2251,7 +2295,7 @@ def check_eval_run(label: str, ev: dict, kernel: str, trainer_summary: Path | No
     p = ev["passes"][0]
     log(f"phase 8 eval ({label}): fold_0.csv holds the test split's {len(rows)} slides in split order; {agree}eval batches "
         f"{ev['batches']} = {kernel} pooling kernel launches {ev['launches']}; {p['rate']:.1f} slides/s (data wait {p['wait']}) by the "
-        f"CLI's clock, wire {p['wire']}, {p['bytes']} bytes to the card, peak device memory {ev['peak_gb']:.2f} GB; child process "
+        f"CLI's clock, wire {p['wire']}, feed {p['feed']}, {p['bytes']} bytes to the card, peak device memory {ev['peak_gb']:.2f} GB; child process "
         f"{ev['wall']:.1f} s [{gpu}]")
     return probs
 
@@ -2310,6 +2354,7 @@ def phase_eval(trained: dict, card: str, gpu: str, workdir: Path) -> dict:
     # once with everything around the pass, on the bf16 run's checkpoint (dropout layout) in bf16: the whole
     # dataset, a temperature from the val split, bootstrap intervals
     ev_all = run_eval(workdir, "smoke_bf16_s1", "all", ["--bf16", "--drop_out", "--split", "all", "--calibrate", "--bootstrap", "200"])
+    check_native_feed("bf16, --split all", ev_all)
     if ev_all["k1"] != ev_all["batches"] or ev_all["k2"] or [p["what"] for p in ev_all["passes"]] != ["eval", "val"] \
             or ev_all["passes"][0]["wire"] != "bfloat16" or ev_all["card"] != card:
         raise AssertionError(f"eval --bf16 --split all --calibrate: {ev_all['batches']} batches, {ev_all['k1']} launches, passes "
@@ -2368,14 +2413,99 @@ def phase_eval(trained: dict, card: str, gpu: str, workdir: Path) -> dict:
         raise AssertionError(f"producer threads left after the eval passes: {leftover}")
     on_cpu = evaluate_checkpoint(ckpt, test_split, trained["model_cfg"], device="cpu", **kw)
     d_cpu = max(float(np.abs(on_card.probs() - on_cpu.probs()).max()), float(np.abs(on_card.df["site_p"] - on_cpu.df["site_p"]).max()))
+    feeds = {name: r.stats["feed"] for name, r in (("int8 on the float32 wire", on_dev), ("card", on_card),
+                                                    ("card again", again), ("cpu", on_cpu))}
+    if set(feeds.values()) != {"native"}:
+        raise AssertionError(f"evaluate_split in process did not run the native feed: {feeds}")
     if d_cpu > TOL_EVAL_CARD_VS_CPU or list(on_card.df["slide_id"]) != list(on_cpu.df["slide_id"]):
         raise AssertionError(f"evaluate_split on the card vs the CPU: probabilities differ by {d_cpu:.3e} (tolerance {TOL_EVAL_CARD_VS_CPU})")
     log(f"phase 8 evaluate_split, card vs CPU (f32, {len(test_ids)} bags cut to 8,192 rows, batch 4): probabilities differ by at most "
         f"{d_cpu:.2e} (tolerance {TOL_EVAL_CARD_VS_CPU}); cls auc {on_card.cls_auc:.4f} vs {on_cpu.cls_auc:.4f}; a second pass on "
         f"the card gives the same probabilities (|d| {d_again:.1e}) and leaves pinned host memory at {pinned_first} -> {pinned_second} bytes (the first "
-        f"ring's slots are reused), no producer thread left")
+        f"ring's slots are reused), no producer thread left; every in-process pass ran the native feed")
+    compare_feeds(test_split, gpu)
+    time_feeds(trained["dataset"].subset(range(trained["dataset"].n_slides)), gpu)
     runs = dict(f32=ev32, int8=ev8, all=ev_all)
     return dict(k1_f32_launches=ev32["k1"], k1_bf16_launches=ev_all["k1"], k2_launches=ev8["k2"] + k2_d, runs=runs)
+
+
+_BITS = {torch.float32: torch.int32, torch.bfloat16: torch.int16, torch.int8: torch.int8}
+
+
+def compare_feeds(split, gpu: str) -> None:
+    """The native feed against the numpy feed on the card, for each wire: a
+    BagBatcher over ``split`` with native='on' and one with native='off', the
+    batches taken side by side once their copies have landed; the same order
+    and metadata, and every plane (features, int8 scales, patch mask) equal
+    bit for bit (compared on the card as integers). No tolerance: the two
+    feeds must give the same bytes."""
+    from toad_tpu_torch.data.batching import BagBatcher
+
+    said = []
+    for wire in ("float32", "bfloat16", "int8"):
+        kw = dict(batch_size=4, mode="sequential", transfer_dtype=wire, device="cuda")
+        on, off = BagBatcher(split, native="on", **kw), BagBatcher(split, native="off", **kw)
+        n = placed = 0
+        t0 = time.perf_counter()
+        for a, b in itertools.zip_longest(on, off):
+            if a is None or b is None:
+                raise AssertionError(f"feeds, {wire} wire: native and numpy give different numbers of batches")
+            a.wait()
+            b.wait()
+            for name in ("bag_mask", "label", "site", "sex", "indices"):
+                if not np.array_equal(getattr(a, name), getattr(b, name)):
+                    raise AssertionError(f"feeds, {wire} wire, batch {n}: {name} differs (native {getattr(a, name)}, "
+                                         f"numpy {getattr(b, name)})")
+            for name in ("features", "scales", "patch_mask"):
+                x, y = getattr(a, name), getattr(b, name)
+                if (x is None) != (y is None):
+                    raise AssertionError(f"feeds, {wire} wire, batch {n}: {name} on one side only")
+                if x is None:
+                    continue
+                x, y = (torch.as_tensor(t).cuda() for t in (x, y))  # a batch above the feed's guard stays on the host
+                if x.dtype != y.dtype or x.shape != y.shape or not torch.equal(x.view(_BITS[x.dtype]), y.view(_BITS[y.dtype])):
+                    raise AssertionError(f"feeds, {wire} wire, batch {n}: {name} differs ({x.dtype} {tuple(x.shape)} "
+                                         f"against {y.dtype} {tuple(y.shape)})")
+            placed += int(getattr(a.features, "is_cuda", False))
+            n += 1
+        if (on.feed_kind, off.feed_kind) != ("native", "numpy") or not placed:
+            raise AssertionError(f"feeds, {wire} wire: feeds {on.feed_kind} / {off.feed_kind}, {placed} batches placed by the "
+                                 "native feed")
+        said.append(f"{wire} {n} batches ({placed} packed into the pinned ring) in {time.perf_counter() - t0:.1f} s")
+    log(f"phase 8 feeds: BagBatcher native='on' against native='off' on the card over the test split's {len(split)} bags, "
+        f"batch 4: the same order and metadata, features, scales and patch mask equal bit for bit; {'; '.join(said)} [{gpu}]")
+
+
+def time_feeds(split, gpu: str) -> dict:
+    """The producer's own rate: one pass over ``split`` on the card per run,
+    the consumer only waiting for each batch's copy event, in turns numpy,
+    native, native, numpy, for the float32 and bfloat16 wires; batches/s and
+    the wire's GB/s. The bags were written in phase 7, so both feeds read a
+    warm page cache; a cold read is not measured."""
+    from toad_tpu_torch.data.batching import BagBatcher
+
+    rec: dict = {}
+    for wire in ("float32", "bfloat16"):
+        for mode in ("off", "on", "on", "off"):
+            batcher = BagBatcher(split, batch_size=4, mode="sequential", transfer_dtype=wire, device="cuda", native=mode)
+            n = wire_bytes = 0
+            t0 = time.perf_counter()
+            for b in batcher:
+                if b.ready is not None:
+                    b.ready.synchronize()
+                n += 1
+                wire_bytes += b.wire_bytes
+            dt = time.perf_counter() - t0
+            if batcher.feed_kind != ("native" if mode == "on" else "numpy"):
+                raise AssertionError(f"producer rate, {wire} wire, native={mode}: the {batcher.feed_kind} feed ran")
+            rec.setdefault(wire, []).append((batcher.feed_kind, n / dt, wire_bytes / dt / 1e9, dt, n))
+        runs = rec[wire]
+        best = {k: max(r[1] for r in runs if r[0] == k) for k in ("numpy", "native")}
+        log(f"phase 8 producer rate, {wire} wire, {len(split)} bags at batch 4 ({runs[0][4]} batches; the consumer only waits for "
+            f"each batch's copy; warm page cache, a cold read not measured): " + ", ".join(
+                f"{k} {r:.2f} batches/s {g:.2f} GB/s ({t:.2f} s)" for k, r, g, t, _ in runs)
+            + f"; native / numpy {best['native'] / best['numpy']:.2f}x [{gpu}]")
+    return rec
 
 
 def phase_timing_train(gpu: str, seed: int) -> dict:

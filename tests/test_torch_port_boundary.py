@@ -60,7 +60,7 @@ def test_config_and_registry_match_the_jax_package():
         "ModelConfig": {"use_pallas"},
         "TaskConfig": set(),
         "OptimConfig": set(),
-        "DataConfig": {"native"},
+        "DataConfig": set(),
         "TrainConfig": {"rss_restart_gb", "profile_dir", "debug_checks", "data_shards", "bag_shards"},
         "SplitConfig": set(),
         "EncoderConfig": set(),

@@ -8,6 +8,7 @@ module on the port's), except bf16 transfer, where both sides round the same
 f32 rows to nearest-even and are compared after widening to f32.
 """
 
+import itertools
 import threading
 import time
 
@@ -247,11 +248,10 @@ def _assert_batches_equal(ours, theirs):
         assert (a.batch_size, a.bucket) == (b.batch_size, b.bucket)
 
 
-@pytest.mark.parametrize("mode", ["sequential", "shuffle", "weighted"])
-def test_batcher_batches_equal_over_two_epochs(env, mode):
+def _check_two_epochs(env, mode, native):
     ids = np.arange(5, 55)
     kw = dict(batch_size=4, bucket_sizes=BUCKETS, mode=mode, seed=13)
-    ours = batching.BagBatcher(env["port"].subset(ids), **kw)
+    ours = batching.BagBatcher(env["port"].subset(ids), native=native, **kw)
     theirs = jax_batching.BagBatcher(env["jax"].subset(ids), native="off", **kw)
     for epoch in (0, 1):
         ours.set_epoch(epoch)
@@ -264,18 +264,31 @@ def test_batcher_batches_equal_over_two_epochs(env, mode):
     ours.set_epoch(0)
     if mode != "sequential":
         assert any(not np.array_equal(a, b.indices) for a, b in zip(first, ours))  # the epoch changes the order
+    assert ours.feed_kind == ("native" if native == "on" else "numpy")
 
 
-@pytest.mark.parametrize("kw", [
+@pytest.mark.parametrize("mode", ["sequential", "shuffle", "weighted"])
+def test_batcher_batches_equal_over_two_epochs(env, mode):
+    _check_two_epochs(env, mode, "off")  # the numpy feed
+
+
+@pytest.mark.parametrize("mode", ["sequential", "shuffle", "weighted"])
+def test_native_batcher_batches_equal_over_two_epochs(env, mode):
+    _check_two_epochs(env, mode, "on")
+
+
+OPTIONS = pytest.mark.parametrize("kw", [
     dict(batch_size=3, bucket_sizes=BUCKETS, mode="shuffle", testing_frac=0.3),
     dict(batch_size=2, bucket_sizes=BUCKETS, mode="sequential", max_bag_size=100),
     dict(batch_size=1, bucket_sizes=None, mode="sequential"),
     dict(batch_size=4, bucket_sizes=(64,), mode="weighted", prefetch=0),
     dict(batch_size=4, bucket_sizes=BUCKETS, mode="shuffle", transfer_dtype="bfloat16"),
 ], ids=["testing_frac", "max_bag_size", "exact_lengths", "truncating_bucket", "bf16_transfer"])
-def test_batcher_options_equal(env, kw):
+
+
+def _check_options(env, kw, native):
     ids = np.arange(0, 40)
-    ours = batching.BagBatcher(env["port"].subset(ids), seed=5, **kw)
+    ours = batching.BagBatcher(env["port"].subset(ids), seed=5, native=native, **kw)
     theirs = jax_batching.BagBatcher(env["jax"].subset(ids), seed=5, native="off", **kw)
     ours.set_epoch(2)
     theirs.set_epoch(2)
@@ -284,15 +297,35 @@ def test_batcher_options_equal(env, kw):
     assert len(ours) == len(theirs) == len(got)
     if kw.get("transfer_dtype") == "bfloat16":
         assert got[0].features.dtype == torch.bfloat16
+    assert ours.feed_kind == ("native" if native == "on" else "numpy")
 
 
-def test_batcher_patient_bags_equal(env):
+@OPTIONS
+def test_batcher_options_equal(env, kw):
+    _check_options(env, kw, "off")  # the numpy feed
+
+
+@OPTIONS
+def test_native_batcher_options_equal(env, kw):
+    _check_options(env, kw, "on")
+
+
+def _check_patient_bags(env, native):
     ids = np.arange(0, 50)
     kw = dict(batch_size=2, bucket_sizes=(128, 256, 512), mode="shuffle", seed=1)
-    ours = batching.BagBatcher(PatientBagSplit(env["port"].subset(ids)), **kw)
+    ours = batching.BagBatcher(PatientBagSplit(env["port"].subset(ids)), native=native, **kw)
     theirs = jax_batching.BagBatcher(JaxPatientBagSplit(env["jax"].subset(ids)), native="off", **kw)
     _assert_batches_equal(list(ours), list(theirs))
     assert len(ours) == len(theirs)
+    assert ours.feed_kind == ("native" if native == "on" else "numpy")
+
+
+def test_batcher_patient_bags_equal(env):
+    _check_patient_bags(env, "off")  # the numpy feed
+
+
+def test_native_batcher_patient_bags_equal(env):
+    _check_patient_bags(env, "on")
 
 
 def test_bucket_helpers_equal(env):
@@ -316,8 +349,9 @@ def _prefetch_threads():
     return [t for t in threading.enumerate() if t.name == "bag-prefetch" and t.is_alive()]
 
 
-def test_producer_thread_ends_when_the_consumer_stops_early(env):
-    batcher = batching.BagBatcher(env["port"].subset(range(40)), batch_size=2, bucket_sizes=BUCKETS, prefetch=1)
+def _check_early_stop(env, native):
+    batcher = batching.BagBatcher(env["port"].subset(range(40)), batch_size=2, bucket_sizes=BUCKETS, prefetch=1,
+                                  native=native)
     it = iter(batcher)
     next(it)
     assert _prefetch_threads()
@@ -330,6 +364,15 @@ def test_producer_thread_ends_when_the_consumer_stops_early(env):
         for _ in batcher:
             raise RuntimeError("step failed")
     assert not _prefetch_threads()
+    assert batcher.feed_kind == ("native" if native == "on" else "numpy")
+
+
+def test_producer_thread_ends_when_the_consumer_stops_early(env):
+    _check_early_stop(env, "off")  # the numpy feed, with its loader pool
+
+
+def test_native_producer_thread_ends_when_the_consumer_stops_early(env):
+    _check_early_stop(env, "on")
 
 
 def test_loader_errors_reach_the_consumer(env, tmp_path):
@@ -357,10 +400,10 @@ def test_device_feed_places_batches_on_the_card(env):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA GPU: pinned buffers and a copy stream")
     split = env["port"].subset(range(30))
-    host = list(batching.BagBatcher(split, batch_size=4, bucket_sizes=BUCKETS))
-    for dtype in ("float32", "bfloat16"):
+    host = list(batching.BagBatcher(split, batch_size=4, bucket_sizes=BUCKETS, native="off"))
+    for dtype, native in itertools.product(("float32", "bfloat16"), ("off", "on")):  # staged / packed in the slot
         placed = list(batching.BagBatcher(split, batch_size=4, bucket_sizes=BUCKETS, device="cuda", prefetch=1,
-                                          transfer_dtype=dtype))
+                                          transfer_dtype=dtype, native=native))
         for a, b in zip(placed, host):
             a.wait()
             assert a.features.is_cuda and a.features.dtype == getattr(torch, dtype)

@@ -153,8 +153,10 @@ def test_calibration_refuses_what_the_jax_package_refuses():
 # -- the int8 wire ---------------------------------------------------------------
 
 
-@pytest.mark.parametrize("case", ["slides", "patient_bags", "max_bag_size", "batch_of_3"])
-def test_int8_wire_matches_the_jax_batcher(env, case):
+INT8_CASES = pytest.mark.parametrize("case", ["slides", "patient_bags", "max_bag_size", "batch_of_3"])
+
+
+def _check_int8_wire(env, case, native):
     split, jsplit = env["split"], env["jax_split"]
     kw = dict(batch_size=4, bucket_sizes=BUCKETS, mode="sequential", transfer_dtype="int8")
     if case == "patient_bags":
@@ -163,7 +165,9 @@ def test_int8_wire_matches_the_jax_batcher(env, case):
         kw["max_bag_size"] = 100
     elif case == "batch_of_3":
         kw["batch_size"] = 3
-    ours = list(batching.BagBatcher(split, **kw))
+    batcher = batching.BagBatcher(split, native=native, **kw)
+    ours = list(batcher)
+    assert batcher.feed_kind == ("native" if native == "on" else "numpy")
     theirs = list(jax_batching.BagBatcher(jsplit, native="off", **kw))
     assert len(ours) == len(theirs) >= 3
     for a, b in zip(ours, theirs):
@@ -187,10 +191,19 @@ def test_int8_wire_matches_the_jax_batcher(env, case):
     np.testing.assert_array_equal(first.scales[0, : len(bag)], s)
 
 
-@pytest.mark.parametrize("wire", ["float32", "bfloat16"])
-def test_float_wires_are_unchanged(env, wire):
+@INT8_CASES
+def test_int8_wire_matches_the_jax_batcher(env, case):
+    _check_int8_wire(env, case, "off")  # quantized in the producer thread
+
+
+@INT8_CASES
+def test_native_int8_wire_matches_the_jax_batcher(env, case):
+    _check_int8_wire(env, case, "on")  # quantized in the C++ threads
+
+
+def _check_float_wire(env, wire, native):
     kw = dict(batch_size=4, bucket_sizes=BUCKETS, mode="sequential", transfer_dtype=wire)
-    ours = list(batching.BagBatcher(env["split"], **kw))
+    ours = list(batching.BagBatcher(env["split"], native=native, **kw))
     theirs = list(jax_batching.BagBatcher(env["jax_split"], native="off", **kw))
     assert len(ours) == len(theirs)
     for a, b in zip(ours, theirs):
@@ -199,6 +212,16 @@ def test_float_wires_are_unchanged(env, wire):
         np.testing.assert_array_equal(feats, np.asarray(b.features, np.float32))
         np.testing.assert_array_equal(a.indices, b.indices)
         assert a.wire_bytes == a.features.shape[0] * a.bucket * (D * (4 if wire == "float32" else 2) + 4)
+
+
+@pytest.mark.parametrize("wire", ["float32", "bfloat16"])
+def test_float_wires_are_unchanged(env, wire):
+    _check_float_wire(env, wire, "off")  # the numpy feed
+
+
+@pytest.mark.parametrize("wire", ["float32", "bfloat16"])
+def test_native_float_wires_are_unchanged(env, wire):
+    _check_float_wire(env, wire, "on")
 
 
 def test_batcher_names_its_three_wires(env):

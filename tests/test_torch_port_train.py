@@ -595,7 +595,7 @@ def test_cli_resume_skips_finished_folds(cli_run):
 @pytest.mark.parametrize("flags,says", [
     (["--data_shards", "2"], "queue 1.7"), (["--bag_shards", "4"], "queue 1.7"), (["--fold_devices", "2"], "queue 1.7"),
     (["--profile", "p"], "queue 1.6"), (["--debug_checks"], "queue 1.6"), (["--debug_nans"], "queue 1.6"),
-    (["--rss_restart_gb", "4", "--resume"], "queue 1.6"), (["--native_io", "on"], "native bag loader"),
+    (["--rss_restart_gb", "4", "--resume"], "queue 1.6"),
 ])
 def test_cli_refuses_unported_flags_by_name(flags, says):
     from toad_tpu_torch.cli import train as cli_train
@@ -603,6 +603,28 @@ def test_cli_refuses_unported_flags_by_name(flags, says):
     args = cli_train.make_parser().parse_args(["--task", "t", "--exp_code", "e", *flags])
     with pytest.raises(SystemExit, match=says):
         cli_train.refuse_unported(args)
+
+
+def test_cli_native_io_on_trains_on_npy_bags_and_logs_the_native_feed(cli_run):
+    """--native_io on reads the .npy bags with the native loader, --native_io
+    off with numpy: each pass logs its feed, and both train to the same
+    summary.csv (the two feeds give the same bytes)."""
+    root, common, _ = cli_run
+    summaries = {}
+    for mode, feed in (("on", "native"), ("off", "numpy")):
+        run = _cli(*common, "--exp_code", f"feed_{mode}", "--max_epochs", "1", "--k_end", "1", "--native_io", mode,
+                   "--device", "cpu", cwd=root)
+        assert run.returncode == 0, run.stderr[-3000:]
+        lines = run.stdout.splitlines()
+        epoch = [ln for ln in lines if "slides/s (data wait" in ln]
+        val = [ln for ln in lines if ": val cls_loss" in ln]
+        final = [ln for ln in lines if "FINAL val" in ln]
+        assert len(epoch) == len(val) == len(final) == 1
+        assert epoch[0].endswith(f"feed {feed}") and val[0].endswith(f"| feed {feed}")
+        assert final[0].endswith(f"| feed val {feed}, test {feed}")
+        summaries[mode] = [f.read_text() for f in sorted((root / "results" / f"feed_{mode}_s1").glob("summary*.csv"))]
+    assert len(summaries["on"]) == 1
+    assert summaries["on"] == summaries["off"]
 
 
 def test_cli_needs_the_card_unless_the_cpu_is_asked_for(cli_run):

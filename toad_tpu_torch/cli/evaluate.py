@@ -266,7 +266,7 @@ def main(argv=None):
             print(f"[fold {fold}] {what} pass: {st['n']} bags in {st['seconds']:.2f} s, "
                   f"{st['n'] / max(st['seconds'], 1e-9):.1f} slides/s (data wait "
                   f"{st['data_wait_s'] / max(st['seconds'], 1e-9):.0%}), wire {st['transfer_dtype']}, "
-                  f"{st['wire_bytes']} bytes to the device")
+                  f"{st['wire_bytes']} bytes to the device, feed {st['feed']}")
         k1, k2 = cuda_pool.LAUNCHES - launches[0], cuda_pool_int8.LAUNCHES - launches[1]
         print(f"[fold {fold}] eval batches {sum(st['n_batches'] for st in passes)}, pooling kernel launches {k1 + k2} "
               f"(float kernel {k1}, int8 kernel {k2})"

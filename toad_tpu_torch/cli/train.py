@@ -1,8 +1,8 @@
 """``python -m toad_tpu_torch train``: k-fold training entry point.
 
 Counterpart of :mod:`toad_tpu.cli.train`: the flags of the reference
-``main_mtl_concat.py`` plus --batch_size, --bf16, --buckets, --resume and
---device. Produces the reference's results layout:
+``main_mtl_concat.py`` plus --batch_size, --bf16, --buckets, --resume,
+--native_io and --device. Produces the reference's results layout:
 ``results/{exp_code}_s{seed}/`` with ``experiment_{exp_code}.txt``, per-fold
 ``splits_{i}.csv``, ``s_{i}_checkpoint.pt`` (reference layout, what ``serve
 --ckpt`` reads), ``split_{i}_results.pkl``, and ``summary.csv``.
@@ -86,14 +86,15 @@ def make_parser() -> argparse.ArgumentParser:
                    help="force bfloat16 feature transfer even under f32 compute (half the host-to-device bytes; "
                         "on automatically with --bf16)")
     p.add_argument("--device", type=str, default="cuda", help="cuda (default), cuda:<i> or cpu")
+    p.add_argument("--native_io", type=str, choices=["auto", "on", "off"], default="auto",
+                   help="bag feed: the native C++ loader (built with g++ at first use) where every bag is eligible "
+                        "(auto), always (on: an ineligible bag raises), or numpy and torch (off)")
     # flags of the JAX CLI that are not ported; accepted so that they can be refused by name
     p.add_argument("--data_shards", type=int, default=1, help="not ported")
     p.add_argument("--bag_shards", type=int, default=1, help="not ported")
     p.add_argument("--fold_devices", type=int, default=1, help="not ported")
     p.add_argument("--rss_restart_gb", type=float, default=None, help="not ported")
     p.add_argument("--profile", type=str, default=None, help="not ported")
-    p.add_argument("--native_io", type=str, choices=["auto", "on", "off"], default="auto",
-                   help="'on' is not ported (no native loader); auto and off read bags with numpy and torch")
     p.add_argument("--debug_checks", action="store_true", default=False, help="not ported")
     p.add_argument("--debug_nans", action="store_true", default=False, help="not ported")
     return p
@@ -101,8 +102,6 @@ def make_parser() -> argparse.ArgumentParser:
 
 def refuse_unported(args) -> None:
     refuse_flags(args, _NOT_PORTED)
-    if args.native_io == "on":
-        raise SystemExit("error: --native_io on: the native bag loader is not ported to this package (ROADMAP.md)")
 
 
 def config_from_args(args, n_classes: int, bucket_sizes: tuple[int, ...] | None = None) -> TrainConfig:
@@ -134,6 +133,7 @@ def config_from_args(args, n_classes: int, bucket_sizes: tuple[int, ...] | None 
             max_bag_size=args.max_bag_size,
             weighted_sample=args.weighted_sample,
             testing_frac=0.01 if args.testing else None,
+            native=args.native_io,
             patient_bags=args.patient_bags,
             # default 'auto': bf16 transfer iff --bf16 compute (numerically
             # invisible there, half the bytes); the flag forces it on

@@ -6,10 +6,11 @@ Stdlib-only copies of the same names in :mod:`toad_tpu.config`, so that the
 port imports nothing of the JAX package. Fields and defaults are the same
 (``tests/test_torch_port_boundary.py`` holds them equal), except the fields
 with nothing behind them here: ``ModelConfig.use_pallas`` (on CUDA the
-kernel is the path), ``DataConfig.native`` (no native loader),
-``TrainConfig.rss_restart_gb``, ``profile_dir``, ``debug_checks``,
-``data_shards`` and ``bag_shards`` (ROADMAP.md: profiling and debugging
-tools, multi-GPU).
+kernel is the path), ``TrainConfig.rss_restart_gb``, ``profile_dir``,
+``debug_checks``, ``data_shards`` and ``bag_shards`` (ROADMAP.md: profiling
+and debugging tools, multi-GPU). ``DataConfig.native`` picks the bag feed
+as in the JAX package: the native loader (``toad_tpu_torch.native``) or
+numpy.
 """
 
 from __future__ import annotations
@@ -138,6 +139,7 @@ class DataConfig:
     prefetch: int = 2
     weighted_sample: bool = False
     testing_frac: float | None = None  # reference --testing: 1% subsample
+    native: str = "auto"  # the native bag loader: 'auto' | 'on' | 'off'
     patient_bags: bool = False  # concat all of a patient's slides into one bag
     # host->device feature dtype: 'bfloat16' halves the bytes copied; 'auto'
     # picks bfloat16 iff the model computes in bf16 (the features are cast

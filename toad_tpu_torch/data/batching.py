@@ -1,30 +1,44 @@
 """Bucketed bag batching with padding masks, threaded prefetch and a pinned
 host-to-device feed.
 
-PyTorch counterpart of :mod:`toad_tpu.data.batching` (its generic numpy
-path; the native C++ loader is not ported):
+PyTorch counterpart of :mod:`toad_tpu.data.batching`:
 
 - each bag's length N is rounded up to a bucket size; bags in a batch share
   one bucket, so the device sees a small, fixed set of shapes;
 - a batch is ``[B, N_bucket, D]`` features + ``[B, N_bucket]`` patch mask +
   ``[B]`` bag-validity mask (partial final batches are padded with bags of
   ``bag_mask`` 0 and an all-zero patch mask, never ragged);
-- bag IO runs in a thread pool and finished batches are queued ahead of the
-  training step by a producer thread.
+- finished batches are queued ahead of the training step by a producer
+  thread.
 
 Sampling modes mirror the reference: sequential, shuffled, class-balanced
 with replacement, and the 1% ``--testing`` subsample. The epoch's order is
 drawn from ``np.random.RandomState`` exactly as the JAX package draws it, so
 both packages see the same batches in the same order.
 
+Two feeds fill a batch, and give the same bytes:
+
+- the native feed (``native='auto'`` or ``'on'``): every bag's rows are
+  located on disk once per batcher (:mod:`toad_tpu_torch.data.native_bags`),
+  and for each batch ``num_workers`` C++ threads read them with one
+  ``pread`` per file, cast or quantized on the way
+  (:mod:`toad_tpu_torch.native`). Under ``'auto'`` a split takes it when
+  every bag resolves (``.npy``, ``.pt``, contiguous ``.h5``; int8 stores on
+  the int8 wire) to one feature dim; ``'on'`` raises where one does not, and
+  a loader that does not build raises in both;
+- the numpy feed (``'off'``, or a split the native one cannot read): bag IO
+  in a thread pool, then padding, casting and quantizing in the producer
+  thread.
+
 Three wires carry the features to the device: float32, bfloat16 (cast on the
 host) and, for quantized evaluation only, int8: the real rows of every bag
-are quantized per row in the producer thread and travel with their f32
-scales, a quarter of the float32 bytes.
+are quantized per row and travel with their f32 scales, a quarter of the
+float32 bytes.
 
 With a CUDA ``device`` the producer thread also starts the copy to the card:
-the features go (cast to the transfer dtype on the way) into one of a small
-ring of pinned host buffers, from there with ``non_blocking=True`` on a side
+each batch lies in one of a small ring of pinned host buffers (the native
+feed packs it there directly; the numpy feed copies it in, cast to the wire
+dtype on the way), is copied from there with ``non_blocking=True`` on a side
 stream, and an event recorded behind the copy travels with the batch; the
 consumer's stream waits on it (:meth:`BagBatch.wait`). A ring slot is
 refilled only after the event of its last copy has completed.
@@ -32,6 +46,7 @@ refilled only after the event of its last copy has completed.
 
 from __future__ import annotations
 
+import math
 import queue
 import threading
 from collections import deque
@@ -189,17 +204,28 @@ def plane_offsets(plane_bytes: Sequence[int], align: int = 16) -> tuple[list[int
     return offsets, end
 
 
+def plane_views(buf: torch.Tensor, specs: Sequence[tuple[Sequence[int], torch.dtype]],
+                offsets: Sequence[int]) -> list[torch.Tensor]:
+    """The uint8 buffer ``buf`` seen as one typed tensor per ``(shape,
+    dtype)`` plane, each at its byte offset."""
+    return [buf[start:start + math.prod(shape) * dt.itemsize].view(dt).view(tuple(shape))
+            for (shape, dt), start in zip(specs, offsets)]
+
+
 def stage_planes(buf: torch.Tensor, planes: Sequence[tuple[torch.Tensor, torch.dtype]],
                  offsets: Sequence[int]) -> list[torch.Tensor]:
     """Copy each ``(tensor, dtype)`` plane into the uint8 buffer ``buf`` at
     its byte offset, cast to ``dtype`` on the way; returns the buffer's typed
     views, in order."""
-    views = []
-    for (t, dt), start in zip(planes, offsets):
-        view = buf[start:start + t.numel() * dt.itemsize].view(dt).view(t.shape)
+    views = plane_views(buf, [(t.shape, dt) for t, dt in planes], offsets)
+    for view, (t, _) in zip(views, planes):
         view.copy_(t)
-        views.append(view)
     return views
+
+
+def numpy_view(t: torch.Tensor) -> np.ndarray:
+    """A numpy array on ``t``'s memory (a CPU tensor); bf16 as its uint16 bits."""
+    return t.view(torch.int16).numpy().view(np.uint16) if t.dtype == torch.bfloat16 else t.numpy()
 
 
 class _DeviceFeed:
@@ -245,10 +271,15 @@ class _DeviceFeed:
         offsets, total = plane_offsets([t.numel() * dt.itemsize for t, dt in planes])
         buf, i = self._slot(total)
         staged = stage_planes(buf, planes, offsets)  # casts to the transfer dtype on the way
+        return self._send(b, staged, i)
+
+    def _send(self, b: BagBatch, staged: list[torch.Tensor], i: int) -> BagBatch:
+        """Start the copy of slot ``i``'s planes (features, [scales,] mask) to
+        the card behind the batch's event."""
         with torch.cuda.stream(self.stream):
             on_card = [v.to(self.device, non_blocking=True) for v in staged]
             b.features, b.patch_mask = on_card[0], on_card[-1]
-            if b.scales is not None:
+            if len(on_card) == 3:
                 b.scales = on_card[1]
             b.ready = torch.cuda.Event()
             b.ready.record(self.stream)
@@ -271,10 +302,14 @@ class BagBatcher:
         mode, meant for ``batch_size=1``; a warning is emitted otherwise).
     mode:
         'sequential' | 'shuffle' | 'weighted'.
+    native:
+        'auto' (the native feed where every bag is eligible, else numpy),
+        'on' (the native feed; raises where a bag is not eligible) or 'off'
+        (numpy). A loader that does not build raises under 'auto' and 'on'.
     transfer_dtype:
-        'float32', 'bfloat16' (cast on the host, in the producer thread) or
-        'int8' (rows quantized per row in the producer thread, with their
-        scales in ``BagBatch.scales``; for a quantized eval step only).
+        'float32', 'bfloat16' (cast on the host) or 'int8' (rows quantized
+        per row on the host, with their scales in ``BagBatch.scales``; for a
+        quantized eval step only).
     device:
         None or a CPU device leaves the batches on the host; a CUDA device
         makes the producer thread start each batch's copy to the card.
@@ -292,6 +327,7 @@ class BagBatcher:
         num_workers: int = 8,
         prefetch: int = 2,
         feature_dim: int | None = None,
+        native: str = "auto",
         transfer_dtype: str = "float32",
         device: str | torch.device | None = None,
     ) -> None:
@@ -305,6 +341,9 @@ class BagBatcher:
         self.num_workers = num_workers
         self.prefetch = prefetch
         self.feature_dim = feature_dim
+        if native not in ("auto", "on", "off"):
+            raise ValueError(f"native {native!r} not supported (auto, on, off)")
+        self.native = native
         if transfer_dtype == "auto":
             raise ValueError(
                 "transfer_dtype='auto' must be resolved against the model's "
@@ -324,13 +363,55 @@ class BagBatcher:
                 " (rare for real WSIs): pass a bucket ladder for throughput",
                 stacklevel=2,
             )
+        self._payloads: list | None | bool = False  # False = not yet resolved
         self._lengths: list | None | bool = False  # False = not yet probed
+        self.native_active: bool | None = None  # which feed ran: set by the first epoch
         self._epoch = 0
+
+    @property
+    def feed_kind(self) -> str | None:
+        """'native' or 'numpy' once an epoch has started, else None."""
+        return None if self.native_active is None else ("native" if self.native_active else "numpy")
+
+    def _resolve_payloads(self) -> list | None:
+        """Every bag's payload on disk, resolved once a batcher (the length
+        probe and the native feed share it): None when the split has no bag
+        files; an entry is None where a bag does not resolve. A bag of
+        several files (``PatientBagSplit``) is a :class:`SegmentedPayload` in
+        concatenation order."""
+        if self._payloads is not False:
+            return self._payloads
+        from toad_tpu_torch.data.native_bags import SegmentedPayload, resolve_payload, resolve_payload_q8
+
+        def one(f):
+            # a float32 payload, else an int8 store's raw payloads (native only
+            # on the int8 wire; its lengths serve any wire)
+            return resolve_payload(f) or resolve_payload_q8(f)
+
+        if hasattr(self.split, "bag_file"):
+            self._payloads = [one(self.split.bag_file(i)) for i in range(len(self.split))]
+        elif hasattr(self.split, "groups") and hasattr(getattr(self.split, "parent", None), "bag_file"):
+            self._payloads = []
+            for g in self.split.groups:
+                parts = [one(self.split.parent.bag_file(int(j))) for j in g]
+                if any(p is None for p in parts) or len({p.dim for p in parts}) != 1:
+                    self._payloads.append(None)
+                else:
+                    self._payloads.append(SegmentedPayload(tuple(parts), sum(p.nrows for p in parts), parts[0].dim))
+        else:
+            self._payloads = None
+        return self._payloads
 
     def _bag_lengths(self) -> list | None:
         """Per-bag row counts from file metadata (no payload reads), probed
-        once; None when the split has no files or any bag is unreadable."""
+        once: from the resolved payloads where every bag resolves, else from
+        each file's header; None when the split has no files or any bag is
+        unreadable."""
         if self._lengths is not False:
+            return self._lengths
+        payloads = self._resolve_payloads()
+        if payloads is not None and all(p is not None for p in payloads):
+            self._lengths = [p.nrows for p in payloads]
             return self._lengths
         from toad_tpu_torch.data.bags import bag_shape
 
@@ -362,18 +443,27 @@ class BagBatcher:
         epoch's rng stream. Otherwise ceil(n_bags / batch_size), a lower
         bound (bucket grouping can only split batches)."""
         order = self._order(self._epoch_rng())
-        approx = (len(order) + self.batch_size - 1) // self.batch_size
         lengths = self._bag_lengths()
         if lengths is None:
-            return approx
-        counts: dict[int, int] = {}
+            return (len(order) + self.batch_size - 1) // self.batch_size
+        return sum(1 for _ in self._bucket_groups(order, lengths))
+
+    def _bucket_groups(self, order: np.ndarray, lengths: list) -> Iterator[tuple[int, list[int]]]:
+        """The epoch's batches as ``(bucket, split positions)`` from known bag
+        lengths: each length cut at ``max_bag_size`` and rounded up to its
+        bucket, a batch whenever a bucket's pool fills, then the partial
+        pools in bucket order (the numpy feed groups its loaded bags so)."""
+        pools: dict[int, list[int]] = {}
         for i in order:
             n = lengths[int(i)]
             if self.max_bag_size is not None:
                 n = min(n, self.max_bag_size)
-            b = n if self.bucket_sizes is None else bucket_for(n, self.bucket_sizes)
-            counts[b] = counts.get(b, 0) + 1
-        return sum((c + self.batch_size - 1) // self.batch_size for c in counts.values())
+            bucket = n if self.bucket_sizes is None else bucket_for(n, self.bucket_sizes)
+            pools.setdefault(bucket, []).append(int(i))
+            if len(pools[bucket]) == self.batch_size:
+                yield bucket, pools.pop(bucket)
+        for bucket in sorted(pools):  # partials, padded with bag_mask 0
+            yield bucket, pools[bucket]
 
     @property
     def n_bags(self) -> int:
@@ -413,19 +503,150 @@ class BagBatcher:
         d = group[0][1].shape[1]
         feats = np.zeros((b, bucket, d), dtype=np.float32)
         pmask = np.zeros((b, bucket), dtype=np.float32)
+        for j, (_, bag) in enumerate(group):
+            feats[j], pmask[j] = _pad_bag(bag, bucket)
+        return BagBatch(feats, pmask, *self._metadata([i for i, _ in group]))
+
+    def _metadata(self, group: list[int]) -> tuple[np.ndarray, ...]:
+        """bag_mask, label, site, sex and indices of a batch of split positions."""
+        b = self.batch_size
         bmask = np.zeros((b,), dtype=np.float32)
         label = np.zeros((b,), dtype=np.int32)
         site = np.zeros((b,), dtype=np.int32)
         sex = np.zeros((b,), dtype=np.int32)
         idxs = np.full((b,), -1, dtype=np.int64)
-        for j, (i, bag) in enumerate(group):
-            feats[j], pmask[j] = _pad_bag(bag, bucket)
+        for j, i in enumerate(group):
             bmask[j] = 1.0
             label[j] = self.split.labels[i]
             site[j] = self.split.sites[i]
             sex[j] = self.split.sexes[i]
             idxs[j] = i
-        return BagBatch(feats, pmask, bmask, label, site, sex, idxs)
+        return bmask, label, site, sex, idxs
+
+    # -- the native feed -------------------------------------------------------
+
+    def _ineligible(self, payloads: list) -> str | None:
+        """Why the native feed cannot read this split, or None."""
+        from toad_tpu_torch.data.native_bags import Q8PayloadInfo, SegmentedPayload
+
+        missing = [i for i, p in enumerate(payloads) if p is None]
+        if missing:
+            return (f"{len(missing)} of {len(payloads)} bags (the first at split position {missing[0]}) have no "
+                    "payload it reads (.npy, .pt, contiguous .h5 float32 or an int8 .npz store)")
+        if self.transfer_dtype != "int8":
+            def q8(p) -> bool:
+                return any(isinstance(q, Q8PayloadInfo) for q in (p.parts if isinstance(p, SegmentedPayload) else (p,)))
+
+            if any(q8(p) for p in payloads):
+                return f"int8-store bags read natively only on the int8 wire, not on {self.transfer_dtype}"
+        dims = {p.dim for p in payloads}
+        if len(dims) > 1 or (self.feature_dim is not None and dims and dims != {self.feature_dim}):
+            return f"the bags' feature dims {sorted(dims)} are not one" + (
+                f" equal to feature_dim {self.feature_dim}" if self.feature_dim is not None else "")
+        return None
+
+    def _native_ready(self) -> bool:
+        """Whether this batcher runs the native feed, decided once: never
+        under 'off'; never for a split without bag files (structurally
+        ineligible, under 'on' too); where every bag is eligible, after the
+        library has loaded (a build that fails raises); else the numpy feed
+        under 'auto' and an error under 'on'."""
+        if self.native_active is not None:
+            return self.native_active
+        if self.native == "off" or self._resolve_payloads() is None:
+            self.native_active = False
+            return False
+        reason = self._ineligible(self._payloads)
+        if reason is not None:
+            if self.native == "on":
+                raise RuntimeError(f"native bag IO requested (native='on') but {reason}")
+            self.native_active = False
+            return False
+        from toad_tpu_torch import native as native_lib
+
+        native_lib.get_lib()
+        self.native_active = True
+        return True
+
+    def _assemble_native(self, group: list[int], bucket: int, feed: "_DeviceFeed | None" = None) -> BagBatch:
+        """One batch read by the native loader. With a device feed (and a
+        batch within its size guard) the planes are the views of a pinned
+        ring slot, which still holds an older batch: the rows and planes the
+        loader does not write are cleared first, after the slot's last copy
+        has completed; then the copy to the card starts. Otherwise fresh
+        host arrays."""
+        from toad_tpu_torch import native as native_lib
+        from toad_tpu_torch.data.native_bags import Q8PayloadInfo, SegmentedPayload
+
+        b = self.batch_size
+        d = self._payloads[group[0]].dim
+        cap = bucket if self.max_bag_size is None else min(bucket, self.max_bag_size)
+        # one segment per contiguous payload on disk (a patient bag: one per
+        # slide file, at its cumulative row), cut at cap as the numpy feed cuts
+        # the concatenated bag; int8-store segments (int8 wire only) read raw
+        f32_segs: list = []  # (path, offset, rows, dst_row)
+        q8_segs: list = []  # (path, q_offset, s_offset, rows, dst_row)
+        takes = [0] * b  # rows written in each bag slot
+        for slot, i in enumerate(group):
+            p = self._payloads[i]
+            for part in p.parts if isinstance(p, SegmentedPayload) else (p,):
+                take = min(part.nrows, cap - takes[slot])
+                if take <= 0:
+                    break
+                dst = slot * bucket + takes[slot]
+                if isinstance(part, Q8PayloadInfo):
+                    q8_segs.append((part.path, part.offset, part.scales_offset, take, dst))
+                else:
+                    f32_segs.append((part.path, part.offset, take, dst))
+                takes[slot] += take
+
+        int8 = self.transfer_dtype == "int8"
+        specs = [((b, bucket, d), _TRANSFER_DTYPES[self.transfer_dtype])]
+        if int8:
+            specs.append(((b, bucket), torch.float32))
+        specs.append(((b, bucket), torch.float32))
+        sizes = [math.prod(shape) * dt.itemsize for shape, dt in specs]
+        placed = feed is not None and sizes[0] <= feed.MAX_BYTES
+        if placed:
+            offsets, total = plane_offsets(sizes)
+            buf, ring_slot = feed._slot(total)  # waits for the slot's last copy
+            planes = plane_views(buf, specs, offsets)
+        else:
+            planes = [torch.zeros(shape, dtype=dt) for shape, dt in specs]
+        feats, mask = numpy_view(planes[0]), numpy_view(planes[-1])
+        scales = numpy_view(planes[1]) if int8 else None
+        if placed:
+            for j, take in enumerate(takes):
+                feats[j, take:] = 0
+            mask[...] = 0
+        if int8:
+            scales[...] = PAD_SCALE  # padding rows keep it: q = 0 there, exact under any scale
+
+        def cols(segs, k):
+            return np.array([s[k] for s in segs], np.int64)
+
+        n = self.num_workers
+        if f32_segs:
+            paths, offs, rows, dst = [s[0] for s in f32_segs], cols(f32_segs, 1), cols(f32_segs, 2), cols(f32_segs, 3)
+            if int8:  # read and quantize per row in one pass
+                native_lib.pack_segs_int8(paths, offs, rows, dst, d, feats, scales, mask, n)
+            elif self.transfer_dtype == "bfloat16":  # read and round to bf16 in one pass
+                native_lib.pack_segs_bf16(paths, offs, rows, dst, d, feats, mask, n)
+            else:
+                native_lib.pack_segs(paths, offs, rows, dst, d, feats, mask, n)
+        if q8_segs:
+            native_lib.pack_segs_q8([s[0] for s in q8_segs], cols(q8_segs, 1), cols(q8_segs, 2), cols(q8_segs, 3),
+                                    cols(q8_segs, 4), d, feats, scales, mask, n)
+        batch = BagBatch(planes[0] if self.transfer_dtype == "bfloat16" else feats, mask, *self._metadata(group),
+                         scales=scales)
+        return feed._send(batch, planes, ring_slot) if placed else batch
+
+    def _batches_native(self, feed: "_DeviceFeed | None" = None) -> Iterator[BagBatch]:
+        # every bag resolved, so the lengths are the payloads' row counts
+        for bucket, group in self._bucket_groups(self._order(self._epoch_rng()), self._bag_lengths()):
+            yield self._assemble_native(group, bucket, feed)
+
+    # -- the numpy feed ----------------------------------------------------------
 
     def _batches_raw(self) -> Iterator[BagBatch]:
         order = self._order(self._epoch_rng())
@@ -487,10 +708,14 @@ class BagBatcher:
 
     def __iter__(self) -> Iterator[BagBatch]:
         def src() -> Iterator[BagBatch]:
-            finish = self._convert
+            finish, feed = self._convert, None
             if self.device is not None and self.device.type == "cuda":
                 feed = _DeviceFeed(self.device, _TRANSFER_DTYPES[self.transfer_dtype],
                                    max(int(self.prefetch or 0), 1) + 1)
+            if self._native_ready():  # packed in the wire dtype, into the ring slot where there is one
+                yield from self._batches_native(feed)
+                return
+            if feed is not None:
                 if self.transfer_dtype == "int8":  # quantized here, then placed
                     def finish(b):
                         return feed.place(self._convert(b))

@@ -52,7 +52,8 @@ class EvalResult:
     holds a DataFrame): ``slide_id`` strings; ``sex``, ``Y``, ``site``
     float64; ``Y_hat``, ``site_hat`` integers; ``p_c`` and ``site_p`` the
     step's float32. ``stats`` describes the pass: its batches, seconds,
-    seconds spent waiting for data, the wire and the bytes it carried."""
+    seconds spent waiting for data, the wire, the bytes it carried and the
+    feed that filled its batches."""
 
     df: dict[str, np.ndarray]
     cls_auc: float
@@ -94,12 +95,15 @@ def evaluate_split(
     int8: bool = False,
     transfer_dtype: str = "auto",
     device: str | torch.device | None = None,
+    native: str = "auto",
 ) -> EvalResult:
     """Run a full no-grad pass over ``split`` with the model's own weights and
     assemble the reference-schema outputs.
 
     ``device`` moves the model (and every batch) there first; ``None`` keeps
-    the model where the caller put it."""
+    the model where the caller put it. ``native`` is the batcher's feed:
+    'auto' (as the JAX engine's batcher; the ``eval`` CLI's), 'on' or 'off'
+    (numpy, which needs no C++ compiler)."""
     n_classes = n_classes if n_classes is not None else model.config.n_classes
     if device is not None:
         model = model.to(device)
@@ -132,6 +136,7 @@ def evaluate_split(
         bucket_sizes=bucket_sizes if bucket_sizes is not None else DEFAULT_BUCKETS,
         mode="sequential",
         max_bag_size=max_bag_size,
+        native=native,
         transfer_dtype=wire,
         device=device,  # on CUDA the producer thread starts each batch's copy to the card
     )
@@ -173,7 +178,7 @@ def evaluate_split(
         topk=topk,
         patient_results=patient_results,
         stats={"transfer_dtype": wire, "n": res["n"],
-               **{k: res[k] for k in ("n_batches", "wire_bytes", "seconds", "data_wait_s")}},
+               **{k: res[k] for k in ("n_batches", "wire_bytes", "seconds", "data_wait_s", "feed")}},
     )
 
 

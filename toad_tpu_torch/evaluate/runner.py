@@ -88,7 +88,8 @@ def make_eval_step(model: ToadMIL, int8: bool = False):
 def run_eval_pass(eval_step, batcher: BagBatcher, n_classes: int, device: str | torch.device):
     """One no-grad pass: per-slide probs/preds + mean losses + AUCs on the
     host; also the pass's batches, the bytes its batches sent over the wire,
-    its seconds and those of them spent waiting for the batcher."""
+    its seconds and those of them spent waiting for the batcher, and which
+    feed filled the batches (``'native'`` or ``'numpy'``)."""
     probs, labels, sites, site_probs, preds, site_preds, sexes, indices = [], [], [], [], [], [], [], []
     cls_loss_sum = 0.0
     site_loss_sum = 0.0
@@ -134,6 +135,7 @@ def run_eval_pass(eval_step, batcher: BagBatcher, n_classes: int, device: str | 
         "wire_bytes": wire_bytes,
         "seconds": seconds,
         "data_wait_s": t_data,
+        "feed": batcher.feed_kind,
         "cls_loss": cls_loss_sum / max(n_total, 1),
         "site_loss": site_loss_sum / max(n_total, 1),
     }

@@ -201,6 +201,7 @@ class FoldTrainer:
             testing_frac=(d.testing_frac if training and d.testing_frac else None),
             max_bag_size=d.max_bag_size,
             prefetch=d.prefetch,
+            native=d.native,
             # 'auto' resolves to a bf16 transfer only when the model computes
             # in bf16 (then casting on the host is numerically invisible)
             transfer_dtype=resolve_transfer_dtype(d.transfer_dtype, self.cfg.model.compute_dtype),
@@ -313,7 +314,7 @@ class FoldTrainer:
             data_frac = t_data / max(dt, 1e-9)
             log_fn(
                 f"[fold {self.fold}] epoch {epoch}: train cls_loss {tr_cls_loss:.4f} "
-                f"err {tr_cls_err:.4f} | {n / dt:.1f} slides/s (data wait {data_frac:.0%})"
+                f"err {tr_cls_err:.4f} | {n / dt:.1f} slides/s (data wait {data_frac:.0%}), feed {train_batcher.feed_kind}"
             )
             self._write_scalars(
                 "train",
@@ -332,7 +333,7 @@ class FoldTrainer:
             val = self._eval(val_batcher)
             log_fn(
                 f"[fold {self.fold}] epoch {epoch}: val cls_loss {val['cls_loss']:.4f} "
-                f"err {val['cls_error']:.4f} auc {val['cls_auc']:.4f} site auc {val['site_auc']:.4f}"
+                f"err {val['cls_error']:.4f} auc {val['cls_auc']:.4f} site auc {val['site_auc']:.4f} | feed {val['feed']}"
             )
             # per-class TPR tallies for the val tag schema the reference emits every epoch
             val_cls_logger = AccuracyLogger(n_classes)
@@ -374,7 +375,7 @@ class FoldTrainer:
         test = self._eval(test_batcher)
         log_fn(
             f"[fold {self.fold}] FINAL val: err {val['cls_error']:.4f} auc {val['cls_auc']:.4f} | "
-            f"test: err {test['cls_error']:.4f} auc {test['cls_auc']:.4f}"
+            f"test: err {test['cls_error']:.4f} auc {test['cls_auc']:.4f} | feed val {val['feed']}, test {test['feed']}"
         )
         log_fn(
             f"[fold {self.fold}] eval batches {self.eval_batches}, pooling kernel launches "
