@@ -64,7 +64,8 @@ Phases (each prints its lines; any failure raises and the exit code is not 0):
    tokens against the same convolution under cudnn.flags(allow_tf32=False)
    (TOL_FEATURES_F32; the TF32 convolution's difference is logged) and its
    features through the kernel against plain_mha on one batch. Then
-   ``--format int8`` for one slide, read back with load_bag_quantized.
+   ``--format int8`` for one slide (the CLI's main in process, which spares
+   a second child's start-up), read back with load_bag_quantized.
 7. Train end to end (the trainer's validation and final passes are a main
    path of K1): toad_tpu_torch.data.synthetic writes a seeded dataset at full
    width (72 slides of 2,000-30,000 patches x 1024 as .npy, 18 origins with at
@@ -108,8 +109,8 @@ Phases (each prints its lines; any failure raises and the exit code is not 0):
    split, each wire: float32, bfloat16, int8): the same batch order and
    metadata, every plane equal bit for bit; and the producer's own rate (one
    pass over all 72 slides, the consumer only waiting for each batch's copy,
-   in turns numpy, native, native, numpy, float32 and bfloat16 wires; warm
-   page cache). Reported: slides/s and data-wait share of each pass by the CLI's
+   in turns numpy, native, native, numpy, on the float32 wire; warm page
+   cache). Reported: slides/s and data-wait share of each pass by the CLI's
    own clock, the bytes each wire carried, the peak device memory, the
    producer's batches/s and GB/s.
 6. Timing: kernel launches vs plain versions (CUDA events, median of 5 after
@@ -180,6 +181,28 @@ Phases (each prints its lines; any failure raises and the exit code is not 0):
    launches as the arm says; and ``python -m
    toad_tpu_torch.experiments.vit_ceiling2_probe --k 1 --runs 1`` as a
    child process.
+12. Slide inference (run after phase 8, inside phase 7's work directory, on
+   its two checkpoints and .npy cohort): ``python -m toad_tpu_torch predict``
+   on the f32 checkpoint over the test split (a manifest with its sexes) as
+   a child process: one row a slide in split order, every probability
+   within TOL_PREDICT_VS_EVAL of phase 8's f32 ``eval`` fold_0.csv (the same
+   checkpoint and K1 f32, other batches and buckets), Y_hat equal where the
+   top two differ by more, K1 f32 launches in scored mode = the slide count
+   (the child's stderr line, with its slides/s). SlideInference(int8=True)
+   in process over the same slides: K2 launches in scored mode = the slide
+   count, every probability within 0.02 of predict's. ``infer --bag`` on a
+   test slide given a coords sidecar, ``--heatmap h.png --save_attention
+   a.npz``, as a child process: its JSON parses, its attention within 1e-6
+   of SlideInference on the card and within 1e-4 of its largest |score|
+   from the plain forward's raw scores, h.png decodes (zlib and the PNG
+   header) to canvas_shape's size and to the heatmap of that attention. In
+   process: ``heatmap`` on a.npz (the built-in jet ramp and the stdlib PNG
+   writer where matplotlib and Pillow are absent), ``infer --ensemble`` over
+   the f32 and bf16 runs' checkpoints against the mean of the two single
+   predictions (2 K1 launches), and, in phase 9's directory, ``infer
+   --patches`` with its seeded ResNet-50 .pth against SlideInference.predict
+   on the bag phase 9's featurize wrote (2e-5). Then K1 f32 in scored mode
+   against classification mode at B=1 x 8,192 and 1 x 65,536, timed in turns.
 
 The second-to-last line is the kernels' JSON record, the last line the device
 record. Weights and data are random, made from --seed.
@@ -1550,19 +1573,19 @@ def check_patch_tokens(enc32, batch: torch.Tensor) -> tuple[float, float]:
     return err, (in_tf32 - exact).abs().max().item()
 
 
-def run_featurize(workdir: Path, weights: Path, patch_dir: Path, feat_dir: Path, fmt: str) -> tuple[dict, float]:
+def run_featurize(workdir: Path, weights: Path, patch_dir: Path, feat_dir: Path) -> tuple[dict, float]:
     """``python -m toad_tpu_torch featurize --encoder vit`` as a user runs it,
     in a child process: (its last JSON line, wall seconds)."""
     env = child_env()
     cmd = [sys.executable, "-m", "toad_tpu_torch", "featurize", "--encoder", "vit", "--weights", str(weights),
-           "--patch_dir", str(patch_dir), "--feat_dir", str(feat_dir), "--format", fmt, "--batch_size", "64"]
+           "--patch_dir", str(patch_dir), "--feat_dir", str(feat_dir), "--format", "npz", "--batch_size", "64"]
     t0 = time.perf_counter()
     run = subprocess.run(cmd, capture_output=True, text=True, env=env, cwd=workdir, timeout=600)
     wall = time.perf_counter() - t0
     if run.returncode != 0:
         raise AssertionError(f"featurize failed ({run.returncode}):\n{run.stdout}{run.stderr}")
     for line in run.stdout.strip().splitlines()[:-1]:
-        log(f"phase 5 featurize ({fmt}): {line}")
+        log(f"phase 5 featurize (npz): {line}")
     return json.loads(run.stdout.strip().splitlines()[-1]), wall
 
 
@@ -1595,7 +1618,7 @@ def phase_featurize(seed: int, card: str, gpu: str, workdir: Path) -> dict:
         f"({', '.join(f'{len(v[0])} tiles' for v in slides.values())}) written in {time.perf_counter() - t0:.1f} s")
 
     # main path: the CLI in a fresh process, whose launch count starts at 0
-    said, wall = run_featurize(workdir, weights, patch_dir, workdir / "feats", "npz")
+    said, wall = run_featurize(workdir, weights, patch_dir, workdir / "feats")
     want = {"slides": 2, "patches": sum(len(imgs) for imgs, _ in slides.values()), "shadowed_stale_bags": 0,
             "device": card, "batches": n_batches, "attention_kernel_launches": depth * n_batches}
     if {k: said.get(k) for k in want} != want or not said["patches_per_s"] > 0:
@@ -1658,8 +1681,16 @@ def phase_featurize(seed: int, card: str, gpu: str, workdir: Path) -> dict:
         f"max {float(noise.max()):.2e} mean {float(noise.mean()):.2e}")
     del enc32, feats32
 
-    # int8 bags for one slide
-    said8, wall8 = run_featurize(workdir, weights, patch_dir8, workdir / "feats_int8", "int8")
+    # int8 bags for one slide: the CLI's main in process (its flags and writer, without a second child's
+    # start-up), its launches counted from before the call
+    from toad_tpu_torch.ops import cuda_mha
+
+    mha_0, t8 = cuda_mha.LAUNCHES, time.perf_counter()
+    out8, _ = run_cli(["featurize", "--encoder", "vit", "--weights", str(weights), "--patch_dir", str(patch_dir8),
+                       "--feat_dir", str(workdir / "feats_int8"), "--format", "int8", "--batch_size", "64"],
+                      workdir, in_process=True)
+    said8, wall8 = dict(json.loads(out8.strip().splitlines()[-1]), attention_kernel_launches=cuda_mha.LAUNCHES - mha_0), \
+        time.perf_counter() - t8
     stored = load_bag_quantized(workdir / "feats_int8" / "slide_b.npz")
     if stored is None:
         raise AssertionError("--format int8 did not write an int8 bag")
@@ -1673,7 +1704,7 @@ def phase_featurize(seed: int, card: str, gpu: str, workdir: Path) -> dict:
     if said8["attention_kernel_launches"] != depth * 4 or off.max() > TOL_FEATURES["atol"]:
         raise AssertionError(f"int8 bag off its f32 features by {off.max():.3e} beyond half a step, or {said8}")
     log(f"phase 5 featurize: int8 bag {xq.shape} + scales {scales.shape} read back with load_bag_quantized, within "
-        f"half a quantization step (+{max(off.max(), 0):.1e}) of the f32 bag; child process {wall8:.1f} s")
+        f"half a quantization step (+{max(off.max(), 0):.1e}) of the f32 bag; featurize --format int8 in process {wall8:.1f} s")
     log(f"phase 5 featurize: {said['patches']} tiles in {said['batches']} batches of {batch_size}, attention kernel "
         f"launches {said['attention_kernel_launches']} (= {depth} x batches), {said['patches_per_s']:.1f} tiles/s by the "
         f"CLI's own clock (first-call setup included), child process {wall:.1f} s; in process {batch_ms:.2f} ms per "
@@ -2479,13 +2510,15 @@ def compare_feeds(split, gpu: str) -> None:
 def time_feeds(split, gpu: str) -> dict:
     """The producer's own rate: one pass over ``split`` on the card per run,
     the consumer only waiting for each batch's copy event, in turns numpy,
-    native, native, numpy, for the float32 and bfloat16 wires; batches/s and
-    the wire's GB/s. The bags were written in phase 7, so both feeds read a
-    warm page cache; a cold read is not measured."""
+    native, native, numpy, on the float32 wire (the bfloat16 wire's bits are
+    held to the numpy feed's by :func:`compare_feeds`); batches/s and the
+    wire's GB/s. The bags were written in
+    phase 7, so both feeds read a warm page cache; a cold read is not
+    measured."""
     from toad_tpu_torch.data.batching import BagBatcher
 
     rec: dict = {}
-    for wire in ("float32", "bfloat16"):
+    for wire in ("float32",):
         for mode in ("off", "on", "on", "off"):
             batcher = BagBatcher(split, batch_size=4, mode="sequential", transfer_dtype=wire, device="cuda", native=mode)
             n = wire_bytes = 0
@@ -2574,6 +2607,245 @@ def phase_timing_train(gpu: str, seed: int) -> dict:
             out[("step_" + kind, b)] = ms
             del tm, step, batch
     return out
+
+
+# Phase 12: slide inference (ROADMAP item 1.3). predict's probabilities vs phase 8's eval of the same checkpoint:
+# the same K1 f32 on the same rows, in other batches and buckets (f32 summation order, 3xTF32 products)
+TOL_PREDICT_VS_EVAL = 1e-4
+TOL_INFER_REPEAT = 1e-6  # infer's exported attention vs SlideInference in process: the same kernel on the same bag
+TOL_INFER_VS_PLAIN = 1e-4  # infer's raw attention vs the plain forward's on the card, of the largest |score| (f32)
+TOL_PATCHES_VS_BAG = 2e-5  # infer --patches vs the bag featurize wrote from the same tiles (tests/test_pipeline.py)
+
+
+def decode_png(data: bytes) -> np.ndarray:
+    """An 8-bit RGB PNG (the stdlib writer of toad_tpu_torch.pipeline.heatmap,
+    what runs where Pillow is absent, writes its rows unfiltered; Pillow
+    filters them) -> [H, W, 3] uint8, with zlib and the header; each chunk's
+    CRC checked."""
+    import struct
+    import zlib
+
+    if data[:8] != b"\x89PNG\r\n\x1a\n":
+        raise AssertionError("not a PNG")
+    pos, idat, header = 8, b"", None
+    while pos < len(data):
+        (length,), tag = struct.unpack(">I", data[pos:pos + 4]), data[pos + 4:pos + 8]
+        body = data[pos + 8:pos + 8 + length]
+        if struct.unpack(">I", data[pos + 8 + length:pos + 12 + length])[0] != zlib.crc32(tag + body):
+            raise AssertionError(f"PNG chunk {tag} fails its CRC")
+        if tag == b"IHDR":
+            header = struct.unpack(">IIBBBBB", body)
+        elif tag == b"IDAT":
+            idat += body
+        pos += 12 + length
+    w, h, depth, color, _, _, interlace = header
+    if (depth, color, interlace) != (8, 2, 0):
+        raise AssertionError(f"PNG of depth {depth}, colour type {color}, interlace {interlace}: not 8-bit RGB")
+    raw = np.frombuffer(zlib.decompress(idat), np.uint8).reshape(h, 3 * w + 1).astype(np.int32)
+    out = np.zeros((h + 1, 3 * w + 3), np.int32)  # a zero row above and 3 zero bytes left of every row
+    for y in range(h):
+        kind, line = raw[y, 0], raw[y, 1:]
+        up = out[y, 3:]
+        if kind in (0, 2):  # None, Up
+            out[y + 1, 3:] = (line + (up if kind == 2 else 0)) & 255
+            continue
+        if kind not in (1, 3, 4):
+            raise AssertionError(f"PNG row filter {kind}")
+        for x in range(3 * w):  # Sub, Average, Paeth: each byte depends on the one 3 to its left
+            a, b, cc = out[y + 1, x], up[x], out[y, x]
+            if kind == 1:
+                pred = a
+            elif kind == 3:
+                pred = (a + b) // 2
+            else:
+                pa, pb, pc = abs(b - cc), abs(a - cc), abs(a + b - 2 * cc)
+                pred = a if pa <= pb and pa <= pc else (b if pb <= pc else cc)
+            out[y + 1, x + 3] = (line[x] + pred) & 255
+    return out[1:, 3:].astype(np.uint8).reshape(h, w, 3)
+
+
+def run_cli(args: list[str], workdir: Path, in_process: bool = False) -> tuple[str, str]:
+    """(stdout, stderr) of ``python -m toad_tpu_torch ARGS``: a child process as
+    a user runs it, or ``main(argv)`` of the command's module in this process."""
+    import contextlib
+    import importlib
+    import io
+
+    if in_process:
+        from toad_tpu_torch.__main__ import COMMANDS
+
+        out, err = io.StringIO(), io.StringIO()
+        with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+            importlib.import_module(COMMANDS[args[0]][0]).main(args[1:])
+        return out.getvalue(), err.getvalue()
+    run = subprocess.run([sys.executable, "-m", "toad_tpu_torch", *args], capture_output=True, text=True,
+                         env=child_env(), cwd=workdir, timeout=600)
+    if run.returncode != 0:
+        raise AssertionError(f"{args[0]} failed ({run.returncode}):\n{run.stdout[-3000:]}{run.stderr[-3000:]}")
+    return run.stdout, run.stderr
+
+
+@restores_tf32
+def phase_infer(model, trained: dict, evaluated: dict, card: str, gpu: str, workdir: Path, resnet_dir: Path) -> dict:
+    """Slide inference (``predict``, ``infer``, ``heatmap``), inside phase 7's
+    work directory on its two checkpoints and .npy cohort, and in phase 9's
+    directory for ``infer --patches``. Returns the launches of this phase's
+    main path by kernel, and its timings."""
+    import re
+
+    from toad_tpu_torch.cli.common import label_names
+    from toad_tpu_torch.config import ModelConfig
+    from toad_tpu_torch.data.bags import load_bag
+    from toad_tpu_torch.ops import cuda_pool, cuda_pool_int8
+    from toad_tpu_torch.pipeline.heatmap import canvas_shape, render_heatmap
+    from toad_tpu_torch.pipeline.infer import SlideInference
+
+    torch.backends.cuda.matmul.allow_tf32 = False  # the plain forward below in full f32
+    t0 = time.perf_counter()
+    split = trained["test_split"]
+    ids = [str(s) for s in split.slide_ids]
+    sexes = [split.record(i).sex for i in range(len(ids))]
+    ckpt32 = workdir / "results" / "smoke_f32_s1" / "s_0_checkpoint.pt"
+    ckpt16 = workdir / "results" / "smoke_bf16_s1" / "s_0_checkpoint.pt"
+    task = str(workdir / "tasks" / "dummy_mtl_concat.json")
+    cfg = ModelConfig(in_dim=1024, n_classes=18)
+    (workdir / "predict_manifest.csv").write_text("slide_id,sex\n" + "".join(f"{s},{x}\n" for s, x in zip(ids, sexes)))
+    # one slide of the test split with a coords sidecar (the cohort has none), for infer's heatmap
+    slide, bag = ids[0], split.bag_file(0)
+    n_rows = np.load(bag, mmap_mode="r").shape[0]
+    side = int(np.ceil(np.sqrt(n_rows)))
+    coords = (np.stack([np.arange(n_rows) % side, np.arange(n_rows) // side], axis=1) * 256).astype(np.int64)
+    sidecar = bag.with_suffix(".coords.npy")
+    if not sidecar.exists():
+        np.save(sidecar, coords)
+    coords = np.load(sidecar)
+
+    # predict, a child process: its stderr line says its slides/s and the kernels it launched
+    out, err = run_cli(["predict", "--ckpt", str(ckpt32), "--data_dir", str(workdir / "bags"), "--csv",
+                        str(workdir / "predict_manifest.csv"), "--task", task, "--out", str(workdir / "preds.csv")], workdir)
+    said = re.search(r"predict: (\d+) slides in (\S+) s, (\S+) slides/s on (.+); pooling kernel launches (\d+) \(float kernel "
+                     r"(\d+), (\d+) in scored mode; int8 kernel (\d+), (\d+) in scored mode\)", err)
+    if said is None:
+        raise AssertionError(f"predict: no rate or launch line on stderr:\n{err[-2000:]}")
+    n_said, secs, rate, on, _, k1, k1_scored, k2, _ = said.groups()
+    rows = read_csv_rows(workdir / "preds.csv")
+    evals = {r["slide_id"]: r for r in read_csv_rows(evaluated["runs"]["f32"]["out"] / "fold_0.csv")}
+    if [r["slide_id"] for r in rows] != ids or int(n_said) != len(ids) or on.strip() != card:
+        raise AssertionError(f"predict: {len(rows)} rows for {len(ids)} slides ({n_said} said) on {on}")
+    if (int(k1), int(k1_scored), int(k2)) != (len(ids), len(ids), 0):
+        raise AssertionError(f"predict: {len(ids)} slides but float kernel launches {k1} ({k1_scored} scored), int8 {k2}")
+    cols = [f"p_{c}" for c in range(18)] + ["site_p"]
+    p_pred = np.array([[float(r[c]) for c in cols] for r in rows])
+    p_eval = np.array([[float(evals[s][c]) for c in cols] for s in ids])
+    d_eval = float(np.abs(p_pred - p_eval).max())
+    if d_eval > TOL_PREDICT_VS_EVAL:
+        raise AssertionError(f"predict vs eval's fold_0.csv: probabilities differ by {d_eval:.3e} (tolerance {TOL_PREDICT_VS_EVAL})")
+    top2 = np.sort(p_eval[:, :18], axis=1)[:, -2:]
+    clear = top2[:, 1] - top2[:, 0] > TOL_PREDICT_VS_EVAL
+    flips = [s for s, r, ok in zip(ids, rows, clear) if ok and r["Y_hat"] != evals[s]["Y_hat"]]
+    if flips:
+        raise AssertionError(f"predict's Y_hat differs from eval's on {flips}")
+    log(f"phase 12 predict: {len(rows)} slides of the test split in split order, every probability within {d_eval:.2e} of "
+        f"phase 8's f32 eval fold_0.csv (tolerance {TOL_PREDICT_VS_EVAL}), Y_hat equal on the {int(clear.sum())} slides "
+        f"whose top two differ by more than that; K1 f32 launches {k1} = {k1_scored} in scored mode = the slide count, "
+        f"int8 {k2}; {float(rate):.2f} slides/s by the CLI's clock ({float(secs):.2f} s) [{gpu}]")
+
+    # SlideInference(int8=True) in process over the same slides: K2 in scored mode, one launch a slide
+    bags = {s: load_bag(split.bag_file(i)) for i, s in enumerate(ids)}
+    inf8 = SlideInference.from_checkpoint(ckpt32, cfg, int8=True)
+    k2_0, k2s_0, k1_0 = cuda_pool_int8.LAUNCHES, cuda_pool_int8.SCORED_LAUNCHES, cuda_pool.LAUNCHES
+    preds8 = [inf8.predict(bags[s], x) for s, x in zip(ids, sexes)]
+    k2_int8, k2s = cuda_pool_int8.LAUNCHES - k2_0, cuda_pool_int8.SCORED_LAUNCHES - k2s_0
+    if (k2_int8, k2s, cuda_pool.LAUNCHES - k1_0) != (len(ids), len(ids), 0):
+        raise AssertionError(f"SlideInference(int8=True): {len(ids)} slides, K2 launches {k2_int8} ({k2s} scored), "
+                             f"K1 {cuda_pool.LAUNCHES - k1_0}")
+    p8 = np.array([np.append(p.y_prob, p.site_prob[1]) for p in preds8])
+    d8 = float(np.abs(p8 - p_pred).max())
+    if d8 > TOL_EVAL_INT8_VS_F32:
+        raise AssertionError(f"SlideInference(int8=True) vs predict in f32: {d8:.3e} (tolerance {TOL_EVAL_INT8_VS_F32})")
+    log(f"phase 12 SlideInference(int8=True), in process: {len(ids)} slides, K2 launches {k2_int8} = {k2s} in scored mode, "
+        f"none of K1; every probability within {d8:.2e} of predict's f32 run (tolerance {TOL_EVAL_INT8_VS_F32})")
+
+    # infer, a child process, on the slide with coords: JSON, the exported attention and the heatmap PNG
+    infer_args = ["infer", "--ckpt", str(ckpt32), "--bag", str(bag), "--sex", str(sexes[0]), "--task", task, "--topk", "18"]
+    out, _ = run_cli([*infer_args, "--heatmap", str(workdir / "h.png"), "--save_attention", str(workdir / "a.npz")], workdir)
+    said = json.loads(out)
+    saved = np.load(workdir / "a.npz")
+    attn, saved_coords = saved["attention"], saved["coords"]
+    inf32 = SlideInference.from_checkpoint(ckpt32, cfg)
+    ref = inf32.predict(bags[slide], sexes[0])
+    d_rep = float(np.abs(attn - ref.attention).max())
+    x = torch.from_numpy(bags[slide]).cuda()[None]
+    mask = torch.ones(x.shape[:2], device="cuda")
+    with torch.no_grad():
+        plain = plain_forward(inf32.model, x, mask, torch.tensor([sexes[0]], device="cuda"), torch.float32, True)
+    plain_scores = plain.attention[0, 0].cpu().numpy()
+    scale = float(np.abs(plain_scores).max())
+    d_plain = float(np.abs(attn - plain_scores).max())
+    png = decode_png((workdir / "h.png").read_bytes())
+    want_hw = canvas_shape(saved_coords, 256, 32)
+    if (said["n_patches"] != n_rows or said["y_hat"] != ref.y_hat or str(saved["task"]) != "origin"
+            or not np.array_equal(saved_coords, coords) or d_rep > TOL_INFER_REPEAT or d_plain > TOL_INFER_VS_PLAIN * scale
+            or png.shape[:2] != want_hw or not np.array_equal(png, render_heatmap(saved_coords, attn))):
+        raise AssertionError(f"infer: n_patches {said['n_patches']} of {n_rows}, y_hat {said['y_hat']} vs {ref.y_hat}, "
+                             f"attention vs in process {d_rep:.3e}, vs plain {d_plain:.3e} of {scale:.3e}, PNG {png.shape} "
+                             f"for a canvas of {want_hw}")
+    log(f"phase 12 infer: JSON parses ({', '.join(said)}); {n_rows} rows of attention within {d_rep:.1e} of "
+        f"SlideInference in process on the card (tolerance {TOL_INFER_REPEAT}) and {d_plain / scale:.2e} of the largest "
+        f"|score| from the plain forward's raw scores (tolerance {TOL_INFER_VS_PLAIN}); h.png decodes (zlib and the PNG "
+        f"header) to {png.shape[1]} x {png.shape[0]} = canvas_shape, the heatmap of the exported attention")
+
+    # in process: heatmap on the exported .npz (on this machine the built-in jet ramp and the stdlib PNG writer)
+    k1_0, k1s_0 = cuda_pool.LAUNCHES, cuda_pool.SCORED_LAUNCHES
+    run_cli(["heatmap", "--attention", str(workdir / "a.npz"), "--out", str(workdir / "h2.png")], workdir, in_process=True)
+    if not np.array_equal(decode_png((workdir / "h2.png").read_bytes()), png):
+        raise AssertionError("heatmap from a.npz differs from infer's own heatmap")
+    # the ensemble of the f32 and bf16 runs' checkpoints (both members computed in f32): one K1 launch a member
+    out, _ = run_cli([*infer_args, "--ensemble", "--ckpt", f"{ckpt32},{ckpt16}"], workdir, in_process=True)
+    ens = json.loads(out)
+    k1_ens, k1s_ens = cuda_pool.LAUNCHES - k1_0, cuda_pool.SCORED_LAUNCHES - k1s_0
+    ref16 = SlideInference.from_checkpoint(ckpt16, cfg).predict(bags[slide], sexes[0])
+    mean = np.mean([ref.y_prob, ref16.y_prob], axis=0)
+    index = {name: c for c, name in label_names(task).items()}
+    d_ens = max(abs(t["prob"] - float(mean[index[t["class"]]])) for t in ens["topk"])
+    if (k1_ens, k1s_ens) != (2, 2) or len(ens["topk"]) != 18 or d_ens > 1e-6:
+        raise AssertionError(f"infer --ensemble: K1 launches {k1_ens} ({k1s_ens} scored) for 2 members, probabilities "
+                             f"{d_ens:.3e} from the mean of the two single predictions")
+    log(f"phase 12 infer --ensemble (f32 and bf16 runs' checkpoints, in process): K1 f32 launches {k1_ens} = {k1s_ens} in "
+        f"scored mode, one a member; ranked probabilities within {d_ens:.1e} of the mean of the two single predictions; "
+        f"heatmap on a.npz in process gives infer's PNG")
+
+    # infer --patches in phase 9's directory: the seeded ResNet-50 on a patch file, against the bag featurize wrote
+    k1_0 = cuda_pool.LAUNCHES
+    out, _ = run_cli(["infer", "--ckpt", str(ckpt32), "--patches", str(resnet_dir / "patches" / "slide_b.npz"), "--weights",
+                      str(resnet_dir / "resnet50.pth"), "--sex", "0", "--topk", "18"], workdir, in_process=True)
+    k1_patches = cuda_pool.LAUNCHES - k1_0
+    by_patches = {int(t["class"]): t["prob"] for t in json.loads(out)["topk"]}
+    from_bag = inf32.predict(load_bag(resnet_dir / "feats" / "slide_b.npz"), 0)
+    d_patches = max(abs(p - float(from_bag.y_prob[c])) for c, p in by_patches.items())
+    if len(by_patches) != 18 or d_patches > TOL_PATCHES_VS_BAG + 5e-7 or k1_patches != 1:
+        raise AssertionError(f"infer --patches: {len(by_patches)} classes, {d_patches:.3e} from the featurized bag's "
+                             f"prediction (tolerance {TOL_PATCHES_VS_BAG}), K1 launches {k1_patches}")
+    log(f"phase 12 infer --patches (phase 9's slide_b.npz, its seeded ResNet-50 .pth, in process): y_prob within "
+        f"{d_patches:.1e} of SlideInference.predict on the bag phase 9's featurize wrote (tolerance {TOL_PATCHES_VS_BAG}, "
+        f"6-digit JSON rounding beside it); K1 launches {k1_patches}")
+
+    # what scored mode costs: K1 f32 at B=1, scored against classification, in turns
+    with torch.no_grad():
+        ops = model.kernel_operands(torch.float32)
+    g = torch.Generator(device="cuda").manual_seed(12)
+    scored = {}
+    for n in (8192, 65536):
+        xb = torch.randn(1, n, 1024, device="cuda", generator=g)
+        mb = torch.ones(1, n, device="cuda")
+        cls, sco = (lambda: cuda_pool.pool(ops, xb, mb, with_scores=False)), (lambda: cuda_pool.pool(ops, xb, mb, with_scores=True))
+        c1, s1, s2, c2 = (cuda_ms(fn) for fn in (cls, sco, sco, cls))
+        scored[n] = dict(classification=min(c1, c2), scored=min(s1, s2))
+        log(f"phase 12 timing K1 f32 at B=1 x {n}: scored mode {min(s1, s2):.3f} ms ({s1:.3f}/{s2:.3f}), classification "
+            f"{min(c1, c2):.3f} ms ({c1:.3f}/{c2:.3f}): scored mode costs {100 * (min(s1, s2) / min(c1, c2) - 1):+.1f} % [{gpu}]")
+    log(f"phase 12: {time.perf_counter() - t0:.1f} s")
+    return dict(k1_f32_launches=int(k1) + k1_ens + k1_patches, k2_launches=k2_int8, predict_rate=float(rate),
+                predict_seconds=float(secs), scored=scored)
 
 
 def check_probe(name: str, got: torch.Tensor, want: torch.Tensor, tol: float) -> tuple[float, float]:
@@ -3080,14 +3352,17 @@ def main() -> int:
     with tempfile.TemporaryDirectory(prefix="toad_smoke_vit_") as tmp:
         featurized = phase_featurize(args.seed, card, gpu, Path(tmp))
     elapsed("phase 5")
-    with tempfile.TemporaryDirectory(prefix="toad_smoke_resnet_") as tmp:
-        resnet = phase_resnet(args.seed, card, gpu, Path(tmp))
-    elapsed("phase 9")
-    with tempfile.TemporaryDirectory(prefix="toad_smoke_train_") as tmp:
-        trained = phase_train(args.seed, card, gpu, Path(tmp))
-        elapsed("phase 7")
-        evaluated = phase_eval(trained, card, gpu, Path(tmp))
-    elapsed("phase 8")
+    # phase 9's directory (patch files, the seeded .pth, its bags) stays for phase 12's infer --patches
+    with tempfile.TemporaryDirectory(prefix="toad_smoke_resnet_") as resnet_tmp:
+        resnet = phase_resnet(args.seed, card, gpu, Path(resnet_tmp))
+        elapsed("phase 9")
+        with tempfile.TemporaryDirectory(prefix="toad_smoke_train_") as tmp:
+            trained = phase_train(args.seed, card, gpu, Path(tmp))
+            elapsed("phase 7")
+            evaluated = phase_eval(trained, card, gpu, Path(tmp))
+            elapsed("phase 8")
+            inferred = phase_infer(model, trained, evaluated, card, gpu, Path(tmp), Path(resnet_tmp))
+            elapsed("phase 12")
     probes = phase_probes(args.seed, gpu)
     elapsed("phase 10")
     vit_probes = phase_vit_probes(args.seed, gpu)
@@ -3120,8 +3395,9 @@ def main() -> int:
             "route": "cuda",
             "source": "toad_tpu_torch/csrc/pool.cu",
             "replaces": "toad_tpu/ops/pallas_pool.py:93",
-            # the f32 instance, the default of eval and train: the f32 eval passes and the f32 trainer's passes
-            "launches": evaluated["k1_f32_launches"] + trained["launches"],
+            # the f32 instance, the default of eval, train, predict and infer: the f32 eval passes, the f32
+            # trainer's passes, and phase 12's predict child and in-process infer (scored mode)
+            "launches": evaluated["k1_f32_launches"] + trained["launches"] + inferred["k1_f32_launches"],
             "max_abs_err": worst[torch.float32],
             **times[("float32", 32)],
         },
@@ -3130,7 +3406,8 @@ def main() -> int:
             "route": "cuda",
             "source": "toad_tpu_torch/csrc/pool_int8.cu",
             "replaces": "toad_tpu/ops/pallas_pool.py:259",
-            "launches": served8["launches"] + evaluated["k2_launches"],  # the int8 serving burst and eval --int8
+            # the int8 serving burst, eval --int8 and phase 12's SlideInference(int8=True) (scored mode)
+            "launches": served8["launches"] + evaluated["k2_launches"] + inferred["k2_launches"],
             "max_abs_err": worst8,
             **times[("int8", 32)],
         },
@@ -3186,6 +3463,10 @@ def main() -> int:
     log(f"phase 8 eval: the eval passes launched the float pooling kernel {evaluated['k1_f32_launches']} times in f32 and "
         f"{evaluated['k1_bf16_launches']} in bf16, and the int8 pooling kernel {evaluated['k2_launches']} times, one per "
         f"eval batch (serving bursts: {served['launches']} and {served8['launches']})")
+    log(f"phase 12 infer: predict launched K1 f32 in scored mode once a slide, {inferred['predict_rate']:.2f} slides/s by the "
+        f"CLI's clock; phase 12's launches: K1 f32 {inferred['k1_f32_launches']}, K2 {inferred['k2_launches']}; scored mode at "
+        f"B=1 costs " + ", ".join(f"{100 * (v['scored'] / v['classification'] - 1):+.1f} % at {n} rows"
+                                  for n, v in inferred["scored"].items()) + f" [{gpu}]")
     enc_t, st = resnet["times"]["encoder"], resnet["times"]
     log(f"phase 9 timing summary: KS / plain_stage / cuDNN stage, bound (ms), bf16 B=64 at 256 px: " + "; ".join(
         f"{k} {st[k]['ms']:.3f} / {st[k]['plain_ms']:.3f} / {st[k]['library_ms']:.3f}, {st[k]['bound_ms']:.4f} by "

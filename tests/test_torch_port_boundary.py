@@ -1,6 +1,6 @@
 """Import boundary of the PyTorch port: every toad_tpu_torch module imports
-without the JAX stack (jax, pandas, h5py, ml_dtypes, orbax, optax and PIL are
-absent on the GPU machine) and without building a kernel."""
+without the JAX stack (jax, pandas, h5py, ml_dtypes, orbax, optax, PIL and
+matplotlib are absent on the GPU machine) and without building a kernel."""
 
 import json
 import subprocess
@@ -10,7 +10,7 @@ from pathlib import Path
 import pytest
 
 REPO = Path(__file__).resolve().parent.parent
-FORBIDDEN = ("jax", "jaxlib", "pandas", "h5py", "ml_dtypes", "orbax", "optax", "PIL")
+FORBIDDEN = ("jax", "jaxlib", "pandas", "h5py", "ml_dtypes", "orbax", "optax", "PIL", "matplotlib")
 
 _PROBE = f"""
 import importlib, json, pkgutil, sys
@@ -158,6 +158,16 @@ EVAL_MODULES = (
 )
 
 
+INFER_MODULES = (
+    "toad_tpu_torch.pipeline.infer",
+    "toad_tpu_torch.pipeline.heatmap",
+    "toad_tpu_torch.cli.infer",
+    "toad_tpu_torch.cli.predict",
+    "toad_tpu_torch.cli.heatmap",
+    "toad_tpu_torch.cli.export",
+)
+
+
 PROBE_MODULES = (
     "toad_tpu_torch.ops.probe_pool",
     "toad_tpu_torch.ops.probe_pool_int8",
@@ -176,9 +186,9 @@ PROBE_MODULES = (
 
 
 @pytest.mark.parametrize("module", INT8_MODULES + VIT_MODULES + TRAIN_MODULES + EVAL_MODULES + RESNET_MODULES
-                         + PROBE_MODULES)
+                         + PROBE_MODULES + INFER_MODULES)
 def test_int8_modules_import_neither_jax_nor_the_jax_package(probe, module):
-    """Each module of the int8, ViT and ResNet featurization, training and evaluation paths, imported alone
+    """Each module of the int8, ViT and ResNet featurization, training, evaluation and slide-inference paths, imported alone
     in a fresh process, loads no module of the JAX stack (h5py and PIL
     included) or of toad_tpu and builds no kernel."""
     assert module in probe["modules"]
@@ -201,14 +211,12 @@ def test_dispatcher_lists_only_ported_commands():
         [sys.executable, "-m", "toad_tpu_torch", "--help"], cwd=REPO, capture_output=True, text=True, timeout=120
     )
     assert out.returncode == 0
-    listed = {line.split()[0] for line in out.stdout.splitlines() if line.startswith("  ")}
-    assert listed == {"serve", "featurize", "convert", "train", "create-splits", "make-dummy", "eval", "report", "validate",
-                      "tile"}
+    listed = [line.split()[0] for line in out.stdout.splitlines() if line.startswith("  ")]
     from toad_tpu.__main__ import COMMANDS as JAX_COMMANDS
 
-    assert listed < set(JAX_COMMANDS) and len(listed) == 10 and len(JAX_COMMANDS) == 14
+    assert set(listed) == set(JAX_COMMANDS) and len(listed) == len(JAX_COMMANDS) == 14  # every command is ported
     bad = subprocess.run(
-        [sys.executable, "-m", "toad_tpu_torch", "infer"], cwd=REPO, capture_output=True, text=True, timeout=120
+        [sys.executable, "-m", "toad_tpu_torch", "no-such-command"], cwd=REPO, capture_output=True, text=True, timeout=120
     )
     assert bad.returncode == 2 and "unknown command" in bad.stderr
 

@@ -1,6 +1,7 @@
 """Unified CLI dispatcher: ``python -m toad_tpu_torch <command> [args]``.
 
-Mirrors ``python -m toad_tpu``; lists only the commands ported so far.
+Mirrors ``python -m toad_tpu``, with the same 14 commands. Unlike the JAX
+dispatcher it passes a command's exit status on.
 """
 
 from __future__ import annotations
@@ -18,6 +19,10 @@ COMMANDS = {
     "convert": ("toad_tpu_torch.cli.convert", "re-encode a bag store (e.g. f32 .pt -> int8 .npz)"),
     "tile": ("toad_tpu_torch.cli.tile", "raster slides -> patch files (tissue-filtered grid)"),
     "featurize": ("toad_tpu_torch.cli.featurize", "patch files -> feature bags (ResNet-50 / ViT-L)"),
+    "infer": ("toad_tpu_torch.cli.infer", "one slide -> prediction + ranked origins + heatmap"),
+    "predict": ("toad_tpu_torch.cli.predict", "bulk prediction over unlabeled bags"),
+    "heatmap": ("toad_tpu_torch.cli.heatmap", "render heatmap PNG from saved attention"),
+    "export": ("toad_tpu_torch.cli.export", "checkpoint -> reference torch state_dict layout"),
 }
 
 

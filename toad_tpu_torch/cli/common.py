@@ -20,6 +20,17 @@ def parse_sex(value) -> int:
     return m[key]
 
 
+def resolve_device_arg(value: str):
+    """``--device`` as a torch.device: the card unless the CPU is asked for.
+    Exits, naming ``--device cpu``, where CUDA is asked for and absent."""
+    from toad_tpu_torch.train.loop import resolve_device
+
+    try:
+        return resolve_device(value)
+    except (RuntimeError, ValueError) as e:
+        raise SystemExit(f"error: --device {value}: {e}") from None
+
+
 def add_task_arg(p: argparse.ArgumentParser) -> None:
     from toad_tpu_torch.registry import list_tasks
 
@@ -147,3 +158,29 @@ def resolve_temperature(temperature: float, temperature_from: str | os.PathLike 
     t = float(obj["temperature"])
     print(f"temperature {t:.4f} from {path}", file=sys.stderr)
     return t
+
+
+def build_inference(args, device, compute_dtype: str = "float32"):
+    """The ``SlideInference`` (or, with ``--ensemble``, the
+    ``EnsembleInference``) of ``--ckpt`` that ``infer`` and ``predict`` run:
+    ``--encoding_size``, ``--n_classes``, ``--int8``, the temperature and the
+    bucket ladder from their flags."""
+    from toad_tpu_torch.config import ModelConfig
+    from toad_tpu_torch.pipeline.infer import EnsembleInference, SlideInference
+
+    model_cfg = ModelConfig(in_dim=args.encoding_size, n_classes=args.n_classes, compute_dtype=compute_dtype)
+    kw = dict(int8=args.int8, temperature=resolve_temperature(args.temperature, args.temperature_from),
+              bucket_sizes=resolve_buckets(args.buckets), device=device)
+    if args.ensemble:
+        return EnsembleInference.from_spec(args.ckpt, model_cfg, **kw)
+    return SlideInference.from_checkpoint(args.ckpt, model_cfg, **kw)
+
+
+def label_names(task: str | None) -> dict[int, str] | None:
+    """Index -> origin name of a task's first label dict, or None without a task."""
+    if not task:
+        return None
+    from toad_tpu_torch.registry import load_task
+    from toad_tpu_torch.utils import invert_labels
+
+    return invert_labels(load_task(task).label_dicts[0])

@@ -29,6 +29,7 @@ from toad_tpu_torch.cli.common import (
     refuse_flags,
     require_data_root,
     resolve_buckets,
+    resolve_device_arg,
 )
 from toad_tpu_torch.config import ModelConfig, fold_range
 from toad_tpu_torch.utils.io import write_columns_csv, write_rows_csv
@@ -115,17 +116,13 @@ def main(argv=None):
     from toad_tpu_torch.evaluate.metrics import binary_auc, topk_accuracy
     from toad_tpu_torch.ops import cuda_pool, cuda_pool_int8
     from toad_tpu_torch.train.checkpoint import checkpoint_name
-    from toad_tpu_torch.train.loop import resolve_device
     from toad_tpu_torch.utils import invert_labels
 
     args = make_parser().parse_args(argv)
     refuse_flags(args, _NOT_PORTED)
     if args.pallas:
         print("--pallas has no effect here: on CUDA the hand-written pooling kernel is always the path", file=sys.stderr)
-    try:
-        device = resolve_device(args.device)
-    except (RuntimeError, ValueError) as e:
-        raise SystemExit(f"error: --device {args.device}: {e}") from None
+    device = resolve_device_arg(args.device)
     if args.save_exp_code is None:
         # never write to EVAL_None: the models code is the natural identity
         if args.models_exp_code is None:

@@ -37,6 +37,7 @@ import torch
 from toad_tpu_torch.ops import _build
 
 LAUNCHES = 0  # kernel launches in this process (one per call of pool)
+SCORED_LAUNCHES = 0  # those of them in scored mode (with_scores: the raw scores written)
 PARTIAL_LAUNCHES = 0  # launches of the kernel's partial mode (one per call of pool_partial)
 COMBINE_LAUNCHES = 0  # launches of the cross-shard combine (one per call of combine_shards)
 
@@ -264,7 +265,7 @@ def pool(
     many rows (a multiple of the kernel's row tile, :func:`plan`'s rows)
     instead of the default plan's (:func:`wave_split_plan`); 2,048 is the long-bag probe's tiling
     (``experiments/longbag_probe.py::pool_tile2048``)."""
-    global LAUNCHES
+    global LAUNCHES, SCORED_LAUNCHES
     x, mask, b_, n, d, h_dim, a_dim, kernel_plan = _prepare(ops, x, mask)
     dev = x.device
     lib = _build.load_library()
@@ -281,6 +282,7 @@ def pool(
         )
     _raise_on(err, lib, "pooling kernel")
     LAUNCHES += 1
+    SCORED_LAUNCHES += with_scores
     return m, scores
 
 

@@ -29,6 +29,7 @@ from toad_tpu_torch.ops import _build
 from toad_tpu_torch.ops.cuda_pool import MAX_SMEM, N_TASKS, interleave_gate, launch_buffers, wave_split_plan
 
 LAUNCHES = 0  # kernel launches in this process (one per call of pool_int8)
+SCORED_LAUNCHES = 0  # those of them in scored mode (with_scores: the raw scores written)
 
 HIDDEN = 512  # the kernel's trunk width: one GEMM pass covers a whole row
 ROWS = 64  # rows of a tile: each trunk GEMM keeps 64 x 512 int32 sums in registers
@@ -153,7 +154,7 @@ def pool_int8(
     (tiles_per_split, n_splits) runs each bag in those runs of row tiles in
     place of the default whole-wave plan; the scores do not depend on it, M
     only by the rounding of e to bf16 against each run's running max."""
-    global LAUNCHES
+    global LAUNCHES, SCORED_LAUNCHES
     if xq.device.type != "cuda":
         raise ValueError(f"the CUDA int8 pooling kernel needs CUDA tensors, got {xq.device}")
     if sx.device != xq.device or mask.device != xq.device or any(t.device != xq.device for t in ops):
@@ -210,6 +211,7 @@ def pool_int8(
     if err != 0:
         raise RuntimeError(f"int8 pooling kernel launch failed: CUDA error {err} ({lib.toad_cuda_error_string(err).decode()})")
     LAUNCHES += 1
+    SCORED_LAUNCHES += with_scores
     return m, scores
 
 

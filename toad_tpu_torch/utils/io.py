@@ -65,10 +65,12 @@ def write_columns_csv(path: str | os.PathLike, columns: Mapping[str, Any], index
         w.writerows(zip(*cols))
 
 
-def write_rows_csv(path: str | os.PathLike, rows: Sequence[Mapping[str, Any]], columns: Sequence[str] | None = None) -> None:
-    """``pd.DataFrame(rows).to_csv(path)``: a running index in an unnamed
-    first column, then one column per key in first-seen order (or
-    ``columns``); a key a row lacks is an empty cell."""
+def write_rows_csv(path: str | os.PathLike, rows: Sequence[Mapping[str, Any]], columns: Sequence[str] | None = None,
+                   index: bool = True) -> None:
+    """``pd.DataFrame(rows).to_csv(path, index=index)``: with ``index`` a
+    running index in an unnamed first column, then one column per key in
+    first-seen order (or ``columns``); a key a row lacks is an empty cell."""
     if columns is None:
         columns = list(dict.fromkeys(k for row in rows for k in row))
-    write_columns_csv(path, {c: [row.get(c) for row in rows] for c in columns}, index=range(len(rows)))
+    write_columns_csv(path, {c: [row.get(c) for row in rows] for c in columns},
+                      index=range(len(rows)) if index else None)
