@@ -203,6 +203,27 @@ Phases (each prints its lines; any failure raises and the exit code is not 0):
    --patches`` with its seeded ResNet-50 .pth against SlideInference.predict
    on the bag phase 9's featurize wrote (2e-5). Then K1 f32 in scored mode
    against classification mode at B=1 x 8,192 and 1 x 65,536, timed in turns.
+13. Ensemble serving and /heatmap (run after phase 12, in phase 7's work
+   directory): phase 7's f32 and bf16 checkpoints laid out as a results dir
+   of two folds (both members computed in f32), ``python -m toad_tpu_torch
+   serve --ensemble`` as a child process at the default 5 ms window with no
+   warmup, and a burst of 24 concurrent requests over the octet f32 and
+   bag_path routes, with and without attention: every answer against
+   EnsembleInference on the card from the same members (probabilities
+   within TOL_ENSEMBLE_PROB, attention weights within
+   TOL_ENSEMBLE_ATTENTION, y_hat equal); from /stats, K1 launches = 2 x
+   batches and K1 launches in scored mode = 2 x the batches that asked for
+   attention; ``POST /heatmap`` on phase 12's slide with coords, its PNG
+   decoded with zlib to canvas_shape; the same burst on ``serve`` with the
+   first member alone (K1 launches = batches, against SlideInference), for
+   the second member's cost. Then the int8 ensemble in process (12 of the
+   requests)
+   through serve_in_thread (K2 launches = 2 x batches, against
+   EnsembleInference(int8=True)); the forward of one assembled batch (B=8 x
+   8,192) by a 1-member and a 2-member batcher, in turns (CUDA events); and
+   ``toad_tpu_torch.experiments.serve_load.main()`` in process over wires
+   none and raw (--bag_n 8192 --requests 96 --concurrency 8), its line parsed
+   and its K1 launches = its batches.
 
 The second-to-last line is the kernels' JSON record, the last line the device
 record. Weights and data are random, made from --seed.
@@ -1325,16 +1346,21 @@ def child_env() -> dict:
 
 
 class Server:
-    """``python -m toad_tpu_torch serve --bf16`` on port 0 in a child process."""
+    """``python -m toad_tpu_torch serve --bf16`` (without ``--bf16`` when
+    ``bf16`` is False) on port 0 in a child process."""
 
-    def __init__(self, ckpt: Path, bag_dir: Path, workdir: Path, extra: list[str]):
+    def __init__(self, ckpt: Path, bag_dir: Path, workdir: Path, extra: list[str], bf16: bool = True):
         env = child_env()
         cmd = [sys.executable, "-m", "toad_tpu_torch", "serve", "--ckpt", str(ckpt), "--task", "dummy_mtl_concat",
-               "--bf16", "--port", "0", "--bag_root", str(bag_dir), *extra]
+               *(["--bf16"] if bf16 else []), "--port", "0", "--bag_root", str(bag_dir), *extra]
         self.proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True, env=env, cwd=workdir)
         self.lines: list[str] = []
+        self.base: str | None = None
 
     def __enter__(self) -> "Server":
+        """Waits for the 'serving on' line; once that has come, returns at once."""
+        if self.base is not None:
+            return self
         deadline = time.monotonic() + 300
         port = None
         while port is None:
@@ -1385,79 +1411,89 @@ def phase_serve(model, seed: int, gpu: str, workdir: Path) -> dict:
     ckpt = write_checkpoint(model, workdir)
     bag_dir = workdir / "bags"
     bag_dir.mkdir()
-    reqs = make_requests(seed, bag_dir, ROUTES)
-    attn = sum(r["attention"] for r in reqs)
+    # both servers start before the requests are made, so that their start-ups overlap that and each other;
+    # both are serving and idle before the first burst's clock starts, and the 300 ms one idles through it
+    fast = Server(ckpt, bag_dir, workdir, [])
+    slow = Server(ckpt, bag_dir, workdir, ["--max_wait_ms", "300"])
+    try:
+        reqs = make_requests(seed, bag_dir, ROUTES)
+        attn = sum(r["attention"] for r in reqs)
+        fast.__enter__()
+        slow.__enter__()
 
-    # main path: the server as a user starts it (default 5 ms batching window,
-    # no --warmup). Its kernel launch count starts at 0 in the fresh process;
-    # /stats reads it after the burst.
-    with Server(ckpt, bag_dir, workdir, []) as srv:
-        health = _get(srv.base + "/healthz")
-        if health.get("device") != gpu.split(",")[0].strip():
-            raise AssertionError(f"/healthz device {health} is not the card {gpu}")
-        before = _get(srv.base + "/stats")
-        if before["kernel_launches"] != 0 or before["int8_kernel_launches"] != 0 or before["requests"] != 0:
-            raise AssertionError(f"fresh server already counts work: {before}")
-        results, wall = burst(srv.base, reqs)
-        stats = _get(srv.base + "/stats")
-        worst, near_ties = check_answers(model, reqs, results)
-        if stats["requests"] != len(reqs) or stats["kernel_launches"] < max(1, stats["batches"]):
-            raise AssertionError(f"kernel launches {stats['kernel_launches']} < batches {stats['batches']}: {stats}")
-        if stats["int8_kernel_launches"] != 0:
-            raise AssertionError(f"the bf16 server launched the int8 kernel: {stats}")
-        srv.stop()
-    log(f"phase 4 serve (5 ms window): p50 latency by route (ms): {p50_by_route(reqs, results, ROUTES)} [{gpu}]")
-    lat = sorted(res[1] for res in results)
-    log(f"phase 4 serve (5 ms window): {len(reqs)} concurrent requests ({', '.join(ROUTES)}; attention on "
-        f"{attn}), {stats['batches']} batches, mean batch {stats['mean_batch_size']}, kernel launches "
-        f"{stats['kernel_launches']}, max |y_prob - plain| {worst:.2e}, near-ties {near_ties}; "
-        f"burst wall {wall:.3f} s, dispatch thread in batch assembly {stats['assemble_s']:.3f} s, "
-        f"in device forwards {stats['forward_s']:.3f} s [{gpu}]")
-    main = dict(launches=stats["kernel_launches"], batches=stats["batches"], worst=worst,
-                rps=len(reqs) / wall, p50=statistics.median(lat), wall=wall)
-
-    # coalescing and drain: a 300 ms window gathers the burst into shared forwards
-    with Server(ckpt, bag_dir, workdir, ["--max_wait_ms", "300"]) as srv:
-        results, wall = burst(srv.base, reqs)
-        stats = _get(srv.base + "/stats")
-        worst, near_ties = check_answers(model, reqs, results)
-        if not stats["batches"] < stats["requests"] == len(reqs):
-            raise AssertionError(f"no coalescing: {stats}")
-        if stats["kernel_launches"] < stats["batches"]:
-            raise AssertionError(f"kernel launches {stats['kernel_launches']} < batches {stats['batches']}")
+        # main path: the server as a user starts it (default 5 ms batching window,
+        # no --warmup). Its kernel launch count starts at 0 in the fresh process;
+        # /stats reads it after the burst.
+        with fast as srv:
+            health = _get(srv.base + "/healthz")
+            if health.get("device") != gpu.split(",")[0].strip():
+                raise AssertionError(f"/healthz device {health} is not the card {gpu}")
+            before = _get(srv.base + "/stats")
+            if before["kernel_launches"] != 0 or before["int8_kernel_launches"] != 0 or before["requests"] != 0:
+                raise AssertionError(f"fresh server already counts work: {before}")
+            results, wall = burst(srv.base, reqs)
+            stats = _get(srv.base + "/stats")
+            worst, near_ties = check_answers(model, reqs, results)
+            if stats["requests"] != len(reqs) or stats["kernel_launches"] < max(1, stats["batches"]):
+                raise AssertionError(f"kernel launches {stats['kernel_launches']} < batches {stats['batches']}: {stats}")
+            if stats["int8_kernel_launches"] != 0:
+                raise AssertionError(f"the bf16 server launched the int8 kernel: {stats}")
+            srv.stop()
+        log(f"phase 4 serve (5 ms window): p50 latency by route (ms): {p50_by_route(reqs, results, ROUTES)} [{gpu}]")
         lat = sorted(res[1] for res in results)
-        log(f"phase 4 serve (300 ms window): {stats['batches']} batches, mean batch {stats['mean_batch_size']}, "
-            f"kernel launches {stats['kernel_launches']}, max |y_prob - plain| {worst:.2e}, near-ties {near_ties}, "
-            f"{len(reqs) / wall:.2f} requests/s, p50 {statistics.median(lat) * 1e3:.1f} ms; burst wall "
-            f"{wall:.3f} s, assembly {stats['assemble_s']:.3f} s, forwards {stats['forward_s']:.3f} s [{gpu}]")
+        log(f"phase 4 serve (5 ms window): {len(reqs)} concurrent requests ({', '.join(ROUTES)}; attention on "
+            f"{attn}), {stats['batches']} batches, mean batch {stats['mean_batch_size']}, kernel launches "
+            f"{stats['kernel_launches']}, max |y_prob - plain| {worst:.2e}, near-ties {near_ties}; "
+            f"burst wall {wall:.3f} s, dispatch thread in batch assembly {stats['assemble_s']:.3f} s, "
+            f"in device forwards {stats['forward_s']:.3f} s [{gpu}]")
+        main = dict(launches=stats["kernel_launches"], batches=stats["batches"], worst=worst,
+                    rps=len(reqs) / wall, p50=statistics.median(lat), wall=wall)
 
-        # graceful drain: SIGTERM while accepted requests are still in flight
-        tail: list = [None] * 4
-        errors: list = []
+        # coalescing and drain: a 300 ms window gathers the burst into shared forwards
+        with slow as srv:
+            results, wall = burst(srv.base, reqs)
+            stats = _get(srv.base + "/stats")
+            worst, near_ties = check_answers(model, reqs, results)
+            if not stats["batches"] < stats["requests"] == len(reqs):
+                raise AssertionError(f"no coalescing: {stats}")
+            if stats["kernel_launches"] < stats["batches"]:
+                raise AssertionError(f"kernel launches {stats['kernel_launches']} < batches {stats['batches']}")
+            lat = sorted(res[1] for res in results)
+            log(f"phase 4 serve (300 ms window): {stats['batches']} batches, mean batch {stats['mean_batch_size']}, "
+                f"kernel launches {stats['kernel_launches']}, max |y_prob - plain| {worst:.2e}, near-ties {near_ties}, "
+                f"{len(reqs) / wall:.2f} requests/s, p50 {statistics.median(lat) * 1e3:.1f} ms; burst wall "
+                f"{wall:.3f} s, assembly {stats['assemble_s']:.3f} s, forwards {stats['forward_s']:.3f} s [{gpu}]")
 
-        def worker(i: int) -> None:
-            try:
-                tail[i] = send(srv.base, reqs[i])
-            except Exception as e:  # handed to the main thread, which raises
-                errors.append((i, repr(e)))
+            # graceful drain: SIGTERM while accepted requests are still in flight
+            tail: list = [None] * 4
+            errors: list = []
 
-        threads = [threading.Thread(target=worker, args=(i,)) for i in range(4)]
-        for t in threads:
-            t.start()
-        deadline = time.monotonic() + 120
-        while _get(srv.base + "/stats")["requests"] < stats["requests"] + 4:
-            if time.monotonic() > deadline:
-                raise AssertionError("drain requests never reached the batcher")
-            time.sleep(0.01)
-        srv.proc.send_signal(signal.SIGTERM)
-        for t in threads:
-            t.join(300)
-        rc = srv.stop(signalled=True)
-        if errors or any(res is None for res in tail):
-            raise AssertionError(f"drain failed: errors {errors}")
-        check_answers(model, reqs[:4], tail)
-    log(f"phase 4 drain: SIGTERM with 4 requests in flight, all answered, server exit {rc}")
-    return main
+            def worker(i: int) -> None:
+                try:
+                    tail[i] = send(srv.base, reqs[i])
+                except Exception as e:  # handed to the main thread, which raises
+                    errors.append((i, repr(e)))
+
+            threads = [threading.Thread(target=worker, args=(i,)) for i in range(4)]
+            for t in threads:
+                t.start()
+            deadline = time.monotonic() + 120
+            while _get(srv.base + "/stats")["requests"] < stats["requests"] + 4:
+                if time.monotonic() > deadline:
+                    raise AssertionError("drain requests never reached the batcher")
+                time.sleep(0.01)
+            srv.proc.send_signal(signal.SIGTERM)
+            for t in threads:
+                t.join(300)
+            rc = srv.stop(signalled=True)
+            if errors or any(res is None for res in tail):
+                raise AssertionError(f"drain failed: errors {errors}")
+            check_answers(model, reqs[:4], tail)
+        log(f"phase 4 drain: SIGTERM with 4 requests in flight, all answered, server exit {rc}")
+        return main
+    finally:
+        fast.__exit__()
+        slow.__exit__()
 
 
 def phase_serve_int8(model, seed: int, gpu: str, workdir: Path) -> dict:
@@ -1466,52 +1502,57 @@ def phase_serve_int8(model, seed: int, gpu: str, workdir: Path) -> dict:
     ckpt = write_checkpoint(model, workdir)
     src, store = workdir / "bags8_f32", workdir / "bags8"
     src.mkdir()
-    reqs = make_requests(seed + 1, src, ROUTES_INT8)
-    env = child_env()
-    t0 = time.perf_counter()
-    conv = subprocess.run([sys.executable, "-m", "toad_tpu_torch", "convert", "--data_dir", str(src), "--out_dir",
-                           str(store), "--format", "int8"], capture_output=True, text=True, env=env, cwd=workdir,
-                          timeout=600)
-    if conv.returncode != 0:
-        raise AssertionError(f"convert failed ({conv.returncode}):\n{conv.stdout}{conv.stderr}")
-    log(f"phase 4 serve int8: {conv.stdout.strip()} in {time.perf_counter() - t0:.2f} s")
-    for r in reqs:
-        if r["path"] is not None:
-            r["path"] = store / f"{r['path'].stem}.npz"
-    attn = sum(r["attention"] for r in reqs)
+    # the server starts before the requests and the store are made (it reads the store only when asked)
+    srv = Server(ckpt, store, workdir, ["--int8"])
+    try:
+        reqs = make_requests(seed + 1, src, ROUTES_INT8)
+        env = child_env()
+        t0 = time.perf_counter()
+        conv = subprocess.run([sys.executable, "-m", "toad_tpu_torch", "convert", "--data_dir", str(src), "--out_dir",
+                               str(store), "--format", "int8"], capture_output=True, text=True, env=env, cwd=workdir,
+                              timeout=600)
+        if conv.returncode != 0:
+            raise AssertionError(f"convert failed ({conv.returncode}):\n{conv.stdout}{conv.stderr}")
+        log(f"phase 4 serve int8: {conv.stdout.strip()} in {time.perf_counter() - t0:.2f} s")
+        for r in reqs:
+            if r["path"] is not None:
+                r["path"] = store / f"{r['path'].stem}.npz"
+        attn = sum(r["attention"] for r in reqs)
 
-    with Server(ckpt, store, workdir, ["--int8"]) as srv:
-        before = _get(srv.base + "/stats")
-        if before["int8_kernel_launches"] != 0 or before["kernel_launches"] != 0 or before["requests"] != 0:
-            raise AssertionError(f"fresh server already counts work: {before}")
-        if before["config"]["int8"] is not True:
-            raise AssertionError(f"/stats does not show int8 mode: {before['config']}")
-        results, wall = burst(srv.base, reqs)
-        stats = _get(srv.base + "/stats")
-        srv.stop()
-    worst, near_ties = check_answers(model, reqs, results, plain_int8_reference, TOL_INT8_S)
-    if stats["requests"] != len(reqs) or stats["int8_kernel_launches"] < max(1, stats["batches"]):
-        raise AssertionError(f"int8 kernel launches {stats['int8_kernel_launches']} < batches {stats['batches']}: {stats}")
-    if stats["kernel_launches"] != 0:
-        raise AssertionError(f"the int8 server launched the float kernel: {stats}")
-    # against the bf16 plain forward: the quantization budget
-    vs_bf16, top1 = 0.0, 0
-    for r, (out, _lat) in zip(reqs, results):
-        p_ref = plain_bf16_reference(model, r).y_prob[0].cpu().numpy()
-        vs_bf16 = max(vs_bf16, float(np.abs(np.asarray(out["y_prob"]) - p_ref).max()))
-        top1 += out["y_hat"] == int(p_ref.argmax())
-    if vs_bf16 > TOL_INT8_VS_BF16:
-        raise AssertionError(f"int8 answers off the bf16 forward by {vs_bf16:.3e} > {TOL_INT8_VS_BF16}")
-    lat = sorted(res[1] for res in results)
-    log(f"phase 4 serve int8 (5 ms window): p50 latency by route (ms): {p50_by_route(reqs, results, ROUTES_INT8)} [{gpu}]")
-    log(f"phase 4 serve int8 (5 ms window): {len(reqs)} concurrent requests ({', '.join(ROUTES_INT8)}; attention "
-        f"on {attn}), {stats['batches']} batches, mean batch {stats['mean_batch_size']}, int8 kernel launches "
-        f"{stats['int8_kernel_launches']}, max |y_prob - plain int8| {worst:.2e}, near-ties {near_ties}; "
-        f"max |y_prob - plain bf16| {vs_bf16:.2e}, top-1 agreement with bf16 {top1}/{len(reqs)}; burst wall "
-        f"{wall:.3f} s, dispatch thread in batch assembly {stats['assemble_s']:.3f} s, in device forwards "
-        f"{stats['forward_s']:.3f} s [{gpu}]")
-    return dict(launches=stats["int8_kernel_launches"], batches=stats["batches"], worst=worst,
-                rps=len(reqs) / wall, p50=statistics.median(lat), wall=wall)
+        with srv:
+            before = _get(srv.base + "/stats")
+            if before["int8_kernel_launches"] != 0 or before["kernel_launches"] != 0 or before["requests"] != 0:
+                raise AssertionError(f"fresh server already counts work: {before}")
+            if before["config"]["int8"] is not True:
+                raise AssertionError(f"/stats does not show int8 mode: {before['config']}")
+            results, wall = burst(srv.base, reqs)
+            stats = _get(srv.base + "/stats")
+            srv.stop()
+        worst, near_ties = check_answers(model, reqs, results, plain_int8_reference, TOL_INT8_S)
+        if stats["requests"] != len(reqs) or stats["int8_kernel_launches"] < max(1, stats["batches"]):
+            raise AssertionError(f"int8 kernel launches {stats['int8_kernel_launches']} < batches {stats['batches']}: {stats}")
+        if stats["kernel_launches"] != 0:
+            raise AssertionError(f"the int8 server launched the float kernel: {stats}")
+        # against the bf16 plain forward: the quantization budget
+        vs_bf16, top1 = 0.0, 0
+        for r, (out, _lat) in zip(reqs, results):
+            p_ref = plain_bf16_reference(model, r).y_prob[0].cpu().numpy()
+            vs_bf16 = max(vs_bf16, float(np.abs(np.asarray(out["y_prob"]) - p_ref).max()))
+            top1 += out["y_hat"] == int(p_ref.argmax())
+        if vs_bf16 > TOL_INT8_VS_BF16:
+            raise AssertionError(f"int8 answers off the bf16 forward by {vs_bf16:.3e} > {TOL_INT8_VS_BF16}")
+        lat = sorted(res[1] for res in results)
+        log(f"phase 4 serve int8 (5 ms window): p50 latency by route (ms): {p50_by_route(reqs, results, ROUTES_INT8)} [{gpu}]")
+        log(f"phase 4 serve int8 (5 ms window): {len(reqs)} concurrent requests ({', '.join(ROUTES_INT8)}; attention "
+            f"on {attn}), {stats['batches']} batches, mean batch {stats['mean_batch_size']}, int8 kernel launches "
+            f"{stats['int8_kernel_launches']}, max |y_prob - plain int8| {worst:.2e}, near-ties {near_ties}; "
+            f"max |y_prob - plain bf16| {vs_bf16:.2e}, top-1 agreement with bf16 {top1}/{len(reqs)}; burst wall "
+            f"{wall:.3f} s, dispatch thread in batch assembly {stats['assemble_s']:.3f} s, in device forwards "
+            f"{stats['forward_s']:.3f} s [{gpu}]")
+        return dict(launches=stats["int8_kernel_launches"], batches=stats["batches"], worst=worst,
+                    rps=len(reqs) / wall, p50=statistics.median(lat), wall=wall)
+    finally:
+        srv.__exit__()
 
 
 def seeded_vit(seed: int):
@@ -2848,6 +2889,273 @@ def phase_infer(model, trained: dict, evaluated: dict, card: str, gpu: str, work
                 predict_seconds=float(secs), scored=scored)
 
 
+# Phase 13: ensemble serving and /heatmap (ROADMAP item 1.4). Every served answer against EnsembleInference on the card
+# from the same members: both launch each member's K1 f32 (3xTF32) on the same rows, the server in batches and the
+# reference at B = 1 in the same bucket, so they differ by summation order only (phase 12: 6.0e-08 between batch
+# sizes); the attention weights are ~1/n of 3,000-60,000 rows. Under --int8 the rows are the same integers (the two
+# quantizers are twins) and each row's scores come out of the same per-row arithmetic, so the attention keeps
+# TOL_ENSEMBLE_ATTENTION; but K2 combines a bag's tiles in another split when the batch differs, so the
+# probabilities get the int8 kernel's logit budget.
+TOL_ENSEMBLE_PROB = 1e-5
+TOL_ENSEMBLE_ATTENTION = 1e-6
+TOL_ENSEMBLE_INT8 = TOL_INT8_LOGITS["atol"]
+ROUTES_ENSEMBLE = ["octet_f32", "bag_path", "octet_f32", "bag_path"]
+SERVE_LOAD_ARGS = ["--bag_n", "8192", "--requests", "96", "--concurrency", "8"]
+ENSEMBLE_TIMING_BATCH = (8, 8192)  # B x rows of the batch the forward is timed on
+
+
+def check_ensemble_answers(ens, reqs: list[dict], results: list, tol_prob: float, tol_attention: float) -> tuple[float, float]:
+    """Every answer against ``ens.predict`` on the same rows: (max |y_prob
+    error|, max |attention error|). y_hat must be equal wherever the
+    reference's top two differ by more than twice ``tol_prob``; attention,
+    where asked for, is the members' mean softmaxed weights over the real rows."""
+    worst_p = worst_a = 0.0
+    for r, (out, _lat) in zip(reqs, results):
+        ref = ens.predict(r["feats"], r["sex"])
+        err = float(np.abs(np.asarray(out["y_prob"]) - ref.y_prob).max())
+        worst_p = max(worst_p, err)
+        top2 = np.sort(ref.y_prob)[-2:]
+        if err > tol_prob or (out["y_hat"] != ref.y_hat and top2[1] - top2[0] > 2 * tol_prob):
+            raise AssertionError(f"{r['route']} n={len(r['feats'])}: y_prob off by {err:.3e} (tolerance {tol_prob}), "
+                                 f"y_hat {out['y_hat']} vs {ref.y_hat}")
+        if r["attention"]:
+            a = np.asarray(out["attention"])
+            if a.shape != ref.attention.shape or abs(float(a.sum()) - 1.0) > 1e-4:
+                raise AssertionError(f"{r['route']}: attention of shape {a.shape} summing to {a.sum():.6f}, "
+                                     f"want {ref.attention.shape} summing to 1")
+            err_a = float(np.abs(a - ref.attention).max())
+            worst_a = max(worst_a, err_a)
+            if err_a > tol_attention:
+                raise AssertionError(f"{r['route']}: attention off by {err_a:.3e} (tolerance {tol_attention})")
+        elif "attention" in out:
+            raise AssertionError("attention returned without being asked for")
+    return worst_p, worst_a
+
+
+def post_png(url: str, doc: dict) -> bytes:
+    req = urllib.request.Request(url, data=json.dumps(doc).encode(), headers={"Content-Type": "application/json"},
+                                 method="POST")
+    with urllib.request.urlopen(req, timeout=600) as r:
+        if r.headers.get("Content-Type") != "image/png":
+            raise AssertionError(f"/heatmap answered {r.headers.get('Content-Type')}")
+        return r.read()
+
+
+def time_ensemble_forward(sd32: dict, sd16: dict, cfg, seed: int, gpu: str) -> dict:
+    """One assembled batch (B=8 x 8,192 rows, ragged, pinned as the batcher's)
+    through a 1-member and a 2-member ensemble batcher, in turns 1, 2, 2, 1:
+    the whole ``_device_forward`` (host-to-device copy, every member's K1, the
+    combine, results back), and the members and the combine alone on inputs
+    already on the card. CUDA events; with and without attention."""
+    from toad_tpu_torch.serve import DynamicBatcher
+
+    b_, n = ENSEMBLE_TIMING_BATCH
+    dev = torch.device("cuda")
+    g = torch.Generator().manual_seed(seed + 13)
+    feats = torch.randn(b_, n, 1024, generator=g).pin_memory()
+    mask = torch.zeros(b_, n, pin_memory=True)
+    for i in range(b_):
+        live = n - (n // 11) * i
+        mask[i, :live] = 1.0
+        feats[i, live:] = 0.0
+    sex = torch.tensor([i % 2 for i in range(b_)], dtype=torch.int32).pin_memory()
+    on_card = [t.to(dev) for t in (feats, mask, sex)]
+    out = {}
+    with DynamicBatcher([sd32], cfg, device=dev) as one, DynamicBatcher([sd32, sd16], cfg, device=dev) as two:
+        for attention in (False, True):
+            def whole(b):
+                return lambda: b._device_forward(feats, mask, sex, None, attention)
+
+            def members(b):
+                def run():
+                    with torch.inference_mode():
+                        return b._combine([m(*on_card, need_attention=attention) for m in b.members], on_card[1],
+                                          attention)
+                return run
+
+            for label, make in (("forward", whole), ("members", members)):
+                w1, w2, w2b, w1b = (cuda_ms(make(b)) for b in (one, two, two, one))
+                k1, k2 = min(w1, w1b), min(w2, w2b)
+                out[(label, attention)] = dict(one=k1, two=k2)
+                log(f"phase 13 timing {'scored' if attention else 'classification'} batch B={b_} x {n} f32, "
+                    f"{'_device_forward (copy in, members, combine, copy out)' if label == 'forward' else 'members and combine on the card'}: "
+                    f"1 member {k1:.3f} ms ({w1:.3f}/{w1b:.3f}), 2 members {k2:.3f} ms ({w2:.3f}/{w2b:.3f}), "
+                    f"x{k2 / k1:.2f} [{gpu}]")
+    return out
+
+
+@restores_tf32
+def phase_serve_ensemble(trained: dict, card: str, gpu: str, workdir: Path, seed: int) -> dict:
+    """Phase 13: ``serve --ensemble`` over phase 7's f32 and bf16 checkpoints
+    (both members computed in f32) as a child process, ``/heatmap`` on phase
+    12's coordinate-bearing slide, the same burst on the first member alone
+    (another child, started beside the first), the int8 ensemble in process, the
+    forward's cost by member count, and the serve_load probe in process.
+    Returns the launches of this phase's main path by kernel, and its timings."""
+    import contextlib
+    import io
+
+    from toad_tpu_torch.config import ModelConfig
+    from toad_tpu_torch.experiments import serve_load
+    from toad_tpu_torch.ops import cuda_pool, cuda_pool_int8
+    from toad_tpu_torch.pipeline.heatmap import canvas_shape
+    from toad_tpu_torch.pipeline.infer import EnsembleInference, SlideInference
+    from toad_tpu_torch.serve import InferenceService, ServeConfig, serve_in_thread
+    from toad_tpu_torch.train.checkpoint import load_params_any
+
+    dev = torch.device("cuda")
+    t0 = time.perf_counter()
+    cfg = ModelConfig(in_dim=1024, n_classes=18)
+    results = workdir / "ensemble_results"
+    results.mkdir()
+    ckpts = [workdir / "results" / f"smoke_{run}_s1" / "s_0_checkpoint.pt" for run in ("f32", "bf16")]
+    for k, ckpt in enumerate(ckpts):
+        shutil.copy(ckpt, results / f"s_{k}_checkpoint.pt")
+    bag_dir = workdir / "ensemble_bags"
+    bag_dir.mkdir()
+    # main path: `serve --ensemble` as a user starts it (default 5 ms window, no --warmup, f32 members); the
+    # requests and the reference are made while the child starts
+    srv = Server(results, bag_dir, workdir, ["--ensemble"], bf16=False)
+    # the same burst on the first member alone, for the cost of the second
+    single = Server(ckpts[0], bag_dir, workdir, [], bf16=False)
+    try:
+        reqs = make_requests(seed + 2, bag_dir, ROUTES_ENSEMBLE)
+        # phase 12's slide with its coords sidecar, in the served root
+        split = trained["test_split"]
+        slide_bag = split.bag_file(0)
+        for src in (slide_bag, slide_bag.with_suffix(".coords.npy")):
+            shutil.copy(src, bag_dir / src.name)
+        coords = np.load(slide_bag.with_suffix(".coords.npy"))
+        attn_reqs = sum(r["attention"] for r in reqs)
+        ens = EnsembleInference.from_models_dir(results, cfg, device=dev)
+        laps = {"requests made": time.perf_counter() - t0}
+        single.__enter__()  # both children serving and idle before the first burst's clock starts
+        with srv:
+            before = _get(srv.base + "/stats")
+            if (before["kernel_launches"], before["int8_kernel_launches"], before["requests"]) != (0, 0, 0):
+                raise AssertionError(f"fresh server already counts work: {before}")
+            if before["config"]["ensemble_members"] != 2:
+                raise AssertionError(f"/stats config {before['config']}: want 2 ensemble members")
+            results_, wall = burst(srv.base, reqs)
+            stats = _get(srv.base + "/stats")
+            t_heatmap = time.perf_counter()
+            png = post_png(srv.base + "/heatmap", {"bag_path": slide_bag.name, "sex": 0})
+            heatmap_s = time.perf_counter() - t_heatmap
+            after = _get(srv.base + "/stats")
+            srv.stop()
+        said = [ln.strip() for ln in srv.lines if ln.startswith("ensemble: ")]
+        if said != [f"ensemble: 2 fold checkpoints from {results}"] or not any("POST /heatmap" in ln for ln in srv.lines):
+            raise AssertionError(f"serve --ensemble printed {said} and no /heatmap in its banner:\n{''.join(srv.lines[:5])}")
+        laps["serve child"] = time.perf_counter() - t0 - sum(laps.values())
+        worst_p, worst_a = check_ensemble_answers(ens, reqs, results_, TOL_ENSEMBLE_PROB, TOL_ENSEMBLE_ATTENTION)
+        laps["reference"] = time.perf_counter() - t0 - sum(laps.values())
+        per_batch = 2  # members: one K1 launch each a batch
+        if (stats["requests"] != len(reqs) or stats["kernel_launches"] != per_batch * stats["batches"]
+                or stats["scored_kernel_launches"] != per_batch * stats["attention_batches"] or stats["int8_kernel_launches"]):
+            raise AssertionError(f"2 members over {stats['batches']} batches ({stats['attention_batches']} with attention): "
+                                 f"K1 launches {stats['kernel_launches']} ({stats['scored_kernel_launches']} scored), "
+                                 f"K2 {stats['int8_kernel_launches']}")
+        image = decode_png(png)
+        want_hw = canvas_shape(coords, 256, 32)
+        scored_heatmap = after["scored_kernel_launches"] - stats["scored_kernel_launches"]
+        if image.shape[:2] != want_hw or after["attention_batches"] != stats["attention_batches"] + 1 or scored_heatmap != per_batch:
+            raise AssertionError(f"/heatmap: PNG {image.shape} for a canvas of {want_hw}, {scored_heatmap} scored K1 launches")
+        lat = sorted(res[1] for res in results_)
+        log(f"phase 13 serve --ensemble (2 members, f32, 5 ms window): {len(reqs)} concurrent requests "
+            f"({', '.join(ROUTES_ENSEMBLE[:2])}; attention on {attn_reqs}), {stats['batches']} batches "
+            f"({stats['attention_batches']} with attention), mean batch {stats['mean_batch_size']}, K1 f32 launches "
+            f"{stats['kernel_launches']} = 2 x batches, {stats['scored_kernel_launches']} in scored mode = 2 x attention "
+            f"batches; every answer against EnsembleInference on the card: y_prob within {worst_p:.2e} (tolerance "
+            f"{TOL_ENSEMBLE_PROB}), attention within {worst_a:.2e} (tolerance {TOL_ENSEMBLE_ATTENTION}), y_hat equal; "
+            f"{len(reqs) / wall:.2f} requests/s, p50 {statistics.median(lat) * 1e3:.1f} ms, burst wall {wall:.3f} s, "
+            f"dispatch thread in batch assembly {stats['assemble_s']:.3f} s, in device forwards {stats['forward_s']:.3f} s "
+            f"({stats['forward_s'] / stats['batches'] * 1e3:.1f} ms a batch) [{gpu}]")
+        log(f"phase 13 POST /heatmap on phase 12's slide ({len(coords)} rows, coords sidecar): image/png decodes (zlib) to "
+            f"{image.shape[1]} x {image.shape[0]} = canvas_shape; one batch, K1 scored launches +{scored_heatmap}; "
+            f"{heatmap_s:.3f} s by the client's clock [{gpu}]")
+        main = dict(k1_launches=after["kernel_launches"], rps=len(reqs) / wall, p50=statistics.median(lat), wall=wall,
+                    batches=stats["batches"], forward_s=stats["forward_s"], assemble_s=stats["assemble_s"],
+                    heatmap_s=heatmap_s)
+
+        with single:
+            if _get(single.base + "/stats")["kernel_launches"] != 0:
+                raise AssertionError("the single-model server already counts launches")
+            results1, wall1 = burst(single.base, reqs)
+            stats1 = _get(single.base + "/stats")
+            single.stop()
+    finally:
+        srv.__exit__()  # the children must not outlive a failure
+        single.__exit__()
+    inf = SlideInference.from_checkpoint(ckpts[0], cfg, device=dev)
+    worst1 = 0.0
+    for r, (out, _lat) in zip(reqs, results1):
+        ref = inf.predict(r["feats"], r["sex"])
+        worst1 = max(worst1, float(np.abs(np.asarray(out["y_prob"]) - ref.y_prob).max()))
+        if worst1 > TOL_ENSEMBLE_PROB or out["y_hat"] != ref.y_hat:
+            raise AssertionError(f"single member: y_prob off SlideInference by {worst1:.3e}, y_hat {out['y_hat']} vs {ref.y_hat}")
+    if stats1["kernel_launches"] != stats1["batches"] or stats1["config"]["ensemble_members"] != 1:
+        raise AssertionError(f"single member: {stats1['batches']} batches, K1 launches {stats1['kernel_launches']}")
+    per_req = (stats["forward_s"] / len(reqs), stats1["forward_s"] / len(reqs))
+    log(f"phase 13 the same burst on `serve` with the first member alone: {len(reqs) / wall1:.2f} requests/s, p50 "
+        f"{statistics.median(res[1] for res in results1) * 1e3:.1f} ms, {stats1['batches']} batches (mean "
+        f"{stats1['mean_batch_size']}), K1 f32 launches {stats1['kernel_launches']} = batches, y_prob within "
+        f"{worst1:.2e} of SlideInference; device forwards {stats1['forward_s']:.3f} s ({stats1['forward_s'] / stats1['batches'] * 1e3:.1f} "
+        f"ms a batch), assembly {stats1['assemble_s']:.3f} s; two members / one: forwards a request x"
+        f"{per_req[0] / per_req[1]:.2f} ({per_req[1] * 1e3:.1f} -> {per_req[0] * 1e3:.1f} ms) [{gpu}]")
+    main["single"] = dict(rps=len(reqs) / wall1, forward_s=stats1["forward_s"], batches=stats1["batches"])
+    laps["single member"] = time.perf_counter() - t0 - sum(laps.values())
+
+    # --int8 ensemble serving in process through serve_in_thread: each member's own quantized trunk, K2 once a member;
+    # half the burst (both routes, with and without attention), since its reference quantizes every bag per member
+    reqs8 = reqs[:12]
+    svc = InferenceService.from_checkpoint(results, cfg, ServeConfig(int8=True), bag_root=bag_dir, device=dev,
+                                           ensemble=True)
+    server, port = serve_in_thread(svc)
+    k1_0, k2_0, k2s_0 = cuda_pool.LAUNCHES, cuda_pool_int8.LAUNCHES, cuda_pool_int8.SCORED_LAUNCHES
+    try:
+        results8, wall8 = burst(f"http://127.0.0.1:{port}", reqs8)
+        stats8 = svc.stats()
+    finally:
+        server.shutdown()
+        server.server_close()
+        svc.close()
+    k2, k2s, k1 = cuda_pool_int8.LAUNCHES - k2_0, cuda_pool_int8.SCORED_LAUNCHES - k2s_0, cuda_pool.LAUNCHES - k1_0
+    if (k2, k2s, k1) != (per_batch * stats8["batches"], per_batch * stats8["attention_batches"], 0):
+        raise AssertionError(f"int8 ensemble: {stats8['batches']} batches, K2 launches {k2} ({k2s} scored), K1 {k1}")
+    ens8 = EnsembleInference.from_models_dir(results, cfg, int8=True, device=dev)
+    worst8_p, worst8_a = check_ensemble_answers(ens8, reqs8, results8, TOL_ENSEMBLE_INT8, TOL_ENSEMBLE_ATTENTION)
+    laps["int8 ensemble"] = time.perf_counter() - t0 - sum(laps.values())
+    log(f"phase 13 serve --int8 --ensemble in process (serve_in_thread): {len(reqs8)} concurrent requests, "
+        f"{stats8['batches']} batches, K2 launches {k2} = "
+        f"2 x batches ({k2s} scored), none of K1; against EnsembleInference(int8=True) on the card: y_prob within "
+        f"{worst8_p:.2e} (tolerance {TOL_ENSEMBLE_INT8}), attention within {worst8_a:.2e} (tolerance {TOL_ENSEMBLE_ATTENTION}); "
+        f"{len(reqs8) / wall8:.2f} requests/s with the clients in the same process [{gpu}]")
+
+    sd32, sd16 = (load_params_any(c, cfg) for c in ckpts)
+    forward = time_ensemble_forward(sd32, sd16, cfg, seed, gpu)
+    laps["forward timing"] = time.perf_counter() - t0 - sum(laps.values())
+
+    # serve_load in process, by wire: its line parsed, K1 launches = its batches (one model, one launch a batch)
+    load = {}
+    for wire in ("none", "raw"):
+        k1_0 = cuda_pool.LAUNCHES
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            serve_load.main([*SERVE_LOAD_ARGS, "--wire", wire])
+        lines = buf.getvalue().strip().splitlines()
+        line = json.loads(lines[-1])
+        launched = cuda_pool.LAUNCHES - k1_0
+        if (len(lines) != 1 or line["wire"] != wire or line["requests"] != int(SERVE_LOAD_ARGS[3])
+                or line["device"] != card or launched != line["batches"]):
+            raise AssertionError(f"serve_load --wire {wire}: {lines}, K1 launches {launched}")
+        load[wire] = line
+        laps[f"serve_load {wire}"] = time.perf_counter() - t0 - sum(laps.values())
+        log(f"phase 13 serve_load {' '.join(SERVE_LOAD_ARGS)} --wire {wire}: {json.dumps(line)}; K1 f32 launches "
+            f"{launched} = its batches [{gpu}]")
+    log(f"phase 13: {time.perf_counter() - t0:.1f} s (" + ", ".join(f"{k} {v:.1f} s" for k, v in laps.items()) + ")")
+    return dict(main, k2_launches=k2, worst_p=worst_p, worst_a=worst_a, forward=forward, serve_load=load)
+
+
 def check_probe(name: str, got: torch.Tensor, want: torch.Tensor, tol: float) -> tuple[float, float]:
     """For a probe output [B, 8, H]: (max abs error, the largest error of a
     task row relative to that row's largest |want|); raises above ``tol``
@@ -3363,6 +3671,8 @@ def main() -> int:
             elapsed("phase 8")
             inferred = phase_infer(model, trained, evaluated, card, gpu, Path(tmp), Path(resnet_tmp))
             elapsed("phase 12")
+            ensembled = phase_serve_ensemble(trained, card, gpu, Path(tmp), args.seed)
+            elapsed("phase 13")
     probes = phase_probes(args.seed, gpu)
     elapsed("phase 10")
     vit_probes = phase_vit_probes(args.seed, gpu)
@@ -3395,9 +3705,11 @@ def main() -> int:
             "route": "cuda",
             "source": "toad_tpu_torch/csrc/pool.cu",
             "replaces": "toad_tpu/ops/pallas_pool.py:93",
-            # the f32 instance, the default of eval, train, predict and infer: the f32 eval passes, the f32
-            # trainer's passes, and phase 12's predict child and in-process infer (scored mode)
-            "launches": evaluated["k1_f32_launches"] + trained["launches"] + inferred["k1_f32_launches"],
+            # the f32 instance, the default of eval, train, predict, infer and serve: the f32 eval passes, the f32
+            # trainer's passes, phase 12's predict child and in-process infer (scored mode), and phase 13's
+            # `serve --ensemble` child (two launches a batch, its /heatmap among them)
+            "launches": evaluated["k1_f32_launches"] + trained["launches"] + inferred["k1_f32_launches"]
+            + ensembled["k1_launches"],
             "max_abs_err": worst[torch.float32],
             **times[("float32", 32)],
         },
@@ -3406,8 +3718,9 @@ def main() -> int:
             "route": "cuda",
             "source": "toad_tpu_torch/csrc/pool_int8.cu",
             "replaces": "toad_tpu/ops/pallas_pool.py:259",
-            # the int8 serving burst, eval --int8 and phase 12's SlideInference(int8=True) (scored mode)
-            "launches": served8["launches"] + evaluated["k2_launches"] + inferred["k2_launches"],
+            # the int8 serving burst, eval --int8, phase 12's SlideInference(int8=True) (scored mode) and phase
+            # 13's int8 ensemble served in process (two launches a batch)
+            "launches": served8["launches"] + evaluated["k2_launches"] + inferred["k2_launches"] + ensembled["k2_launches"],
             "max_abs_err": worst8,
             **times[("int8", 32)],
         },
@@ -3467,6 +3780,14 @@ def main() -> int:
         f"CLI's clock; phase 12's launches: K1 f32 {inferred['k1_f32_launches']}, K2 {inferred['k2_launches']}; scored mode at "
         f"B=1 costs " + ", ".join(f"{100 * (v['scored'] / v['classification'] - 1):+.1f} % at {n} rows"
                                   for n, v in inferred["scored"].items()) + f" [{gpu}]")
+    fw = ensembled["forward"]
+    log(f"phase 13 ensemble: serve --ensemble launched K1 f32 {ensembled['k1_launches']} times (2 a batch), the int8 "
+        f"ensemble K2 {ensembled['k2_launches']} times; {ensembled['rps']:.2f} requests/s, p50 {ensembled['p50'] * 1e3:.1f} "
+        f"ms over the burst of 24 (its first member alone: {ensembled['single']['rps']:.2f} requests/s); a "
+        f"batch of B=8 x 8,192 costs 2 members / 1: " + ", ".join(
+            f"{what} {'scored' if attn else 'classification'} x{v['two'] / v['one']:.2f} ({v['one']:.3f} -> "
+            f"{v['two']:.3f} ms)" for (what, attn), v in fw.items()) + f"; serve_load host CPU ms a request: " + ", ".join(
+            f"wire {w} {line['host_cpu_ms_per_req']}" for w, line in ensembled["serve_load"].items()) + f" [{gpu}]")
     enc_t, st = resnet["times"]["encoder"], resnet["times"]
     log(f"phase 9 timing summary: KS / plain_stage / cuDNN stage, bound (ms), bf16 B=64 at 256 px: " + "; ".join(
         f"{k} {st[k]['ms']:.3f} / {st[k]['plain_ms']:.3f} / {st[k]['library_ms']:.3f}, {st[k]['bound_ms']:.4f} by "

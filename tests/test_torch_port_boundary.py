@@ -185,10 +185,19 @@ PROBE_MODULES = (
 )
 
 
+SERVE_MODULES = (
+    "toad_tpu_torch.serve",
+    "toad_tpu_torch.serve.batcher",
+    "toad_tpu_torch.serve.server",
+    "toad_tpu_torch.cli.serve",
+    "toad_tpu_torch.experiments.serve_load",
+)
+
+
 @pytest.mark.parametrize("module", INT8_MODULES + VIT_MODULES + TRAIN_MODULES + EVAL_MODULES + RESNET_MODULES
-                         + PROBE_MODULES + INFER_MODULES)
+                         + PROBE_MODULES + INFER_MODULES + SERVE_MODULES)
 def test_int8_modules_import_neither_jax_nor_the_jax_package(probe, module):
-    """Each module of the int8, ViT and ResNet featurization, training, evaluation and slide-inference paths, imported alone
+    """Each module of the int8, ViT and ResNet featurization, training, evaluation, slide-inference and serving paths, imported alone
     in a fresh process, loads no module of the JAX stack (h5py and PIL
     included) or of toad_tpu and builds no kernel."""
     assert module in probe["modules"]

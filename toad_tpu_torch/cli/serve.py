@@ -1,9 +1,11 @@
 """``python -m toad_tpu_torch serve``: online prediction server.
 
-Loads a reference-layout ``s_{fold}_checkpoint.pt`` and serves ``POST
-/predict`` with dynamic batching (:mod:`toad_tpu_torch.serve`) on one
-device. On CUDA the fused pooling kernel is the path; with ``--int8``, the
-fused int8 pooling kernel.
+Loads a reference-layout ``s_{fold}_checkpoint.pt`` (or, with
+``--ensemble``, every fold of a training results dir) and serves ``POST
+/predict`` and ``POST /heatmap`` with dynamic batching
+(:mod:`toad_tpu_torch.serve`) on one device. On CUDA the fused pooling
+kernel is the path, launched once per ensemble member and batch; with
+``--int8``, the fused int8 pooling kernel.
 """
 
 from __future__ import annotations
@@ -17,7 +19,6 @@ from toad_tpu_torch.cli.common import XLA_ONLY, refuse_flags
 
 # flags of the JAX CLI that are not ported: (flag, its "off" value, where ROADMAP.md queues it)
 _NOT_PORTED = (
-    ("ensemble", False, "ensemble serving (ROADMAP.md queue 1.4)"),
     ("data_shards", None, "multi-GPU (ROADMAP.md queue 1.7)"),
     ("bag_shards", None, "multi-GPU (ROADMAP.md queue 1.7)"),
     ("max_rss_gb", None, "profiling and debugging tools (ROADMAP.md queue 1.6)"),
@@ -30,7 +31,8 @@ def make_parser() -> argparse.ArgumentParser:
     from toad_tpu_torch.cli.common import add_buckets_arg, add_temperature_from_arg
 
     p = argparse.ArgumentParser(prog="python -m toad_tpu_torch serve", description=__doc__)
-    p.add_argument("--ckpt", type=str, required=True, help="reference-layout s_k_checkpoint.pt")
+    p.add_argument("--ckpt", type=str, required=True,
+                   help="reference-layout s_k_checkpoint.pt (with --ensemble: a training results dir)")
     p.add_argument("--task", type=str, default=None, help="task JSON (for label names in responses)")
     p.add_argument("--host", type=str, default="127.0.0.1")
     p.add_argument("--port", type=int, default=8000)
@@ -52,8 +54,19 @@ def make_parser() -> argparse.ArgumentParser:
         help="force bfloat16 host->device feature transfer even under f32 compute "
         "(on automatically with --bf16)",
     )
-    p.add_argument("--temperature", type=float, default=1.0, help="calibrated softmax temperature for class probabilities")
+    p.add_argument(
+        "--temperature", type=float, default=1.0,
+        help="calibrated softmax temperature for class probabilities (fit with eval --calibrate; for "
+        "--ensemble it is applied per member before the mean, matching predict --ensemble)",
+    )
     add_temperature_from_arg(p)
+    p.add_argument(
+        "--ensemble", action="store_true",
+        help="serve the mean-of-folds CV ensemble: --ckpt is a training results dir and every "
+        "s_<k>_checkpoint becomes a member; each member runs its own pooling-kernel launch on every "
+        "request batch (K x the work). Attention responses carry the mean of the members' softmaxed "
+        "pooling weights instead of raw scores",
+    )
     add_buckets_arg(p)
     p.add_argument(
         "--bag_root", type=str, default=None, metavar="DIR",
@@ -67,7 +80,6 @@ def make_parser() -> argparse.ArgumentParser:
         "bucket) or comma-separated bucket sizes, each at batch 1 and max_batch",
     )
     # flags of the JAX CLI that are not ported; accepted so that they can be refused by name
-    p.add_argument("--ensemble", action="store_true", help="not ported")
     p.add_argument("--data_shards", type=int, default=None, help="not ported")
     p.add_argument("--bag_shards", type=int, default=None, help="not ported")
     p.add_argument("--max_rss_gb", type=float, default=None, help="not ported")
@@ -110,8 +122,10 @@ def main(argv=None) -> None:
         temperature=resolve_temperature(args.temperature, args.temperature_from),
     )
     service = InferenceService.from_checkpoint(
-        args.ckpt, model_cfg, serve_cfg, task=task, bag_root=args.bag_root, device=device
+        args.ckpt, model_cfg, serve_cfg, task=task, bag_root=args.bag_root, device=device, ensemble=args.ensemble
     )
+    if args.ensemble:
+        print(f"ensemble: {service.batcher.n_members} fold checkpoints from {args.ckpt}", flush=True)
     if args.warmup is not None:
         warm = None if args.warmup == "all" else tuple(int(v) for v in args.warmup.split(","))
         t0 = time.perf_counter()
@@ -120,7 +134,7 @@ def main(argv=None) -> None:
     server = make_http_server(service, args.host, args.port, max_body_bytes=args.max_body_mb << 20)
     print(
         f"serving on http://{args.host}:{server.server_address[1]}  "
-        f"(POST /predict, GET /stats, GET /healthz) on {service.device_name}"
+        f"(POST /predict, POST /heatmap, GET /stats, GET /healthz) on {service.device_name}"
         f"{', int8' if args.int8 else ''}",
         flush=True,
     )

@@ -1,12 +1,12 @@
 """The probes on the card, counterparts of the TPU probes of the same names in
 ``experiments/``: the pooling-kernel probes (:mod:`.mfu_probe`,
-:mod:`.int8_probe`, :mod:`.longbag_probe`) and the ViT-L decomposition
+:mod:`.int8_probe`, :mod:`.longbag_probe`), the ViT-L decomposition
 probes (:mod:`.vit_softmax_probe`, :mod:`.vit_attn_probe`,
 :mod:`.vit_ceiling2_probe`, :mod:`.vit_elementwise_probe`,
 :mod:`.vit_profile`, :mod:`.vit_int8_probe`, with their harness
-:mod:`.vit_probe_common`). Each runs as ``python -m
-toad_tpu_torch.experiments.NAME`` and prints one JSON line per variant or
-arm."""
+:mod:`.vit_probe_common`) and the serving load test (:mod:`.serve_load`).
+Each runs as ``python -m toad_tpu_torch.experiments.NAME`` and prints one
+JSON line per variant, arm or run."""
 
 from __future__ import annotations
 

@@ -1,7 +1,7 @@
 """Dynamic request batching for online MIL inference on one device.
 
-PyTorch counterpart of :mod:`toad_tpu.serve.batcher` (without ensemble and
-mesh serving), with the same batching discipline:
+PyTorch counterpart of :mod:`toad_tpu.serve.batcher` on one device (mesh
+serving is not ported), with the same batching discipline:
 
 - requests arrive on arbitrary threads and enqueue ``(features, sex, future)``;
 - one dispatch thread collects up to ``max_batch`` requests, waiting at most
@@ -16,6 +16,12 @@ bf16 iff the model computes in bf16 (``transfer_dtype='auto'``). In int8
 mode (``ServeConfig.int8``) requests are quantized per row on the handler
 thread (or arrive quantized), the batch travels as int8 rows plus f32 row
 scales, and the forward is :meth:`ToadMIL.forward_int8`.
+
+Mean-of-folds ensemble serving: pass a list of state_dicts. Each member is
+its own :class:`ToadMIL` on the device with its own packed (or quantized)
+kernel operands, so a batch costs one pooling-kernel launch per member; the
+members' outputs are combined on the device by the rule of
+:class:`~toad_tpu_torch.pipeline.infer.EnsembleInference`.
 """
 
 from __future__ import annotations
@@ -56,8 +62,8 @@ class ServeConfig:
     # and the int8 pooling kernel; heads and softmax stay f32. Overrides
     # transfer_dtype.
     int8: bool = False
-    # calibrated temperature for class probabilities, applied on the host;
-    # site probabilities stay raw
+    # calibrated temperature for class probabilities (on the host, or per
+    # member before the mean in ensemble mode); site probabilities stay raw
     temperature: float = 1.0
 
 
@@ -80,6 +86,7 @@ class BatcherStats(NamedTuple):
     # device forward from the host-to-device copy to the results on the host
     assemble_s: float
     forward_s: float
+    attention_batches: int  # batches served with attention (the kernels' scored mode)
 
     @property
     def mean_batch_size(self) -> float:
@@ -101,11 +108,15 @@ class DynamicBatcher:
     forwards. Thread-safe; use as a context manager or call :meth:`close`.
 
     ``params`` is the model's state_dict (for example from
-    :func:`toad_tpu_torch.train.checkpoint.load_params_any`)."""
+    :func:`toad_tpu_torch.train.checkpoint.load_params_any`), or a list of
+    them for a mean-of-folds ensemble. Ensemble mode follows from the list,
+    not from its length: a one-member list keeps the ensemble contract
+    (temperature per member on the device, attention as softmaxed pooling
+    weights), as a 1-fold results dir served with ``--ensemble`` must."""
 
     def __init__(
         self,
-        params: Mapping[str, torch.Tensor],
+        params: Mapping[str, torch.Tensor] | Sequence[Mapping[str, torch.Tensor]],
         model_cfg: ModelConfig,
         cfg: ServeConfig = ServeConfig(),
         device: str | torch.device = "cuda",
@@ -113,9 +124,19 @@ class DynamicBatcher:
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("CUDA is not available: serve on device 'cpu' explicitly if that is meant")
-        model = ToadMIL(model_cfg)
-        model.load_state_dict(params)
-        self.model = model.to(self.device).eval().requires_grad_(False)
+        self.ensemble = isinstance(params, (list, tuple))
+        members = list(params) if self.ensemble else [params]
+        if not members:
+            raise ValueError("DynamicBatcher needs at least one state_dict")
+        self.n_members = len(members)
+        # one model a member on the device, each packing (or quantizing) its
+        # own kernel operands at its first forward
+        self.members = []
+        for sd in members:
+            model = ToadMIL(model_cfg)
+            model.load_state_dict(sd)
+            self.members.append(model.to(self.device).eval().requires_grad_(False))
+        self.model = self.members[0]
         cfg = replace(cfg, transfer_dtype=resolve_transfer_dtype(cfg.transfer_dtype, model_cfg.compute_dtype))
         if cfg.transfer_dtype not in _TRANSFER_DTYPES:
             raise ValueError(f"transfer_dtype {cfg.transfer_dtype!r} not in {sorted(_TRANSFER_DTYPES)}")
@@ -135,6 +156,7 @@ class DynamicBatcher:
         self._padded = 0
         self._assemble_s = 0.0
         self._forward_s = 0.0
+        self._attention_batches = 0
         self._thread = threading.Thread(target=self._run, name="toad-serve-batcher", daemon=True)
         self._thread.start()
 
@@ -215,9 +237,8 @@ class DynamicBatcher:
 
     def stats(self) -> BatcherStats:
         with self._stats_lock:
-            return BatcherStats(
-                self._requests, self._batches, self._batched, self._padded, self._assemble_s, self._forward_s
-            )
+            return BatcherStats(self._requests, self._batches, self._batched, self._padded, self._assemble_s,
+                                self._forward_s, self._attention_batches)
 
     # -- dispatch thread ---------------------------------------------------------
 
@@ -306,21 +327,50 @@ class DynamicBatcher:
         return feats, mask, sex, scales
 
     def _device_forward(self, feats, mask, sex, scales, want_attn: bool):
-        """One forward on the device (int8 when ``scales`` is given): (y_prob,
-        site_prob, attention or a placeholder), as host tensors."""
+        """One forward of every member on the device (int8 when ``scales`` is
+        given), combined: (y_prob, site_prob, attention or None), as host
+        tensors."""
         dev = self.device
         with torch.inference_mode():
             feats, mask, sex = (t.to(dev, non_blocking=True) for t in (feats, mask, sex))
             if scales is not None:
-                out = self.model.forward_int8(feats, scales.to(dev, non_blocking=True), mask, sex,
-                                              need_attention=want_attn)
-            else:
-                out = self.model(feats, mask, sex, need_attention=want_attn)
-            # the non-ensemble arm of the JAX batcher's _combine: class softmax
-            # of the f32 logits, raw attention scores
-            y_prob = torch.softmax(out.logits.float(), dim=-1)
-            attn = out.attention if want_attn else out.logits
-            return y_prob.cpu(), out.site_prob.cpu(), attn.cpu()
+                scales = scales.to(dev, non_blocking=True)
+            outs = [
+                m.forward_int8(feats, scales, mask, sex, need_attention=want_attn) if scales is not None
+                else m(feats, mask, sex, need_attention=want_attn)
+                for m in self.members
+            ]
+            y_prob, site_prob, attn = self._combine(outs, mask, want_attn)
+            return y_prob.cpu(), site_prob.cpu(), attn.cpu() if attn is not None else None
+
+    def _combine(self, outs, mask: torch.Tensor, want_attn: bool):
+        """The members' outputs -> (y_prob, site_prob, attention or None), the
+        JAX batcher's ``_combine``.
+
+        Plain serving: the class softmax of the f32 logits and the raw
+        attention scores; the host applies the temperature afterwards.
+
+        Ensemble mode (any member count, 1 included): each member's class
+        softmax of its f32 logits / T, then the mean over the members; the
+        mean of the members' site probabilities; with attention, the mean of
+        the members' masked softmax over the real rows (raw attention logits
+        are not comparable across members). Members are not stacked into one
+        batched weight operand: no kernel takes one, and each member's
+        launch is one of its own."""
+        if not self.ensemble:
+            (out,) = outs
+            return torch.softmax(out.logits.float(), dim=-1), out.site_prob, out.attention if want_attn else None
+        t = self.cfg.temperature
+        y_prob = torch.stack([torch.softmax(o.logits.float() / t, dim=-1) for o in outs]).mean(dim=0)
+        site_prob = torch.stack([o.site_prob.float() for o in outs]).mean(dim=0)
+        if not want_attn:
+            return y_prob, site_prob, None
+        # finfo.min, not -inf, where mask == 0: a padding row of the batch has
+        # one live zero row, so every softmax stays finite
+        live = mask[:, None, :] > 0
+        floor = torch.finfo(torch.float32).min
+        weights = [torch.softmax(torch.where(live, o.attention.float(), floor), dim=-1) for o in outs]
+        return y_prob, site_prob, torch.stack(weights).mean(dim=0)
 
     def warmup(
         self,
@@ -368,20 +418,22 @@ class DynamicBatcher:
             self._assemble_s += t1 - t0
             self._forward_s += t2 - t1
             self._batches += 1
+            self._attention_batches += want_attn
             self._batched += b
             self._padded += b_pad - b
         y_prob = y_prob.numpy()
-        if self.cfg.temperature != 1.0:
+        if self.cfg.temperature != 1.0 and not self.ensemble:
+            # an ensemble applied T per member on the device (the mean of
+            # T-scaled softmaxes is not the T-scaled mean)
             y_prob = apply_temperature(y_prob, self.cfg.temperature)
         site_prob = site_prob.numpy()
-        attn = attn.numpy()
         for i, r in enumerate(group):
             yp = y_prob[i]
             sp = site_prob[i]
             # stable sort + argmax y_hat: ties resolve as in the JAX serving path
             order = np.argsort(-yp, kind="stable")
             if want_attn:
-                a, sa = attn[i, 0, : r.n], attn[i, 1, : r.n]
+                a, sa = attn[i, 0, : r.n].numpy(), attn[i, 1, : r.n].numpy()
             else:
                 a = sa = np.zeros((0,), np.float32)
             pred = SlidePrediction(

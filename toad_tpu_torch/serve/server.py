@@ -1,15 +1,23 @@
 """Online inference service: JSON over HTTP in front of the dynamic batcher.
 
-PyTorch counterpart of :mod:`toad_tpu.serve.server` (``/heatmap`` is not
-ported yet). Stdlib ``ThreadingHTTPServer``: each request
-thread blocks on its Future while the single dispatch thread feeds the
-device, so concurrency in the HTTP layer becomes device batch size.
+PyTorch counterpart of :mod:`toad_tpu.serve.server` on one device. Stdlib
+``ThreadingHTTPServer``: each request thread blocks on its Future while the
+single dispatch thread feeds the device, so concurrency in the HTTP layer
+becomes device batch size. A single checkpoint or, with
+``from_checkpoint(..., ensemble=True)``, every fold of a results dir as a
+mean-of-folds ensemble.
 
 API:
 
 - ``GET  /healthz`` -> ``{"status": "ok", "device": <GPU name or "cpu">}``
-- ``GET  /stats``   -> request/batch counters incl. mean batch size, and the
-  dispatch thread's seconds in batch assembly and in device forwards
+- ``GET  /stats``   -> request/batch counters incl. mean batch size, the
+  dispatch thread's seconds in batch assembly and in device forwards, the
+  pooling kernels' launches (and those in scored mode), and the deployed
+  config (``ensemble_members`` among it)
+- ``POST /heatmap`` -> JSON ``{"bag_path": ..., "sex": ..., "patch_size"?,
+  "downscale"?, "task"?: "origin"|"site"}`` -> the attention heatmap as
+  ``image/png`` bytes (the bag must carry coords: ``.h5``, ``.npz``, or a
+  ``{stem}.coords.npy`` sidecar)
 - ``POST /predict`` -> body is JSON with either
     - ``features_b64``: base64 little-endian float32 ``[n*dim]`` + ``shape``, or
     - ``features_int8_b64`` + ``scales_b64`` + ``shape``: rows quantized by
@@ -39,7 +47,7 @@ import threading
 import time
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from pathlib import Path
-from typing import Any, Mapping
+from typing import Any, Mapping, Sequence
 
 import numpy as np
 import torch
@@ -48,7 +56,8 @@ from toad_tpu_torch.config import ModelConfig, TaskConfig
 from toad_tpu_torch.cli.common import parse_sex
 from toad_tpu_torch.data.bags import load_bag, load_bag_quantized
 from toad_tpu_torch.ops import cuda_pool, cuda_pool_int8
-from toad_tpu_torch.pipeline.infer import SlidePrediction
+from toad_tpu_torch.pipeline.heatmap import encode_png, render_heatmap
+from toad_tpu_torch.pipeline.infer import SlidePrediction, find_fold_checkpoints
 from toad_tpu_torch.serve.batcher import DynamicBatcher, ServeConfig
 from toad_tpu_torch.utils import invert_labels
 
@@ -58,7 +67,7 @@ class InferenceService:
 
     def __init__(
         self,
-        params: Mapping[str, torch.Tensor],
+        params: Mapping[str, torch.Tensor] | Sequence[Mapping[str, torch.Tensor]],
         model_cfg: ModelConfig,
         serve_cfg: ServeConfig = ServeConfig(),
         task: TaskConfig | None = None,
@@ -81,11 +90,21 @@ class InferenceService:
     @classmethod
     def from_checkpoint(cls, ckpt_path, model_cfg: ModelConfig, serve_cfg: ServeConfig = ServeConfig(),
                         task: TaskConfig | None = None, bag_root: Any = None,
-                        device: str | torch.device = "cuda") -> "InferenceService":
-        """A reference-layout ``s_k_checkpoint.pt``."""
+                        device: str | torch.device = "cuda", ensemble: bool = False) -> "InferenceService":
+        """A reference-layout ``s_k_checkpoint.pt``; with ``ensemble=True``
+        ``ckpt_path`` is a training results dir (the ``cli/train.py`` layout)
+        and every ``s_<k>_checkpoint`` member is served as a mean-of-folds
+        ensemble (one pooling-kernel launch per member and batch, see
+        :class:`~toad_tpu_torch.serve.batcher.DynamicBatcher`)."""
         from toad_tpu_torch.train.checkpoint import load_params_any
 
-        params = load_params_any(ckpt_path, model_cfg)
+        if ensemble:
+            found = find_fold_checkpoints(ckpt_path)
+            if not found:
+                raise FileNotFoundError(f"--ensemble: no s_<k>_checkpoint members under {ckpt_path}")
+            params = [load_params_any(p, model_cfg) for _, p in found]
+        else:
+            params = load_params_any(ckpt_path, model_cfg)
         return cls(params, model_cfg, serve_cfg, task=task, bag_root=bag_root, device=device)
 
     @property
@@ -129,6 +148,28 @@ class InferenceService:
                 return self.predict_quantized_features(stored[0], stored[1], sex, top_k, attention)
         return self.predict_features(np.asarray(load_bag(bag_path), np.float32), sex, top_k, attention)
 
+    def heatmap_png(self, bag_path, sex: int, patch_size: int = 256, downscale: int = 32, task: str = "origin") -> bytes:
+        """Attention heatmap PNG of a bag that carries coords (``.h5``,
+        ``.npz``, or ``.npy``/``.pt`` with a coords sidecar), the serving
+        counterpart of ``infer --heatmap``. ``task`` picks the attention head:
+        'origin' or 'site'. The bag goes through the batcher with attention
+        (the pooling kernel's scored mode on CUDA; under int8 its rows are
+        quantized on the handler thread)."""
+        if task not in ("origin", "site"):
+            raise ValueError(f"task must be 'origin' or 'site', got {task!r}")
+        if patch_size < 1 or downscale < 1:
+            raise ValueError(f"patch_size/downscale must be >= 1, got {patch_size}/{downscale}")
+        bag_path = self._resolve_bag_path(bag_path)
+        if not bag_path.exists():
+            raise FileNotFoundError(f"feature bag not found: {bag_path}")
+        feats, coords = load_bag(bag_path, with_coords=True)
+        if coords is None:
+            raise ValueError(f"{bag_path} carries no patch coordinates: cannot render a heatmap")
+        pred = self.batcher.predict(np.asarray(feats, np.float32), sex, attention=True)
+        scores = pred.attention if task == "origin" else pred.site_attention
+        coords = np.asarray(coords)[: len(scores)]  # a bag past the top bucket is head-truncated
+        return encode_png(render_heatmap(coords, scores, patch_size=patch_size, downscale=downscale))
+
     def _to_json(self, pred: SlidePrediction, top_k: int, attention: bool) -> dict:
         def label(i: int) -> str:
             return self.inv_labels.get(i, str(i)) if self.inv_labels else str(i)
@@ -158,12 +199,16 @@ class InferenceService:
             "served": s.batched_slides,
             "padded_slots": s.padded_slots,
             "mean_batch_size": round(s.mean_batch_size, 3),
+            "attention_batches": s.attention_batches,
             "assemble_s": s.assemble_s,
             "forward_s": s.forward_s,
-            # fused pooling kernel launches in this process (float and int8):
-            # show that the served batches went through the CUDA kernels
+            # fused pooling kernel launches in this process (float and int8),
+            # and those in scored mode: show that the served batches went
+            # through the CUDA kernels, one launch per member and batch
             "kernel_launches": cuda_pool.LAUNCHES,
+            "scored_kernel_launches": cuda_pool.SCORED_LAUNCHES,
             "int8_kernel_launches": cuda_pool_int8.LAUNCHES,
+            "int8_scored_kernel_launches": cuda_pool_int8.SCORED_LAUNCHES,
             "config": {
                 "buckets": list(self.batcher.buckets),
                 "max_batch": cfg.max_batch,
@@ -171,6 +216,7 @@ class InferenceService:
                 "int8": cfg.int8,
                 "temperature": cfg.temperature,
                 "transfer_dtype": cfg.transfer_dtype,
+                "ensemble_members": self.batcher.n_members,
                 "device": self.device_name,
             },
         }
@@ -260,6 +306,18 @@ def _decode_raw_request(headers, body: bytearray, in_dim: int) -> tuple[torch.Te
     raise ValueError(f"unsupported X-Toad-Dtype {dtype!r} (float32, bfloat16 or int8)")
 
 
+def _predict_json(service: InferenceService, req: dict, sex: int, in_dim: int) -> dict:
+    """A JSON /predict body -> the response document."""
+    top_k = int(req.get("top_k", 5))
+    attention = bool(req.get("attention", False))
+    if "bag_path" in req:
+        return service.predict_bag(req["bag_path"], sex, top_k, attention)
+    if "features_int8_b64" in req:
+        xq, sx = _decode_features_int8(req, in_dim)
+        return service.predict_quantized_features(xq, sx, sex, top_k, attention)
+    return service.predict_features(_decode_features(req, in_dim), sex, top_k, attention)
+
+
 def _read_body(rfile, length: int) -> bytearray:
     """The whole body into a writable buffer (tensors view it without a copy)."""
     buf = bytearray(length)
@@ -337,6 +395,18 @@ def make_http_server(
             self.end_headers()
             self.wfile.write(payload)
 
+        def _send_bytes(self, payload: bytes, ctype: str = "image/png") -> None:
+            """Binary 200. Swallows a client's disconnect mid-write, so that
+            the error mapping never tries a second response on a dead socket."""
+            try:
+                self.send_response(200)
+                self.send_header("Content-Type", ctype)
+                self.send_header("Content-Length", str(len(payload)))
+                self.end_headers()
+                self.wfile.write(payload)
+            except (BrokenPipeError, ConnectionResetError):
+                pass
+
         def do_GET(self):
             self.server.request_began()
             try:
@@ -357,7 +427,7 @@ def make_http_server(
                 self.server.request_done()
 
         def _handle_post(self):
-            if self.path != "/predict":
+            if self.path not in ("/predict", "/heatmap"):
                 self.close_connection = True  # the unread body must not parse as a request
                 self._send(404, {"error": f"unknown path {self.path}"})
                 return
@@ -372,6 +442,11 @@ def make_http_server(
                 self._send(413, {"error": f"body {length} bytes exceeds cap {max_body_bytes}"})
                 return
             ctype = (self.headers.get("Content-Type") or "").split(";")[0].strip().lower()
+            if ctype == "application/octet-stream" and self.path != "/predict":
+                self.close_connection = True  # the unread body must not parse as a request
+                self._send(400, {"error": "octet-stream bodies are only accepted on /predict"})
+                return
+            png = None
             try:
                 body = _read_body(self.rfile, length)
                 if ctype == "application/octet-stream":
@@ -386,19 +461,18 @@ def make_http_server(
                 else:
                     req = json.loads(body or b"{}")
                     sex = parse_sex(req.get("sex", ""))
-                    top_k = int(req.get("top_k", 5))
-                    attention = bool(req.get("attention", False))
-                    if "bag_path" in req:
-                        if not bag_paths_ok:
-                            self._send(403, {"error": "server-side bag_path disabled: start with --bag_root "
-                                                      "to serve bags on a network-exposed host"})
-                            return
-                        out = service.predict_bag(req["bag_path"], sex, top_k, attention)
-                    elif "features_int8_b64" in req:
-                        xq, sx = _decode_features_int8(req, in_dim)
-                        out = service.predict_quantized_features(xq, sx, sex, top_k, attention)
+                    if "bag_path" in req and not bag_paths_ok:
+                        self._send(403, {"error": "server-side bag_path disabled: start with --bag_root "
+                                                  "to serve bags on a network-exposed host"})
+                        return
+                    if self.path == "/heatmap":
+                        if "bag_path" not in req:
+                            raise ValueError("heatmap requires 'bag_path' (needs patch coordinates)")
+                        png = service.heatmap_png(req["bag_path"], sex, patch_size=int(req.get("patch_size", 256)),
+                                                  downscale=int(req.get("downscale", 32)),
+                                                  task=str(req.get("task", "origin")))
                     else:
-                        out = service.predict_features(_decode_features(req, in_dim), sex, top_k, attention)
+                        out = _predict_json(service, req, sex, in_dim)
             except (ValueError, KeyError, json.JSONDecodeError) as e:
                 self._send(400, {"error": str(e)})
                 return
@@ -412,7 +486,12 @@ def make_http_server(
             except Exception as e:  # device/runtime failure: report it, keep serving
                 self._send(500, {"error": f"{type(e).__name__}: {e}"})
                 return
-            self._send(200, out)
+            # outside the error mapping: a client that disconnects mid-write
+            # must not trigger a second response
+            if png is not None:
+                self._send_bytes(png)
+            else:
+                self._send(200, out)
 
     return DrainableHTTPServer((host, port), Handler)
 
