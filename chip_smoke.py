@@ -65,7 +65,14 @@ Phases (each prints its lines; any failure raises and the exit code is not 0):
    (TOL_FEATURES_F32; the TF32 convolution's difference is logged) and its
    features through the kernel against plain_mha on one batch. Then
    ``--format int8`` for one slide (the CLI's main in process, which spares
-   a second child's start-up), read back with load_bag_quantized.
+   a second child's start-up), read back with load_bag_quantized. Then
+   ``featurize --encoder vit --profile DIR`` in process over one batch of 64
+   of slide_b's tiles: the trace JSON written to DIR must hold device kernel
+   events and K3 (``mha_bf16_kernel``) 24 times inside the batch's
+   ``toad.featurize.embed_dispatch`` span (by each kernel's launch, matched
+   on its correlation id); the batch's device time is split into K3, GEMMs,
+   LayerNorm, elementwise and other, with the device's idle share of the
+   batch's window.
 7. Train end to end (the trainer's validation and final passes are a main
    path of K1): toad_tpu_torch.data.synthetic writes a seeded dataset at full
    width (72 slides of 2,000-30,000 patches x 1024 as .npy, 18 origins with at
@@ -224,6 +231,20 @@ Phases (each prints its lines; any failure raises and the exit code is not 0):
    ``toad_tpu_torch.experiments.serve_load.main()`` in process over wires
    none and raw (--bag_n 8192 --requests 96 --concurrency 8), its line parsed
    and its K1 launches = its batches.
+14. The ops tooling (run after phase 13, in phase 7's work directory): ``train
+   --profile DIR --bf16 --max_epochs 1 --batch_size 3`` as a child on phase
+   7's cohort: the trace has ProfilerStep#0..9 and device kernel events, and
+   every whole step launched kernels; reported: kernel launches a step, the
+   device-busy share over the traced steps and the five longest kernels. In
+   process, on one batch of the test split on the card: the checked step
+   (``--debug_checks``) against the production step from the same state
+   (TOL_CHECKED_STEP), a batch with an origin label of 25 and one with a NaN
+   feature each refused with the JAX check's text and the parameters' and
+   Adam state's bytes unchanged; then ``enable_debug_nans()`` with a NaN
+   planted in one weight of phase 7's f32 checkpoint: one classification-
+   mode eval step raises FloatingPointError naming ToadMIL, K1 launched once
+   (the kernel ran, the hook caught its output). A trace on the card without
+   device kernel events fails its phase.
 
 The second-to-last line is the kernels' JSON record, the last line the device
 record. Weights and data are random, made from --seed.
@@ -1630,6 +1651,155 @@ def run_featurize(workdir: Path, weights: Path, patch_dir: Path, feat_dir: Path)
     return json.loads(run.stdout.strip().splitlines()[-1]), wall
 
 
+# Reading a torch.profiler trace (the Chrome trace JSON a user opens in Perfetto): device activity, the host
+# launch of each kernel (by correlation id), and the host spans (record_function, ProfilerStep#k) it fell in.
+DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
+LAUNCH_CATS = ("cuda_runtime", "cuda_driver")
+K3_SYMBOLS = ("mha_bf16_kernel", "mha_f32_kernel")  # csrc/mha.cu's __global__ functions
+# kernel name -> class for the device-time split (demangled names; the first class whose word is in the name)
+KERNEL_CLASSES = (
+    ("K3", K3_SYMBOLS),
+    ("GEMM", ("gemm", "nvjet", "xmma", "cutlass", "cublas")),
+    ("LayerNorm", ("layer_norm", "LayerNorm")),
+    ("elementwise", ("elementwise",)),
+)
+
+
+def read_trace(log_dir: Path) -> list[dict]:
+    """The events of the one trace file a ``--profile DIR`` run wrote."""
+    files = sorted(Path(log_dir).glob("*.pt.trace.json"))
+    if len(files) != 1:
+        raise AssertionError(f"{log_dir}: {len(files)} trace files, not 1: {files}")
+    with open(files[0]) as f:
+        return json.load(f)["traceEvents"]
+
+
+def host_spans(events: list[dict], prefix: str) -> list[dict]:
+    """Host ``user_annotation`` spans whose name starts with ``prefix``, in time order."""
+    return sorted((e for e in events if e.get("ph") == "X" and e.get("cat") == "user_annotation"
+                   and e.get("name", "").startswith(prefix)), key=lambda e: e["ts"])
+
+
+def device_in_span(events: list[dict], span: dict) -> list[dict]:
+    """Device activity (kernels, copies, memsets) whose host launch lies in
+    ``span`` on its thread, or, where the launch was not recorded, that runs
+    inside a ``gpu_user_annotation`` of the span's name."""
+    launches = {e["args"]["correlation"]: e for e in events
+                if e.get("cat") in LAUNCH_CATS and "correlation" in e.get("args", {})}
+    lo, hi = span["ts"], span["ts"] + span["dur"]
+    gpu_spans = [(g["ts"], g["ts"] + g["dur"]) for g in events
+                 if g.get("cat") == "gpu_user_annotation" and g.get("name") == span["name"]]
+    out = []
+    for e in events:
+        if e.get("cat") not in DEVICE_CATS:
+            continue
+        launch = launches.get(e.get("args", {}).get("correlation"))
+        if launch is not None:
+            if launch["tid"] == span["tid"] and lo <= launch["ts"] <= hi:
+                out.append(e)
+        elif any(a <= e["ts"] and e["ts"] + e["dur"] <= b for a, b in gpu_spans):
+            out.append(e)
+    return out
+
+
+def busy_us(device_events: list[dict], lo: float | None = None, hi: float | None = None) -> tuple[float, float]:
+    """(the union of the events' device intervals, the window) in µs; the
+    window is [lo, hi], or the first start to the last end where not given."""
+    iv = sorted((e["ts"], e["ts"] + e["dur"]) for e in device_events)
+    if not iv:
+        return 0.0, 0.0
+    lo = iv[0][0] if lo is None else lo
+    hi = max(b for _, b in iv) if hi is None else hi
+    busy, end = 0.0, lo
+    for a, b in iv:
+        a, b = max(a, end), min(b, hi)
+        if b > a:
+            busy += b - a
+            end = b
+    return busy, hi - lo
+
+
+def op_names(events: list[dict]) -> dict:
+    """External id -> the name of the host op (``aten::bmm``, ...) that
+    launched the device work carrying it."""
+    return {e["args"]["External id"]: e["name"] for e in events
+            if e.get("cat") == "cpu_op" and "External id" in e.get("args", {})}
+
+
+def longest_kernels(kernels: list[dict], ops: dict, n: int = 5) -> str:
+    """The ``n`` kernels that take the most device time, summed by name:
+    total ms, count and the host op that launched them."""
+    by_name: dict[str, list] = {}
+    for e in kernels:
+        by_name.setdefault(e["name"], []).append(e)
+    top = sorted(by_name.items(), key=lambda kv: -sum(e["dur"] for e in kv[1]))[:n]
+    return "; ".join(
+        f"{name[:64]} {sum(e['dur'] for e in ks) / 1e3:.3f} ms ×{len(ks)} "
+        f"({'/'.join(sorted({ops.get(e.get('args', {}).get('External id'), '?') for e in ks}))})" for name, ks in top)
+
+
+def kernel_class(name: str) -> str:
+    return next((label for label, words in KERNEL_CLASSES if any(w in name for w in words)), "other")
+
+
+def check_trace_has_device_events(events: list[dict], what: str) -> int:
+    """A trace on the card with no device kernel event is a failed phase."""
+    n = sum(1 for e in events if e.get("cat") == "kernel")
+    if n == 0:
+        raise AssertionError(f"{what}: the trace holds no device kernel event (CUPTI recorded no device activity)")
+    return n
+
+
+def phase_featurize_profiled(weights: Path, imgs: np.ndarray, workdir: Path, gpu: str) -> dict:
+    """``featurize --encoder vit --profile DIR`` in process over one batch of
+    64 tiles, its trace read from DIR: K3's 24 launches inside the batch's
+    ``toad.featurize.embed_dispatch`` span, and the batch's device time by
+    kernel class with the device's idle share of its window."""
+    from toad_tpu_torch.data.bags import load_bag
+    from toad_tpu_torch.ops import cuda_mha
+
+    src = workdir / "patches_profiled"
+    src.mkdir()
+    np.savez(src / "slide_p.npz", imgs=imgs, coords=np.zeros((len(imgs), 2), np.int64))
+    trace_dir = workdir / "vit_trace"
+    t0 = time.perf_counter()
+    cuda_mha.LAUNCHES = 0
+    out, _ = run_cli(["featurize", "--encoder", "vit", "--weights", str(weights), "--patch_dir", str(src), "--feat_dir",
+                      str(workdir / "feats_profiled"), "--format", "npz", "--batch_size", "64", "--profile",
+                      str(trace_dir)], workdir, in_process=True)
+    launched, wall = cuda_mha.LAUNCHES, time.perf_counter() - t0
+    lines = out.strip().splitlines()
+    if lines[-1] != f"[profile] trace written to {trace_dir}" or any("device kernel events" in ln for ln in lines):
+        raise AssertionError(f"featurize --profile: {lines[-3:]}")
+    events = read_trace(trace_dir)
+    n_kernels = check_trace_has_device_events(events, "featurize --profile")
+    spans = host_spans(events, "toad.featurize.embed_dispatch")
+    if len(spans) != 1 or len(host_spans(events, "toad.featurize.slide")) != 1:
+        raise AssertionError(f"featurize --profile: {len(spans)} embed_dispatch spans for one batch")
+    inside = device_in_span(events, spans[0])
+    kernels = [e for e in inside if e["cat"] == "kernel"]
+    k3 = [e for e in kernels if any(w in e["name"] for w in K3_SYMBOLS)]
+    if len(k3) != 24 or launched != 24:
+        raise AssertionError(f"featurize --profile: {len(k3)} K3 kernels in the embed_dispatch span, {launched} "
+                             "launches counted; want 24 (one a block)")
+    split: dict[str, float] = {}
+    for e in kernels:
+        split[kernel_class(e["name"])] = split.get(kernel_class(e["name"]), 0.0) + e["dur"] / 1e3
+    busy, window = busy_us(inside)
+    got = torch.from_numpy(load_bag(workdir / "feats_profiled" / "slide_p.npz"))
+    ref = torch.from_numpy(load_bag(workdir / "feats" / "slide_b.npz")[:len(imgs)])
+    check_close("the profiled batch's features vs phase 5's first batch of slide_b", got, ref, TOL_FEATURES)
+    total = sum(split.values())
+    log(f"phase 5 featurize --profile (in process, one batch of {len(imgs)}): trace of {n_kernels} device kernels, "
+        f"{len(kernels)} inside toad.featurize.embed_dispatch, K3 ({K3_SYMBOLS[0]}) {len(k3)} times = launches counted "
+        f"{launched}; the batch's device time {total:.3f} ms: " + ", ".join(
+            f"{k} {v:.3f} ms ({100 * v / total:.1f} %)" for k, v in sorted(split.items(), key=lambda kv: -kv[1]))
+        + f"; device busy {busy / 1e3:.3f} of the {window / 1e3:.3f} ms window (idle {100 * (1 - busy / window):.1f} %, "
+        f"with the profiler on); the five longest kernels: {longest_kernels(kernels, op_names(events))}; {wall:.1f} s "
+        f"[{gpu}]")
+    return dict(launches=launched, split=split, idle=1 - busy / window, window_ms=window / 1e3)
+
+
 def phase_featurize(seed: int, card: str, gpu: str, workdir: Path) -> dict:
     """The featurization path at ViT-L/16's full width and depth."""
     from toad_tpu_torch.data.bags import load_bag, load_bag_quantized
@@ -1746,12 +1916,14 @@ def phase_featurize(seed: int, card: str, gpu: str, workdir: Path) -> dict:
         raise AssertionError(f"int8 bag off its f32 features by {off.max():.3e} beyond half a step, or {said8}")
     log(f"phase 5 featurize: int8 bag {xq.shape} + scales {scales.shape} read back with load_bag_quantized, within "
         f"half a quantization step (+{max(off.max(), 0):.1e}) of the f32 bag; featurize --format int8 in process {wall8:.1f} s")
+    profiled = phase_featurize_profiled(weights, imgs_b[:batch_size], workdir, gpu)
     log(f"phase 5 featurize: {said['patches']} tiles in {said['batches']} batches of {batch_size}, attention kernel "
         f"launches {said['attention_kernel_launches']} (= {depth} x batches), {said['patches_per_s']:.1f} tiles/s by the "
         f"CLI's own clock (first-call setup included), child process {wall:.1f} s; in process {batch_ms:.2f} ms per "
         f"batch = {batch_size / batch_ms * 1e3:.1f} tiles/s [{gpu}]")
     return dict(launches=said["attention_kernel_launches"], batches=said["batches"], worst=worst,
-                cli_tiles_s=said["patches_per_s"], batch_ms=batch_ms, batch_size=batch_size, depth=depth)
+                cli_tiles_s=said["patches_per_s"], batch_ms=batch_ms, batch_size=batch_size, depth=depth,
+                profiled=profiled)
 
 
 def seeded_resnet(seed: int):
@@ -3156,6 +3328,144 @@ def phase_serve_ensemble(trained: dict, card: str, gpu: str, workdir: Path, seed
     return dict(main, k2_launches=k2, worst_p=worst_p, worst_a=worst_a, forward=forward, serve_load=load)
 
 
+TOL_CHECKED_STEP = 1e-6  # the checked step vs the production step, of each parameter's largest entry
+
+
+def state_bytes(model, optimizer) -> bytes:
+    """The parameters' and the optimizer's state, serialized: equal bytes, equal state."""
+    import io
+
+    buf = io.BytesIO()
+    torch.save({"model": model.state_dict(), "optimizer": optimizer.state_dict()}, buf)
+    return buf.getvalue()
+
+
+def phase_ops_tooling(trained: dict, card: str, gpu: str, workdir: Path, seed: int) -> dict:
+    """Phase 14: the ops tooling in phase 7's work directory. (a) ``train
+    --profile DIR --bf16 --max_epochs 1`` as a child on phase 7's cohort: its
+    trace's ten ProfilerStep spans with device kernels, the kernel launches a
+    step, the device-busy share over the traced steps and the five longest
+    kernels. (b) In process, on one batch with the model on the card: the
+    checked step against the production step; an out-of-range label and a
+    NaN feature refused with the JAX text and the state's bytes unchanged;
+    ``enable_debug_nans()`` catching the NaN that K1 computes from a NaN
+    planted in phase 7's f32 checkpoint."""
+    import re
+
+    from toad_tpu_torch.config import OptimConfig
+    from toad_tpu_torch.data.batching import BagBatcher
+    from toad_tpu_torch.evaluate.runner import batch_to_dict, make_eval_step
+    from toad_tpu_torch.models.toad_mil import ToadMIL
+    from toad_tpu_torch.ops import cuda_pool
+    from toad_tpu_torch.train.checkpoint import load_params_any
+    from toad_tpu_torch.train.loop import make_train_step
+    from toad_tpu_torch.train.optim import make_optimizer
+    from toad_tpu_torch.utils.debug import CheckError, enable_debug_nans, make_checked_step
+
+    t0 = time.perf_counter()
+    # (a) main path: the trainer as a user profiles it; batch 3, so that the epoch has more than ten steps
+    trace_dir = workdir / "train_trace"
+    lines, wall = run_train(workdir, "smoke_profile", ["--profile", str(trace_dir), "--bf16", "--max_epochs", "1",
+                                                       "--batch_size", "3"])
+    if f"[profile] trace of 10 steps written to {trace_dir}" not in lines or any("device kernel events" in ln for ln in lines):
+        raise AssertionError(f"train --profile: {[ln for ln in lines if '[profile]' in ln]}")
+    counts = next((re.search(r"eval batches (\d+), pooling kernel launches (\d+)", ln) for ln in lines
+                   if "pooling kernel launches" in ln), None)
+    if counts is None or int(counts.group(1)) != int(counts.group(2)) or int(counts.group(1)) < 1:
+        raise AssertionError(f"train --profile: pooling kernel launches != eval batches: {counts}")
+    events = read_trace(trace_dir)
+    n_kernels = check_trace_has_device_events(events, "train --profile")
+    steps = host_spans(events, "ProfilerStep#")
+    if [e["name"] for e in steps] != [f"ProfilerStep#{k}" for k in range(10)]:
+        raise AssertionError(f"train --profile: spans {[e['name'] for e in steps]}, want ProfilerStep#0..9")
+    full = steps[:-1]  # the last span only closes the trace (StepTracer)
+    per_step = [[e for e in device_in_span(events, span) if e["cat"] == "kernel"] for span in full]
+    if min(len(k) for k in per_step) == 0:
+        raise AssertionError(f"train --profile: a traced step with no device kernel: {[len(k) for k in per_step]}")
+    lo, hi = full[0]["ts"], full[-1]["ts"] + full[-1]["dur"]
+    traced = [e for e in events if e.get("cat") in DEVICE_CATS and e["ts"] + e["dur"] > lo and e["ts"] < hi]
+    busy, window = busy_us(traced, lo, hi)
+    # a span is the wait for the next batch, then the step: the step's host time runs from its first kernel
+    # launch to the span's end, after the metrics' copy to the host
+    kernel_ids = {e.get("args", {}).get("correlation") for e in events if e.get("cat") == "kernel"}
+    first = [min(e["ts"] for e in events if e.get("cat") in LAUNCH_CATS and e["tid"] == span["tid"]
+                 and span["ts"] <= e["ts"] <= span["ts"] + span["dur"] and e["args"].get("correlation") in kernel_ids)
+             for span in full]
+    step_host = [span["ts"] + span["dur"] - t for span, t in zip(full, first)]
+    step_busy = [busy_us(traced, t, t + h)[0] for t, h in zip(first, step_host)]
+    kernel_ms = statistics.mean(sum(e["dur"] for e in k) for k in per_step) / 1e3
+    launches = [len(k) for k in per_step]
+    log(f"phase 14 train --profile --bf16 (batch 3, child process {wall:.1f} s): trace of {n_kernels} device kernels, "
+        f"ProfilerStep#0..9 (#9 closes the trace); over the {len(full)} whole steps: {statistics.mean(launches):.1f} "
+        f"kernel launches a step ({min(launches)}-{max(launches)}), {kernel_ms:.3f} ms of kernels a step; a span "
+        f"{statistics.mean(s['dur'] for s in full) / 1e3:.3f} ms of host time (the wait for its batch included), the device "
+        f"busy {busy / 1e3:.3f} of {window / 1e3:.3f} ms ({100 * busy / window:.1f} %); the step from its first launch "
+        f"{statistics.mean(step_host) / 1e3:.3f} ms of host time ({min(step_host) / 1e3:.3f}-{max(step_host) / 1e3:.3f}), "
+        f"the device busy {100 * sum(step_busy) / sum(step_host):.1f} % of it; the five longest kernels: "
+        f"{longest_kernels([e for k in per_step for e in k], op_names(events))} [{gpu}]")
+
+    # (b) in process, one batch of phase 7's cohort, the model on the card
+    cfg32 = trained["model_cfg"]
+    split = trained["test_split"]
+    batch = next(iter(BagBatcher(split, batch_size=4, mode="sequential", prefetch=0, max_bag_size=8192)))
+    bd = batch_to_dict(batch, "cuda")
+    pairs = []
+    for make in (make_train_step, make_checked_step):
+        model = ToadMIL(cfg32, generator=torch.Generator().manual_seed(seed)).cuda().train()
+        opt = make_optimizer(OptimConfig(), model.parameters())
+        step = make(model, opt, 0.75, 0.25)
+        step(bd, None)
+        pairs.append((model, opt, step))
+    torch.cuda.synchronize()
+    (m_p, _, _), (m_c, o_c, chk) = pairs
+    worst = max(float((a - b).abs().max() / a.abs().max().clamp_min(1e-30))
+                for a, b in zip(m_p.state_dict().values(), m_c.state_dict().values()))
+    if worst > TOL_CHECKED_STEP:
+        raise AssertionError(f"checked step vs production step: parameters differ by {worst:.2e} of their largest entry")
+    refused = []
+    label, features = bd["label"].clone(), bd["features"].clone()
+    label[1], features[0, 0, 0] = 25, float("nan")
+    for what, bad, says in (
+        ("an origin label of 25", {**bd, "label": label}, "origin label out of range [0, 18): min "),
+        ("a NaN feature", {**bd, "features": features}, "non-finite feature values in batch"),
+    ):
+        before = state_bytes(m_c, o_c)
+        try:
+            chk(bad, None)
+        except CheckError as e:
+            if not str(e).startswith(says) or state_bytes(m_c, o_c) != before:
+                raise AssertionError(f"{what}: {e}; state unchanged {state_bytes(m_c, o_c) == before}") from None
+            refused.append(f"{what}: \"{e}\"")
+        else:
+            raise AssertionError(f"the checked step took a batch with {what}")
+
+    # enable_debug_nans: a NaN planted in one weight of phase 7's f32 checkpoint comes out of K1
+    model = ToadMIL(cfg32)
+    model.load_state_dict(load_params_any(workdir / "results" / "smoke_f32_s1" / "s_0_checkpoint.pt", cfg32))
+    with torch.no_grad():
+        model.attn["a"].weight[0, 0] = float("nan")
+    eval_step = make_eval_step(model.cuda().eval())
+    cuda_pool.LAUNCHES = 0
+    enable_debug_nans()
+    try:
+        eval_step(bd)
+    except FloatingPointError as e:
+        caught = str(e)
+    else:
+        raise AssertionError("enable_debug_nans() did not catch the NaN out of K1")
+    finally:
+        enable_debug_nans(False)
+    k1 = cuda_pool.LAUNCHES
+    if k1 != 1 or "ToadMIL" not in caught:
+        raise AssertionError(f"enable_debug_nans: K1 launches {k1} (want 1), raised {caught!r}")
+    log(f"phase 14 checked step (B=4 x {batch.bucket} x 1024, f32, on the card): parameters within {worst:.1e} of the "
+        f"production step's (tolerance {TOL_CHECKED_STEP} of each one's largest entry); refused with the state's bytes "
+        f"unchanged: {'; '.join(refused)}; enable_debug_nans() with a NaN in attn.a.weight of smoke_f32's checkpoint: "
+        f"K1 launched {k1} time, FloatingPointError \"{caught}\"; {time.perf_counter() - t0:.1f} s")
+    return dict(k1_bf16_launches=int(counts.group(2)), k1_f32_launches=k1, launches_per_step=statistics.mean(launches),
+                busy=busy / window, step_busy=sum(step_busy) / sum(step_host), wall=wall)
+
+
 def check_probe(name: str, got: torch.Tensor, want: torch.Tensor, tol: float) -> tuple[float, float]:
     """For a probe output [B, 8, H]: (max abs error, the largest error of a
     task row relative to that row's largest |want|); raises above ``tol``
@@ -3673,6 +3983,8 @@ def main() -> int:
             elapsed("phase 12")
             ensembled = phase_serve_ensemble(trained, card, gpu, Path(tmp), args.seed)
             elapsed("phase 13")
+            tooled = phase_ops_tooling(trained, card, gpu, Path(tmp), args.seed)
+            elapsed("phase 14")
     probes = phase_probes(args.seed, gpu)
     elapsed("phase 10")
     vit_probes = phase_vit_probes(args.seed, gpu)
@@ -3695,8 +4007,8 @@ def main() -> int:
             "route": "cuda",
             "source": "toad_tpu_torch/csrc/pool.cu",
             "replaces": "toad_tpu/ops/pallas_pool.py:93",
-            # the bf16 instance: the bf16 serving burst and the eval --bf16 passes
-            "launches": served["launches"] + evaluated["k1_bf16_launches"],
+            # the bf16 instance: the bf16 serving burst, the eval --bf16 passes and phase 14's profiled bf16 trainer
+            "launches": served["launches"] + evaluated["k1_bf16_launches"] + tooled["k1_bf16_launches"],
             "max_abs_err": worst[torch.bfloat16],
             **times[("bfloat16", 32)],
         },
@@ -3707,9 +4019,10 @@ def main() -> int:
             "replaces": "toad_tpu/ops/pallas_pool.py:93",
             # the f32 instance, the default of eval, train, predict, infer and serve: the f32 eval passes, the f32
             # trainer's passes, phase 12's predict child and in-process infer (scored mode), and phase 13's
-            # `serve --ensemble` child (two launches a batch, its /heatmap among them)
+            # `serve --ensemble` child (two launches a batch, its /heatmap among them), and phase 14's eval step under
+            # enable_debug_nans()
             "launches": evaluated["k1_f32_launches"] + trained["launches"] + inferred["k1_f32_launches"]
-            + ensembled["k1_launches"],
+            + ensembled["k1_launches"] + tooled["k1_f32_launches"],
             "max_abs_err": worst[torch.float32],
             **times[("float32", 32)],
         },
@@ -3729,7 +4042,7 @@ def main() -> int:
             "route": "cuda",
             "source": "toad_tpu_torch/csrc/mha.cu",
             "replaces": "toad_tpu/ops/vit_attention.py:42",
-            "launches": featurized["launches"],
+            "launches": featurized["launches"] + featurized["profiled"]["launches"],  # the featurize child, --profile
             "max_abs_err": worst_mha,
             **mha,
         },

@@ -61,7 +61,7 @@ def test_config_and_registry_match_the_jax_package():
         "TaskConfig": set(),
         "OptimConfig": set(),
         "DataConfig": set(),
-        "TrainConfig": {"rss_restart_gb", "profile_dir", "debug_checks", "data_shards", "bag_shards"},
+        "TrainConfig": {"data_shards", "bag_shards"},
         "SplitConfig": set(),
         "EncoderConfig": set(),
     }
@@ -119,6 +119,8 @@ TRAIN_MODULES = (
     "toad_tpu_torch.utils.rng",
     "toad_tpu_torch.utils.io",
     "toad_tpu_torch.utils.logging",
+    "toad_tpu_torch.utils.profiling",
+    "toad_tpu_torch.utils.debug",
     "toad_tpu_torch.data.bags",
     "toad_tpu_torch.data.wsi_dataset",
     "toad_tpu_torch.data.splits",

@@ -963,7 +963,8 @@ def test_cli_validate_matches_the_jax_cli(trained, capsys, broken, tmp_path):
     ("serve", ["--ckpt", "c.pt"], ["--compile_cache", "d"], "configures XLA"),
     ("featurize", ["--feat_dir", "f", "--patch_dir", "p", "--encoder", "vit"], ["--data_shards", "2"], "queue 1.7"),
     ("featurize", ["--feat_dir", "f", "--patch_dir", "p", "--encoder", "vit"], ["--profile", "d"], "queue 1.6"),
-    # queues 1.4 (ensemble serving) and 1.5 (the ResNet-50 encoder) are ported: their flags are now taken, not refused
+    # queues 1.4 (ensemble serving), 1.5 (the ResNet-50 encoder) and 1.6 (the ops tooling) are ported: their flags are
+    # now taken, not refused
     ("featurize", ["--feat_dir", "f", "--patch_dir", "p", "--encoder", "vit"], ["--no_fold_bn"], "queue 1.5"),
     ("featurize", ["--feat_dir", "f", "--patch_dir", "p", "--encoder", "vit"], ["--compile_cache", "d"], "configures XLA"),
 ])
@@ -973,10 +974,14 @@ def test_serve_and_featurize_refuse_unported_flags_by_name(cli, base, flags, say
     from toad_tpu_torch.cli.common import refuse_flags
 
     module = importlib.import_module(f"toad_tpu_torch.cli.{cli}")
-    if says in ("queue 1.4", "queue 1.5"):
+    if says in ("queue 1.4", "queue 1.5", "queue 1.6"):
         flag = flags[0][2:]
         args = module.make_parser().parse_args([*base, *flags])
         refuse_flags(args, module._NOT_PORTED)  # does not exit
+        if says == "queue 1.6":  # the ops tooling: a value, off by default
+            assert getattr(args, flag) == type(getattr(args, flag))(flags[1])
+            assert getattr(module.make_parser().parse_args(base), flag) is None
+            return
         assert getattr(args, flag) is True and getattr(module.make_parser().parse_args(base), flag) is False
         return
     with pytest.raises(SystemExit) as e:

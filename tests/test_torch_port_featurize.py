@@ -288,9 +288,16 @@ def test_cli_refuses_what_is_not_ported_or_not_there(slide, tmp_path):
                                rtol=0.1, atol=0.1)  # bf16: folded and unfolded round at other places
     both = _cli("--encoder", "vit", "--patch_dir", patch_dir, "--tile_dir", patch_dir, "--feat_dir", "feats", cwd=tmp_path)
     assert both.returncode != 0 and "exactly one of --patch_dir" in both.stderr
-    for gone in (["--data_shards", "2"], ["--profile", "d"], ["--compile_cache", "d"]):
+    for gone in (["--data_shards", "2"], ["--compile_cache", "d"]):
         run = _cli("--device", "cpu", "--encoder", "vit", "--patch_dir", patch_dir, "--feat_dir", "feats", *gone, cwd=tmp_path)
         assert run.returncode != 0 and f"{gone[0]} is not ported to this package" in run.stderr  # refused by name
+    # --profile is ported (the ops tooling): taken, not refused
+    from toad_tpu_torch.cli import featurize as cli_featurize
+    from toad_tpu_torch.cli.common import refuse_flags
+
+    profiled = cli_featurize.make_parser().parse_args(["--feat_dir", "feats", "--patch_dir", patch_dir, "--profile", "d"])
+    refuse_flags(profiled, cli_featurize._NOT_PORTED)  # does not exit
+    assert profiled.profile == "d"
     if not torch.cuda.is_available():
         # the card is the default: without one, and without --device cpu, nothing runs on the CPU silently
         no_card = _cli("--encoder", "vit", "--patch_dir", patch_dir, "--feat_dir", "feats_no_card", cwd=tmp_path)

@@ -600,7 +600,16 @@ def test_cli_resume_skips_finished_folds(cli_run):
 def test_cli_refuses_unported_flags_by_name(flags, says):
     from toad_tpu_torch.cli import train as cli_train
 
-    args = cli_train.make_parser().parse_args(["--task", "t", "--exp_code", "e", *flags])
+    base = ["--task", "t", "--exp_code", "e"]
+    args = cli_train.make_parser().parse_args([*base, *flags])
+    if says == "queue 1.6":  # the ops tooling is ported: its flags are now taken, not refused
+        cli_train.refuse_unported(args)  # does not exit
+        dest = flags[0][2:]
+        off = cli_train.make_parser().parse_args(base)
+        assert getattr(args, dest) not in (None, False) and getattr(off, dest) in (None, False)
+        cfg = cli_train.config_from_args(args, n_classes=18)
+        assert (cfg.profile_dir, cfg.debug_checks, cfg.rss_restart_gb) == (args.profile, args.debug_checks, args.rss_restart_gb)
+        return
     with pytest.raises(SystemExit, match=says):
         cli_train.refuse_unported(args)
 

@@ -5,7 +5,9 @@ Every patch file in ``--patch_dir`` (CLAM layout: ``imgs`` [N, H, W, 3] uint8
 where h5py is absent), or every per-slide subdirectory of tile images in
 ``--tile_dir``, is embedded through the truncated ResNet-50 (the default) or
 the ViT encoder and written to ``--feat_dir`` as a feature bag usable by
-serving and inference. The same command as ``python -m toad_tpu featurize``.
+serving and inference. The same command as ``python -m toad_tpu featurize``;
+``--profile DIR`` writes a torch.profiler trace of the run, each batch's
+embed under a ``toad.featurize.embed_dispatch`` span.
 """
 
 from __future__ import annotations
@@ -20,7 +22,6 @@ from toad_tpu_torch.cli.common import XLA_ONLY, refuse_flags
 # flags of the JAX CLI that are not ported: (flag, its "off" value, where ROADMAP.md queues it)
 _NOT_PORTED = (
     ("data_shards", None, "multi-GPU (ROADMAP.md queue 1.7)"),
-    ("profile", None, "profiling and debugging tools (ROADMAP.md queue 1.6)"),
     ("compile_cache", None, XLA_ONLY),
 )
 
@@ -46,9 +47,10 @@ def make_parser() -> argparse.ArgumentParser:
     p.add_argument("--no_fold_bn", action="store_true", help="keep the ResNet's BatchNorm unfolded")
     p.add_argument("--skip_done", action="store_true", help="skip slides whose bag already exists")
     p.add_argument("--device", type=str, default="cuda", help="cuda (default), cuda:<i> or cpu")
+    p.add_argument("--profile", type=str, default=None, metavar="DIR",
+                   help="capture a torch.profiler trace of the run into DIR (open it in Perfetto or chrome://tracing)")
     # flags of the JAX CLI that are not ported; accepted so that they can be refused by name
     p.add_argument("--data_shards", type=int, default=None, help="not ported")
-    p.add_argument("--profile", type=str, default=None, help="not ported")
     p.add_argument("--compile_cache", type=str, default=None, help="no counterpart: nothing is compiled ahead of a run")
     return p
 
@@ -88,7 +90,10 @@ def main(argv=None) -> None:
         twice = sorted({s for s in stems if stems.count(s) > 1})
         if twice:
             raise SystemExit(f"patch files in more than one format for {twice}: both would write {twice[0]}.*; keep one")
-    _run_all(args, files, feat_dir, embedder)
+    from toad_tpu_torch.utils.profiling import profile_trace
+
+    with profile_trace(args.profile, enabled=args.profile is not None):
+        _run_all(args, files, feat_dir, embedder)
 
 
 def _vit(args):

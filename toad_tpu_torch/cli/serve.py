@@ -6,6 +6,14 @@ Loads a reference-layout ``s_{fold}_checkpoint.pt`` (or, with
 (:mod:`toad_tpu_torch.serve`) on one device. On CUDA the fused pooling
 kernel is the path, launched once per ensemble member and batch; with
 ``--int8``, the fused int8 pooling kernel.
+
+``--max_rss_gb`` is the JAX CLI's memory watermark: a watchdog thread reads
+the process's RSS every RSS_POLL_S seconds and, once it crosses the
+watermark, drains the server and exits RESTART_EXIT_CODE so that a
+supervisor starts a fresh one. One deliberate difference: a watermark at or
+under the RSS the server has once its model is on the device is refused at
+start, where the JAX CLI would serve nothing and exit for a restart at its
+first poll, and so again after every restart.
 """
 
 from __future__ import annotations
@@ -16,12 +24,17 @@ import threading
 import time
 
 from toad_tpu_torch.cli.common import XLA_ONLY, refuse_flags
+from toad_tpu_torch.utils import profiling
+
+# exit code signalling "restart me" to a supervisor after an RSS-watermark
+# drain (distinct from 0 = clean stop and 1 = error)
+RESTART_EXIT_CODE = 42
+RSS_POLL_S = 5.0  # seconds between the watchdog's reads of the RSS
 
 # flags of the JAX CLI that are not ported: (flag, its "off" value, where ROADMAP.md queues it)
 _NOT_PORTED = (
     ("data_shards", None, "multi-GPU (ROADMAP.md queue 1.7)"),
     ("bag_shards", None, "multi-GPU (ROADMAP.md queue 1.7)"),
-    ("max_rss_gb", None, "profiling and debugging tools (ROADMAP.md queue 1.6)"),
     ("pallas", False, XLA_ONLY),
     ("compile_cache", None, XLA_ONLY),
 )
@@ -75,6 +88,12 @@ def make_parser() -> argparse.ArgumentParser:
     )
     p.add_argument("--max_body_mb", type=int, default=1024, metavar="MB", help="reject POST bodies beyond this size with 413")
     p.add_argument(
+        "--max_rss_gb", type=float, default=None, metavar="GB",
+        help=f"memory watermark: when host RSS crosses GB, drain gracefully and exit {RESTART_EXIT_CODE} so that a "
+        "supervisor restarts the server; refused at start when GB is at or under the RSS the server has once its "
+        "model is loaded",
+    )
+    p.add_argument(
         "--warmup", type=str, default=None, nargs="?", const="all", metavar="BUCKETS",
         help="run the serving shapes once before accepting traffic: 'all' (every "
         "bucket) or comma-separated bucket sizes, each at batch 1 and max_batch",
@@ -82,7 +101,6 @@ def make_parser() -> argparse.ArgumentParser:
     # flags of the JAX CLI that are not ported; accepted so that they can be refused by name
     p.add_argument("--data_shards", type=int, default=None, help="not ported")
     p.add_argument("--bag_shards", type=int, default=None, help="not ported")
-    p.add_argument("--max_rss_gb", type=float, default=None, help="not ported")
     p.add_argument("--pallas", action="store_true", help="no counterpart: the kernel is always the path on CUDA")
     p.add_argument("--compile_cache", type=str, default=None, help="no counterpart: nothing is compiled ahead of a run")
     return p
@@ -131,6 +149,14 @@ def main(argv=None) -> None:
         t0 = time.perf_counter()
         n = service.batcher.warmup(warm)
         print(f"warmup: {n} shape variants in {time.perf_counter() - t0:.1f}s", flush=True)
+    if args.max_rss_gb is not None:
+        rss = profiling.host_rss_gb()
+        if args.max_rss_gb <= rss:
+            service.close()
+            raise SystemExit(
+                f"error: --max_rss_gb {args.max_rss_gb:g} is at or under this server's RSS with its model loaded, "
+                f"{rss:.2f} GiB: the watchdog would drain it before it served anything; give a watermark above it"
+            )
     server = make_http_server(service, args.host, args.port, max_body_bytes=args.max_body_mb << 20)
     print(
         f"serving on http://{args.host}:{server.server_address[1]}  "
@@ -146,6 +172,23 @@ def main(argv=None) -> None:
 
     signal.signal(signal.SIGTERM, _stop)
     signal.signal(signal.SIGINT, _stop)
+    rss_tripped = threading.Event()
+    if args.max_rss_gb is not None:
+        def _rss_watchdog():
+            while not rss_tripped.is_set():
+                rss = profiling.host_rss_gb()
+                if rss >= args.max_rss_gb:
+                    print(
+                        f"host RSS {rss:.1f} GiB >= --max_rss_gb {args.max_rss_gb:.1f}: "
+                        f"draining for supervisor restart (exit {RESTART_EXIT_CODE})",
+                        flush=True,
+                    )
+                    rss_tripped.set()
+                    threading.Thread(target=server.shutdown, daemon=True).start()
+                    return
+                time.sleep(RSS_POLL_S)
+
+        threading.Thread(target=_rss_watchdog, daemon=True, name="toad-rss-watchdog").start()
     try:
         server.serve_forever()
     finally:
@@ -160,6 +203,8 @@ def main(argv=None) -> None:
             print("server stopped; in-flight requests drained (WARNING: a handler was still writing its response at exit)", flush=True)
         else:
             print("server stopped; WARNING: dispatch thread still busy after timeout", flush=True)
+        if rss_tripped.is_set():
+            raise SystemExit(RESTART_EXIT_CODE)
 
 
 if __name__ == "__main__":

@@ -2,7 +2,8 @@
 
 Counterpart of :mod:`toad_tpu.cli.train`: the flags of the reference
 ``main_mtl_concat.py`` plus --batch_size, --bf16, --buckets, --resume,
---native_io and --device. Produces the reference's results layout:
+--native_io, --device and the ops tooling (--profile, --debug_checks,
+--debug_nans, --rss_restart_gb). Produces the reference's results layout:
 ``results/{exp_code}_s{seed}/`` with ``experiment_{exp_code}.txt``, per-fold
 ``splits_{i}.csv``, ``s_{i}_checkpoint.pt`` (reference layout, what ``serve
 --ckpt`` reads), ``split_{i}_results.pkl``, and ``summary.csv``.
@@ -19,6 +20,8 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
+import sys
 from pathlib import Path
 
 from toad_tpu_torch.cli.common import (
@@ -45,10 +48,6 @@ _NOT_PORTED = (
     ("bag_shards", 1, "multi-GPU (ROADMAP.md queue 1.7; one card pools a long bag in pieces with "
                       "toad_tpu_torch.parallel.bag_shard.bag_sharded_pool)"),
     ("fold_devices", 1, "multi-GPU (ROADMAP.md queue 1.7)"),
-    ("profile", None, "profiling and debugging tools (ROADMAP.md queue 1.6)"),
-    ("debug_checks", False, "profiling and debugging tools (ROADMAP.md queue 1.6)"),
-    ("debug_nans", False, "profiling and debugging tools (ROADMAP.md queue 1.6)"),
-    ("rss_restart_gb", None, "profiling and debugging tools (ROADMAP.md queue 1.6)"),
 )
 
 
@@ -81,6 +80,10 @@ def make_parser() -> argparse.ArgumentParser:
     p.add_argument("--bf16", action="store_true", default=False, help="bfloat16 compute (parameters stay float32)")
     p.add_argument("--resume", action="store_true", default=False,
                    help="preemption-tolerant per-epoch state snapshots + resume")
+    p.add_argument("--rss_restart_gb", type=float, default=None, metavar="GB",
+                   help="memory watermark (requires --resume): when host RSS crosses GB at an epoch boundary, "
+                        "snapshot and re-exec this process, resuming where it left off (memory a runtime library "
+                        "leaks outside Python's heap is only returned by a fresh process)")
     p.add_argument("--patient_bags", action="store_true", default=False, help="concat each patient's slides into one bag")
     p.add_argument("--bf16_transfer", action="store_true", default=False,
                    help="force bfloat16 feature transfer even under f32 compute (half the host-to-device bytes; "
@@ -89,14 +92,17 @@ def make_parser() -> argparse.ArgumentParser:
     p.add_argument("--native_io", type=str, choices=["auto", "on", "off"], default="auto",
                    help="bag feed: the native C++ loader (built with g++ at first use) where every bag is eligible "
                         "(auto), always (on: an ineligible bag raises), or numpy and torch (off)")
+    p.add_argument("--profile", type=str, default=None, metavar="DIR",
+                   help="write a torch.profiler trace of the first train steps to DIR (open it in Perfetto or "
+                        "chrome://tracing)")
+    p.add_argument("--debug_checks", action="store_true", default=False,
+                   help="checked train step: raise on NaN/Inf/bad labels (slow)")
+    p.add_argument("--debug_nans", action="store_true", default=False,
+                   help="global NaN trapping: autograd anomaly mode and a NaN check on every module's output (very slow)")
     # flags of the JAX CLI that are not ported; accepted so that they can be refused by name
     p.add_argument("--data_shards", type=int, default=1, help="not ported")
     p.add_argument("--bag_shards", type=int, default=1, help="not ported")
     p.add_argument("--fold_devices", type=int, default=1, help="not ported")
-    p.add_argument("--rss_restart_gb", type=float, default=None, help="not ported")
-    p.add_argument("--profile", type=str, default=None, help="not ported")
-    p.add_argument("--debug_checks", action="store_true", default=False, help="not ported")
-    p.add_argument("--debug_nans", action="store_true", default=False, help="not ported")
     return p
 
 
@@ -117,6 +123,9 @@ def config_from_args(args, n_classes: int, bucket_sizes: tuple[int, ...] | None 
         k_end=args.k_end,
         early_stopping=args.early_stopping,
         resume=args.resume,
+        rss_restart_gb=args.rss_restart_gb,
+        profile_dir=args.profile,
+        debug_checks=args.debug_checks,
         log_data=args.log_data,
         testing=args.testing,
         model=ModelConfig(
@@ -149,15 +158,27 @@ def write_summary(path: Path, rows: list[dict]) -> None:
     write_rows_csv(path, rows, SUMMARY_COLUMNS)
 
 
+def _reexec(argv: list[str]) -> None:
+    """Replace this process with a fresh ``python -m toad_tpu_torch train
+    <argv>``. Factored out so tests can intercept it."""
+    os.execv(sys.executable, [sys.executable, "-m", "toad_tpu_torch", "train", *argv])
+
+
 def main(argv=None):
-    from toad_tpu_torch.train.loop import FoldTrainer, resolve_device
+    from toad_tpu_torch.train.loop import FoldTrainer, HostRssWatermark, resolve_device
 
     args = make_parser().parse_args(argv)
     refuse_unported(args)
+    if args.rss_restart_gb is not None and not args.resume:
+        raise SystemExit("--rss_restart_gb requires --resume (restart would lose all progress)")
     try:
         device = resolve_device(args.device)
     except (RuntimeError, ValueError) as e:
         raise SystemExit(f"error: --device {args.device}: {e}") from None
+    if args.debug_nans:
+        from toad_tpu_torch.utils.debug import enable_debug_nans
+
+        enable_debug_nans()
     seed_everything(args.seed)
     require_data_root(args)
     task, dataset = build_dataset(args, data_dir=args.data_root_dir)
@@ -192,20 +213,28 @@ def main(argv=None):
         return row
 
     rows_by_fold: dict[int, dict] = {}
-    for i in folds:
-        fold_summary = results_dir / f"fold_{i}_summary.json"
-        if args.resume and fold_summary.exists():
-            # the fold finished in an earlier (preempted) run: do not retrain it
-            rows_by_fold[i] = json.loads(fold_summary.read_text())
-            print(f"fold {i}: already complete ({fold_summary}), skipping")
-            continue
-        seed_everything(args.seed)
-        splits = load_fold_splits(i)
-        writer = make_writer(str(results_dir / str(i)), enabled=args.log_data)
-        trainer = FoldTrainer(cfg, fold=i, results_dir=results_dir, writer=writer, device=device)
-        r = trainer.train(*splits, log_fn=lambda msg: print(msg, flush=True))
-        writer.close()
-        rows_by_fold[i] = finish_fold(i, r)
+    try:
+        for i in folds:
+            fold_summary = results_dir / f"fold_{i}_summary.json"
+            if args.resume and fold_summary.exists():
+                # the fold finished in an earlier (preempted) run: do not retrain it
+                rows_by_fold[i] = json.loads(fold_summary.read_text())
+                print(f"fold {i}: already complete ({fold_summary}), skipping")
+                continue
+            seed_everything(args.seed)
+            splits = load_fold_splits(i)
+            writer = make_writer(str(results_dir / str(i)), enabled=args.log_data)
+            trainer = FoldTrainer(cfg, fold=i, results_dir=results_dir, writer=writer, device=device)
+            r = trainer.train(*splits, log_fn=lambda msg: print(msg, flush=True))
+            writer.close()
+            rows_by_fold[i] = finish_fold(i, r)
+    except HostRssWatermark as wm:
+        # memory outside Python's heap is not reclaimable in process: replace
+        # the process; completed folds skip via fold_<i>_summary.json, the
+        # interrupted fold resumes from the snapshot the watermark just saved
+        print(f"{wm} — re-exec to reclaim the process's memory", flush=True)
+        _reexec(list(argv) if argv is not None else sys.argv[1:])
+        return  # unreachable after execv; present for monkeypatched tests
 
     rows = [rows_by_fold[i] for i in folds]
     name = "summary.csv" if len(folds) == args.k else f"summary_partial_{folds.start}_{folds.stop}.csv"

@@ -6,9 +6,8 @@ Stdlib-only copies of the same names in :mod:`toad_tpu.config`, so that the
 port imports nothing of the JAX package. Fields and defaults are the same
 (``tests/test_torch_port_boundary.py`` holds them equal), except the fields
 with nothing behind them here: ``ModelConfig.use_pallas`` (on CUDA the
-kernel is the path), ``TrainConfig.rss_restart_gb``, ``profile_dir``,
-``debug_checks``, ``data_shards`` and ``bag_shards`` (ROADMAP.md: profiling
-and debugging tools, multi-GPU). ``DataConfig.native`` picks the bag feed
+kernel is the path), ``TrainConfig.data_shards`` and ``bag_shards``
+(ROADMAP.md: multi-GPU). ``DataConfig.native`` picks the bag feed
 as in the JAX package: the native loader (``toad_tpu_torch.native``) or
 numpy.
 """
@@ -173,6 +172,14 @@ class TrainConfig:
     # from it on restart, a capability the reference lacks
     resume: bool = False
     resume_every: int = 1
+    # memory watermark (requires resume): when host RSS crosses this many GiB
+    # at an epoch boundary, snapshot and raise HostRssWatermark so that the
+    # caller can re-exec a fresh process that resumes. None = off.
+    rss_restart_gb: float | None = None
+    profile_dir: str | None = None  # torch.profiler trace of the first steps
+    # numerical sanitizer (utils/debug.py): a checked train step that raises
+    # on NaN/Inf/out-of-range labels instead of training on garbage
+    debug_checks: bool = False
     model: ModelConfig = field(default_factory=ModelConfig)
     optim: OptimConfig = field(default_factory=OptimConfig)
     data: DataConfig = field(default_factory=DataConfig)

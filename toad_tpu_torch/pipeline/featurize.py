@@ -10,7 +10,9 @@ layout (decoded with PIL on a producer thread).
 
 Tiles go to the card from pinned memory with ``non_blocking`` copies, so the
 host reads and stages batch i+1 while the card computes batch i; the features
-stay on the card and come back once per slide.
+stay on the card and come back once per slide. The JAX package's trace
+annotations mark the same scopes (``toad.featurize.slide``,
+``toad.featurize.slide_tiles``, ``toad.featurize.embed_dispatch``).
 """
 
 from __future__ import annotations
@@ -30,6 +32,7 @@ import torch
 from toad_tpu_torch.data.bags import save_int8_bag
 from toad_tpu_torch.models.resnet_encoder import ResNetEncoder
 from toad_tpu_torch.models.vit_encoder import ViTEncoder
+from toad_tpu_torch.utils.profiling import annotate
 
 PATCH_FILE_EXTS = (".h5", ".npz")
 
@@ -132,7 +135,8 @@ class TileEmbedder:
         valids: list[int] = []
         done = 0
         for chunk, valid in iter_tile_batches(imgs, self.batch_size):
-            outs.append(self(chunk))
+            with annotate("toad.featurize.embed_dispatch"):
+                outs.append(self(chunk))  # does not wait for the device
             valids.append(valid)
             done += valid
             if progress is not None:
@@ -270,14 +274,16 @@ def featurize_tile_dir(
     outs: list[torch.Tensor] = []
     valids: list[int] = []
     done = 0
-    with contextlib.closing(iter_decoded_tile_batches(files, embedder.batch_size, prefetch, stats)) as batches:
+    with annotate("toad.featurize.slide_tiles"), \
+            contextlib.closing(iter_decoded_tile_batches(files, embedder.batch_size, prefetch, stats)) as batches:
         for chunk, valid in batches:
-            outs.append(embedder(chunk))
+            with annotate("toad.featurize.embed_dispatch"):
+                outs.append(embedder(chunk))  # does not wait for the device; decode overlaps
             valids.append(valid)
             done += valid
             if progress is not None:
                 progress(done, n)
-    feats = embedder.gather(outs, valids)
+        feats = embedder.gather(outs, valids)
     dt = time.perf_counter() - t0
     write_bag(out, feats, parse_tile_coords(files), int8=int8)
     return {
@@ -339,7 +345,8 @@ def featurize_patch_file(
     f, imgs, coords = read_patch_file(src)
     try:
         t0 = time.perf_counter()
-        feats = embedder.embed_all(imgs, progress=progress)  # numpy: the device has finished
+        with annotate("toad.featurize.slide"):
+            feats = embedder.embed_all(imgs, progress=progress)  # numpy: the device has finished
         dt = time.perf_counter() - t0
         write_bag(out, feats, coords, int8=int8)
     finally:

@@ -15,6 +15,11 @@ summaries.
   and brought to the host in one copy per step (the JAX trainer pulls its
   metrics every step too); the share of an epoch that the host spent
   waiting for the input pipeline is logged beside slides/s.
+- Ops tooling, as in the JAX trainer: ``debug_checks`` swaps in the checked
+  step (:mod:`toad_tpu_torch.utils.debug`), ``profile_dir`` traces the first
+  ten steps (:class:`~toad_tpu_torch.utils.profiling.StepTracer`), and
+  ``rss_restart_gb`` snapshots and raises :class:`HostRssWatermark` at the
+  end of an epoch where the process's RSS has crossed it.
 """
 
 from __future__ import annotations
@@ -44,10 +49,28 @@ from toad_tpu_torch.train.checkpoint import (
     save_checkpoint,
 )
 from toad_tpu_torch.train.optim import make_optimizer
+from toad_tpu_torch.utils import profiling
+from toad_tpu_torch.utils.profiling import StepTracer
 from toad_tpu_torch.utils.rng import seed_everything
 
 # the scalars a train step reports, in the order of its packed metrics tensor
 _STEP_SCALARS = ("loss", "cls_loss_sum", "site_loss_sum", "n_bags", "cls_correct", "site_correct")
+
+
+class HostRssWatermark(RuntimeError):
+    """Raised at an epoch boundary when host RSS crosses
+    ``TrainConfig.rss_restart_gb``, AFTER a fresh resume snapshot was saved.
+
+    The process is expected to re-exec itself and resume (``cli/train.py``
+    does): memory that a runtime library leaks outside Python's heap cannot
+    be reclaimed in process, but a fresh process starts without it."""
+
+    def __init__(self, rss_gb: float, limit_gb: float, epoch: int):
+        self.rss_gb, self.limit_gb, self.epoch = rss_gb, limit_gb, epoch
+        super().__init__(
+            f"host RSS {rss_gb:.1f} GiB >= rss_restart_gb {limit_gb:.1f} after epoch "
+            f"{epoch}; resume snapshot saved — re-exec this process and resume"
+        )
 
 
 def resolve_device(device: str | torch.device | None) -> torch.device:
@@ -95,17 +118,22 @@ def make_train_step(model: ToadMIL, optimizer: torch.optim.Optimizer, cls_w: flo
         loss, aux = loss_fn(batch, generator)
         loss.backward()
         optimizer.step()
-        with torch.no_grad():
-            bag_mask = batch["bag_mask"]
-            n = bag_mask.sum()
-            scalars = torch.stack([
-                loss.detach(), aux["cls_loss"].detach() * n, aux["site_loss"].detach() * n, n,
-                ((aux["y_hat"] == batch["label"]) * bag_mask).sum(),
-                ((aux["site_hat"] == batch["site"]) * bag_mask).sum(),
-            ]).float()
-            return torch.cat([scalars, aux["y_hat"].float(), aux["site_hat"].float()])
+        return pack_step_metrics(loss, aux, batch)
 
     return step
+
+
+@torch.no_grad()
+def pack_step_metrics(loss: torch.Tensor, aux: dict[str, torch.Tensor], batch: dict[str, torch.Tensor]) -> torch.Tensor:
+    """A step's packed metrics tensor (the layout :func:`unpack_metrics` reads)."""
+    bag_mask = batch["bag_mask"]
+    n = bag_mask.sum()
+    scalars = torch.stack([
+        loss.detach(), aux["cls_loss"].detach() * n, aux["site_loss"].detach() * n, n,
+        ((aux["y_hat"] == batch["label"]) * bag_mask).sum(),
+        ((aux["site_hat"] == batch["site"]) * bag_mask).sum(),
+    ]).float()
+    return torch.cat([scalars, aux["y_hat"].float(), aux["site_hat"].float()])
 
 
 def unpack_metrics(packed: torch.Tensor) -> dict[str, Any]:
@@ -175,7 +203,12 @@ class FoldTrainer:
         self.model = ToadMIL(cfg.model, generator=seed_everything(cfg.seed)).to(self.device)
         self.optimizer = make_optimizer(cfg.optim, self.model.parameters())
         self.generator = torch.Generator(device=self.device).manual_seed(cfg.seed)  # dropout masks
-        self.train_step = make_train_step(self.model, self.optimizer, cfg.cls_loss_weight, cfg.site_loss_weight)
+        if cfg.debug_checks:
+            from toad_tpu_torch.utils.debug import make_checked_step
+
+            self.train_step = make_checked_step(self.model, self.optimizer, cfg.cls_loss_weight, cfg.site_loss_weight)
+        else:
+            self.train_step = make_train_step(self.model, self.optimizer, cfg.cls_loss_weight, cfg.site_loss_weight)
         self.eval_step = make_eval_step(self.model)
         self.eval_batches = 0  # batches of every eval pass so far
         self._launches_at_start = cuda_pool.LAUNCHES
@@ -242,6 +275,11 @@ class FoldTrainer:
 
     def train(self, train_split, val_split, test_split, log_fn: Callable[[str], None] = print):
         cfg = self.cfg
+        if cfg.rss_restart_gb is not None and not cfg.resume:
+            raise ValueError(
+                "rss_restart_gb requires resume=True — a watermark restart "
+                "without resume snapshots would lose all training progress"
+            )
         n_classes = cfg.model.n_classes
 
         save_split_columnar(
@@ -269,6 +307,7 @@ class FoldTrainer:
             f"device {torch.cuda.get_device_name(self.device) if self.device.type == 'cuda' else 'cpu'}"
         )
 
+        tracer = StepTracer(cfg.profile_dir, n_steps=10, device=self.device)
         train_batcher = self._batcher(train_split, training=True)
         val_batcher = self._batcher(val_split, training=False)
         test_batcher = self._batcher(test_split, training=False)
@@ -301,12 +340,14 @@ class FoldTrainer:
                 t_data += time.perf_counter() - t_fetch
                 packed = self.train_step(batch_to_dict(b, self.device), self.generator)
                 metrics = unpack_metrics(packed)  # the step's one device-to-host copy
+                tracer.step()
                 for k in sums:
                     sums[k] += metrics[k]
                 cls_logger.log_batch(metrics["y_hat"], b.label, b.bag_mask)
                 site_logger.log_batch(metrics["site_hat"], b.site, b.bag_mask)
                 t_fetch = time.perf_counter()
 
+            tracer.stop()
             n = max(sums["n_bags"], 1.0)
             tr_cls_loss = sums["cls_loss_sum"] / n
             tr_cls_err = 1.0 - sums["cls_correct"] / n
@@ -365,6 +406,18 @@ class FoldTrainer:
 
             if cfg.resume and (epoch + 1) % cfg.resume_every == 0:
                 self._save_resume(epoch, stopper, best_saved)
+
+            if cfg.rss_restart_gb is not None:
+                rss = profiling.host_rss_gb()
+                if rss >= cfg.rss_restart_gb:
+                    # snapshot NOW (resume_every may not have fired this
+                    # epoch) so the re-exec'd process loses nothing
+                    self._save_resume(epoch, stopper, best_saved)
+                    log_fn(
+                        f"[fold {self.fold}] host RSS {rss:.1f} GiB >= "
+                        f"{cfg.rss_restart_gb:.1f} — snapshotting for restart"
+                    )
+                    raise HostRssWatermark(rss, cfg.rss_restart_gb, epoch)
 
         if stopper is not None and best_saved:
             model.load_state_dict(load_params_any(self.ckpt_path, cfg.model))
