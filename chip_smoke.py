@@ -48,7 +48,8 @@ Phases (each prints its lines; any failure raises and the exit code is not 0):
    Then ``serve --int8`` (the main path of K2) at the default window, no
    warmup: 24 concurrent requests over the octet int8, JSON
    features_int8_b64, bag_path (an int8 store made by
-   ``python -m toad_tpu_torch convert``) and octet f32 (quantized on the
+   ``python -m toad_tpu_torch convert``, its main run in process) and octet
+   f32 (quantized on the
    handler thread) routes, each answer checked against the plain int8
    forward and the plain bf16 forward on the card; /stats must count int8
    kernel launches >= batches.
@@ -73,11 +74,12 @@ Phases (each prints its lines; any failure raises and the exit code is not 0):
    on its correlation id); the batch's device time is split into K3, GEMMs,
    LayerNorm, elementwise and other, with the device's idle share of the
    batch's window.
-7. Train end to end (the trainer's validation and final passes are a main
-   path of K1): toad_tpu_torch.data.synthetic writes a seeded dataset at full
-   width (72 slides of 2,000-30,000 patches x 1024 as .npy, 18 origins with at
-   least 3 slides each), generate_splits writes one fold, then ``python -m
-   toad_tpu_torch train --max_epochs 3 --batch_size 4 --early_stopping
+7. Train end to end (run after phase 11; the trainer's validation and final
+   passes are a main path of K1): toad_tpu_torch.data.synthetic writes a
+   seeded dataset at full width (72 slides of 2,000-30,000 patches x 1024 as
+   .npy, 18 origins with at least 3 slides each; on a writer thread while
+   phases 10 and 11 run), generate_splits writes one fold, then ``python -m
+   toad_tpu_torch train --max_epochs 2 --batch_size 4 --early_stopping
    --resume`` (f32) as a child process, and a run of one epoch with ``--bf16
    --drop_out``, both at ``--native_io auto``, so the .npy cohort goes through
    the native feed. Checked: exit code 0; every pass (train, val, final)
@@ -91,8 +93,10 @@ Phases (each prints its lines; any failure raises and the exit code is not 0):
    torch.backends.cuda.matmul.allow_tf32 stays False): loss within 1e-4,
    every gradient within 1e-3 of its largest entry.
 8. Evaluate end to end (``eval`` is a main path of K1 and, with ``--int8``,
-   of K2), inside phase 7's work directory, each command a child process as
-   a user runs it: ``python -m toad_tpu_torch eval --models_exp_code
+   of K2), inside phase 7's work directory, as a user runs it (the f32 run a
+   child process; the ``--int8`` and ``--bf16`` runs the CLI's main in this
+   process, with the work directory as the current one): ``python -m
+   toad_tpu_torch eval --models_exp_code
    smoke_f32_s1 --k 1 --batch_size 4`` on the test split: fold_0.csv holds
    the test split's slides in split order under the reference's columns, and
    summary.csv reproduces the trainer's own test accuracy (1e-6) and AUC
@@ -116,8 +120,8 @@ Phases (each prints its lines; any failure raises and the exit code is not 0):
    split, each wire: float32, bfloat16, int8): the same batch order and
    metadata, every plane equal bit for bit; and the producer's own rate (one
    pass over all 72 slides, the consumer only waiting for each batch's copy,
-   in turns numpy, native, native, numpy, on the float32 wire; warm page
-   cache). Reported: slides/s and data-wait share of each pass by the CLI's
+   numpy then native, on the float32 wire; warm page cache). Reported:
+   slides/s and data-wait share of each pass by the CLI's
    own clock, the bytes each wire carried, the peak device memory, the
    producer's batches/s and GB/s.
 6. Timing: kernel launches vs plain versions (CUDA events, median of 5 after
@@ -148,7 +152,7 @@ Phases (each prints its lines; any failure raises and the exit code is not 0):
    against the same encoder in process (within the encoder's own bf16 noise
    against f32 compute), and the f32 encoder on the card against the CPU on
    8 tiles; tiles/s by the CLI's clock and warm.
-10. The pooling-kernel probes (run after phase 8): every kernel instance of
+10. The pooling-kernel probes (run after phase 9): every kernel instance of
    toad_tpu_torch/csrc/pool_probe.cu (P1 full, exp2, nogate, nosoftmax,
    trunkonly; P2 b2) and csrc/pool_int8_probe.cu (P3/P4 int8_chain,
    int8_gemms, int8_inquant, int8_inquant_bf16, int8_h_only) against its
@@ -184,7 +188,8 @@ Phases (each prints its lines; any failure raises and the exit code is not 0):
    the main() of vit_softmax_probe, vit_attn_probe, vit_ceiling2_probe,
    vit_elementwise_probe, vit_profile and vit_int8_probe
    (toad_tpu_torch.experiments) in process at their JAX sizes (B=128 tiles
-   of 224 px, k=4; M=25,216), every JSON line parsed, each arm's K3 and P7
+   of 224 px, k=4; M=25,216; two timed runs of each arm, ``--runs 2``),
+   every JSON line parsed, each arm's K3 and P7
    launches as the arm says; and ``python -m
    toad_tpu_torch.experiments.vit_ceiling2_probe --k 1 --runs 1`` as a
    child process.
@@ -245,6 +250,21 @@ Phases (each prints its lines; any failure raises and the exit code is not 0):
    mode eval step raises FloatingPointError naming ToadMIL, K1 launched once
    (the kernel ran, the hook caught its output). A trace on the card without
    device kernel events fails its phase.
+15. The disk-fed and ceiling probes (run after phase 14), each as a child
+   process (``python -m toad_tpu_torch.experiments.NAME``) at its JAX
+   sizes: the disk-fed fixture (16 .pt bags of 8,192 x 1024 f32 and their
+   manifest, data/synthetic.write_io_fixture) written once by the writer
+   thread beside phases 10 and 11, then io_overlap_probe (the producer
+   thread's copy to the card against a copy at dispatch) and bf16_transfer_probe (the bfloat16 wire
+   against the float32 wire), both through TOAD's bf16 forward (K1 bf16,
+   its launches counted in each child: 40 each), each arm's per-slide y_prob
+   equal to the other's (0.0 apart); patient_native_probe (two slides a
+   patient, the native and numpy feeds on the bfloat16 and int8 wires, host
+   only); matmul_ceiling (cuBLAS bf16 at the JAX probe's 8 shapes, each
+   chain a CUDA graph); encoder_batch_ab (the folded ResNet-50 at B=128,
+   256, 512) and encoder_stages (stem, layer1-3, the encoder, two 3x3 conv
+   ceilings; cuDNN). Every arm's line is parsed; a child that exits
+   non-zero or misses a line fails the phase.
 
 The second-to-last line is the kernels' JSON record, the last line the device
 record. Weights and data are random, made from --seed.
@@ -254,6 +274,7 @@ from __future__ import annotations
 
 import argparse
 import base64
+import concurrent.futures
 import dataclasses
 import functools
 import itertools
@@ -1527,14 +1548,11 @@ def phase_serve_int8(model, seed: int, gpu: str, workdir: Path) -> dict:
     srv = Server(ckpt, store, workdir, ["--int8"])
     try:
         reqs = make_requests(seed + 1, src, ROUTES_INT8)
-        env = child_env()
         t0 = time.perf_counter()
-        conv = subprocess.run([sys.executable, "-m", "toad_tpu_torch", "convert", "--data_dir", str(src), "--out_dir",
-                               str(store), "--format", "int8"], capture_output=True, text=True, env=env, cwd=workdir,
-                              timeout=600)
-        if conv.returncode != 0:
-            raise AssertionError(f"convert failed ({conv.returncode}):\n{conv.stdout}{conv.stderr}")
-        log(f"phase 4 serve int8: {conv.stdout.strip()} in {time.perf_counter() - t0:.2f} s")
+        # the CLI's main in this process: the command without a child's start-up
+        conv_out, _ = run_cli(["convert", "--data_dir", str(src), "--out_dir", str(store), "--format", "int8"], workdir,
+                              in_process=True)
+        log(f"phase 4 serve int8: {conv_out.strip()} in {time.perf_counter() - t0:.2f} s (in process)")
         for r in reqs:
             if r["path"] is not None:
                 r["path"] = store / f"{r['path'].stem}.npz"
@@ -2408,13 +2426,12 @@ def check_step_against_cpu(dataset_split, model_cfg, seed: int) -> None:
         f"{worst:.2e} ({worst_name}; tolerance 1e-3), parameters after one Adam step differ by at most {moved:.2e}")
 
 
-def phase_train(seed: int, card: str, gpu: str, workdir: Path) -> dict:
-    """The training path at TOAD's full width: a seeded synthetic dataset,
-    one fold, ``python -m toad_tpu_torch train`` in a child process (f32 with
-    early stopping and resume, then a shorter bf16 run with dropout)."""
-    import dataclasses as dc
-
-    from toad_tpu_torch.config import ModelConfig
+def write_cohort(seed: int, workdir: Path) -> dict:
+    """Phase 7's seeded dataset at TOAD's full width (manifest, .npy bags, task
+    JSON, one fold's split file) in ``workdir``. It runs on a thread while
+    phases 10 and 11 keep the card busy: numpy's draws and ``np.save`` release
+    the GIL, and those phases' rates are the card's. Returns the dataset, its
+    splits and what phase 7 logs about it."""
     from toad_tpu_torch.data.splits import generate_splits, save_split_columnar, split_file
     from toad_tpu_torch.data.synthetic import dummy_task, write_dummy_bags, write_dummy_csv
     from toad_tpu_torch.data.wsi_dataset import WSIBagDataset
@@ -2443,12 +2460,38 @@ def phase_train(seed: int, card: str, gpu: str, workdir: Path) -> dict:
                         split_file(split_dir, 0))
     train_split, _, test_split = ds.return_splits_from_csv(split_file(split_dir, 0))
     n_bytes = sum(f.stat().st_size for f in (workdir / "bags").iterdir())
-    log(f"phase 7 train: {ds.n_slides} slides of 2,000-30,000 patches x 1024 ({n_bytes / 1e9:.2f} GB of .npy bags, "
-        f"18 origins with at least {per_class.min()} slides each; manifest seed {manifest_seed}), one fold: train "
-        f"{len(spec.train)} / val {len(spec.val)} / test {len(spec.test)}; written in {time.perf_counter() - t0:.1f} s")
+    note = (f"phase 7 train: {ds.n_slides} slides of 2,000-30,000 patches x 1024 ({n_bytes / 1e9:.2f} GB of .npy bags, "
+            f"18 origins with at least {per_class.min()} slides each; manifest seed {manifest_seed}), one fold: train "
+            f"{len(spec.train)} / val {len(spec.val)} / test {len(spec.test)}; written in {time.perf_counter() - t0:.1f} s "
+            f"on a thread beside phases 10 and 11")
+    return dict(dataset=ds, train_split=train_split, test_split=test_split, note=note)
 
+
+def write_fixtures(seed: int, train_dir: Path, probe_dir: Path) -> dict:
+    """The data phases 7 and 15 read, written on the smoke's writer thread:
+    phase 7's cohort (:func:`write_cohort`), then the disk-fed probes' fixture
+    (``write_io_fixture``, which phase 15 then finds in place)."""
+    from toad_tpu_torch.data.synthetic import write_io_fixture
+    from toad_tpu_torch.experiments import io_overlap_probe as iop
+
+    cohort = write_cohort(seed, train_dir)
+    write_io_fixture(probe_dir, iop.N_SLIDES, iop.BAG_N, iop.DIM)
+    return cohort
+
+
+def phase_train(seed: int, card: str, gpu: str, workdir: Path, cohort: dict) -> dict:
+    """The training path at TOAD's full width on the seeded dataset
+    :func:`write_cohort` wrote in ``workdir``: ``python -m toad_tpu_torch
+    train`` in a child process (f32 with early stopping and resume, then a
+    shorter bf16 run with dropout)."""
+    import dataclasses as dc
+
+    from toad_tpu_torch.config import ModelConfig
+
+    log(cohort["note"])
+    ds, train_split, test_split = cohort["dataset"], cohort["train_split"], cohort["test_split"]
     cfg32 = ModelConfig(in_dim=1024, n_classes=18)
-    lines, wall = run_train(workdir, "smoke_f32", ["--max_epochs", "3", "--early_stopping", "--resume"])
+    lines, wall = run_train(workdir, "smoke_f32", ["--max_epochs", "2", "--early_stopping", "--resume"])
     main_run = check_train_run("f32, early stopping, resume", lines, workdir / "results" / "smoke_f32_s1", card, gpu,
                                cfg32, test_split, wall)
     lines, wall = run_train(workdir, "smoke_bf16", ["--max_epochs", "1", "--bf16", "--drop_out"])
@@ -2472,32 +2515,38 @@ def read_csv_rows(path: Path) -> list[dict]:
         return list(csv_mod.DictReader(f))
 
 
-def run_eval(workdir: Path, models: str, save_code: str, extra: list[str], timeout: int = 600) -> dict:
+def run_eval(workdir: Path, models: str, save_code: str, extra: list[str], in_process: bool = False) -> dict:
     """``python -m toad_tpu_torch eval`` as a user runs it, in a child process
-    in ``workdir``. Returns what its own lines report (batches, launches by
-    kernel, each pass's bags, seconds, slides/s, data-wait share, wire, bytes
-    and feed; peak device memory) and its output directory."""
+    in ``workdir`` (or its ``main(argv)`` in this process with ``workdir`` as
+    the current directory: the same command without a child's start-up).
+    Returns what its own lines report (batches, launches by kernel, each
+    pass's bags, seconds, slides/s, data-wait share, wire, bytes and feed;
+    peak device memory) and its output directory."""
+    import contextlib
     import re
 
-    cmd = [sys.executable, "-m", "toad_tpu_torch", "eval", "--task", str(workdir / "tasks" / "dummy_mtl_concat.json"),
-           "--data_root_dir", str(workdir / "bags"), "--results_dir", str(workdir / "results"), "--models_exp_code", models,
-           "--save_exp_code", save_code, "--k", "1", "--batch_size", "4", *extra]
+    args = ["eval", "--task", str(workdir / "tasks" / "dummy_mtl_concat.json"), "--data_root_dir", str(workdir / "bags"),
+            "--results_dir", str(workdir / "results"), "--models_exp_code", models, "--save_exp_code", save_code, "--k", "1",
+            "--batch_size", "4", *extra]
     t0 = time.perf_counter()
-    run = subprocess.run(cmd, capture_output=True, text=True, env=child_env(), cwd=workdir, timeout=timeout)
+    if in_process:
+        with contextlib.chdir(workdir):  # eval writes ./eval_results under the current directory
+            stdout, _ = run_cli(args, workdir, in_process=True)
+    else:
+        stdout, _ = run_cli(args, workdir)
     wall = time.perf_counter() - t0
-    if run.returncode != 0:
-        raise AssertionError(f"eval {extra} failed ({run.returncode}):\n{run.stdout[-4000:]}{run.stderr[-4000:]}")
     counts = re.search(r"\[fold 0\] eval batches (\d+), pooling kernel launches (\d+) \(float kernel (\d+), int8 kernel (\d+)\), "
-                       r"peak device memory (\S+) GB on (.+)", run.stdout)
+                       r"peak device memory (\S+) GB on (.+)", stdout)
     passes = [dict(what=m.group(1), bags=int(m.group(2)), seconds=float(m.group(3)), rate=float(m.group(4)),
                    wait=m.group(5), wire=m.group(6), bytes=int(m.group(7)), feed=m.group(8))
               for m in re.finditer(r"\[fold 0\] (\w+) pass: (\d+) bags in (\S+) s, (\S+) slides/s \(data wait (\S+)\), "
-                                   r"wire (\w+), (\d+) bytes to the device, feed (\w+)", run.stdout)]
+                                   r"wire (\w+), (\d+) bytes to the device, feed (\w+)", stdout)]
     if counts is None or not passes:
-        raise AssertionError(f"eval {extra}: no batch, launch or pass line in its output:\n{run.stdout[-3000:]}")
+        raise AssertionError(f"eval {extra}: no batch, launch or pass line in its output:\n{stdout[-3000:]}")
     return dict(batches=int(counts.group(1)), launches=int(counts.group(2)), k1=int(counts.group(3)), k2=int(counts.group(4)),
                 peak_gb=float(counts.group(5)), card=counts.group(6).strip(), passes=passes, wall=wall,
-                out=workdir / "eval_results" / f"EVAL_{save_code}", stdout=run.stdout)
+                out=workdir / "eval_results" / f"EVAL_{save_code}", stdout=stdout,
+                where="in process" if in_process else "child process")
 
 
 def check_native_feed(label: str, ev: dict) -> None:
@@ -2539,7 +2588,7 @@ def check_eval_run(label: str, ev: dict, kernel: str, trainer_summary: Path | No
     p = ev["passes"][0]
     log(f"phase 8 eval ({label}): fold_0.csv holds the test split's {len(rows)} slides in split order; {agree}eval batches "
         f"{ev['batches']} = {kernel} pooling kernel launches {ev['launches']}; {p['rate']:.1f} slides/s (data wait {p['wait']}) by the "
-        f"CLI's clock, wire {p['wire']}, feed {p['feed']}, {p['bytes']} bytes to the card, peak device memory {ev['peak_gb']:.2f} GB; child process "
+        f"CLI's clock, wire {p['wire']}, feed {p['feed']}, {p['bytes']} bytes to the card, peak device memory {ev['peak_gb']:.2f} GB; {ev['where']} "
         f"{ev['wall']:.1f} s [{gpu}]")
     return probs
 
@@ -2560,7 +2609,7 @@ def phase_eval(trained: dict, card: str, gpu: str, workdir: Path) -> dict:
 
     ev32 = run_eval(workdir, "smoke_f32_s1", "f32", [])
     p32 = check_eval_run("f32", ev32, "float", results / "smoke_f32_s1" / "summary.csv", test_ids, card, gpu)
-    ev8 = run_eval(workdir, "smoke_f32_s1", "int8", ["--int8"])
+    ev8 = run_eval(workdir, "smoke_f32_s1", "int8", ["--int8"], in_process=True)
     p8 = check_eval_run("int8, int8 wire", ev8, "int8", None, test_ids, card, gpu)
     wires = {k: e["passes"][0]["wire"] for k, e in (("f32", ev32), ("int8", ev8))}
     if wires != dict(f32="float32", int8="int8"):
@@ -2597,7 +2646,8 @@ def phase_eval(trained: dict, card: str, gpu: str, workdir: Path) -> dict:
 
     # once with everything around the pass, on the bf16 run's checkpoint (dropout layout) in bf16: the whole
     # dataset, a temperature from the val split, bootstrap intervals
-    ev_all = run_eval(workdir, "smoke_bf16_s1", "all", ["--bf16", "--drop_out", "--split", "all", "--calibrate", "--bootstrap", "200"])
+    ev_all = run_eval(workdir, "smoke_bf16_s1", "all", ["--bf16", "--drop_out", "--split", "all", "--calibrate", "--bootstrap", "200"],
+                      in_process=True)
     check_native_feed("bf16, --split all", ev_all)
     if ev_all["k1"] != ev_all["batches"] or ev_all["k2"] or [p["what"] for p in ev_all["passes"]] != ["eval", "val"] \
             or ev_all["passes"][0]["wire"] != "bfloat16" or ev_all["card"] != card:
@@ -2633,7 +2683,7 @@ def phase_eval(trained: dict, card: str, gpu: str, workdir: Path) -> dict:
         f"{ev_all['k1']}; temperature {t:.3f} (ece {calib['ece_before']:.4f} -> {calib['ece_after']:.4f}); intervals bracket their "
         f"points (cls auc {float(summary['cls_test_auc']):.4f} in [{cis['cls_auc']['lo']:.4f}, {cis['cls_auc']['hi']:.4f}]); report: "
         f"n_folds 1 and the summary's means; eval pass {pa['rate']:.1f} slides/s (data wait {pa['wait']}), val pass {pv['rate']:.1f} "
-        f"slides/s (data wait {pv['wait']}), wire bfloat16; child process {ev_all['wall']:.1f} s [{gpu}]")
+        f"slides/s (data wait {pv['wait']}), wire bfloat16; {ev_all['where']} {ev_all['wall']:.1f} s [{gpu}]")
 
     # in process: the engine on the card against the engine on the CPU, the same checkpoint and bags (cut to 8,192 rows)
     kw = dict(batch_size=4, max_bag_size=8192)
@@ -2722,8 +2772,8 @@ def compare_feeds(split, gpu: str) -> None:
 
 def time_feeds(split, gpu: str) -> dict:
     """The producer's own rate: one pass over ``split`` on the card per run,
-    the consumer only waiting for each batch's copy event, in turns numpy,
-    native, native, numpy, on the float32 wire (the bfloat16 wire's bits are
+    the consumer only waiting for each batch's copy event, numpy then
+    native, on the float32 wire (the bfloat16 wire's bits are
     held to the numpy feed's by :func:`compare_feeds`); batches/s and the
     wire's GB/s. The bags were written in
     phase 7, so both feeds read a warm page cache; a cold read is not
@@ -2732,7 +2782,7 @@ def time_feeds(split, gpu: str) -> dict:
 
     rec: dict = {}
     for wire in ("float32",):
-        for mode in ("off", "on", "on", "off"):
+        for mode in ("off", "on"):
             batcher = BagBatcher(split, batch_size=4, mode="sequential", transfer_dtype=wire, device="cuda", native=mode)
             n = wire_bytes = 0
             t0 = time.perf_counter()
@@ -3744,6 +3794,7 @@ def probe_records(probes: dict) -> list[dict]:
 
 # the ViT probes in the order phase 11 runs them, each probe's arms (lines) in order, and which attention
 # kernel each arm must launch: (K3, P7)
+VIT_PROBE_RUNS = 2  # timed runs of each arm in phase 11 (the probes' own default is 3, vit_softmax_probe's 2)
 VIT_PROBE_ARMS = {
     "vit_softmax_probe": {"rep0": (True, True), "rep1": (True, True), "rep2": (True, True), "deviation": (True, True)},
     "vit_attn_probe": {"A_full": (False, False), "E_identity": (False, False), "F_dpa": (False, False),
@@ -3862,9 +3913,9 @@ def phase_vit_probes(seed: int, gpu: str) -> dict:
         t_probe = time.perf_counter()
         buf = io.StringIO()
         with contextlib.redirect_stdout(buf):
-            rc = importlib.import_module(f"toad_tpu_torch.experiments.{name}").main([])
+            rc = importlib.import_module(f"toad_tpu_torch.experiments.{name}").main(["--runs", str(VIT_PROBE_RUNS)])
         if rc != 0:
-            raise AssertionError(f"{name}.main([]) returned {rc}")
+            raise AssertionError(f"{name}.main(['--runs', '{VIT_PROBE_RUNS}']) returned {rc}")
         lines = [json.loads(line) for line in buf.getvalue().splitlines() if line.strip()]
         if [line["arm"] for line in lines] != list(want):
             raise AssertionError(f"{name} printed the arms {[line['arm'] for line in lines]}, not {list(want)}")
@@ -3898,6 +3949,104 @@ def phase_vit_probes(seed: int, gpu: str) -> dict:
         f"{len(child)} lines, {'; '.join(json.dumps(line) for line in child)} in {time.perf_counter() - t_child:.1f} s [{gpu}]")
     log(f"phase 11: {time.perf_counter() - t0:.1f} s (comparisons and timing {elapsed_compare:.1f} s)")
     return dict(worst=worst, times=times, launches=launches["vit_softmax_probe"][1])
+
+
+def run_probe(name: str, argv: list[str], workdir: Path, gpu: str) -> tuple[list[str], float]:
+    """``python -m toad_tpu_torch.experiments.NAME ARGV`` as a child process in
+    ``workdir``: its stdout lines (each logged) and its wall seconds."""
+    t0 = time.perf_counter()
+    cmd = [sys.executable, "-m", f"toad_tpu_torch.experiments.{name}", *argv]
+    run = subprocess.run(cmd, cwd=workdir, env=child_env(), capture_output=True, text=True, timeout=600)
+    wall = time.perf_counter() - t0
+    if run.returncode != 0:
+        raise AssertionError(f"{name} {argv} failed ({run.returncode}):\n{run.stdout[-3000:]}{run.stderr[-3000:]}")
+    lines = [line for line in run.stdout.splitlines() if line.strip()]
+    for line in lines:
+        log(f"phase 15 {name}: {line} [{gpu}]")
+    log(f"phase 15 {name}: child process {wall:.1f} s")
+    return lines, wall
+
+
+def probe_json(name: str, lines: list[str], keys: list[str]) -> list[dict]:
+    """The probe's JSON lines, each holding ``keys`` first and in that order."""
+    out = [json.loads(line) for line in lines]
+    bad = [line for line in out if list(line)[:len(keys)] != keys]
+    if not out or bad:
+        raise AssertionError(f"{name}: a line without the JAX probe's keys {keys}: {bad or 'no line'}")
+    return out
+
+
+def phase_probe_children(card: str, gpu: str, workdir: Path) -> dict:
+    """Phase 15, the disk-fed and ceiling probes as child processes at their
+    JAX sizes: the fixture written once in ``workdir``, then io_overlap_probe
+    and bf16_transfer_probe (K1 bf16 through TOAD's forward; both arms' per-
+    slide y_prob equal), patient_native_probe (host only), matmul_ceiling,
+    encoder_batch_ab and encoder_stages (cuBLAS and cuDNN); every arm's line
+    parsed."""
+    from toad_tpu_torch.data.synthetic import write_io_fixture
+    from toad_tpu_torch.experiments import encoder_batch_ab, io_overlap_probe as iop, matmul_ceiling, patient_native_probe
+
+    t0 = time.perf_counter()
+    write_io_fixture(workdir, iop.N_SLIDES, iop.BAG_N, iop.DIM)  # reuses what the writer thread wrote
+    log(f"phase 15 fixture: {iop.N_SLIDES} .pt bags of {iop.BAG_N} x {iop.DIM} f32 and io_{iop.N_SLIDES}.csv in "
+        f"{workdir.name}, ready in {time.perf_counter() - t0:.1f} s (written beside phases 10 and 11)")
+    data = ["--data_dir", str(workdir)]
+    walls = {}
+    # each A/B probe: 2 arms x (a warm-up epoch + RUNS x EPOCHS timed ones + one collecting y_prob) x its batches an epoch
+    k1_want = 2 * (1 + iop.RUNS * iop.EPOCHS + 1) * -(-iop.N_SLIDES // iop.BATCH)
+    ab = {}
+    for name, keys in (("io_overlap_probe", ["dispatch_h2d_slides_per_sec", "producer_device_put_slides_per_sec", "speedup",
+                                             "max_prob_dev", "k1_launches", "device"]),
+                       ("bf16_transfer_probe", ["f32_transfer_slides_per_sec", "bf16_transfer_slides_per_sec", "speedup",
+                                                "max_prob_dev", "k1_launches", "device"])):
+        lines, walls[name] = run_probe(name, data, workdir, gpu)
+        (line,) = probe_json(name, lines, keys)
+        rates = [line[k] for k in keys[:2]]
+        if not (all(r > 0 for r in rates) and line["device"] == card):
+            raise AssertionError(f"{name}: a rate that is not positive, or not on the card: {line}")
+        if line["max_prob_dev"] != 0.0:  # both arms round to bf16 (nearest even) before the same K1 launch
+            raise AssertionError(f"{name}: the arms' per-slide y_prob differ by {line['max_prob_dev']}, not 0.0")
+        if line["k1_launches"] != k1_want:
+            raise AssertionError(f"{name}: K1 launched {line['k1_launches']} times, not {k1_want}")
+        ab[name] = line
+
+    lines, walls["patient_native_probe"] = run_probe("patient_native_probe", data, workdir, gpu)
+    cases = [f"wire={w:9s} native={n:3s}" for w in patient_native_probe.WIRES for n in patient_native_probe.NATIVE]
+    if lines[0] != f"{iop.N_SLIDES // 2} patient bags, 2x{iop.BAG_N}x{iop.DIM} f32 slides each" or [
+            line.split(":")[0] for line in lines[1:]] != cases:
+        raise AssertionError(f"patient_native_probe: not the JAX probe's lines: {lines}")
+    patient = {case: float(line.split(":")[1].split()[0]) for case, line in zip(cases, lines[1:])}
+
+    lines, walls["matmul_ceiling"] = run_probe("matmul_ceiling", [], workdir, gpu)
+    mm = probe_json("matmul_ceiling", lines, ["shape", "mkn", "tflops", "pct_peak", "us_per_call"])
+    if [(line["shape"], *line["mkn"]) for line in mm] != [tuple(s) for s in matmul_ceiling.SHAPES] or not all(
+            line["tflops"] > 0 for line in mm):
+        raise AssertionError(f"matmul_ceiling: not the 8 shapes with a positive rate: {mm}")
+
+    lines, walls["encoder_batch_ab"] = run_probe("encoder_batch_ab", [], workdir, gpu)
+    batches = encoder_batch_ab.BATCHES
+    reps = [line for line in lines if line.startswith("rep")]
+    if lines[:len(batches)] != [f"compiled B={b}" for b in batches] or len(reps) != encoder_batch_ab.REPS or any(
+            [arm.split(":")[0] for arm in line.split(": ", 1)[1].split("  ")] != [f"B={b}" for b in batches] for line in reps):
+        raise AssertionError(f"encoder_batch_ab: not the JAX probe's lines: {lines}")
+
+    lines, walls["encoder_stages"] = run_probe("encoder_stages", [], workdir, gpu)
+    stages = probe_json("encoder_stages", lines, ["stage", "tflops"])
+    want = ["stem+pool", "layer1", "layer2", "layer3", "full", "conv_ceiling_3x3_256ch_16px", "conv_ceiling_3x3_128ch_64px"]
+    if [line["stage"] for line in stages] != want or not all(line["tflops"] > 0 for line in stages):
+        raise AssertionError(f"encoder_stages: not the JAX probe's stages with a positive rate: {stages}")
+
+    io_line, bf_line = ab["io_overlap_probe"], ab["bf16_transfer_probe"]
+    log(f"phase 15 summary: the producer's copy / a copy at dispatch x{io_line['speedup']}, the bf16 wire / the f32 wire "
+        f"x{bf_line['speedup']} (y_prob equal across arms in both); patient bags, native / numpy feed: " + ", ".join(
+            f"{w} x{patient[f'wire={w:9s} native=off'] / max(patient[f'wire={w:9s} native=on '], 1e-9):.2f}"
+            for w in patient_native_probe.WIRES)
+        + f"; cuBLAS bf16 {max(line['tflops'] for line in mm)} TFLOP/s at best, "
+        + ", ".join(f"{line['shape']} {line['tflops']}" for line in mm if line["shape"].startswith(("trunk", "gate")))
+        + f"; the encoder {stages[4]['patches_per_sec']} tiles/s at B=128 [{gpu}]")
+    log(f"phase 15: {time.perf_counter() - t0:.1f} s (children: "
+        + ", ".join(f"{k} {v:.1f} s" for k, v in walls.items()) + ")")
+    return dict(k1_bf16_launches=io_line["k1_launches"] + bf_line["k1_launches"])
 
 
 def main() -> int:
@@ -3971,24 +4120,31 @@ def main() -> int:
         featurized = phase_featurize(args.seed, card, gpu, Path(tmp))
     elapsed("phase 5")
     # phase 9's directory (patch files, the seeded .pth, its bags) stays for phase 12's infer --patches
-    with tempfile.TemporaryDirectory(prefix="toad_smoke_resnet_") as resnet_tmp:
+    # phase 7's cohort and phase 15's fixture are written on a thread while phases 10 and 11 keep the card busy;
+    # the executor's exit waits for it before the directories go
+    with tempfile.TemporaryDirectory(prefix="toad_smoke_resnet_") as resnet_tmp, \
+            tempfile.TemporaryDirectory(prefix="toad_smoke_train_") as tmp, \
+            tempfile.TemporaryDirectory(prefix="toad_smoke_probes_") as probes_tmp, \
+            concurrent.futures.ThreadPoolExecutor(1, thread_name_prefix="smoke-writer") as writer:
         resnet = phase_resnet(args.seed, card, gpu, Path(resnet_tmp))
         elapsed("phase 9")
-        with tempfile.TemporaryDirectory(prefix="toad_smoke_train_") as tmp:
-            trained = phase_train(args.seed, card, gpu, Path(tmp))
-            elapsed("phase 7")
-            evaluated = phase_eval(trained, card, gpu, Path(tmp))
-            elapsed("phase 8")
-            inferred = phase_infer(model, trained, evaluated, card, gpu, Path(tmp), Path(resnet_tmp))
-            elapsed("phase 12")
-            ensembled = phase_serve_ensemble(trained, card, gpu, Path(tmp), args.seed)
-            elapsed("phase 13")
-            tooled = phase_ops_tooling(trained, card, gpu, Path(tmp), args.seed)
-            elapsed("phase 14")
-    probes = phase_probes(args.seed, gpu)
-    elapsed("phase 10")
-    vit_probes = phase_vit_probes(args.seed, gpu)
-    elapsed("phase 11")
+        cohort = writer.submit(write_fixtures, args.seed, Path(tmp), Path(probes_tmp))
+        probes = phase_probes(args.seed, gpu)
+        elapsed("phase 10")
+        vit_probes = phase_vit_probes(args.seed, gpu)
+        elapsed("phase 11")
+        trained = phase_train(args.seed, card, gpu, Path(tmp), cohort.result())
+        elapsed("phase 7")
+        evaluated = phase_eval(trained, card, gpu, Path(tmp))
+        elapsed("phase 8")
+        inferred = phase_infer(model, trained, evaluated, card, gpu, Path(tmp), Path(resnet_tmp))
+        elapsed("phase 12")
+        ensembled = phase_serve_ensemble(trained, card, gpu, Path(tmp), args.seed)
+        elapsed("phase 13")
+        tooled = phase_ops_tooling(trained, card, gpu, Path(tmp), args.seed)
+        elapsed("phase 14")
+        probed = phase_probe_children(card, gpu, Path(probes_tmp))
+        elapsed("phase 15")
     times = phase_timing(model, gpu)
     times.update(phase_timing_train(gpu, args.seed))
     elapsed("phase 6")
@@ -4007,8 +4163,10 @@ def main() -> int:
             "route": "cuda",
             "source": "toad_tpu_torch/csrc/pool.cu",
             "replaces": "toad_tpu/ops/pallas_pool.py:93",
-            # the bf16 instance: the bf16 serving burst, the eval --bf16 passes and phase 14's profiled bf16 trainer
-            "launches": served["launches"] + evaluated["k1_bf16_launches"] + tooled["k1_bf16_launches"],
+            # the bf16 instance: the bf16 serving burst, the eval --bf16 passes, phase 14's profiled bf16 trainer and
+            # phase 15's io_overlap_probe and bf16_transfer_probe children
+            "launches": served["launches"] + evaluated["k1_bf16_launches"] + tooled["k1_bf16_launches"]
+            + probed["k1_bf16_launches"],
             "max_abs_err": worst[torch.bfloat16],
             **times[("bfloat16", 32)],
         },

@@ -184,6 +184,12 @@ PROBE_MODULES = (
     "toad_tpu_torch.experiments.vit_elementwise_probe",
     "toad_tpu_torch.experiments.vit_profile",
     "toad_tpu_torch.experiments.vit_int8_probe",
+    "toad_tpu_torch.experiments.io_overlap_probe",
+    "toad_tpu_torch.experiments.bf16_transfer_probe",
+    "toad_tpu_torch.experiments.patient_native_probe",
+    "toad_tpu_torch.experiments.matmul_ceiling",
+    "toad_tpu_torch.experiments.encoder_batch_ab",
+    "toad_tpu_torch.experiments.encoder_stages",
 )
 
 
@@ -201,12 +207,13 @@ SERVE_MODULES = (
 def test_int8_modules_import_neither_jax_nor_the_jax_package(probe, module):
     """Each module of the int8, ViT and ResNet featurization, training, evaluation, slide-inference and serving paths, imported alone
     in a fresh process, loads no module of the JAX stack (h5py and PIL
-    included) or of toad_tpu and builds no kernel."""
+    included), of toad_tpu, of the repo's ``bench.py`` or of its JAX probes
+    (``experiments/``) and builds no kernel."""
     assert module in probe["modules"]
     code = (
         f"import importlib, json, sys; importlib.import_module({module!r}); "
         "from toad_tpu_torch.ops import _build; "
-        f"print(json.dumps([m for m in sys.modules if m.split('.')[0] in {FORBIDDEN + ('toad_tpu',)!r}] "
+        f"print(json.dumps([m for m in sys.modules if m.split('.')[0] in {FORBIDDEN + ('toad_tpu', 'bench', 'experiments')!r}] "
         "+ (['built'] if _build.is_loaded() else [])))"
     )
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True, timeout=300, check=True)
@@ -244,10 +251,11 @@ def test_kernel_sources_are_packaged():
 
 def test_no_source_line_imports_jax_or_the_jax_package():
     """The grep of the port's sources and of chip_smoke.py: no import
-    statement names jax or toad_tpu, also not inside a function."""
+    statement names jax, toad_tpu, bench.py or the JAX probes' experiments/,
+    also not inside a function."""
     import re
 
-    pattern = re.compile(r"^\s*(import|from)\s+(jax|toad_tpu)(\.|\s|$)")
+    pattern = re.compile(r"^\s*(import|from)\s+(jax|toad_tpu|bench|experiments)(\.|\s|$)")
     files = [*(REPO / "toad_tpu_torch").rglob("*.py"), REPO / "chip_smoke.py"]
     assert len(files) > 40
     hits = [f"{f.relative_to(REPO)}:{i}" for f in files for i, line in enumerate(f.read_text().splitlines(), 1)

@@ -951,7 +951,7 @@ def test_cli_validate_matches_the_jax_cli(trained, capsys, broken, tmp_path):
     assert ours == theirs and ours["n_missing"] == (2 if broken else 0) and ours["n_dim_mismatch"] == (1 if broken else 0)
 
 
-# -- serve and featurize refuse the JAX CLIs' unported flags by name --------------
+# -- serve and featurize refuse the JAX CLIs' unported flags by name, and take the XLA-only ones with a note --
 
 
 @pytest.mark.parametrize("cli,base,flags,says", [
@@ -968,12 +968,23 @@ def test_cli_validate_matches_the_jax_cli(trained, capsys, broken, tmp_path):
     ("featurize", ["--feat_dir", "f", "--patch_dir", "p", "--encoder", "vit"], ["--no_fold_bn"], "queue 1.5"),
     ("featurize", ["--feat_dir", "f", "--patch_dir", "p", "--encoder", "vit"], ["--compile_cache", "d"], "configures XLA"),
 ])
-def test_serve_and_featurize_refuse_unported_flags_by_name(cli, base, flags, says):
+def test_serve_and_featurize_refuse_unported_flags_by_name(cli, base, flags, says, capsys):
     import importlib
 
-    from toad_tpu_torch.cli.common import refuse_flags
+    from toad_tpu_torch.cli.common import note_xla_only, refuse_flags
 
     module = importlib.import_module(f"toad_tpu_torch.cli.{cli}")
+    if says == "configures XLA":  # the JAX CLI's XLA-only flags: taken, with one note on stderr, never refused
+        args = module.make_parser().parse_args([*base, *flags])
+        refuse_flags(args, module._NOT_PORTED)  # does not exit
+        note_xla_only(args)
+        err = capsys.readouterr().err
+        assert err.count(f"{flags[0]} has no effect here") == 1 and len(err.splitlines()) == 1
+        assert getattr(args, flags[0][2:]) == (flags[1] if len(flags) > 1 else True)
+        off = module.make_parser().parse_args(base)
+        note_xla_only(off)
+        assert getattr(off, flags[0][2:]) in (None, False) and capsys.readouterr().err == ""
+        return
     if says in ("queue 1.4", "queue 1.5", "queue 1.6"):
         flag = flags[0][2:]
         args = module.make_parser().parse_args([*base, *flags])

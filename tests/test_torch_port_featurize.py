@@ -288,9 +288,15 @@ def test_cli_refuses_what_is_not_ported_or_not_there(slide, tmp_path):
                                rtol=0.1, atol=0.1)  # bf16: folded and unfolded round at other places
     both = _cli("--encoder", "vit", "--patch_dir", patch_dir, "--tile_dir", patch_dir, "--feat_dir", "feats", cwd=tmp_path)
     assert both.returncode != 0 and "exactly one of --patch_dir" in both.stderr
-    for gone in (["--data_shards", "2"], ["--compile_cache", "d"]):
-        run = _cli("--device", "cpu", "--encoder", "vit", "--patch_dir", patch_dir, "--feat_dir", "feats", *gone, cwd=tmp_path)
-        assert run.returncode != 0 and f"{gone[0]} is not ported to this package" in run.stderr  # refused by name
+    gone = ["--data_shards", "2"]
+    run = _cli("--device", "cpu", "--encoder", "vit", "--patch_dir", patch_dir, "--feat_dir", "feats", *gone, cwd=tmp_path)
+    assert run.returncode != 0 and f"{gone[0]} is not ported to this package" in run.stderr  # refused by name
+    # --compile_cache configures XLA in the JAX CLI: taken, with one note on stderr, and the same bags as without it
+    cached = _cli("--device", "cpu", "--patch_dir", patch_dir, "--feat_dir", "feats_cached", "--format", "npy",
+                  "--compile_cache", "d", cwd=tmp_path)
+    assert cached.returncode == 0, cached.stderr
+    assert cached.stderr.count("--compile_cache has no effect here") == 1 and not (tmp_path / "d").exists()
+    np.testing.assert_array_equal(load_bag(tmp_path / "feats_cached" / "s1.npy"), load_bag(tmp_path / "feats" / "s1.npy"))
     # --profile is ported (the ops tooling): taken, not refused
     from toad_tpu_torch.cli import featurize as cli_featurize
     from toad_tpu_torch.cli.common import refuse_flags

@@ -269,6 +269,19 @@ def test_cli_predict_matches_the_jax_cli(env, case, tmp_path, monkeypatch):
     assert ours.read_text() == pd.DataFrame(written[0]).to_csv(index=False)
 
 
+def test_cli_predict_takes_the_jax_cli_s_pallas_flag_with_one_note(env, tmp_path):
+    """--pallas configures XLA in the JAX CLI: here it is taken, with one note
+    on stderr, and the predictions are the bytes written without it."""
+    base = ["--ckpt", str(env["ckpt"]), "--data_dir", str(env["bags"]), "--encoding_size", str(D), "--buckets", BUCKETS,
+            "--csv", str(env["root"] / "manifest.csv"), "--sex", "F", "--device", "cpu"]
+    out, err = _run(predict_cli.main, [*base, "--out", str(tmp_path / "plain.csv")])
+    out_p, err_p = _run(predict_cli.main, [*base, "--out", str(tmp_path / "pallas.csv"), "--pallas"])
+    assert (tmp_path / "pallas.csv").read_bytes() == (tmp_path / "plain.csv").read_bytes()
+    assert out_p.splitlines()[:-1] == out.splitlines()[:-1] and out_p.endswith("(6 slides)\n")
+    assert err_p.count("--pallas has no effect here") == 1 and "--pallas" not in err
+    assert len(err_p.splitlines()) == len(err.splitlines()) + 1
+
+
 def test_cli_predict_sex_falls_back_as_pandas_reads_it(env, tmp_path):
     """Blank and NaN cells take --sex, '1.0' and '0' parse; an all-integer id
     column loses its leading zeros, as pandas reads it."""
@@ -371,9 +384,12 @@ def test_cli_infer_refusals(env, tmp_path, monkeypatch):
     base = ["--ckpt", str(env["ckpt"]), "--sex", "F", "--encoding_size", str(D), "--device", "cpu"]
     with pytest.raises(SystemExit, match="--patches requires --weights"):
         infer_cli.main([*base, "--patches", str(tmp_path / "p.npz")])
-    with pytest.raises(SystemExit):  # XLA only: not a flag of this CLI
-        with contextlib.redirect_stderr(io.StringIO()):
-            infer_cli.main([*base, "--bag", str(env["bags"] / "S0.npy"), "--pallas"])
+    # --pallas configures XLA in the JAX CLI: taken, with one note on stderr, and the same answer as without it
+    bag = ["--bag", str(env["bags"] / "S0.npy")]
+    plain_out, plain_err = _run(infer_cli.main, [*base, *bag])
+    out, err = _run(infer_cli.main, [*base, *bag, "--pallas"])
+    assert out == plain_out and json.loads(out)["n_patches"] == 30
+    assert err.count("--pallas has no effect here") == 1 and err.replace(err.splitlines()[0] + "\n", "", 1) == plain_err
     _hide(monkeypatch, "h5py")
     with pytest.raises(ImportError, match=r"\.npz"):
         _run(infer_cli.main, [*base, "--bag", str(env["bags"] / "S0.npy"), "--save_attention", str(tmp_path / "a.h5")])

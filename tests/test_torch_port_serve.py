@@ -271,8 +271,10 @@ def test_serve_cli_requires_cuda_or_explicit_cpu(jax_params, tmp_path):
     assert "CUDA is not available" in out.stderr and "--device cpu" in out.stderr
 
 
-def test_serve_cli_on_cpu_answers_and_drains(jax_params, tmp_path):
-    """The CLI end to end on the CPU: checkpoint, task labels, bag_path, SIGTERM drain."""
+def _serve_cli(jax_params, tmp_path, *extra):
+    """Start the serve CLI on the CPU (checkpoint, bag_root, warmup), send one
+    bag_path request, read /stats, stop it with SIGTERM: (response, stats,
+    the lines up to "serving on", the lines after it, exit status)."""
     ckpt = tmp_path / "s_0_checkpoint.pt"
     torch.save(reference_state_dict(params_from_jax(jax_params)), ckpt)
     x = np.random.default_rng(7).standard_normal((50, DIM)).astype(np.float32)
@@ -281,7 +283,7 @@ def test_serve_cli_on_cpu_answers_and_drains(jax_params, tmp_path):
     proc = subprocess.Popen(
         [sys.executable, "-m", "toad_tpu_torch", "serve", "--ckpt", str(ckpt), "--device", "cpu", "--port", "0",
          "--encoding_size", str(DIM), "--n_classes", "6", "--buckets", "128,32,64", "--bag_root", str(tmp_path),
-         "--warmup", "32"],
+         "--warmup", "32", *extra],
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True, env=env, cwd=tmp_path,
     )
     try:
@@ -294,17 +296,39 @@ def test_serve_cli_on_cpu_answers_and_drains(jax_params, tmp_path):
                 break
         port = int(line.split()[2].rsplit(":", 1)[1])
         status, out = _post(port, json.dumps({"bag_path": "slide.npy", "sex": "F"}), {})
-        assert status == 200 and len(out["y_prob"]) == 6
-        assert _get(port, "/stats")[1]["config"]["buckets"] == [32, 64, 128]
+        assert status == 200
+        stats = _get(port, "/stats")[1]
         proc.terminate()
         rest = proc.communicate(timeout=60)[0]
-        assert proc.returncode == 0
-        assert "in-flight requests drained" in rest
-        assert any(ln.startswith("warmup: 2 shape variants") for ln in lines)
+        return out, stats, lines, rest, proc.returncode
     finally:
         if proc.poll() is None:
             proc.kill()
             proc.wait()
+
+
+def test_serve_cli_on_cpu_answers_and_drains(jax_params, tmp_path):
+    """The CLI end to end on the CPU: checkpoint, task labels, bag_path, SIGTERM drain."""
+    out, stats, lines, rest, returncode = _serve_cli(jax_params, tmp_path)
+    assert len(out["y_prob"]) == 6
+    assert stats["config"]["buckets"] == [32, 64, 128]
+    assert returncode == 0
+    assert "in-flight requests drained" in rest
+    assert any(ln.startswith("warmup: 2 shape variants") for ln in lines)
+
+
+def test_serve_cli_takes_the_jax_cli_s_xla_only_flags_with_one_note(jax_params, tmp_path):
+    """--pallas and --compile_cache configure XLA in the JAX CLI: here the
+    server starts with them, notes each once, and answers as without them."""
+    (tmp_path / "plain").mkdir()
+    (tmp_path / "flags").mkdir()
+    plain = _serve_cli(jax_params, tmp_path / "plain")
+    flagged = _serve_cli(jax_params, tmp_path / "flags", "--pallas", "--compile_cache", "cache")
+    assert plain[4] == flagged[4] == 0
+    assert flagged[0] == plain[0] and len(flagged[0]["y_prob"]) == 6
+    head = "".join(flagged[2])
+    assert head.count("--pallas has no effect here") == 1 and head.count("--compile_cache has no effect here") == 1
+    assert "has no effect here" not in "".join(plain[2]) and not (tmp_path / "flags" / "cache").exists()
 
 
 def test_cli_helpers(tmp_path):

@@ -322,8 +322,12 @@ def test_serve_load_line_has_the_jax_keys(wire, capsys, monkeypatch):
 def test_serve_load_int8_and_refusals(capsys):
     assert serve_load.main([*TINY, "--wire", "raw", "--int8", "--device", "cpu"]) == 0
     assert json.loads(capsys.readouterr().out)["transfer"] == "int8"
-    with pytest.raises(SystemExit, match="--pallas is not ported"):
-        serve_load.main([*TINY, "--pallas", "--device", "cpu"])
+    # --pallas configures XLA in the JAX probe: taken, with one note on stderr, the same line's keys and wire
+    assert serve_load.main([*TINY, "--pallas", "--device", "cpu"]) == 0
+    captured = capsys.readouterr()
+    line = json.loads(captured.out)
+    assert captured.err.count("--pallas has no effect here") == 1
+    assert line["requests"] == 8 and line["transfer"] == "f32" and line["wire"] == "none"
     if not torch.cuda.is_available():
         with pytest.raises(SystemExit, match="cuda.is_available"):
             serve_load.main(TINY)

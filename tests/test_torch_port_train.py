@@ -636,6 +636,29 @@ def test_cli_native_io_on_trains_on_npy_bags_and_logs_the_native_feed(cli_run):
     assert summaries["on"] == summaries["off"]
 
 
+@pytest.fixture(scope="module")
+def one_fold_summary(cli_run):
+    """summary.csv of one fold, one epoch, trained without the XLA-only flags."""
+    root, common, _ = cli_run
+    run = _cli(*common, "--exp_code", "xla_plain", "--max_epochs", "1", "--k_end", "1", "--device", "cpu", cwd=root)
+    assert run.returncode == 0, run.stderr[-3000:]
+    assert "has no effect here" not in run.stderr
+    return (root / "results" / "xla_plain_s1" / "summary_partial_0_1.csv").read_text()
+
+
+@pytest.mark.parametrize("flags", [["--pallas"], ["--compile_cache", "cache"]], ids=["pallas", "compile_cache"])
+def test_cli_takes_the_jax_cli_s_xla_only_flags_with_one_note(cli_run, one_fold_summary, flags):
+    """--pallas and --compile_cache configure XLA in the JAX CLI: here each is
+    taken, with one note on stderr, and trains to the same summary.csv."""
+    root, common, _ = cli_run
+    code = "xla_" + flags[0][2:]
+    run = _cli(*common, "--exp_code", code, "--max_epochs", "1", "--k_end", "1", "--device", "cpu", *flags, cwd=root)
+    assert run.returncode == 0, run.stderr[-3000:]
+    assert run.stderr.count(f"{flags[0]} has no effect here") == 1 and run.stderr.count("has no effect here") == 1
+    assert (root / "results" / f"{code}_s1" / "summary_partial_0_1.csv").read_text() == one_fold_summary
+    assert not (root / "cache").exists()
+
+
 def test_cli_needs_the_card_unless_the_cpu_is_asked_for(cli_run):
     if torch.cuda.is_available():
         pytest.skip("this machine has a card")

@@ -88,7 +88,31 @@ def refuse_flags(args, table) -> None:
             raise SystemExit(f"error: --{flag} is not ported to this package: {where}")
 
 
-XLA_ONLY = "it configures XLA and has no counterpart here (on CUDA the hand-written kernels are always the path)"
+# flags of the JAX CLIs that configure XLA: taken, each with one note on stderr
+# when given, since on CUDA neither changes a result; the JAX user's command
+# line runs unchanged
+XLA_ONLY = {
+    "pallas": "on CUDA the hand-written pooling kernels are always the path",
+    "compile_cache": "it names XLA's persistent compilation cache, and nothing here is compiled ahead of a run "
+                     "(the CUDA kernels build once, into toad_tpu_torch/_build/)",
+}
+
+
+def add_xla_only_args(p: argparse.ArgumentParser, *flags: str) -> None:
+    """Add the JAX CLI's XLA-only ``flags`` (keys of ``XLA_ONLY``), off by default."""
+    for flag in flags:
+        why = f"accepted for the JAX CLI's command lines and ignored: {XLA_ONLY[flag]}"
+        if flag == "pallas":
+            p.add_argument("--pallas", action="store_true", default=False, help=why)
+        else:
+            p.add_argument(f"--{flag}", type=str, default=None, metavar="DIR", help=why)
+
+
+def note_xla_only(args) -> None:
+    """One note on stderr for each XLA-only flag that was given."""
+    for flag, why in XLA_ONLY.items():
+        if getattr(args, flag, None) not in (None, False):
+            print(f"--{flag} has no effect here: {why}", file=sys.stderr)
 
 
 def add_buckets_arg(p: argparse.ArgumentParser, auto: bool = False) -> None:

@@ -16,7 +16,6 @@ from __future__ import annotations
 
 import argparse
 import json
-import sys
 from pathlib import Path
 
 import numpy as np
@@ -24,8 +23,10 @@ import numpy as np
 from toad_tpu_torch.cli.common import (
     add_buckets_arg,
     add_task_arg,
+    add_xla_only_args,
     build_dataset,
     echo_settings,
+    note_xla_only,
     refuse_flags,
     require_data_root,
     resolve_buckets,
@@ -58,8 +59,7 @@ def make_parser() -> argparse.ArgumentParser:
     p.add_argument("--max_bag_size", type=int, default=None)
     add_buckets_arg(p, auto=True)
     p.add_argument("--bf16", action="store_true", default=False)
-    p.add_argument("--pallas", action="store_true", default=False,
-                   help="accepted and ignored: on CUDA the hand-written pooling kernel is always the path")
+    add_xla_only_args(p, "pallas")
     p.add_argument("--int8", action="store_true", default=False,
                    help="quantized pooling (int8 GEMMs; heads and metrics stay f32; bags are quantized "
                    "in the loader thread and cross to the device as int8: a quarter of the bytes)")
@@ -120,8 +120,7 @@ def main(argv=None):
 
     args = make_parser().parse_args(argv)
     refuse_flags(args, _NOT_PORTED)
-    if args.pallas:
-        print("--pallas has no effect here: on CUDA the hand-written pooling kernel is always the path", file=sys.stderr)
+    note_xla_only(args)
     device = resolve_device_arg(args.device)
     if args.save_exp_code is None:
         # never write to EVAL_None: the models code is the natural identity

@@ -17,13 +17,10 @@ import json
 import zipfile
 from pathlib import Path
 
-from toad_tpu_torch.cli.common import XLA_ONLY, refuse_flags
+from toad_tpu_torch.cli.common import add_xla_only_args, note_xla_only, refuse_flags
 
 # flags of the JAX CLI that are not ported: (flag, its "off" value, where ROADMAP.md queues it)
-_NOT_PORTED = (
-    ("data_shards", None, "multi-GPU (ROADMAP.md queue 1.7)"),
-    ("compile_cache", None, XLA_ONLY),
-)
+_NOT_PORTED = (("data_shards", None, "multi-GPU (ROADMAP.md queue 1.7)"),)
 
 
 def make_parser() -> argparse.ArgumentParser:
@@ -51,13 +48,14 @@ def make_parser() -> argparse.ArgumentParser:
                    help="capture a torch.profiler trace of the run into DIR (open it in Perfetto or chrome://tracing)")
     # flags of the JAX CLI that are not ported; accepted so that they can be refused by name
     p.add_argument("--data_shards", type=int, default=None, help="not ported")
-    p.add_argument("--compile_cache", type=str, default=None, help="no counterpart: nothing is compiled ahead of a run")
+    add_xla_only_args(p, "compile_cache")
     return p
 
 
 def main(argv=None) -> None:
     args = make_parser().parse_args(argv)
     refuse_flags(args, _NOT_PORTED)
+    note_xla_only(args)
     if (args.patch_dir is None) == (args.tile_dir is None):
         raise SystemExit("give exactly one of --patch_dir (patch files) or --tile_dir (tile images)")
 

@@ -21,7 +21,7 @@ import numpy as np
 
 
 def make_parser() -> argparse.ArgumentParser:
-    from toad_tpu_torch.cli.common import add_buckets_arg, add_temperature_from_arg
+    from toad_tpu_torch.cli.common import add_buckets_arg, add_temperature_from_arg, add_xla_only_args
 
     p = argparse.ArgumentParser(prog="python -m toad_tpu_torch infer", description=__doc__)
     p.add_argument("--ckpt", type=str, required=True, help="reference-layout s_k_checkpoint.pt")
@@ -54,13 +54,15 @@ def make_parser() -> argparse.ArgumentParser:
     add_temperature_from_arg(p)
     add_buckets_arg(p)
     p.add_argument("--device", type=str, default="cuda", help="cuda (default), cuda:<i> or cpu")
+    add_xla_only_args(p, "pallas")
     return p
 
 
 def main(argv=None) -> None:
-    from toad_tpu_torch.cli.common import build_inference, label_names, parse_sex, resolve_device_arg
+    from toad_tpu_torch.cli.common import build_inference, label_names, note_xla_only, parse_sex, resolve_device_arg
 
     args = make_parser().parse_args(argv)
+    note_xla_only(args)
     sex = parse_sex(args.sex)
     if args.patches and not args.weights:
         raise SystemExit("--patches requires --weights (encoder checkpoint)")

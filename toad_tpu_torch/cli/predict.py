@@ -22,7 +22,7 @@ _NA_CELLS = frozenset({"", "#N/A", "#N/A N/A", "#NA", "-1.#IND", "-1.#QNAN", "-N
 
 
 def make_parser() -> argparse.ArgumentParser:
-    from toad_tpu_torch.cli.common import add_buckets_arg, add_temperature_from_arg
+    from toad_tpu_torch.cli.common import add_buckets_arg, add_temperature_from_arg, add_xla_only_args
 
     p = argparse.ArgumentParser(prog="python -m toad_tpu_torch predict", description=__doc__)
     p.add_argument("--ckpt", type=str, required=True, help="reference-layout s_k_checkpoint.pt")
@@ -47,6 +47,7 @@ def make_parser() -> argparse.ArgumentParser:
     add_temperature_from_arg(p)
     add_buckets_arg(p)
     p.add_argument("--device", type=str, default="cuda", help="cuda (default), cuda:<i> or cpu")
+    add_xla_only_args(p, "pallas")
     return p
 
 
@@ -70,13 +71,14 @@ def read_manifest(path: str, fallback_sex: str | None) -> tuple[list[str], list]
 def main(argv=None) -> None:
     import torch
 
-    from toad_tpu_torch.cli.common import build_inference, label_names, parse_sex, resolve_device_arg
+    from toad_tpu_torch.cli.common import build_inference, label_names, note_xla_only, parse_sex, resolve_device_arg
     from toad_tpu_torch.data.bags import bag_path
     from toad_tpu_torch.ops import cuda_pool, cuda_pool_int8
     from toad_tpu_torch.pipeline.infer import infer_feature_bag
     from toad_tpu_torch.utils.io import write_rows_csv
 
     args = make_parser().parse_args(argv)
+    note_xla_only(args)
     topk = max(1, args.topk)
     data_dir = Path(args.data_dir)
 

@@ -23,7 +23,7 @@ import signal
 import threading
 import time
 
-from toad_tpu_torch.cli.common import XLA_ONLY, refuse_flags
+from toad_tpu_torch.cli.common import add_xla_only_args, note_xla_only, refuse_flags
 from toad_tpu_torch.utils import profiling
 
 # exit code signalling "restart me" to a supervisor after an RSS-watermark
@@ -35,8 +35,6 @@ RSS_POLL_S = 5.0  # seconds between the watchdog's reads of the RSS
 _NOT_PORTED = (
     ("data_shards", None, "multi-GPU (ROADMAP.md queue 1.7)"),
     ("bag_shards", None, "multi-GPU (ROADMAP.md queue 1.7)"),
-    ("pallas", False, XLA_ONLY),
-    ("compile_cache", None, XLA_ONLY),
 )
 
 
@@ -101,14 +99,14 @@ def make_parser() -> argparse.ArgumentParser:
     # flags of the JAX CLI that are not ported; accepted so that they can be refused by name
     p.add_argument("--data_shards", type=int, default=None, help="not ported")
     p.add_argument("--bag_shards", type=int, default=None, help="not ported")
-    p.add_argument("--pallas", action="store_true", help="no counterpart: the kernel is always the path on CUDA")
-    p.add_argument("--compile_cache", type=str, default=None, help="no counterpart: nothing is compiled ahead of a run")
+    add_xla_only_args(p, "pallas", "compile_cache")
     return p
 
 
 def main(argv=None) -> None:
     args = make_parser().parse_args(argv)
     refuse_flags(args, _NOT_PORTED)
+    note_xla_only(args)
 
     import torch
 

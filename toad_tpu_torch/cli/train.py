@@ -11,9 +11,9 @@ Counterpart of :mod:`toad_tpu.cli.train`: the flags of the reference
 Training runs on the card unless ``--device cpu`` is given; validation and
 the final passes go through the hand-written pooling kernel there. Flags of
 the JAX CLI with nothing behind them here are answered with an error that
-names where ROADMAP.md queues them; ``--pallas`` and ``--compile_cache``
-have no counterpart (the kernel is the path on CUDA; nothing is compiled
-ahead of a run).
+names where ROADMAP.md queues them; ``--pallas`` and ``--compile_cache``,
+which configure XLA, are taken with one note on stderr (the kernel is the
+path on CUDA; nothing is compiled ahead of a run).
 """
 
 from __future__ import annotations
@@ -26,8 +26,10 @@ from pathlib import Path
 
 from toad_tpu_torch.cli.common import (
     add_task_arg,
+    add_xla_only_args,
     build_dataset,
     echo_settings,
+    note_xla_only,
     refuse_flags,
     require_data_root,
     resolve_buckets,
@@ -99,6 +101,7 @@ def make_parser() -> argparse.ArgumentParser:
                    help="checked train step: raise on NaN/Inf/bad labels (slow)")
     p.add_argument("--debug_nans", action="store_true", default=False,
                    help="global NaN trapping: autograd anomaly mode and a NaN check on every module's output (very slow)")
+    add_xla_only_args(p, "pallas", "compile_cache")
     # flags of the JAX CLI that are not ported; accepted so that they can be refused by name
     p.add_argument("--data_shards", type=int, default=1, help="not ported")
     p.add_argument("--bag_shards", type=int, default=1, help="not ported")
@@ -169,6 +172,7 @@ def main(argv=None):
 
     args = make_parser().parse_args(argv)
     refuse_unported(args)
+    note_xla_only(args)
     if args.rss_restart_gb is not None and not args.resume:
         raise SystemExit("--rss_restart_gb requires --resume (restart would lose all progress)")
     try:

@@ -143,6 +143,39 @@ def write_graded_bags(
         np.save(data_dir / f"{row['slide_id']}.npy", feats)
 
 
+def write_io_fixture(data_dir: str | os.PathLike, n_slides: int, bag_n: int = 8192, dim: int = 1024
+                     ) -> tuple[Path, Path]:
+    """The disk-fed probes' fixture (counterpart of ``bench._ensure_io_fixture``):
+    ``n_slides`` ``.pt`` bags of ``bag_n x dim`` float32 under ``data_dir``,
+    slide ``i`` the draws of ``np.random.RandomState(1000 + i).randn``, and a
+    manifest ``io_{n_slides}.csv`` over them (one case a slide, 18 origins in
+    turn, sex and site alternating). Files already there are reused, so that a
+    probe run after another reads the same bags without writing them again.
+    Returns (data_dir, csv_path)."""
+    data_dir = Path(data_dir)
+    data_dir.mkdir(parents=True, exist_ok=True)
+    csv_path = data_dir / f"io_{n_slides}.csv"
+    if not csv_path.exists():
+        rows = [{"slide_id": f"BENCH-SLIDE_{i}", "case_id": f"BENCH-PATIENT_{i}",
+                 "label": DEFAULT_ORIGINS[i % len(DEFAULT_ORIGINS)], "sex": "F" if i % 2 else "M",
+                 "site": "Primary" if i % 2 else "Metastatic"} for i in range(n_slides)]
+        with open(csv_path, "w", newline="") as f:
+            w = csv.DictWriter(f, fieldnames=MANIFEST_COLUMNS, lineterminator="\n")
+            w.writeheader()
+            w.writerows(rows)
+    import torch
+
+    # a slide's content is keyed by its index: a partly written directory
+    # does not shift later slides onto earlier draws
+    for i in range(n_slides):
+        path = data_dir / f"BENCH-SLIDE_{i}.pt"
+        if not path.exists():  # written under another name, then renamed: a cut write leaves no bag behind
+            part = path.with_name(path.name + ".part")
+            torch.save(torch.from_numpy(np.random.RandomState(1000 + i).randn(bag_n, dim).astype(np.float32)), part)
+            os.replace(part, path)
+    return data_dir, csv_path
+
+
 def write_dummy_bags(
     data_dir: str | os.PathLike,
     manifest: list[dict[str, str]],

@@ -4,9 +4,12 @@
 probes (:mod:`.vit_softmax_probe`, :mod:`.vit_attn_probe`,
 :mod:`.vit_ceiling2_probe`, :mod:`.vit_elementwise_probe`,
 :mod:`.vit_profile`, :mod:`.vit_int8_probe`, with their harness
-:mod:`.vit_probe_common`) and the serving load test (:mod:`.serve_load`).
+:mod:`.vit_probe_common`), the serving load test (:mod:`.serve_load`), the
+disk-fed feed probes (:mod:`.io_overlap_probe`, :mod:`.bf16_transfer_probe`,
+:mod:`.patient_native_probe`) and the ceiling probes (:mod:`.matmul_ceiling`,
+:mod:`.encoder_batch_ab`, :mod:`.encoder_stages`).
 Each runs as ``python -m toad_tpu_torch.experiments.NAME`` and prints one
-JSON line per variant, arm or run."""
+JSON line per variant, arm or run (or the JAX probe's text lines)."""
 
 from __future__ import annotations
 

@@ -31,7 +31,7 @@ import time
 import numpy as np
 import torch
 
-from toad_tpu_torch.cli.common import XLA_ONLY, refuse_flags
+from toad_tpu_torch.cli.common import add_xla_only_args, note_xla_only
 from toad_tpu_torch.config import DEFAULT_BUCKETS, ModelConfig
 from toad_tpu_torch.experiments import device_name, resolve_device
 from toad_tpu_torch.models.toad_mil import ToadMIL
@@ -80,9 +80,9 @@ def main(argv: list[str] | None = None) -> int:
                     help="route requests through the real HTTP server: json=features_b64 document, "
                     "raw=application/octet-stream; none=direct batcher calls")
     ap.add_argument("--device", default="cuda", help="cuda (the default), or cpu for the plain versions")
-    ap.add_argument("--pallas", action="store_true", help="no counterpart: the kernel is always the path on CUDA")
+    add_xla_only_args(ap, "pallas")
     args = ap.parse_args(argv)
-    refuse_flags(args, (("pallas", False, XLA_ONLY),))
+    note_xla_only(args)
     dev = resolve_device(args.device)
 
     cfg = ModelConfig(in_dim=args.dim, n_classes=18, compute_dtype="bfloat16" if args.bf16 else "float32")
