@@ -265,9 +265,33 @@ Phases (each prints its lines; any failure raises and the exit code is not 0):
    256, 512) and encoder_stages (stem, layer1-3, the encoder, two 3x3 conv
    ceilings; cuDNN). Every arm's line is parsed; a child that exits
    non-zero or misses a line fails the phase.
+16. The ('data', 'bag') mesh (run after phase 15, in process, at TOAD's full
+   width), each mesh over cuda:0 repeated (one card holds every shape): one
+   SGD step with dropout at (1, 2), (2, 1) and (2, 2) on a batch of phase
+   7's cohort against the unsharded step from the same weights and
+   generator (loss and every parameter, TOL_MESH_STEP); one eval pass of
+   phase 7's f32 checkpoint over the test split at (1, 2) and (2, 2)
+   against the unsharded pass (probabilities, TOL_MESH_PROB): the main path
+   of K1p (shards x batches launches) and the combine (one a batch); the
+   serving batcher over (1, 2) answering six requests with and without
+   attention against the unsharded batcher; phase 9's tiles through the
+   ResNet-50 embedder with a data mesh of two against one device (to the
+   bit, or within the encoder's bf16 noise as phase 9 states it);
+   train_folds_parallel over two folds of one epoch on a 16-slide subset
+   over two devices against each fold's sequential run (bit for bit); and
+   make_mesh refusing a data axis past the visible cards with the JAX text.
 
 The second-to-last line is the kernels' JSON record, the last line the device
 record. Weights and data are random, made from --seed.
+
+``python3 chip_smoke.py --mesh-cards`` (two or more cards; not part of the
+default run) runs phases 1-2, then the mesh with each cell on its own card:
+the mesh steps, eval forwards (float and int8) and served answers of phase
+16 over (n, 1), (1, n) and (2, n/2), each against cuda:0 alone, their wall
+times, the ResNet embedder over a data mesh of the n cards, and ``train
+--data_shards/--bag_shards``, ``train --fold_devices n`` and ``eval
+--fold_devices n`` as children on a seeded cohort of 54 bags, each fold
+against the sequential run.
 """
 
 from __future__ import annotations
@@ -3380,6 +3404,352 @@ def phase_serve_ensemble(trained: dict, card: str, gpu: str, workdir: Path, seed
 
 TOL_CHECKED_STEP = 1e-6  # the checked step vs the production step, of each parameter's largest entry
 
+# Phase 16. A mesh step against the unsharded step: f32 (TF32 off) on both, the same dropout masks; they differ
+# in summation order only (the per-shard products and the combine), so the JAX package's own sharding test's
+# tolerances (tests/test_sharding.py): the loss within rtol 1e-5, every parameter within rtol 1e-4, atol 1e-5.
+TOL_MESH_LOSS = 1e-5
+TOL_MESH_STEP = dict(rtol=1e-4, atol=1e-5)
+# An eval pass or a served answer over a mesh against the unsharded one: K1p per shard and the combine against
+# K1 on the whole bag, f32 (3xTF32) on both; phase 3's K1p tolerance, on the probabilities and raw scores.
+TOL_MESH_PROB = TOL_F32["atol"]
+MESH_SHAPES_STEP = ((1, 2), (2, 1), (2, 2))
+MESH_SHAPES_EVAL = ((1, 2), (2, 2))
+
+
+def wall_ms(fn, devices, reps: int = 5) -> float:
+    """Median wall milliseconds of fn() after two warm-up calls, every card
+    of ``devices`` synchronized before and after each reading (work that
+    spans cards has no one stream to time on)."""
+    def sync():
+        for d in {d for d in devices if d.type == "cuda"}:
+            torch.cuda.synchronize(d)
+
+    for _ in range(2):
+        fn()
+    times = []
+    for _ in range(reps):
+        sync()
+        t0 = time.perf_counter()
+        fn()
+        sync()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def mesh_cards(seed: int, gpu: str, cards: list | None = None) -> None:
+    """``--mesh-cards``: the mesh with each cell on its own card (``cards``:
+    the visible cards), every result against cuda:0 alone."""
+    from toad_tpu_torch.config import EncoderConfig, ModelConfig, OptimConfig
+    from toad_tpu_torch.models.toad_mil import ToadMIL
+    from toad_tpu_torch.ops import cuda_pool
+    from toad_tpu_torch.ops.quantize import quantize_rows
+    from toad_tpu_torch.parallel.mesh import make_mesh, visible_devices
+    from toad_tpu_torch.parallel.sharding import shard_batch
+    from toad_tpu_torch.pipeline.featurize import TileEmbedder
+    from toad_tpu_torch.serve.batcher import DynamicBatcher, ServeConfig
+    from toad_tpu_torch.train.loop import make_train_step, unpack_metrics
+    from toad_tpu_torch.train.optim import make_optimizer
+
+    cards = cards if cards is not None else visible_devices()
+    n = len(cards)
+    if n < 2:
+        raise SystemExit(f"--mesh-cards needs two or more cards, {n} visible")
+    dev0 = cards[0]
+    torch.backends.cuda.matmul.allow_tf32 = False
+    shapes = [(n, 1), (1, n)] + ([(2, n // 2)] if n > 2 and n % 2 == 0 else [])
+    log(f"mesh cards: {n} cards {[str(d) for d in cards]}, shapes {shapes} [{gpu}]")
+    g = torch.Generator().manual_seed(seed + 16)
+    b_, rows = 4, 8192
+    batch = {
+        "features": torch.randn(b_, rows, 1024, generator=g),
+        "patch_mask": (torch.rand(b_, rows, generator=g) < 0.9).float(),
+        "bag_mask": torch.ones(b_),
+        "label": torch.randint(0, 18, (b_,), generator=g),
+        "site": torch.randint(0, 2, (b_,), generator=g),
+        "sex": torch.randint(0, 2, (b_,), generator=g).int(),
+    }
+    cfg = ModelConfig(in_dim=1024, n_classes=18)
+
+    def model_on(config, dev):
+        return ToadMIL(config, generator=torch.Generator().manual_seed(seed)).to(dev)
+
+    def step(shape):
+        model = model_on(dataclasses.replace(cfg, dropout=True), dev0).train()
+        opt = make_optimizer(OptimConfig(name="sgd", lr=1e-3), model.parameters())
+        placed = shard_batch(batch, make_mesh(*shape, devices=cards)) if shape else {k: v.to(dev0) for k, v in batch.items()}
+        run = make_train_step(model, opt, 0.75, 0.25)
+        metrics = unpack_metrics(run(placed, torch.Generator(device=dev0).manual_seed(seed)))
+        ms = wall_ms(lambda: run(placed, torch.Generator(device=dev0).manual_seed(seed)), cards)
+        return metrics["loss"], {k: v.detach() for k, v in model.state_dict().items()}, ms
+
+    ref_loss, ref, ref_ms = step(None)
+    model = model_on(cfg, dev0).eval()
+    whole = {k: v.to(dev0) for k, v in batch.items()}
+    xq, sx = quantize_rows(whole["features"])
+    with torch.inference_mode():
+        want = model(whole["features"], whole["patch_mask"], whole["sex"])
+        want8 = model.forward_int8(xq, sx, whole["patch_mask"], whole["sex"])
+        ref_fwd = wall_ms(lambda: model(whole["features"], whole["patch_mask"], whole["sex"], need_attention=False), cards)
+    log(f"mesh cards: {dev0} alone, B={b_} x {rows} x 1024 f32: SGD step with dropout {ref_ms:.2f} ms, eval forward "
+        f"{ref_fwd:.2f} ms (wall, median of 5) [{gpu}]")
+    for shape in shapes:
+        mesh = make_mesh(*shape, devices=cards)
+        loss, state, ms = step(shape)
+        bad = [k for k in ref if not torch.allclose(state[k], ref[k], **TOL_MESH_STEP)]
+        d_param = max(float((state[k] - ref[k]).abs().max()) for k in ref)
+        if abs(loss - ref_loss) > TOL_MESH_LOSS * abs(ref_loss) or bad:
+            raise AssertionError(f"SGD step over {shape} on {n} cards: |loss| {abs(loss - ref_loss):.3e}, beyond: {bad}")
+        placed = shard_batch(batch, mesh)
+        placed8 = shard_batch({**batch, "features": xq.cpu(), "scales": sx.cpu()}, mesh)
+        with torch.inference_mode():
+            cuda_pool.PARTIAL_LAUNCHES = cuda_pool.COMBINE_LAUNCHES = 0
+            got = model.forward_sharded(placed, need_attention=False)
+            counts = (cuda_pool.PARTIAL_LAUNCHES, cuda_pool.COMBINE_LAUNCHES)
+            scored = model.forward_sharded(placed)
+            got8 = model.forward_sharded(placed8, int8=True)
+            fwd = wall_ms(lambda: model.forward_sharded(placed, need_attention=False), cards)
+        errs = (float((got.y_prob - want.y_prob).abs().max()), float((scored.attention - want.attention).nan_to_num(
+            0.0, 0.0, 0.0).abs().max()), float((got8.logits - want8.logits).abs().max()))
+        if errs[0] > TOL_MESH_PROB or errs[1] > TOL_MESH_PROB or errs[2] > TOL_INT8_LOGITS["atol"]:
+            raise AssertionError(f"eval forward over {shape} on {n} cards: |y_prob| {errs[0]:.3e}, |attention| "
+                                 f"{errs[1]:.3e}, |int8 logits| {errs[2]:.3e}")
+        want_counts = (shape[0] * shape[1], 1) if shape[1] > 1 else (0, 0)
+        if dev0.type == "cuda" and counts != want_counts:
+            raise AssertionError(f"eval forward over {shape}: K1p, combine launches {counts}, not {want_counts}")
+        log(f"mesh cards: {shape} over {n} cards: SGD step |loss difference| {abs(loss - ref_loss):.3e}, largest "
+            f"parameter difference {d_param:.3e} (tolerance {TOL_MESH_STEP}); eval |y_prob| {errs[0]:.3e}, |raw "
+            f"attention| {errs[1]:.3e} (tolerance {TOL_MESH_PROB:g}), int8 |logits| {errs[2]:.3e}; K1p {counts[0]} and "
+            f"combine {counts[1]} launches a forward; wall ms: step {ms:.2f} ({dev0} alone {ref_ms:.2f}), forward "
+            f"{fwd:.2f} ({ref_fwd:.2f}) [{gpu}]")
+
+    # the serving batcher over (1, n): the same requests against one card
+    sd = model.state_dict()
+    rng = np.random.default_rng(seed + 17)
+    bags = [rng.standard_normal((m, 1024)).astype(np.float32) for m in (4000, 8192, 6000, 8192)]
+    answers = {}
+    for name, mesh in (("one", None), ("mesh", make_mesh(1, n, devices=cards))):
+        with DynamicBatcher(sd, cfg, ServeConfig(max_wait_ms=50.0), device=dev0, mesh=mesh) as batcher:
+            futs = [batcher.submit(bag, i % 2, attention=i % 2 == 0) for i, bag in enumerate(bags)]
+            answers[name] = [f.result(timeout=300) for f in futs]
+    serve_err = max(float(np.abs(a.y_prob - o.y_prob).max()) for a, o in zip(answers["mesh"], answers["one"]))
+    if serve_err > TOL_MESH_PROB:
+        raise AssertionError(f"serving over (1, {n}): |y_prob| {serve_err:.3e}")
+    log(f"mesh cards: the serving batcher over (1, {n}), 4 requests: |y_prob - one card| max {serve_err:.3e}")
+
+    # the ResNet embedder over a data mesh of the n cards
+    enc_cfg = EncoderConfig()
+    enc = seeded_resnet(seed)
+    tiles = np.random.default_rng(seed + 18).integers(0, 256, (64 * n, 224, 224, 3), dtype=np.uint8)
+    one = TileEmbedder(enc.to(dev0).eval(), batch_size=64 * n)
+    spread = TileEmbedder(seeded_resnet(seed).to(dev0).eval(), batch_size=64 * n, devices=cards)
+    diff = np.abs(spread.embed_all(tiles) - one.embed_all(tiles))
+    log(f"mesh cards: ResNet-50 ({enc_cfg.compute_dtype}, folded) embedder over a data mesh of {n} cards, {len(tiles)} "
+        f"tiles: |difference from one card| max {diff.max():.3e} mean {diff.mean():.3e}; wall ms a batch of {64 * n}: "
+        f"one card {wall_ms(lambda: one(tiles[:64 * n]), cards):.2f}, {n} cards "
+        f"{wall_ms(lambda: spread(tiles[:64 * n]), cards):.2f} [{gpu}]")
+
+    # the CLIs as a user runs them, children, on a seeded cohort
+    from toad_tpu_torch.data.synthetic import dummy_task, write_dummy_bags, write_dummy_csv
+
+    with tempfile.TemporaryDirectory(prefix="toad_mesh_cards_") as tmp:  # a seeded cohort of 54 bags
+        work = Path(tmp)
+        manifest = write_dummy_csv(work / "dataset_csv" / "dummy.csv", n_patients=54, max_slides_per_patient=1,
+                                   seed=seed)
+        task = dummy_task(str(work / "dataset_csv" / "dummy.csv"))
+        (work / "tasks").mkdir()
+        (work / "tasks" / "dummy_mtl_concat.json").write_text(task.to_json())
+        write_dummy_bags(work / "bags", manifest, task, n_patches_range=(500, 4000), dim=1024, fmt="npy", seed=seed)
+        run_cli(["create-splits", "--task", "tasks/dummy_mtl_concat.json", "--k", str(n), "--val_frac", "0.34",
+                 "--test_frac", "0.34"], work)
+        on = ["--device", "cpu"] if dev0.type == "cpu" else []  # (a rehearsal on the CPU)
+        base = ["train", "--task", "tasks/dummy_mtl_concat.json", "--data_root_dir", "bags", "--k", str(n),
+                "--max_epochs", "1", "--batch_size", "4", "--buckets", "1024,2048,4096",
+                "--split_dir", "splits/dummy_mtl_concat_100", *on]
+        summaries = {}
+        axes = ["--data_shards", "2", "--bag_shards", str(n // 2)] if n % 2 == 0 else ["--data_shards", str(n)]
+        for code, extra in (("seq", []), ("folds", ["--fold_devices", str(n)]), ("mesh", axes)):
+            t0 = time.perf_counter()
+            out, _ = run_cli([*base, "--exp_code", code, *extra], work)
+            summaries[code] = (work / "results" / f"{code}_s1" / "summary.csv").read_text()
+            log(f"mesh cards: train {' '.join(extra) or '(one card)'}, {n} folds of 1 epoch: {time.perf_counter() - t0:.1f} s")
+        if summaries["folds"] != summaries["seq"]:
+            raise AssertionError(f"train --fold_devices {n}: summary.csv differs from the sequential run")
+        rows = {c: [line.split(",")[1:] for line in summaries[c].splitlines()[1:]] for c in ("seq", "mesh")}
+        worst = max(abs(float(a) - float(b)) for ra, rb in zip(rows["seq"], rows["mesh"]) for a, b in zip(ra, rb)
+                    if a and b)
+        eval_base = ["eval", "--task", "tasks/dummy_mtl_concat.json", "--data_root_dir", "bags", "--models_exp_code",
+                     "seq_s1", "--k", str(n), "--batch_size", "4", "--split", "all", *on]
+        run_cli([*eval_base, "--save_exp_code", "e_seq"], work)
+        run_cli([*eval_base, "--save_exp_code", "e_par", "--fold_devices", str(n)], work)
+        same = all((work / "eval_results" / "EVAL_e_seq" / f).read_bytes() == (work / "eval_results" / "EVAL_e_par" / f)
+                   .read_bytes() for f in [*(f"fold_{i}.csv" for i in range(n)), "summary.csv"])
+        if not same:
+            raise AssertionError(f"eval --fold_devices {n}: outputs differ from the sequential run")
+        log(f"mesh cards: train --fold_devices {n} summary.csv equal to the sequential run's to the byte; train "
+            f"{' '.join(axes)} within {worst:.3e} of it (AUCs and accuracies); eval --fold_devices {n}: every fold CSV "
+            f"and summary.csv equal to the sequential run's [{gpu}]")
+
+
+def phase_mesh(trained: dict, card: str, gpu: str, workdir: Path, resnet_dir: Path, seed: int,
+               dev: torch.device = torch.device("cuda", 0)) -> dict:
+    """Phase 16: the ('data', 'bag') mesh in process, every mesh over ``dev``
+    (cuda:0) repeated. Returns the launch counts of the phase's drives (K1
+    f32, K1p, the combine), counted from 0."""
+    from toad_tpu_torch.config import DataConfig, EncoderConfig, OptimConfig, TrainConfig
+    from toad_tpu_torch.data.batching import BagBatcher
+    from toad_tpu_torch.evaluate.engine import evaluate_checkpoint
+    from toad_tpu_torch.evaluate.runner import batch_to_dict
+    from toad_tpu_torch.models.resnet_encoder import encoder_from_state_dict, load_torchvision_weights
+    from toad_tpu_torch.models.toad_mil import ToadMIL
+    from toad_tpu_torch.ops import cuda_pool
+    from toad_tpu_torch.parallel.mesh import make_mesh
+    from toad_tpu_torch.parallel.sharding import shard_batch
+    from toad_tpu_torch.pipeline.featurize import TileEmbedder
+    from toad_tpu_torch.serve.batcher import DynamicBatcher, ServeConfig
+    from toad_tpu_torch.train.checkpoint import load_params_any
+    from toad_tpu_torch.train.loop import FoldTrainer, make_train_step, unpack_metrics
+    from toad_tpu_torch.train.optim import make_optimizer
+    from toad_tpu_torch.train.parallel_folds import train_folds_parallel
+
+    t0 = time.perf_counter()
+    on_card = dev.type == "cuda"  # (the CPU runs the plain versions: no launch to count)
+    torch.backends.cuda.matmul.allow_tf32 = False
+
+    def mesh(d: int, b: int):
+        return make_mesh(d, b, devices=[dev] * (d * b))
+
+    # the refusal: a data axis past the visible cards, with the JAX text
+    n_cards = torch.cuda.device_count()
+    want = f"{n_cards} devices not divisible by data_shards={n_cards + 1}"
+    try:
+        make_mesh(data_shards=n_cards + 1)
+    except ValueError as e:
+        if str(e) != want:
+            raise AssertionError(f"make_mesh(data_shards={n_cards + 1}) refused with {e!r}, not {want!r}") from None
+    else:
+        raise AssertionError(f"make_mesh(data_shards={n_cards + 1}) was not refused on {n_cards} card(s)")
+    log(f"phase 16 mesh: make_mesh(data_shards={n_cards + 1}) over the {n_cards} visible card(s) refused: {want}")
+
+    cuda_pool.LAUNCHES = cuda_pool.SCORED_LAUNCHES = cuda_pool.PARTIAL_LAUNCHES = cuda_pool.COMBINE_LAUNCHES = 0
+    ds, test_split, cfg32 = trained["dataset"], trained["test_split"], trained["model_cfg"]
+
+    # (a) one SGD step with dropout, each mesh against the unsharded step
+    b = next(iter(BagBatcher(test_split, batch_size=4, mode="sequential", prefetch=0, max_bag_size=8192)))
+    bd = batch_to_dict(b, "cpu")
+    cfg_drop = dataclasses.replace(cfg32, dropout=True)
+
+    def step(shape):
+        model = ToadMIL(cfg_drop, generator=torch.Generator().manual_seed(seed)).to(dev).train()
+        opt = make_optimizer(OptimConfig(name="sgd", lr=1e-3), model.parameters())
+        batch = shard_batch(bd, mesh(*shape)) if shape else {k: v.to(dev) for k, v in bd.items()}
+        metrics = unpack_metrics(make_train_step(model, opt, 0.75, 0.25)(batch, torch.Generator(device=dev).manual_seed(seed)))
+        return metrics["loss"], {k: v.detach() for k, v in model.state_dict().items()}
+
+    ref_loss, ref = step(None)
+    steps = {}
+    for shape in MESH_SHAPES_STEP:
+        loss, state = step(shape)
+        d_loss = abs(loss - ref_loss)
+        d_param = max(float((state[k] - ref[k]).abs().max()) for k in ref)
+        bad = [k for k in ref if not torch.allclose(state[k], ref[k], **TOL_MESH_STEP)]
+        if d_loss > TOL_MESH_LOSS * abs(ref_loss) or bad:
+            raise AssertionError(f"SGD step on mesh {shape}: |loss - unsharded| {d_loss:.3e}, parameters beyond "
+                                 f"{TOL_MESH_STEP}: {bad}")
+        steps[shape] = (d_loss, d_param)
+        log(f"phase 16 mesh: SGD step with dropout (B=4 x {b.bucket} x {cfg32.in_dim}, f32, TF32 off) on mesh {shape} vs "
+            f"unsharded: |loss difference| {d_loss:.3e} (tolerance {TOL_MESH_LOSS:g} of {abs(ref_loss):.4f}), largest "
+            f"parameter difference {d_param:.3e} (tolerance {TOL_MESH_STEP})")
+
+    # (b) eval passes of the phase-7 f32 checkpoint over the test split: the main path of K1p and the combine
+    ckpt = workdir / "results" / "smoke_f32_s1" / "s_0_checkpoint.pt"
+    base = evaluate_checkpoint(ckpt, test_split, cfg32, batch_size=4, device=dev)
+    evals = {}
+    for shape in MESH_SHAPES_EVAL:
+        before = (cuda_pool.LAUNCHES, cuda_pool.PARTIAL_LAUNCHES, cuda_pool.COMBINE_LAUNCHES)
+        t1 = time.perf_counter()
+        res = evaluate_checkpoint(ckpt, test_split, cfg32, batch_size=4, mesh=mesh(*shape))
+        secs = time.perf_counter() - t1
+        k1, k1p, comb = (cuda_pool.LAUNCHES - before[0], cuda_pool.PARTIAL_LAUNCHES - before[1],
+                         cuda_pool.COMBINE_LAUNCHES - before[2])
+        nb = res.stats["n_batches"]
+        if on_card and (k1, k1p, comb) != (0, shape[0] * shape[1] * nb, nb):
+            raise AssertionError(f"eval over mesh {shape}, {nb} batches: K1 {k1}, K1p {k1p}, combine {comb} launches")
+        if list(res.df["slide_id"]) != list(base.df["slide_id"]):
+            raise AssertionError(f"eval over mesh {shape} scored other slides")
+        err = float(np.abs(res.probs() - base.probs()).max())
+        if err > TOL_MESH_PROB:
+            raise AssertionError(f"eval over mesh {shape}: |y_prob - unsharded| {err:.3e} > {TOL_MESH_PROB}")
+        evals[shape] = err
+        log(f"phase 16 mesh: eval pass of the f32 checkpoint over mesh {shape}, {res.stats['n']} slides in {nb} "
+            f"batches ({secs:.2f} s, feed {res.stats['feed']}): K1p launches {k1p} (shards x batches), combine launches "
+            f"{comb}, K1 {k1}; |y_prob - unsharded pass| max {err:.3e} (tolerance {TOL_MESH_PROB:g}) [{gpu}]")
+
+    # (c) the serving batcher over (1, 2): six requests of the cohort, half with attention
+    sd = load_params_any(ckpt, cfg32)
+    bags = [ds.load_bag(i)[:8192] for i in range(6)]
+    answers = {}
+    for name, m in (("one", None), ("mesh", mesh(1, 2))):
+        with DynamicBatcher(sd, cfg32, ServeConfig(max_wait_ms=50.0), device=dev, mesh=m) as batcher:
+            futs = [batcher.submit(bag, i % 2, attention=i % 2 == 0) for i, bag in enumerate(bags)]
+            answers[name] = [f.result(timeout=300) for f in futs]
+    serve_prob = max(float(np.abs(a.y_prob - o.y_prob).max()) for a, o in zip(answers["mesh"], answers["one"]))
+    serve_attn = max(float(np.abs(a.attention - o.attention).max()) if len(o.attention) else 0.0
+                     for a, o in zip(answers["mesh"], answers["one"]))
+    if serve_prob > TOL_MESH_PROB or serve_attn > TOL_MESH_PROB:
+        raise AssertionError(f"serving over mesh (1, 2): |y_prob| {serve_prob:.3e}, |attention| {serve_attn:.3e}")
+    log(f"phase 16 mesh: the serving batcher over mesh (1, 2), 6 requests of {', '.join(str(len(x)) for x in bags)} "
+        f"rows (3 with attention): |y_prob - unsharded batcher| max {serve_prob:.3e}, |raw attention| max "
+        f"{serve_attn:.3e} (tolerance {TOL_MESH_PROB:g})")
+
+    # (d) featurize --data_shards 2's embedder on phase 9's tiles
+    enc_cfg = EncoderConfig()
+    loaded = load_torchvision_weights(resnet_dir / "resnet50.pth", enc_cfg)
+    tiles = np.load(resnet_dir / "patches" / "slide_b.npz")["imgs"]
+    one = TileEmbedder(encoder_from_state_dict(loaded, enc_cfg).to(dev).eval(), batch_size=64).embed_all(tiles)
+    two = TileEmbedder(encoder_from_state_dict(loaded, enc_cfg).to(dev).eval(), batch_size=64,
+                       devices=[dev, dev]).embed_all(tiles)
+    diff = np.abs(two - one)
+    if diff.max() > 0:
+        enc32 = encoder_from_state_dict(loaded, dataclasses.replace(enc_cfg, compute_dtype="float32")).to(dev)
+        noise = np.abs(one - TileEmbedder(enc32, batch_size=64).embed_all(tiles))
+        if diff.max() > noise.max() or diff.mean() > noise.mean():
+            raise AssertionError(f"data-mesh features: max {diff.max():.3e} mean {diff.mean():.3e} beyond the encoder's "
+                                 f"bf16 noise max {noise.max():.3e} mean {noise.mean():.3e}")
+        said = f"max {diff.max():.3e} mean {diff.mean():.3e} (within the bf16 noise against f32: max {noise.max():.3e})"
+    else:
+        said = "equal to the bit"
+    log(f"phase 16 mesh: ResNet-50 (bf16, folded) embedder over a data mesh of 2 on phase 9's {len(tiles)} tiles vs one "
+        f"device: {said}")
+
+    # (e) fold-parallel: two folds of one epoch on a 16-slide subset, over two devices, each against its sequential run
+    idx = np.arange(ds.n_slides)
+    splits = (ds.subset(idx[:8]), ds.subset(idx[8:12]), ds.subset(idx[12:16]))
+    fcfg = TrainConfig(max_epochs=1, seed=seed, model=cfg32, data=DataConfig(batch_size=4, max_bag_size=8192))
+    quiet = lambda msg: None  # noqa: E731
+    t1 = time.perf_counter()
+    seq = {f: FoldTrainer(fcfg, fold=f, results_dir=workdir / "mesh_seq", device=dev).train(*splits, log_fn=quiet)
+           for f in (0, 1)}
+    t2 = time.perf_counter()
+    par = train_folds_parallel(fcfg, [(0, splits), (1, splits)], workdir / "mesh_par", n_devices=2, log_fn=quiet,
+                               devices=[dev, dev])
+    t3 = time.perf_counter()
+    for f in (0, 1):
+        differ = [k for k in seq[f]["params"] if not torch.equal(seq[f]["params"][k], par[f]["params"][k])]
+        same_metrics = all(seq[f][k] == par[f][k] or (np.isnan(seq[f][k]) and np.isnan(par[f][k]))
+                           for k in ("cls_val_auc", "cls_test_auc", "cls_test_acc", "site_test_auc"))
+        if differ or not same_metrics:
+            raise AssertionError(f"fold {f} under train_folds_parallel differs from its sequential run: {differ[:3]}")
+    log(f"phase 16 mesh: train_folds_parallel, 2 folds of 1 epoch (8 / 4 / 4 slides, f32) over {dev} twice: each "
+        f"fold's parameters and metrics equal to its sequential run to the bit; sequential {t2 - t1:.1f} s, "
+        f"parallel {t3 - t2:.1f} s [{gpu}]")
+
+    counts = dict(k1_f32=cuda_pool.LAUNCHES, partial=cuda_pool.PARTIAL_LAUNCHES, combine=cuda_pool.COMBINE_LAUNCHES)
+    if on_card and (counts["partial"] <= 0 or counts["combine"] <= 0):
+        raise AssertionError(f"phase 16 drove no K1p or combine launch: {counts}")
+    log(f"phase 16 mesh: launches in this phase: K1p {counts['partial']}, combine {counts['combine']}, K1 f32 "
+        f"{counts['k1_f32']}; {time.perf_counter() - t0:.1f} s")
+    return dict(counts, steps=steps, evals=evals, serve=(serve_prob, serve_attn))
+
 
 def state_bytes(model, optimizer) -> bytes:
     """The parameters' and the optimizer's state, serialized: equal bytes, equal state."""
@@ -4067,6 +4437,8 @@ def main() -> int:
                          "split and the controls (K1, K1p, P6, P1 full, P4 int8_chain) required to be the same bits "
                          "and K2's M close to the parent's")
     ap.add_argument("--time-pool", type=Path, metavar="ROOT", help=argparse.SUPPRESS)
+    ap.add_argument("--mesh-cards", action="store_true",
+                    help="only phases 1-2, then the mesh with each cell on its own card (two or more cards)")
     args = ap.parse_args()
 
     # a child of --attention-ab, --stage-ab or --pool-ab: the package under ROOT
@@ -4080,6 +4452,13 @@ def main() -> int:
         print(json.dumps(timer()))
         return 0
     t_start = time.perf_counter()
+    if args.mesh_cards:
+        card, gpu = phase_device()
+        log(gpu)
+        phase_build(gpu)
+        mesh_cards(args.seed, gpu)
+        log(f"all phases: {time.perf_counter() - t_start:.1f} s")
+        return 0
     if args.attention_ab is not None or args.stage_ab is not None or args.pool_ab is not None:
         card, gpu = phase_device()
         log(gpu)
@@ -4145,6 +4524,8 @@ def main() -> int:
         elapsed("phase 14")
         probed = phase_probe_children(card, gpu, Path(probes_tmp))
         elapsed("phase 15")
+        meshed = phase_mesh(trained, card, gpu, Path(tmp), Path(resnet_tmp), args.seed)
+        elapsed("phase 16")
     times = phase_timing(model, gpu)
     times.update(phase_timing_train(gpu, args.seed))
     elapsed("phase 6")
@@ -4180,7 +4561,7 @@ def main() -> int:
             # `serve --ensemble` child (two launches a batch, its /heatmap among them), and phase 14's eval step under
             # enable_debug_nans()
             "launches": evaluated["k1_f32_launches"] + trained["launches"] + inferred["k1_f32_launches"]
-            + ensembled["k1_launches"] + tooled["k1_f32_launches"],
+            + ensembled["k1_launches"] + tooled["k1_f32_launches"] + meshed["k1_f32"],
             "max_abs_err": worst[torch.float32],
             **times[("float32", 32)],
         },
@@ -4209,7 +4590,8 @@ def main() -> int:
             "route": "cuda",
             "source": "toad_tpu_torch/csrc/pool.cu",
             "replaces": "toad_tpu/ops/pallas_pool.py:636",
-            "launches": sharded["partial"],
+            # bag_sharded_pool's main path (phase 3) and phase 16's eval passes and serving over a bag axis
+            "launches": sharded["partial"] + meshed["partial"],
             "max_abs_err": worst_partial,
             **times[("partial_bf16", 1)],
         },
@@ -4218,7 +4600,7 @@ def main() -> int:
             "route": "cuda",
             "source": "toad_tpu_torch/csrc/pool_common.cuh",
             "replaces": "toad_tpu/parallel/bag_shard.py:28",
-            "launches": sharded["combine"],
+            "launches": sharded["combine"] + meshed["combine"],
             "max_abs_err": worst_sharded,
             **times[("combine", 1)],
         },

@@ -61,7 +61,7 @@ def test_config_and_registry_match_the_jax_package():
         "TaskConfig": set(),
         "OptimConfig": set(),
         "DataConfig": set(),
-        "TrainConfig": {"data_shards", "bag_shards"},
+        "TrainConfig": set(),
         "SplitConfig": set(),
         "EncoderConfig": set(),
     }

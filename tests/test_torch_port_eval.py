@@ -846,9 +846,36 @@ def test_cli_eval_int8_wire_equals_device_quantization(alt_runs):
     (["--k_start", "1", "--k_end", "1"], "empty fold window"),
     (["--transfer_dtype", "int8"], "requires int8=True"),
 ])
-def test_cli_eval_refusals(trained, flags, says):
+def test_cli_eval_refusals(trained, flags, says, request):
+    if flags[0] == "--fold_devices":
+        # multi-GPU is ported: --fold_devices is taken, one fold a device (on the CPU the CPU device repeated;
+        # -1: once), and every output is the sequential run's, byte for byte
+        evaluated_root, _ = request.getfixturevalue("evaluated")
+        code = f"fold_devices_{flags[1]}"
+        run = _cli("eval", *_eval_args(*flags, "--device", "cpu", "--save_exp_code", code), cwd=evaluated_root)
+        assert run.returncode == 0, run.stderr[-2000:]
+        assert "not ported" not in run.stderr and run.stdout.count("eval pass:") == 2
+        for name in ("fold_0.csv", "fold_1.csv", "fold_0_confusion.csv", "summary.csv"):
+            got = (evaluated_root / "eval_results" / f"EVAL_{code}" / name).read_bytes()
+            assert got == (evaluated_root / "eval_results" / "EVAL_port" / name).read_bytes(), name
+        return
     run = _cli("eval", *_eval_args(*flags, "--device", "cpu"), cwd=trained)
     assert run.returncode != 0 and says in run.stderr, run.stderr[-2000:]
+
+
+def test_cli_eval_fold_devices_refused_past_the_visible_cards(trained, monkeypatch):
+    """On the card the fold devices are the visible cards: two asked of one
+    card is refused with resolve_fold_devices' text before any fold runs."""
+    from toad_tpu_torch.cli import evaluate as port_evaluate
+    from toad_tpu_torch.parallel import mesh as port_mesh
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(port_mesh, "visible_devices", lambda: [torch.device("cuda", 0)])
+    monkeypatch.setattr("toad_tpu_torch.train.parallel_folds.visible_devices", lambda: [torch.device("cuda", 0)])
+    monkeypatch.chdir(trained)
+    with pytest.raises(SystemExit, match="fold_devices=2 but only 1 local devices are visible"):
+        port_evaluate.main(_eval_args("--fold_devices", "2", "--save_exp_code", "no_cards"))
+    assert not (trained / "eval_results" / "EVAL_no_cards").exists()
 
 
 def test_cli_eval_checks_the_val_union_before_the_first_fold(trained):
@@ -963,20 +990,22 @@ def test_cli_validate_matches_the_jax_cli(trained, capsys, broken, tmp_path):
     ("serve", ["--ckpt", "c.pt"], ["--compile_cache", "d"], "configures XLA"),
     ("featurize", ["--feat_dir", "f", "--patch_dir", "p", "--encoder", "vit"], ["--data_shards", "2"], "queue 1.7"),
     ("featurize", ["--feat_dir", "f", "--patch_dir", "p", "--encoder", "vit"], ["--profile", "d"], "queue 1.6"),
-    # queues 1.4 (ensemble serving), 1.5 (the ResNet-50 encoder) and 1.6 (the ops tooling) are ported: their flags are
-    # now taken, not refused
+    # queues 1.4 (ensemble serving), 1.5 (the ResNet-50 encoder), 1.6 (the ops tooling) and 1.7 (multi-GPU) are
+    # ported: their flags are now taken, not refused
     ("featurize", ["--feat_dir", "f", "--patch_dir", "p", "--encoder", "vit"], ["--no_fold_bn"], "queue 1.5"),
     ("featurize", ["--feat_dir", "f", "--patch_dir", "p", "--encoder", "vit"], ["--compile_cache", "d"], "configures XLA"),
 ])
 def test_serve_and_featurize_refuse_unported_flags_by_name(cli, base, flags, says, capsys):
     import importlib
 
-    from toad_tpu_torch.cli.common import note_xla_only, refuse_flags
+    from toad_tpu_torch.cli import common
+    from toad_tpu_torch.cli.common import note_xla_only
 
     module = importlib.import_module(f"toad_tpu_torch.cli.{cli}")
+    # every flag of the JAX CLIs is ported: the refusal by name is gone with the last of them
+    assert not hasattr(module, "_NOT_PORTED") and not hasattr(common, "refuse_flags")
     if says == "configures XLA":  # the JAX CLI's XLA-only flags: taken, with one note on stderr, never refused
         args = module.make_parser().parse_args([*base, *flags])
-        refuse_flags(args, module._NOT_PORTED)  # does not exit
         note_xla_only(args)
         err = capsys.readouterr().err
         assert err.count(f"{flags[0]} has no effect here") == 1 and len(err.splitlines()) == 1
@@ -985,20 +1014,14 @@ def test_serve_and_featurize_refuse_unported_flags_by_name(cli, base, flags, say
         note_xla_only(off)
         assert getattr(off, flags[0][2:]) in (None, False) and capsys.readouterr().err == ""
         return
-    if says in ("queue 1.4", "queue 1.5", "queue 1.6"):
-        flag = flags[0][2:]
-        args = module.make_parser().parse_args([*base, *flags])
-        refuse_flags(args, module._NOT_PORTED)  # does not exit
-        if says == "queue 1.6":  # the ops tooling: a value, off by default
-            assert getattr(args, flag) == type(getattr(args, flag))(flags[1])
-            assert getattr(module.make_parser().parse_args(base), flag) is None
-            return
-        assert getattr(args, flag) is True and getattr(module.make_parser().parse_args(base), flag) is False
+    assert says in ("queue 1.4", "queue 1.5", "queue 1.6", "queue 1.7")
+    flag = flags[0][2:]
+    args = module.make_parser().parse_args([*base, *flags])
+    if says in ("queue 1.6", "queue 1.7"):  # the ops tooling and the mesh flags: a value, off by default
+        assert getattr(args, flag) == type(getattr(args, flag))(flags[1])
+        assert getattr(module.make_parser().parse_args(base), flag) is None
         return
-    with pytest.raises(SystemExit) as e:
-        module.main([*base, *flags, "--device", "cpu"])
-    assert f"{flags[0]} is not ported to this package" in str(e.value) and says in str(e.value)
-    assert module.make_parser().parse_args(base).__dict__[flags[0][2:]] in (None, False)  # off unless given
+    assert getattr(args, flag) is True and getattr(module.make_parser().parse_args(base), flag) is False
 
 
 def test_featurize_default_encoder_stays_resnet50():

@@ -288,9 +288,16 @@ def test_cli_refuses_what_is_not_ported_or_not_there(slide, tmp_path):
                                rtol=0.1, atol=0.1)  # bf16: folded and unfolded round at other places
     both = _cli("--encoder", "vit", "--patch_dir", patch_dir, "--tile_dir", patch_dir, "--feat_dir", "feats", cwd=tmp_path)
     assert both.returncode != 0 and "exactly one of --patch_dir" in both.stderr
-    gone = ["--data_shards", "2"]
-    run = _cli("--device", "cpu", "--encoder", "vit", "--patch_dir", patch_dir, "--feat_dir", "feats", *gone, cwd=tmp_path)
-    assert run.returncode != 0 and f"{gone[0]} is not ported to this package" in run.stderr  # refused by name
+    # --data_shards is ported (multi-GPU): each tile batch of 64 cut in two over the CPU device, the bag of one device
+    sharded = _cli("--device", "cpu", "--patch_dir", patch_dir, "--feat_dir", "feats_sharded", "--format", "npy",
+                   "--data_shards", "2", cwd=tmp_path)
+    assert sharded.returncode == 0 and "not ported" not in sharded.stderr, sharded.stderr
+    np.testing.assert_array_equal(load_bag(tmp_path / "feats_sharded" / "s1.npy"), load_bag(tmp_path / "feats" / "s1.npy"))
+    from toad_tpu_torch.cli import featurize as cli_featurize
+
+    with pytest.raises(SystemExit, match="--batch_size 64 is not divisible by --data_shards 3"):
+        cli_featurize.main(["--device", "cpu", "--patch_dir", patch_dir, "--feat_dir", str(tmp_path / "feats_odd"),
+                            "--data_shards", "3"])
     # --compile_cache configures XLA in the JAX CLI: taken, with one note on stderr, and the same bags as without it
     cached = _cli("--device", "cpu", "--patch_dir", patch_dir, "--feat_dir", "feats_cached", "--format", "npy",
                   "--compile_cache", "d", cwd=tmp_path)
@@ -298,12 +305,8 @@ def test_cli_refuses_what_is_not_ported_or_not_there(slide, tmp_path):
     assert cached.stderr.count("--compile_cache has no effect here") == 1 and not (tmp_path / "d").exists()
     np.testing.assert_array_equal(load_bag(tmp_path / "feats_cached" / "s1.npy"), load_bag(tmp_path / "feats" / "s1.npy"))
     # --profile is ported (the ops tooling): taken, not refused
-    from toad_tpu_torch.cli import featurize as cli_featurize
-    from toad_tpu_torch.cli.common import refuse_flags
-
     profiled = cli_featurize.make_parser().parse_args(["--feat_dir", "feats", "--patch_dir", patch_dir, "--profile", "d"])
-    refuse_flags(profiled, cli_featurize._NOT_PORTED)  # does not exit
-    assert profiled.profile == "d"
+    assert profiled.profile == "d" and not hasattr(cli_featurize, "_NOT_PORTED")
     if not torch.cuda.is_available():
         # the card is the default: without one, and without --device cpu, nothing runs on the CPU silently
         no_card = _cli("--encoder", "vit", "--patch_dir", patch_dir, "--feat_dir", "feats_no_card", cwd=tmp_path)

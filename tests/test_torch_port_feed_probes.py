@@ -101,8 +101,25 @@ def test_ab_probe_prints_its_keys_and_both_arms_agree(fixture, probe, keys, caps
     assert list(line)[len(keys):] == [k for k in ("max_prob_dev", "k1_launches", "device") if k not in keys]
     rates = [v for k, v in line.items() if k.endswith("slides_per_sec")]
     assert len(rates) == 2 and all(r > 0 for r in rates)
-    assert line["speedup"] == round(rates[1] / rates[0], 3)
+    # the probe divides the unrounded rates (as the JAX probe does) and prints each rate rounded to 0.01: the ratio
+    # of the printed rates is the speedup within that rounding (each rate off by at most 0.005)
+    r0, r1 = rates
+    assert abs(line["speedup"] - r1 / r0) <= 5e-4 + 0.005 * (1 + r1 / r0) / r0
     assert line["max_prob_dev"] == 0.0 and line["k1_launches"] == 0 and line["device"] == "cpu"
+
+
+@pytest.mark.parametrize("probe", [io_overlap_probe, bf16_transfer_probe], ids=["io_overlap", "bf16_transfer"])
+def test_ab_probe_speedup_is_the_ratio_of_the_unrounded_rates(fixture, probe, monkeypatch, capsys):
+    """Both arms' rates fixed (the base arm timed first): the speedup is
+    their unrounded ratio rounded to 3 places, 0.974 here, where the ratio of
+    the printed (rounded) rates would give 0.976."""
+    data_dir, _ = fixture
+    fixed = iter((8.6049, 8.3851))
+    monkeypatch.setattr(io_overlap_probe, "slides_per_sec", lambda *a, **k: next(fixed))
+    assert probe.main(["--data_dir", str(data_dir), "--device", "cpu"]) == 0
+    line = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert [v for k, v in line.items() if k.endswith("slides_per_sec")] == [8.6, 8.39]
+    assert line["speedup"] == round(8.3851 / 8.6049, 3) == 0.974
 
 
 def test_probe_forward_matches_the_jax_model_on_the_fixture(fixture):

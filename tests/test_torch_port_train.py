@@ -602,16 +602,21 @@ def test_cli_refuses_unported_flags_by_name(flags, says):
 
     base = ["--task", "t", "--exp_code", "e"]
     args = cli_train.make_parser().parse_args([*base, *flags])
-    if says == "queue 1.6":  # the ops tooling is ported: its flags are now taken, not refused
-        cli_train.refuse_unported(args)  # does not exit
+    # every flag of the JAX CLI is ported: the refusal by name is gone with the last of them
+    assert not hasattr(cli_train, "refuse_unported")
+    if says == "queue 1.7":  # multi-GPU is ported: the mesh and fold-device flags are now taken, not refused
         dest = flags[0][2:]
         off = cli_train.make_parser().parse_args(base)
-        assert getattr(args, dest) not in (None, False) and getattr(off, dest) in (None, False)
+        assert getattr(args, dest) == int(flags[1]) and getattr(off, dest) == 1
         cfg = cli_train.config_from_args(args, n_classes=18)
-        assert (cfg.profile_dir, cfg.debug_checks, cfg.rss_restart_gb) == (args.profile, args.debug_checks, args.rss_restart_gb)
+        assert (cfg.data_shards, cfg.bag_shards) == (args.data_shards, args.bag_shards)
         return
-    with pytest.raises(SystemExit, match=says):
-        cli_train.refuse_unported(args)
+    assert says == "queue 1.6"  # the ops tooling is ported: its flags are taken, not refused
+    dest = flags[0][2:]
+    off = cli_train.make_parser().parse_args(base)
+    assert getattr(args, dest) not in (None, False) and getattr(off, dest) in (None, False)
+    cfg = cli_train.config_from_args(args, n_classes=18)
+    assert (cfg.profile_dir, cfg.debug_checks, cfg.rss_restart_gb) == (args.profile, args.debug_checks, args.rss_restart_gb)
 
 
 def test_cli_native_io_on_trains_on_npy_bags_and_logs_the_native_feed(cli_run):

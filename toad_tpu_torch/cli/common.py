@@ -79,15 +79,6 @@ def echo_settings(path: str | os.PathLike, settings: dict) -> None:
         print(f"{k}:  {v}")
 
 
-def refuse_flags(args, table) -> None:
-    """Exit, naming the flag, when a flag of the JAX CLI with nothing behind
-    it here was given. ``table`` rows are (flag, the value that means "not
-    given", where ROADMAP.md queues it or why it has no counterpart)."""
-    for flag, off, where in table:
-        if getattr(args, flag) != off:
-            raise SystemExit(f"error: --{flag} is not ported to this package: {where}")
-
-
 # flags of the JAX CLIs that configure XLA: taken, each with one note on stderr
 # when given, since on CUDA neither changes a result; the JAX user's command
 # line runs unchanged
@@ -124,13 +115,22 @@ def add_buckets_arg(p: argparse.ArgumentParser, auto: bool = False) -> None:
     )
 
 
-def resolve_buckets(value: str | None, dataset=None, *, patient_bags: bool = False) -> tuple[int, ...] | None:
+def resolve_buckets(
+    value: str | None, dataset=None, *, bag_shards: int = 1, patient_bags: bool = False
+) -> tuple[int, ...] | None:
     """--buckets: None (keep the default ladder), an explicit comma list,
     sorted and validated, or 'auto': a quantile ladder over the whole
     dataset's real patch counts (rounded up to multiples of 128), so that
-    every fold and split shares one set of shapes."""
+    every fold and split shares one set of shapes.
+
+    Under a bag axis (``bag_shards`` > 1) every rung must be a multiple of
+    128 x ``bag_shards``, the JAX CLI's rule: each shard's slice of a bag
+    is then a whole number of 128-row tiles (the 'auto' ladder is rounded up
+    to that multiple). Without one the CUDA kernel masks ragged row tiles,
+    so any positive length is taken."""
     if not value:
         return None
+    multiple = 128 * max(int(bag_shards), 1)
     if value.strip().lower() == "auto":
         if dataset is None:
             raise SystemExit("--buckets auto needs a dataset (use an explicit list here)")
@@ -141,17 +141,50 @@ def resolve_buckets(value: str | None, dataset=None, *, patient_bags: bool = Fal
             from toad_tpu_torch.data.wsi_dataset import PatientBagSplit
 
             split = PatientBagSplit(split)
-        ladder = auto_bucket_ladder(split)
+        ladder = auto_bucket_ladder(split, multiple_of=multiple)
         print(f"auto bucket ladder ({len(split)} bags): {list(ladder)}")
         return ladder
     try:
         ladder = tuple(int(x) for x in value.split(","))
     except ValueError:
         raise SystemExit(f"--buckets {value!r}: expected comma-separated integers") from None
+    if bag_shards > 1:
+        bad = [b for b in ladder if b <= 0 or b % multiple]
+        if bad:
+            raise SystemExit(f"--buckets {bad} must be positive multiples of {multiple} "
+                             f"(Pallas tile 128 x bag_shards {bag_shards})")
     bad = [b for b in ladder if b <= 0]
     if bad:
         raise SystemExit(f"--buckets {bad} must be positive")
     return tuple(sorted(ladder))
+
+
+def mesh_from_args(data_shards: int | None, bag_shards: int | None, device):
+    """The ``(data, bag)`` mesh of the CLIs' ``--data_shards`` /
+    ``--bag_shards``: over the visible cards on the card (a shape past them
+    is refused with ``mesh_shape_for``'s text), and on the CPU over the CPU
+    device repeated as many times as the flags ask (a flag not given counts
+    1). Exits with the message where the shape does not resolve."""
+    from toad_tpu_torch.parallel.mesh import make_mesh
+
+    devices = [device] * ((data_shards or 1) * (bag_shards or 1)) if device.type == "cpu" else None
+    try:
+        return make_mesh(data_shards, bag_shards, devices=devices)
+    except (ValueError, RuntimeError) as e:
+        raise SystemExit(f"error: --data_shards {data_shards} --bag_shards {bag_shards}: {e}") from None
+
+
+def fold_devices_from_args(n: int, device) -> list:
+    """The devices of ``--fold_devices N``: the visible cards on the card
+    (-1 all of them; more than there are is refused with
+    ``resolve_fold_devices``' text), the CPU device N times on the CPU (-1:
+    once). Exits with the message where N does not resolve."""
+    from toad_tpu_torch.train.parallel_folds import resolve_fold_devices
+
+    try:
+        return resolve_fold_devices(n, [device] * max(n, 1) if device.type == "cpu" else None)
+    except ValueError as e:
+        raise SystemExit(f"error: --fold_devices {n}: {e}") from None
 
 
 def add_temperature_from_arg(p: argparse.ArgumentParser) -> None:

@@ -10,6 +10,9 @@ ensemble.
 Evaluation runs on the card unless ``--device cpu`` is given: the float
 passes go through the hand-written pooling kernel, ``--int8`` through the
 int8 one, with the bags quantized in the loader thread and sent as int8.
+``--fold_devices N`` evaluates N folds at once, one a device (the visible
+cards; on the CPU the CPU device repeated), each fold's outputs those of the
+sequential run.
 """
 
 from __future__ import annotations
@@ -26,8 +29,8 @@ from toad_tpu_torch.cli.common import (
     add_xla_only_args,
     build_dataset,
     echo_settings,
+    fold_devices_from_args,
     note_xla_only,
-    refuse_flags,
     require_data_root,
     resolve_buckets,
     resolve_device_arg,
@@ -35,8 +38,6 @@ from toad_tpu_torch.cli.common import (
 from toad_tpu_torch.config import ModelConfig, fold_range
 from toad_tpu_torch.utils.io import write_columns_csv, write_rows_csv
 
-# flags of the JAX CLI that are not ported: (flag, its "off" value, where ROADMAP.md queues it)
-_NOT_PORTED = (("fold_devices", 1, "multi-GPU (ROADMAP.md queue 1.7)"),)
 
 
 def make_parser() -> argparse.ArgumentParser:
@@ -82,7 +83,10 @@ def make_parser() -> argparse.ArgumentParser:
                         "'ensemble' row to summary.csv. Requires --split all, so every fold "
                         "scores the same slides (per-fold test splits are disjoint)")
     p.add_argument("--device", type=str, default="cuda", help="cuda (default), cuda:<i> or cpu")
-    p.add_argument("--fold_devices", type=int, default=1, metavar="N", help="not ported (one fold per device)")
+    p.add_argument("--fold_devices", type=int, default=1, metavar="N",
+                   help="evaluate folds concurrently, one per local device (N devices; "
+                        "-1 = all). Per-fold outputs are identical to the sequential run; "
+                        "fold log blocks flush atomically in completion order")
     return p
 
 
@@ -119,9 +123,9 @@ def main(argv=None):
     from toad_tpu_torch.utils import invert_labels
 
     args = make_parser().parse_args(argv)
-    refuse_flags(args, _NOT_PORTED)
     note_xla_only(args)
     device = resolve_device_arg(args.device)
+    fold_devs = fold_devices_from_args(args.fold_devices, device) if args.fold_devices != 1 else None
     if args.save_exp_code is None:
         # never write to EVAL_None: the models code is the natural identity
         if args.models_exp_code is None:
@@ -188,11 +192,20 @@ def main(argv=None):
                 )
     split_index = {"train": 0, "val": 1, "test": 2, "all": -1}[args.split]
     eval_kw = dict(batch_size=args.batch_size, max_bag_size=args.max_bag_size, int8=args.int8,
-                   bucket_sizes=buckets, transfer_dtype=args.transfer_dtype, device=device)
+                   bucket_sizes=buckets, transfer_dtype=args.transfer_dtype)
     names = [invert_labels(task.label_dicts[0]).get(c, str(c)) for c in range(n_cls)]
 
-    def run_fold(fold):
-        """Everything one fold needs: the eval pass and the per-fold artefacts."""
+    def _print(msg: str) -> None:
+        print(msg, flush=True)
+
+    def run_fold(fold, _payload=None, dev=None, log=_print):
+        """Everything one fold needs: the eval pass and the per-fold
+        artefacts. Only per-fold state, so that --fold_devices can run it one
+        fold a device (``dev``, its lines through ``log``); ``dev=None`` is
+        the sequential path on ``--device``. The launch counts it reports are
+        the process's: under --fold_devices they take in the folds that ran
+        beside it."""
+        dev = device if dev is None else dev
         if split_index < 0:
             split = dataset.subset(range(dataset.n_slides))
         else:
@@ -201,19 +214,20 @@ def main(argv=None):
             if split is None:
                 raise ValueError(f"fold {fold}: requested split {args.split!r} is empty")
         launches = (cuda_pool.LAUNCHES, cuda_pool_int8.LAUNCHES)
-        if device.type == "cuda":
-            torch.cuda.reset_peak_memory_stats(device)
+        if dev.type == "cuda":
+            torch.cuda.reset_peak_memory_stats(dev)
         passes = []
 
         def evaluate(a_split, **kw):
-            res = evaluate_checkpoint(models_dir / checkpoint_name(fold), wrap(a_split), model_cfg, **eval_kw, **kw)
+            res = evaluate_checkpoint(models_dir / checkpoint_name(fold), wrap(a_split), model_cfg, **eval_kw,
+                                      device=dev, **kw)
             passes.append(res.stats)
             return res
 
         res = evaluate(split, micro_average=args.micro_average)
         for ci, auc in enumerate(res.cls_aucs):
-            print(f"class {ci} auc: {auc}")
-        print(f"fold {fold}: cls_auc {res.cls_auc:.4f} acc {res.cls_acc:.4f} site_auc {res.site_auc:.4f}")
+            log(f"class {ci} auc: {auc}")
+        log(f"fold {fold}: cls_auc {res.cls_auc:.4f} acc {res.cls_acc:.4f} site_auc {res.site_auc:.4f}")
         res.write_csv(save_dir / f"fold_{fold}.csv")
 
         # confusion matrix (true rows x predicted columns, canonical class
@@ -243,31 +257,31 @@ def main(argv=None):
                 rep["note"] = ("evaluated split CONTAINS the calibration (val) slides "
                                "(partially self-calibrated)")
             (save_dir / f"fold_{fold}_calibration.json").write_text(json.dumps(rep, indent=2))
-            print(f"fold {fold}: temperature {rep['temperature']:.3f}, "
-                  f"ece {rep['ece_before']:.4f} -> {rep['ece_after']:.4f}, "
-                  f"nll {rep['nll_before']:.4f} -> {rep['nll_after']:.4f}")
+            log(f"fold {fold}: temperature {rep['temperature']:.3f}, "
+                f"ece {rep['ece_before']:.4f} -> {rep['ece_after']:.4f}, "
+                f"nll {rep['nll_before']:.4f} -> {rep['nll_after']:.4f}")
 
         ci_cols = {}
         if args.bootstrap > 0:
             cis = bootstrap_result_cis(res, n_cls, n_boot=args.bootstrap, micro_average=args.micro_average)
             (save_dir / f"fold_{fold}_ci.json").write_text(json.dumps(cis, indent=2))
             for m, ci in cis.items():
-                print(f"fold {fold}: {m} 95% CI [{ci['lo']:.4f}, {ci['hi']:.4f}] "
-                      f"(mean {ci['mean']:.4f}, {ci['n_valid']}/{ci['n_boot']} valid draws)")
+                log(f"fold {fold}: {m} 95% CI [{ci['lo']:.4f}, {ci['hi']:.4f}] "
+                    f"(mean {ci['mean']:.4f}, {ci['n_valid']}/{ci['n_boot']} valid draws)")
             ci_cols = {
                 f"{m}_ci_lo": ci["lo"] for m, ci in cis.items()
             } | {f"{m}_ci_hi": ci["hi"] for m, ci in cis.items()}
 
         for what, st in zip(("eval", "val"), passes):
-            print(f"[fold {fold}] {what} pass: {st['n']} bags in {st['seconds']:.2f} s, "
-                  f"{st['n'] / max(st['seconds'], 1e-9):.1f} slides/s (data wait "
-                  f"{st['data_wait_s'] / max(st['seconds'], 1e-9):.0%}), wire {st['transfer_dtype']}, "
-                  f"{st['wire_bytes']} bytes to the device, feed {st['feed']}")
+            log(f"[fold {fold}] {what} pass: {st['n']} bags in {st['seconds']:.2f} s, "
+                f"{st['n'] / max(st['seconds'], 1e-9):.1f} slides/s (data wait "
+                f"{st['data_wait_s'] / max(st['seconds'], 1e-9):.0%}), wire {st['transfer_dtype']}, "
+                f"{st['wire_bytes']} bytes to the device, feed {st['feed']}")
         k1, k2 = cuda_pool.LAUNCHES - launches[0], cuda_pool_int8.LAUNCHES - launches[1]
-        print(f"[fold {fold}] eval batches {sum(st['n_batches'] for st in passes)}, pooling kernel launches {k1 + k2} "
-              f"(float kernel {k1}, int8 kernel {k2})"
-              + (f", peak device memory {torch.cuda.max_memory_allocated(device) / 1e9:.2f} GB on "
-                 f"{torch.cuda.get_device_name(device)}" if device.type == "cuda" else ""), flush=True)
+        log(f"[fold {fold}] eval batches {sum(st['n_batches'] for st in passes)}, pooling kernel launches {k1 + k2} "
+            f"(float kernel {k1}, int8 kernel {k2})"
+            + (f", peak device memory {torch.cuda.max_memory_allocated(dev) / 1e9:.2f} GB on "
+               f"{torch.cuda.get_device_name(dev)}" if dev.type == "cuda" else ""))
         row = {
             "folds": fold,
             "cls_test_auc": res.cls_auc,
@@ -280,7 +294,15 @@ def main(argv=None):
         }
         return row, res
 
-    by_fold = {fold: run_fold(fold) for fold in folds}
+    if fold_devs is not None:
+        # one fold per device (the work-queue engine of train --fold_devices); each fold's outputs are the
+        # sequential run's
+        from toad_tpu_torch.train.parallel_folds import map_folds_over_devices
+
+        by_fold = map_folds_over_devices([(fold, None) for fold in folds], run_fold, n_devices=len(fold_devs),
+                                         log_fn=_print, devices=fold_devs)
+    else:
+        by_fold = {fold: run_fold(fold) for fold in folds}
     rows = [by_fold[fold][0] for fold in folds]
     fold_results = [by_fold[fold][1] for fold in folds]
 

@@ -7,7 +7,9 @@ where h5py is absent), or every per-slide subdirectory of tile images in
 the ViT encoder and written to ``--feat_dir`` as a feature bag usable by
 serving and inference. The same command as ``python -m toad_tpu featurize``;
 ``--profile DIR`` writes a torch.profiler trace of the run, each batch's
-embed under a ``toad.featurize.embed_dispatch`` span.
+embed under a ``toad.featurize.embed_dispatch`` span. ``--data_shards N``
+cuts each tile batch over N devices (the first N visible cards; on the CPU
+the CPU device N times), each with its own copy of the encoder.
 """
 
 from __future__ import annotations
@@ -17,10 +19,8 @@ import json
 import zipfile
 from pathlib import Path
 
-from toad_tpu_torch.cli.common import add_xla_only_args, note_xla_only, refuse_flags
+from toad_tpu_torch.cli.common import add_xla_only_args, note_xla_only
 
-# flags of the JAX CLI that are not ported: (flag, its "off" value, where ROADMAP.md queues it)
-_NOT_PORTED = (("data_shards", None, "multi-GPU (ROADMAP.md queue 1.7)"),)
 
 
 def make_parser() -> argparse.ArgumentParser:
@@ -46,15 +46,15 @@ def make_parser() -> argparse.ArgumentParser:
     p.add_argument("--device", type=str, default="cuda", help="cuda (default), cuda:<i> or cpu")
     p.add_argument("--profile", type=str, default=None, metavar="DIR",
                    help="capture a torch.profiler trace of the run into DIR (open it in Perfetto or chrome://tracing)")
-    # flags of the JAX CLI that are not ported; accepted so that they can be refused by name
-    p.add_argument("--data_shards", type=int, default=None, help="not ported")
+    p.add_argument("--data_shards", type=int, default=None,
+                   help="data-parallel featurization: shard each tile batch over this many devices "
+                        "(must divide --batch_size; the first N visible cards, or the CPU device N times)")
     add_xla_only_args(p, "compile_cache")
     return p
 
 
 def main(argv=None) -> None:
     args = make_parser().parse_args(argv)
-    refuse_flags(args, _NOT_PORTED)
     note_xla_only(args)
     if (args.patch_dir is None) == (args.tile_dir is None):
         raise SystemExit("give exactly one of --patch_dir (patch files) or --tile_dir (tile images)")
@@ -69,8 +69,27 @@ def main(argv=None) -> None:
     if device.type not in ("cuda", "cpu"):
         raise SystemExit(f"error: --device must be cuda, cuda:<i> or cpu, got {args.device!r}")
 
+    devices = None
+    if args.data_shards is not None and args.data_shards != 1:
+        if args.data_shards < 1:
+            raise SystemExit(f"--data_shards must be >= 1, got {args.data_shards}")
+        if device.type == "cpu":
+            devices = [device] * args.data_shards
+        else:
+            from toad_tpu_torch.parallel.mesh import visible_devices
+
+            devs = visible_devices()
+            if args.data_shards > len(devs):
+                raise SystemExit(f"--data_shards {args.data_shards} > available devices {len(devs)}")
+            devices = devs[: args.data_shards]
+        if args.batch_size % args.data_shards:
+            raise SystemExit(
+                f"--batch_size {args.batch_size} is not divisible by --data_shards {args.data_shards}"
+            )
     encoder = _vit(args) if args.encoder == "vit" else _resnet(args)
-    embedder = TileEmbedder(encoder.to(device).eval(), batch_size=args.batch_size)
+    # a data mesh's first device holds the features: the mesh's devices, not --device, on the card
+    first = devices[0] if devices is not None else device
+    embedder = TileEmbedder(encoder.to(first).eval(), batch_size=args.batch_size, devices=devices)
 
     feat_dir = Path(args.feat_dir)
     feat_dir.mkdir(parents=True, exist_ok=True)

@@ -3,9 +3,12 @@
 Loads a reference-layout ``s_{fold}_checkpoint.pt`` (or, with
 ``--ensemble``, every fold of a training results dir) and serves ``POST
 /predict`` and ``POST /heatmap`` with dynamic batching
-(:mod:`toad_tpu_torch.serve`) on one device. On CUDA the fused pooling
-kernel is the path, launched once per ensemble member and batch; with
-``--int8``, the fused int8 pooling kernel.
+(:mod:`toad_tpu_torch.serve`) on one device, or with ``--data_shards`` /
+``--bag_shards`` over a ``('data', 'bag')`` mesh of the visible cards (on the
+CPU, of the CPU device repeated). On CUDA the fused pooling kernel is the
+path, launched once per ensemble member and batch (under a bag axis its
+partial mode, once per bag shard, and the combine); with ``--int8``, the
+fused int8 pooling kernel.
 
 ``--max_rss_gb`` is the JAX CLI's memory watermark: a watchdog thread reads
 the process's RSS every RSS_POLL_S seconds and, once it crosses the
@@ -23,7 +26,7 @@ import signal
 import threading
 import time
 
-from toad_tpu_torch.cli.common import add_xla_only_args, note_xla_only, refuse_flags
+from toad_tpu_torch.cli.common import add_xla_only_args, mesh_from_args, note_xla_only
 from toad_tpu_torch.utils import profiling
 
 # exit code signalling "restart me" to a supervisor after an RSS-watermark
@@ -31,11 +34,6 @@ from toad_tpu_torch.utils import profiling
 RESTART_EXIT_CODE = 42
 RSS_POLL_S = 5.0  # seconds between the watchdog's reads of the RSS
 
-# flags of the JAX CLI that are not ported: (flag, its "off" value, where ROADMAP.md queues it)
-_NOT_PORTED = (
-    ("data_shards", None, "multi-GPU (ROADMAP.md queue 1.7)"),
-    ("bag_shards", None, "multi-GPU (ROADMAP.md queue 1.7)"),
-)
 
 
 def make_parser() -> argparse.ArgumentParser:
@@ -96,16 +94,20 @@ def make_parser() -> argparse.ArgumentParser:
         help="run the serving shapes once before accepting traffic: 'all' (every "
         "bucket) or comma-separated bucket sizes, each at batch 1 and max_batch",
     )
-    # flags of the JAX CLI that are not ported; accepted so that they can be refused by name
-    p.add_argument("--data_shards", type=int, default=None, help="not ported")
-    p.add_argument("--bag_shards", type=int, default=None, help="not ported")
+    p.add_argument(
+        "--data_shards", type=int, default=None,
+        help="mesh data axis (data-parallel serving); the other axis is inferred when omitted",
+    )
+    p.add_argument(
+        "--bag_shards", type=int, default=None,
+        help="mesh bag axis (patch-dim sharding); the other axis is inferred when omitted",
+    )
     add_xla_only_args(p, "pallas", "compile_cache")
     return p
 
 
 def main(argv=None) -> None:
     args = make_parser().parse_args(argv)
-    refuse_flags(args, _NOT_PORTED)
     note_xla_only(args)
 
     import torch
@@ -127,7 +129,18 @@ def main(argv=None) -> None:
         n_classes=n_classes,
         compute_dtype="bfloat16" if args.bf16 else "float32",
     )
-    buckets = resolve_buckets(args.buckets)
+    mesh = None
+    if args.data_shards is not None or args.bag_shards is not None:
+        for name, v in (("data_shards", args.data_shards), ("bag_shards", args.bag_shards)):
+            if v is not None and v < 1:
+                raise SystemExit(f"--{name} must be >= 1, got {v}")
+        # mesh_shape_for infers the other axis when only one flag is given
+        mesh = mesh_from_args(args.data_shards, args.bag_shards, device)
+        if mesh.size == 1:
+            mesh = None  # a single device: the mesh adds nothing
+    # the ladder against the actual bag-shard count (the mesh may have inferred it), so that a bad ladder is
+    # refused at start, not per request
+    buckets = resolve_buckets(args.buckets, bag_shards=mesh.shape["bag"] if mesh is not None else 1)
     serve_cfg = ServeConfig(
         **({"bucket_sizes": buckets} if buckets else {}),
         max_batch=args.max_batch,
@@ -138,7 +151,8 @@ def main(argv=None) -> None:
         temperature=resolve_temperature(args.temperature, args.temperature_from),
     )
     service = InferenceService.from_checkpoint(
-        args.ckpt, model_cfg, serve_cfg, task=task, bag_root=args.bag_root, device=device, ensemble=args.ensemble
+        args.ckpt, model_cfg, serve_cfg, task=task, bag_root=args.bag_root, device=device, ensemble=args.ensemble,
+        mesh=mesh,
     )
     if args.ensemble:
         print(f"ensemble: {service.batcher.n_members} fold checkpoints from {args.ckpt}", flush=True)
@@ -159,7 +173,7 @@ def main(argv=None) -> None:
     print(
         f"serving on http://{args.host}:{server.server_address[1]}  "
         f"(POST /predict, POST /heatmap, GET /stats, GET /healthz) on {service.device_name}"
-        f"{', int8' if args.int8 else ''}",
+        f"{', int8' if args.int8 else ''}{f'; mesh {mesh.shape}' if mesh is not None else ''}",
         flush=True,
     )
 

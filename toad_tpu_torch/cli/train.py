@@ -9,11 +9,13 @@ Counterpart of :mod:`toad_tpu.cli.train`: the flags of the reference
 --ckpt`` reads), ``split_{i}_results.pkl``, and ``summary.csv``.
 
 Training runs on the card unless ``--device cpu`` is given; validation and
-the final passes go through the hand-written pooling kernel there. Flags of
-the JAX CLI with nothing behind them here are answered with an error that
-names where ROADMAP.md queues them; ``--pallas`` and ``--compile_cache``,
-which configure XLA, are taken with one note on stderr (the kernel is the
-path on CUDA; nothing is compiled ahead of a run).
+the final passes go through the hand-written pooling kernel there.
+``--data_shards`` / ``--bag_shards`` train over a ``('data', 'bag')`` mesh
+of the visible cards (on the CPU, of the CPU device repeated), where the
+eval passes pool each bag shard with the kernel's partial mode;
+``--fold_devices N`` trains N folds at once, one a device. ``--pallas`` and
+``--compile_cache``, which configure XLA, are taken with one note on stderr
+(the kernel is the path on CUDA; nothing is compiled ahead of a run).
 """
 
 from __future__ import annotations
@@ -29,8 +31,9 @@ from toad_tpu_torch.cli.common import (
     add_xla_only_args,
     build_dataset,
     echo_settings,
+    fold_devices_from_args,
+    mesh_from_args,
     note_xla_only,
-    refuse_flags,
     require_data_root,
     resolve_buckets,
 )
@@ -44,13 +47,6 @@ SUMMARY_COLUMNS = (
     "site_test_auc", "site_val_auc", "site_test_acc", "site_val_acc",
 )
 
-# flags of the JAX CLI that are not ported: (flag, its "off" value, where ROADMAP.md queues it)
-_NOT_PORTED = (
-    ("data_shards", 1, "multi-GPU (ROADMAP.md queue 1.7)"),
-    ("bag_shards", 1, "multi-GPU (ROADMAP.md queue 1.7; one card pools a long bag in pieces with "
-                      "toad_tpu_torch.parallel.bag_shard.bag_sharded_pool)"),
-    ("fold_devices", 1, "multi-GPU (ROADMAP.md queue 1.7)"),
-)
 
 
 def make_parser() -> argparse.ArgumentParser:
@@ -102,15 +98,17 @@ def make_parser() -> argparse.ArgumentParser:
     p.add_argument("--debug_nans", action="store_true", default=False,
                    help="global NaN trapping: autograd anomaly mode and a NaN check on every module's output (very slow)")
     add_xla_only_args(p, "pallas", "compile_cache")
-    # flags of the JAX CLI that are not ported; accepted so that they can be refused by name
-    p.add_argument("--data_shards", type=int, default=1, help="not ported")
-    p.add_argument("--bag_shards", type=int, default=1, help="not ported")
-    p.add_argument("--fold_devices", type=int, default=1, help="not ported")
+    p.add_argument("--data_shards", type=int, default=1,
+                   help="mesh data axis: bags of a batch split over this many devices (the visible cards; on the "
+                        "CPU the CPU device repeated)")
+    p.add_argument("--bag_shards", type=int, default=1,
+                   help="mesh bag axis: each bag's patches split over this many devices; bucket rungs must be "
+                        "multiples of 128 x bag_shards")
+    p.add_argument("--fold_devices", type=int, default=1, metavar="N",
+                   help="train folds concurrently, one per local device (N devices; -1 = all). "
+                        "Bit-identical per fold to the sequential run; incompatible with "
+                        "--data_shards/--bag_shards/--profile")
     return p
-
-
-def refuse_unported(args) -> None:
-    refuse_flags(args, _NOT_PORTED)
 
 
 def config_from_args(args, n_classes: int, bucket_sizes: tuple[int, ...] | None = None) -> TrainConfig:
@@ -151,6 +149,8 @@ def config_from_args(args, n_classes: int, bucket_sizes: tuple[int, ...] | None 
             # invisible there, half the bytes); the flag forces it on
             transfer_dtype="bfloat16" if args.bf16_transfer else "auto",
         ),
+        data_shards=args.data_shards,
+        bag_shards=args.bag_shards,
     )
 
 
@@ -171,14 +171,22 @@ def main(argv=None):
     from toad_tpu_torch.train.loop import FoldTrainer, HostRssWatermark, resolve_device
 
     args = make_parser().parse_args(argv)
-    refuse_unported(args)
     note_xla_only(args)
     if args.rss_restart_gb is not None and not args.resume:
         raise SystemExit("--rss_restart_gb requires --resume (restart would lose all progress)")
+    if args.fold_devices != 1:
+        # fail before any dataset work: fold-parallel owns the devices whole,
+        # one fold per device (train/parallel_folds.py)
+        if args.data_shards > 1 or args.bag_shards > 1:
+            raise ValueError("--fold_devices cannot combine with --data_shards/--bag_shards")
+        if args.profile:
+            raise ValueError("--profile supports one trace at a time; drop --fold_devices")
     try:
         device = resolve_device(args.device)
     except (RuntimeError, ValueError) as e:
         raise SystemExit(f"error: --device {args.device}: {e}") from None
+    mesh = mesh_from_args(args.data_shards, args.bag_shards, device) if args.data_shards * args.bag_shards > 1 else None
+    fold_devs = fold_devices_from_args(args.fold_devices, device) if args.fold_devices != 1 else None
     if args.debug_nans:
         from toad_tpu_torch.utils.debug import enable_debug_nans
 
@@ -186,7 +194,7 @@ def main(argv=None):
     seed_everything(args.seed)
     require_data_root(args)
     task, dataset = build_dataset(args, data_dir=args.data_root_dir)
-    buckets = resolve_buckets(args.buckets, dataset, patient_bags=args.patient_bags)
+    buckets = resolve_buckets(args.buckets, dataset, bag_shards=args.bag_shards, patient_bags=args.patient_bags)
     cfg = config_from_args(args, n_classes=task.n_classes[0], bucket_sizes=buckets)
 
     results_dir = Path(args.results_dir) / f"{args.exp_code}_s{args.seed}"
@@ -198,7 +206,7 @@ def main(argv=None):
 
     settings = cfg.settings_dict()
     settings["split_dir"] = str(split_dir)
-    settings["device"] = str(device)
+    settings["device"] = str(device) if mesh is None else str(mesh)
     echo_settings(results_dir / f"experiment_{args.exp_code}.txt", settings)
 
     folds = fold_range(args.k, args.k_start, args.k_end)
@@ -217,22 +225,51 @@ def main(argv=None):
         return row
 
     rows_by_fold: dict[int, dict] = {}
+    pending: list[int] = []
+    for i in folds:
+        fold_summary = results_dir / f"fold_{i}_summary.json"
+        if args.resume and fold_summary.exists():
+            # the fold finished in an earlier (preempted) run: do not retrain it
+            rows_by_fold[i] = json.loads(fold_summary.read_text())
+            print(f"fold {i}: already complete ({fold_summary}), skipping")
+        else:
+            pending.append(i)
+
+    def log(msg: str) -> None:
+        print(msg, flush=True)
+
     try:
-        for i in folds:
-            fold_summary = results_dir / f"fold_{i}_summary.json"
-            if args.resume and fold_summary.exists():
-                # the fold finished in an earlier (preempted) run: do not retrain it
-                rows_by_fold[i] = json.loads(fold_summary.read_text())
-                print(f"fold {i}: already complete ({fold_summary}), skipping")
-                continue
-            seed_everything(args.seed)
-            splits = load_fold_splits(i)
-            writer = make_writer(str(results_dir / str(i)), enabled=args.log_data)
-            trainer = FoldTrainer(cfg, fold=i, results_dir=results_dir, writer=writer, device=device)
-            r = trainer.train(*splits, log_fn=lambda msg: print(msg, flush=True))
-            writer.close()
-            rows_by_fold[i] = finish_fold(i, r)
-    except HostRssWatermark as wm:
+        if fold_devs is not None and pending:
+            # one fold per device, concurrently (train/parallel_folds.py); each fold's
+            # artefacts are saved the moment it finishes, so that a preemption loses only
+            # the folds in flight and --resume skips the finished ones
+            from toad_tpu_torch.train.parallel_folds import train_folds_parallel
+
+            train_folds_parallel(
+                cfg,
+                [(i, load_fold_splits(i)) for i in pending],
+                results_dir,
+                n_devices=len(fold_devs),
+                log_fn=log,
+                make_fold_writer=lambda i: make_writer(str(results_dir / str(i)), enabled=args.log_data),
+                on_result=lambda i, r: rows_by_fold.__setitem__(i, finish_fold(i, r)),
+                devices=fold_devs,
+            )
+        else:
+            for i in pending:
+                seed_everything(args.seed)
+                splits = load_fold_splits(i)
+                writer = make_writer(str(results_dir / str(i)), enabled=args.log_data)
+                trainer = FoldTrainer(cfg, fold=i, results_dir=results_dir, writer=writer, mesh=mesh,
+                                      device=device if mesh is None else None)
+                r = trainer.train(*splits, log_fn=log)
+                writer.close()
+                rows_by_fold[i] = finish_fold(i, r)
+    except (HostRssWatermark, RuntimeError) as e:
+        # fold-parallel wraps a worker's error in a RuntimeError (its cause)
+        wm = e if isinstance(e, HostRssWatermark) else e.__cause__
+        if not isinstance(wm, HostRssWatermark):
+            raise
         # memory outside Python's heap is not reclaimable in process: replace
         # the process; completed folds skip via fold_<i>_summary.json, the
         # interrupted fold resumes from the snapshot the watermark just saved

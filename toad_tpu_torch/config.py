@@ -4,10 +4,9 @@ pixel statistics.
 
 Stdlib-only copies of the same names in :mod:`toad_tpu.config`, so that the
 port imports nothing of the JAX package. Fields and defaults are the same
-(``tests/test_torch_port_boundary.py`` holds them equal), except the fields
-with nothing behind them here: ``ModelConfig.use_pallas`` (on CUDA the
-kernel is the path), ``TrainConfig.data_shards`` and ``bag_shards``
-(ROADMAP.md: multi-GPU). ``DataConfig.native`` picks the bag feed
+(``tests/test_torch_port_boundary.py`` holds them equal), except the field
+with nothing behind it here: ``ModelConfig.use_pallas`` (on CUDA the
+kernel is the path). ``DataConfig.native`` picks the bag feed
 as in the JAX package: the native loader (``toad_tpu_torch.native``) or
 numpy.
 """
@@ -183,6 +182,9 @@ class TrainConfig:
     model: ModelConfig = field(default_factory=ModelConfig)
     optim: OptimConfig = field(default_factory=OptimConfig)
     data: DataConfig = field(default_factory=DataConfig)
+    # parallelism: number of mesh shards along each axis (1 = off)
+    data_shards: int = 1
+    bag_shards: int = 1
 
     def settings_dict(self) -> dict[str, Any]:
         d = dataclasses.asdict(self)

@@ -96,15 +96,29 @@ def evaluate_split(
     transfer_dtype: str = "auto",
     device: str | torch.device | None = None,
     native: str = "auto",
+    mesh=None,
 ) -> EvalResult:
     """Run a full no-grad pass over ``split`` with the model's own weights and
     assemble the reference-schema outputs.
 
     ``device`` moves the model (and every batch) there first; ``None`` keeps
-    the model where the caller put it. ``native`` is the batcher's feed:
-    'auto' (as the JAX engine's batcher; the ``eval`` CLI's), 'on' or 'off'
-    (numpy, which needs no C++ compiler)."""
+    the model where the caller put it: the placement hook fold-parallel
+    evaluation uses to run one fold per device (``eval --fold_devices``).
+    ``mesh`` (a :class:`~toad_tpu_torch.parallel.mesh.DeviceMesh`) runs the
+    pass over a ``('data', 'bag')`` mesh instead: the model moves to its
+    first device and every batch is placed over it (``shard_batch``).
+    ``native`` is the batcher's feed: 'auto' (as the JAX engine's batcher;
+    the ``eval`` CLI's), 'on' or 'off' (numpy, which needs no C++
+    compiler)."""
     n_classes = n_classes if n_classes is not None else model.config.n_classes
+    put = None
+    if mesh is not None:
+        from toad_tpu_torch.parallel.sharding import shard_batch
+
+        if device is not None:
+            raise ValueError("device= cannot combine with mesh= (the mesh owns placement)")
+        device = mesh.primary
+        put = lambda bd: shard_batch(bd, mesh)  # noqa: E731
     if device is not None:
         model = model.to(device)
     device = next(model.parameters()).device
@@ -138,9 +152,10 @@ def evaluate_split(
         max_bag_size=max_bag_size,
         native=native,
         transfer_dtype=wire,
-        device=device,  # on CUDA the producer thread starts each batch's copy to the card
+        # on CUDA the producer thread starts each batch's copy to the card; a mesh places its batches itself
+        device=device if put is None else None,
     )
-    res = run_eval_pass(eval_step, batcher, n_classes, device)
+    res = run_eval_pass(eval_step, batcher, n_classes, device, put=put)
 
     labels, probs = res["label"], res["y_prob"]
     cls_auc, cls_aucs = cls_auc_with_sentinel(labels, probs, n_classes, micro_average)
@@ -219,14 +234,17 @@ def evaluate_checkpoint(
     bucket_sizes=None,
     transfer_dtype: str = "auto",
     device: str | torch.device | None = None,
+    mesh=None,
 ) -> EvalResult:
     """Load a reference-layout ``s_{fold}_checkpoint.pt`` (what the trainer
     saves and a reference user's models dir holds) and evaluate it on
-    ``device``: the card when ``None``, which raises where there is none."""
+    ``device``: the card when ``None``, which raises where there is none;
+    or over ``mesh`` (see :func:`evaluate_split`)."""
     from toad_tpu_torch.train.checkpoint import load_params_any
     from toad_tpu_torch.train.loop import resolve_device
 
-    device = resolve_device(device)
+    if mesh is None:
+        device = resolve_device(device)
     model = ToadMIL(model_cfg)
     model.load_state_dict(load_params_any(ckpt_path, model_cfg))
     return evaluate_split(
@@ -241,4 +259,5 @@ def evaluate_checkpoint(
         # int8) can shift border values
         transfer_dtype=transfer_dtype,
         device=device,
+        mesh=mesh,
     )

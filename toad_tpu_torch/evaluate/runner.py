@@ -20,6 +20,7 @@ from toad_tpu_torch.data.batching import BagBatch, BagBatcher
 from toad_tpu_torch.evaluate.metrics import binary_auc, ovr_aucs
 from toad_tpu_torch.models.toad_mil import ToadMIL
 from toad_tpu_torch.ops.quantize import quantize_rows
+from toad_tpu_torch.parallel.sharding import ShardedBatch
 
 
 def batch_to_dict(b: BagBatch, device: str | torch.device) -> dict[str, torch.Tensor]:
@@ -62,7 +63,9 @@ def make_eval_step(model: ToadMIL, int8: bool = False):
 
     def step(batch: dict[str, torch.Tensor]) -> dict[str, torch.Tensor]:
         with torch.inference_mode():
-            if int8:
+            if isinstance(batch, ShardedBatch):  # placed on a mesh: each cell pools on its device
+                out = model.forward_sharded(batch, need_attention=False, int8=int8)
+            elif int8:
                 if "scales" in batch:
                     xq, sx = batch["features"], batch["scales"]
                 else:
@@ -85,11 +88,15 @@ def make_eval_step(model: ToadMIL, int8: bool = False):
     return step
 
 
-def run_eval_pass(eval_step, batcher: BagBatcher, n_classes: int, device: str | torch.device):
+def run_eval_pass(eval_step, batcher: BagBatcher, n_classes: int, device: str | torch.device, put=None):
     """One no-grad pass: per-slide probs/preds + mean losses + AUCs on the
     host; also the pass's batches, the bytes its batches sent over the wire,
     its seconds and those of them spent waiting for the batcher, and which
-    feed filled the batches (``'native'`` or ``'numpy'``)."""
+    feed filled the batches (``'native'`` or ``'numpy'``).
+
+    ``put`` optionally places each host batch itself (a mesh's
+    :func:`~toad_tpu_torch.parallel.sharding.shard_batch`); without it each
+    batch goes to ``device``."""
     probs, labels, sites, site_probs, preds, site_preds, sexes, indices = [], [], [], [], [], [], [], []
     cls_loss_sum = 0.0
     site_loss_sum = 0.0
@@ -102,7 +109,7 @@ def run_eval_pass(eval_step, batcher: BagBatcher, n_classes: int, device: str | 
         t_data += time.perf_counter() - t_fetch
         n_batches += 1
         wire_bytes += b.wire_bytes
-        out = eval_step(batch_to_dict(b, device))
+        out = eval_step(put(batch_to_dict(b, "cpu")) if put is not None else batch_to_dict(b, device))
         keep = b.bag_mask > 0
         out = {k: v.cpu().numpy() for k, v in out.items()}
         probs.append(out["y_prob"][keep])

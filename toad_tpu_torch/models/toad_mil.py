@@ -22,6 +22,11 @@ which is plain tensor code under autograd (the JAX package trains through
 its XLA path too: no pooling kernel has a backward), with the reference's
 four dropout sites when ``config.dropout``. The kernel path is forward-only
 and raises when called with gradients enabled.
+
+:meth:`ToadMIL.forward_sharded` runs either forward over a batch placed on a
+``('data', 'bag')`` mesh (:func:`toad_tpu_torch.parallel.sharding.shard_batch`):
+each grid cell pools its slice on its own device, the cells' results come to
+the mesh's first device, and the heads run there once over the whole batch.
 """
 
 from __future__ import annotations
@@ -33,9 +38,16 @@ from torch import nn
 
 from toad_tpu_torch.config import ModelConfig
 from toad_tpu_torch.ops import cuda_pool, cuda_pool_int8
-from toad_tpu_torch.ops.fused_pool import _trunk_scores, fused_int8_pool, fused_trunk_attention_pool
+from toad_tpu_torch.ops.fused_pool import (
+    _trunk_scores,
+    fused_int8_pool,
+    fused_pool_partial,
+    fused_trunk_attention_pool,
+    partial_from_pooled,
+    partial_stats,
+)
 from toad_tpu_torch.ops.pooling import masked_attention_pool
-from toad_tpu_torch.ops.quantize import quantize_pool_params
+from toad_tpu_torch.ops.quantize import quantize_pool_params, quantize_rows
 
 N_TASKS = 2
 
@@ -80,6 +92,7 @@ class ToadMIL(nn.Module):
         self.site_head = _linear(c.hidden_dim + 1, c.n_site_classes, dt)
         self._packed: dict[torch.dtype, tuple] = {}  # compute dtype -> (weights' key, kernel operands)
         self._int8: tuple | None = None  # (weights' key, int8 params, int8 kernel operands or None)
+        self._replicas: dict[torch.device, tuple] = {}  # device -> (weights' key, eval copy there), under a mesh
         self.reset_parameters(generator if generator is not None else torch.Generator().manual_seed(0))
 
     @torch.no_grad()
@@ -202,6 +215,158 @@ class ToadMIL(nn.Module):
         m, scores = fused_int8_pool(qparams, xq, sx, mask, with_scores=need_attention, operands=operands)
         return self._finish(m, scores, mask, sex, attention_only)
 
+    def _replica(self, dev: torch.device) -> "ToadMIL":
+        """This model's eval-mode copy on ``dev`` (itself where it lives),
+        made again only when a pooling weight moves or changes in place."""
+        if dev == self.trunk.fc1.weight.device:
+            return self
+        key = self._pool_weights_key()
+        hit = self._replicas.get(dev)
+        if hit is None or hit[0] != key:
+            from toad_tpu_torch.parallel.sharding import copy_to
+
+            hit = (key, copy_to(self, dev))
+            self._replicas[dev] = hit
+        return hit[1]
+
+    def forward_sharded(
+        self,
+        batch,  # toad_tpu_torch.parallel.sharding.ShardedBatch
+        *,
+        train: bool = False,
+        generator: torch.Generator | None = None,
+        need_attention: bool = True,
+        attention_only: bool = False,
+        int8: bool = False,
+    ):
+        """:meth:`forward` (or, with ``int8``, :meth:`forward_int8`) over a
+        batch placed on a mesh; the outputs are on the mesh's first device,
+        where this model must live.
+
+        Eval: with a bag axis of 1 each data shard runs the pooling kernel
+        (classification or scored mode) on its device with that device's
+        copy of the weights, and the pooled M comes to the first device.
+        With a bag axis above 1 each cell runs the kernel's partial mode K1p
+        (the scored kernel, or the int8 kernel, then the statistics from its
+        scores: :func:`~toad_tpu_torch.ops.fused_pool.partial_from_pooled`),
+        and one combine kernel on the first device makes M.
+
+        Train: the plain differentiable forward, each cell on its device from
+        copies of the parameters that autograd carries the gradients back
+        across, so that they sum into the one set of parameters; under a bag
+        axis the plain partial statistics and the plain combine. The four
+        dropout masks are drawn from ``generator`` at the whole batch's
+        shapes, in the order of the unsharded forward, and each cell takes
+        its slice: a mesh step draws what the unsharded step draws."""
+        mesh = batch.mesh
+        if self.trunk.fc1.weight.device != mesh.primary:
+            raise ValueError(f"the model must live on the mesh's first device {mesh.primary}")
+        need_attention = need_attention or attention_only
+        compute_dtype = getattr(torch, self.config.compute_dtype)
+        if train:
+            m, scores = self._sharded_train(batch, compute_dtype, generator)
+            scores = scores.transpose(1, 2) if need_attention else None
+        else:
+            m, scores = self._sharded_eval(batch, compute_dtype, need_attention, int8)
+        return self._finish(m, scores, batch["patch_mask"], batch["sex"], attention_only)
+
+    def _sharded_eval(self, batch, compute_dtype: torch.dtype, need_attention: bool, int8: bool):
+        """(M [B, T, H], scores [B, T, N] or None) on the first device."""
+        mesh = batch.mesh
+        primary, bag_n = mesh.primary, mesh.shape["bag"]
+        pooled, stats, scores = [], [], []  # a list over the bag shards per data row
+        for d, row in enumerate(batch.cells):
+            outs = [self._replica(mesh.grid[d][j])._cell_pool(cell, compute_dtype, bag_n > 1, need_attention, int8)
+                    for j, cell in enumerate(row)]
+            pooled.append([o[0].to(primary, non_blocking=True) for o in outs])
+            stats.append([o[1].to(primary, non_blocking=True) for o in outs] if bag_n > 1 else None)
+            if need_attention:
+                scores.append(torch.cat([o[2].to(primary, non_blocking=True) for o in outs], dim=2))
+        if bag_n > 1:
+            from toad_tpu_torch.parallel.bag_shard import combine_partial_pool
+
+            # one combine over the whole batch: shard j's partials of every data row, stacked
+            m = combine_partial_pool([torch.cat([r[j] for r in pooled]) for j in range(bag_n)],
+                                     [torch.cat([r[j] for r in stats]) for j in range(bag_n)], primary)
+        else:
+            m = torch.cat([r[0] for r in pooled])
+        return m, (torch.cat(scores) if need_attention else None)
+
+    def _cell_pool(self, cell: dict, compute_dtype: torch.dtype, partial: bool, with_scores: bool, int8: bool):
+        """One grid cell's pool on this model's device: (M, None, scores or
+        None) or, with ``partial``, (acc, stats, scores or None). Partial
+        statistics come from the kernel's partial mode K1p; where the scores
+        are wanted too, or from the int8 kernel (which has no partial mode),
+        from a scored pass."""
+        x, mask = cell["features"], cell["patch_mask"]
+        on_card = x.device.type == "cuda"
+        if int8:
+            xq, sx = (x, cell["scales"]) if "scales" in cell else quantize_rows(x)
+            qparams, operands = self.int8_operands()
+            m, s = fused_int8_pool(qparams, xq, sx, mask, with_scores=with_scores or partial, operands=operands)
+        else:
+            operands = self.kernel_operands(compute_dtype) if on_card else None
+            if partial and not with_scores:
+                acc, stats = fused_pool_partial(self.pool_params(), x, mask, compute_dtype=compute_dtype,
+                                                operands=operands)
+                return acc, stats, None
+            m, s = fused_trunk_attention_pool(self.pool_params(), x, mask, compute_dtype=compute_dtype,
+                                              with_scores=with_scores or partial, operands=operands)
+        if partial:
+            acc, stats = partial_from_pooled(m, s, mask)
+            return acc, stats, s if with_scores else None
+        return m, None, s
+
+    def _sharded_train(self, batch, compute_dtype: torch.dtype, generator: torch.Generator | None):
+        """(M [B, T, H], scores [B, N, T]) on the first device, differentiable."""
+        from toad_tpu_torch.parallel.bag_shard import plain_combine_partial_pool
+
+        mesh = batch.mesh
+        primary, bag_n = mesh.primary, mesh.shape["bag"]
+        b_, n = batch["patch_mask"].shape
+        per_b, per_n = b_ // mesh.shape["data"], n // bag_n
+        masks = None
+        if self.config.dropout:
+            if generator is None:
+                raise ValueError("dropout requires a generator in train mode")
+            keep = 1.0 - self.config.dropout_rate
+            c = self.config
+            shapes = [(b_, n, c.hidden_dim)] * 2 + [(b_, n, c.attn_dim)] * (2 if c.gate else 1)
+            # the unsharded forward draws the four sites' masks in this order, each at its value's shape
+            masks = [torch.rand(shape, device=primary, generator=generator) < keep for shape in shapes]
+        params = self.pool_params()
+        ms, accs, stats, scores = [], [], [], []
+        for d, row in enumerate(batch.cells):
+            row_acc, row_stats, row_scores = [], [], []
+            for j, cell in enumerate(row):
+                dev = mesh.grid[d][j]
+                p = {g: {k: {"w": v["w"].to(dev), "b": v["b"].to(dev)} for k, v in params[g].items()} for g in params}
+                drop = None
+                if masks is not None:
+                    cut = (slice(d * per_b, (d + 1) * per_b), slice(j * per_n, (j + 1) * per_n))
+                    kept = [mk[cut].to(dev, non_blocking=True) for mk in masks]
+
+                    def drop(site, v, kept=kept):
+                        return torch.where(kept[site], v / keep, torch.zeros((), dtype=v.dtype, device=v.device))
+
+                h, s = _trunk_scores(p, cell["features"], compute_dtype, drop=drop)
+                if bag_n > 1:
+                    a, t = partial_stats(h, s, cell["patch_mask"])
+                    row_acc.append(a.to(primary))
+                    row_stats.append(t.to(primary))
+                else:
+                    ms.append(masked_attention_pool(s, h, cell["patch_mask"])[0].to(primary))
+                row_scores.append(s.to(primary))
+            accs.append(row_acc)
+            stats.append(row_stats)
+            scores.append(torch.cat(row_scores, dim=1))
+        if bag_n > 1:
+            m = plain_combine_partial_pool(torch.stack([torch.cat([r[j] for r in accs]) for j in range(bag_n)]),
+                                           torch.stack([torch.cat([r[j] for r in stats]) for j in range(bag_n)]))
+        else:
+            m = torch.cat(ms)
+        return m, torch.cat(scores)
+
     def _finish(self, m, scores, mask, sex, attention_only: bool):
         """A_raw masking, sex concat, the two f32 heads, output pack.
         ``scores`` are the raw task-major scores [B, T, N] or None."""
@@ -226,3 +391,4 @@ class ToadMIL(nn.Module):
             attention=a_raw,
             features=feats,
         )
+

@@ -107,6 +107,13 @@ def plain_pool_partial(
     live rows of exp(s - max) h, stats [B, 2, T] f32 with ``stats[:, 0]`` =
     max, NEG_INF where no row is live, and ``stats[:, 1]`` = denom)."""
     h, scores = _trunk_scores(params, x, compute_dtype)
+    return partial_stats(h, scores, mask)
+
+
+def partial_stats(h: torch.Tensor, scores: torch.Tensor, mask: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """(acc [B, T, H], stats [B, 2, T]) of :func:`plain_pool_partial` from one
+    shard's embeddings h [B, N, H] and raw scores [B, N, T]; differentiable
+    (the training forward under a mesh runs it under autograd)."""
     live = mask[:, :, None] > 0
     s = torch.where(live, scores, NEG_INF)  # [B, N, T]
     mx = s.amax(dim=1)  # [B, T]
@@ -114,6 +121,22 @@ def plain_pool_partial(
     e = torch.exp(s - safe[:, None, :]) * live
     acc = torch.bmm(e.transpose(1, 2), h.float())  # [B, T, H]
     return acc, torch.stack([mx, e.sum(dim=1)], dim=1)
+
+
+def partial_from_pooled(m: torch.Tensor, scores: torch.Tensor, mask: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """(acc, stats) of one shard, as :func:`plain_pool_partial` gives them,
+    from a pooling pass in scored mode: its M [B, T, H] and raw scores
+    [B, T, N]. The denominator is recomputed from the scores and acc = M *
+    denom: the same statistics to rounding, for a kernel that has no partial
+    mode of its own (the int8 pool) or a pass that must return the scores."""
+    live = mask[:, None, :] > 0
+    s = torch.where(live, scores, NEG_INF)  # [B, T, N]
+    mx = s.amax(dim=2)  # [B, T]
+    safe = torch.where(mx <= NEG_INF / 2, 0.0, mx)
+    denom = (torch.exp(s - safe[:, :, None]) * live).sum(dim=2)
+    # a shard without live rows weighs 0 in the combine, whatever its M
+    acc = torch.where(denom[:, :, None] > 0, m * denom[:, :, None], 0.0)
+    return acc, torch.stack([mx, denom], dim=1)
 
 
 def fused_pool_partial(

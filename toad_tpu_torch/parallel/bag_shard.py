@@ -8,15 +8,17 @@ pooled result of them. Exact because TOAD pooling is a softmax-weighted mean
 (a single softmax), not pairwise attention; what crosses shards is
 O(B * T * H), independent of N.
 
-On one card the shards run one after another on the current stream. Across
-cards the same partials are what each card would compute for its shard and
-exchange (an all-gather or all-reduce of ``[B, T, H]`` + ``[B, 2, T]`` over
-NCCL); that transport is not ported yet (ROADMAP.md, multi-GPU).
+With ``n_shards`` the shards run one after another on one device. With a
+mesh (:mod:`.mesh`) each shard runs on the device of its column of the
+grid, with that device's copy of the weights, and its partials (``[B, T,
+H]`` + ``[B, 2, T]``, a few KB a bag) are copied to the mesh's first device,
+where one combine makes the result: what the JAX package's ``psum`` over
+the bag axis does, as explicit copies from one controller.
 """
 
 from __future__ import annotations
 
-from typing import Any
+from typing import Any, Sequence
 
 import torch
 
@@ -37,10 +39,24 @@ def plain_combine_partial_pool(acc: torch.Tensor, stats: torch.Tensor) -> torch.
     return acc / denom.clamp_min(1e-12)[..., None]
 
 
-def combine_partial_pool(acc: torch.Tensor, stats: torch.Tensor) -> torch.Tensor:
+def combine_partial_pool(
+    acc: torch.Tensor | Sequence[torch.Tensor],
+    stats: torch.Tensor | Sequence[torch.Tensor],
+    device: str | torch.device | None = None,
+) -> torch.Tensor:
     """Flash-combine shard-local (acc [S, B, T, H], stats [S, B, 2, T]) into
-    the exact pooled M [B, T, H]. CUDA tensors go to the hand-written combine
-    kernel, CPU tensors to the plain version; nothing else chooses."""
+    the exact pooled M [B, T, H]. ``acc`` and ``stats`` may also be
+    sequences of the S shards' [B, T, H] and [B, 2, T] partials, each on its
+    own device: they are copied to ``device`` (the first shard's device when
+    None, a mesh's primary device for a mesh) and stacked there first. CUDA
+    tensors go to the hand-written combine kernel, CPU tensors to the plain
+    version; nothing else chooses."""
+    if not isinstance(acc, torch.Tensor):
+        device = torch.device(device) if device is not None else acc[0].device
+        acc = torch.stack([a.to(device, non_blocking=True) for a in acc])
+        stats = torch.stack([t.to(device, non_blocking=True) for t in stats])
+    elif device is not None:
+        acc, stats = acc.to(device), stats.to(device)
     if acc.device.type == "cuda":
         return cuda_pool.combine_shards(acc, stats)
     if acc.device.type != "cpu":
@@ -48,23 +64,60 @@ def combine_partial_pool(acc: torch.Tensor, stats: torch.Tensor) -> torch.Tensor
     return plain_combine_partial_pool(acc, stats)
 
 
+def _params_on(params: dict[str, Any], dev: torch.device) -> dict[str, Any]:
+    """The params pytree with every tensor on ``dev`` (views where it is there already)."""
+    if isinstance(params, dict):
+        return {k: _params_on(v, dev) for k, v in params.items()}
+    return torch.as_tensor(params).to(dev)
+
+
 def bag_sharded_pool(
     params: dict[str, Any] | cuda_pool.PoolOperands,
     x: torch.Tensor,  # [B, N, D]
     mask: torch.Tensor,  # [B, N]
-    n_shards: int,
+    n_shards: int | None = None,
     *,
+    mesh=None,
     compute_dtype: torch.dtype = torch.bfloat16,
 ) -> torch.Tensor:
-    """Pooled M [B, T, H] f32 with the patch dimension cut into ``n_shards``
-    equal contiguous slices (N must divide), each pooled in partial mode, one
-    after another on the current stream, then combined.
+    """Pooled M [B, T, H] f32 with the patch dimension cut into equal
+    contiguous slices (N must divide), each pooled in partial mode, then
+    combined.
+
+    Give ``n_shards`` to run the shards one after another on ``x``'s device,
+    or a ``mesh`` to cut N over its ``bag`` axis: shard j runs on the device
+    of the first row's column j (the data axis is not used: every row would
+    compute the same bag), and the combine runs on ``mesh.primary``, which
+    the result is on.
 
     ``params`` is the JAX params layout (packed for the kernel here, per
-    call) or, on CUDA, operands already packed by
-    :func:`toad_tpu_torch.ops.cuda_pool.pack_params`. Un-gated params raise
-    ``NotImplementedError`` on CUDA, as every launch of the kernel does."""
+    call and device) or, with ``n_shards`` on CUDA, operands already packed
+    by :func:`toad_tpu_torch.ops.cuda_pool.pack_params`. Un-gated params
+    raise ``NotImplementedError`` on CUDA, as every launch of the kernel
+    does."""
+    if (n_shards is None) == (mesh is None):
+        raise ValueError("give exactly one of n_shards (one device) or mesh (the mesh's bag axis)")
     b_, n = x.shape[0], x.shape[1]
+    if mesh is not None:
+        if isinstance(params, cuda_pool.PoolOperands):
+            raise ValueError("a mesh pools with each device's own operands: pass the params dict")
+        devices = mesh.grid[0]
+        if n % len(devices):
+            raise ValueError(f"the patch dimension {n} must divide into the mesh's {len(devices)} bag shards")
+        per = n // len(devices)
+        on_dev: dict[torch.device, dict[str, Any]] = {}
+        accs, stats = [], []
+        for s, dev in enumerate(devices):
+            if dev not in on_dev:
+                p = _params_on(params, dev)
+                on_dev[dev] = (p, cuda_pool.pack_params(p, compute_dtype) if dev.type == "cuda" else None)
+            p, operands = on_dev[dev]
+            sl = slice(s * per, (s + 1) * per)
+            a, t = fused_pool_partial(p, x[:, sl].to(dev), mask[:, sl].to(dev), compute_dtype=compute_dtype,
+                                      operands=operands)
+            accs.append(a)
+            stats.append(t)
+        return combine_partial_pool(accs, stats, mesh.primary)
     if n_shards < 1 or n % n_shards:
         raise ValueError(f"the patch dimension {n} must divide into {n_shards} shards")
     operands = None

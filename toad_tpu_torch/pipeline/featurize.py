@@ -80,17 +80,35 @@ def iter_tile_batches(imgs, batch_size: int) -> Iterator[tuple[np.ndarray, int]]
         yield chunk, valid
 
 
+def _encoder_copy(encoder: ResNetEncoder | ViTEncoder, dev: torch.device) -> ResNetEncoder | ViTEncoder:
+    """A copy of ``encoder`` on ``dev``, without its cast-weight cache (each
+    device casts its own), made outside inference mode so that its weights
+    keep the version counters that cache reads."""
+    import copy
+
+    with torch.inference_mode(False):
+        out = copy.deepcopy(encoder)
+        out._cast.clear()
+        return out.to(dev).eval()
+
+
 class TileEmbedder:
     """uint8 tiles -> features with a fixed batch shape, on the device the
     encoder lives on, through either encoder's ``embed``. The counterpart of
     the JAX ``TileEmbedder``; a ResNet encoder whose config asks for it
     (``fold_bn``) has its BN folded once here, as the JAX ``make_embedder``
-    folds it. Its mesh (tile batches sharded over several devices) is not
-    ported yet."""
+    folds it.
+
+    ``devices`` (a list, which may repeat a device) is the JAX embedder's
+    one-dimensional ``data`` mesh: each tile batch is cut into that many
+    equal slices (``batch_size`` must divide), slice i is embedded on
+    ``devices[i]`` with that device's copy of the encoder, and the features
+    come back to the first device in order. The encoder is per-tile math, so
+    nothing crosses between the slices."""
 
     _STAGES = 2  # pinned staging buffers: the host fills one while the other's copy is in flight
 
-    def __init__(self, encoder: ResNetEncoder | ViTEncoder, batch_size: int = 128):
+    def __init__(self, encoder: ResNetEncoder | ViTEncoder, batch_size: int = 128, devices=None):
         if isinstance(encoder, ResNetEncoder) and encoder.config.fold_bn:
             encoder.fold_bn()
         self.encoder = encoder
@@ -100,6 +118,12 @@ class TileEmbedder:
         self.batches = 0  # batches embedded so far
         self._stage: list[tuple[torch.Tensor, torch.cuda.Event]] = []
         self._next = 0
+        self.devices = None
+        if devices is not None:
+            self.devices = [torch.device(d) for d in devices]
+            if batch_size % len(self.devices):
+                raise ValueError(f"batch_size {batch_size} not divisible by mesh axis data={len(self.devices)}")
+            self._encoders = {d: encoder if d == self.device else _encoder_copy(encoder, d) for d in self.devices}
 
     def _put(self, tiles_uint8: np.ndarray) -> torch.Tensor:
         tiles = torch.from_numpy(np.ascontiguousarray(tiles_uint8))
@@ -117,10 +141,16 @@ class TileEmbedder:
         return out
 
     def __call__(self, tiles_uint8: np.ndarray) -> torch.Tensor:
-        """One batch: [B, H, W, 3] uint8 -> [B, D] f32 on the device; does not
-        wait for the device."""
+        """One batch: [B, H, W, 3] uint8 -> [B, D] f32 on the (first) device;
+        does not wait for the device."""
         self.batches += 1
-        return self.encoder.embed(self._put(tiles_uint8))
+        tiles = self._put(tiles_uint8)
+        if self.devices is None:
+            return self.encoder.embed(tiles)
+        per = tiles.shape[0] // len(self.devices)
+        outs = [self._encoders[d].embed(tiles[i * per:(i + 1) * per].to(d, non_blocking=True))
+                for i, d in enumerate(self.devices)]
+        return torch.cat([o.to(self.device, non_blocking=True) for o in outs])
 
     def gather(self, outs: list[torch.Tensor], valids: list[int]) -> np.ndarray:
         """The batches' valid rows as one [N, D] array: one device-to-host copy."""

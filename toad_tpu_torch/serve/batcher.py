@@ -1,7 +1,7 @@
-"""Dynamic request batching for online MIL inference on one device.
+"""Dynamic request batching for online MIL inference.
 
-PyTorch counterpart of :mod:`toad_tpu.serve.batcher` on one device (mesh
-serving is not ported), with the same batching discipline:
+PyTorch counterpart of :mod:`toad_tpu.serve.batcher`, with the same
+batching discipline:
 
 - requests arrive on arbitrary threads and enqueue ``(features, sex, future)``;
 - one dispatch thread collects up to ``max_batch`` requests, waiting at most
@@ -22,6 +22,14 @@ its own :class:`ToadMIL` on the device with its own packed (or quantized)
 kernel operands, so a batch costs one pooling-kernel launch per member; the
 members' outputs are combined on the device by the rule of
 :class:`~toad_tpu_torch.pipeline.infer.EnsembleInference`.
+
+Pass a ``('data', 'bag')`` mesh (:mod:`toad_tpu_torch.parallel.mesh`) to
+serve over several devices: the members live on the mesh's first device
+(with a copy of their pooling weights on each other device), a request
+batch is padded to a multiple of the data axis and placed over the mesh
+(the batch dimension over ``data``, the patch dimension over ``bag``), and
+each member runs :meth:`ToadMIL.forward_sharded` on it (int8 too: each cell
+pools with the int8 kernel). The ladder's rungs must divide by the bag axis.
 """
 
 from __future__ import annotations
@@ -120,8 +128,10 @@ class DynamicBatcher:
         model_cfg: ModelConfig,
         cfg: ServeConfig = ServeConfig(),
         device: str | torch.device = "cuda",
+        mesh=None,
     ):
-        self.device = torch.device(device)
+        self.mesh = mesh
+        self.device = mesh.primary if mesh is not None else torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("CUDA is not available: serve on device 'cpu' explicitly if that is meant")
         self.ensemble = isinstance(params, (list, tuple))
@@ -143,6 +153,13 @@ class DynamicBatcher:
         self.cfg = cfg
         self._feat_dtype = _TRANSFER_DTYPES[cfg.transfer_dtype]
         self.buckets = tuple(sorted(cfg.bucket_sizes))
+        self._data_n = 1
+        if mesh is not None:
+            bag_n = mesh.shape["bag"]
+            bad = [b for b in self.buckets if b % bag_n]
+            if bad:
+                raise ValueError(f"bucket sizes {bad} not divisible by bag axis {bag_n}")
+            self._data_n = mesh.shape["data"]
         self._queue: queue.SimpleQueue = queue.SimpleQueue()
         self._stop = threading.Event()
         # serializes submit-enqueue against close(): without it a submit that
@@ -300,7 +317,10 @@ class DynamicBatcher:
             self._serve_groups(pending[start : start + self.cfg.max_batch])
 
     def _padded_batch(self, b_requests: int) -> int:
-        return _pow2_at_least(b_requests, self.cfg.max_batch)
+        b_pad = _pow2_at_least(b_requests, self.cfg.max_batch)
+        if b_pad % self._data_n:  # the mesh's data axis needs even batch slices
+            b_pad = ((b_pad + self._data_n - 1) // self._data_n) * self._data_n
+        return b_pad
 
     def _assemble(self, bucket: int, b_pad: int, group: Sequence[_Request]):
         """Zero-padded [b_pad, bucket, dim] host inputs (pinned when serving
@@ -332,6 +352,16 @@ class DynamicBatcher:
         tensors."""
         dev = self.device
         with torch.inference_mode():
+            if self.mesh is not None:
+                from toad_tpu_torch.parallel.sharding import shard_batch
+
+                batch = {"features": feats, "patch_mask": mask, "sex": sex}
+                if scales is not None:
+                    batch["scales"] = scales
+                sb = shard_batch(batch, self.mesh)
+                outs = [m.forward_sharded(sb, need_attention=want_attn, int8=scales is not None) for m in self.members]
+                y_prob, site_prob, attn = self._combine(outs, sb["patch_mask"], want_attn)
+                return y_prob.cpu(), site_prob.cpu(), attn.cpu() if attn is not None else None
             feats, mask, sex = (t.to(dev, non_blocking=True) for t in (feats, mask, sex))
             if scales is not None:
                 scales = scales.to(dev, non_blocking=True)

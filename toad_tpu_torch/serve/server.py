@@ -1,6 +1,7 @@
 """Online inference service: JSON over HTTP in front of the dynamic batcher.
 
-PyTorch counterpart of :mod:`toad_tpu.serve.server` on one device. Stdlib
+PyTorch counterpart of :mod:`toad_tpu.serve.server`, on one device or a
+``('data', 'bag')`` mesh (:class:`~toad_tpu_torch.serve.batcher.DynamicBatcher`). Stdlib
 ``ThreadingHTTPServer``: each request thread blocks on its Future while the
 single dispatch thread feeds the device, so concurrency in the HTTP layer
 becomes device batch size. A single checkpoint or, with
@@ -73,9 +74,10 @@ class InferenceService:
         task: TaskConfig | None = None,
         bag_root: Any = None,
         device: str | torch.device = "cuda",
+        mesh=None,
     ):
         self.model_cfg = model_cfg
-        self.batcher = DynamicBatcher(params, model_cfg, serve_cfg, device=device)
+        self.batcher = DynamicBatcher(params, model_cfg, serve_cfg, device=device, mesh=mesh)
         # bag_path requests may only read under this directory; None = no
         # restriction (HTTP additionally requires a root beyond loopback)
         self.bag_root: Path | None = Path(bag_root).resolve() if bag_root is not None else None
@@ -90,7 +92,8 @@ class InferenceService:
     @classmethod
     def from_checkpoint(cls, ckpt_path, model_cfg: ModelConfig, serve_cfg: ServeConfig = ServeConfig(),
                         task: TaskConfig | None = None, bag_root: Any = None,
-                        device: str | torch.device = "cuda", ensemble: bool = False) -> "InferenceService":
+                        device: str | torch.device = "cuda", ensemble: bool = False,
+                        mesh=None) -> "InferenceService":
         """A reference-layout ``s_k_checkpoint.pt``; with ``ensemble=True``
         ``ckpt_path`` is a training results dir (the ``cli/train.py`` layout)
         and every ``s_<k>_checkpoint`` member is served as a mean-of-folds
@@ -105,7 +108,7 @@ class InferenceService:
             params = [load_params_any(p, model_cfg) for _, p in found]
         else:
             params = load_params_any(ckpt_path, model_cfg)
-        return cls(params, model_cfg, serve_cfg, task=task, bag_root=bag_root, device=device)
+        return cls(params, model_cfg, serve_cfg, task=task, bag_root=bag_root, device=device, mesh=mesh)
 
     @property
     def device_name(self) -> str:

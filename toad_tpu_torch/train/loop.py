@@ -15,6 +15,13 @@ summaries.
   and brought to the host in one copy per step (the JAX trainer pulls its
   metrics every step too); the share of an epoch that the host spent
   waiting for the input pipeline is logged beside slides/s.
+- Under a ``('data', 'bag')`` mesh (``mesh=``, or ``data_shards`` x
+  ``bag_shards`` > 1 in the config) the model lives on the mesh's first
+  device, every batch is placed over the mesh by
+  :func:`~toad_tpu_torch.parallel.sharding.shard_batch`, and the steps run
+  :meth:`~toad_tpu_torch.models.toad_mil.ToadMIL.forward_sharded`; the loss,
+  its metrics and their one copy to the host are on the first device, over
+  the whole batch.
 - Ops tooling, as in the JAX trainer: ``debug_checks`` swaps in the checked
   step (:mod:`toad_tpu_torch.utils.debug`), ``profile_dir`` traces the first
   ten steps (:class:`~toad_tpu_torch.utils.profiling.StepTracer`), and
@@ -41,6 +48,7 @@ from toad_tpu_torch.evaluate.runner import batch_to_dict, make_eval_step, patien
 from toad_tpu_torch.models.interop import reference_state_dict
 from toad_tpu_torch.models.toad_mil import ToadMIL
 from toad_tpu_torch.ops import cuda_pool
+from toad_tpu_torch.parallel.sharding import ShardedBatch
 from toad_tpu_torch.train.checkpoint import (
     checkpoint_name,
     load_params_any,
@@ -86,10 +94,13 @@ def resolve_device(device: str | torch.device | None) -> torch.device:
 
 def make_loss_fn(model: ToadMIL, cls_w: float, site_w: float):
     def loss_fn(batch: dict[str, torch.Tensor], generator: torch.Generator | None):
-        out = model(
-            batch["features"], batch["patch_mask"], batch["sex"],
-            train=True, generator=generator, need_attention=False,
-        )
+        if isinstance(batch, ShardedBatch):  # placed on a mesh: the heads and the loss run on its first device
+            out = model.forward_sharded(batch, train=True, generator=generator, need_attention=False)
+        else:
+            out = model(
+                batch["features"], batch["patch_mask"], batch["sex"],
+                train=True, generator=generator, need_attention=False,
+            )
         bag_mask = batch["bag_mask"]
         n = bag_mask.sum().clamp_min(1.0)
         # zero the labels of padding bags BEFORE the CE: an out-of-range label
@@ -188,16 +199,36 @@ class EarlyStopping:
 
 class FoldTrainer:
     """Owns one fold end to end (reference ``train``, ``core_utils:87-187``).
-    ``device=None`` is the card; pass ``"cpu"`` to train on the CPU."""
+    ``device=None`` is the card; pass ``"cpu"`` to train on the CPU. ``mesh``
+    (a :class:`~toad_tpu_torch.parallel.mesh.DeviceMesh`) trains over a
+    ``('data', 'bag')`` mesh instead; without one, ``cfg.data_shards`` x
+    ``cfg.bag_shards`` > 1 builds it over the visible cards. ``device=``
+    pins the fold to one device (fold-parallel CV) and cannot combine with a
+    mesh."""
 
-    def __init__(self, cfg: TrainConfig, fold: int, results_dir: str | os.PathLike, writer=None,
+    def __init__(self, cfg: TrainConfig, fold: int, results_dir: str | os.PathLike, writer=None, mesh=None,
                  device: str | torch.device | None = None):
         self.cfg = cfg
         self.fold = fold
         self.results_dir = Path(results_dir)
         self.results_dir.mkdir(parents=True, exist_ok=True)
         self.writer = writer
-        self.device = resolve_device(device)
+        # a mesh owns placement itself; device= pins one fold to one device
+        if device is not None and (mesh is not None or cfg.data_shards * cfg.bag_shards > 1):
+            raise ValueError("device= (fold-parallel) cannot combine with mesh/data_shards/bag_shards")
+        if mesh is None and cfg.data_shards * cfg.bag_shards > 1:
+            from toad_tpu_torch.parallel.mesh import make_mesh
+
+            mesh = make_mesh(cfg.data_shards, cfg.bag_shards)
+        self.mesh = mesh
+        if mesh is not None:
+            from toad_tpu_torch.parallel.sharding import shard_batch
+
+            self._put = lambda bd: shard_batch(bd, mesh)
+            self.device = mesh.primary
+        else:
+            self._put = None
+            self.device = resolve_device(device)
         # every fold starts from the same seed: the reference re-seeds with
         # args.seed before each fold
         self.model = ToadMIL(cfg.model, generator=seed_everything(cfg.seed)).to(self.device)
@@ -211,12 +242,27 @@ class FoldTrainer:
             self.train_step = make_train_step(self.model, self.optimizer, cfg.cls_loss_weight, cfg.site_loss_weight)
         self.eval_step = make_eval_step(self.model)
         self.eval_batches = 0  # batches of every eval pass so far
-        self._launches_at_start = cuda_pool.LAUNCHES
+        self._launches_at_start = (cuda_pool.LAUNCHES, cuda_pool.PARTIAL_LAUNCHES, cuda_pool.COMBINE_LAUNCHES)
 
     @property
     def pool_kernel_launches(self) -> int:
-        """Launches of the pooling kernel since this trainer was built."""
-        return cuda_pool.LAUNCHES - self._launches_at_start
+        """Launches of the pooling kernel since this trainer was built (the
+        counts are the process's: folds trained at once on several devices
+        share them)."""
+        return cuda_pool.LAUNCHES - self._launches_at_start[0]
+
+    @property
+    def partial_kernel_launches(self) -> tuple[int, int]:
+        """(launches of the kernel's partial mode K1p, of the shard combine)
+        since this trainer was built: a bag axis's eval passes."""
+        return (cuda_pool.PARTIAL_LAUNCHES - self._launches_at_start[1],
+                cuda_pool.COMBINE_LAUNCHES - self._launches_at_start[2])
+
+    def _batch(self, b) -> dict[str, torch.Tensor]:
+        """A batch as the step takes it: on the device, or placed over the mesh."""
+        if self._put is not None:
+            return self._put(batch_to_dict(b, "cpu"))
+        return batch_to_dict(b, self.device)
 
     def _batcher(self, split, training: bool) -> BagBatcher:
         d = self.cfg.data
@@ -238,8 +284,9 @@ class FoldTrainer:
             # 'auto' resolves to a bf16 transfer only when the model computes
             # in bf16 (then casting on the host is numerically invisible)
             transfer_dtype=resolve_transfer_dtype(d.transfer_dtype, self.cfg.model.compute_dtype),
-            # on CUDA the producer thread starts each batch's copy to the card
-            device=self.device,
+            # on CUDA the producer thread starts each batch's copy to the card; under a mesh the
+            # batches stay on the host and shard_batch places each cell's slice
+            device=self.device if self.mesh is None else None,
         )
 
     @property
@@ -269,7 +316,7 @@ class FoldTrainer:
 
     def _eval(self, batcher: BagBatcher) -> dict:
         self.model.eval()
-        res = run_eval_pass(self.eval_step, batcher, self.cfg.model.n_classes, self.device)
+        res = run_eval_pass(self.eval_step, batcher, self.cfg.model.n_classes, self.device, put=self._put)
         self.eval_batches += res["n_batches"]
         return res
 
@@ -305,6 +352,7 @@ class FoldTrainer:
             f"[fold {self.fold}] model params: {sum(p.numel() for p in model.parameters()):,} | "
             f"train {len(train_split)} / val {len(val_split)} / test {len(test_split)} slides | "
             f"device {torch.cuda.get_device_name(self.device) if self.device.type == 'cuda' else 'cpu'}"
+            + (f" | mesh {self.mesh.shape}" if self.mesh is not None else "")
         )
 
         tracer = StepTracer(cfg.profile_dir, n_steps=10, device=self.device)
@@ -338,7 +386,7 @@ class FoldTrainer:
             t_fetch = time.perf_counter()
             for b in train_batcher:
                 t_data += time.perf_counter() - t_fetch
-                packed = self.train_step(batch_to_dict(b, self.device), self.generator)
+                packed = self.train_step(self._batch(b), self.generator)
                 metrics = unpack_metrics(packed)  # the step's one device-to-host copy
                 tracer.step()
                 for k in sums:
@@ -430,9 +478,11 @@ class FoldTrainer:
             f"[fold {self.fold}] FINAL val: err {val['cls_error']:.4f} auc {val['cls_auc']:.4f} | "
             f"test: err {test['cls_error']:.4f} auc {test['cls_auc']:.4f} | feed val {val['feed']}, test {test['feed']}"
         )
+        partial, combine = self.partial_kernel_launches
         log_fn(
             f"[fold {self.fold}] eval batches {self.eval_batches}, pooling kernel launches "
             f"{self.pool_kernel_launches}"
+            + (f", partial-mode launches {partial}, combine launches {combine}" if self.mesh is not None else "")
         )
 
         patient_results = patient_results_from_pass(
@@ -491,6 +541,6 @@ class FoldTrainer:
                     self.writer.add_scalar(f"{prefix}/site_{c}_tpr", acc, epoch)
 
 
-def train_fold(cfg: TrainConfig, fold: int, splits, results_dir, writer=None, log_fn=print, device=None):
-    trainer = FoldTrainer(cfg, fold, results_dir, writer, device=device)
+def train_fold(cfg: TrainConfig, fold: int, splits, results_dir, writer=None, log_fn=print, device=None, mesh=None):
+    trainer = FoldTrainer(cfg, fold, results_dir, writer, mesh=mesh, device=device)
     return trainer.train(*splits, log_fn=log_fn)

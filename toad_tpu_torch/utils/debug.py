@@ -28,6 +28,7 @@ import threading
 import torch
 
 from toad_tpu_torch.models.toad_mil import ToadMIL
+from toad_tpu_torch.parallel.sharding import ShardedBatch
 from toad_tpu_torch.train.loop import make_loss_fn, pack_step_metrics
 
 
@@ -109,6 +110,15 @@ def enable_debug_nans(enable: bool = True) -> None:
         _TRAP.disable()
 
 
+def _features_finite(batch) -> torch.Tensor:
+    """Whether every feature value of the batch is finite, on the device the
+    loss runs on (a mesh's first device: each cell checks its own slice)."""
+    if isinstance(batch, ShardedBatch):
+        primary = batch.mesh.primary
+        return torch.stack([torch.isfinite(c["features"]).all().to(primary) for row in batch.cells for c in row]).all()
+    return torch.isfinite(batch["features"]).all()
+
+
 def make_checked_step(model: ToadMIL, optimizer: torch.optim.Optimizer, cls_w: float, site_w: float):
     """Checked analog of ``make_train_step``. Same call signature and return
     value; raises :class:`CheckError` instead of proceeding.
@@ -133,13 +143,14 @@ def make_checked_step(model: ToadMIL, optimizer: torch.optim.Optimizer, cls_w: f
                 (padding | ((label >= 0) & (label < n_classes))).all(),
                 (padding | ((site >= 0) & (site < n_site))).all(),
                 (padding | (sex == 0) | (sex == 1)).all(),
-                torch.isfinite(batch["features"]).all(),
+                _features_finite(batch),
             ])
             ranges = torch.stack([t.double() for t in (label.min(), label.max(), site.min(), site.max(), sex.min(), sex.max())])
         # the loss sees the labels clamped into range: a class index out of range is a device-side assert
         # in CUDA's cross entropy, which would end the process before the check could name it; where the
         # checks pass, the clamped labels are the batch's own
-        safe = {**batch, "label": label.clamp(0, n_classes - 1), "site": site.clamp(0, n_site - 1)}
+        clamped = {"label": label.clamp(0, n_classes - 1), "site": site.clamp(0, n_site - 1)}
+        safe = batch.replace(**clamped) if isinstance(batch, ShardedBatch) else {**batch, **clamped}
         optimizer.zero_grad(set_to_none=True)
         loss, aux = loss_fn(safe, generator)
         loss.backward()
