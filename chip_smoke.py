@@ -158,9 +158,11 @@ Phases (each prints its lines; any failure raises and the exit code is not 0):
    int8_gemms, int8_inquant, int8_inquant_bf16, int8_h_only) against its
    plain version at full width with seeded biases and a seeded Wc over all
    8 task columns, B=4 x 4,096 rows (a ragged bag, a fully masked one, one
-   live on 2,500 rows; int8_gemms also with b1 pushing h1 past 127) and at
-   the main path's B=32 x 8,192 (the same kinds of bag; there every block
-   runs several row tiles, checked from the split plans), each task row
+   live on 2,500 rows; int8_gemms also with b1 pushing h1 past 127), B=2 x
+   4,160 rows at a probe tile of 64 (P1/P5's last 128-row tile half past the
+   bag's end; P2's 64 + 64 rows a tile) and at the main path's B=32 x 8,192
+   (the same kinds of bag; there every block runs several row tiles, checked
+   from the split plans), each task row
    within TOL_PROBE of its own largest |output|; a wrong gate or uniform
    softmax weights move the plain output by at least PROBE_SEPARATION x
    TOL_PROBE; refused shapes raise without a launch; K1 at 2,048-row splits
@@ -561,6 +563,16 @@ def phase_build(card: str) -> None:
                                  f"{lib.toad_pool_rows_per_tile(code)}, smem {lib_smem} B)")
         log(f"phase 2 build: K1 {str(dt)[6:]} plan at H=512 A=384: {p.rows} rows a tile, {p.threads} threads, "
             f"{p.slots} ring slots, {p.smem} B of shared memory (the library agrees)")
+    for pair in (False, True):
+        pp = probe_pool.plan(pair)
+        if (pp.rows_per_bag, pp.smem) != (lib.toad_probe_pool_rows_per_tile(int(pair)), probe_pool.smem_bytes()) \
+                or pp.smem > cuda_pool.MAX_SMEM:
+            raise AssertionError(f"the bf16 probe{' pair' if pair else ''}: the Python plan {pp} disagrees with the "
+                                 f"library (rows of a bag {lib.toad_probe_pool_rows_per_tile(int(pair))}, smem "
+                                 f"{probe_pool.smem_bytes()} B)")
+        log(f"phase 2 build: bf16 probe {'pair (P2)' if pair else '(P1/P5)'} plan: {pp.rows} rows a tile "
+            f"({pp.rows_per_bag} of each bag), {pp.threads} threads, {pp.slots} ring slots, {pp.smem} B of shared "
+            "memory (the library agrees)")
     p8, lib_smem8 = cuda_pool_int8.plan(384), cuda_pool_int8.smem_bytes(384)
     if (p8.rows, p8.smem) != (lib.toad_pool_int8_rows_per_tile(), lib_smem8) or p8.smem > cuda_pool.MAX_SMEM:
         raise AssertionError(f"K2: the Python plan {p8} disagrees with the library (rows "
@@ -590,9 +602,9 @@ def phase_build(card: str) -> None:
                     f"KS {d} ({16 * wm * mt}-pixel tiles, registers for {mb} CTA{'s' if mb > 1 else ''} an SM)"
                     for m, d in (("f", "f32"), ("13__nv_bfloat16", "bf16"))
                     for wm, mt in ((1, 1), (2, 1), (4, 1), (4, 2)) for mb in (1, 2)},
-                 **{f"probe_pool_kernelILi{i}ELi1E": f"P1 {v}"
-                    for i, v in enumerate(("full", "exp2", "nogate", "nosoftmax", "trunkonly"))},
-                 "probe_pool_kernelILi0ELi2E": "P2 b2",
+                 **{f"probe_pool_kernelIL{g}ELi{m}ELi{nb}E": f"P{1 + (nb == 2)} {v} (128-row tiles, 8 warps)"
+                    for g, m, nb, v in (("i0", 0, 1, "full"), ("i1", 0, 1, "exp2"), ("i2", 0, 1, "nogate"),
+                                        ("i0", 1, 1, "nosoftmax"), ("in1", 2, 1, "trunkonly"), ("i0", 0, 2, "b2"))},
                  **{f"probe_int8_kernelILi{i}ELi{r}E": f"P3/P4 {v}" for i, r, v in (
                      (0, 0, "int8_chain"), (0, 2, "int8_gemms"), (1, 0, "int8_inquant"),
                      (2, 1, "int8_inquant_bf16"), (3, 1, "int8_h_only"))}}
@@ -1136,17 +1148,19 @@ POOL_AB_PROBE = (4, 4096)
 
 
 def time_pool(seed: int = 0) -> dict:
-    """K2 (the subject) in classification mode at POOL_AB_SHAPES and in scored
-    mode at B=32 x 8,192, on seeded inputs with 90 % of the rows live (CUDA
+    """The bf16 probe's instances (the subject) and K1 bf16 beside them at
+    B=32 x 8,192 (the probes' shape: mask all ones, the probe's tile of
+    1,024 rows; K1 with 90 % of the rows live), on seeded inputs (CUDA
     events, 5 readings of one launch): what ``--pool-ab`` compares across
-    trees. Saves K2's M in classification mode at each shape under
+    trees. Saves K2's M in classification mode
+    at POOL_AB_SHAPES and P1 full's output at POOL_AB_PROBE under
     _work/pool_ab/ and returns its path, and a sha256 of every output that
     must be the same bits in both trees: K2's scores at every shape, K2's M
     under :func:`~toad_tpu_torch.ops.cuda_pool.split_plan`'s split (passed
     where the package's ``pool_int8`` takes a split, else its own default),
-    and the controls K1 bf16 and f32 in both modes at every shape, K1p in both
-    dtypes, P6, P1 full and P4 int8_chain. Also ptxas's lines of K2 where this
-    process built it."""
+    and the controls K1 bf16 and f32 in both modes at every shape, K1p in
+    both dtypes, P6 and P4 int8_chain. Also ptxas's lines of K1 bf16, the
+    bf16 probe and K2 where this process built them."""
     import hashlib
     import inspect
 
@@ -1185,13 +1199,16 @@ def time_pool(seed: int = 0) -> dict:
                     m = cuda_pool_int8.pool_int8(ops8, xq, sx, mask, scored,
                                                  split=cuda_pool.split_plan(b, n, 64, n_sms))[0]
                 digests[f"K2 {shape} M at split_plan"] = digest(m)
-                if not scored or (b, n) == (32, 8192):
-                    out[f"K2 {shape} ms"] = cuda_ms(lambda: cuda_pool_int8.pool_int8(ops8, xq, sx, mask, scored))
                 for dt in (torch.bfloat16, torch.float32):
                     m, s = cuda_pool.pool(ops[dt], x.to(dt), mask, scored)
                     digests[f"K1 {str(dt)[6:]} {shape} M"] = digest(m)
                     if scored:
                         digests[f"K1 {str(dt)[6:]} {shape} scores"] = digest(s)
+            if (b, n) == (32, 8192):
+                xb = x.to(torch.bfloat16)
+                out[f"K1 bf16 classification B={b} N={n} ms"] = cuda_ms(
+                    lambda: cuda_pool.pool(ops[torch.bfloat16], xb, mask, False))
+                del xb
             del x, xq
         b, n = POOL_AB_PARTIAL
         x, mask = inputs(b, n)
@@ -1206,16 +1223,26 @@ def time_pool(seed: int = 0) -> dict:
         del x
         x, mask = inputs(*POOL_AB_PROBE)
         mask[1] = 0.0
-        params, _, qp, _, _ = probe_operands(seed, dev)
+        params, params_pos, qp, _, _ = probe_operands(seed, dev)
+        probe_ops = probe_pool.pack_probe_params(params)
         tag = f"B={POOL_AB_PROBE[0]} N={POOL_AB_PROBE[1]}"
-        digests[f"P1 full {tag} tile 1024"] = digest(
-            probe_pool.probe_pool(probe_pool.pack_probe_params(params), x.to(torch.bfloat16), mask, "full", 1024))
+        saved[f"P1 full {tag} tile 1024"] = probe_pool.probe_pool(probe_ops, x.to(torch.bfloat16), mask, "full", 1024)
         xq, sx = quantize_rows(x)
         digests[f"P4 int8_chain {tag}"] = digest(
             probe_pool_int8.probe_pool_int8(probe_pool_int8.pack_probe_qparams(qp), xq, sx, mask, "int8_chain"))
         del x, xq
+        # the subject: every instance of the bf16 probe at the probes' shape
+        x = torch.randn(32, 8192, 1024, device=dev, generator=g).to(torch.bfloat16)
+        ones = torch.ones(32, 8192, device=dev)
+        ops_pos = probe_pool.pack_probe_params(params_pos)
+        for v in probe_pool.KERNEL_VARIANTS:
+            o = ops_pos if v == "nosoftmax" else probe_ops
+            out[f"probe {v} B=32 N=8192 ms"] = cuda_ms(lambda o=o, v=v: probe_pool.probe_pool(o, x, ones, v, 1024))
+        del x
     torch.cuda.synchronize()
-    out["k2_ptxas"] = [line for kernel, line in ptxas_lines(_build.build_log) if "pool_int8_kernel" in kernel]
+    out["ptxas"] = [f"{name}: {line}" for kernel, line in ptxas_lines(_build.build_log)
+                    for key, name in (("pool_kernel_bf16", "K1 bf16"), ("probe_pool_kernel", kernel),
+                                      ("pool_int8_kernel", "K2")) if key in kernel]
     path = REPO / "_work" / "pool_ab" / f"outputs_{os.getpid()}.pt"
     path.parent.mkdir(parents=True, exist_ok=True)
     torch.save({k: v.cpu() for k, v in saved.items()}, path)
@@ -1225,14 +1252,22 @@ def time_pool(seed: int = 0) -> dict:
 
 
 def pool_ab(parent: Path, gpu: str) -> None:
-    """K2 of another tree against this one's: :func:`time_pool` in each
-    (:func:`ab_runs`). Every digest must be the same bits in both trees, and
-    K2's M under each tree's default split within TOL_INT8_M of the parent's
-    (the splits differ: e is rounded to bf16 against other running maxes)."""
+    """The bf16 probe of another tree against this one's: :func:`time_pool`
+    in each (:func:`ab_runs`). Every digest must be the same bits in both
+    trees, K2's M under each tree's default split within TOL_INT8_M of the
+    parent's (the splits differ: e is rounded to bf16 against other running
+    maxes), and P1 full within TOL_PROBE of the parent's (the probe's design
+    moved: other tiles, splits and summation orders). Logs each tree's ptxas
+    lines and, for each run, the ladder as K1's split."""
     runs = ab_runs("--time-pool", "pool", parent, gpu)
     for label, r in runs:
-        if r["k2_ptxas"]:
-            log(f"pool A/B {label} tree: K2 ptxas: {'; '.join(r['k2_ptxas'])}")
+        for line in r["ptxas"]:
+            log(f"pool A/B {label} tree: ptxas {line}")
+        full = r["probe full B=32 N=8192 ms"]
+        log(f"pool A/B {label} tree: P1 full {full:.3f} ms = {full / r['K1 bf16 classification B=32 N=8192 ms']:.2f} x "
+            "K1 bf16; the ladder as shares of full: " + ", ".join(
+                f"full - {v} {100 * (full - r[f'probe {v} B=32 N=8192 ms']) / full:+.1f} %"
+                for v in ("nogate", "nosoftmax", "trunkonly", "exp2")) + f" [{gpu}]")
     want = runs[0][1]["digests"]
     for label, r in runs[1:]:
         differ = sorted(k for k in want if r["digests"].get(k) != want[k])
@@ -1245,12 +1280,16 @@ def pool_ab(parent: Path, gpu: str) -> None:
         if got.keys() != ref.keys():
             raise AssertionError(f"pool A/B: the {label} tree saved {sorted(got)}, the parent {sorted(ref)}")
         for key, want_t in ref.items():
-            worst[key] = max(worst.get(key, 0.0), check_close(f"pool A/B {label} {key}", got[key], want_t, TOL_INT8_M))
-    log("pool A/B: " + "; ".join(f"{k} {v:.3e}" for k, v in worst.items()) + " (K2 under each tree's default split "
-        f"against the parent's, max abs err, tolerance {TOL_INT8_M})")
+            if key.startswith("P1"):
+                err = check_probe(f"pool A/B {label} {key}", got[key], want_t, TOL_PROBE)[1]
+            else:
+                err = check_close(f"pool A/B {label} {key}", got[key], want_t, TOL_INT8_M)
+            worst[key] = max(worst.get(key, 0.0), err)
+    log("pool A/B: " + "; ".join(f"{k} {v:.3e}" for k, v in worst.items()) + " against the parent's (K2 under each "
+        f"tree's default split: max abs err, tolerance {TOL_INT8_M}; P1 full: the largest error of a task row relative "
+        f"to its largest |output|, tolerance {TOL_PROBE})")
     log(f"pool A/B: all {len(want)} digests (K2's scores at every shape and its M at split_plan's split; K1 bf16 and "
-        "f32 in both modes at every shape, K1p in both dtypes, P6, P1 full, P4 int8_chain) equal the parent's in all "
-        "four runs")
+        "f32 in both modes at every shape, K1p in both dtypes, P6, P4 int8_chain) equal the parent's in all four runs")
 
 
 def _post(url: str, data: bytes, headers: dict) -> dict:
@@ -3961,9 +4000,10 @@ def phase_probes(seed: int, gpu: str) -> dict:
         xs = quantize_rows(x.float()) if variant in probe_pool_int8.PREQUANTIZED else (x, None)
         return (qp_h if h_only else qp), qops[h_only], xs
 
-    def compare(x, mask, label):
-        """Every kernel instance against its plain version on (x, mask), bag 1
-        fully masked: the largest error of each, and the plain outputs."""
+    def compare(x, mask, label, tile=1024):
+        """Every kernel instance against its plain version on (x, mask) at the
+        probe's ``tile``, bag 1 fully masked: the largest error of each, and
+        the plain outputs."""
         errs, wants = {}, {}
         cases = [(v, lambda v=v: probe_pool.probe_pool(ops_pos if v == "nosoftmax" else ops, x, mask, v, tile),
                   lambda v=v: probe_pool.plain_probe_pool(params_pos if v == "nosoftmax" else params, x, mask, v, tile))
@@ -4020,6 +4060,15 @@ def phase_probes(seed: int, gpu: str) -> dict:
         if probe_pool.LAUNCHES != before:
             raise AssertionError("a refused probe call counted as a launch")
 
+        # rows that end mid-tile: at N = 4,160 each single-bag instance's last 128-row tile holds 64 rows past the
+        # bag's end (zero-filled, excluded by their index, in trunkonly too) and the pair runs 64 + 64 rows a tile
+        x2, m2 = torch.randn(2, 4160, 1024, device=dev, generator=g).to(torch.bfloat16), torch.ones(2, 4160, device=dev)
+        m2[1] = 0.0
+        m2[0, 4100:] = 0.0
+        errs_mid, _ = compare(x2, m2, "B=2 N=4160 tile 64", tile=64)
+        errs = {k: max(v, errs_mid[k]) for k, v in errs.items()}
+        del x2, m2
+
         # 2. K1 at 2,048-row splits (the long-bag probe's tiling) vs its default plan and the plain version
         k1_ops, k1_params = model.kernel_operands(torch.bfloat16), cast_params(model.pool_params(), torch.bfloat16)
         xl = torch.randn(1, 131072, 1024, device=dev, generator=g).to(torch.bfloat16)
@@ -4040,8 +4089,8 @@ def phase_probes(seed: int, gpu: str) -> dict:
         # bag 0 ragged, bag 1 fully masked, bag 3 live on 2,500 rows
         bt, nt = 32, 8192
         lib, n_sms = _build.load_library(), torch.cuda.get_device_properties(dev).multi_processor_count
-        plans = {"single-bag instances": split_plan(bt, nt, lib.toad_probe_pool_rows_per_tile(0), n_sms),
-                 "b2": split_plan(bt // 2, nt, lib.toad_probe_pool_rows_per_tile(1), n_sms),
+        plans = {"single-bag instances": probe_pool.split(bt, nt, False, n_sms),
+                 "b2 (64 + 64 rows a tile)": probe_pool.split(bt, nt, True, n_sms),
                  "int8": split_plan(bt, nt, lib.toad_probe_int8_rows_per_tile(), n_sms)}
         if min(per for per, _ in plans.values()) < 2:
             raise AssertionError(f"the compare at B={bt} N={nt} runs one row tile a block: {plans}")
@@ -4432,10 +4481,10 @@ def main() -> int:
                          "required to be the same bits")
     ap.add_argument("--time-stage", type=Path, metavar="ROOT", help=argparse.SUPPRESS)
     ap.add_argument("--pool-ab", type=Path, metavar="PARENT",
-                    help="only phases 1-2 and the K2 comparisons of phase 3, then K2 of the package checkout PARENT "
-                         "timed against this tree's (parent, this, this, parent), K2's scores, its M at the parent's "
-                         "split and the controls (K1, K1p, P6, P1 full, P4 int8_chain) required to be the same bits "
-                         "and K2's M close to the parent's")
+                    help="only phases 1-2 and the K2 comparisons of phase 3, then the bf16 probe's instances and K1 "
+                         "bf16 of the package checkout PARENT timed against this tree's (parent, this, this, parent), "
+                         "K2's scores, its M at the parent's split and the controls (K1, K1p, P6, P4 int8_chain) "
+                         "required to be the same bits, K2's M and P1 full close to the parent's")
     ap.add_argument("--time-pool", type=Path, metavar="ROOT", help=argparse.SUPPRESS)
     ap.add_argument("--mesh-cards", action="store_true",
                     help="only phases 1-2, then the mesh with each cell on its own card (two or more cards)")
@@ -4534,6 +4583,11 @@ def main() -> int:
         f"{featurized['batch_size']} tiles ({featurized['batch_size'] / featurized['batch_ms'] * 1e3:.1f} tiles/s); "
         f"its {featurized['depth']} attention launches take {featurized['depth'] * mha['ms']:.2f} ms = "
         f"{100 * featurized['depth'] * mha['ms'] / featurized['batch_ms']:.1f} % of it [{gpu}]")
+    k1_ms, pt = times[("bfloat16", 32)]["ms"], {v: r["ms"] for v, r in probes["times"].items()}
+    log(f"phase 10 ladder as K1's split, B=32 x 8,192: P1 full {pt['full']:.3f} ms = {pt['full'] / k1_ms:.2f} x K1 bf16 "
+        f"({k1_ms:.3f} ms in phase 6); " + ", ".join(
+            f"full - {v} {pt['full'] - pt[v]:+.3f} ms ({100 * (pt['full'] - pt[v]) / pt['full']:+.1f} % of full)"
+            for v in ("nogate", "nosoftmax", "trunkonly", "exp2")) + f"; b2 {pt['b2']:.3f} ms [{gpu}]")
     for label, res in (("bf16 compute", served), ("int8", served8)):
         log(f"phase 6 timing serve ({label}): {res['rps']:.2f} requests/s, p50 latency {res['p50'] * 1e3:.1f} ms "
             f"over a burst of 24 concurrent requests (3,000-60,000 patches, default 5 ms batching window, "

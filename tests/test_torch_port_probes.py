@@ -103,11 +103,11 @@ def _to_jax(t: torch.Tensor):
     return jnp.asarray(t.numpy())
 
 
-def _pallas(body, inputs, n_params, out_block, scratch, b_blocks, in_blocks):
+def _pallas(body, inputs, n_params, out_block, scratch, b_blocks, in_blocks, n=N, tile=TILE):
     """pallas_call of a probe body with the probe's BlockSpecs, interpret mode."""
     return pl.pallas_call(
         body,
-        grid=(b_blocks, N // TILE),
+        grid=(b_blocks, n // tile),
         in_specs=[*(pl.BlockSpec(shape, idx, memory_space=pltpu.VMEM) for shape, idx in in_blocks),
                   *[pl.BlockSpec(memory_space=pltpu.VMEM) for _ in range(n_params)]],
         out_specs=[pl.BlockSpec(out_block, lambda bi, ni: (bi, 0, 0), memory_space=pltpu.VMEM)],
@@ -117,21 +117,21 @@ def _pallas(body, inputs, n_params, out_block, scratch, b_blocks, in_blocks):
     )(*inputs)[0]
 
 
-def _x_specs(bags):
-    return [((bags, TILE, D), lambda bi, ni: (bi, ni, 0)), ((bags, 1, TILE), lambda bi, ni: (bi, 0, ni))]
+def _x_specs(bags, tile=TILE):
+    return [((bags, tile, D), lambda bi, ni: (bi, ni, 0)), ((bags, 1, tile), lambda bi, ni: (bi, 0, ni))]
 
 
 def _single_scratch():
     return [pltpu.VMEM((T_PAD, H), jnp.float32), pltpu.VMEM((2, T_PAD), jnp.float32)]
 
 
-def _jax_bf16(body, jp, x, mask, pair=False):
+def _jax_bf16(body, jp, x, mask, pair=False, tile=TILE):
     bags = 2 if pair else 1
     scratch = ([pltpu.VMEM((2, T_PAD, H), jnp.float32), pltpu.VMEM((2, 2, T_PAD), jnp.float32)] if pair
                else _single_scratch())
     xj = jnp.asarray(x, jnp.float32).astype(jnp.bfloat16)
     return np.asarray(_pallas(body, (xj, jnp.asarray(mask)[:, None, :], *jp), 8, (bags, T_PAD, H), scratch,
-                              x.shape[0] // bags, _x_specs(bags)))
+                              x.shape[0] // bags, _x_specs(bags, tile), n=x.shape[1], tile=tile))
 
 
 # -- P1, P2, P5: the bf16 ladder ---------------------------------------------------------
@@ -151,6 +151,18 @@ def test_plain_probe_pool_matches_the_probe_in_interpret_mode(mfu, i8, bf16_para
     want = _jax_bf16(body, jp, x, mask, pair)
     got = probe_pool.plain_probe_pool(tp, torch.from_numpy(x).to(torch.bfloat16), torch.from_numpy(mask), variant, TILE)
     assert tuple(got.shape) == (b, T_PAD, H) and got.dtype == torch.float32
+    assert _rel(got.numpy(), want) <= TOL_BF16_M
+
+
+def test_plain_trunkonly_at_n_ending_mid_tile_matches_the_probe(mfu, bf16_params):
+    """N = 192 at the probe's tile of 64: three TPU grid steps, one and a half
+    of the kernel's 128-row tiles (its rows past N are excluded by their
+    index). The plain version sums the 192 rows of every bag, padding and
+    masked rows included, over the probe's 3 tiles."""
+    tp, jp = bf16_params
+    x, mask = _inputs(B, 192)
+    want = _jax_bf16(mfu.make_kernel("trunkonly"), jp, x, mask, tile=64)
+    got = probe_pool.plain_probe_pool(tp, torch.from_numpy(x).to(torch.bfloat16), torch.from_numpy(mask), "trunkonly", 64)
     assert _rel(got.numpy(), want) <= TOL_BF16_M
 
 
@@ -347,7 +359,7 @@ def test_kernel_wrappers_refuse_what_the_kernels_do_not_take():
         probe_pool.probe_pool(ops, torch.zeros(3, 256, D, dtype=torch.bfloat16), torch.ones(3, 256), "b2", 128)
     with pytest.raises(ValueError, match="multiple of the probe's tile"):
         probe_pool.probe_pool(ops, x, mask, "full", 96)
-    with pytest.raises(ValueError, match="64-row tile"):
+    with pytest.raises(ValueError, match="half the kernel's 128-row tile"):
         probe_pool.probe_pool(ops, x[:, :96], mask[:, :96], "full", 32)
     with pytest.raises(TypeError, match="bf16 x"):
         probe_pool.probe_pool(ops, x.float(), mask, "full", 128)
@@ -370,6 +382,61 @@ def test_kernel_wrappers_refuse_what_the_kernels_do_not_take():
     with pytest.raises(ValueError, match="needs CUDA tensors"):
         probe_pool_int8.probe_pool_int8(qops, xq, sx, mask, "int8_chain")
     assert probe_pool.LAUNCHES == 0 and probe_pool_int8.LAUNCHES == 0 and not _build.is_loaded()
+
+
+def test_probe_kernel_takes_n_ending_mid_tile():
+    """N = 192 at a probe tile of 64 passes every shape check of the probe
+    kernel's wrapper (only the device stops it here), for the single-bag
+    instances (one and a half 128-row tiles) and the pair (three tiles of 64
+    + 64 rows); N = 96 stays refused."""
+    ops = probe_pool.pack_probe_params(probe_pool.probe_weights(0))
+    x, mask = torch.zeros(2, 192, D, dtype=torch.bfloat16), torch.ones(2, 192)
+    for variant in probe_pool.KERNEL_VARIANTS:
+        with pytest.raises(ValueError, match="needs CUDA tensors"):
+            probe_pool.probe_pool(ops, x, mask, variant, 64)
+    with pytest.raises(ValueError, match="multiple of 64"):
+        probe_pool.probe_pool(ops, x[:, :96], mask[:, :96], "full", 96)
+    assert probe_pool.LAUNCHES == 0 and not _build.is_loaded()
+
+
+@pytest.mark.parametrize("a_dim", [128, 256, 384])
+def test_probe_plan(a_dim):
+    """The probe kernel's plan (``csrc/pool_probe.cu``'s ``probe_layout``):
+    K1 bf16's 128-row tile, threads and ring, 64 + 64 rows for the pair; its
+    shared memory is K1's layout with K1's acc [2][H] and statistics traded
+    for two bag slots' statistics (the 8-task sums live in device memory),
+    under the card's limit at every A; Wc goes to the kernel transposed."""
+    k1 = cuda_pool.plan(torch.bfloat16, H, a_dim)
+    for pair in (False, True):
+        p = probe_pool.plan(pair, H, a_dim)
+        assert (p.rows, p.rows_per_bag, p.threads, p.slots) == (k1.rows, 64 if pair else 128, k1.threads, k1.slots)
+        assert p.smem == k1.smem - 4 * 2 * H - 32 + 4 * 2 * 3 * T_PAD == 227_520 <= cuda_pool.MAX_SMEM
+    params = probe_pool.probe_weights(0)
+    ops = probe_pool.pack_probe_params(params)
+    assert tuple(ops.wc.shape) == (T_PAD, A) and torch.equal(ops.wc, params[6].t())
+    for h_dim, bad_a in ((256, 128), (H, 64), (H, 640)):
+        with pytest.raises(ValueError, match="not supported"):
+            probe_pool.plan(False, h_dim, bad_a)
+
+
+@pytest.mark.parametrize("b,n,pair,want", [
+    (32, 8192, False, (16, 4)),  # the probes' shape: 128 CTAs of 16 tiles, one wave
+    (32, 8192, True, (16, 8)),  # 16 pairs: 128 CTAs of 16 tiles of 64 + 64 rows
+    (4, 4096, False, (1, 32)),
+    (4, 4096, True, (1, 64)),
+    (2, 4160, False, (1, 33)),  # the last tile half past N
+    (2, 4160, True, (1, 65)),
+    (1, 131072, False, (8, 128)),
+])
+def test_probe_split_is_whole_waves(b, n, pair, want):
+    """The probe's grid runs in whole waves of one CTA an SM (132 on an H100),
+    the fewest tile-times first, then the fewest splits."""
+    per, splits = probe_pool.split(b, n, pair, 132)
+    assert (per, splits) == want
+    tiles = -(-n // (64 if pair else 128))
+    assert per * (splits - 1) < tiles <= per * splits
+    waves = -(-(b // (2 if pair else 1)) * splits // 132)
+    assert waves * per == min(-(-(b // (2 if pair else 1)) * s // 132) * -(-tiles // s) for s in range(1, tiles + 1))
 
 
 def test_rows_per_split_plan():

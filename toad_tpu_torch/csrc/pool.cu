@@ -88,8 +88,6 @@
 
 namespace {
 
-constexpr int kHPad = 8;       // row padding of the bf16 activation region
-
 // ---------------------------------------------------------------------------
 // The f32 instance. Warp (wr, wc) owns rows wr*32 + mi*16 + {g, g+8} (mi < 2)
 // and columns wc*8*NT + ni*8 + 2q (+1) (ni < NT) of a pass of 32*NT columns
@@ -389,20 +387,10 @@ pool_kernel_f32(const float* __restrict__ x, const float* __restrict__ mask, int
 }
 
 // ---------------------------------------------------------------------------
-// The bf16 instance: 128-row tiles, one CTA an SM, warps arranged as
-// 128 / (16 kMi) (rows) x 4 (columns). Warp (wr, wc) owns rows wr*16*kMi +
-// mi*16 + {g, g+8} (mi < kMi) and columns wc*64 + ni*8 + 2q (+1) of each
-// 256-column pass (g = lane / 4, q = lane % 4), the accumulator layout of
-// mma.m16n8k16.
-
-constexpr int kRowsBf16 = 128;  // rows a tile
-constexpr int kMi = 4;          // m16 tiles a warp: 64 x 64 warp tiles, 8 warps (kMi = 2: 16 warps)
-constexpr int kThreadsBf16 = 32 * kColWarps * kRowsBf16 / (16 * kMi);
-constexpr int kSlotsBf16 = 3;   // slots of the cp.async ring: two slices in flight
-// GEMM2's first pass waits for the second in its stash, 16 kMi packed
-// registers a thread; the first half of the warp's row blocks waits in the x
-// ring instead (idle in GEMM2), so that the second pass keeps its registers.
-constexpr int kStashSmem = 8 * kMi;
+// The bf16 instance: 128-row tiles, one CTA an SM, 8 warps of 64 x 64; its
+// GEMM, ReLU epilogue and GEMM2's stash are pool_trunk.cuh's gemm_rows128,
+// relu_pack, store_packed, stash_put and stash_take, which the bf16 probe
+// (csrc/pool_probe.cu) shares.
 
 // One region h [128][H + kHPad] holds h1, then h2; the weight ring ws
 // [slots][256][kSBf16] and the x ring xs [slots][128][kSBf16], which after
@@ -419,134 +407,11 @@ __host__ __device__ inline LayoutBf16 layout_bf16(int H) {
   size_t o = 0;
   L.h = o;    o = align16(o + sizeof(bf16) * kRowsBf16 * (H + kHPad));
   L.ws = o;   o = align16(o + sizeof(bf16) * kSlotsBf16 * kBN * kSBf16);
-  const size_t ring = sizeof(bf16) * kSlotsBf16 * kRowsBf16 * kSBf16;
-  const size_t stash = sizeof(uint32_t) * kStashSmem * kThreadsBf16;
-  L.xs = o;   o = align16(o + (ring > stash ? ring : stash));
+  L.xs = o;   o = align16(o + kXRingBytes);
   L.acc = o;  o = align16(o + sizeof(float) * 2 * H);
   L.stat = o; o = align16(o + sizeof(float) * 8);
   L.total = o;
   return L;
-}
-
-// ws[n][k] <- wt[n0 + n][k0 + k] (n < 256, k < 32) and (kFromX) xs[r][k] <-
-// x[row0 + r][k0 + k] (r < 128), rows past the bag's end N zero-filled, in
-// 16-byte copies; commits one group.
-template <bool kFromX>
-__device__ __forceinline__ void stage_slice(const bf16* __restrict__ wt, int K, int n0, int k0, bf16* ws,
-                                            const bf16* __restrict__ x, int N, int D, int row0, bf16* xs) {
-  constexpr int kChunks = kBK / 8;
-#pragma unroll
-  for (int j = 0; j < kBN * kChunks / kThreadsBf16; ++j) {
-    const int i = threadIdx.x + j * kThreadsBf16;
-    const int r = i / kChunks, c = (i % kChunks) * 8;
-    cp_async16(ws + r * kSBf16 + c, wt + (size_t)(n0 + r) * K + k0 + c, 16);
-  }
-  if (kFromX) {
-#pragma unroll
-    for (int j = 0; j < kRowsBf16 * kChunks / kThreadsBf16; ++j) {
-      const int i = threadIdx.x + j * kThreadsBf16;
-      const int r = i / kChunks, c = (i % kChunks) * 8;
-      const bool ok = row0 + r < N;
-      cp_async16(xs + r * kSBf16 + c, ok ? x + (size_t)(row0 + r) * D + k0 + c : x, ok ? 16 : 0);
-    }
-  }
-  cp_async_commit();
-}
-
-// acc = A[128, K] . Wt[n0 : n0 + 256, K]^T, A the staged x tile (kFromX) or
-// h [128][ldh]. A fragments come from ldmatrix on the row-major A tile, B
-// fragments from ldmatrix on the staged [n][k] slice (two n-tiles an x4).
-// Each output is the same sequence of k16 products (k ascending) as in the
-// 64-row pass gemm_pass_bf16, so it has the same bits.
-template <bool kFromX>
-__device__ __forceinline__ void gemm_rows128(float (&acc)[kMi][8][4], const bf16* __restrict__ wt, int K, int n0,
-                                             const bf16* h, int ldh, const bf16* __restrict__ x, int N, int D,
-                                             int row0, bf16* ws, bf16* xs) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int wr = warp >> 2, wc = warp & 3;
-  const int n_steps = K / kBK;
-  auto issue = [&](int step) {
-    if (step < n_steps) {
-      const int slot = step % kSlotsBf16;
-      stage_slice<kFromX>(wt, K, n0, step * kBK, ws + slot * kBN * kSBf16, x, N, D, row0,
-                          xs + slot * kRowsBf16 * kSBf16);
-    } else {
-      cp_async_commit();  // empty group: keeps one group per step for the wait count
-    }
-  };
-#pragma unroll
-  for (int mi = 0; mi < kMi; ++mi)
-#pragma unroll
-    for (int ni = 0; ni < 8; ++ni)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[mi][ni][e] = 0.f;
-
-  // the ring is free, and the previous epilogue's writes to h are visible,
-  // once every warp has arrived here
-  __syncthreads();
-#pragma unroll
-  for (int s = 0; s < kSlotsBf16 - 1; ++s) issue(s);
-  for (int step = 0; step < n_steps; ++step) {
-    cp_async_wait<kSlotsBf16 - 2>();  // this thread's copies of `step` have landed
-    __syncthreads();                  // everyone's have, and slot (step - 1) is free
-    issue(step + kSlotsBf16 - 1);
-    const int slot = step % kSlotsBf16;
-    const bf16* a_base = kFromX ? xs + slot * kRowsBf16 * kSBf16 : h + step * kBK;
-    const int la = kFromX ? kSBf16 : ldh;
-    const bf16* w_base = ws + slot * kBN * kSBf16;
-#pragma unroll
-    for (int kk = 0; kk < kBK; kk += 16) {
-      uint32_t af[kMi][4];
-#pragma unroll
-      for (int mi = 0; mi < kMi; ++mi)
-        ldsm_x4(af[mi], a_base + (wr * 16 * kMi + mi * 16 + (lane & 15)) * la + kk + (lane >> 4) * 8);
-#pragma unroll
-      for (int np = 0; np < 4; ++np) {
-        uint32_t bf[4];  // b0, b1 of n-tile 2np, then of n-tile 2np + 1
-        ldsm_x4(bf, w_base + (wc * 64 + np * 16 + (lane >> 4) * 8 + (lane & 7)) * kSBf16 + kk + ((lane >> 3) & 1) * 8);
-#pragma unroll
-        for (int mi = 0; mi < kMi; ++mi) {
-          mma_bf16(acc[mi][2 * np], af[mi], bf[0], bf[1]);
-          mma_bf16(acc[mi][2 * np + 1], af[mi], bf[2], bf[3]);
-        }
-      }
-    }
-  }
-}
-
-// The ReLU epilogue of columns n0..n0+255: packed bf16(relu(acc + bias)),
-// out[mi][ni][hf] = the pair of row (mi, hf) in n-tile ni.
-__device__ __forceinline__ void relu_pack(const float (&acc)[kMi][8][4], const float* __restrict__ bias, int n0,
-                                          uint32_t (&out)[kMi][8][2]) {
-  const int lane = threadIdx.x & 31, wc = (threadIdx.x >> 5) & 3;
-#pragma unroll
-  for (int mi = 0; mi < kMi; ++mi)
-#pragma unroll
-    for (int ni = 0; ni < 8; ++ni) {
-      const int col = n0 + wc * 64 + ni * 8 + 2 * (lane & 3);
-#pragma unroll
-      for (int hf = 0; hf < 2; ++hf) {
-        const float v0 = fmaxf(acc[mi][ni][2 * hf] + __ldg(bias + col), 0.f);
-        const float v1 = fmaxf(acc[mi][ni][2 * hf + 1] + __ldg(bias + col + 1), 0.f);
-        const __nv_bfloat162 p = __floats2bfloat162_rn(v0, v1);
-        out[mi][ni][hf] = *reinterpret_cast<const uint32_t*>(&p);
-      }
-    }
-}
-
-// h[row][n0 + col] <- the packed pairs of relu_pack
-__device__ __forceinline__ void store_packed(const uint32_t (&v)[kMi][8][2], int n0, bf16* h, int ldh) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int wr = warp >> 2, wc = warp & 3;
-#pragma unroll
-  for (int mi = 0; mi < kMi; ++mi)
-#pragma unroll
-    for (int hf = 0; hf < 2; ++hf) {
-      const int row = wr * 16 * kMi + mi * 16 + (lane >> 2) + hf * 8;
-#pragma unroll
-      for (int ni = 0; ni < 8; ++ni)
-        *reinterpret_cast<uint32_t*>(h + row * ldh + n0 + wc * 64 + ni * 8 + 2 * (lane & 3)) = v[mi][ni][hf];
-    }
 }
 
 // The gate epilogue of interleaved [Wa|Wb] columns n0..n0+255: warp column wc
@@ -624,53 +489,36 @@ pool_kernel_bf16(const bf16* __restrict__ x, const float* __restrict__ mask, int
     // the identity there); scored mode writes every row's score
     if (!__syncthreads_or(live) && scores == nullptr) continue;
 
+    // h1 = relu(x W1 + b1), then h2 = relu(h1 W2 + b2) -> h
     float acc[kMi][8][4];
     uint32_t packed[kMi][8][2];
     // h1 = relu(x W1 + b1) -> h
     for (int n0 = 0; n0 < H; n0 += kBN) {
-      gemm_rows128<true>(acc, w1t, D, n0, nullptr, 0, xb, N, D, row0, ws, xs);
+      gemm_rows128<true>(acc, w1t, D, n0, nullptr, 0, &xb, N, D, row0, ws, xs);
       relu_pack(acc, b1, n0, packed);
       store_packed(packed, n0, h, ldh);
     }
-    // h2 = relu(h1 W2 + b2) -> h, over h1 once every warp has read all of it:
-    // at H = 512 the first pass's columns wait (the stash), the second row
-    // block's in registers, the first's in the x ring
     constexpr int kHalf = kMi / 2;
     uint32_t stash[kHalf][8][2];
     uint32_t* stash_s = reinterpret_cast<uint32_t*>(xs);  // [kStashSmem][threads]
     if (H == 2 * kBN) {
       gemm_rows128<false>(acc, w2t, H, 0, h, ldh, nullptr, N, D, row0, ws, xs);
       relu_pack(acc, b2, 0, packed);
-#pragma unroll
-      for (int mi = 0; mi < kHalf; ++mi)
-#pragma unroll
-        for (int ni = 0; ni < 8; ++ni)
-#pragma unroll
-          for (int hf = 0; hf < 2; ++hf) {
-            stash_s[((mi * 8 + ni) * 2 + hf) * kThreadsBf16 + tid] = packed[mi][ni][hf];
-            stash[mi][ni][hf] = packed[kHalf + mi][ni][hf];
-          }
+      stash_put(packed, stash, stash_s, tid);
     }
     gemm_rows128<false>(acc, w2t, H, H - kBN, h, ldh, nullptr, N, D, row0, ws, xs);
     relu_pack(acc, b2, H - kBN, packed);
     __syncthreads();
     if (H == 2 * kBN) {
       uint32_t first[kMi][8][2];
-#pragma unroll
-      for (int mi = 0; mi < kHalf; ++mi)
-#pragma unroll
-        for (int ni = 0; ni < 8; ++ni)
-#pragma unroll
-          for (int hf = 0; hf < 2; ++hf) {
-            first[mi][ni][hf] = stash_s[((mi * 8 + ni) * 2 + hf) * kThreadsBf16 + tid];
-            first[kHalf + mi][ni][hf] = stash[mi][ni][hf];
-          }
+      stash_take(first, stash, stash_s, tid);
       store_packed(first, 0, h, ldh);
     }
     store_packed(packed, H - kBN, h, ldh);
     // gated = bf16(tanh(h2 Wa + ba) * sigmoid(h2 Wb + bb)), folded into the scores
     float sacc[kMi][2][2] = {};
     for (int n0 = 0; n0 < 2 * A; n0 += kBN) {
+      float acc[kMi][8][4];
       gemm_rows128<false>(acc, wabt, H, n0, h, ldh, nullptr, N, D, row0, ws, xs);
       gate_fold(acc, bab, wc, n0, sacc);
     }

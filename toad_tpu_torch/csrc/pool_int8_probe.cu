@@ -45,8 +45,8 @@
 //     (a 64-byte slice is 32 bf16 or 64 int8 values, and the ldmatrix
 //     addresses of the two fragment layouts coincide), f32 accumulators;
 //   - 8 task columns: partial scores [2][2][8] a thread, summed over the
-//     quad and the four column warps in a fixed order, then the bf16
-//     probe's epilogue (probe_common.cuh).
+//     quad and the four column warps in a fixed order, then the probes'
+//     epilogue at 64 rows a tile (probe_common.cuh).
 //
 // Layout contract (ops/probe_pool_int8.py prepares it): x [B, N, D] int8
 // with sx [B, N] f32, or bf16; mask [B, N] f32, N a multiple of 64; W1 int8
@@ -154,16 +154,15 @@ probe_int8_kernel(const void* __restrict__ x, const float* __restrict__ sx, cons
   const int split = blockIdx.x, n_splits = gridDim.x, b = blockIdx.y;
   const int xbytes = kIn == kPreQ ? 1 : 2;
   const u8* xb = static_cast<const u8*>(x) + (size_t)b * N * D * xbytes;
-  const float* mbs[1] = {mask + (size_t)b * N};
   const u8* w1 = static_cast<const u8*>(w1t);
   const u8* w2 = reinterpret_cast<const u8*>(w2t);
   const u8* wab = reinterpret_cast<const u8*>(wabt);
 
   for (int i = tid; i < kTasks * A; i += kThreads) wc_s[i] = __bfloat162float(wc[i]);
   probe_stats_init<1, kModeSoftmax>(stat);
-  float acc[1][kTasks][2];
+  float acc[kTasks][2];
 #pragma unroll
-  for (int t = 0; t < kTasks; ++t) acc[0][t][0] = acc[0][t][1] = 0.f;
+  for (int t = 0; t < kTasks; ++t) acc[t][0] = acc[t][1] = 0.f;
 
   const int n_tiles = N / kTileRows;
   const int t_end = min(n_tiles, (split + 1) * tiles_per_split);
@@ -204,11 +203,11 @@ probe_int8_kernel(const void* __restrict__ x, const float* __restrict__ sx, cons
       gate_epilogue<kTasks>(accg, n0, rs, swab, bab, wc_s, sacc);
     }
     reduce_scores<kTasks>(sacc, spart, bc, s_s, nullptr, b, N, row0);
-    probe_stats<1, kModeSoftmax>(s_s, mbs, row0, e_s, stat);
+    probe_stats<kTileRows, 1, kModeSoftmax>(s_s, mask + (size_t)b * N, N, row0, e_s, stat);
     __syncthreads();
-    probe_accumulate<1, false>(acc, e_s, stat, h2, kLdH2);
+    probe_fold<kTileRows, 1, false>(acc, 0, kTileRows, e_s, stat, h2, kLdH2);
   }
-  probe_write_partials<1, false>(acc, stat, b, split, n_splits, part_acc, part_stat);
+  probe_write_partials(acc, stat, b, split, n_splits, part_acc, part_stat);
 }
 
 template <int kIn, int kReq>

@@ -2,21 +2,20 @@
 // (K1 and its partial mode), csrc/pool_int8.cu (K2: the int8 mma, the
 // dequantization, the gate epilogue and reduce_scores; its weight stream and
 // requantization are its own), csrc/pool_probe.cu (P1/P2/P5) and
-// csrc/pool_int8_probe.cu (P3/P4). The probes run
-// 64-row tiles through 8 warps arranged as 2 (rows) x 4 (columns), with
-// weights streamed from L2 through a cp.async ring and the tile's activations
-// in shared memory. Each tile streams all of the weights from L2, so the
-// rows a staged slice feeds set the L2 traffic and the products between two
-// barriers: K1's bf16 instance (csrc/pool.cu) has its own 128-row GEMM of
-// 64 x 64 warp tiles and shares only the gate, reduce_scores (rows, threads
-// and warp tile as template parameters) and pool_common.cuh. Here:
-//   - bf16: gemm_pass_bf16, one 256-column pass of mma.sync m16n8k16 fed by
-//     ldmatrix (3-deep ring of 32-deep slices), with a ReLU or gate epilogue;
-//   - int8: gemm8, int8 (m16n8k32 s8, int32 sums) or bf16 (m16n8k16, f32
-//     sums) over 64-byte slices (2-deep ring), the accumulators left in
-//     registers; requant_epilogue (dequantize, ReLU, per-row requantization
-//     over all 512 columns), gate_epilogue and reduce_scores for T task
-//     columns.
+// csrc/pool_int8_probe.cu (P3/P4). Each tile streams all of the weights from
+// L2, so the rows a staged slice feeds set the L2 traffic and the products
+// between two barriers. Here:
+//   - bf16, 128-row tiles (K1's bf16 instance and the bf16 probe, P1/P2/P5):
+//     one CTA an SM of 8 warps of 64 x 64, gemm_rows128 (256-column passes
+//     of mma.sync m16n8k16 fed by ldmatrix, weights through a 3-slot
+//     cp.async ring of 32-deep slices), relu_pack / store_packed, and GEMM2's
+//     stash (stash_put / stash_take), so that h1 and h2 share one region;
+//     rows of one bag, or 64 of each of two (NB = 2);
+//   - int8, 64-row tiles of 8 warps as 2 (rows) x 4 (columns) (P3/P4):
+//     gemm8, int8 (m16n8k32 s8, int32 sums) or bf16 (m16n8k16, f32 sums)
+//     over 64-byte slices (2-deep ring), the accumulators left in registers;
+//     requant_epilogue (dequantize, ReLU, per-row requantization over all
+//     512 columns), gate_epilogue and reduce_scores for T task columns.
 // Every dequantization and requantization step is an explicitly rounded
 // multiply, divide or add (no FMA contraction), so the integer parts of the
 // GEMMs equal those of the plain versions. Everything sits in an anonymous
@@ -32,8 +31,8 @@ namespace {
 
 typedef unsigned char u8;
 
-constexpr int kTileRows = 64;  // GEMM rows per tile (all bags of a block together)
-constexpr int kTrunkH = 512;   // trunk width of the int8 and probe instances
+constexpr int kTileRows = 64;  // GEMM rows per tile of the int8 kernels
+constexpr int kTrunkH = 512;   // trunk width of the probes and of K2
 
 __device__ __forceinline__ float bf16_round(float v) { return __bfloat162float(__float2bfloat16(v)); }
 
@@ -53,29 +52,54 @@ __device__ __forceinline__ float gate(float u, float v) {
 }
 
 // ---------------------------------------------------------------------------
-// bf16 GEMM pass.
+// The bf16 GEMM of 128-row tiles: one CTA an SM, warps arranged as
+// 128 / (16 kMi) (rows) x 4 (columns). Warp (wr, wc) owns rows wr*16*kMi +
+// mi*16 + {g, g+8} (mi < kMi) and columns wc*64 + ni*8 + 2q (+1) of each
+// 256-column pass (g = lane / 4, q = lane % 4), the accumulator layout of
+// mma.m16n8k16. A tile holds the rows of one bag (NB = 1), or 64 rows of
+// each of two bags (NB = 2: rows 0-63 of the first, 64-127 of the second).
 
-constexpr int kBN = 256;           // GEMM output columns per pass
-constexpr int kBK = 32;            // reduction depth per staged slice
-constexpr int kSBf16 = kBK + 8;    // staged row stride (elements): conflict-free ldmatrix, 16-byte cp.async
-constexpr int kRingBf16 = 3;       // slices in flight in the cp.async ring
+constexpr int kColWarps = 4;
+constexpr int kBN = 256;         // GEMM output columns per pass
+constexpr int kBK = 32;          // reduction depth per staged slice
+constexpr int kSBf16 = kBK + 8;  // staged row stride (elements): conflict-free ldmatrix, 16-byte cp.async
+constexpr int kHPad = 8;         // row padding of the bf16 activation region
+constexpr int kRowsBf16 = 128;   // rows a tile
+constexpr int kMi = 4;           // m16 tiles a warp: 64 x 64 warp tiles, 8 warps (kMi = 2: 16 warps)
+constexpr int kThreadsBf16 = 32 * kColWarps * kRowsBf16 / (16 * kMi);
+constexpr int kSlotsBf16 = 3;    // slots of the cp.async ring: two slices in flight
+// GEMM2's first pass waits for the second in its stash, 16 kMi packed
+// registers a thread; the first half of the warp's row blocks waits in the x
+// ring instead (idle in GEMM2), so that the second pass keeps its registers.
+constexpr int kStashSmem = 8 * kMi;
+constexpr size_t kXRingSlots = sizeof(bf16) * kSlotsBf16 * kRowsBf16 * kSBf16;
+constexpr size_t kXStash = sizeof(uint32_t) * kStashSmem * kThreadsBf16;
+constexpr size_t kXRingBytes = kXRingSlots > kXStash ? kXRingSlots : kXStash;  // the x ring, or the stash
 
-// ws[n][k] <- wt[n0 + n][k0 + k] and (kFromX) xs[r][k] <- row r of the tile:
-// row row0 + r % RB of bag slot r / RB (base xb[slot], RB = 64 / NB), rows
-// past the bag's end N zero-filled; always commits one group.
+// ws[n][k] <- wt[n0 + n][k0 + k] (n < 256, k < 32) and (kFromX) xs[r][k] <-
+// row r of the tile (row row0 + r of bag xb[0], or for NB = 2 row row0 + r %
+// 64 of bag xb[r / 64]), rows past the bag's end N zero-filled, in 16-byte
+// copies; commits one group.
 template <bool kFromX, int NB>
-__device__ __forceinline__ void stage_bf16(const bf16* __restrict__ wt, int K, int n0, int k0, bf16* ws,
-                                           const bf16* const* xb, int N, int D, int row0, bf16* xs) {
-  constexpr int RB = kTileRows / NB;
-  for (int i = threadIdx.x; i < kBN * (kBK / 8); i += kThreads) {
-    const int r = i / (kBK / 8), c = (i % (kBK / 8)) * 8;
+__device__ __forceinline__ void stage_rows128(const bf16* __restrict__ wt, int K, int n0, int k0, bf16* ws,
+                                              const bf16* const* xb, int N, int D, int row0, bf16* xs) {
+  constexpr int kChunks = kBK / 8;
+  constexpr int kCopies = kRowsBf16 * kChunks / kThreadsBf16;  // x copies a thread, each of kThreadsBf16 / kChunks rows
+  static_assert(NB == 1 || kRowsBf16 / NB == kThreadsBf16 / kChunks, "each x copy stays inside one bag");
+#pragma unroll
+  for (int j = 0; j < kBN * kChunks / kThreadsBf16; ++j) {
+    const int i = threadIdx.x + j * kThreadsBf16;
+    const int r = i / kChunks, c = (i % kChunks) * 8;
     cp_async16(ws + r * kSBf16 + c, wt + (size_t)(n0 + r) * K + k0 + c, 16);
   }
   if (kFromX) {
-    for (int i = threadIdx.x; i < kTileRows * (kBK / 8); i += kThreads) {
-      const int r = i / (kBK / 8), c = (i % (kBK / 8)) * 8;
-      const bf16* x = xb[NB == 1 ? 0 : r / RB];
-      const int row = row0 + (NB == 1 ? r : r % RB);
+#pragma unroll
+    for (int j = 0; j < kCopies; ++j) {
+      const int i = threadIdx.x + j * kThreadsBf16;
+      const int r = i / kChunks, c = (i % kChunks) * 8;
+      const int slot = NB == 1 ? 0 : j;  // copy j's rows are those of bag slot j
+      const bf16* x = xb[slot];
+      const int row = row0 + r - slot * (kRowsBf16 / NB);
       const bool ok = row < N;
       cp_async16(xs + r * kSBf16 + c, ok ? x + (size_t)row * D + k0 + c : x, ok ? 16 : 0);
     }
@@ -83,102 +107,134 @@ __device__ __forceinline__ void stage_bf16(const bf16* __restrict__ wt, int K, i
   cp_async_commit();
 }
 
-// One pass: out[64, n0 : n0 + 256] of A[64, K] . Wt[n0 : n0 + 256, K]^T, A
-// the staged x tile (kFromX; NB bags' rows as stage_bf16 lays them out) or
-// the activation buffer a_s [64][lda]. A warp owns 32 rows x 64 columns = 2
-// x 8 m16n8 tiles. Fragment layouts are those of PTX mma.m16n8k16 (g = lane
-// / 4, q = lane % 4): C rows g, g+8 at cols 2q (+1). A fragments come from
-// ldmatrix on the row-major A tile (matrices: rows 0-7 / 8-15 x cols 0-7 /
-// 8-15); B fragments from ldmatrix on the staged [n][k] slice, whose rows
-// are B's columns (two n-tiles per x4).
-// kEpiRelu: out[r][n0 + c] = bf16(relu(acc + bias)); a gate: out[r][j] =
-// bf16(gate(u_j, v_j)) over [Wa|Wb]'s columns interleaved in groups of 32
-// (j = n0/2 + position within the u half).
-template <int kEpi, bool kFromX, int NB>
-__device__ void gemm_pass_bf16(const bf16* __restrict__ wt, int K, int n0, const float* __restrict__ bias,
-                               const bf16* a_s, int lda, const bf16* const* xb, int N, int D, int row0, bf16* ws,
-                               bf16* xs, bf16* out, int ldo) {
+// acc = A[128, K] . Wt[n0 : n0 + 256, K]^T, A the staged x tile (kFromX) or
+// h [128][ldh]. A fragments come from ldmatrix on the row-major A tile, B
+// fragments from ldmatrix on the staged [n][k] slice (two n-tiles an x4).
+// Each output is the sum of its k16 products in ascending k.
+template <bool kFromX, int NB = 1>
+__device__ __forceinline__ void gemm_rows128(float (&acc)[kMi][8][4], const bf16* __restrict__ wt, int K, int n0,
+                                             const bf16* h, int ldh, const bf16* const* xb, int N, int D,
+                                             int row0, bf16* ws, bf16* xs) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int gr = lane >> 2, q = lane & 3;
   const int wr = warp >> 2, wc = warp & 3;
   const int n_steps = K / kBK;
   auto issue = [&](int step) {
     if (step < n_steps) {
-      const int slot = step % kRingBf16;
-      stage_bf16<kFromX, NB>(wt, K, n0, step * kBK, ws + slot * kBN * kSBf16, xb, N, D, row0,
-                             xs + slot * kTileRows * kSBf16);
+      const int slot = step % kSlotsBf16;
+      stage_rows128<kFromX, NB>(wt, K, n0, step * kBK, ws + slot * kBN * kSBf16, xb, N, D, row0,
+                                xs + slot * kRowsBf16 * kSBf16);
     } else {
       cp_async_commit();  // empty group: keeps one group per step for the wait count
     }
   };
-
-  float acc[2][8][4];
 #pragma unroll
-  for (int mi = 0; mi < 2; ++mi)
+  for (int mi = 0; mi < kMi; ++mi)
 #pragma unroll
     for (int ni = 0; ni < 8; ++ni)
 #pragma unroll
       for (int e = 0; e < 4; ++e) acc[mi][ni][e] = 0.f;
 
-  // the ring is free once every warp has left the previous pass
+  // the ring is free, and the previous epilogue's writes to h are visible,
+  // once every warp has arrived here
   __syncthreads();
 #pragma unroll
-  for (int s = 0; s < kRingBf16 - 1; ++s) issue(s);
+  for (int s = 0; s < kSlotsBf16 - 1; ++s) issue(s);
   for (int step = 0; step < n_steps; ++step) {
-    cp_async_wait<kRingBf16 - 2>();  // this thread's copies of `step` have landed
-    __syncthreads();                 // everyone's have, and slot (step - 1) is free
-    issue(step + kRingBf16 - 1);
-    const int slot = step % kRingBf16;
-    const bf16* a_base = kFromX ? xs + slot * kTileRows * kSBf16 : a_s + step * kBK;
-    const int la = kFromX ? kSBf16 : lda;
+    cp_async_wait<kSlotsBf16 - 2>();  // this thread's copies of `step` have landed
+    __syncthreads();                  // everyone's have, and slot (step - 1) is free
+    issue(step + kSlotsBf16 - 1);
+    const int slot = step % kSlotsBf16;
+    const bf16* a_base = kFromX ? xs + slot * kRowsBf16 * kSBf16 : h + step * kBK;
+    const int la = kFromX ? kSBf16 : ldh;
     const bf16* w_base = ws + slot * kBN * kSBf16;
 #pragma unroll
     for (int kk = 0; kk < kBK; kk += 16) {
-      uint32_t af[2][4];
+      uint32_t af[kMi][4];
 #pragma unroll
-      for (int mi = 0; mi < 2; ++mi)
-        ldsm_x4(af[mi], a_base + (wr * 32 + mi * 16 + (lane & 15)) * la + kk + (lane >> 4) * 8);
+      for (int mi = 0; mi < kMi; ++mi)
+        ldsm_x4(af[mi], a_base + (wr * 16 * kMi + mi * 16 + (lane & 15)) * la + kk + (lane >> 4) * 8);
 #pragma unroll
       for (int np = 0; np < 4; ++np) {
         uint32_t bf[4];  // b0, b1 of n-tile 2np, then of n-tile 2np + 1
         ldsm_x4(bf, w_base + (wc * 64 + np * 16 + (lane >> 4) * 8 + (lane & 7)) * kSBf16 + kk + ((lane >> 3) & 1) * 8);
 #pragma unroll
-        for (int mi = 0; mi < 2; ++mi) {
+        for (int mi = 0; mi < kMi; ++mi) {
           mma_bf16(acc[mi][2 * np], af[mi], bf[0], bf[1]);
           mma_bf16(acc[mi][2 * np + 1], af[mi], bf[2], bf[3]);
         }
       }
     }
   }
+}
 
+// The ReLU epilogue of columns n0..n0+255: packed bf16(relu(acc + bias)),
+// out[mi][ni][hf] = the pair of row (mi, hf) in n-tile ni.
+__device__ __forceinline__ void relu_pack(const float (&acc)[kMi][8][4], const float* __restrict__ bias, int n0,
+                                          uint32_t (&out)[kMi][8][2]) {
+  const int lane = threadIdx.x & 31, wc = (threadIdx.x >> 5) & 3;
 #pragma unroll
-  for (int mi = 0; mi < 2; ++mi) {
+  for (int mi = 0; mi < kMi; ++mi)
 #pragma unroll
-    for (int hf = 0; hf < 2; ++hf) {
-      const int row = wr * 32 + mi * 16 + gr + hf * 8;
-      if (kEpi == kEpiRelu) {
+    for (int ni = 0; ni < 8; ++ni) {
+      const int col = n0 + wc * 64 + ni * 8 + 2 * (lane & 3);
 #pragma unroll
-        for (int ni = 0; ni < 8; ++ni) {
-          const int col = n0 + wc * 64 + ni * 8 + 2 * q;
-          const float v0 = fmaxf(acc[mi][ni][2 * hf] + __ldg(bias + col), 0.f);
-          const float v1 = fmaxf(acc[mi][ni][2 * hf + 1] + __ldg(bias + col + 1), 0.f);
-          *reinterpret_cast<__nv_bfloat162*>(out + row * ldo + col) = __floats2bfloat162_rn(v0, v1);
-        }
-      } else {
-#pragma unroll
-        for (int ni = 0; ni < 4; ++ni) {
-          const int cu = n0 + wc * 64 + ni * 8 + 2 * q;  // u column; v is 32 further
-          float gv[2];
-#pragma unroll
-          for (int e = 0; e < 2; ++e)
-            gv[e] = gate<kEpi>(acc[mi][ni][2 * hf + e] + __ldg(bias + cu + e),
-                               acc[mi][ni + 4][2 * hf + e] + __ldg(bias + cu + 32 + e));
-          const int j = n0 / 2 + wc * 32 + ni * 8 + 2 * q;
-          *reinterpret_cast<__nv_bfloat162*>(out + row * ldo + j) = __floats2bfloat162_rn(gv[0], gv[1]);
-        }
+      for (int hf = 0; hf < 2; ++hf) {
+        const float v0 = fmaxf(acc[mi][ni][2 * hf] + __ldg(bias + col), 0.f);
+        const float v1 = fmaxf(acc[mi][ni][2 * hf + 1] + __ldg(bias + col + 1), 0.f);
+        const __nv_bfloat162 p = __floats2bfloat162_rn(v0, v1);
+        out[mi][ni][hf] = *reinterpret_cast<const uint32_t*>(&p);
       }
     }
-  }
+}
+
+// h[row][n0 + col] <- the packed pairs of relu_pack
+__device__ __forceinline__ void store_packed(const uint32_t (&v)[kMi][8][2], int n0, bf16* h, int ldh) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int wr = warp >> 2, wc = warp & 3;
+#pragma unroll
+  for (int mi = 0; mi < kMi; ++mi)
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf) {
+      const int row = wr * 16 * kMi + mi * 16 + (lane >> 2) + hf * 8;
+#pragma unroll
+      for (int ni = 0; ni < 8; ++ni)
+        *reinterpret_cast<uint32_t*>(h + row * ldh + n0 + wc * 64 + ni * 8 + 2 * (lane & 3)) = v[mi][ni][hf];
+    }
+}
+
+// GEMM2's stash. GEMM2 writes h2 over h1, so its first 256-column pass (at
+// H = 512) waits in packed bf16 until the second pass has read all of h1:
+// the second row block of the warp (mi >= kMi / 2) in registers, the first in
+// the x ring (stash_s [kStashSmem][threads], idle in GEMM2). A kernel runs
+// the trunk as K1 does (csrc/pool.cu): GEMM1 passes through relu_pack and
+// store_packed into h; GEMM2's first pass into stash_put; its second pass;
+// a barrier; stash_take and both passes' store_packed. (Wrapped in one
+// shared function, the same trunk costs K1 five more registers.)
+__device__ __forceinline__ void stash_put(const uint32_t (&packed)[kMi][8][2], uint32_t (&stash)[kMi / 2][8][2],
+                                          uint32_t* stash_s, int tid) {
+#pragma unroll
+  for (int mi = 0; mi < kMi / 2; ++mi)
+#pragma unroll
+    for (int ni = 0; ni < 8; ++ni)
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf) {
+        stash_s[((mi * 8 + ni) * 2 + hf) * kThreadsBf16 + tid] = packed[mi][ni][hf];
+        stash[mi][ni][hf] = packed[kMi / 2 + mi][ni][hf];
+      }
+}
+
+// first <- the pass that stash_put kept
+__device__ __forceinline__ void stash_take(uint32_t (&first)[kMi][8][2], const uint32_t (&stash)[kMi / 2][8][2],
+                                           const uint32_t* stash_s, int tid) {
+#pragma unroll
+  for (int mi = 0; mi < kMi / 2; ++mi)
+#pragma unroll
+    for (int ni = 0; ni < 8; ++ni)
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf) {
+        first[mi][ni][hf] = stash_s[((mi * 8 + ni) * 2 + hf) * kThreadsBf16 + tid];
+        first[kMi / 2 + mi][ni][hf] = stash[mi][ni][hf];
+      }
 }
 
 // ---------------------------------------------------------------------------
@@ -190,7 +246,6 @@ constexpr int kStages8 = 2;          // slices in flight in the cp.async ring
 constexpr int kLdAct = kTrunkH + 16;  // int8 activation row stride (bytes)
 constexpr int kLdH2 = kTrunkH + 8;    // bf16 h2 row stride (elements)
 constexpr int kGateCols = 256;       // interleaved [Wa|Wb] columns per gate pass
-constexpr int kColWarps = 4;
 
 __device__ __forceinline__ void mma_s8(int* c, const uint32_t* a, uint32_t b0, uint32_t b1) {
   asm volatile(

@@ -1,15 +1,17 @@
 // Pieces shared by the pooling-probe kernels csrc/pool_probe.cu (P1/P2/P5,
-// the bf16 ablation ladder) and csrc/pool_int8_probe.cu (P3/P4, the int8
-// chain variants): the probes' epilogue at T_PAD = 8 task columns. Per tile
-// of 64 GEMM rows (one bag's 64 rows, or 32 rows of each of two bags):
+// the bf16 ablation ladder, 128-row tiles) and csrc/pool_int8_probe.cu
+// (P3/P4, the int8 chain variants, 64-row tiles): the probes' epilogue at
+// T_PAD = 8 task columns. Per tile of R rows (one bag's R rows, or R / 2 rows
+// of each of two bags):
 //   - probe_stats: the per-(bag, task) online masked softmax of the raw
-//     scores s_s [64][8] (max, denominator, the rescale of the running sums),
+//     scores s_s [R][8] (max, denominator, the rescale of the running sums),
 //     or the plain running sum of min(s, 1) of the `nosoftmax` variant, and
-//     e rounded to bf16 into e_s [64][8];
-//   - probe_accumulate: acc[t][c] = acc * corr + sum_r e[r][t] h[r][c], in
-//     registers: thread i owns the columns 2i, 2i + 1 of every task (H = 512
-//     = 2 x 256 threads), reading h as bf16 pairs and e as broadcast rows;
-//   - probe_write_partials: each block's partial, merged by
+//     e rounded to bf16 into e_s [R][8]; rows at or past the bag's end N are
+//     not live, whatever the mask;
+//   - probe_fold: a[t][c] = a * corr + sum_r e[r][t] h[r][c] over one bag
+//     slot's rows: thread i owns the columns 2i, 2i + 1 of every task (H =
+//     512 = 2 x 256 threads), reading h as bf16 pairs and e as broadcast rows;
+//   - probe_write_partials: a block's partial held in registers, merged by
 //     pool_combine_kernel<8> (pool_common.cuh).
 // Everything sits in an anonymous namespace, as in pool_common.cuh.
 
@@ -35,20 +37,22 @@ __device__ __forceinline__ void probe_stats_init(float* stat) {
 }
 
 // Warp w takes the (bag slot, task) pairs w, w + 8, ...: the rows of slot
-// are slot * RB .. slot * RB + RB - 1 of the tile, rows row0.. of its bag,
-// whose mask starts at mb[slot]. Every row of the tile lies inside its bag.
-template <int NB, int kMode>
-__device__ __forceinline__ void probe_stats(const float* s_s, const float* const* mb, int row0, float* e_s,
+// are slot * RB .. slot * RB + RB - 1 of the tile (RB = R / NB), rows row0..
+// of its bag, whose mask starts at mask0 + slot * N. A row is live where it
+// lies inside the bag (row0 + rr < N) and its mask is positive.
+template <int R, int NB, int kMode>
+__device__ __forceinline__ void probe_stats(const float* s_s, const float* mask0, int N, int row0, float* e_s,
                                             float* stat) {
-  constexpr int RB = kTileRows / NB;
+  constexpr int RB = R / NB;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   for (int c = warp; c < NB * kTasks; c += kThreads / 32) {
     const int slot = c / kTasks, t = c % kTasks;
     float* st = stat + slot * kStatStride;
-    const float* m = mb[slot] + row0;
+    const float* m = mask0 + (size_t)slot * N + row0;
+    const int n = min(RB, N - row0);
     if (kMode == kModeSoftmax) {
       float mx = kNegInf;
-      for (int rr = lane; rr < RB; rr += 32)
+      for (int rr = lane; rr < n; rr += 32)
         if (m[rr] > 0.f) mx = fmaxf(mx, s_s[(slot * RB + rr) * kTasks + t]);
       mx = warp_max(mx);
       const float m_prev = st[t];
@@ -57,7 +61,7 @@ __device__ __forceinline__ void probe_stats(const float* s_s, const float* const
       float sum = 0.f;
       for (int rr = lane; rr < RB; rr += 32) {
         const int r = slot * RB + rr;
-        const float e = m[rr] > 0.f ? expf(s_s[r * kTasks + t] - m_safe) : 0.f;
+        const float e = rr < n && m[rr] > 0.f ? expf(s_s[r * kTasks + t] - m_safe) : 0.f;
         sum += e;
         e_s[r * kTasks + t] = bf16_round(e);
       }
@@ -72,7 +76,7 @@ __device__ __forceinline__ void probe_stats(const float* s_s, const float* const
       float sum = 0.f;
       for (int rr = lane; rr < RB; rr += 32) {
         const int r = slot * RB + rr;
-        const float e = m[rr] > 0.f ? fminf(s_s[r * kTasks + t], 1.f) : 0.f;
+        const float e = rr < n && m[rr] > 0.f ? fminf(s_s[r * kTasks + t], 1.f) : 0.f;
         sum += e;
         e_s[r * kTasks + t] = bf16_round(e);
       }
@@ -82,60 +86,52 @@ __device__ __forceinline__ void probe_stats(const float* s_s, const float* const
   }
 }
 
-// acc[slot][t][k] for column 2 * tid + k; kTrunk: e = 1 on every row (the
-// `trunkonly` variant's 1^T h, mask ignored), one task kept.
-template <int NB, bool kTrunk>
-__device__ __forceinline__ void probe_accumulate(float (&acc)[NB][kTasks][2], const float* e_s, const float* stat,
-                                                 const bf16* h, int ldh) {
-  constexpr int RB = kTileRows / NB;
+// a[t][k] for column 2 * tid + k over the first n rows of bag slot `slot`
+// (RB = R / NB rows a slot); kTrunk: e = 1 on each of those rows (the
+// `trunkonly` variant's 1^T h, mask ignored), one task kept in a[0].
+template <int R, int NB, bool kTrunk>
+__device__ __forceinline__ void probe_fold(float (&a)[kTasks][2], int slot, int n, const float* e_s,
+                                           const float* stat, const bf16* h, int ldh) {
+  constexpr int RB = R / NB;
   const int c0 = 2 * threadIdx.x;
+  if (!kTrunk) {
 #pragma unroll
-  for (int slot = 0; slot < NB; ++slot) {
-    if (!kTrunk) {
+    for (int t = 0; t < kTasks; ++t) {
+      const float corr = stat[slot * kStatStride + 2 * kTasks + t];
+      a[t][0] *= corr;
+      a[t][1] *= corr;
+    }
+  }
+  for (int rr = 0; rr < n; ++rr) {
+    const int r = slot * RB + rr;
+    const float2 hv = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(h + r * ldh + c0));
+    if (kTrunk) {
+      a[0][0] += hv.x;
+      a[0][1] += hv.y;
+    } else {
+      float e[kTasks];
+      load_row<kTasks>(e_s + r * kTasks, e);
 #pragma unroll
       for (int t = 0; t < kTasks; ++t) {
-        const float corr = stat[slot * kStatStride + 2 * kTasks + t];
-        acc[slot][t][0] *= corr;
-        acc[slot][t][1] *= corr;
-      }
-    }
-    for (int rr = 0; rr < RB; ++rr) {
-      const int r = slot * RB + rr;
-      const float2 hv = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(h + r * ldh + c0));
-      if (kTrunk) {
-        acc[slot][0][0] += hv.x;
-        acc[slot][0][1] += hv.y;
-      } else {
-        float e[kTasks];
-        load_row<kTasks>(e_s + r * kTasks, e);
-#pragma unroll
-        for (int t = 0; t < kTasks; ++t) {
-          acc[slot][t][0] = fmaf(e[t], hv.x, acc[slot][t][0]);
-          acc[slot][t][1] = fmaf(e[t], hv.y, acc[slot][t][1]);
-        }
+        a[t][0] = fmaf(e[t], hv.x, a[t][0]);
+        a[t][1] = fmaf(e[t], hv.y, a[t][1]);
       }
     }
   }
 }
 
-// The block's partial of bag bag0 + slot, split `split`: acc [8][H] at
-// part_acc[(bag * n_splits + split) * 8 * H], (max[8], denom[8]) at
-// part_stat[(bag * n_splits + split) * 16]. kTrunk writes its one task to all 8.
-template <int NB, bool kTrunk>
-__device__ __forceinline__ void probe_write_partials(const float (&acc)[NB][kTasks][2], const float* stat, int bag0,
+// The block's partial of bag `bag`, split `split`, from registers: acc [8][H]
+// at part_acc[(bag * n_splits + split) * 8 * H], (max[8], denom[8]) at
+// part_stat[(bag * n_splits + split) * 16].
+__device__ __forceinline__ void probe_write_partials(const float (&acc)[kTasks][2], const float* stat, int bag,
                                                      int split, int n_splits, float* part_acc, float* part_stat) {
   __syncthreads();
   const int c0 = 2 * threadIdx.x;
+  const size_t p = (size_t)bag * n_splits + split;
 #pragma unroll
-  for (int slot = 0; slot < NB; ++slot) {
-    const size_t p = (size_t)(bag0 + slot) * n_splits + split;
-#pragma unroll
-    for (int t = 0; t < kTasks; ++t) {
-      const int ts = kTrunk ? 0 : t;
-      *reinterpret_cast<float2*>(part_acc + (p * kTasks + t) * kTrunkH + c0) = make_float2(acc[slot][ts][0], acc[slot][ts][1]);
-    }
-    if (threadIdx.x < 2 * kTasks) part_stat[p * 2 * kTasks + threadIdx.x] = stat[slot * kStatStride + threadIdx.x];
-  }
+  for (int t = 0; t < kTasks; ++t)
+    *reinterpret_cast<float2*>(part_acc + (p * kTasks + t) * kTrunkH + c0) = make_float2(acc[t][0], acc[t][1]);
+  if (threadIdx.x < 2 * kTasks) part_stat[p * 2 * kTasks + threadIdx.x] = stat[threadIdx.x];
 }
 
 }  // namespace

@@ -66,10 +66,10 @@ _SIGNATURES = {
         ctypes.c_int,
     ),
     "toad_probe_pool_rows_per_tile": ([_i], ctypes.c_int),  # pair
-    "toad_probe_pool_smem_bytes": ([_i], ctypes.c_longlong),  # A
+    "toad_probe_pool_smem_bytes": ([], ctypes.c_longlong),
     "toad_probe_pool_forward": (
         [_i, _i, _p, _p, _i, _i, _i, _i, _i,  # variant, pair, x, mask, B, N, D, H, A
-         _p, _p, _p, _p, _p, _p, _p, _p,  # w1t, b1, w2t, b2, wabt, bab, wc, bc
+         _p, _p, _p, _p, _p, _p, _p, _p,  # w1t, b1, w2t, b2, wabt, bab, wct, bc
          _i, _i, _i,  # probe_tiles, tiles_per_split, n_splits
          _p, _p, _p, _p],  # part_acc, part_stat, out, stream
         ctypes.c_int,

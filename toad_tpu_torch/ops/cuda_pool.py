@@ -245,8 +245,8 @@ def _prepare(ops: PoolOperands, x: torch.Tensor, mask: torch.Tensor):
 
 def _splitter(compute_dtype: torch.dtype):
     """The default split plan of an instance: whole waves, since both the
-    bf16 and the f32 instance hold an SM with one CTA (as K2 does; the
-    probes keep :func:`split_plan`)."""
+    bf16 and the f32 instance hold an SM with one CTA (as K2 and the bf16
+    probe do; the int8 probe keeps :func:`split_plan`)."""
     return wave_split_plan
 
 

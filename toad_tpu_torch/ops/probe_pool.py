@@ -12,7 +12,11 @@ probes' T_PAD = 8 task columns: [B, 8, H] f32.
 :func:`plain_probe_pool` is the plain version, at the probe's rounding
 points; :func:`probe_pool` launches ``csrc/pool_probe.cu`` on CUDA tensors
 and raises on anything the kernel does not take (it never falls back to the
-plain version). :func:`probe_weights` draws the probes' weights.
+plain version). The kernel is K1's bf16 design (``csrc/pool.cu``): 128-row
+tiles (the pair: 64 rows of each of two bags), one CTA an SM, a 3-slot
+weight ring, the grid in whole waves; :func:`plan` and :func:`split` give
+its tile, threads, ring slots, shared memory and split. :func:`probe_weights`
+draws the probes' weights.
 """
 
 from __future__ import annotations
@@ -23,7 +27,7 @@ import numpy as np
 import torch
 
 from toad_tpu_torch.ops import _build
-from toad_tpu_torch.ops.cuda_pool import interleave_gate, split_plan
+from toad_tpu_torch.ops.cuda_pool import MAX_SMEM, interleave_gate, wave_split_plan
 from toad_tpu_torch.ops.pooling import NEG_INF
 
 T_PAD = 8  # the probes' task columns
@@ -38,7 +42,8 @@ INSTANCE_LAUNCHES = dict.fromkeys(KERNEL_VARIANTS, 0)  # the same, by kernel ins
 
 class ProbeOperands(NamedTuple):
     """The kernel's weights: bf16 [out, in], f32 biases, the rows of [Wa|Wb]
-    interleaved in groups of 32 (as K1's), Wc as [A, 8] bf16."""
+    interleaved in groups of 32 (as K1's), Wc transposed to [8, A] bf16 (the
+    score head's B operand on the tensor cores)."""
 
     w1: torch.Tensor  # [H, D]
     b1: torch.Tensor  # [H]
@@ -46,8 +51,20 @@ class ProbeOperands(NamedTuple):
     b2: torch.Tensor  # [H]
     wab: torch.Tensor  # [2A, H]
     bab: torch.Tensor  # [2A]
-    wc: torch.Tensor  # [A, 8]
+    wc: torch.Tensor  # [8, A]
     bc: torch.Tensor  # [8]
+
+
+class ProbePlan(NamedTuple):
+    """How the kernel runs an instance (``csrc/pool_probe.cu``'s
+    ``probe_layout``; ``toad_probe_pool_smem_bytes`` and
+    ``toad_probe_pool_rows_per_tile`` agree with it)."""
+
+    rows: int  # rows of a tile
+    rows_per_bag: int  # rows of each bag in a tile (the pair: half)
+    threads: int  # threads of a CTA
+    slots: int  # slots of the cp.async weight ring
+    smem: int  # dynamic shared memory of a CTA, bytes
 
 
 def instance(variant: str) -> str:
@@ -88,8 +105,39 @@ def pack_probe_params(params) -> ProbeOperands:
     def f32(t):
         return t.detach().to(torch.float32).contiguous()
 
-    return ProbeOperands(w(w1), f32(b1), w(w2), f32(b2), interleave_gate(w(wab)), interleave_gate(f32(bab)),
-                         wc.detach().to(torch.bfloat16).contiguous(), f32(bc))
+    return ProbeOperands(w(w1), f32(b1), w(w2), f32(b2), interleave_gate(w(wab)), interleave_gate(f32(bab)), w(wc),
+                         f32(bc))
+
+
+def _align16(n: int) -> int:
+    return (n + 15) & ~15
+
+
+def plan(pair: bool = False, h_dim: int = H, a_dim: int = A) -> ProbePlan:
+    """The kernel's plan: 128-row tiles of one bag, or 64 rows of each of two
+    for the pair; one region for h1 and h2 (rows of H + 8 bf16), the weight
+    ring of 3 slots of 256 x 40 bf16, the x ring (3 slots of 128 x 40 bf16,
+    or GEMM2's stash of 32 words a thread, or the score scratch: the column
+    warps' partial scores [4][128][8], s and e [128][8] in f32) and two bag
+    slots' statistics (max, denom, corr [8] each); Wc and the running sums
+    stay in device memory, so A does not enter. ValueError for widths the
+    kernel does not take."""
+    if h_dim != H or a_dim % 128 or not 0 < a_dim <= h_dim:
+        raise ValueError(f"widths H={h_dim}, A={a_dim} not supported: need H == {H}, A % 128 == 0 and A <= H")
+    rows, threads, slots, stride = 128, 256, 3, 40
+    parts = (2 * rows * (h_dim + 8), 2 * slots * 256 * stride,
+             max(2 * slots * rows * stride, 4 * 32 * threads, 4 * (4 + 2) * rows * T_PAD), 4 * 2 * 3 * T_PAD)
+    smem = sum(map(_align16, parts))
+    if smem > MAX_SMEM:
+        raise ValueError(f"a CTA would need {smem} B of shared memory, over the card's {MAX_SMEM}")
+    return ProbePlan(rows, rows // 2 if pair else rows, threads, slots, smem)
+
+
+def split(b_: int, n: int, pair: bool, n_sms: int) -> tuple[int, int]:
+    """(tiles_per_split, n_splits) of the kernel's grid: whole waves of one
+    CTA an SM (:func:`~toad_tpu_torch.ops.cuda_pool.wave_split_plan`) over
+    the B / 2 bag pairs of the pair instance, else the B bags."""
+    return wave_split_plan(b_ // 2 if pair else b_, n, plan(pair).rows_per_bag, n_sms)
 
 
 def _gate(u: torch.Tensor, v: torch.Tensor, kind: str) -> torch.Tensor:
@@ -144,8 +192,8 @@ def probe_pool(ops: ProbeOperands, x: torch.Tensor, mask: torch.Tensor, variant:
     if x.dim() != 3 or tuple(mask.shape) != tuple(x.shape[:2]):
         raise ValueError(f"need x [B, N, D] and mask [B, N], got {tuple(x.shape)} and {tuple(mask.shape)}")
     b_, n, d = x.shape
-    h_dim, a_dim = ops.w1.shape[0], ops.wc.shape[0]
-    if ops.w1.shape[1] != d or ops.wab.shape != (2 * a_dim, h_dim) or ops.wc.shape[1] != T_PAD:
+    h_dim, a_dim = ops.w1.shape[0], ops.wc.shape[1]
+    if ops.w1.shape[1] != d or ops.wab.shape != (2 * a_dim, h_dim) or ops.wc.shape[0] != T_PAD:
         raise ValueError(f"operand shapes do not fit D={d}, H={h_dim}, A={a_dim}, {T_PAD} task columns")
     if h_dim != H or d % 32 or a_dim % 128 or a_dim > h_dim:
         raise ValueError(f"widths D={d}, H={h_dim}, A={a_dim} not supported: need H == {H}, D % 32 == 0, "
@@ -153,7 +201,8 @@ def probe_pool(ops: ProbeOperands, x: torch.Tensor, mask: torch.Tensor, variant:
     if b_ == 0 or n == 0 or tile <= 0 or n % tile:
         raise ValueError(f"N={n} must be a positive multiple of the probe's tile {tile}")
     if n % 64:
-        raise ValueError(f"N={n} must be a multiple of the kernel's 64-row tile")
+        raise ValueError(f"N={n} must be a multiple of 64, the rows of each bag in the pair's tile (half the "
+                         "kernel's 128-row tile)")
     if kind == "b2" and b_ % 2:
         raise ValueError(f"the pair variant b2 takes bags two by two: B={b_} is odd")
     if x.device.type != "cuda":
@@ -167,8 +216,7 @@ def probe_pool(ops: ProbeOperands, x: torch.Tensor, mask: torch.Tensor, variant:
     dev = x.device
     lib = _build.load_library()
     pair = int(kind == "b2")
-    n_sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    per, n_splits = split_plan(b_ // (1 + pair), n, lib.toad_probe_pool_rows_per_tile(pair), n_sms)
+    per, n_splits = split(b_, n, bool(pair), torch.cuda.get_device_properties(dev).multi_processor_count)
     out = torch.empty((b_, T_PAD, h_dim), device=dev, dtype=torch.float32)
     part_acc = torch.empty((b_ * n_splits * T_PAD * h_dim,), device=dev, dtype=torch.float32)
     part_stat = torch.empty((b_ * n_splits * 2 * T_PAD,), device=dev, dtype=torch.float32)
@@ -191,9 +239,10 @@ def reset_launches() -> None:
         INSTANCE_LAUNCHES[k] = 0
 
 
-def smem_bytes(a_dim: int = A) -> int:
-    """Dynamic shared memory one block of the kernel takes."""
-    return int(_build.load_library().toad_probe_pool_smem_bytes(a_dim))
+def smem_bytes() -> int:
+    """Dynamic shared memory one block of the kernel takes, as the library
+    computes it (:func:`plan`'s ``smem`` must agree)."""
+    return int(_build.load_library().toad_probe_pool_smem_bytes())
 
 
 def ops_per_row(variant: str, d: int = D, h_dim: int = H, a_dim: int = A) -> int:
