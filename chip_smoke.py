@@ -28,7 +28,11 @@ Phases (each prints its lines; any failure raises and the exit code is not 0):
    bag, f32 and bf16, within K1's tolerances; then bag_sharded_pool as a
    caller uses it (the main path of K1p and the combine: their counts are
    set to 0 before and read after).
-   Then K2 (int8) vs plain_int8_pool on the same cases. Then K3 (the ViT
+   Then K2 (int8) vs plain_int8_pool on the same cases. Then an un-gated
+   ToadMIL (gate=False) in f32 at B=4 x 3,000 rows on the card, which pools
+   through the plain version there (ops/fused_pool.kernel_pools, as the JAX
+   package takes its XLA path), against the same forward on the CPU
+   (TOL_F32), K1 not launched. Then K3 (the ViT
    attention core) vs plain_mha at ViT-L/16 width (16 heads of 64), bf16 and
    f32, B=64 x 197 tokens and B=3 x 257 tokens (a ragged last query block),
    in bf16 also B=128 and B=8 x 197 (the ViT probes' shapes, phase 11),
@@ -168,7 +172,9 @@ Phases (each prints its lines; any failure raises and the exit code is not 0):
    TOL_PROBE; refused shapes raise without a launch; K1 at 2,048-row splits
    against its default plan and plain_pool on a bag of 131,072 rows; each
    instance timed against its plain version at B=32 x 8,192 with its
-   bound. Then the main path, each
+   bound (after phase 6 the bf16 ladder is logged as shares of P1 full
+   beside K1 bf16, the int8 one as shares of int8_chain beside K2). Then
+   the main path, each
    count from 0: ``toad_tpu_torch.experiments.mfu_probe.main()``,
    ``int8_probe.main()`` (and its two by-name variants) and
    ``longbag_probe.main()`` in process at their default sizes (B=32 x
@@ -454,12 +460,12 @@ def check_close(name: str, got: torch.Tensor, want: torch.Tensor, tol: dict) -> 
     return err.max().item()
 
 
-def seeded_model(seed: int):
+def seeded_model(seed: int, gate: bool = True):
     from toad_tpu_torch.config import ModelConfig
     from toad_tpu_torch.models.toad_mil import ToadMIL
 
     g = torch.Generator().manual_seed(seed)
-    model = ToadMIL(ModelConfig(in_dim=1024, n_classes=18), generator=g)
+    model = ToadMIL(ModelConfig(in_dim=1024, n_classes=18, gate=gate), generator=g)
     with torch.no_grad():  # reference init zeroes the biases; random ones exercise the bias paths
         for m in model.modules():
             if isinstance(m, torch.nn.Linear):
@@ -573,6 +579,13 @@ def phase_build(card: str) -> None:
         log(f"phase 2 build: bf16 probe {'pair (P2)' if pair else '(P1/P5)'} plan: {pp.rows} rows a tile "
             f"({pp.rows_per_bag} of each bag), {pp.threads} threads, {pp.slots} ring slots, {pp.smem} B of shared "
             "memory (the library agrees)")
+    pi8 = probe_pool_int8.plan(384)
+    if (pi8.rows, pi8.smem) != (lib.toad_probe_int8_rows_per_tile(), probe_pool_int8.smem_bytes()) \
+            or pi8.smem > cuda_pool.MAX_SMEM:
+        raise AssertionError(f"the int8 probe: the Python plan {pi8} disagrees with the library (rows "
+                             f"{lib.toad_probe_int8_rows_per_tile()}, smem {probe_pool_int8.smem_bytes()} B)")
+    log(f"phase 2 build: int8 probe (P3/P4) plan: {pi8.rows} rows a tile, {pi8.threads} threads, {pi8.slots} ring "
+        f"slots of {cuda_pool_int8.SLOT_BYTES} B (K2's stream), {pi8.smem} B of shared memory (the library agrees)")
     p8, lib_smem8 = cuda_pool_int8.plan(384), cuda_pool_int8.smem_bytes(384)
     if (p8.rows, p8.smem) != (lib.toad_pool_int8_rows_per_tile(), lib_smem8) or p8.smem > cuda_pool.MAX_SMEM:
         raise AssertionError(f"K2: the Python plan {p8} disagrees with the library (rows "
@@ -605,7 +618,7 @@ def phase_build(card: str) -> None:
                  **{f"probe_pool_kernelIL{g}ELi{m}ELi{nb}E": f"P{1 + (nb == 2)} {v} (128-row tiles, 8 warps)"
                     for g, m, nb, v in (("i0", 0, 1, "full"), ("i1", 0, 1, "exp2"), ("i2", 0, 1, "nogate"),
                                         ("i0", 1, 1, "nosoftmax"), ("in1", 2, 1, "trunkonly"), ("i0", 0, 2, "b2"))},
-                 **{f"probe_int8_kernelILi{i}ELi{r}E": f"P3/P4 {v}" for i, r, v in (
+                 **{f"probe_int8_kernelILi{i}ELi{r}E": f"P3/P4 {v} (K2's pass at 8 tasks)" for i, r, v in (
                      (0, 0, "int8_chain"), (0, 2, "int8_gemms"), (1, 0, "int8_inquant"),
                      (2, 1, "int8_inquant_bf16"), (3, 1, "int8_h_only"))}}
         name = next((v for k, v in names.items() if k in kernel), kernel)
@@ -829,6 +842,40 @@ def phase_compare_int8(model, seed: int) -> float:
             torch.cuda.synchronize()
             outs[scored] = (mk, sk, lk, mp, sp, lp)
         worst = max(worst, check_modes(f"{label} int8", mask, outs, (TOL_INT8_M, TOL_INT8_S, TOL_INT8_LOGITS)))
+    return worst
+
+
+@restores_tf32
+def phase_compare_ungated(seed: int) -> float:
+    """An un-gated ToadMIL's eval forward on the card, where it pools through
+    the plain version (ops/fused_pool.kernel_pools, as the JAX package takes
+    its XLA path), against the same forward on the CPU: f32 (TF32 off), B=4
+    x 3,000 rows with a ragged and a short bag, in scored mode; K1 must not
+    launch. Returns the largest error."""
+    from toad_tpu_torch.ops import cuda_pool
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    model = seeded_model(seed + 4, gate=False).eval()
+    g = torch.Generator().manual_seed(seed + 4)
+    x = torch.randn(4, 3000, 1024, generator=g)
+    mask = (torch.rand(4, 3000, generator=g) < 0.9).float()
+    mask[1, 700:] = 0.0
+    sex = torch.tensor([0, 1, 1, 0])
+    with torch.inference_mode():
+        want = model(x, mask, sex)
+    model.cuda()
+    before = cuda_pool.LAUNCHES
+    with torch.inference_mode():
+        got = model(x.cuda(), mask.cuda(), sex.cuda())
+        torch.cuda.synchronize()
+    if cuda_pool.LAUNCHES != before:
+        raise AssertionError("the un-gated forward launched K1, which computes the gated variant only")
+    live = mask[:, None, :].expand_as(want.attention) > 0
+    worst = max(check_close(f"un-gated forward {k}", getattr(got, k).cpu(), getattr(want, k), TOL_F32)
+                for k in ("logits", "y_prob", "site_logits", "features"))
+    worst = max(worst, check_close("un-gated forward attention", got.attention.cpu()[live], want.attention[live], TOL_F32))
+    log(f"phase 3 compare un-gated ToadMIL f32 B=4 N=3000 on the card (the plain version there) vs the CPU: max abs err "
+        f"{worst:.2e} (tolerance {TOL_F32}), K1 launches {cuda_pool.LAUNCHES - before}")
     return worst
 
 
@@ -1147,20 +1194,35 @@ POOL_AB_SPLIT = (1, 131072)
 POOL_AB_PROBE = (4, 4096)
 
 
+# the int8 probe's ladder in --pool-ab and after phase 6: (minuend, subtrahend, what the difference is)
+INT8_LADDER = (("int8_chain", "int8_gemms", "K2's requantization"),
+               ("int8_inquant", "int8_chain", "x quantized in the kernel"),
+               ("int8_inquant_bf16", "int8_inquant", "the bf16 quantizer against the f32 one"),
+               ("int8_h_only", "int8_inquant_bf16", "a bf16 GEMM1 against int8"))
+
+
+def int8_ladder(ms: dict, k2_ms: float) -> str:
+    """The int8 probe's instances as x K2, and its ladder as shares of
+    int8_chain, from ``ms`` {variant: ms} at B=32 x 8,192."""
+    chain = ms["int8_chain"]
+    return (", ".join(f"{v} {t:.3f} ms = {t / k2_ms:.2f} x K2" for v, t in ms.items()) + "; the ladder as shares of "
+            "int8_chain: " + ", ".join(f"{a} - {b} ({what}) {100 * (ms[a] - ms[b]) / chain:+.1f} %"
+                                       for a, b, what in INT8_LADDER))
+
+
 def time_pool(seed: int = 0) -> dict:
-    """The bf16 probe's instances (the subject) and K1 bf16 beside them at
-    B=32 x 8,192 (the probes' shape: mask all ones, the probe's tile of
-    1,024 rows; K1 with 90 % of the rows live), on seeded inputs (CUDA
-    events, 5 readings of one launch): what ``--pool-ab`` compares across
-    trees. Saves K2's M in classification mode
-    at POOL_AB_SHAPES and P1 full's output at POOL_AB_PROBE under
-    _work/pool_ab/ and returns its path, and a sha256 of every output that
-    must be the same bits in both trees: K2's scores at every shape, K2's M
-    under :func:`~toad_tpu_torch.ops.cuda_pool.split_plan`'s split (passed
-    where the package's ``pool_int8`` takes a split, else its own default),
-    and the controls K1 bf16 and f32 in both modes at every shape, K1p in
-    both dtypes, P6 and P4 int8_chain. Also ptxas's lines of K1 bf16, the
-    bf16 probe and K2 where this process built them."""
+    """The int8 probe's instances (the subject) and K2 in classification
+    mode beside them at B=32 x 8,192 (the probes' shape, mask all ones), on
+    seeded inputs (CUDA events, 5 readings of one launch): what ``--pool-ab``
+    compares across trees. Saves K2's M in classification mode at
+    POOL_AB_SHAPES and each int8 probe instance's output at POOL_AB_PROBE
+    under _work/pool_ab/ and returns its path, and a sha256 of every output
+    that must be the same bits in both trees: K2's scores at every shape,
+    K2's M under :func:`~toad_tpu_torch.ops.cuda_pool.split_plan`'s split
+    (passed where the package's ``pool_int8`` takes a split, else its own
+    default), and the controls K1 bf16 and f32 in both modes at every shape,
+    K1p in both dtypes, P6 and P1 full. Also ptxas's lines of K2 and the
+    int8 probe where this process built them."""
     import hashlib
     import inspect
 
@@ -1204,11 +1266,6 @@ def time_pool(seed: int = 0) -> dict:
                     digests[f"K1 {str(dt)[6:]} {shape} M"] = digest(m)
                     if scored:
                         digests[f"K1 {str(dt)[6:]} {shape} scores"] = digest(s)
-            if (b, n) == (32, 8192):
-                xb = x.to(torch.bfloat16)
-                out[f"K1 bf16 classification B={b} N={n} ms"] = cuda_ms(
-                    lambda: cuda_pool.pool(ops[torch.bfloat16], xb, mask, False))
-                del xb
             del x, xq
         b, n = POOL_AB_PARTIAL
         x, mask = inputs(b, n)
@@ -1223,26 +1280,36 @@ def time_pool(seed: int = 0) -> dict:
         del x
         x, mask = inputs(*POOL_AB_PROBE)
         mask[1] = 0.0
-        params, params_pos, qp, _, _ = probe_operands(seed, dev)
-        probe_ops = probe_pool.pack_probe_params(params)
+        params, _, qp, qp_h, _ = probe_operands(seed, dev)
         tag = f"B={POOL_AB_PROBE[0]} N={POOL_AB_PROBE[1]}"
-        saved[f"P1 full {tag} tile 1024"] = probe_pool.probe_pool(probe_ops, x.to(torch.bfloat16), mask, "full", 1024)
-        xq, sx = quantize_rows(x)
-        digests[f"P4 int8_chain {tag}"] = digest(
-            probe_pool_int8.probe_pool_int8(probe_pool_int8.pack_probe_qparams(qp), xq, sx, mask, "int8_chain"))
-        del x, xq
-        # the subject: every instance of the bf16 probe at the probes' shape
-        x = torch.randn(32, 8192, 1024, device=dev, generator=g).to(torch.bfloat16)
+        digests[f"P1 full {tag} tile 1024"] = digest(
+            probe_pool.probe_pool(probe_pool.pack_probe_params(params), x.to(torch.bfloat16), mask, "full", 1024))
+        qops = {False: probe_pool_int8.pack_probe_qparams(qp), True: probe_pool_int8.pack_probe_qparams(qp_h)}
+
+        def int8_args(v, x):
+            return qops[v == "int8_h_only"], *(quantize_rows(x) if v in probe_pool_int8.PREQUANTIZED
+                                                else (x.to(torch.bfloat16), None))
+
+        for v in probe_pool_int8.VARIANTS:
+            o, xin, sx = int8_args(v, x)
+            saved[f"{'P4' if v in probe_pool_int8.PREQUANTIZED else 'P3'} {v} {tag}"] = probe_pool_int8.probe_pool_int8(
+                o, xin, sx, mask, v)
+        del x
+        # the subject: every instance of the int8 probe, and K2 beside them, at the probes' shape
+        x = torch.randn(32, 8192, 1024, device=dev, generator=g)
         ones = torch.ones(32, 8192, device=dev)
-        ops_pos = probe_pool.pack_probe_params(params_pos)
-        for v in probe_pool.KERNEL_VARIANTS:
-            o = ops_pos if v == "nosoftmax" else probe_ops
-            out[f"probe {v} B=32 N=8192 ms"] = cuda_ms(lambda o=o, v=v: probe_pool.probe_pool(o, x, ones, v, 1024))
+        xq, sx = quantize_rows(x)
+        out["K2 classification B=32 N=8192 ms"] = cuda_ms(lambda: cuda_pool_int8.pool_int8(ops8, xq, sx, ones, False))
+        del xq, sx
+        for v in probe_pool_int8.VARIANTS:
+            o, xin, sxv = int8_args(v, x)
+            out[f"probe {v} B=32 N=8192 ms"] = cuda_ms(
+                lambda o=o, xin=xin, sxv=sxv, v=v: probe_pool_int8.probe_pool_int8(o, xin, sxv, ones, v))
+            del xin, sxv
         del x
     torch.cuda.synchronize()
     out["ptxas"] = [f"{name}: {line}" for kernel, line in ptxas_lines(_build.build_log)
-                    for key, name in (("pool_kernel_bf16", "K1 bf16"), ("probe_pool_kernel", kernel),
-                                      ("pool_int8_kernel", "K2")) if key in kernel]
+                    for key, name in (("pool_int8_kernel", "K2"), ("probe_int8_kernel", kernel)) if key in kernel]
     path = REPO / "_work" / "pool_ab" / f"outputs_{os.getpid()}.pt"
     path.parent.mkdir(parents=True, exist_ok=True)
     torch.save({k: v.cpu() for k, v in saved.items()}, path)
@@ -1252,44 +1319,47 @@ def time_pool(seed: int = 0) -> dict:
 
 
 def pool_ab(parent: Path, gpu: str) -> None:
-    """The bf16 probe of another tree against this one's: :func:`time_pool`
+    """The int8 probe of another tree against this one's: :func:`time_pool`
     in each (:func:`ab_runs`). Every digest must be the same bits in both
     trees, K2's M under each tree's default split within TOL_INT8_M of the
-    parent's (the splits differ: e is rounded to bf16 against other running
-    maxes), and P1 full within TOL_PROBE of the parent's (the probe's design
-    moved: other tiles, splits and summation orders). Logs each tree's ptxas
-    lines and, for each run, the ladder as K1's split."""
+    parent's (the splits may differ: e is rounded to bf16 against other
+    running maxes), and each int8 probe instance within TOL_PROBE of the
+    parent's output (logged: whether it is the parent's bits). Logs each
+    tree's ptxas lines and, for each run, each instance as x K2 and the
+    ladder as shares of int8_chain."""
+    from toad_tpu_torch.ops.probe_pool_int8 import VARIANTS
+
     runs = ab_runs("--time-pool", "pool", parent, gpu)
     for label, r in runs:
         for line in r["ptxas"]:
             log(f"pool A/B {label} tree: ptxas {line}")
-        full = r["probe full B=32 N=8192 ms"]
-        log(f"pool A/B {label} tree: P1 full {full:.3f} ms = {full / r['K1 bf16 classification B=32 N=8192 ms']:.2f} x "
-            "K1 bf16; the ladder as shares of full: " + ", ".join(
-                f"full - {v} {100 * (full - r[f'probe {v} B=32 N=8192 ms']) / full:+.1f} %"
-                for v in ("nogate", "nosoftmax", "trunkonly", "exp2")) + f" [{gpu}]")
+        k2_ms = r["K2 classification B=32 N=8192 ms"]
+        log(f"pool A/B {label} tree: K2 {k2_ms:.3f} ms; " + int8_ladder(
+            {v: r[f"probe {v} B=32 N=8192 ms"] for v in VARIANTS}, k2_ms) + f" [{gpu}]")
     want = runs[0][1]["digests"]
     for label, r in runs[1:]:
         differ = sorted(k for k in want if r["digests"].get(k) != want[k])
         if differ or r["digests"].keys() != want.keys():
             raise AssertionError(f"pool A/B: the {label} tree's outputs differ from the parent's at {differ}")
     ref = torch.load(runs[0][1]["saved"])
-    worst = {}
+    worst, same_bits = {}, {}
     for label, r in runs[1:]:
         got = torch.load(r["saved"])
         if got.keys() != ref.keys():
             raise AssertionError(f"pool A/B: the {label} tree saved {sorted(got)}, the parent {sorted(ref)}")
         for key, want_t in ref.items():
-            if key.startswith("P1"):
+            if key.startswith(("P3", "P4")):
                 err = check_probe(f"pool A/B {label} {key}", got[key], want_t, TOL_PROBE)[1]
+                same_bits[key] = same_bits.get(key, True) and torch.equal(got[key], want_t)
             else:
                 err = check_close(f"pool A/B {label} {key}", got[key], want_t, TOL_INT8_M)
             worst[key] = max(worst.get(key, 0.0), err)
-    log("pool A/B: " + "; ".join(f"{k} {v:.3e}" for k, v in worst.items()) + " against the parent's (K2 under each "
-        f"tree's default split: max abs err, tolerance {TOL_INT8_M}; P1 full: the largest error of a task row relative "
-        f"to its largest |output|, tolerance {TOL_PROBE})")
+    log("pool A/B: " + "; ".join(f"{k} {v:.3e}{' (the parent bits)' if same_bits.get(k) else ''}"
+                                 for k, v in worst.items()) + " against the parent's (K2 under each tree's default "
+        f"split: max abs err, tolerance {TOL_INT8_M}; P3/P4: the largest error of a task row relative to its largest "
+        f"|output|, tolerance {TOL_PROBE})")
     log(f"pool A/B: all {len(want)} digests (K2's scores at every shape and its M at split_plan's split; K1 bf16 and "
-        "f32 in both modes at every shape, K1p in both dtypes, P6, P4 int8_chain) equal the parent's in all four runs")
+        "f32 in both modes at every shape, K1p in both dtypes, P6, P1 full) equal the parent's in all four runs")
 
 
 def _post(url: str, data: bytes, headers: dict) -> dict:
@@ -3981,8 +4051,7 @@ def phase_probes(seed: int, gpu: str) -> dict:
     import io
 
     from toad_tpu_torch.experiments import int8_probe, longbag_probe, mfu_probe
-    from toad_tpu_torch.ops import _build, cuda_pool, probe_pool, probe_pool_int8
-    from toad_tpu_torch.ops.cuda_pool import split_plan
+    from toad_tpu_torch.ops import cuda_pool, probe_pool, probe_pool_int8
     from toad_tpu_torch.ops.fused_pool import plain_pool
     from toad_tpu_torch.ops.quantize import quantize_rows
 
@@ -4088,10 +4157,10 @@ def phase_probes(seed: int, gpu: str) -> dict:
         # (the running max and sums rescaled across tiles) and some blocks of the ragged bag see only padding:
         # bag 0 ragged, bag 1 fully masked, bag 3 live on 2,500 rows
         bt, nt = 32, 8192
-        lib, n_sms = _build.load_library(), torch.cuda.get_device_properties(dev).multi_processor_count
+        n_sms = torch.cuda.get_device_properties(dev).multi_processor_count
         plans = {"single-bag instances": probe_pool.split(bt, nt, False, n_sms),
                  "b2 (64 + 64 rows a tile)": probe_pool.split(bt, nt, True, n_sms),
-                 "int8": split_plan(bt, nt, lib.toad_probe_int8_rows_per_tile(), n_sms)}
+                 "int8": probe_pool_int8.split(bt, nt, n_sms)}
         if min(per for per, _ in plans.values()) < 2:
             raise AssertionError(f"the compare at B={bt} N={nt} runs one row tile a block: {plans}")
         xt = torch.randn(bt, nt, 1024, device=dev, generator=g).to(torch.bfloat16)
@@ -4481,10 +4550,10 @@ def main() -> int:
                          "required to be the same bits")
     ap.add_argument("--time-stage", type=Path, metavar="ROOT", help=argparse.SUPPRESS)
     ap.add_argument("--pool-ab", type=Path, metavar="PARENT",
-                    help="only phases 1-2 and the K2 comparisons of phase 3, then the bf16 probe's instances and K1 "
-                         "bf16 of the package checkout PARENT timed against this tree's (parent, this, this, parent), "
-                         "K2's scores, its M at the parent's split and the controls (K1, K1p, P6, P4 int8_chain) "
-                         "required to be the same bits, K2's M and P1 full close to the parent's")
+                    help="only phases 1-2 and the K2 comparisons of phase 3, then the int8 probe's instances and K2 "
+                         "of the package checkout PARENT timed against this tree's (parent, this, this, parent), "
+                         "K2's scores, its M at the parent's split and the controls (K1, K1p, P6, P1 full) "
+                         "required to be the same bits, K2's M and the int8 probe's outputs close to the parent's")
     ap.add_argument("--time-pool", type=Path, metavar="ROOT", help=argparse.SUPPRESS)
     ap.add_argument("--mesh-cards", action="store_true",
                     help="only phases 1-2, then the mesh with each cell on its own card (two or more cards)")
@@ -4537,6 +4606,7 @@ def main() -> int:
     worst_partial, worst_sharded = phase_compare_partial(model, args.seed)
     sharded = drive_bag_sharded(model, args.seed)
     worst8 = phase_compare_int8(model, args.seed)
+    phase_compare_ungated(args.seed)
     worst_mha = phase_compare_mha(args.seed)
     elapsed("phase 3")
     with tempfile.TemporaryDirectory(prefix="toad_smoke_") as tmp:
@@ -4588,6 +4658,10 @@ def main() -> int:
         f"({k1_ms:.3f} ms in phase 6); " + ", ".join(
             f"full - {v} {pt['full'] - pt[v]:+.3f} ms ({100 * (pt['full'] - pt[v]) / pt['full']:+.1f} % of full)"
             for v in ("nogate", "nosoftmax", "trunkonly", "exp2")) + f"; b2 {pt['b2']:.3f} ms [{gpu}]")
+    k2_ms = times[("int8", 32)]["ms"]
+    log(f"phase 10 ladder as K2's split, B=32 x 8,192 (K2 {k2_ms:.3f} ms in phase 6): " + int8_ladder(
+        {v: pt[v] for v in ("int8_chain", "int8_gemms", "int8_inquant", "int8_inquant_bf16", "int8_h_only")}, k2_ms)
+        + f" [{gpu}]")
     for label, res in (("bf16 compute", served), ("int8", served8)):
         log(f"phase 6 timing serve ({label}): {res['rps']:.2f} requests/s, p50 latency {res['p50'] * 1e3:.1f} ms "
             f"over a burst of 24 concurrent requests (3,000-60,000 patches, default 5 ms batching window, "

@@ -26,9 +26,13 @@ from toad_tpu.ops.fused_pool import fused_trunk_attention_pool as jax_pool
 from toad_tpu.ops.pallas_pool import pallas_pool_partial, xla_pool_partial
 from toad_tpu.parallel.bag_shard import bag_sharded_pool as jax_bag_sharded_pool
 from toad_tpu_torch.ops import _build, cuda_pool
-from toad_tpu_torch.ops.fused_pool import fused_pool_partial, plain_pool, plain_pool_partial
+from toad_tpu_torch.config import ModelConfig as PortModelConfig
+from toad_tpu_torch.models.interop import params_from_jax
+from toad_tpu_torch.models.toad_mil import ToadMIL
+from toad_tpu_torch.ops.fused_pool import fused_pool_partial, kernel_pools, plain_pool, plain_pool_partial
 from toad_tpu_torch.ops.pooling import NEG_INF
 from toad_tpu_torch.parallel.bag_shard import bag_sharded_pool, combine_partial_pool, plain_combine_partial_pool
+from toad_tpu_torch.parallel.mesh import make_mesh
 
 D, B, N = 64, 2, 512
 
@@ -165,8 +169,82 @@ def test_ungated_params_pool_on_the_cpu_and_are_refused_by_the_kernel_packing(se
     mesh = Mesh(np.array(jax.devices()[:4]), ("bag",))
     want = jax_bag_sharded_pool(ungated, jnp.asarray(x), jnp.asarray(mask), mesh, compute_dtype=jnp.float32)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5, atol=1e-5)
-    with pytest.raises(NotImplementedError, match="un-gated"):  # what a CUDA call would hit first
+    with pytest.raises(NotImplementedError, match="un-gated"):  # kernel_pools keeps every caller from it
         cuda_pool.pack_params(_t(ungated), torch.bfloat16)
+
+
+def _ungated(p):
+    return {"trunk": p["trunk"], "attn": {k: v for k, v in p["attn"].items() if k != "b"}}
+
+
+def _port_model(p, gate):
+    model = ToadMIL(PortModelConfig(in_dim=D, n_classes=5, gate=gate))
+    full = jax.tree.map(np.asarray, JaxToadMIL(ModelConfig(in_dim=D, n_classes=5, gate=gate)).init(jax.random.PRNGKey(1)))
+    full["trunk"], full["attn"] = p["trunk"], p["attn"]
+    model.load_state_dict(params_from_jax(full))
+    return model.eval(), full
+
+
+def test_kernel_route_sends_ungated_params_to_the_plain_version(setup, monkeypatch):
+    """The one routing predicate: gated params reach the kernel's packing
+    where a pool runs on the card, un-gated ones never do (the plain version
+    pools them there, as the JAX package's XLA path); on the CPU neither
+    packs. The packing itself runs on CPU weights, so this needs no card."""
+    p, _, _ = setup
+    assert kernel_pools(_t(p)) and not kernel_pools(_t(_ungated(p)))
+    packed = []
+    real_pack = cuda_pool.pack_linears
+    monkeypatch.setattr(cuda_pool, "pack_linears", lambda lins, dt: packed.append(dt) or real_pack(lins, dt))
+    cuda = torch.device("cuda")
+    gated, _ = _port_model(p, gate=True)
+    with torch.no_grad():
+        ops = gated._operands_on(cuda, torch.bfloat16)
+        assert isinstance(ops, cuda_pool.PoolOperands) and packed == [torch.bfloat16]
+        assert gated._operands_on(torch.device("cpu"), torch.bfloat16) is None and len(packed) == 1
+        ungated, _ = _port_model(_ungated(p), gate=False)
+        assert ungated._operands_on(cuda, torch.float32) is None and len(packed) == 1
+    assert not _build.is_loaded()
+
+
+@pytest.fixture(scope="module")
+def ungated_jax(setup):
+    """The JAX package's un-gated bag_sharded_pool (4 virtual devices) and
+    ToadMIL(gate=False) forward on the setup's bags, and the port's model."""
+    p, x, mask = setup
+    pooled = jax_bag_sharded_pool(_ungated(p), jnp.asarray(x), jnp.asarray(mask),
+                                  Mesh(np.array(jax.devices()[:4]), ("bag",)), compute_dtype=jnp.float32)
+    model, full = _port_model(_ungated(p), gate=False)
+    out = JaxToadMIL(ModelConfig(in_dim=D, n_classes=5, gate=False)).apply(
+        full, jnp.asarray(x), jnp.asarray(mask), jnp.asarray(np.array([0, 1])))
+    return np.asarray(pooled), out, model
+
+
+@pytest.mark.parametrize("form", ["n_shards", "mesh"])
+def test_ungated_model_and_bag_sharded_pool_match_jax(setup, ungated_jax, form):
+    """An un-gated model pools through the routing's plain path: the eval
+    forward (one piece, and on a (1, 4) mesh through the partial pool and the
+    combine) against the JAX ToadMIL(gate=False), and bag_sharded_pool in 4
+    shards (on one device, or a mesh of the CPU repeated) against the JAX
+    bag_sharded_pool on 4 virtual devices; f32, the gated tests' 1e-5."""
+    p, x, mask = setup
+    want, ref, model = ungated_jax
+    tx, tm, sex = torch.from_numpy(x), torch.from_numpy(mask), torch.tensor([0, 1])
+    mesh = make_mesh(1, 4, devices=[torch.device("cpu")] * 4)
+    got = bag_sharded_pool(_t(_ungated(p)), tx, tm, **({"n_shards": 4} if form == "n_shards" else {"mesh": mesh}),
+                           compute_dtype=torch.float32)
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-5)
+    with torch.no_grad():
+        if form == "n_shards":
+            out = model(tx, tm, sex)
+        else:
+            from toad_tpu_torch.parallel.sharding import shard_batch
+
+            batch = {"features": tx, "patch_mask": tm, "sex": sex, "bag_mask": torch.ones(B),
+                     "label": torch.zeros(B, dtype=torch.long), "site": torch.zeros(B, dtype=torch.long)}
+            out = model.forward_sharded(shard_batch(batch, mesh))
+    np.testing.assert_allclose(out.logits.numpy(), np.asarray(ref.logits), rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(out.features.numpy(), np.asarray(ref.features), rtol=1e-5, atol=1e-5)
+    assert not _build.is_loaded()
 
 
 @pytest.mark.cuda

@@ -197,7 +197,7 @@ def test_model_packs_kernel_operands_once(params):
     with pytest.raises(RuntimeError, match="forward-only"):
         model.kernel_operands(torch.float32)
     ungated = ToadMIL(PortModelConfig(in_dim=D, gate=False))
-    with torch.no_grad(), pytest.raises(NotImplementedError, match="ROADMAP"):
+    with torch.no_grad(), pytest.raises(NotImplementedError, match="kernel_pools routes un-gated params"):
         ungated.kernel_operands(torch.float32)
 
 

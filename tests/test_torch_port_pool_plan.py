@@ -7,8 +7,8 @@ of 64 x 64 warp tiles and its f32 instance on 64-row tiles with 8 warps of
 instance's rows, threads, ring slots and shared memory as the library
 computes them (``chip_smoke.py`` phase 2 asserts that the two agree on the
 card), and refuses a width whose layout does not fit a CTA. Both grids fill
-whole waves of one CTA an SM (``wave_split_plan``), as K2's does; the probes
-keep ``split_plan``. No card is needed: the plans are arithmetic, and the 3xTF32
+whole waves of one CTA an SM (``wave_split_plan``), as K2's and the probes'
+do. No card is needed: the plans are arithmetic, and the 3xTF32
 numerics are modelled here on the CPU.
 """
 
@@ -134,7 +134,7 @@ def test_wave_split_plan_is_the_fewest_tile_times(b, n):
 
 def test_default_split_plans_by_instance():
     """Both instances hold an SM with one CTA and take whole waves, as K2
-    does; the probes keep split_plan (each calls it with its own row tile)."""
+    and the probes do; split_plan stays for callers that ask for it."""
     assert cuda_pool._splitter(BF16) is cuda_pool.wave_split_plan
     assert cuda_pool._splitter(F32) is cuda_pool.wave_split_plan
     assert cuda_pool.split_plan(1, 40960, 64, N_SMS) == (2, 320)  # several blocks an SM, as before

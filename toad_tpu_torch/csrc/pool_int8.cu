@@ -46,7 +46,11 @@
 // reads at one chunk fall in 8 different bank groups for 64- and 128-byte
 // rows alike. The plan (rows, threads, slots, shared memory) is
 // ops/cuda_pool_int8.plan, the slice sequence its stream_schedule; the grid
-// fills whole waves of one CTA an SM (cuda_pool.wave_split_plan).
+// fills whole waves of one CTA an SM (cuda_pool.wave_split_plan). The
+// stream's and the requantization's pieces (swz, stage_slice, trunk_slice,
+// gate_slice, requant_rows with quant_row) are in pool_trunk.cuh, shared with
+// the int8 probe (csrc/pool_int8_probe.cu); the cursor and the tile loop are
+// this kernel's own.
 //
 // The requantization quantizes with the row's reciprocal: v * (1/scale)
 // and two Newton steps on the remainder, all fma, give the IEEE quotient
@@ -77,21 +81,8 @@
 
 namespace {
 
-constexpr int kR8 = kTileRows;          // rows per tile
-constexpr int kH8 = kTrunkH;            // trunk width: one GEMM pass covers a whole row
-constexpr int kRing8 = 3;               // slots of the weight ring: two slices in flight
-constexpr int kSlot8 = 32768;           // a weight slot: 512 trunk rows x 64 B or 256 gate rows x 128 B
-constexpr int kXSlot8 = kR8 * kBK8;     // an x slot: 64 rows x 64 B
-constexpr int kGateBK8 = 128;           // reduction depth (bytes) of a gate slice
-constexpr int kW2Slices = kH8 / kBK8;   // 8
-constexpr int kGateSlices = kH8 / kGateBK8;  // 4 a gate pass
-static_assert(kH8 * kBK8 == kSlot8 && kGateCols * kGateBK8 == kSlot8, "both slice shapes fill a slot");
-static_assert(kSlot8 / 16 == 8 * kThreads && kXSlot8 / 16 == kThreads, "16-byte chunks per thread");
-
-// The slots' swizzle: byte offset -> stored offset, the 16-byte chunk index
-// (bits 4-6) XOR the 128-byte line index mod 8 (bits 7-9). It keeps each
-// 1 KB block in place, so swz(a + 1024 m) = swz(a) + 1024 m.
-__device__ __forceinline__ int swz(int off) { return off ^ ((off >> 3) & 0x70); }
+constexpr int kR8 = kTileRows;  // rows per tile
+constexpr int kH8 = kTrunkH;    // trunk width: one GEMM pass covers a whole row
 
 struct Layout8 {
   size_t ws, xs, act, h2, wc, rs, amax, spart, s, e, acc, stat, total;
@@ -114,176 +105,6 @@ __host__ __device__ inline Layout8 layout8(int A) {
   L.stat = o;  o = align16(o + sizeof(float) * 8);
   L.total = o;
   return L;
-}
-
-// Slice s of a tile's stream into a weight slot (and, for W1, an x slot):
-//   s < n1:            W1 rows 0..511, bytes 64 s.. (and x rows row0.., the same bytes; rows past N zero)
-//   s < n1 + 8:        W2 rows 0..511, bytes 64 (s - n1)..
-//   else j = s - n1 - 8: [Wa|Wb] rows 256 (j / 4).., bytes 128 (j % 4)..
-// Chunk i of a slot is 16 bytes at swz(16 i): 4 chunks a 64-B row, 8 a
-// 128-B row. Commits nothing.
-__device__ __forceinline__ void stage_slice(int s, int n1, int row0, const u8* __restrict__ w1, int D,
-                                            const u8* __restrict__ w2, const u8* __restrict__ wab,
-                                            const u8* __restrict__ xb, int N, u8* wslot, u8* xslot) {
-  const int tid = threadIdx.x;
-  const int off = swz(16 * tid);  // this thread's chunk in each 4 KB of a slot
-  if (s < n1 + kW2Slices) {
-    const bool first = s < n1;
-    const u8* wt = first ? w1 : w2;
-    const int kb = first ? D : kH8, k0 = (first ? s : s - n1) * kBK8;
-#pragma unroll
-    for (int it = 0; it < 8; ++it) {
-      const int r = (tid >> 2) + 64 * it;
-      cp_async16(wslot + off + 4096 * it, wt + (size_t)r * kb + k0 + (tid & 3) * 16, 16);
-    }
-    if (first) {
-      const int r = tid >> 2;
-      const bool ok = row0 + r < N;
-      cp_async16(xslot + off, ok ? xb + (size_t)(row0 + r) * D + k0 + (tid & 3) * 16 : xb, ok ? 16 : 0);
-    }
-  } else {
-    const int j = s - n1 - kW2Slices;
-    const u8* wt = wab + (size_t)(j / kGateSlices) * kGateCols * kH8 + (j % kGateSlices) * kGateBK8;
-#pragma unroll
-    for (int it = 0; it < 8; ++it) {
-      const int r = (tid >> 3) + 32 * it;
-      cp_async16(wslot + off + 4096 * it, wt + (size_t)r * kH8 + (tid & 7) * 16, 16);
-    }
-  }
-}
-
-// acc += A[64, 64 B] . W[512, 64 B]^T for one trunk slice: A the swizzled x
-// slot (kFromX) or act's bytes k0.., W the swizzled weight slot. Warp (wr,
-// wc) owns rows wr*32 + mi*16 + {g, g+8} and columns wc*128 + ni*8 + 2q (+1),
-// the fragment layout of pool_trunk.cuh's gemm8.
-template <bool kFromX>
-__device__ __forceinline__ void trunk_slice(int (&acc)[2][16][4], const u8* a, int k0, const u8* w) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int wr = warp / kColWarps, wc = warp % kColWarps;
-  const int br = (lane >> 4) * 8 + (lane & 7);  // the lane's row of the 16 an x4 B load reads
-#pragma unroll
-  for (int kk = 0; kk < kBK8; kk += 32) {
-    uint32_t af[2][4];
-#pragma unroll
-    for (int mi = 0; mi < 2; ++mi) {
-      const int r = wr * 32 + mi * 16, k = kk + (lane >> 4) * 16;
-      ldsm_x4(af[mi], kFromX ? a + r * kBK8 + swz((lane & 15) * kBK8 + k)
-                             : a + (r + (lane & 15)) * kLdAct + k0 + k);
-    }
-    const u8* wl = w + wc * 128 * kBK8 + swz(br * kBK8 + kk + ((lane >> 3) & 1) * 16);
-#pragma unroll
-    for (int np = 0; np < 8; ++np) {
-      uint32_t bf[4];  // b0, b1 of n-tile 2np, then of n-tile 2np + 1
-      ldsm_x4(bf, wl + np * 16 * kBK8);
-#pragma unroll
-      for (int mi = 0; mi < 2; ++mi) {
-        mma_s8(acc[mi][2 * np], af[mi], bf[0], bf[1]);
-        mma_s8(acc[mi][2 * np + 1], af[mi], bf[2], bf[3]);
-      }
-    }
-  }
-}
-
-// acc += h2q[64, bytes k0..k0+127] . W[256 gate rows, 128 B]^T for one gate
-// slice; warp wc owns the pass's columns wc*64 + ni*8 + 2q (+1).
-__device__ __forceinline__ void gate_slice(int (&acc)[2][8][4], const u8* act, int k0, const u8* w) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int wr = warp / kColWarps, wc = warp % kColWarps;
-  const int br = (lane >> 4) * 8 + (lane & 7);
-#pragma unroll
-  for (int kk = 0; kk < kGateBK8; kk += 32) {
-    uint32_t af[2][4];
-#pragma unroll
-    for (int mi = 0; mi < 2; ++mi)
-      ldsm_x4(af[mi], act + (wr * 32 + mi * 16 + (lane & 15)) * kLdAct + k0 + kk + (lane >> 4) * 16);
-    const u8* wl = w + wc * 64 * kGateBK8 + swz(br * kGateBK8 + kk + ((lane >> 3) & 1) * 16);
-#pragma unroll
-    for (int np = 0; np < 4; ++np) {
-      uint32_t bf[4];
-      ldsm_x4(bf, wl + np * 16 * kGateBK8);
-#pragma unroll
-      for (int mi = 0; mi < 2; ++mi) {
-        mma_s8(acc[mi][2 * np], af[mi], bf[0], bf[1]);
-        mma_s8(acc[mi][2 * np + 1], af[mi], bf[2], bf[3]);
-      }
-    }
-  }
-}
-
-// The JAX quantizer's q = clip(rne(fl(v / scale)), +-127) from the row's
-// reciprocal inv = fl(1 / scale), without a division or a branch: fl(v *
-// inv) is within 1.5 ulp of v / scale; one Newton step on the remainder
-// (fma: v - q scale, then q + r inv) makes it faithful, and a second gives
-// fl(v / scale) itself (Markstein: inv correctly rounded, q within an ulp;
-// no underflow matters, since a quotient under 1/2 rounds to 0 either way).
-__device__ __forceinline__ int quant_row(float v, float scale, float inv) {
-  float y = __fmul_rn(v, inv);
-  y = __fmaf_rn(__fmaf_rn(-y, scale, v), inv, y);
-  y = __fmaf_rn(__fmaf_rn(-y, scale, v), inv, y);
-  return __float2int_rn(clamp127(rintf(y)));
-}
-
-// Trunk epilogue over all 512 columns: h = relu(dequant(acc)), h2 (kToH2)
-// rounded to bf16 for the pooling, then the row quantizer into act and the
-// rows' scales into rs. Each row's amax: the max over its quad of lanes,
-// each column warp's into amax_s [4][64], and after one barrier the max of
-// the four in column-warp order; the values are quantized from registers
-// into act, in place of the GEMM's own input.
-template <bool kToH2>
-__device__ __forceinline__ void requant_rows(int (&acc)[2][16][4], const float* __restrict__ s_col,
-                                             const float* __restrict__ bias, float* rs, float* amax_s, u8* act,
-                                             bf16* h2) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int g = lane >> 2, q = lane & 3;
-  const int wr = warp / kColWarps, wc = warp % kColWarps;
-  float v[2][16][4];
-#pragma unroll
-  for (int mi = 0; mi < 2; ++mi) {
-#pragma unroll
-    for (int hf = 0; hf < 2; ++hf) {
-      const int row = wr * 32 + mi * 16 + g + hf * 8;
-      const float s_row = rs[row];
-      float mx = 0.f;
-#pragma unroll
-      for (int ni = 0; ni < 16; ++ni) {
-        const int col = wc * 128 + ni * 8 + 2 * q;
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const float h = fmaxf(dequant(acc[mi][ni][2 * hf + e], s_row, __ldg(s_col + col + e), __ldg(bias + col + e)), 0.f);
-          v[mi][ni][2 * hf + e] = h;
-          mx = fmaxf(mx, h);
-        }
-        if (kToH2)
-          *reinterpret_cast<__nv_bfloat162*>(h2 + row * kLdH2 + col) =
-              __floats2bfloat162_rn(v[mi][ni][2 * hf], v[mi][ni][2 * hf + 1]);
-      }
-      // the four lanes of a quad hold the same row
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
-      if (q == 0) amax_s[wc * kR8 + row] = mx;
-    }
-  }
-  // every row's amax is known, and every warp has finished reading act (the
-  // GEMM's input) and rs
-  __syncthreads();
-#pragma unroll
-  for (int mi = 0; mi < 2; ++mi) {
-#pragma unroll
-    for (int hf = 0; hf < 2; ++hf) {
-      const int row = wr * 32 + mi * 16 + g + hf * 8;
-      const float amax = fmaxf(fmaxf(amax_s[row], amax_s[kR8 + row]), fmaxf(amax_s[2 * kR8 + row], amax_s[3 * kR8 + row]));
-      const float scale = row_scale<kReqF32>(amax);
-      const float inv = __fdiv_rn(1.f, scale);
-#pragma unroll
-      for (int ni = 0; ni < 16; ++ni) {
-        const int col = wc * 128 + ni * 8 + 2 * q;
-        const int q0 = quant_row(v[mi][ni][2 * hf], scale, inv);
-        const int q1 = quant_row(v[mi][ni][2 * hf + 1], scale, inv);
-        *reinterpret_cast<uint16_t*>(act + row * kLdAct + col) = static_cast<uint16_t>((q0 & 0xff) | ((q1 & 0xff) << 8));
-      }
-      if (wc == 0 && q == 0) rs[row] = scale;
-    }
-  }
 }
 
 __global__ void __launch_bounds__(kThreads, 1)
@@ -345,7 +166,7 @@ pool_int8_kernel(const int8_t* __restrict__ xq, const float* __restrict__ sx, co
   int p_tile = tile, p_s = 0, p_slot = 0, c_slot = 0;
   auto issue = [&]() {
     if (p_tile < t_end)
-      stage_slice(p_s, n1, p_tile * kR8, w1, D, w2, wab, xb, N, ws + p_slot * kSlot8, xs + p_slot * kXSlot8);
+      stage_slice<true>(p_s, n1, p_tile * kR8, w1, D, w2, wab, xb, N, ws + p_slot * kSlot8, xs + p_slot * kXSlot8);
     cp_async_commit();  // one group a slice, empty past the last tile: the wait count holds
     p_slot = p_slot == kRing8 - 1 ? 0 : p_slot + 1;
     if (++p_s == n_slices) {
@@ -381,9 +202,9 @@ pool_int8_kernel(const int8_t* __restrict__ xq, const float* __restrict__ sx, co
         for (int e = 0; e < 4; ++e) acc[mi][ni][e] = 0;
     for (int s = 0; s < n1; ++s) {
       const int slot = step();
-      trunk_slice<true>(acc, xs + slot * kXSlot8, 0, ws + slot * kSlot8);
+      trunk_slice<true>(acc, xs + slot * kXSlot8, 0, 0, ws + slot * kSlot8);
     }
-    requant_rows<false>(acc, sw1, b1, rs, amax_s, act, nullptr);
+    requant_rows<kReqF32, false>(acc, sw1, b1, rs, amax_s, act, nullptr);
     // h2 = relu(dequant(h1q W2q)) -> h2 (bf16) and act (int8), rs <- its row scales
 #pragma unroll
     for (int mi = 0; mi < 2; ++mi)
@@ -393,9 +214,9 @@ pool_int8_kernel(const int8_t* __restrict__ xq, const float* __restrict__ sx, co
         for (int e = 0; e < 4; ++e) acc[mi][ni][e] = 0;
     for (int s = 0; s < kW2Slices; ++s) {
       const int slot = step();
-      trunk_slice<false>(acc, act, s * kBK8, ws + slot * kSlot8);
+      trunk_slice<false>(acc, act, kLdAct, s * kBK8, ws + slot * kSlot8);
     }
-    requant_rows<true>(acc, sw2, b2, rs, amax_s, act, h2);
+    requant_rows<kReqF32, true>(acc, sw2, b2, rs, amax_s, act, h2);
     // scores from the gate, pass by pass
     float sacc[2][2][2] = {};
     for (int n0 = 0; n0 < 2 * A; n0 += kGateCols) {

@@ -10,43 +10,53 @@
 //     uv = dequant(h2q [Wa|Wb]q); gated = bf16(tanh(u) * sigmoid(v))
 //     s  = gated Wc_bf16 + bc [rows, 8]; online masked softmax, e and h2
 //          rounded to bf16 before e^T h2.
-// The row quantizers, each the probe's own:
+// The row quantizers, each the probe's own (pool_trunk.cuh's Requant):
 //   f32  (_requant_rows):      scale = max(amax, 1e-6) / 127,
-//                              q = clip(rne(y / scale), +-127);
-//   bf16 (_requant_rows_bf16): inv = bf16(127 / max(amax, 1e-6)),
+//                              q = clip(rne(y / scale), +-127), the IEEE
+//                              quotient from the row's reciprocal and two
+//                              Newton steps (K2's quant_row);
+//   bf16 (_requant_rows_bf16): inv = bf16(127 / max(amax, 1e-6)) once a row,
 //                              q = clip(rne(bf16(bf16(y) * inv)), +-127),
 //                              scale = amax / 127 (f32);
 //   none (requant=False):      q = the f32 -> int8 cast, truncated toward
 //                              zero and saturated to [-128, 127], scale 1:
 //                              wrong numerics by design, the probe's bound
 //                              on what the requantization costs.
-// Every step is an explicitly rounded multiply, divide or add (no FMA
-// contraction), so the integers of all three GEMMs equal those of the plain
-// version (ops/probe_pool_int8.py).
+// Every dequantization step is an explicitly rounded multiply or add (no
+// FMA contraction), so the integers of all three GEMMs equal those of the
+// plain version (ops/probe_pool_int8.py).
 //
 // What bounds it on an H100: ~2.4 MOP per 1024-d row against 1 KB of int8
-// (2 KB of bf16) input: tensor-core bound, as K2. The design is the one K2
-// (csrc/pool_int8.cu) had before its one weight stream and its division-free
-// quantizer, and so are its GEMM and epilogues (pool_trunk.cuh:
-// gemm8, requant_epilogue with the quantizer as a template parameter,
-// gate_epilogue and reduce_scores at 8 task columns): one GEMM pass over all
-// 512 trunk columns so that each row's amax is known in registers (quad
-// shuffles, then a shared atomicMax on the float bits across the four column
-// warps), int8 mma.sync m16n8k32 fed by ldmatrix, weights from L2 through a
-// 2-deep cp.async ring, gated values folded into per-thread partial scores.
-// What the variants add:
-//   - in-kernel quantization of x: a warp per row reads the 64 bf16 rows
-//     (registers hold a whole row), takes the row's amax with one warp
-//     reduction and writes the int8 tile into shared memory, into the buffer
-//     that h2 takes later in the tile (64 x (D + 16) bytes = 66,560 at D =
-//     1024, the size of the bf16 h2 tile), so the variant costs no shared
-//     memory; GEMM1 then reads its A operand from there;
-//   - h_only: GEMM1 runs bf16 mma.sync m16n8k16 over the same byte layout
-//     (a 64-byte slice is 32 bf16 or 64 int8 values, and the ldmatrix
-//     addresses of the two fragment layouts coincide), f32 accumulators;
+// (2 KB of bf16) input: tensor-core bound, as K2.
+//
+// The design is K2's pass (csrc/pool_int8.cu), so that the ladder of the
+// variants splits K2's time: 64-row tiles of 8 warps as 2 (rows) x 4
+// (columns), each trunk GEMM one pass over all 512 columns; the weights one
+// stream of 32 KB slices a tile through a 3-slot swizzled cp.async ring,
+// whose cursor and step counter run on across GEMM1, GEMM2, the gate passes
+// and into the next tile; the requantization over K2's [4][64] amax scratch;
+// the grid in whole waves of one CTA an SM (ops/cuda_pool.wave_split_plan).
+// The stream, GEMMs and epilogues are K2's own code (pool_trunk.cuh:
+// stage_slice, trunk_slice, gate_slice, requant_rows with the quantizer as a
+// template argument, gate_epilogue and reduce_scores at 8 task columns).
+// What each variant stages and adds:
+//   - int8_chain, int8_gemms: K2's own stream, D/64 W1 slices each with the
+//     x tile's 64 bytes;
+//   - int8_inquant, int8_inquant_bf16: W1 slices without x. At each tile's
+//     start a warp per row reads the 64 bf16 rows (a whole row in
+//     registers), takes the row's amax with one warp reduction and writes
+//     the int8 tile into the h2 buffer (64 x (D + 16) bytes = 66,560 at D =
+//     1024, the bf16 h2 tile's size), from where GEMM1 reads its A operand;
+//   - int8_h_only: 2D/64 bf16 W1 slices, each with 64 bytes (32 values) of
+//     the bf16 x tile, through mma.sync m16n8k16 (trunk_slice's bf16 form:
+//     the ldmatrix addresses are the int8 ones), f32 sums;
 //   - 8 task columns: partial scores [2][2][8] a thread, summed over the
 //     quad and the four column warps in a fixed order, then the probes'
-//     epilogue at 64 rows a tile (probe_common.cuh).
+//     epilogue at 64 rows a tile (probe_common.cuh). Wc [A][8] is read from
+//     device memory (16 bytes a row), and the running sums acc [8][H] live in
+//     the CTA's own slot of part_acc, the partial the combine reads: each
+//     tile reads and writes its 16 KB (L2-resident) in the pass that folds
+//     e^T h2, so that no register holds them across the trunk.
 //
 // Layout contract (ops/probe_pool_int8.py prepares it): x [B, N, D] int8
 // with sx [B, N] f32, or bf16; mask [B, N] f32, N a multiple of 64; W1 int8
@@ -60,34 +70,40 @@ namespace {
 
 enum Input { kPreQ = 0, kQuantF32 = 1, kQuantBf16 = 2, kHOnly = 3 };
 
-struct Layout8 {
-  size_t ws, xs, act, h2, wc, rs, rmax, spart, s, e, stat, total;
+// The weight and x rings (swizzled, from a 1 KB boundary), h1q/h2q, the h2
+// tile in bf16 (before GEMM1 the x tile quantized in the kernel, [64][D +
+// 16]), the row scales, each column warp's row amax, the column warps'
+// partial scores, s and e [64][8], the softmax statistics [24]. Wc and the
+// running sums stay in device memory, so A does not enter.
+struct ProbeLayout8 {
+  size_t ws, xs, act, h2, rs, amax, spart, s, e, stat, total;
 };
 
-__host__ __device__ inline Layout8 layout8(int A) {
-  Layout8 L;
+__host__ __device__ inline ProbeLayout8 probe_layout8() {
+  ProbeLayout8 L;
   size_t o = 0;
-  L.ws = o;    o = align16(o + (size_t)kStages8 * kTrunkH * kS8);
-  L.xs = o;    o = align16(o + (size_t)kStages8 * kTileRows * kS8);
+  L.ws = o;    o = align16(o + (size_t)kRing8 * kSlot8);
+  L.xs = o;    o = align16(o + (size_t)kRing8 * kXSlot8);
   L.act = o;   o = align16(o + (size_t)kTileRows * kLdAct);
-  L.h2 = o;    o = align16(o + sizeof(bf16) * kTileRows * kLdH2);  // also the quantized x tile
-  L.wc = o;    o = align16(o + sizeof(float) * kTasks * A);
+  L.h2 = o;    o = align16(o + sizeof(bf16) * kTileRows * kLdH2);
   L.rs = o;    o = align16(o + sizeof(float) * kTileRows);
-  L.rmax = o;  o = align16(o + sizeof(float) * 2 * kTileRows);
+  L.amax = o;  o = align16(o + sizeof(float) * kColWarps * kTileRows);
   L.spart = o; o = align16(o + sizeof(float) * kColWarps * kTileRows * kTasks);
-  L.s = o;     o = align16(o + sizeof(float) * kTasks * kTileRows);
-  L.e = o;     o = align16(o + sizeof(float) * kTasks * kTileRows);
+  L.s = o;     o = align16(o + sizeof(float) * kTileRows * kTasks);
+  L.e = o;     o = align16(o + sizeof(float) * kTileRows * kTasks);
   L.stat = o;  o = align16(o + sizeof(float) * kStatStride);
   L.total = o;
   return L;
 }
+static_assert(2 * kThreads == kTrunkH, "a thread owns two columns of every task");
 
-// The x tile quantized in the kernel: a warp per row holds the row's D bf16
-// values (D / 256 16-byte chunks a lane, D <= 1024), takes its amax and
-// writes int8 into xq [64][D + 16] and the row's scale into rs.
-template <int kIn>
+// The x tile quantized in the kernel with the row quantizer kReq: a warp per
+// row holds the row's D bf16 values (D / 256 16-byte chunks a lane, D <=
+// 1024), takes its amax and writes int8 into xq [64][D + 16] and the row's
+// scale into rs. (Two or four rows of a warp in flight made ptxas spill
+// 152-488 bytes and the variants slower: PERF.md §6.)
+template <int kReq>
 __device__ __forceinline__ void quantize_tile(const bf16* __restrict__ xb, int D, int row0, u8* xq, float* rs) {
-  constexpr int kReq = kIn == kQuantBf16 ? kReqBf16 : kReqF32;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int n_chunks = D / 256;
   for (int r = warp; r < kTileRows; r += kThreads / 32) {
@@ -107,7 +123,7 @@ __device__ __forceinline__ void quantize_tile(const bf16* __restrict__ xb, int D
       }
     }
     mx = warp_max(mx);
-    const float scale = row_scale<kReq>(mx);
+    const float scale = row_scale<kReq>(mx), inv = row_inv<kReq>(mx, scale);
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       if (i < n_chunks) {
@@ -116,8 +132,8 @@ __device__ __forceinline__ void quantize_tile(const bf16* __restrict__ xb, int D
 #pragma unroll
         for (int k = 0; k < 4; ++k) {
           const float2 f = __bfloat1622float2(p[k]);
-          const uint32_t pair = (uint32_t)(quant<kReq>(f.x, mx, scale) & 0xff) |
-                                ((uint32_t)(quant<kReq>(f.y, mx, scale) & 0xff) << 8);
+          const uint32_t pair = (uint32_t)(quant<kReq>(f.x, scale, inv) & 0xff) |
+                                ((uint32_t)(quant<kReq>(f.y, scale, inv) & 0xff) << 8);
           w[k / 2] |= pair << (16 * (k % 2));
         }
         *reinterpret_cast<uint2*>(xq + r * (D + 16) + (i * 32 + lane) * 8) = make_uint2(w[0], w[1]);
@@ -135,79 +151,142 @@ probe_int8_kernel(const void* __restrict__ x, const float* __restrict__ sx, cons
                   const float* __restrict__ b2, const int8_t* __restrict__ wabt, const float* __restrict__ swab,
                   const float* __restrict__ bab, const bf16* __restrict__ wc, const float* __restrict__ bc,
                   int tiles_per_split, float* __restrict__ part_acc, float* __restrict__ part_stat) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  const Layout8 L = layout8(A);
+  constexpr bool kWithX = kIn == kPreQ || kIn == kHOnly;       // x slices ride along with W1's
+  constexpr bool kQuantX = kIn == kQuantF32 || kIn == kQuantBf16;  // x quantized here, GEMM1's A in h2's buffer
+  using Acc1 = typename std::conditional<kIn == kHOnly, float, int>::type;
+  extern __shared__ __align__(1024) unsigned char smem[];
+  const ProbeLayout8 L = probe_layout8();
   u8* ws = smem + L.ws;
   u8* xs = smem + L.xs;
   u8* act = smem + L.act;
   bf16* h2 = reinterpret_cast<bf16*>(smem + L.h2);
   u8* xq_s = smem + L.h2;  // the x tile quantized in the kernel, [64][D + 16]
-  float* wc_s = reinterpret_cast<float*>(smem + L.wc);
   float* rs = reinterpret_cast<float*>(smem + L.rs);
-  float* rmax = reinterpret_cast<float*>(smem + L.rmax);
+  float* amax_s = reinterpret_cast<float*>(smem + L.amax);
   float* spart = reinterpret_cast<float*>(smem + L.spart);
   float* s_s = reinterpret_cast<float*>(smem + L.s);
   float* e_s = reinterpret_cast<float*>(smem + L.e);
   float* stat = reinterpret_cast<float*>(smem + L.stat);
 
-  const int tid = threadIdx.x;
+  const int tid = threadIdx.x, c0 = 2 * tid;
   const int split = blockIdx.x, n_splits = gridDim.x, b = blockIdx.y;
-  const int xbytes = kIn == kPreQ ? 1 : 2;
-  const u8* xb = static_cast<const u8*>(x) + (size_t)b * N * D * xbytes;
+  const int kb1 = kIn == kHOnly ? 2 * D : D;  // bytes of a W1 row, and of an x row where x rides along
+  const u8* xb = static_cast<const u8*>(x) + (size_t)b * N * (kIn == kPreQ ? D : 2 * D);
   const u8* w1 = static_cast<const u8*>(w1t);
   const u8* w2 = reinterpret_cast<const u8*>(w2t);
   const u8* wab = reinterpret_cast<const u8*>(wabt);
+  float* acc_g = part_acc + ((size_t)b * n_splits + split) * kTasks * kTrunkH;  // the block's running acc [8][H]
 
-  for (int i = tid; i < kTasks * A; i += kThreads) wc_s[i] = __bfloat162float(wc[i]);
-  probe_stats_init<1, kModeSoftmax>(stat);
-  float acc[kTasks][2];
 #pragma unroll
-  for (int t = 0; t < kTasks; ++t) acc[t][0] = acc[t][1] = 0.f;
+  for (int t = 0; t < kTasks; ++t) *reinterpret_cast<float2*>(acc_g + t * kTrunkH + c0) = make_float2(0.f, 0.f);
+  probe_stats_init<1, kModeSoftmax>(stat);
 
-  const int n_tiles = N / kTileRows;
-  const int t_end = min(n_tiles, (split + 1) * tiles_per_split);
-  for (int tile = split * tiles_per_split; tile < t_end; ++tile) {
+  const int t0 = split * tiles_per_split, t_end = min(N / kTileRows, t0 + tiles_per_split);
+  const int n1 = kb1 / kBK8;
+  const int n_slices = n1 + kW2Slices + (2 * A / kGateCols) * kGateSlices;
+
+  // The stream, as K2's: the producer's cursor (tile, slice of the tile,
+  // slot) runs two slices ahead of the consumers' slot; both wrap into the
+  // next tile.
+  int p_tile = t0, p_s = 0, p_slot = 0, c_slot = 0;
+  auto issue = [&]() {
+    if (p_tile < t_end)
+      stage_slice<kWithX>(p_s, n1, p_tile * kTileRows, w1, kb1, w2, wab, xb, N, ws + p_slot * kSlot8,
+                          xs + p_slot * kXSlot8);
+    cp_async_commit();  // one group a slice, empty past the last tile: the wait count holds
+    p_slot = p_slot == kRing8 - 1 ? 0 : p_slot + 1;
+    if (++p_s == n_slices) {
+      p_s = 0;
+      ++p_tile;
+    }
+  };
+  // waits for the consumers' next slice and returns its slot; issues the
+  // slice two ahead into the slot every warp has just finished with
+  auto step = [&]() {
+    cp_async_wait<kRing8 - 2>();  // this thread's copies of the slice have landed
+    __syncthreads();              // everyone's have, and the slot before it is free
+    issue();
+    const int slot = c_slot;
+    c_slot = c_slot == kRing8 - 1 ? 0 : c_slot + 1;
+    return slot;
+  };
+#pragma unroll
+  for (int i = 0; i < kRing8 - 1; ++i) issue();
+
+  for (int tile = t0; tile < t_end; ++tile) {
     const int row0 = tile * kTileRows;
-    __syncthreads();  // the last tile's pooling has read h2 (the quantized x tile's buffer)
-    if (tid < kTileRows) {
-      rmax[tid] = 0.f;
-      rmax[kTileRows + tid] = 0.f;
-      if (kIn == kPreQ) rs[tid] = sx[(size_t)b * N + row0 + tid];
+    if constexpr (kQuantX) {
+      __syncthreads();  // the last tile's pooling has read h2, whose buffer takes the quantized x tile
+      quantize_tile<kReq>(reinterpret_cast<const bf16*>(xb), D, row0, xq_s, rs);
+    } else if constexpr (kIn == kPreQ) {
+      if (tid < kTileRows) rs[tid] = sx[(size_t)b * N + row0 + tid];
     }
     // h1 -> act (int8), rs <- its row scales
-    if constexpr (kIn == kHOnly) {
-      float acc1[2][16][4];
-      gemm8<16, true, true>(acc1, w1, 2 * D, 0, nullptr, 0, xb, N, 2 * D, row0, ws, xs);
-      requant_epilogue<kReq, false>(acc1, nullptr, b1, rs, rmax, act, nullptr);
-    } else if constexpr (kIn == kPreQ) {
-      int acc1[2][16][4];
-      gemm8<16, true, false>(acc1, w1, D, 0, nullptr, 0, xb, N, D, row0, ws, xs);
-      requant_epilogue<kReq, false>(acc1, sw1, b1, rs, rmax, act, nullptr);
-    } else {
-      quantize_tile<kIn>(reinterpret_cast<const bf16*>(xb), D, row0, xq_s, rs);
-      int acc1[2][16][4];
-      gemm8<16, false, false>(acc1, w1, D, 0, xq_s, D + 16, nullptr, N, 0, row0, ws, xs);
-      requant_epilogue<kReq, false>(acc1, sw1, b1, rs, rmax, act, nullptr);
+    {
+      Acc1 acc[2][16][4];
+#pragma unroll
+      for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+        for (int ni = 0; ni < 16; ++ni)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[mi][ni][e] = 0;
+      for (int s = 0; s < n1; ++s) {
+        const int slot = step();
+        if constexpr (kQuantX)
+          trunk_slice<false>(acc, xq_s, D + 16, s * kBK8, ws + slot * kSlot8);
+        else
+          trunk_slice<true>(acc, xs + slot * kXSlot8, 0, 0, ws + slot * kSlot8);
+      }
+      requant_rows<kReq, false>(acc, sw1, b1, rs, amax_s, act, nullptr);
     }
     // h2 -> h2 (bf16) and act (int8), rs <- its row scales
     {
-      int acc2[2][16][4];
-      gemm8<16, false, false>(acc2, w2, kTrunkH, 0, act, kLdAct, nullptr, N, 0, row0, ws, xs);
-      requant_epilogue<kReq, true>(acc2, sw2, b2, rs, rmax + kTileRows, act, h2);
+      int acc[2][16][4];
+#pragma unroll
+      for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+        for (int ni = 0; ni < 16; ++ni)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[mi][ni][e] = 0;
+      for (int s = 0; s < kW2Slices; ++s) {
+        const int slot = step();
+        trunk_slice<false>(acc, act, kLdAct, s * kBK8, ws + slot * kSlot8);
+      }
+      requant_rows<kReq, true>(acc, sw2, b2, rs, amax_s, act, h2);
     }
     // scores from the gate, pass by pass
     float sacc[2][2][kTasks] = {};
     for (int n0 = 0; n0 < 2 * A; n0 += kGateCols) {
       int accg[2][8][4];
-      gemm8<8, false, false>(accg, wab, kTrunkH, n0, act, kLdAct, nullptr, N, 0, row0, ws, xs);
-      gate_epilogue<kTasks>(accg, n0, rs, swab, bab, wc_s, sacc);
+#pragma unroll
+      for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+        for (int ni = 0; ni < 8; ++ni)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) accg[mi][ni][e] = 0;
+      for (int s = 0; s < kGateSlices; ++s) {
+        const int slot = step();
+        gate_slice(accg, act, s * kGateBK8, ws + slot * kSlot8);
+      }
+      gate_epilogue<kTasks>(accg, n0, rs, swab, bab, wc, sacc);
     }
     reduce_scores<kTasks>(sacc, spart, bc, s_s, nullptr, b, N, row0);
     probe_stats<kTileRows, 1, kModeSoftmax>(s_s, mask + (size_t)b * N, N, row0, e_s, stat);
-    __syncthreads();
-    probe_fold<kTileRows, 1, false>(acc, 0, kTileRows, e_s, stat, h2, kLdH2);
+    __syncthreads();  // e and the statistics are in place
+    float a[kTasks][2];
+#pragma unroll
+    for (int t = 0; t < kTasks; ++t) {
+      const float2 v = *reinterpret_cast<const float2*>(acc_g + t * kTrunkH + c0);
+      a[t][0] = v.x;
+      a[t][1] = v.y;
+    }
+    probe_fold<kTileRows, 1, false>(a, 0, kTileRows, e_s, stat, h2, kLdH2);
+#pragma unroll
+    for (int t = 0; t < kTasks; ++t) *reinterpret_cast<float2*>(acc_g + t * kTrunkH + c0) = make_float2(a[t][0], a[t][1]);
   }
-  probe_write_partials(acc, stat, b, split, n_splits, part_acc, part_stat);
+  cp_async_wait<0>();
+  // the partial: acc is in its slot already; max[8] and denom[8] beside it
+  if (tid < 2 * kTasks) part_stat[((size_t)b * n_splits + split) * 2 * kTasks + tid] = stat[tid];
 }
 
 template <int kIn, int kReq>
@@ -216,7 +295,7 @@ int launch_int8_probe(const void* x, const float* sx, const float* mask, int B, 
                       const float* b2, const void* wabt, const float* swab, const float* bab, const void* wc,
                       const float* bc, int tiles_per_split, int n_splits, float* part_acc, float* part_stat,
                       float* out, cudaStream_t stream) {
-  const size_t smem = layout8(A).total;
+  const size_t smem = probe_layout8().total;
   cudaError_t err = cudaFuncSetAttribute(probe_int8_kernel<kIn, kReq>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   probe_int8_kernel<kIn, kReq><<<dim3(n_splits, B), kThreads, smem, stream>>>(
@@ -234,7 +313,8 @@ extern "C" {
 
 int toad_probe_int8_rows_per_tile() { return kTileRows; }
 
-long long toad_probe_int8_smem_bytes(int A) { return (long long)layout8(A).total; }
+// Dynamic shared memory of a block (the same for every instance and A).
+long long toad_probe_int8_smem_bytes() { return (long long)probe_layout8().total; }
 
 // variant: 0 int8_chain, 1 int8_gemms (x int8 with sx), 2 int8_inquant,
 // 3 int8_inquant_bf16, 4 int8_h_only (x bf16, sx unused). out [B][8][H]

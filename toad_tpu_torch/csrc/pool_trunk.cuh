@@ -1,25 +1,29 @@
 // The trunk and gate of the fused pooling kernels, shared by csrc/pool.cu
-// (K1 and its partial mode), csrc/pool_int8.cu (K2: the int8 mma, the
-// dequantization, the gate epilogue and reduce_scores; its weight stream and
-// requantization are its own), csrc/pool_probe.cu (P1/P2/P5) and
-// csrc/pool_int8_probe.cu (P3/P4). Each tile streams all of the weights from
-// L2, so the rows a staged slice feeds set the L2 traffic and the products
-// between two barriers. Here:
+// (K1 and its partial mode), csrc/pool_int8.cu (K2), csrc/pool_probe.cu
+// (P1/P2/P5) and csrc/pool_int8_probe.cu (P3/P4). Each tile streams all of
+// the weights from L2, so the rows a staged slice feeds set the L2 traffic
+// and the products between two barriers. Here:
 //   - bf16, 128-row tiles (K1's bf16 instance and the bf16 probe, P1/P2/P5):
 //     one CTA an SM of 8 warps of 64 x 64, gemm_rows128 (256-column passes
 //     of mma.sync m16n8k16 fed by ldmatrix, weights through a 3-slot
 //     cp.async ring of 32-deep slices), relu_pack / store_packed, and GEMM2's
 //     stash (stash_put / stash_take), so that h1 and h2 share one region;
 //     rows of one bag, or 64 of each of two (NB = 2);
-//   - int8, 64-row tiles of 8 warps as 2 (rows) x 4 (columns) (P3/P4):
-//     gemm8, int8 (m16n8k32 s8, int32 sums) or bf16 (m16n8k16, f32 sums)
-//     over 64-byte slices (2-deep ring), the accumulators left in registers;
-//     requant_epilogue (dequantize, ReLU, per-row requantization over all
-//     512 columns), gate_epilogue and reduce_scores for T task columns.
+//   - int8, 64-row tiles of 8 warps as 2 (rows) x 4 (columns) (K2 and the
+//     int8 probe, P3/P4): one weight stream of 32 KB slices a tile through a
+//     3-slot swizzled cp.async ring (swz, stage_slice; the cursor is each
+//     kernel's own), trunk_slice (int8 m16n8k32 s8 with int32 sums, or bf16
+//     m16n8k16 with f32 sums over the same bytes) and gate_slice, the
+//     accumulators left in registers; requant_rows (dequantize, ReLU, one
+//     ordered amax a row over all 512 columns, the row quantizer as a
+//     template argument: the JAX one through quant_row's reciprocal and two
+//     Newton steps, the probe's bf16 one with one division a row, or the
+//     saturating cast), gate_epilogue and reduce_scores for T task columns.
 // Every dequantization and requantization step is an explicitly rounded
-// multiply, divide or add (no FMA contraction), so the integer parts of the
-// GEMMs equal those of the plain versions. Everything sits in an anonymous
-// namespace, as in pool_common.cuh.
+// multiply, divide or add (no FMA contraction but quant_row's exact
+// remainders), so the integer parts of the GEMMs equal those of the plain
+// versions. Everything sits in an anonymous namespace, as in
+// pool_common.cuh.
 
 #pragma once
 
@@ -238,14 +242,33 @@ __device__ __forceinline__ void stash_take(uint32_t (&first)[kMi][8][2], const u
 }
 
 // ---------------------------------------------------------------------------
-// int8 GEMMs and their epilogues.
+// The int8 kernels' pass (K2 and the int8 probe P3/P4): 64-row tiles of 8
+// warps as 2 (rows) x 4 (columns). A row's scale needs the amax of all 512
+// trunk columns, so each trunk GEMM is one pass over them: warp (wr, wc) owns
+// rows wr*32 + mi*16 + {g, g+8} and columns wc*128 + ni*8 + 2q (+1) (g = lane
+// / 4, q = lane % 4), 128 sums a thread, the accumulator layout of both
+// mma.m16n8k32.s8 and mma.m16n8k16.bf16. The weights reach the tile as one
+// stream of 32 KB slices through a 3-slot cp.async ring (the kernel keeps its
+// cursor and one step counter across GEMMs and tiles):
+//   - trunk slices: 512 weight rows x 64 bytes, D/64 (x bf16: 2D/64) of W1,
+//     each with the x tile's 64 rows x the same 64 bytes where x rides along,
+//     then 8 of W2;
+//   - gate slices: 256 interleaved [Wa|Wb] rows x 128 bytes, 4 a gate pass.
+// The slots hold their rows without padding under a 128-byte XOR swizzle
+// (swz).
 
-constexpr int kBK8 = 64;             // reduction depth (bytes) per staged slice
-constexpr int kS8 = kBK8 + 16;       // staged row stride: conflict-free ldmatrix, 16-byte cp.async
-constexpr int kStages8 = 2;          // slices in flight in the cp.async ring
-constexpr int kLdAct = kTrunkH + 16;  // int8 activation row stride (bytes)
-constexpr int kLdH2 = kTrunkH + 8;    // bf16 h2 row stride (elements)
-constexpr int kGateCols = 256;       // interleaved [Wa|Wb] columns per gate pass
+constexpr int kBK8 = 64;                     // reduction depth (bytes) of a trunk slice
+constexpr int kLdAct = kTrunkH + 16;         // int8 activation row stride (bytes)
+constexpr int kLdH2 = kTrunkH + 8;           // bf16 h2 row stride (elements)
+constexpr int kGateCols = 256;               // interleaved [Wa|Wb] columns per gate pass
+constexpr int kRing8 = 3;                    // slots of the weight ring: two slices in flight
+constexpr int kSlot8 = 32768;                // a weight slot: 512 trunk rows x 64 B or 256 gate rows x 128 B
+constexpr int kXSlot8 = kTileRows * kBK8;    // an x slot: 64 rows x 64 B
+constexpr int kGateBK8 = 128;                // reduction depth (bytes) of a gate slice
+constexpr int kW2Slices = kTrunkH / kBK8;    // 8
+constexpr int kGateSlices = kTrunkH / kGateBK8;  // 4 a gate pass
+static_assert(kTrunkH * kBK8 == kSlot8 && kGateCols * kGateBK8 == kSlot8, "both slice shapes fill a slot");
+static_assert(kSlot8 / 16 == 8 * kThreads && kXSlot8 / 16 == kThreads, "16-byte chunks per thread");
 
 __device__ __forceinline__ void mma_s8(int* c, const uint32_t* a, uint32_t b0, uint32_t b1) {
   asm volatile(
@@ -255,89 +278,109 @@ __device__ __forceinline__ void mma_s8(int* c, const uint32_t* a, uint32_t b0, u
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-// Stage one 64-byte slice: ws[n][.] <- wt[n0 + n][k0 ..] (rows of kb bytes)
-// for n < NT * 32 and (kFromX) xs[r][.] <- x[row0 + r][k0 ..] (rows of db
-// bytes), rows past the bag's end N zero-filled; commits one group.
-template <int NT, bool kFromX>
-__device__ __forceinline__ void stage8(const u8* __restrict__ wt, int kb, int n0, int k0, u8* ws,
-                                       const u8* __restrict__ x, int N, int db, int row0, u8* xs) {
-  constexpr int kChunks = kBK8 / 16;
-  for (int i = threadIdx.x; i < NT * 32 * kChunks; i += kThreads) {
-    const int r = i / kChunks, c = (i % kChunks) * 16;
-    cp_async16(ws + r * kS8 + c, wt + (size_t)(n0 + r) * kb + k0 + c, 16);
-  }
-  if (kFromX) {
-    for (int i = threadIdx.x; i < kTileRows * kChunks; i += kThreads) {
-      const int r = i / kChunks, c = (i % kChunks) * 16;
+// The slots' swizzle: byte offset -> stored offset, the 16-byte chunk index
+// (bits 4-6) XOR the 128-byte line index mod 8 (bits 7-9). It keeps each
+// 1 KB block in place, so swz(a + 1024 m) = swz(a) + 1024 m.
+__device__ __forceinline__ int swz(int off) { return off ^ ((off >> 3) & 0x70); }
+
+// Slice s of a tile's stream into a weight slot (and, kWithX for W1, an x slot):
+//   s < n1:            W1 rows 0..511 (rows of kb1 bytes), bytes 64 s.. (and x
+//                      rows row0.., rows of kb1 bytes, the same bytes; rows
+//                      past N zero)
+//   s < n1 + 8:        W2 rows 0..511, bytes 64 (s - n1)..
+//   else j = s - n1 - 8: [Wa|Wb] rows 256 (j / 4).., bytes 128 (j % 4)..
+// Chunk i of a slot is 16 bytes at swz(16 i): 4 chunks a 64-B row, 8 a
+// 128-B row. Commits nothing.
+template <bool kWithX>
+__device__ __forceinline__ void stage_slice(int s, int n1, int row0, const u8* __restrict__ w1, int kb1,
+                                            const u8* __restrict__ w2, const u8* __restrict__ wab,
+                                            const u8* __restrict__ xb, int N, u8* wslot, u8* xslot) {
+  const int tid = threadIdx.x;
+  const int off = swz(16 * tid);  // this thread's chunk in each 4 KB of a slot
+  if (s < n1 + kW2Slices) {
+    const bool first = s < n1;
+    const u8* wt = first ? w1 : w2;
+    const int kb = first ? kb1 : kTrunkH, k0 = (first ? s : s - n1) * kBK8;
+#pragma unroll
+    for (int it = 0; it < 8; ++it) {
+      const int r = (tid >> 2) + 64 * it;
+      cp_async16(wslot + off + 4096 * it, wt + (size_t)r * kb + k0 + (tid & 3) * 16, 16);
+    }
+    if (kWithX && first) {
+      const int r = tid >> 2;
       const bool ok = row0 + r < N;
-      cp_async16(xs + r * kS8 + c, ok ? x + (size_t)(row0 + r) * db + k0 + c : x, ok ? 16 : 0);
+      cp_async16(xslot + off, ok ? xb + (size_t)(row0 + r) * kb1 + k0 + (tid & 3) * 16 : xb, ok ? 16 : 0);
+    }
+  } else {
+    const int j = s - n1 - kW2Slices;
+    const u8* wt = wab + (size_t)(j / kGateSlices) * kGateCols * kTrunkH + (j % kGateSlices) * kGateBK8;
+#pragma unroll
+    for (int it = 0; it < 8; ++it) {
+      const int r = (tid >> 3) + 32 * it;
+      cp_async16(wslot + off + 4096 * it, wt + (size_t)r * kTrunkH + (tid & 7) * 16, 16);
     }
   }
-  cp_async_commit();
 }
 
-// acc = A[64, K] . Wt[n0 : n0 + NT*32, K]^T, int8 (int32 sums) or bf16
-// (kBf16: f32 sums; a 64-byte slice is then 32 bf16 values and the ldmatrix
-// addresses of the two fragment layouts coincide); A the staged x tile
-// (kFromX) or a_s [64][lda bytes]. Warp (wr, wc) owns rows wr*32 + mi*16 +
-// {g, g+8} and columns n0 + wc*NT*8 + ni*8 + 2q (+1) (g = lane / 4, q = lane
-// % 4), the accumulator layout of both m16n8k32.s8 and m16n8k16.bf16.
-template <int NT, bool kFromX, bool kBf16, typename Acc>
-__device__ __forceinline__ void gemm8(Acc (&acc)[2][NT][4], const u8* __restrict__ wt, int kb, int n0, const u8* a_s,
-                                      int lda, const u8* __restrict__ x, int N, int db, int row0, u8* ws, u8* xs) {
+// acc += A[64, 64 B] . W[512, 64 B]^T for one trunk slice: A the swizzled x
+// slot (kFromX) or bytes k0.. of a [64][lda] tile, W the swizzled weight
+// slot. Int8 (int sums: mma m16n8k32.s8) or bf16 (float sums: a 64-byte
+// slice is 32 bf16 values, mma m16n8k16.bf16, whose ldmatrix addresses are
+// the int8 ones).
+template <bool kFromX, typename Acc>
+__device__ __forceinline__ void trunk_slice(Acc (&acc)[2][16][4], const u8* a, int lda, int k0, const u8* w) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int wr = warp / kColWarps, wc = warp % kColWarps;
-  const int n_steps = kb / kBK8;
-  auto issue = [&](int step) {
-    if (step < n_steps) {
-      const int slot = step % kStages8;
-      stage8<NT, kFromX>(wt, kb, n0, step * kBK8, ws + slot * kTrunkH * kS8, x, N, db, row0,
-                         xs + slot * kTileRows * kS8);
-    } else {
-      cp_async_commit();  // empty group: keeps one group per step for the wait count
+  const int br = (lane >> 4) * 8 + (lane & 7);  // the lane's row of the 16 an x4 B load reads
+#pragma unroll
+  for (int kk = 0; kk < kBK8; kk += 32) {
+    uint32_t af[2][4];
+#pragma unroll
+    for (int mi = 0; mi < 2; ++mi) {
+      const int r = wr * 32 + mi * 16, k = kk + (lane >> 4) * 16;
+      ldsm_x4(af[mi], kFromX ? a + r * kBK8 + swz((lane & 15) * kBK8 + k)
+                             : a + (r + (lane & 15)) * lda + k0 + k);
     }
-  };
+    const u8* wl = w + wc * 128 * kBK8 + swz(br * kBK8 + kk + ((lane >> 3) & 1) * 16);
 #pragma unroll
-  for (int mi = 0; mi < 2; ++mi)
+    for (int np = 0; np < 8; ++np) {
+      uint32_t bf[4];  // b0, b1 of n-tile 2np, then of n-tile 2np + 1
+      ldsm_x4(bf, wl + np * 16 * kBK8);
 #pragma unroll
-    for (int ni = 0; ni < NT; ++ni)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[mi][ni][e] = 0;
-
-  // the ring is free, and the previous epilogue's writes to a_s are
-  // visible, once every warp has arrived here
-  __syncthreads();
-#pragma unroll
-  for (int s = 0; s < kStages8 - 1; ++s) issue(s);
-  for (int step = 0; step < n_steps; ++step) {
-    cp_async_wait<kStages8 - 2>();  // this thread's copies of `step` have landed
-    __syncthreads();                // everyone's have, and slot (step - 1) is free
-    issue(step + kStages8 - 1);
-    const int slot = step % kStages8;
-    const u8* a_base = kFromX ? xs + slot * kTileRows * kS8 : a_s + step * kBK8;
-    const int la = kFromX ? kS8 : lda;
-    const u8* w_base = ws + slot * kTrunkH * kS8;
-#pragma unroll
-    for (int kk = 0; kk < kBK8; kk += 32) {
-      uint32_t af[2][4];
-#pragma unroll
-      for (int mi = 0; mi < 2; ++mi)
-        ldsm_x4(af[mi], a_base + (wr * 32 + mi * 16 + (lane & 15)) * la + kk + (lane >> 4) * 16);
-#pragma unroll
-      for (int np = 0; np < NT / 2; ++np) {
-        uint32_t bf[4];  // b0, b1 of n-tile 2np, then of n-tile 2np + 1
-        ldsm_x4(bf, w_base + (wc * NT * 8 + np * 16 + (lane >> 4) * 8 + (lane & 7)) * kS8 + kk +
-                        ((lane >> 3) & 1) * 16);
-#pragma unroll
-        for (int mi = 0; mi < 2; ++mi) {
-          if constexpr (kBf16) {
-            mma_bf16(acc[mi][2 * np], af[mi], bf[0], bf[1]);
-            mma_bf16(acc[mi][2 * np + 1], af[mi], bf[2], bf[3]);
-          } else {
-            mma_s8(acc[mi][2 * np], af[mi], bf[0], bf[1]);
-            mma_s8(acc[mi][2 * np + 1], af[mi], bf[2], bf[3]);
-          }
+      for (int mi = 0; mi < 2; ++mi) {
+        if constexpr (std::is_same<Acc, float>::value) {
+          mma_bf16(acc[mi][2 * np], af[mi], bf[0], bf[1]);
+          mma_bf16(acc[mi][2 * np + 1], af[mi], bf[2], bf[3]);
+        } else {
+          mma_s8(acc[mi][2 * np], af[mi], bf[0], bf[1]);
+          mma_s8(acc[mi][2 * np + 1], af[mi], bf[2], bf[3]);
         }
+      }
+    }
+  }
+}
+
+// acc += h2q[64, bytes k0..k0+127] . W[256 gate rows, 128 B]^T for one gate
+// slice; warp wc owns the pass's columns wc*64 + ni*8 + 2q (+1).
+__device__ __forceinline__ void gate_slice(int (&acc)[2][8][4], const u8* act, int k0, const u8* w) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int wr = warp / kColWarps, wc = warp % kColWarps;
+  const int br = (lane >> 4) * 8 + (lane & 7);
+#pragma unroll
+  for (int kk = 0; kk < kGateBK8; kk += 32) {
+    uint32_t af[2][4];
+#pragma unroll
+    for (int mi = 0; mi < 2; ++mi)
+      ldsm_x4(af[mi], act + (wr * 32 + mi * 16 + (lane & 15)) * kLdAct + k0 + kk + (lane >> 4) * 16);
+    const u8* wl = w + wc * 64 * kGateBK8 + swz(br * kGateBK8 + kk + ((lane >> 3) & 1) * 16);
+#pragma unroll
+    for (int np = 0; np < 4; ++np) {
+      uint32_t bf[4];
+      ldsm_x4(bf, wl + np * 16 * kGateBK8);
+#pragma unroll
+      for (int mi = 0; mi < 2; ++mi) {
+        mma_s8(acc[mi][2 * np], af[mi], bf[0], bf[1]);
+        mma_s8(acc[mi][2 * np + 1], af[mi], bf[2], bf[3]);
       }
     }
   }
@@ -349,10 +392,24 @@ __device__ __forceinline__ float dequant(int y, float s_row, float s_col, float 
 }
 __device__ __forceinline__ float clamp127(float v) { return fminf(fmaxf(v, -127.f), 127.f); }
 
-// The row quantizers: q of a value v in a row of amax `amax`, and the row's
-// scale.
-//   kReqF32  (the JAX quantizer): scale = max(amax, 1e-6) / 127,
-//            q = clip(rne(v / scale), +-127), IEEE division;
+// The JAX quantizer's q = clip(rne(fl(v / scale)), +-127) from the row's
+// reciprocal inv = fl(1 / scale), without a division or a branch: fl(v *
+// inv) is within 1.5 ulp of v / scale; one Newton step on the remainder
+// (fma: v - q scale, then q + r inv) makes it faithful, and a second gives
+// fl(v / scale) itself (Markstein: inv correctly rounded, q within an ulp;
+// no underflow matters, since a quotient under 1/2 rounds to 0 either way).
+__device__ __forceinline__ int quant_row(float v, float scale, float inv) {
+  float y = __fmul_rn(v, inv);
+  y = __fmaf_rn(__fmaf_rn(-y, scale, v), inv, y);
+  y = __fmaf_rn(__fmaf_rn(-y, scale, v), inv, y);
+  return __float2int_rn(clamp127(rintf(y)));
+}
+
+// The row quantizers: a row of amax `amax` gets its scale and a reciprocal
+// once (row_scale, row_inv), then q of each value v (quant).
+//   kReqF32  (the JAX quantizer): scale = max(amax, 1e-6) / 127, inv =
+//            fl(1 / scale), q = clip(rne(v / scale), +-127) with the IEEE
+//            quotient (quant_row);
 //   kReqBf16 (the probe's _requant_rows_bf16): inv = bf16(127 / max(amax,
 //            1e-6)), q = clip(rne(bf16(bf16(v) * inv)), +-127), scale =
 //            amax / 127;
@@ -367,27 +424,29 @@ __device__ __forceinline__ float row_scale(float amax) {
   return 1.f;
 }
 template <int kReq>
-__device__ __forceinline__ int quant(float v, float amax, float scale) {
-  if (kReq == kReqF32) return __float2int_rn(clamp127(rintf(__fdiv_rn(v, scale))));
-  if (kReq == kReqBf16) {
-    const float inv = bf16_round(__fdiv_rn(127.f, fmaxf(amax, 1e-6f)));
-    return __float2int_rn(clamp127(rintf(bf16_round(__fmul_rn(bf16_round(v), inv)))));
-  }
+__device__ __forceinline__ float row_inv(float amax, float scale) {
+  if (kReq == kReqF32) return __fdiv_rn(1.f, scale);
+  if (kReq == kReqBf16) return bf16_round(__fdiv_rn(127.f, fmaxf(amax, 1e-6f)));
+  return 1.f;
+}
+template <int kReq>
+__device__ __forceinline__ int quant(float v, float scale, float inv) {
+  if (kReq == kReqF32) return quant_row(v, scale, inv);
+  if (kReq == kReqBf16) return __float2int_rn(clamp127(rintf(bf16_round(__fmul_rn(bf16_round(v), inv)))));
   return __float2int_rn(fminf(fmaxf(truncf(v), -128.f), 127.f));
 }
 
-// Trunk epilogue over all 512 columns: h = relu(dequant(acc)) (f32 sums of
-// a bf16 GEMM: relu(acc + b)), h2 (kToBf16) rounded to bf16 for the pooling,
-// then the row quantizer into act and the row scales into rs. rmax [64] must
-// be zero on entry. A row's scale needs the amax of all 512 columns: each
-// row's max is reduced over the quad of lanes that share it, then across the
-// four column warps with a shared-memory atomicMax on the float bits (valid:
-// every value is >= 0 after the ReLU), and after one barrier the values are
-// quantized from registers into act, in place of the GEMM's own input.
-template <int kReq, bool kToBf16, typename Acc>
-__device__ __forceinline__ void requant_epilogue(Acc (&acc)[2][16][4], const float* __restrict__ s_col,
-                                                 const float* __restrict__ bias, float* rs, float* rmax, u8* act,
-                                                 bf16* h2) {
+// Trunk epilogue over all 512 columns: h = relu(dequant(acc)) (the float
+// sums of a bf16 GEMM: relu(acc + b)), h2 (kToH2) rounded to bf16 for the
+// pooling, then the row quantizer into act and the rows' scales into rs.
+// Each row's amax: the max over its quad of lanes, each column warp's into
+// amax_s [4][64], and after one barrier the max of the four in column-warp
+// order (no atomics); the values are quantized from registers into act, in
+// place of the GEMM's own input.
+template <int kReq, bool kToH2, typename Acc>
+__device__ __forceinline__ void requant_rows(Acc (&acc)[2][16][4], const float* __restrict__ s_col,
+                                             const float* __restrict__ bias, float* rs, float* amax_s, u8* act,
+                                             bf16* h2) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int g = lane >> 2, q = lane & 3;
   const int wr = warp / kColWarps, wc = warp % kColWarps;
@@ -397,7 +456,7 @@ __device__ __forceinline__ void requant_epilogue(Acc (&acc)[2][16][4], const flo
 #pragma unroll
     for (int hf = 0; hf < 2; ++hf) {
       const int row = wr * 32 + mi * 16 + g + hf * 8;
-      const float s_row = rs[row];
+      const float s_row = std::is_same<Acc, float>::value ? 1.f : rs[row];
       float mx = 0.f;
 #pragma unroll
       for (int ni = 0; ni < 16; ++ni) {
@@ -413,7 +472,7 @@ __device__ __forceinline__ void requant_epilogue(Acc (&acc)[2][16][4], const flo
           v[mi][ni][2 * hf + e] = h;
           mx = fmaxf(mx, h);
         }
-        if (kToBf16)
+        if (kToH2)
           *reinterpret_cast<__nv_bfloat162*>(h2 + row * kLdH2 + col) =
               __floats2bfloat162_rn(v[mi][ni][2 * hf], v[mi][ni][2 * hf + 1]);
       }
@@ -421,7 +480,7 @@ __device__ __forceinline__ void requant_epilogue(Acc (&acc)[2][16][4], const flo
         // the four lanes of a quad hold the same row
         mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
         mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
-        if (q == 0) atomicMax(reinterpret_cast<int*>(rmax + row), __float_as_int(mx));
+        if (q == 0) amax_s[wc * kTileRows + row] = mx;
       }
     }
   }
@@ -433,13 +492,16 @@ __device__ __forceinline__ void requant_epilogue(Acc (&acc)[2][16][4], const flo
 #pragma unroll
     for (int hf = 0; hf < 2; ++hf) {
       const int row = wr * 32 + mi * 16 + g + hf * 8;
-      const float amax = rmax[row];
+      const float amax = kReq == kReqNone ? 0.f
+                                          : fmaxf(fmaxf(amax_s[row], amax_s[kTileRows + row]),
+                                                  fmaxf(amax_s[2 * kTileRows + row], amax_s[3 * kTileRows + row]));
       const float scale = row_scale<kReq>(amax);
+      const float inv = row_inv<kReq>(amax, scale);
 #pragma unroll
       for (int ni = 0; ni < 16; ++ni) {
         const int col = wc * 128 + ni * 8 + 2 * q;
-        const int q0 = quant<kReq>(v[mi][ni][2 * hf], amax, scale);
-        const int q1 = quant<kReq>(v[mi][ni][2 * hf + 1], amax, scale);
+        const int q0 = quant<kReq>(v[mi][ni][2 * hf], scale, inv);
+        const int q1 = quant<kReq>(v[mi][ni][2 * hf + 1], scale, inv);
         *reinterpret_cast<uint16_t*>(act + row * kLdAct + col) = static_cast<uint16_t>((q0 & 0xff) | ((q1 & 0xff) << 8));
       }
       if (wc == 0 && q == 0) rs[row] = scale;
@@ -462,15 +524,28 @@ __device__ __forceinline__ void load_row(const float* p, float (&w)[T]) {
   }
 }
 
+// w[t] <- p[t], t < 8, from 8 bf16 values in device memory (one 16-byte read)
+__device__ __forceinline__ void load_row(const bf16* __restrict__ p, float (&w)[8]) {
+  const uint4 raw = __ldg(reinterpret_cast<const uint4*>(p));
+  const __nv_bfloat162* pair = reinterpret_cast<const __nv_bfloat162*>(&raw);
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    const float2 f = __bfloat1622float2(pair[k]);
+    w[2 * k] = f.x;
+    w[2 * k + 1] = f.y;
+  }
+}
+
 // Gate epilogue of one pass over interleaved [Wa|Wb] columns n0..n0+255:
 // warp column wc holds u_j in n-tiles 0-3 and v_j (32 columns further) in
 // n-tiles 4-7 for j = n0/2 + wc*32 + ni*8 + 2q (+1); gated is rounded to
 // bf16 and folded into the thread's partial scores sacc[mi][hf][t] against
-// the T columns of wc_s [A][T], so the gated tile never reaches shared memory.
-template <int T>
+// the T columns of wc_w [A][T] (f32 in shared memory, or 8 bf16 columns in
+// device memory), so the gated tile never reaches shared memory.
+template <int T, typename W>
 __device__ __forceinline__ void gate_epilogue(int (&acc)[2][8][4], int n0, const float* rs,
                                               const float* __restrict__ swab, const float* __restrict__ bab,
-                                              const float* wc_s, float (&sacc)[2][2][T]) {
+                                              const W* wc_w, float (&sacc)[2][2][T]) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int g = lane >> 2, q = lane & 3;
   const int wr = warp / kColWarps, wc = warp % kColWarps;
@@ -489,7 +564,7 @@ __device__ __forceinline__ void gate_epilogue(int (&acc)[2][8][4], int n0, const
           const float gv = bf16_round(tanhf(u) * sigmoidf(v));
           const int j = n0 / 2 + wc * 32 + ni * 8 + 2 * q + e;
           float w[T];
-          load_row<T>(wc_s + j * T, w);
+          load_row(wc_w + j * T, w);
 #pragma unroll
           for (int t = 0; t < T; ++t) sacc[mi][hf][t] = fmaf(gv, w[t], sacc[mi][hf][t]);
         }

@@ -1,8 +1,9 @@
 // Pieces shared by the pooling-probe kernels csrc/pool_probe.cu (P1/P2/P5,
-// the bf16 ablation ladder, 128-row tiles) and csrc/pool_int8_probe.cu
-// (P3/P4, the int8 chain variants, 64-row tiles): the probes' epilogue at
-// T_PAD = 8 task columns. Per tile of R rows (one bag's R rows, or R / 2 rows
-// of each of two bags):
+// the bf16 ablation ladder on K1 bf16's 128-row pass) and
+// csrc/pool_int8_probe.cu (P3/P4, the int8 chain variants on K2's 64-row
+// pass): the probes' epilogue at T_PAD = 8 task columns, templated on the
+// rows R of a tile. Per tile (one bag's R rows, or R / 2 rows of each of two
+// bags):
 //   - probe_stats: the per-(bag, task) online masked softmax of the raw
 //     scores s_s [R][8] (max, denominator, the rescale of the running sums),
 //     or the plain running sum of min(s, 1) of the `nosoftmax` variant, and
@@ -10,10 +11,12 @@
 //     not live, whatever the mask;
 //   - probe_fold: a[t][c] = a * corr + sum_r e[r][t] h[r][c] over one bag
 //     slot's rows: thread i owns the columns 2i, 2i + 1 of every task (H =
-//     512 = 2 x 256 threads), reading h as bf16 pairs and e as broadcast rows;
-//   - probe_write_partials: a block's partial held in registers, merged by
-//     pool_combine_kernel<8> (pool_common.cuh).
-// Everything sits in an anonymous namespace, as in pool_common.cuh.
+//     512 = 2 x 256 threads), reading h as bf16 pairs and e as broadcast rows.
+// Both kernels keep the running sums a[8][H] in the CTA's own slot of
+// part_acc (device memory), which they read into registers for probe_fold
+// and write back a tile, and which pool_combine_kernel<8> (pool_common.cuh)
+// then merges. Everything sits in an anonymous namespace, as in
+// pool_common.cuh.
 
 #pragma once
 
@@ -118,20 +121,6 @@ __device__ __forceinline__ void probe_fold(float (&a)[kTasks][2], int slot, int 
       }
     }
   }
-}
-
-// The block's partial of bag `bag`, split `split`, from registers: acc [8][H]
-// at part_acc[(bag * n_splits + split) * 8 * H], (max[8], denom[8]) at
-// part_stat[(bag * n_splits + split) * 16].
-__device__ __forceinline__ void probe_write_partials(const float (&acc)[kTasks][2], const float* stat, int bag,
-                                                     int split, int n_splits, float* part_acc, float* part_stat) {
-  __syncthreads();
-  const int c0 = 2 * threadIdx.x;
-  const size_t p = (size_t)bag * n_splits + split;
-#pragma unroll
-  for (int t = 0; t < kTasks; ++t)
-    *reinterpret_cast<float2*>(part_acc + (p * kTasks + t) * kTrunkH + c0) = make_float2(acc[t][0], acc[t][1]);
-  if (threadIdx.x < 2 * kTasks) part_stat[p * 2 * kTasks + threadIdx.x] = stat[threadIdx.x];
 }
 
 }  // namespace

@@ -16,7 +16,8 @@ reference's Xavier-normal weights and zero biases, drawn from an explicit
 generator.
 
 Three forwards, as in the JAX package: the eval forward (the hand-written
-pooling kernel on CUDA, the plain version on the CPU; int8 through
+pooling kernel on CUDA, the plain version on the CPU and, for an un-gated
+model, on CUDA too, as the JAX package takes its XLA path; int8 through
 :meth:`ToadMIL.forward_int8`), and with ``train=True`` the training forward,
 which is plain tensor code under autograd (the JAX package trains through
 its XLA path too: no pooling kernel has a backward), with the reference's
@@ -43,6 +44,7 @@ from toad_tpu_torch.ops.fused_pool import (
     fused_int8_pool,
     fused_pool_partial,
     fused_trunk_attention_pool,
+    kernel_pools,
     partial_from_pooled,
     partial_stats,
 )
@@ -136,6 +138,15 @@ class ToadMIL(nn.Module):
             self._packed[compute_dtype] = hit
         return hit[1]
 
+    def _operands_on(self, device: torch.device, compute_dtype: torch.dtype) -> cuda_pool.PoolOperands | None:
+        """The pooling kernel's operands where a pool on ``device`` launches
+        it (a CUDA device and gated weights:
+        :func:`~toad_tpu_torch.ops.fused_pool.kernel_pools`), else None: the
+        plain version pools there, un-gated on the card too."""
+        if device.type == "cuda" and kernel_pools(self.pool_params()):
+            return self.kernel_operands(compute_dtype)
+        return None
+
     def int8_operands(self) -> tuple[dict[str, torch.Tensor], cuda_pool_int8.Int8PoolOperands | None]:
         """(int8 pooling params, the int8 kernel's packed operands or None off
         CUDA), quantized and packed once and again only when a weight moves
@@ -163,7 +174,7 @@ class ToadMIL(nn.Module):
         ``config.dropout`` the masks of the four dropout sites are drawn from
         ``generator``, which must live on ``x``'s device. Otherwise the eval
         forward: the kernel on CUDA (forward-only), the plain version on the
-        CPU."""
+        CPU, and on CUDA for an un-gated model."""
         compute_dtype = getattr(torch, self.config.compute_dtype)
         need_attention = need_attention or attention_only
         if train:
@@ -172,7 +183,7 @@ class ToadMIL(nn.Module):
         # classification only: the kernel writes no [B, T, N] scores
         m, scores = fused_trunk_attention_pool(
             self.pool_params(), x, mask, compute_dtype=compute_dtype, with_scores=need_attention,
-            operands=self.kernel_operands(compute_dtype) if x.device.type == "cuda" else None,
+            operands=self._operands_on(x.device, compute_dtype),
         )
         return self._finish(m, scores, mask, sex, attention_only)
 
@@ -299,13 +310,12 @@ class ToadMIL(nn.Module):
         are wanted too, or from the int8 kernel (which has no partial mode),
         from a scored pass."""
         x, mask = cell["features"], cell["patch_mask"]
-        on_card = x.device.type == "cuda"
         if int8:
             xq, sx = (x, cell["scales"]) if "scales" in cell else quantize_rows(x)
             qparams, operands = self.int8_operands()
             m, s = fused_int8_pool(qparams, xq, sx, mask, with_scores=with_scores or partial, operands=operands)
         else:
-            operands = self.kernel_operands(compute_dtype) if on_card else None
+            operands = self._operands_on(x.device, compute_dtype)
             if partial and not with_scores:
                 acc, stats = fused_pool_partial(self.pool_params(), x, mask, compute_dtype=compute_dtype,
                                                 operands=operands)

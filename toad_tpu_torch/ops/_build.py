@@ -75,7 +75,7 @@ _SIGNATURES = {
         ctypes.c_int,
     ),
     "toad_probe_int8_rows_per_tile": ([], ctypes.c_int),
-    "toad_probe_int8_smem_bytes": ([_i], ctypes.c_longlong),  # A
+    "toad_probe_int8_smem_bytes": ([], ctypes.c_longlong),
     "toad_probe_int8_forward": (
         [_i, _p, _p, _p, _i, _i, _i, _i, _i,  # variant, x, sx, mask, B, N, D, H, A
          _p, _p, _p, _p, _p, _p, _p, _p, _p,  # w1t, sw1, b1, w2t, sw2, b2, wabt, swab, bab

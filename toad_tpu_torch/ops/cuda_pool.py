@@ -77,8 +77,8 @@ def pack_linears(lins: dict[str, tuple[torch.Tensor, torch.Tensor]], dtype: torc
     b, c -> the kernel's operands, on the weights' device."""
     if "b" not in lins:
         raise NotImplementedError(
-            "un-gated attention has no CUDA kernel yet (ROADMAP.md, TPU kernels to port: "
-            "K1 un-gated); reference checkpoints are always gated"
+            "un-gated attention has no CUDA kernel (the kernel computes the gated variant only, as the JAX "
+            "package's): ops.fused_pool.kernel_pools routes un-gated params to the plain version on the card"
         )
 
     def w(name):
@@ -245,8 +245,8 @@ def _prepare(ops: PoolOperands, x: torch.Tensor, mask: torch.Tensor):
 
 def _splitter(compute_dtype: torch.dtype):
     """The default split plan of an instance: whole waves, since both the
-    bf16 and the f32 instance hold an SM with one CTA (as K2 and the bf16
-    probe do; the int8 probe keeps :func:`split_plan`)."""
+    bf16 and the f32 instance hold an SM with one CTA (as K2 and both
+    probes do)."""
     return wave_split_plan
 
 

@@ -9,7 +9,10 @@ PyTorch counterpart of :mod:`toad_tpu.ops.fused_pool`. Per bag:
 
 A CUDA tensor goes to the hand-written kernel (:mod:`.cuda_pool`; the int8
 pool to :mod:`.cuda_pool_int8`); a CPU tensor goes to the plain version
-(below; the int8 one in :mod:`.quantize`). Nothing else chooses between them.
+(below; the int8 one in :mod:`.quantize`). The kernel computes the gated
+attention only, as the JAX package's: :func:`kernel_pools` sends un-gated
+params to the plain version on the tensors' own device, the card included,
+where the JAX package takes its XLA path. Nothing else chooses between them.
 ``params`` is the JAX package's pytree layout: ``{"trunk": {"fc1": {"w",
 "b"}, "fc2": ...}, "attn": {"a", "b", "c"}}`` with [in, out] weights.
 """
@@ -23,6 +26,15 @@ import torch
 from toad_tpu_torch.ops import cuda_pool, cuda_pool_int8
 from toad_tpu_torch.ops.pooling import NEG_INF, masked_attention_pool
 from toad_tpu_torch.ops.quantize import plain_int8_pool
+
+
+def kernel_pools(params: dict[str, Any]) -> bool:
+    """Whether the float pooling kernel computes ``params``: gated attention
+    only (``"b"`` in ``params["attn"]``). Every caller routes by it: un-gated
+    params pool through the plain version on the tensors' own device, as the
+    JAX package's ``fused_trunk_attention_pool`` and ``bag_sharded_pool``
+    take their XLA path for them."""
+    return "b" in params["attn"]
 
 
 def _trunk_scores(params: dict[str, Any], x: torch.Tensor, compute_dtype: torch.dtype = torch.float32, drop=None):
@@ -88,13 +100,14 @@ def fused_trunk_attention_pool(
 
     On CUDA, ``operands`` are the kernel's packed weights
     (:func:`.cuda_pool.pack_params`), packed once by the caller; without
-    them the call packs ``params`` itself."""
-    if x.device.type == "cuda":
+    them the call packs ``params`` itself. Un-gated params take the plain
+    version on CUDA too (:func:`kernel_pools`)."""
+    if x.device.type not in ("cuda", "cpu"):
+        raise ValueError(f"no pooling path for device {x.device} (cuda or cpu)")
+    if x.device.type == "cuda" and kernel_pools(params):
         if operands is None:
             operands = cuda_pool.pack_params(params, compute_dtype)
         return cuda_pool.pool(operands, x, mask, with_scores=with_scores)
-    if x.device.type != "cpu":
-        raise ValueError(f"no pooling path for device {x.device} (cuda or cpu)")
     return plain_pool(params, x, mask, compute_dtype, with_scores)
 
 
@@ -151,15 +164,16 @@ def fused_pool_partial(
     """Shard-local pooling statistics (acc [B, T, H], stats [B, 2, T]), see
     :func:`plain_pool_partial`; a CUDA tensor goes to the kernel's partial
     mode (:func:`.cuda_pool.pool_partial`, which can write into ``out``), a
-    CPU tensor to the plain version.
-    :func:`toad_tpu_torch.parallel.bag_shard.combine_partial_pool` makes the
-    pooled result of the shards' statistics."""
-    if x.device.type == "cuda":
+    CPU tensor, or un-gated params (:func:`kernel_pools`), to the plain
+    version. ``operands`` given, ``params`` may be None: packed operands are
+    gated. :func:`toad_tpu_torch.parallel.bag_shard.combine_partial_pool`
+    makes the pooled result of the shards' statistics."""
+    if x.device.type not in ("cuda", "cpu"):
+        raise ValueError(f"no pooling path for device {x.device} (cuda or cpu)")
+    if x.device.type == "cuda" and (operands is not None or kernel_pools(params)):
         if operands is None:
             operands = cuda_pool.pack_params(params, compute_dtype)
         return cuda_pool.pool_partial(operands, x, mask, out=out)
-    if x.device.type != "cpu":
-        raise ValueError(f"no pooling path for device {x.device} (cuda or cpu)")
     acc, stats = plain_pool_partial(params, x, mask, compute_dtype)
     if out is not None:
         out[0].copy_(acc)

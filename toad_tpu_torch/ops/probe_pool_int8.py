@@ -9,8 +9,13 @@ row inside the kernel), at the probes' T_PAD = 8 task columns: [B, 8, H] f32.
 :func:`plain_probe_int8` and :func:`plain_probe_int8_inquant` are the plain
 versions at the probe's rounding points; :func:`probe_pool_int8` launches
 ``csrc/pool_int8_probe.cu`` on CUDA tensors and raises on anything the
-kernel does not take. :func:`probe_qparams` quantizes the probe's weights as
-``int8_probe.main`` does.
+kernel does not take. The kernel runs K2's pass (``csrc/pool_int8.cu``):
+64-row tiles, one weight stream of 32 KB slices through a 3-slot swizzled
+ring, the grid in whole waves; :func:`plan`, :func:`layout`,
+:func:`stream_schedule` and :func:`split` give its tile, threads, ring,
+shared-memory regions, the slices each variant stages a tile and its split.
+:func:`probe_qparams` quantizes the probe's weights as ``int8_probe.main``
+does.
 """
 
 from __future__ import annotations
@@ -20,8 +25,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from toad_tpu_torch.ops import _build
-from toad_tpu_torch.ops.cuda_pool import interleave_gate, split_plan
+from toad_tpu_torch.ops import _build, cuda_pool_int8 as k2
+from toad_tpu_torch.ops.cuda_pool import MAX_SMEM, interleave_gate, wave_split_plan
 from toad_tpu_torch.ops.pooling import NEG_INF
 from toad_tpu_torch.ops.probe_pool import A, D, H, T_PAD
 from toad_tpu_torch.ops.quantize import _int_gemm, _quant_cols, quantize_rows
@@ -33,6 +38,75 @@ _CODE = {name: i for i, name in enumerate(VARIANTS)}
 
 LAUNCHES = 0  # launches of the kernel in this process (one per call of probe_pool_int8)
 INSTANCE_LAUNCHES = dict.fromkeys(VARIANTS, 0)  # the same, by kernel instance
+
+
+class Int8ProbePlan(NamedTuple):
+    """How the kernel runs every instance (``csrc/pool_int8_probe.cu``'s
+    ``probe_layout8``; ``toad_probe_int8_smem_bytes`` and
+    ``toad_probe_int8_rows_per_tile`` agree with it)."""
+
+    rows: int  # rows of a tile
+    threads: int  # threads of a CTA
+    slots: int  # slots of the weight ring
+    smem: int  # dynamic shared memory of a CTA, bytes
+
+
+def layout() -> dict[str, tuple[int, int]]:
+    """The kernel's shared-memory regions in its order, name -> (offset,
+    bytes), each 16-byte aligned: K2's weight and x rings (swizzled), h1q/h2q,
+    h2 in bf16 (which holds the x tile quantized in the kernel, 64 x (D + 16)
+    bytes, before GEMM1), the row scales, each column warp's row amax, the
+    column warps' partial scores [4][64][8], s and e [64][8] and the
+    statistics [24]. Wc and the running sums [8][H] stay in device memory,
+    so A does not enter."""
+    sizes = {
+        "ws": k2.RING_SLOTS * k2.SLOT_BYTES, "xs": k2.RING_SLOTS * k2.ROWS * k2.TRUNK_DEPTH,
+        "act": k2.ROWS * k2.LD_ACT, "h2": 2 * k2.ROWS * k2.LD_H2, "rs": 4 * k2.ROWS,
+        "amax": 4 * k2.COL_WARPS * k2.ROWS, "spart": 4 * k2.COL_WARPS * k2.ROWS * T_PAD,
+        "s": 4 * k2.ROWS * T_PAD, "e": 4 * k2.ROWS * T_PAD, "stat": 4 * 3 * T_PAD,
+    }
+    out, offset = {}, 0
+    for name, size in sizes.items():
+        out[name] = (offset, size)
+        offset += -(-size // 16) * 16
+    return out
+
+
+def plan(a_dim: int = A) -> Int8ProbePlan:
+    """The kernel's plan at attention width A (H = 512; the same for every
+    instance and every A it takes); ValueError for an A the kernel does not
+    take or a layout over a CTA's shared memory."""
+    if a_dim <= 0 or a_dim % 128 or a_dim > H:
+        raise ValueError(f"A={a_dim} not supported by the int8 probe kernel: need A % 128 == 0 and 0 < A <= {H}")
+    smem = max(offset + -(-size // 16) * 16 for offset, size in layout().values())
+    if smem > MAX_SMEM:
+        raise ValueError(f"the int8 probe kernel would need {smem} B of shared memory with {k2.RING_SLOTS} ring "
+                         f"slots, over the card's {MAX_SMEM}")
+    return Int8ProbePlan(k2.ROWS, k2.THREADS, k2.RING_SLOTS, smem)
+
+
+def stream_schedule(variant: str, d: int, a_dim: int) -> list[tuple[str, int, int, int, int, int]]:
+    """The slices one tile's weight stream stages for ``variant``, in order
+    (the kernel's ``stage_slice``): (GEMM, first weight row, first reduction
+    byte, rows, bytes a row, bytes of each x row that ride along). W1 first:
+    K2's D/64 int8 slices, each with the x tile's same 64 bytes
+    (``int8_chain``, ``int8_gemms``), the same without x (``int8_inquant``,
+    ``int8_inquant_bf16``: x is quantized in the kernel), or 2D/64 bf16
+    slices with 64 bytes of the bf16 x tile (``int8_h_only``); then W2 and
+    the gate passes as K2's (:func:`~toad_tpu_torch.ops.cuda_pool_int8.stream_schedule`)."""
+    if variant not in VARIANTS:
+        raise ValueError(f"unknown int8 probe variant {variant!r}: {', '.join(VARIANTS)}")
+    w1_bytes = 2 * d if variant == "int8_h_only" else d
+    x_bytes = 0 if variant in IN_KERNEL[:2] else k2.TRUNK_DEPTH
+    out = [("w1", 0, k0, H, k2.TRUNK_DEPTH, x_bytes) for k0 in range(0, w1_bytes, k2.TRUNK_DEPTH)]
+    return out + [(*sl, 0) for sl in k2.stream_schedule(d, a_dim) if sl[0] != "w1"]
+
+
+def split(b_: int, n: int, n_sms: int) -> tuple[int, int]:
+    """(tiles_per_split, n_splits) of the kernel's grid: whole waves of one
+    CTA an SM (:func:`~toad_tpu_torch.ops.cuda_pool.wave_split_plan`), as
+    K2's."""
+    return wave_split_plan(b_, n, k2.ROWS, n_sms)
 
 
 class Int8ProbeOperands(NamedTuple):
@@ -237,8 +311,7 @@ def probe_pool_int8(ops: Int8ProbeOperands, x: torch.Tensor, sx: torch.Tensor | 
             raise ValueError("kernel operands must be contiguous and 16-byte aligned")
     dev = x.device
     lib = _build.load_library()
-    n_sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    per, n_splits = split_plan(b_, n, lib.toad_probe_int8_rows_per_tile(), n_sms)
+    per, n_splits = split(b_, n, torch.cuda.get_device_properties(dev).multi_processor_count)
     out = torch.empty((b_, T_PAD, h_dim), device=dev, dtype=torch.float32)
     part_acc = torch.empty((b_ * n_splits * T_PAD * h_dim,), device=dev, dtype=torch.float32)
     part_stat = torch.empty((b_ * n_splits * 2 * T_PAD,), device=dev, dtype=torch.float32)
@@ -261,9 +334,11 @@ def reset_launches() -> None:
         INSTANCE_LAUNCHES[k] = 0
 
 
-def smem_bytes(a_dim: int = A) -> int:
-    """Dynamic shared memory one block of the kernel takes."""
-    return int(_build.load_library().toad_probe_int8_smem_bytes(a_dim))
+def smem_bytes() -> int:
+    """Dynamic shared memory one block of the kernel takes (every instance
+    and A), as the library computes it (:func:`plan`'s ``smem`` must
+    agree)."""
+    return int(_build.load_library().toad_probe_int8_smem_bytes())
 
 
 def ops_per_row(variant: str, d: int = D, h_dim: int = H, a_dim: int = A) -> dict[str, int]:

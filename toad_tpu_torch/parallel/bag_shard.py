@@ -23,7 +23,7 @@ from typing import Any, Sequence
 import torch
 
 from toad_tpu_torch.ops import cuda_pool
-from toad_tpu_torch.ops.fused_pool import fused_pool_partial
+from toad_tpu_torch.ops.fused_pool import fused_pool_partial, kernel_pools
 from toad_tpu_torch.ops.pooling import NEG_INF
 
 
@@ -93,8 +93,9 @@ def bag_sharded_pool(
     ``params`` is the JAX params layout (packed for the kernel here, per
     call and device) or, with ``n_shards`` on CUDA, operands already packed
     by :func:`toad_tpu_torch.ops.cuda_pool.pack_params`. Un-gated params
-    raise ``NotImplementedError`` on CUDA, as every launch of the kernel
-    does."""
+    pool each shard through the plain version on its own device, the card
+    included (:func:`~toad_tpu_torch.ops.fused_pool.kernel_pools`), as the
+    JAX version takes its XLA path for them."""
     if (n_shards is None) == (mesh is None):
         raise ValueError("give exactly one of n_shards (one device) or mesh (the mesh's bag axis)")
     b_, n = x.shape[0], x.shape[1]
@@ -110,7 +111,8 @@ def bag_sharded_pool(
         for s, dev in enumerate(devices):
             if dev not in on_dev:
                 p = _params_on(params, dev)
-                on_dev[dev] = (p, cuda_pool.pack_params(p, compute_dtype) if dev.type == "cuda" else None)
+                on_dev[dev] = (p, cuda_pool.pack_params(p, compute_dtype) if dev.type == "cuda" and kernel_pools(p)
+                               else None)
             p, operands = on_dev[dev]
             sl = slice(s * per, (s + 1) * per)
             a, t = fused_pool_partial(p, x[:, sl].to(dev), mask[:, sl].to(dev), compute_dtype=compute_dtype,
@@ -127,7 +129,7 @@ def bag_sharded_pool(
         operands, params = params, None
         t_dim, h_dim = operands.wc.shape[1], operands.w1.shape[0]
     else:
-        if x.device.type == "cuda":
+        if x.device.type == "cuda" and kernel_pools(params):
             operands = cuda_pool.pack_params(params, compute_dtype)
         t_dim, h_dim = params["attn"]["c"]["w"].shape[1], params["trunk"]["fc2"]["w"].shape[1]
     acc = torch.empty((n_shards, b_, t_dim, h_dim), device=x.device, dtype=torch.float32)
