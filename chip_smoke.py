@@ -8,7 +8,8 @@ Phases (each prints its lines; any failure raises and the exit code is not 0):
 
 1. CUDA present with compute capability (9, 0); the card's name and power limit.
 2. Build the kernels (toad_tpu_torch/csrc/pool.cu, K1 and its partial mode
-   K1p; pool_common.cuh, the combines; pool_int8.cu, K2; mha.cu, K3 and P7;
+   K1p and the one-launch sharded pool, each ending in its own merge;
+   pool_common.cuh, that merge (pool_tail) and the combine kernel; pool_int8.cu, K2; mha.cu, K3 and P7;
    stage.cu, KS; pool_probe.cu and pool_int8_probe.cu, P1-P5) with nvcc, one
    process per source, all started together; shared memory per block and
    ptxas's register counts. Beside them, the native bag loader
@@ -20,14 +21,19 @@ Phases (each prints its lines; any failure raises and the exit code is not 0):
    f32 the kernel and the plain version also against the pool in float64
    (plain_pool_f64), the kernel's largest error on M and on the scores at
    most F64_ERR_RATIO times the plain version's.
-   Then K1p: per shard pool_partial vs plain_pool_partial (max, denominator,
-   acc / denom), and bag_sharded_pool (K1p per shard, then the shard combine
-   kernel) vs its plain combine, vs K1 on the whole bag and vs plain_pool, for
-   B=1 and B=2 x 163,840 rows with 150,000 live in 2, 4 and 8 shards, a bag of
-   30,000 live rows in 8 shards (6 of them fully masked) and a fully masked
-   bag, f32 and bf16, within K1's tolerances; then bag_sharded_pool as a
-   caller uses it (the main path of K1p and the combine: their counts are
-   set to 0 before and read after).
+   Then K1p: per shard pool_partial (on the shard as a view of the batch,
+   read in place, the bits of its copy) vs plain_pool_partial (max,
+   denominator, acc / denom), the combine kernel on K1p's partials vs its
+   plain version, and bag_sharded_pool (one launch over every shard, merged
+   at its end) vs K1p per shard with the combine, vs K1 on the whole bag and
+   vs plain_pool, for B=1 and B=2 x 163,840 rows with 150,000 live in 2, 4
+   and 8 shards, a bag of 30,000 live rows in 8 shards (6 of them fully
+   masked) and a fully masked bag, f32 and bf16, within K1's tolerances;
+   then bag_sharded_pool as a caller uses it on B=1 x 163,840 and on B=4 x
+   40,960 rows sliced out of a batch (the main path of the one-launch
+   sharded pool: one launch a call, no K1p or combine launch, counted from
+   0), and a profiler's list of the device kernels of one call each of K1,
+   K1p and the sharded pool (one each).
    Then K2 (int8) vs plain_int8_pool on the same cases. Then an un-gated
    ToadMIL (gate=False) in f32 at B=4 x 3,000 rows on the card, which pools
    through the plain version there (ops/fused_pool.kernel_pools, as the JAX
@@ -138,6 +144,8 @@ Phases (each prints its lines; any failure raises and the exit code is not 0):
    peak rate of their type) is computed from the shapes timed; K1's f32
    instance runs three TF32 tensor-core products for each f32 one (3xTF32),
    and its FFMA bound (its products at the f32 FMA peak) is logged beside.
+   The one-launch sharded pool in 4 and 8 shards against K1 in one launch on
+   the same 163,840 rows, in turns; K1 at B=1 x 8,192 (predict's shape).
 9. The truncated ResNet-50 (run after phase 5): KS, the fused bottleneck
    stage kernel (toad_tpu_torch/csrc/stage.cu), against plain_stage at full
    width for layer1, layer2 and layer3, B=64 at 256 px and B=3 at 224 px
@@ -242,8 +250,9 @@ Phases (each prints its lines; any failure raises and the exit code is not 0):
    EnsembleInference(int8=True)); the forward of one assembled batch (B=8 x
    8,192) by a 1-member and a 2-member batcher, in turns (CUDA events); and
    ``toad_tpu_torch.experiments.serve_load.main()`` in process over wires
-   none and raw (--bag_n 8192 --requests 96 --concurrency 8), its line parsed
-   and its K1 launches = its batches.
+   none and raw (--bag_n 8192 --requests 96 --concurrency 8 --timestamps),
+   its line parsed and its K1 launches = its batches, and each request's
+   largest gap between its stages (sent, accepted, queued, answered).
 14. The ops tooling (run after phase 13, in phase 7's work directory): ``train
    --profile DIR --bf16 --max_epochs 1 --batch_size 3`` as a child on phase
    7's cohort: the trace has ProfilerStep#0..9 and device kernel events, and
@@ -280,7 +289,8 @@ Phases (each prints its lines; any failure raises and the exit code is not 0):
    generator (loss and every parameter, TOL_MESH_STEP); one eval pass of
    phase 7's f32 checkpoint over the test split at (1, 2) and (2, 2)
    against the unsharded pass (probabilities, TOL_MESH_PROB): the main path
-   of K1p (shards x batches launches) and the combine (one a batch); the
+   of K1p (shards x batches launches) and the combine (one a batch), and no
+   other launch of the library (no split merge); the
    serving batcher over (1, 2) answering six requests with and without
    attention against the unsharded batcher; phase 9's tiles through the
    ResNet-50 embedder with a data mesh of two against one device (to the
@@ -604,9 +614,14 @@ def phase_build(card: str) -> None:
         names = {"pool_int8_kernel": "K2 int8 (64-row tiles, one 3-slot weight stream)",
                  "pool_kernel_f32ILi16": "K1 f32 (64-row tiles, 8 warps, H=512)",
                  "pool_kernel_f32ILi8": "K1 f32 (64-row tiles, 8 warps, H=256)",
-                 "pool_kernel_bf16": "K1 bf16 (128-row tiles, 8 warps)", "pool_combine_kernelILi2ELb1": "combine",
-                 "pool_combine_kernelILi2ELb0": "combine without division (K1p)",
-                 "pool_combine_kernelILi8ELb1": "probe combine (8 tasks)",
+                 "pool_kernel_bf16": "K1 bf16 (128-row tiles, 8 warps)",
+                 # K1, K1p and the one-launch sharded pool merge their partials in pool_tail at the end of their own
+                 # launch; the combine kernel is a launch of its own only after K2 (pool_int8.cu) and the probes, and
+                 # for the mesh's shard partials (combine_shards)
+                 "pool_tail": "the merge at the end of K1, K1p and the sharded pool (pool_tail, not inlined)",
+                 "pool_int8_cu": "combine after K2 (a launch of its own)",
+                 "pool_cu": "combine of the mesh's shard partials (a launch of its own)",
+                 "pool_combine_kernelILi8E": "probe combine (8 tasks, a launch of its own)",
                  **{f"mha_bf16_kernelILi{kt}ELi{sm}E": f"{k} bf16 (up to {16 * kt} tokens)"
                     for kt in (13, 17) for sm, k in ((0, "K3"), (1, "P7"))},
                  **{f"mha_f32_kernelILi{kpl}ELi{sm}E": f"{k} f32 (up to {8 * kpl} tokens)"
@@ -739,12 +754,15 @@ def phase_compare(model, seed: int) -> dict:
 
 
 @restores_tf32
-def phase_compare_partial(model, seed: int) -> tuple[float, float]:
-    """K1p (the pooling kernel's partial mode) against plain_pool_partial per
-    shard, and bag_sharded_pool (K1p per shard, then the combine kernel)
-    against K1 on the whole bag and against plain_pool, on bags of 163,840
-    rows. Returns the largest error of (the shards' statistics, the
-    combined M)."""
+def phase_compare_partial(model, seed: int) -> tuple[float, float, float]:
+    """K1p (the pooling kernel's partial mode) per shard, on the shard as a
+    view of the batch (read in place, B=2 strided) and on its copy (the same
+    bits), against plain_pool_partial on the copy; the combine kernel on
+    K1p's partials against its plain version; and bag_sharded_pool (one
+    launch over every shard, its merge at its end) against K1 on the whole
+    bag, against plain_pool and against the combine of K1p's partials, on
+    bags of 163,840 rows. Returns the largest error of (the shards'
+    statistics, the combine kernel, the one-launch sharded pool)."""
     from toad_tpu_torch.ops import cuda_pool
     from toad_tpu_torch.ops.fused_pool import plain_pool, plain_pool_partial
     from toad_tpu_torch.ops.pooling import NEG_INF
@@ -758,7 +776,7 @@ def phase_compare_partial(model, seed: int) -> tuple[float, float]:
     # (label, live rows per bag, shard counts)
     cases = (("B=1 150,000 live", (150_000,), (2, 4, 8)), ("B=2 150,000 live", (150_000, 150_000), (2, 4, 8)),
              ("B=1 30,000 live", (30_000,), (8,)), ("B=2 one bag fully masked", (0, 150_000), (4,)))
-    worst_stats = worst_m = 0.0
+    worst_stats = worst_comb = worst_m = 0.0
     for label, live, shard_counts in cases:
         b = len(live)
         x = torch.randn(b, n, 1024, device=dev, generator=g)
@@ -777,8 +795,11 @@ def phase_compare_partial(model, seed: int) -> tuple[float, float]:
                     accs, stats = [], []
                     for s in range(n_shards):
                         xs, ms = x[:, s * per:(s + 1) * per], mask[:, s * per:(s + 1) * per]
-                        acc_k, st_k = cuda_pool.pool_partial(ops, xs, ms)
-                        acc_p, st_p = plain_pool_partial(params, xs, ms, dt)
+                        acc_k, st_k = cuda_pool.pool_partial(ops, xs, ms)  # the view, read in place
+                        copies = xs.contiguous(), ms.contiguous()
+                        if not all(map(torch.equal, (acc_k, st_k), cuda_pool.pool_partial(ops, *copies))):
+                            raise AssertionError(f"{name} shard {s}/{n_shards}: K1p on the view is not its copy's bits")
+                        acc_p, st_p = plain_pool_partial(params, *copies, dt)
                         accs.append(acc_k)
                         stats.append(st_k)
                         dead = ms.sum(1) == 0  # [B]
@@ -797,10 +818,15 @@ def phase_compare_partial(model, seed: int) -> tuple[float, float]:
                             e_mean = max(e_mean, check_close(
                                 f"{name} shard {s}/{n_shards} acc / denom", acc_k[lv] / st_k[lv, 1, :, None],
                                 acc_p[lv] / st_p[lv, 1, :, None], tol_m))
-                    m_sharded = bag_sharded_pool(ops, x, mask, n_shards)
-                    # the combine kernel alone, on the kernel's own partials, against its plain version
-                    e_comb = check_close(f"{name} {n_shards} shards combine vs plain combine", m_sharded,
-                                         plain_combine_partial_pool(torch.stack(accs), torch.stack(stats)), TOL_F32)
+                    m_sharded = bag_sharded_pool(ops, x, mask, n_shards)  # one launch
+                    # the combine kernel alone, on K1p's partials, against its plain version; the one-launch pool
+                    # against it (its runs differ from the per-shard launches': bf16 rounds e against other maxes)
+                    acc_all, st_all = torch.stack(accs), torch.stack(stats)
+                    m_comb = cuda_pool.combine_shards(acc_all, st_all)
+                    e_comb = check_close(f"{name} {n_shards} shards combine vs plain combine", m_comb,
+                                         plain_combine_partial_pool(acc_all, st_all), TOL_F32)
+                    e_regroup = check_close(f"{name} {n_shards} shards one launch vs K1p per shard + combine",
+                                            m_sharded, m_comb, tol_m)
                     e_whole = check_close(f"{name} {n_shards} shards vs K1 on the whole bag", m_sharded, m_whole, tol_m)
                     e_plain = check_close(f"{name} {n_shards} shards vs plain_pool", m_sharded, m_plain, tol_m)
                     dead_bags = mask.sum(1) == 0
@@ -808,14 +834,16 @@ def phase_compare_partial(model, seed: int) -> tuple[float, float]:
                         raise AssertionError(f"{name}: a fully-masked bag pooled to nonzero M")
                     torch.cuda.synchronize()
                     worst_stats = max(worst_stats, e_max, e_mean)
-                    worst_m = max(worst_m, e_whole, e_plain, e_comb)
+                    worst_comb = max(worst_comb, e_comb)
+                    worst_m = max(worst_m, e_whole, e_plain, e_regroup)
                     log(f"phase 3 compare partial pool {name} N={n} in {n_shards} shards ({masked_shards} fully masked): "
-                        f"per shard vs plain_pool_partial max abs err of max {e_max:.2e}, of denom / plain denom "
-                        f"{e_den:.2e} (tolerance {tol_s}), of acc / denom {e_mean:.2e}; bag_sharded_pool vs its plain "
-                        f"combine {e_comb:.2e} (tolerance {TOL_F32}), vs K1 on the whole bag {e_whole:.2e}, "
-                        f"vs plain_pool {e_plain:.2e} (tolerance {tol_m})")
+                        f"per shard (B={b} strided views, the bits of their copies) vs plain_pool_partial max abs err "
+                        f"of max {e_max:.2e}, of denom / plain denom {e_den:.2e} (tolerance {tol_s}), of acc / denom "
+                        f"{e_mean:.2e}; the combine kernel on K1p's partials vs its plain version {e_comb:.2e} "
+                        f"(tolerance {TOL_F32}); bag_sharded_pool in one launch vs K1p + combine {e_regroup:.2e}, "
+                        f"vs K1 on the whole bag {e_whole:.2e}, vs plain_pool {e_plain:.2e} (tolerance {tol_m})")
         del x, mask
-    return worst_stats, worst_m
+    return worst_stats, worst_comb, worst_m
 
 
 def phase_compare_int8(model, seed: int) -> float:
@@ -1095,8 +1123,8 @@ def ab_runs(flag: str, what: str, parent: Path, gpu: str) -> list[tuple[str, dic
         if best["parent"] is None:
             log(f"{what} A/B {key}: this tree {best['this']:.4f} (not in the parent) [{gpu}]")
             continue
-        log(f"{what} A/B {key}: parent {best['parent']:.4f}, this tree {best['this']:.4f} "
-            f"(parent / this {best['parent'] / best['this']:.2f}) [{gpu}]")
+        ratio = f"parent / this {best['parent'] / best['this']:.2f}" if best["this"] else "none in this tree"
+        log(f"{what} A/B {key}: parent {best['parent']:.4f}, this tree {best['this']:.4f} ({ratio}) [{gpu}]")
     return runs
 
 
@@ -1190,6 +1218,7 @@ def stage_ab(parent: Path, gpu: str) -> None:
 # shard, P6's bag, and the probes' small batch
 POOL_AB_SHAPES = ((32, 8192), (1, 65536), (4, 29568))
 POOL_AB_PARTIAL = (1, 40960)
+POOL_AB_STRIDED = (2, 40960)  # K1p on half of each bag's rows: a strided shard
 POOL_AB_SPLIT = (1, 131072)
 POOL_AB_PROBE = (4, 4096)
 
@@ -1221,8 +1250,12 @@ def time_pool(seed: int = 0) -> dict:
     K2's M under :func:`~toad_tpu_torch.ops.cuda_pool.split_plan`'s split
     (passed where the package's ``pool_int8`` takes a split, else its own
     default), and the controls K1 bf16 and f32 in both modes at every shape,
-    K1p in both dtypes, P6 and P1 full. Also ptxas's lines of K2 and the
-    int8 probe where this process built them."""
+    K1p in both dtypes (also on a strided B=2 shard, which the parent
+    copied), P6 and P1 full. Also K1's time in both dtypes at B=32 x 8,192,
+    1 x 65,536, 1 x 8,192 and 1 x 40,960, K1p's at 1 x 40,960, and
+    bag_sharded_pool's in 4 and 8 shards beside K1's on one bag of 163,840
+    rows (each tree's own launches), and ptxas's lines of K1, its merge, K2
+    and the int8 probe where this process built them."""
     import hashlib
     import inspect
 
@@ -1273,6 +1306,14 @@ def time_pool(seed: int = 0) -> dict:
             tag = f"K1p {str(dt)[6:]} B={b} N={n}"
             digests.update(zip((f"{tag} acc", f"{tag} stats"),
                                map(digest, cuda_pool.pool_partial(ops[dt], x.to(dt), mask))))
+        # K1p on the second half of a B=2 batch's rows, a strided view: the parent copies it, this tree reads it
+        b, n = POOL_AB_STRIDED
+        x, mask = inputs(b, 2 * n)
+        for dt in (torch.bfloat16, torch.float32):
+            tag = f"K1p {str(dt)[6:]} B={b} N={n} (rows {n}.. of {2 * n}, a view)"
+            digests.update(zip((f"{tag} acc", f"{tag} stats"),
+                               map(digest, cuda_pool.pool_partial(ops[dt], x.to(dt)[:, n:], mask[:, n:]))))
+        del x
         b, n = POOL_AB_SPLIT
         x, mask = inputs(b, n)
         digests[f"P6 bf16 B={b} N={n} M"] = digest(
@@ -1307,15 +1348,74 @@ def time_pool(seed: int = 0) -> dict:
                 lambda o=o, xin=xin, sxv=sxv, v=v: probe_pool_int8.probe_pool_int8(o, xin, sxv, ones, v))
             del xin, sxv
         del x
+        # K1, K1p and the bag-sharded pool (the subject): each tree's own launches, its merge at
+        # the end of the kernel or a combine launch after it
+        from toad_tpu_torch.parallel.bag_shard import bag_sharded_pool
+
+        for b, n in (POOL_AB_SHAPES[0], (1, 65536), (1, 8192), POOL_AB_PARTIAL):
+            x, mask = inputs(b, n)
+            for dt in (torch.bfloat16, torch.float32):
+                xd = x.to(dt)
+                calls = {"K1": lambda: cuda_pool.pool(ops[dt], xd, mask, False)}
+                if (b, n) == POOL_AB_PARTIAL:
+                    calls["K1p"] = lambda: cuda_pool.pool_partial(ops[dt], xd, mask)
+                for what, fn in calls.items():
+                    tag = f"{what} {str(dt)[6:]} B={b} N={n}"
+                    out[f"{tag} ms"] = cuda_ms(fn)
+                    # 20 calls back to back: the card's time a call, the host's launch work hidden behind it
+                    out[f"{tag} ms back-to-back"] = cuda_ms(fn, inner=20)
+                    out.update({f"{tag} {k}": v for k, v in device_us(fn).items()})
+            del x, xd
+        x, ones = torch.randn(1, 163_840, 1024, device=dev, generator=g), torch.ones(1, 163_840, device=dev)
+        for dt in (torch.bfloat16, torch.float32):
+            xd = x.to(dt)
+            for n_shards in (4, 8):
+                out[f"bag_sharded_pool {str(dt)[6:]} B=1 N=163840 {n_shards} shards ms"] = cuda_ms(
+                    lambda: bag_sharded_pool(ops[dt], xd, ones, n_shards))
+            out[f"K1 {str(dt)[6:]} B=1 N=163840 ms"] = cuda_ms(lambda: cuda_pool.pool(ops[dt], xd, ones, False))
+            del xd
+        del x
     torch.cuda.synchronize()
     out["ptxas"] = [f"{name}: {line}" for kernel, line in ptxas_lines(_build.build_log)
-                    for key, name in (("pool_int8_kernel", "K2"), ("probe_int8_kernel", kernel)) if key in kernel]
+                    for key, name in (("pool_int8_kernel", "K2"), ("probe_int8_kernel", kernel),
+                                      ("pool_kernel_f32ILi16", "K1 f32 H=512"), ("pool_kernel_f32ILi8", "K1 f32 H=256"),
+                                      ("pool_kernel_bf16", "K1 bf16"), ("pool_tail", "pool_tail"))
+                    if key in kernel]
     path = REPO / "_work" / "pool_ab" / f"outputs_{os.getpid()}.pt"
     path.parent.mkdir(parents=True, exist_ok=True)
     torch.save({k: v.cpu() for k, v in saved.items()}, path)
     out["digests"] = digests
     out["saved"] = str(path)
     return out
+
+
+def device_us(fn, calls: int = 10) -> dict:
+    """A profiler's reading of ``calls`` calls of ``fn`` in one trace, each
+    call the pooling kernel's launch and any combine launches after it: the
+    median device microseconds of the pooling kernel, of the combine kernel
+    (where a call launches one) and of the call's span on the card (its
+    pooling kernel's start to its last kernel's end), over the calls whose
+    records the trace kept."""
+    def calls_fn():
+        for _ in range(calls):
+            fn()
+            torch.cuda.synchronize()
+
+    fn()
+    torch.cuda.synchronize()
+    per_call = []  # [pool kernel us, combine us, start, end] a call
+    for e in sorted(traced_kernels(calls_fn), key=lambda e: e["ts"]):
+        if "pool_kernel" in e["name"]:
+            per_call.append([e["dur"], 0.0, e["ts"], e["ts"] + e["dur"]])
+        elif "pool_combine_kernel" in e["name"] and per_call:
+            per_call[-1][1] += e["dur"]
+            per_call[-1][3] = e["ts"] + e["dur"]
+    # the profiler now and then drops a kernel's record: the medians take what it kept
+    if len(per_call) < calls // 2:
+        raise AssertionError(f"the profiler's trace of {calls} pooling calls holds {len(per_call)} pooling kernels")
+    return {"pool kernel us": statistics.median(c[0] for c in per_call),
+            "combine kernel us": statistics.median(c[1] for c in per_call),
+            "span us": statistics.median(c[3] - c[2] for c in per_call)}
 
 
 def pool_ab(parent: Path, gpu: str) -> None:
@@ -1326,13 +1426,17 @@ def pool_ab(parent: Path, gpu: str) -> None:
     running maxes), and each int8 probe instance within TOL_PROBE of the
     parent's output (logged: whether it is the parent's bits). Logs each
     tree's ptxas lines and, for each run, each instance as x K2 and the
-    ladder as shares of int8_chain."""
+    ladder as shares of int8_chain, and bag_sharded_pool as x K1 on the
+    same bag."""
     from toad_tpu_torch.ops.probe_pool_int8 import VARIANTS
 
     runs = ab_runs("--time-pool", "pool", parent, gpu)
     for label, r in runs:
         for line in r["ptxas"]:
             log(f"pool A/B {label} tree: ptxas {line}")
+        log(f"pool A/B {label} tree: bag_sharded_pool B=1 N=163840 as x K1 in one launch: " + ", ".join(
+            f"{dt} {s} shards x{r[f'bag_sharded_pool {dt} B=1 N=163840 {s} shards ms'] / r[f'K1 {dt} B=1 N=163840 ms']:.3f}"
+            for dt in ("bfloat16", "float32") for s in (4, 8)) + f" [{gpu}]")
         k2_ms = r["K2 classification B=32 N=8192 ms"]
         log(f"pool A/B {label} tree: K2 {k2_ms:.3f} ms; " + int8_ladder(
             {v: r[f"probe {v} B=32 N=8192 ms"] for v in VARIANTS}, k2_ms) + f" [{gpu}]")
@@ -1359,7 +1463,8 @@ def pool_ab(parent: Path, gpu: str) -> None:
         f"split: max abs err, tolerance {TOL_INT8_M}; P3/P4: the largest error of a task row relative to its largest "
         f"|output|, tolerance {TOL_PROBE})")
     log(f"pool A/B: all {len(want)} digests (K2's scores at every shape and its M at split_plan's split; K1 bf16 and "
-        "f32 in both modes at every shape, K1p in both dtypes, P6, P1 full) equal the parent's in all four runs")
+        "f32 in both modes at every shape, K1p in both dtypes, whole and on a strided shard, P6, P1 full) equal the "
+        "parent's in all four runs")
 
 
 def _post(url: str, data: bytes, headers: dict) -> dict:
@@ -2407,34 +2512,85 @@ def phase_resnet(seed: int, card: str, gpu: str, workdir: Path, dev: torch.devic
     return dict(launches=driven["launches"], worst=worst_abs, worst_rel=worst_rel, times=times, featurized=featurized)
 
 
+def traced_kernels(fn, tries: int = 3) -> list[dict]:
+    """The device kernels (``name``, ``ts`` and ``dur`` in us) of one call of
+    ``fn``, from a torch.profiler trace of that call alone (its Chrome trace's
+    ``kernel`` events). A trace that caught no device activity at all is
+    taken again, up to ``tries`` calls (the profiler's activity buffers now
+    and then come back empty); AssertionError if every one was empty."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        with tempfile.TemporaryDirectory(prefix="toad_trace_") as tmp:
+            prof.export_chrome_trace(str(Path(tmp) / "trace.json"))
+            with open(Path(tmp) / "trace.json") as f:
+                events = json.load(f)["traceEvents"]
+        kernels = [e for e in events if e.get("ph") == "X" and e.get("cat") == "kernel"]
+        if kernels:
+            return kernels
+    raise AssertionError(f"{tries} profiler traces of one call held no device kernel")
+
+
+def one_call_kernels(fn) -> list[str]:
+    """The names of the device kernels one call of ``fn`` ran (after a warm-up call)."""
+    fn()
+    torch.cuda.synchronize()
+    return [e["name"] for e in traced_kernels(fn)]
+
+
 def drive_bag_sharded(model, seed: int) -> dict:
-    """The main path of K1p and the shard combine: ``bag_sharded_pool`` as a
-    caller uses it (the params dict, bf16 compute) on one bag of 163,840
-    rows in 4 shards. The kernels' counts are set to 0 just before and read
-    just after."""
+    """The main path of the one-launch sharded pool: ``bag_sharded_pool`` as
+    a caller uses it (the params dict, bf16 compute) on one bag of 163,840
+    rows in 4 shards, and on B=4 bags of 40,960 rows sliced out of a batch
+    of 81,920 (read in place) in 4 shards. Each call must be one launch, no
+    K1p launch and no combine; the kernels' counts are set to 0 just before
+    and read just after. Then a profiler's list of the device kernels of one
+    call each of K1, K1p (on a slice) and the sharded pool: one kernel each."""
     from toad_tpu_torch.ops import cuda_pool
     from toad_tpu_torch.ops.fused_pool import plain_pool
     from toad_tpu_torch.parallel.bag_shard import bag_sharded_pool
 
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(seed + 4)
-    n, n_shards = 163_840, 4
-    x = torch.randn(1, n, 1024, device=dev, generator=g).bfloat16()
-    mask = torch.zeros(1, n, device=dev)
+    n_shards = 4
+    x = torch.randn(1, 163_840, 1024, device=dev, generator=g).bfloat16()
+    mask = torch.zeros(1, 163_840, device=dev)
     mask[0, :150_000] = 1.0
+    batch = torch.randn(4, 81_920, 1024, device=dev, generator=g).bfloat16()
+    batch_mask = (torch.rand(4, 81_920, device=dev, generator=g) < 0.9).float()
+    batch_mask[1, 30_000:] = 0.0  # bag 1: its slice's last shards are padding
+    sl = slice(20_480, 61_440)
+    cases = (("B=1 N=163,840", x, mask), ("B=4 N=40,960 (rows 20,480..61,440 of a batch, read in place)",
+                                           batch[:, sl], batch_mask[:, sl]))
+    params = model.pool_params()
     with torch.inference_mode():
-        cuda_pool.PARTIAL_LAUNCHES = cuda_pool.COMBINE_LAUNCHES = 0
-        m = bag_sharded_pool(model.pool_params(), x, mask, n_shards, compute_dtype=torch.bfloat16)
+        cuda_pool.PARTIAL_LAUNCHES = cuda_pool.COMBINE_LAUNCHES = cuda_pool.SHARDED_LAUNCHES = 0
+        lib0 = cuda_pool.library_launches()
+        pooled = [bag_sharded_pool(params, xc, mc, n_shards, compute_dtype=torch.bfloat16) for _, xc, mc in cases]
         torch.cuda.synchronize()
-        counts = dict(partial=cuda_pool.PARTIAL_LAUNCHES, combine=cuda_pool.COMBINE_LAUNCHES)
-        ref, _ = plain_pool(model.pool_params(), x, mask, torch.bfloat16, with_scores=False)
-    err = check_close("bag_sharded_pool (main path) vs plain_pool", m, ref, TOL_BF16_M)
-    if counts != dict(partial=n_shards, combine=1):
-        raise AssertionError(f"bag_sharded_pool in {n_shards} shards launched {counts}")
-    log(f"phase 3 bag_sharded_pool main path: B=1 N={n} bf16 in {n_shards} shards: partial-mode launches "
-        f"{counts['partial']}, combine launches {counts['combine']}, max abs err vs plain_pool {err:.2e} "
-        f"(tolerance {TOL_BF16_M})")
-    return counts
+        counts = dict(sharded=cuda_pool.SHARDED_LAUNCHES, partial=cuda_pool.PARTIAL_LAUNCHES,
+                      combine=cuda_pool.COMBINE_LAUNCHES, library=cuda_pool.library_launches() - lib0)
+        errs = []
+        for (label, xc, mc), m in zip(cases, pooled):
+            ref, _ = plain_pool(params, xc, mc, torch.bfloat16, with_scores=False)
+            errs.append(check_close(f"bag_sharded_pool (main path) {label} vs plain_pool", m, ref, TOL_BF16_M))
+        ops = model.kernel_operands(torch.bfloat16)
+        listed = {"K1": one_call_kernels(lambda: cuda_pool.pool(ops, x, mask, False)),
+                  "K1p": one_call_kernels(lambda: cuda_pool.pool_partial(ops, batch[:, sl], batch_mask[:, sl])),
+                  "sharded": one_call_kernels(lambda: cuda_pool.pool_sharded(ops, x, mask, n_shards))}
+    if counts != dict(sharded=len(cases), partial=0, combine=0, library=len(cases)):
+        raise AssertionError(f"bag_sharded_pool in {n_shards} shards, {len(cases)} calls, launched {counts}")
+    if any(len(names) != 1 or "pool_kernel" not in names[0] for names in listed.values()):
+        raise AssertionError(f"one call each, the device kernels the profiler listed: {listed}")
+    log(f"phase 3 bag_sharded_pool main path, bf16 in {n_shards} shards: " + "; ".join(
+        f"{label}: max abs err vs plain_pool {e:.2e}" for (label, _, _), e in zip(cases, errs))
+        + f" (tolerance {TOL_BF16_M}); {len(cases)} calls launched the sharded pool {counts['sharded']} times, K1p "
+        f"{counts['partial']}, the combine {counts['combine']}, the library {counts['library']} kernels in all; "
+        "the profiler's device kernels of one call: " + "; ".join(f"{k} {v}" for k, v in listed.items()))
+    return dict(counts, worst=max(errs))
 
 
 def run_train(workdir: Path, exp_code: str, extra: list[str], timeout: int = 900) -> tuple[list[str], float]:
@@ -2938,8 +3094,10 @@ def time_feeds(split, gpu: str) -> dict:
 
 
 def phase_timing_train(gpu: str, seed: int) -> dict:
-    """K1p and the combine against their plain versions, the sharded pool
-    against K1 in one launch, and the train step (forward + backward + Adam)."""
+    """K1p, the one-launch sharded pool and the combine (its mesh form)
+    against their plain versions, the sharded pool in 4 and 8 shards against
+    K1 in one launch on the same rows, K1 at predict's B=1 x 8,192, and the
+    train step (forward + backward + Adam)."""
     from toad_tpu_torch.config import ModelConfig, OptimConfig
     from toad_tpu_torch.models.toad_mil import ToadMIL
     from toad_tpu_torch.ops import cuda_pool
@@ -2966,21 +3124,38 @@ def phase_timing_train(gpu: str, seed: int) -> dict:
                 dict(bytes=nbytes(xs, ms, *ops) + (2 * 512 + 4) * 4, ops=pool_ops(dt, flops)), gpu)
             if dt == torch.float32:
                 log_ffma_bound(label, out[("partial_" + kind, 1)], flops, gpu)
-            # the whole sharded pool (4 partial launches + the combine) against K1 in one launch on the same bag
-            t_plain = cuda_ms(lambda: plain_pool(params, x, mask, dt, False))
+            # the sharded pool (one launch over every shard, the merge at its end) against K1 in one launch on the
+            # same bag, in turns; its record times it against plain_pool on the whole bag (the same function)
+            label, flops = f"sharded pool {kind} B=1 N={n} D=1024 in {n_shards} shards (one launch)", \
+                cuda_pool.flops_per_row(1024, 512, 384) * n
+            out[("sharded_pool_" + kind, 1)] = time_pair(
+                label, lambda: plain_pool(params, x, mask, dt, False), lambda: bag_sharded_pool(ops, x, mask, n_shards),
+                dict(bytes=nbytes(x, mask, *ops) + 2 * 512 * 4, ops=pool_ops(dt, flops)), gpu)
             t_whole = cuda_ms(lambda: cuda_pool.pool(ops, x, mask, False))
             t_shard = cuda_ms(lambda: bag_sharded_pool(ops, x, mask, n_shards))
             t_shard8 = cuda_ms(lambda: bag_sharded_pool(ops, x, mask, 8))
+            t_shard8b = cuda_ms(lambda: bag_sharded_pool(ops, x, mask, 8))
+            t_shardb = cuda_ms(lambda: bag_sharded_pool(ops, x, mask, n_shards))
             t_whole2 = cuda_ms(lambda: cuda_pool.pool(ops, x, mask, False))
-            log(f"phase 6 timing bag_sharded_pool {kind} B=1 N={n}: {n_shards} shards {t_shard:.3f} ms, 8 shards "
-                f"{t_shard8:.3f} ms, K1 in one launch {min(t_whole, t_whole2):.3f} ms ({t_whole:.3f}/{t_whole2:.3f}), "
-                f"plain_pool {t_plain:.3f} ms [{gpu}]")
-            out[("sharded_" + kind, 1)] = dict(shards4=t_shard, shards8=t_shard8, whole=min(t_whole, t_whole2), plain=t_plain)
+            whole, s4, s8 = min(t_whole, t_whole2), min(t_shard, t_shardb), min(t_shard8, t_shard8b)
+            log(f"phase 6 timing bag_sharded_pool {kind} B=1 N={n}, one launch each: {n_shards} shards {s4:.3f} ms "
+                f"({t_shard:.3f}/{t_shardb:.3f}) = x{s4 / whole:.3f} K1, 8 shards {s8:.3f} ms ({t_shard8:.3f}/"
+                f"{t_shard8b:.3f}) = x{s8 / whole:.3f} K1; K1 in one launch {whole:.3f} ms ({t_whole:.3f}/{t_whole2:.3f}), "
+                f"plain_pool {out[('sharded_pool_' + kind, 1)]['plain_ms']:.3f} ms [{gpu}]")
+            out[("sharded_" + kind, 1)] = dict(shards4=s4, shards8=s8, whole=whole)
             del x
+            # K1 at predict's shape, one bag of 8,192 rows (phase 6's pool timing has B=1 x 65,536)
+            xp, mp = torch.randn(1, 8192, 1024, device=dev).to(dt), torch.ones(1, 8192, device=dev)
+            t_c, t_s = cuda_ms(lambda: cuda_pool.pool(ops, xp, mp, False)), cuda_ms(lambda: cuda_pool.pool(ops, xp, mp, True))
+            log(f"phase 6 timing K1 {kind} B=1 N=8192 (predict's shape): classification {t_c:.4f} ms, scored "
+                f"{t_s:.4f} ms [{gpu}]")
+            out[("k1_8192_" + kind, 1)] = dict(classification=t_c, scored=t_s)
+            del xp
         acc = torch.randn(n_shards, 1, 2, 512, device=dev)
         stats = torch.stack([torch.randn(n_shards, 1, 2, device=dev), torch.rand(n_shards, 1, 2, device=dev) + 1.0], dim=2)
         out[("combine", 1)] = time_pair(
-            f"shard combine S={n_shards} B=1 H=512", lambda: plain_combine_partial_pool(acc, stats),
+            f"shard combine (the mesh's, a launch of its own) S={n_shards} B=1 H=512",
+            lambda: plain_combine_partial_pool(acc, stats),
             lambda: cuda_pool.combine_shards(acc, stats),
             dict(bytes=nbytes(acc, stats) + 2 * 512 * 4, ops=3 * n_shards * 2 * 512, kind="f32"), gpu, inner=50)
 
@@ -3490,23 +3665,29 @@ def phase_serve_ensemble(trained: dict, card: str, gpu: str, workdir: Path, seed
     forward = time_ensemble_forward(sd32, sd16, cfg, seed, gpu)
     laps["forward timing"] = time.perf_counter() - t0 - sum(laps.values())
 
-    # serve_load in process, by wire: its line parsed, K1 launches = its batches (one model, one launch a batch)
+    # serve_load in process, by wire: its line parsed, K1 launches = its batches (one model, one launch a batch);
+    # each request's stages (--timestamps), so that a stalled request names the stage that held it
     load = {}
     for wire in ("none", "raw"):
         k1_0 = cuda_pool.LAUNCHES
         buf = io.StringIO()
         with contextlib.redirect_stdout(buf):
-            serve_load.main([*SERVE_LOAD_ARGS, "--wire", wire])
+            serve_load.main([*SERVE_LOAD_ARGS, "--wire", wire, "--timestamps"])
         lines = buf.getvalue().strip().splitlines()
-        line = json.loads(lines[-1])
+        line, reqs = json.loads(lines[-1]), [json.loads(r) for r in lines[:-1]]
         launched = cuda_pool.LAUNCHES - k1_0
-        if (len(lines) != 1 or line["wire"] != wire or line["requests"] != int(SERVE_LOAD_ARGS[3])
+        if (len(reqs) != int(SERVE_LOAD_ARGS[3]) or line["wire"] != wire or line["requests"] != len(reqs)
                 or line["device"] != card or launched != line["batches"]):
-            raise AssertionError(f"serve_load --wire {wire}: {lines}, K1 launches {launched}")
+            raise AssertionError(f"serve_load --wire {wire}: {lines[-1]}, {len(reqs)} request lines, K1 launches "
+                                 f"{launched}")
         load[wire] = line
         laps[f"serve_load {wire}"] = time.perf_counter() - t0 - sum(laps.values())
+        worst = max(reqs, key=lambda r: r["largest_gap_ms"])
+        by_stage = {st: sum(r["largest_gap"] == st for r in reqs) for st in serve_load.STAGES[1:]}
         log(f"phase 13 serve_load {' '.join(SERVE_LOAD_ARGS)} --wire {wire}: {json.dumps(line)}; K1 f32 launches "
-            f"{launched} = its batches [{gpu}]")
+            f"{launched} = its batches; the requests' largest gaps end at {by_stage}, the largest of all "
+            f"{worst['largest_gap_ms']:.1f} ms before {worst['largest_gap']} (request {worst['request']}: "
+            f"{json.dumps(worst)}) [{gpu}]")
     log(f"phase 13: {time.perf_counter() - t0:.1f} s (" + ", ".join(f"{k} {v:.1f} s" for k, v in laps.items()) + ")")
     return dict(main, k2_launches=k2, worst_p=worst_p, worst_a=worst_a, forward=forward, serve_load=load)
 
@@ -3775,14 +3956,18 @@ def phase_mesh(trained: dict, card: str, gpu: str, workdir: Path, resnet_dir: Pa
     evals = {}
     for shape in MESH_SHAPES_EVAL:
         before = (cuda_pool.LAUNCHES, cuda_pool.PARTIAL_LAUNCHES, cuda_pool.COMBINE_LAUNCHES)
+        lib0 = cuda_pool.library_launches() if on_card else 0
         t1 = time.perf_counter()
         res = evaluate_checkpoint(ckpt, test_split, cfg32, batch_size=4, mesh=mesh(*shape))
         secs = time.perf_counter() - t1
         k1, k1p, comb = (cuda_pool.LAUNCHES - before[0], cuda_pool.PARTIAL_LAUNCHES - before[1],
                          cuda_pool.COMBINE_LAUNCHES - before[2])
+        lib = cuda_pool.library_launches() - lib0 if on_card else 0
         nb = res.stats["n_batches"]
-        if on_card and (k1, k1p, comb) != (0, shape[0] * shape[1] * nb, nb):
-            raise AssertionError(f"eval over mesh {shape}, {nb} batches: K1 {k1}, K1p {k1p}, combine {comb} launches")
+        # every kernel the library launched is one of these: no split merge follows a K1p launch
+        if on_card and ((k1, k1p, comb) != (0, shape[0] * shape[1] * nb, nb) or lib != k1p + comb):
+            raise AssertionError(f"eval over mesh {shape}, {nb} batches: K1 {k1}, K1p {k1p}, combine {comb} launches, "
+                                 f"{lib} kernels of the library in all")
         if list(res.df["slide_id"]) != list(base.df["slide_id"]):
             raise AssertionError(f"eval over mesh {shape} scored other slides")
         err = float(np.abs(res.probs() - base.probs()).max())
@@ -3791,7 +3976,8 @@ def phase_mesh(trained: dict, card: str, gpu: str, workdir: Path, resnet_dir: Pa
         evals[shape] = err
         log(f"phase 16 mesh: eval pass of the f32 checkpoint over mesh {shape}, {res.stats['n']} slides in {nb} "
             f"batches ({secs:.2f} s, feed {res.stats['feed']}): K1p launches {k1p} (shards x batches), combine launches "
-            f"{comb}, K1 {k1}; |y_prob - unsharded pass| max {err:.3e} (tolerance {TOL_MESH_PROB:g}) [{gpu}]")
+            f"{comb}, K1 {k1}, the library's kernels {lib} (no split merge); |y_prob - unsharded pass| max {err:.3e} "
+            f"(tolerance {TOL_MESH_PROB:g}) [{gpu}]")
 
     # (c) the serving batcher over (1, 2): six requests of the cohort, half with attention
     sd = load_params_any(ckpt, cfg32)
@@ -4550,10 +4736,11 @@ def main() -> int:
                          "required to be the same bits")
     ap.add_argument("--time-stage", type=Path, metavar="ROOT", help=argparse.SUPPRESS)
     ap.add_argument("--pool-ab", type=Path, metavar="PARENT",
-                    help="only phases 1-2 and the K2 comparisons of phase 3, then the int8 probe's instances and K2 "
-                         "of the package checkout PARENT timed against this tree's (parent, this, this, parent), "
-                         "K2's scores, its M at the parent's split and the controls (K1, K1p, P6, P1 full) "
-                         "required to be the same bits, K2's M and the int8 probe's outputs close to the parent's")
+                    help="only phases 1-2 and the K2 comparisons of phase 3, then K1, K1p, bag_sharded_pool, the int8 "
+                         "probe's instances and K2 of the package checkout PARENT timed against this tree's (parent, "
+                         "this, this, parent), K2's scores, its M at the parent's split and the controls (K1, K1p "
+                         "whole and on a strided shard, P6, P1 full) required to be the same bits, K2's M and the "
+                         "int8 probe's outputs close to the parent's")
     ap.add_argument("--time-pool", type=Path, metavar="ROOT", help=argparse.SUPPRESS)
     ap.add_argument("--mesh-cards", action="store_true",
                     help="only phases 1-2, then the mesh with each cell on its own card (two or more cards)")
@@ -4603,7 +4790,7 @@ def main() -> int:
     elapsed("phase 2")
     model = seeded_model(args.seed).cuda().eval()
     worst = phase_compare(model, args.seed)
-    worst_partial, worst_sharded = phase_compare_partial(model, args.seed)
+    worst_partial, worst_combine, worst_sharded = phase_compare_partial(model, args.seed)
     sharded = drive_bag_sharded(model, args.seed)
     worst8 = phase_compare_int8(model, args.seed)
     phase_compare_ungated(args.seed)
@@ -4718,18 +4905,31 @@ def main() -> int:
             "route": "cuda",
             "source": "toad_tpu_torch/csrc/pool.cu",
             "replaces": "toad_tpu/ops/pallas_pool.py:636",
-            # bag_sharded_pool's main path (phase 3) and phase 16's eval passes and serving over a bag axis
+            # phase 16's eval passes and serving over a bag axis (bag_sharded_pool on one card is one launch of the
+            # sharded pool: phase 3 counts none here)
             "launches": sharded["partial"] + meshed["partial"],
             "max_abs_err": worst_partial,
             **times[("partial_bf16", 1)],
         },
         {
+            "name": "bag_sharded_pool (one launch)",
+            "route": "cuda",
+            "source": "toad_tpu_torch/csrc/pool.cu",
+            "replaces": "toad_tpu/parallel/bag_shard.py:77",
+            # phase 3's main path: every shard in one launch, its partials merged by pool_tail at its end
+            "launches": sharded["sharded"],
+            "max_abs_err": max(worst_sharded, sharded["worst"]),
+            **times[("sharded_pool_bf16", 1)],
+        },
+        {
             "name": "combine_partial_pool",
             "route": "cuda",
+            # the combine kernel, a launch of its own for the mesh's shard partials (phase 16); K1, K1p and the
+            # sharded pool run the same arithmetic in pool_tail at the end of their own launch
             "source": "toad_tpu_torch/csrc/pool_common.cuh",
             "replaces": "toad_tpu/parallel/bag_shard.py:28",
             "launches": sharded["combine"] + meshed["combine"],
-            "max_abs_err": worst_sharded,
+            "max_abs_err": worst_combine,
             **times[("combine", 1)],
         },
         {
@@ -4774,6 +4974,9 @@ def main() -> int:
         f"{k} {st[k]['ms']:.3f} / {st[k]['plain_ms']:.3f} / {st[k]['library_ms']:.3f}, {st[k]['bound_ms']:.4f} by "
         f"{st[k]['bound_by']}" for k in ("layer1", "layer2", "layer3", "all")) + f"; the encoder {enc_t['batch']:.3f} ms "
         f"a batch, ResNet featurize {resnet['featurized']['cli_tiles_s']:.1f} tiles/s by the CLI's clock [{gpu}]")
+    idle = [k["name"] for k in record["kernels"] if k["launches"] <= 0]
+    if idle:
+        raise AssertionError(f"kernels that their main path launched no time: {idle}")
     log(f"all phases: {time.perf_counter() - t_start:.1f} s")
     log(gpu)
     log(json.dumps(record))

@@ -261,9 +261,10 @@ def test_partial_kernel_and_combine_on_the_card(setup):
     mask[1, 2048:] = 0
     with torch.inference_mode():
         ops = model.kernel_operands(torch.float32)
-        before = cuda_pool.PARTIAL_LAUNCHES, cuda_pool.COMBINE_LAUNCHES
-        got = bag_sharded_pool(ops, x, mask, 4)
-        assert (cuda_pool.PARTIAL_LAUNCHES - before[0], cuda_pool.COMBINE_LAUNCHES - before[1]) == (4, 1)
+        before = cuda_pool.PARTIAL_LAUNCHES, cuda_pool.COMBINE_LAUNCHES, cuda_pool.SHARDED_LAUNCHES
+        got = bag_sharded_pool(ops, x, mask, 4)  # one launch: the shards' merge ends it, no combine of its own
+        assert (cuda_pool.PARTIAL_LAUNCHES - before[0], cuda_pool.COMBINE_LAUNCHES - before[1],
+                cuda_pool.SHARDED_LAUNCHES - before[2]) == (0, 0, 1)
         want, _ = plain_pool(model.pool_params(), x, mask, torch.float32, False)
         acc, stats = cuda_pool.pool_partial(ops, x[:, 2048:3072], mask[:, 2048:3072])
     torch.testing.assert_close(got, want, rtol=2e-3, atol=2e-3)

@@ -319,6 +319,24 @@ def test_serve_load_line_has_the_jax_keys(wire, capsys, monkeypatch):
     assert got["batches"] >= 1 and got["mean_batch_size"] >= 1 and got["transfer"] == want["transfer"] == "f32"
 
 
+@pytest.mark.parametrize("wire", ["none", "raw"])
+def test_serve_load_timestamps_name_each_requests_largest_gap(wire, capsys):
+    """--timestamps: one line a request before the run's line (the JAX
+    probe's keys, unchanged), its stages present and in order, its largest
+    gap one of theirs."""
+    assert serve_load.main([*TINY, "--wire", wire, "--device", "cpu", "--timestamps"]) == 0
+    lines = [json.loads(line) for line in capsys.readouterr().out.strip().splitlines()]
+    run, requests = lines[-1], lines[:-1]
+    assert run["requests"] == len(requests) == 8 and run["wire"] == wire
+    for i, r in enumerate(requests):
+        assert list(r) == ["request", *serve_load.STAGES, "largest_gap", "largest_gap_ms"] and r["request"] == i
+        times = [r[k] for k in serve_load.STAGES]
+        assert 0 <= times[0] and times == sorted(times)
+        gaps = {k: r[k] - r[p] for p, k in zip(serve_load.STAGES, serve_load.STAGES[1:])}
+        assert r["largest_gap"] in gaps and abs(r["largest_gap_ms"] - max(gaps.values())) < 1e-2
+    assert [r["sent"] for r in requests] == sorted(r["sent"] for r in requests)
+
+
 def test_serve_load_int8_and_refusals(capsys):
     assert serve_load.main([*TINY, "--wire", "raw", "--int8", "--device", "cpu"]) == 0
     assert json.loads(capsys.readouterr().out)["transfer"] == "int8"

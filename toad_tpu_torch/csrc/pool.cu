@@ -49,12 +49,19 @@
 //
 // The TPU's sequential grid (state carried across a bag's tiles) becomes a
 // split-N grid: block (split, bag) runs a contiguous range of row tiles and
-// writes a partial (acc, max, denom); pool_combine_kernel merges the partials
-// exactly (and, in partial mode, leaves the division to the cross-shard
-// combine), spread over 2H/32 blocks per bag so that one large bag combines
-// in parallel. Both instances hold an SM with one CTA, and their grids fill
-// whole waves (cuda_pool.wave_split_plan). No wgmma, TMA or warp
-// specialisation.
+// writes a partial (acc, max, denom), then draws a ticket of its bag; the
+// block that draws a bag's last ticket merges the bag's partials exactly
+// (pool_tail in pool_common.cuh: the combine kernel's arithmetic and order,
+// so one launch gives the two-launch design's bits) and, in partial mode,
+// leaves the division to the cross-shard combine. A bag may also be cut into
+// S equal shards of N rows that one launch pools together (the one-card
+// bag-sharded pool): block (shard * n_splits + split, bag) runs a range of
+// its shard's tiles, masked by the shard's end, so that every partial is a
+// shard-local flash statistic, and the tail merges all S * n_splits of them
+// (cuda_pool.shard_split_plan). Rows are read through a bag stride, so a
+// shard sliced out of a larger batch is read in place. Both instances hold an
+// SM with one CTA, and their grids fill whole waves
+// (cuda_pool.wave_split_plan). No wgmma, TMA or warp specialisation.
 //
 // The f32 instance (the default of serve, eval and the f32 trainer's
 // passes) keeps f32 f32: Hopper has no f32 tensor-core product, and a single
@@ -79,14 +86,22 @@
 // weight stream from L2.
 //
 // Layout contract (the Python wrapper ops/cuda_pool.py prepares it):
-//   x [B, N, D] and weights in the compute dtype T, weights in nn.Linear
+//   x [B, N, D] with contiguous rows (bag b's rows at x + b * x_bag, x_bag
+//   a multiple of 8 elements) and weights in the compute dtype T, mask rows
+//   at mask + b * m_bag, weights in nn.Linear
 //   layout [out, in]; the 2A rows of [Wa|Wb]^T are interleaved in groups of
 //   32 (u rows g*32.., then v rows g*32..) so that a thread holds u_j and v_j
 //   of the same j; biases, mask and all outputs are f32.
 
+#include <atomic>
+
 #include "pool_trunk.cuh"
 
 namespace {
+
+static_assert(kThreadsBf16 == kThreads, "both instances end in pool_tail's 8 warps");
+
+std::atomic<long long> g_launches{0};  // kernel launches made by this file's entry points
 
 // ---------------------------------------------------------------------------
 // The f32 instance. Warp (wr, wc) owns rows wr*32 + mi*16 + {g, g+8} (mi < 2)
@@ -314,13 +329,15 @@ __device__ __forceinline__ void gate_fold_f32(const float (&acc)[2][8][4], const
 // NT = H / 32: the trunk GEMMs' n-tiles a warp
 template <int NT>
 __global__ void __launch_bounds__(kThreads, 1)
-pool_kernel_f32(const float* __restrict__ x, const float* __restrict__ mask, int N, int D, int H, int A,
+pool_kernel_f32(const float* __restrict__ x, const float* __restrict__ mask, long long x_bag, long long m_bag,
+                int N, int D, int H, int A,
                 const float* __restrict__ w1t, const float* __restrict__ b1,
                 const float* __restrict__ w2t, const float* __restrict__ b2,
                 const float* __restrict__ wabt, const float* __restrict__ bab,
                 const float* __restrict__ wc, const float* __restrict__ bc,
                 int tiles_per_split, int n_splits,
-                float* __restrict__ scores, float* __restrict__ part_acc, float* __restrict__ part_stat) {
+                float* __restrict__ scores, float* __restrict__ part_acc, float* __restrict__ part_stat,
+                int* __restrict__ tickets, float eps, float* __restrict__ out, float* __restrict__ stat_out) {
   constexpr int R = kRowsF32;
   extern __shared__ __align__(16) unsigned char smem[];
   const LayoutF32 L = layout_f32(H);
@@ -333,10 +350,10 @@ pool_kernel_f32(const float* __restrict__ x, const float* __restrict__ mask, int
   float* stat = reinterpret_cast<float*>(smem + L.stat);    // max[2], denom[2], corr[2]
 
   const int tid = threadIdx.x;
-  const int split = blockIdx.x, b = blockIdx.y;
+  const int shard = blockIdx.x / n_splits, split = blockIdx.x - shard * n_splits, b = blockIdx.y;
   const int ldh = H + kHPadF32;
-  const float* xb = x + (size_t)b * N * D;
-  const float* mb = mask + (size_t)b * N;
+  const float* xb = x + (size_t)b * x_bag + (size_t)shard * N * D;  // the shard's N rows
+  const float* mb = mask + (size_t)b * m_bag + (size_t)shard * N;
 
   for (int i = tid; i < 2 * H; i += kThreads) acc_s[i] = 0.f;
   if (tid < 2) {
@@ -381,9 +398,12 @@ pool_kernel_f32(const float* __restrict__ x, const float* __restrict__ mask, int
   }
   __syncthreads();
 
-  const size_t p = (size_t)b * n_splits + split;
+  const size_t p = (size_t)b * gridDim.x + blockIdx.x;
   for (int i = tid; i < 2 * H; i += kThreads) part_acc[p * 2 * H + i] = acc_s[i];
   if (tid < 4) part_stat[p * 4 + tid] = stat[tid];
+  pool_tail<2>(part_acc, part_stat, (size_t)b * gridDim.x, gridDim.x, tickets + b, H, stat_out == nullptr, eps,
+               out + (size_t)b * 2 * H, stat_out == nullptr ? nullptr : stat_out + (size_t)b * 4,
+               reinterpret_cast<float*>(smem));
 }
 
 // ---------------------------------------------------------------------------
@@ -448,13 +468,15 @@ __device__ __forceinline__ void gate_fold(const float (&acc)[kMi][8][4], const f
 }
 
 __global__ void __launch_bounds__(kThreadsBf16, 1)
-pool_kernel_bf16(const bf16* __restrict__ x, const float* __restrict__ mask, int N, int D, int H, int A,
+pool_kernel_bf16(const bf16* __restrict__ x, const float* __restrict__ mask, long long x_bag, long long m_bag,
+                 int N, int D, int H, int A,
                  const bf16* __restrict__ w1t, const float* __restrict__ b1,
                  const bf16* __restrict__ w2t, const float* __restrict__ b2,
                  const bf16* __restrict__ wabt, const float* __restrict__ bab,
                  const bf16* __restrict__ wc, const float* __restrict__ bc,
                  int tiles_per_split, int n_splits,
-                 float* __restrict__ scores, float* __restrict__ part_acc, float* __restrict__ part_stat) {
+                 float* __restrict__ scores, float* __restrict__ part_acc, float* __restrict__ part_stat,
+                 int* __restrict__ tickets, float eps, float* __restrict__ out, float* __restrict__ stat_out) {
   constexpr int R = kRowsBf16;
   extern __shared__ __align__(16) unsigned char smem[];
   const LayoutBf16 L = layout_bf16(H);
@@ -468,10 +490,10 @@ pool_kernel_bf16(const bf16* __restrict__ x, const float* __restrict__ mask, int
   float* stat = reinterpret_cast<float*>(smem + L.stat);   // max[2], denom[2], corr[2]
 
   const int tid = threadIdx.x;
-  const int split = blockIdx.x, b = blockIdx.y;
+  const int shard = blockIdx.x / n_splits, split = blockIdx.x - shard * n_splits, b = blockIdx.y;
   const int ldh = H + kHPad;
-  const bf16* xb = x + (size_t)b * N * D;
-  const float* mb = mask + (size_t)b * N;
+  const bf16* xb = x + (size_t)b * x_bag + (size_t)shard * N * D;  // the shard's N rows
+  const float* mb = mask + (size_t)b * m_bag + (size_t)shard * N;
 
   for (int i = tid; i < 2 * H; i += kThreadsBf16) acc_s[i] = 0.f;
   if (tid < 2) {
@@ -532,49 +554,51 @@ pool_kernel_bf16(const bf16* __restrict__ x, const float* __restrict__ mask, int
   }
   __syncthreads();
 
-  const size_t p = (size_t)b * n_splits + split;
+  const size_t p = (size_t)b * gridDim.x + blockIdx.x;
   for (int i = tid; i < 2 * H; i += kThreadsBf16) part_acc[p * 2 * H + i] = acc_s[i];
   if (tid < 4) part_stat[p * 4 + tid] = stat[tid];
+  pool_tail<2>(part_acc, part_stat, (size_t)b * gridDim.x, gridDim.x, tickets + b, H, stat_out == nullptr, eps,
+               out + (size_t)b * 2 * H, stat_out == nullptr ? nullptr : stat_out + (size_t)b * 4,
+               reinterpret_cast<float*>(smem));
 }
 
+// One launch over B bags of n_shards shards of N rows each, n_splits runs a
+// shard: the kernel and its tail (divide where stat_out is null).
 template <typename T>
-int launch(const void* x, const float* mask, int B, int N, int D, int H, int A,
-           const void* w1t, const float* b1, const void* w2t, const float* b2,
+int launch(const void* x, const float* mask, long long x_bag, long long m_bag, int B, int n_shards, int N, int D,
+           int H, int A, const void* w1t, const float* b1, const void* w2t, const float* b2,
            const void* wabt, const float* bab, const void* wc, const float* bc,
-           int tiles_per_split, int n_splits,
-           float* scores, float* part_acc, float* part_stat, float* out, float* stat_out, cudaStream_t stream) {
+           int tiles_per_split, int n_splits, float* scores, float* part_acc, float* part_stat, int* tickets,
+           float eps, float* out, float* stat_out, cudaStream_t stream) {
+  // the plan's TRUNK_WIDTHS; 2H outputs within what pool_tail takes in one pass
+  if ((H != kBN && H != 2 * kBN) || 2 * H > kTailCols) return (int)cudaErrorInvalidValue;
   cudaError_t err;
   if constexpr (std::is_same<T, bf16>::value) {
-    if (H != kBN && H != 2 * kBN) return (int)cudaErrorInvalidValue;  // the plan's TRUNK_WIDTHS
-    const size_t smem = layout_bf16(H).total;
-    err = cudaFuncSetAttribute(pool_kernel_bf16, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    const LayoutBf16 L = layout_bf16(H);
+    // the tail's scratch lies in the shared memory before the running acc
+    if (sizeof(float) * tail_scratch_floats(2, n_shards * n_splits) > L.acc) return (int)cudaErrorInvalidValue;
+    err = cudaFuncSetAttribute(pool_kernel_bf16, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)L.total);
     if (err != cudaSuccess) return (int)err;
-    pool_kernel_bf16<<<dim3(n_splits, B), kThreadsBf16, smem, stream>>>(
-        static_cast<const bf16*>(x), mask, N, D, H, A,
+    pool_kernel_bf16<<<dim3(n_shards * n_splits, B), kThreadsBf16, L.total, stream>>>(
+        static_cast<const bf16*>(x), mask, x_bag, m_bag, N, D, H, A,
         static_cast<const bf16*>(w1t), b1, static_cast<const bf16*>(w2t), b2,
         static_cast<const bf16*>(wabt), bab, static_cast<const bf16*>(wc), bc,
-        tiles_per_split, n_splits, scores, part_acc, part_stat);
+        tiles_per_split, n_splits, scores, part_acc, part_stat, tickets, eps, out, stat_out);
   } else {
-    if (H != kBN && H != 2 * kBN) return (int)cudaErrorInvalidValue;  // the plan's TRUNK_WIDTHS
-    const size_t smem = layout_f32(H).total;
+    const LayoutF32 L = layout_f32(H);
+    if (sizeof(float) * tail_scratch_floats(2, n_shards * n_splits) > L.acc) return (int)cudaErrorInvalidValue;
     auto kernel = H == kBN ? pool_kernel_f32<kBN / 32> : pool_kernel_f32<2 * kBN / 32>;
-    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)L.total);
     if (err != cudaSuccess) return (int)err;
-    kernel<<<dim3(n_splits, B), kThreads, smem, stream>>>(
-        static_cast<const float*>(x), mask, N, D, H, A,
+    kernel<<<dim3(n_shards * n_splits, B), kThreads, L.total, stream>>>(
+        static_cast<const float*>(x), mask, x_bag, m_bag, N, D, H, A,
         static_cast<const float*>(w1t), b1, static_cast<const float*>(w2t), b2,
         static_cast<const float*>(wabt), bab, static_cast<const float*>(wc), bc,
-        tiles_per_split, n_splits, scores, part_acc, part_stat);
+        tiles_per_split, n_splits, scores, part_acc, part_stat, tickets, eps, out, stat_out);
   }
   err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  // partial mode (K1p, the TPU kernel's stats_out_ref form): the same merge
-  // of the split partials without the division, so that `out` and `stat_out`
-  // are one unnormalised (acc, max, denom) per bag for a later combine
-  if (stat_out != nullptr)
-    return launch_combine_strided<2, false>(part_acc, part_stat, n_splits, n_splits, 1, B, H, 0.f, 0.f, out, stat_out,
-                                            stream);
-  return launch_combine(part_acc, part_stat, n_splits, B, H, out, stream);
+  if (err == cudaSuccess) ++g_launches;
+  return (int)err;
 }
 
 }  // namespace
@@ -589,19 +613,18 @@ long long toad_pool_smem_bytes(int dtype, int H, int A) {
   return (long long)(dtype == 1 ? layout_bf16(H).total : layout_f32(H).total);
 }
 
-// Launches the pooling and combine kernels on `stream`; returns the
-// cudaError_t of the launches (0 on success). Does not synchronise.
-int toad_pool_forward(int dtype, const void* x, const float* mask, int B, int N, int D, int H, int A,
-                      const void* w1t, const float* b1, const void* w2t, const float* b2,
+// Launches the pooling kernel on `stream`: M [B][2][H] = acc / max(denom,
+// 1e-30) and, where scores is not null, the raw scores [B][2][N]. tickets
+// holds B int32 counters, all 0 (every launch leaves them so). Returns the
+// launch's cudaError_t (0 on success); does not synchronise.
+int toad_pool_forward(int dtype, const void* x, const float* mask, long long x_bag, long long m_bag, int B, int N,
+                      int D, int H, int A, const void* w1t, const float* b1, const void* w2t, const float* b2,
                       const void* wabt, const float* bab, const void* wc, const float* bc,
-                      int tiles_per_split, int n_splits,
-                      float* scores, float* part_acc, float* part_stat, float* out, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 1)
-    return launch<bf16>(x, mask, B, N, D, H, A, w1t, b1, w2t, b2, wabt, bab, wc, bc,
-                        tiles_per_split, n_splits, scores, part_acc, part_stat, out, nullptr, s);
-  return launch<float>(x, mask, B, N, D, H, A, w1t, b1, w2t, b2, wabt, bab, wc, bc,
-                       tiles_per_split, n_splits, scores, part_acc, part_stat, out, nullptr, s);
+                      int tiles_per_split, int n_splits, float* scores, float* part_acc, float* part_stat,
+                      int* tickets, float* out, void* stream) {
+  auto go = dtype == 1 ? &launch<bf16> : &launch<float>;
+  return go(x, mask, x_bag, m_bag, B, 1, N, D, H, A, w1t, b1, w2t, b2, wabt, bab, wc, bc, tiles_per_split, n_splits,
+            scores, part_acc, part_stat, tickets, 1e-30f, out, nullptr, static_cast<cudaStream_t>(stream));
 }
 
 // The pooling kernel in partial mode (classification only, no scores): writes
@@ -609,28 +632,46 @@ int toad_pool_forward(int dtype, const void* x, const float* mask, int B, int N,
 // = (max[2], denom[2]) instead of the pooled mean; max = -1e30, denom = 0 and
 // acc = 0 where no row is live. Replaces the TPU kernel's partial form
 // (toad_tpu/ops/pallas_pool.py::pallas_pool_partial).
-int toad_pool_partial_forward(int dtype, const void* x, const float* mask, int B, int N, int D, int H, int A,
-                              const void* w1t, const float* b1, const void* w2t, const float* b2,
-                              const void* wabt, const float* bab, const void* wc, const float* bc,
-                              int tiles_per_split, int n_splits,
-                              float* part_acc, float* part_stat, float* acc, float* stats, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
+int toad_pool_partial_forward(int dtype, const void* x, const float* mask, long long x_bag, long long m_bag, int B,
+                              int N, int D, int H, int A, const void* w1t, const float* b1, const void* w2t,
+                              const float* b2, const void* wabt, const float* bab, const void* wc, const float* bc,
+                              int tiles_per_split, int n_splits, float* part_acc, float* part_stat, int* tickets,
+                              float* acc, float* stats, void* stream) {
   if (stats == nullptr) return (int)cudaErrorInvalidValue;
-  if (dtype == 1)
-    return launch<bf16>(x, mask, B, N, D, H, A, w1t, b1, w2t, b2, wabt, bab, wc, bc,
-                        tiles_per_split, n_splits, nullptr, part_acc, part_stat, acc, stats, s);
-  return launch<float>(x, mask, B, N, D, H, A, w1t, b1, w2t, b2, wabt, bab, wc, bc,
-                       tiles_per_split, n_splits, nullptr, part_acc, part_stat, acc, stats, s);
+  auto go = dtype == 1 ? &launch<bf16> : &launch<float>;
+  return go(x, mask, x_bag, m_bag, B, 1, N, D, H, A, w1t, b1, w2t, b2, wabt, bab, wc, bc, tiles_per_split, n_splits,
+            nullptr, part_acc, part_stat, tickets, 0.f, acc, stats, static_cast<cudaStream_t>(stream));
+}
+
+// The bag-sharded pool in one launch: each bag's rows cut into S shards of N
+// rows (shard s at rows s * N), each shard pooled in runs of its own tiles
+// (tiles_per_split, n_splits a shard), and every partial of a bag merged:
+// out [B][2][H] = acc / max(denom, 1e-12), the split merge and the
+// cross-shard combine of toad_tpu/parallel/bag_shard.py in one pass.
+int toad_pool_sharded_forward(int dtype, const void* x, const float* mask, long long x_bag, long long m_bag, int B,
+                              int S, int N, int D, int H, int A, const void* w1t, const float* b1, const void* w2t,
+                              const float* b2, const void* wabt, const float* bab, const void* wc, const float* bc,
+                              int tiles_per_split, int n_splits, float* part_acc, float* part_stat, int* tickets,
+                              float* out, void* stream) {
+  auto go = dtype == 1 ? &launch<bf16> : &launch<float>;
+  return go(x, mask, x_bag, m_bag, B, S, N, D, H, A, w1t, b1, w2t, b2, wabt, bab, wc, bc, tiles_per_split, n_splits,
+            nullptr, part_acc, part_stat, tickets, 1e-12f, out, nullptr, static_cast<cudaStream_t>(stream));
 }
 
 // Combines the partials of S shards of B bags, acc [S][B][2][H] and stats
 // [S][B][2][2] as toad_pool_partial_forward writes them, into the pooled
 // out [B][2][H] = sum_s acc_s w_s / max(sum_s denom_s w_s, 1e-12): the
-// cross-shard combine of toad_tpu/parallel/bag_shard.py::combine_partial_pool.
+// cross-shard combine of toad_tpu/parallel/bag_shard.py::combine_partial_pool,
+// for partials that come from several devices.
 int toad_pool_combine_shards(const float* acc, const float* stats, int S, int B, int H, float* out, void* stream) {
-  return launch_combine_strided<2, true>(acc, stats, S, 1, B, B, H, 1e-12f, 0.f, out, nullptr,
-                                      static_cast<cudaStream_t>(stream));
+  const int err = launch_combine_strided<2>(acc, stats, S, 1, B, B, H, 1e-12f, 0.f, out,
+                                            static_cast<cudaStream_t>(stream));
+  if (err == 0) ++g_launches;
+  return err;
 }
+
+// Kernel launches made by this file's entry points so far (each forward is one).
+long long toad_pool_launches() { return g_launches.load(); }
 
 const char* toad_cuda_error_string(int err) { return cudaGetErrorString(static_cast<cudaError_t>(err)); }
 

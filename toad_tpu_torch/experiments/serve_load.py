@@ -11,12 +11,24 @@ server on loopback, as a ``features_b64`` JSON document or as
 then tells the wire's host cost apart: ``host_cpu_s`` is the process's CPU
 time over the run and ``host_cpu_ms_per_req`` that time per request.
 
+With ``--timestamps`` each request is stamped at four stages on the
+host's monotonic clock: ``sent`` (the client starts it), ``accepted`` (the
+server's handler began; over no wire, the call into the batcher),
+``queued`` (the decoded request went to the batcher; over no wire, the
+enqueue returned) and ``answered`` (the client has the whole answer), and
+one JSON line a request, before the run's line, gives the four in ms from
+the burst's start and its largest gap named by the stage it ended
+(``accepted``: connecting and the request's headers; ``queued``: the body
+read and decoded; ``answered``: batching, the forward and the reply), so
+that a request that stalls names the side that held it.
+
 Run: python -m toad_tpu_torch.experiments.serve_load [--concurrency 32
      --requests 512 --bag_n 8192 --max_batch 32 --max_wait_ms 5 --bf16
-     --int8 --wire raw --device cuda]
-Prints one JSON line, with the keys of the JAX probe's; ``device`` is the
-GPU's name (``cpu`` with ``--device cpu``, where the plain versions run and
-no device metric is claimed).
+     --int8 --wire raw --device cuda --timestamps]
+Prints one JSON line, with the keys of the JAX probe's (after the
+requests' lines with ``--timestamps``); ``device`` is the GPU's name
+(``cpu`` with ``--device cpu``, where the plain versions run and no device
+metric is claimed).
 """
 
 from __future__ import annotations
@@ -38,10 +50,12 @@ from toad_tpu_torch.models.toad_mil import ToadMIL
 from toad_tpu_torch.serve import DynamicBatcher, InferenceService, ServeConfig, serve_in_thread
 
 N_BAGS = 4  # distinct bags, reused round-robin: payloads differ per thread, device work is representative
+STAGES = ("sent", "accepted", "queued", "answered")  # --timestamps: a request's stages, in order
 
 
-def _http_request(port: int, wire: str, bag: np.ndarray, sex: int) -> None:
-    """One /predict over loopback, as a features_b64 JSON document or raw bytes."""
+def _http_request(port: int, wire: str, bag: np.ndarray, sex: int) -> tuple[float, float]:
+    """One /predict over loopback, as a features_b64 JSON document or raw
+    bytes; returns the server's (accepted, queued) stamps."""
     if wire == "json":
         body = json.dumps({
             "features_b64": base64.b64encode(bag.astype("<f4").tobytes()).decode(),
@@ -55,13 +69,24 @@ def _http_request(port: int, wire: str, bag: np.ndarray, sex: int) -> None:
                    "X-Toad-Sex": str(sex)}
     conn = http.client.HTTPConnection("127.0.0.1", port, timeout=600)
     try:
-        conn.request("POST", "/predict", body, headers)
+        conn.request("POST", "/predict", body, {**headers, "X-Toad-Trace": "1"})
         r = conn.getresponse()
         out = r.read()
     finally:
         conn.close()
     if r.status != 200:
         raise RuntimeError(f"/predict answered {r.status}: {out[:200]!r}")
+    stamps = dict(kv.split("=") for kv in r.getheader("X-Toad-Timing").split(","))
+    return float(stamps["accepted"]), float(stamps["queued"])
+
+
+def request_line(index: int, stamps: tuple[float, ...], t0: float) -> dict:
+    """One request's --timestamps line: its stages in ms from ``t0`` and the
+    largest gap between two stages, named by the stage it ended."""
+    ms = [round((t - t0) * 1e3, 3) for t in stamps]
+    gaps = {STAGES[i]: ms[i] - ms[i - 1] for i in range(1, len(STAGES))}
+    worst = max(gaps, key=gaps.get)
+    return {"request": index, **dict(zip(STAGES, ms)), "largest_gap": worst, "largest_gap_ms": round(gaps[worst], 3)}
 
 
 def main(argv: list[str] | None = None) -> int:
@@ -80,6 +105,9 @@ def main(argv: list[str] | None = None) -> int:
                     help="route requests through the real HTTP server: json=features_b64 document, "
                     "raw=application/octet-stream; none=direct batcher calls")
     ap.add_argument("--device", default="cuda", help="cuda (the default), or cpu for the plain versions")
+    ap.add_argument("--timestamps", action="store_true",
+                    help="one JSON line a request before the run's: its stages sent, accepted, queued, answered "
+                    "and its largest gap")
     add_xla_only_args(ap, "pallas")
     args = ap.parse_args(argv)
     note_xla_only(args)
@@ -94,7 +122,14 @@ def main(argv: list[str] | None = None) -> int:
 
     if args.wire == "none":
         batcher = DynamicBatcher(params, cfg, serve_cfg, device=dev)
-        predict = batcher.predict
+
+        def predict(bag, sex):
+            accepted = time.perf_counter()
+            fut = batcher.submit(bag, sex)
+            queued = time.perf_counter()
+            fut.result()
+            return accepted, queued
+
         close = batcher.close
     else:
         service = InferenceService(params, cfg, serve_cfg, device=dev)
@@ -102,7 +137,7 @@ def main(argv: list[str] | None = None) -> int:
         server, port = serve_in_thread(service)
 
         def predict(bag, sex):
-            _http_request(port, args.wire, bag, sex)
+            return _http_request(port, args.wire, bag, sex)
 
         def close():
             server.shutdown()
@@ -110,6 +145,7 @@ def main(argv: list[str] | None = None) -> int:
             service.close()
 
     lat: list[float] = []
+    stamps: list[tuple[float, ...]] = []
     lat_lock = threading.Lock()
     errors: list[BaseException] = []
     try:
@@ -119,11 +155,12 @@ def main(argv: list[str] | None = None) -> int:
         def client(tid: int) -> None:
             try:
                 for i in range(per_thread):
-                    t0 = time.perf_counter()
-                    predict(bags[(tid + i) % N_BAGS], (tid + i) % 2)
-                    dt = time.perf_counter() - t0
+                    sent = time.perf_counter()
+                    accepted, queued = predict(bags[(tid + i) % N_BAGS], (tid + i) % 2)
+                    answered = time.perf_counter()
                     with lat_lock:
-                        lat.append(dt)
+                        lat.append(answered - sent)
+                        stamps.append((sent, accepted, queued, answered))
             except BaseException as e:  # noqa: BLE001 - raised again on the main thread
                 errors.append(e)
 
@@ -142,6 +179,9 @@ def main(argv: list[str] | None = None) -> int:
     if errors:
         raise errors[0]
 
+    if args.timestamps:
+        for i, st in enumerate(sorted(stamps)):
+            print(json.dumps(request_line(i, st, t0)))
     lat_ms = np.asarray(lat) * 1e3
     print(json.dumps({
         "requests": len(lat),

@@ -282,33 +282,48 @@ class ToadMIL(nn.Module):
         return self._finish(m, scores, batch["patch_mask"], batch["sex"], attention_only)
 
     def _sharded_eval(self, batch, compute_dtype: torch.dtype, need_attention: bool, int8: bool):
-        """(M [B, T, H], scores [B, T, N] or None) on the first device."""
+        """(M [B, T, H], scores [B, T, N] or None) on the first device. Each
+        cell's results go straight into its rows (under a bag axis, of its
+        shard's slot) of buffers on the first device: a cell there writes
+        them itself, another device's are copied in; under a bag axis one
+        combine then makes M."""
         mesh = batch.mesh
         primary, bag_n = mesh.primary, mesh.shape["bag"]
-        pooled, stats, scores = [], [], []  # a list over the bag shards per data row
+        per_b, per_n = batch.cells[0][0]["features"].shape[:2]
+        b_, h_dim = per_b * len(batch.cells), self.config.hidden_dim
+        f32 = dict(device=primary, dtype=torch.float32)
+        if bag_n > 1:
+            acc = torch.empty((bag_n, b_, N_TASKS, h_dim), **f32)
+            stats = torch.empty((bag_n, b_, 2, N_TASKS), **f32)
+        else:
+            m = torch.empty((b_, N_TASKS, h_dim), **f32)
+        scores = torch.empty((b_, N_TASKS, per_n * bag_n), **f32) if need_attention else None
         for d, row in enumerate(batch.cells):
-            outs = [self._replica(mesh.grid[d][j])._cell_pool(cell, compute_dtype, bag_n > 1, need_attention, int8)
-                    for j, cell in enumerate(row)]
-            pooled.append([o[0].to(primary, non_blocking=True) for o in outs])
-            stats.append([o[1].to(primary, non_blocking=True) for o in outs] if bag_n > 1 else None)
-            if need_attention:
-                scores.append(torch.cat([o[2].to(primary, non_blocking=True) for o in outs], dim=2))
+            rows = slice(d * per_b, (d + 1) * per_b)
+            for j, cell in enumerate(row):
+                dev = mesh.grid[d][j]
+                slot = (acc[j, rows], stats[j, rows]) if bag_n > 1 else (m[rows],)
+                outs = self._replica(dev)._cell_pool(cell, compute_dtype, bag_n > 1, need_attention, int8,
+                                                     out=slot if dev == primary and bag_n > 1 else None)
+                for dst, src in zip(slot, outs):
+                    if src is not dst:
+                        dst.copy_(src, non_blocking=True)
+                if need_attention:
+                    scores[rows, :, j * per_n:(j + 1) * per_n].copy_(outs[2], non_blocking=True)
         if bag_n > 1:
             from toad_tpu_torch.parallel.bag_shard import combine_partial_pool
 
-            # one combine over the whole batch: shard j's partials of every data row, stacked
-            m = combine_partial_pool([torch.cat([r[j] for r in pooled]) for j in range(bag_n)],
-                                     [torch.cat([r[j] for r in stats]) for j in range(bag_n)], primary)
-        else:
-            m = torch.cat([r[0] for r in pooled])
-        return m, (torch.cat(scores) if need_attention else None)
+            m = combine_partial_pool(acc, stats)  # one combine over the whole batch
+        return m, scores
 
-    def _cell_pool(self, cell: dict, compute_dtype: torch.dtype, partial: bool, with_scores: bool, int8: bool):
+    def _cell_pool(self, cell: dict, compute_dtype: torch.dtype, partial: bool, with_scores: bool, int8: bool,
+                   out: tuple[torch.Tensor, torch.Tensor] | None = None):
         """One grid cell's pool on this model's device: (M, None, scores or
         None) or, with ``partial``, (acc, stats, scores or None). Partial
-        statistics come from the kernel's partial mode K1p; where the scores
-        are wanted too, or from the int8 kernel (which has no partial mode),
-        from a scored pass."""
+        statistics come from the kernel's partial mode K1p (written into
+        ``out`` where given: the cell's slot of the combine's buffers); where
+        the scores are wanted too, or from the int8 kernel (which has no
+        partial mode), from a scored pass."""
         x, mask = cell["features"], cell["patch_mask"]
         if int8:
             xq, sx = (x, cell["scales"]) if "scales" in cell else quantize_rows(x)
@@ -318,7 +333,7 @@ class ToadMIL(nn.Module):
             operands = self._operands_on(x.device, compute_dtype)
             if partial and not with_scores:
                 acc, stats = fused_pool_partial(self.pool_params(), x, mask, compute_dtype=compute_dtype,
-                                                operands=operands)
+                                                operands=operands, out=out)
                 return acc, stats, None
             m, s = fused_trunk_attention_pool(self.pool_params(), x, mask, compute_dtype=compute_dtype,
                                               with_scores=with_scores or partial, operands=operands)

@@ -36,25 +36,33 @@ build_seconds: float | None = None  # wall time of the nvcc runs (None: loaded f
 build_log = ""  # what nvcc and ptxas printed for each source in the last build
 
 # every pointer and the stream go as c_void_p: a bare Python int would be cut to 32 bits
-_p, _i = ctypes.c_void_p, ctypes.c_int
+_p, _i, _ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _SIGNATURES = {
     "toad_pool_rows_per_tile": ([_i], ctypes.c_int),
     "toad_pool_smem_bytes": ([_i, _i, _i], ctypes.c_longlong),
     "toad_pool_forward": (
-        [_i, _p, _p, _i, _i, _i, _i, _i,  # dtype, x, mask, B, N, D, H, A
+        [_i, _p, _p, _ll, _ll, _i, _i, _i, _i, _i,  # dtype, x, mask, x_bag, m_bag, B, N, D, H, A
          _p, _p, _p, _p, _p, _p, _p, _p,  # w1t, b1, w2t, b2, wabt, bab, wc, bc
          _i, _i,  # tiles_per_split, n_splits
-         _p, _p, _p, _p, _p],  # scores, part_acc, part_stat, out, stream
+         _p, _p, _p, _p, _p, _p],  # scores, part_acc, part_stat, tickets, out, stream
         ctypes.c_int,
     ),
     "toad_pool_partial_forward": (
-        [_i, _p, _p, _i, _i, _i, _i, _i,  # dtype, x, mask, B, N, D, H, A
+        [_i, _p, _p, _ll, _ll, _i, _i, _i, _i, _i,  # dtype, x, mask, x_bag, m_bag, B, N, D, H, A
          _p, _p, _p, _p, _p, _p, _p, _p,  # w1t, b1, w2t, b2, wabt, bab, wc, bc
          _i, _i,  # tiles_per_split, n_splits
-         _p, _p, _p, _p, _p],  # part_acc, part_stat, acc, stats, stream
+         _p, _p, _p, _p, _p, _p],  # part_acc, part_stat, tickets, acc, stats, stream
+        ctypes.c_int,
+    ),
+    "toad_pool_sharded_forward": (
+        [_i, _p, _p, _ll, _ll, _i, _i, _i, _i, _i, _i,  # dtype, x, mask, x_bag, m_bag, B, S, N (a shard), D, H, A
+         _p, _p, _p, _p, _p, _p, _p, _p,  # w1t, b1, w2t, b2, wabt, bab, wc, bc
+         _i, _i,  # tiles_per_split, n_splits (a shard)
+         _p, _p, _p, _p, _p],  # part_acc, part_stat, tickets, out, stream
         ctypes.c_int,
     ),
     "toad_pool_combine_shards": ([_p, _p, _i, _i, _i, _p, _p], ctypes.c_int),  # acc, stats, S, B, H, out, stream
+    "toad_pool_launches": ([], ctypes.c_longlong),
     "toad_pool_int8_rows_per_tile": ([], ctypes.c_int),
     "toad_pool_int8_smem_bytes": ([_i], ctypes.c_longlong),
     "toad_pool_int8_forward": (

@@ -6,8 +6,9 @@ attention scores and online masked-softmax pooling in one pass per bag). On
 an H100 it is tensor-core bound (~1,150 FLOP per byte of bf16 input against
 the card's ~295), so it keeps every intermediate on chip and streams weight
 slices from L2; the TPU's sequential per-bag grid becomes a split-N grid with
-an exact combine of the partial softmax statistics (see the notes in
-``csrc/pool.cu``). The TPU's bag-pair form (two bags merged per grid step to
+an exact merge of the partial softmax statistics at the end of the same
+launch (see the notes in ``csrc/pool.cu``), so that one call is one launch.
+The TPU's bag-pair form (two bags merged per grid step to
 fill its matrix unit) has no counterpart here: on Hopper the split-N grid
 already keeps every SM busy with full row tiles.
 
@@ -22,14 +23,22 @@ raises on anything the kernel does not take. The plain version is
 :func:`toad_tpu_torch.ops.fused_pool.plain_pool`, which the CPU path runs
 and the chip check compares with. :func:`pool_partial` is the same launch
 ending without the division (the TPU kernel's partial form,
-``pallas_pool_partial``), one shard's share of a bag too long for one piece;
-:func:`combine_shards` merges the shards' partials
-(:mod:`toad_tpu_torch.parallel.bag_shard`).
+``pallas_pool_partial``), one shard's share of a bag too long for one piece,
+read in place where the shard is a slice of a larger batch;
+:func:`combine_shards` merges shards' partials that come from several
+devices, and :func:`pool_sharded` pools all of a bag's shards on one card in
+one launch (:mod:`toad_tpu_torch.parallel.bag_shard`).
+
+Each launch ends in a merge that the block finishing a bag's partials last
+runs; the blocks find it by drawing tickets from one int32 counter a bag,
+which :func:`tickets` keeps per device and stream, zeroed once, and which
+every completed launch leaves at zero.
 """
 
 from __future__ import annotations
 
 import functools
+import threading
 from typing import Any, NamedTuple
 
 import torch
@@ -39,6 +48,7 @@ from toad_tpu_torch.ops import _build
 LAUNCHES = 0  # kernel launches in this process (one per call of pool)
 SCORED_LAUNCHES = 0  # those of them in scored mode (with_scores: the raw scores written)
 PARTIAL_LAUNCHES = 0  # launches of the kernel's partial mode (one per call of pool_partial)
+SHARDED_LAUNCHES = 0  # launches of the one-launch bag-sharded pool (one per call of pool_sharded)
 COMBINE_LAUNCHES = 0  # launches of the cross-shard combine (one per call of combine_shards)
 
 N_TASKS = 2  # the kernel computes exactly the two task columns
@@ -173,6 +183,21 @@ def wave_split_plan(n_bags: int, n_rows: int, rows_per_tile: int, n_sms: int) ->
     return best[1], best[2]
 
 
+def shard_split_plan(n_bags: int, n_shards: int, shard_rows: int, rows_per_tile: int, n_sms: int) -> tuple[int, int]:
+    """(tiles_per_split, n_splits a shard) for one launch over ``n_shards``
+    equal shards of each of ``n_bags`` bags (:func:`pool_sharded`): each
+    shard's tiles cut into contiguous runs that never cross into the next
+    shard, so that every partial is a shard-local flash statistic. The grid
+    of n_bags x n_shards x n_splits CTAs takes the fewest tile-times in whole
+    waves of one CTA an SM, and of those the fewest splits, as
+    :func:`wave_split_plan` does for one piece. That is ceil(tiles / n_sms)
+    tile-times for all the tiles of the batch, the same as one launch on the
+    unsharded bags where the shard divides by the tile: 163,840 rows in 4
+    shards of 128-row tiles run 128 CTAs of 10 tiles, where one launch a
+    shard takes 4 x 3."""
+    return wave_split_plan(n_bags * n_shards, shard_rows, rows_per_tile, n_sms)
+
+
 def fixed_split_plan(n_rows: int, rows_per_tile: int, rows_per_split: int) -> tuple[int, int]:
     """(tiles_per_split, n_splits) that cut each bag into runs of
     ``rows_per_split`` rows (the last may be shorter); ValueError unless that
@@ -185,29 +210,71 @@ def fixed_split_plan(n_rows: int, rows_per_tile: int, rows_per_split: int) -> tu
 
 
 def launch_buffers(b_: int, n: int, h_dim: int, with_scores: bool, rows_per_tile: int, dev: torch.device,
-                   rows_per_split: int | None = None, splitter=split_plan):
+                   rows_per_split: int | None = None, splitter=split_plan, parts_per_split: int = 1):
     """The split plan (``splitter``: :func:`split_plan` or
-    :func:`wave_split_plan`; :func:`fixed_split_plan` for a given
-    ``rows_per_split``) and the buffers a split-N pooling launch writes:
-    (tiles_per_split, n_splits, M [B, 2, H], scores [B, 2, N] or None,
-    partial acc, partial stats)."""
+    :func:`wave_split_plan`, called as ``splitter(b_, n, rows_per_tile,
+    n_sms)``; :func:`fixed_split_plan` for a given ``rows_per_split``) and
+    the buffers a split-N pooling launch writes: (tiles_per_split, n_splits,
+    M [B, 2, H], scores [B, 2, N] or None, partial acc, partial stats), with
+    ``parts_per_split`` partials a split and bag (the shards of one launch)."""
     if rows_per_split is None:
         n_sms = torch.cuda.get_device_properties(dev).multi_processor_count
         per, n_splits = splitter(b_, n, rows_per_tile, n_sms)
     else:
         per, n_splits = fixed_split_plan(n, rows_per_tile, rows_per_split)
+    parts = b_ * n_splits * parts_per_split
     m = torch.empty((b_, N_TASKS, h_dim), device=dev, dtype=torch.float32)
     scores = torch.empty((b_, N_TASKS, n), device=dev, dtype=torch.float32) if with_scores else None
-    part_acc = torch.empty((b_ * n_splits * N_TASKS * h_dim,), device=dev, dtype=torch.float32)
-    part_stat = torch.empty((b_ * n_splits * 4,), device=dev, dtype=torch.float32)
+    part_acc = torch.empty((parts * N_TASKS * h_dim,), device=dev, dtype=torch.float32)
+    part_stat = torch.empty((parts * 4,), device=dev, dtype=torch.float32)
     return per, n_splits, m, scores, part_acc, part_stat
+
+
+_tickets: dict[tuple[torch.device, int], torch.Tensor] = {}
+_tickets_lock = threading.Lock()
+
+
+def tickets(dev: torch.device, stream: int, n_bags: int) -> torch.Tensor:
+    """The int32 counters (one a bag, at least ``n_bags``) that the pooling
+    launches on ``stream`` of ``dev`` draw their merge's tickets from. Made
+    zeroed once a (device, stream), and again, larger, when a launch has more
+    bags than the buffer has counters; every completed launch leaves them at
+    zero (the bag's last block resets its counter), so no launch fills them."""
+    key = (dev, stream)
+    with _tickets_lock:
+        buf = _tickets.get(key)
+        if buf is None or buf.numel() < n_bags:
+            buf = torch.zeros(max(n_bags, 64, 2 * (buf.numel() if buf is not None else 0)), dtype=torch.int32,
+                              device=dev)
+            _tickets[key] = buf
+        return buf
+
+
+def rows_in_place(t: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """``t`` [B, N, ...] in ``dtype`` as the kernel reads it: each bag's rows
+    contiguous, one bag to the next at ``t.stride(0)``. A slice of a larger
+    batch along N (a shard) is such a view and is returned as it is; a cast
+    or a tensor whose rows are not contiguous is copied."""
+    t = t.to(dtype)
+    row = 1
+    for size, stride in reversed(list(zip(t.shape[1:], t.stride()[1:]))):
+        if size != 1 and stride != row:
+            return t.contiguous()
+        row *= size
+    return t
+
+
+def bag_stride(t: torch.Tensor) -> int:
+    """Elements from one bag to the next of a tensor from :func:`rows_in_place`."""
+    return t.stride(0) if t.shape[0] > 1 else 0
 
 
 def _prepare(ops: PoolOperands, x: torch.Tensor, mask: torch.Tensor):
     """The checks every launch of the pooling kernel makes, the shapes and
     widths before the devices (so that a width the kernel does not take is
     refused before anything is built); returns (x in the operands' dtype, f32
-    mask, both contiguous, B, N, D, H, A and the kernel's plan)."""
+    mask, each with contiguous rows (:func:`rows_in_place`: a shard sliced
+    out of a batch is not copied), B, N, D, H, A and the kernel's plan)."""
     dt = ops.w1.dtype
     if dt not in _DTYPE_CODE:
         raise TypeError(f"compute dtype {dt} not supported by the kernel (float32, bfloat16)")
@@ -235,11 +302,12 @@ def _prepare(ops: PoolOperands, x: torch.Tensor, mask: torch.Tensor):
         raise ValueError(f"the CUDA pooling kernel needs CUDA tensors, got {x.device}")
     if mask.device != x.device or any(t.device != x.device for t in ops):
         raise ValueError(f"mask and kernel operands must be on {x.device}")
-    x = x.to(dt).contiguous()
-    mask = mask.to(torch.float32).contiguous()
-    for tensor in (x, *ops):
-        if tensor.data_ptr() % 16 or not tensor.is_contiguous():
-            raise ValueError("kernel operands must be contiguous and 16-byte aligned")
+    x = rows_in_place(x, dt)
+    if b_ > 1 and x.stride(0) * x.element_size() % 16:  # each bag's first row 16-byte aligned for cp.async
+        x = x.contiguous()
+    mask = rows_in_place(mask, torch.float32)
+    if x.data_ptr() % 16 or any(t.data_ptr() % 16 or not t.is_contiguous() for t in ops):
+        raise ValueError("kernel operands must be contiguous and 16-byte aligned")
     return x, mask, b_, n, d, h_dim, a_dim, kernel_plan
 
 
@@ -258,8 +326,8 @@ def _raise_on(err: int, lib, what: str) -> None:
 def pool(
     ops: PoolOperands, x: torch.Tensor, mask: torch.Tensor, with_scores: bool, *, rows_per_split: int | None = None
 ) -> tuple[torch.Tensor, torch.Tensor | None]:
-    """Launch the fused pooling kernel: (M [B, 2, H] f32, raw scores
-    [B, 2, N] f32 or None), computing in the dtype of ``ops``. Scores are
+    """Launch the fused pooling kernel, one launch: (M [B, 2, H] f32, raw
+    scores [B, 2, N] f32 or None), computing in the dtype of ``ops``. Scores are
     written only when ``with_scores``; without them, row tiles that hold only
     padding are skipped. ``rows_per_split`` cuts each bag into blocks of that
     many rows (a multiple of the kernel's row tile, :func:`plan`'s rows)
@@ -273,12 +341,13 @@ def pool(
     per, n_splits, m, scores, part_acc, part_stat = launch_buffers(
         b_, n, h_dim, with_scores, kernel_plan.rows, dev, rows_per_split, _splitter(ops.w1.dtype))
     with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.toad_pool_forward(
-            code, x.data_ptr(), mask.data_ptr(), b_, n, d, h_dim, a_dim,
+            code, x.data_ptr(), mask.data_ptr(), bag_stride(x), bag_stride(mask), b_, n, d, h_dim, a_dim,
             *(tensor.data_ptr() for tensor in ops),
             per, n_splits,
             scores.data_ptr() if scores is not None else None, part_acc.data_ptr(), part_stat.data_ptr(),
-            m.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,
+            tickets(dev, stream, b_).data_ptr(), m.data_ptr(), stream,
         )
     _raise_on(err, lib, "pooling kernel")
     LAUNCHES += 1
@@ -289,8 +358,9 @@ def pool(
 def pool_partial(
     ops: PoolOperands, x: torch.Tensor, mask: torch.Tensor, out: tuple[torch.Tensor, torch.Tensor] | None = None
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Launch the pooling kernel in partial mode on one shard of the patch
-    dimension (x [B, N_local, D], mask [B, N_local]): (acc [B, 2, H] f32 =
+    """Launch the pooling kernel in partial mode, one launch, on one shard
+    of the patch dimension (x [B, N_local, D], mask [B, N_local], read in
+    place where they are slices of a batch): (acc [B, 2, H] f32 =
     sum over the live rows of exp(s - max) h, stats [B, 2, 2] f32 with
     ``stats[:, 0]`` = max and ``stats[:, 1]`` = denom per task), the pooled
     mean's numerator and denominator before the division. A shard without
@@ -313,20 +383,54 @@ def pool_partial(
             if tuple(t.shape) != shape or t.dtype != torch.float32 or t.device != dev or not t.is_contiguous():
                 raise ValueError(f"out must be contiguous f32 {shape} on {dev}, got {tuple(t.shape)} {t.dtype} {t.device}")
     with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.toad_pool_partial_forward(
-            code, x.data_ptr(), mask.data_ptr(), b_, n, d, h_dim, a_dim,
+            code, x.data_ptr(), mask.data_ptr(), bag_stride(x), bag_stride(mask), b_, n, d, h_dim, a_dim,
             *(tensor.data_ptr() for tensor in ops),
-            per, n_splits, part_acc.data_ptr(), part_stat.data_ptr(),
-            acc.data_ptr(), stats.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,
+            per, n_splits, part_acc.data_ptr(), part_stat.data_ptr(), tickets(dev, stream, b_).data_ptr(),
+            acc.data_ptr(), stats.data_ptr(), stream,
         )
     _raise_on(err, lib, "partial pooling kernel")
     PARTIAL_LAUNCHES += 1
     return acc, stats
 
 
+def pool_sharded(ops: PoolOperands, x: torch.Tensor, mask: torch.Tensor, n_shards: int) -> torch.Tensor:
+    """The bag-sharded pool on one card in one launch: each bag's N rows cut
+    into ``n_shards`` equal contiguous shards (N must divide), each shard
+    pooled in partial mode in runs of its own tiles
+    (:func:`shard_split_plan`), and the end of the launch merging every
+    partial of a bag: pooled M [B, 2, H] f32 = sum acc w / max(sum denom w,
+    1e-12), what :func:`pool_partial` per shard and :func:`combine_shards`
+    give, in one pass over the card instead of one launch a shard."""
+    global SHARDED_LAUNCHES
+    x, mask, b_, n, d, h_dim, a_dim, kernel_plan = _prepare(ops, x, mask)
+    if n_shards < 1 or n % n_shards:
+        raise ValueError(f"the patch dimension {n} must divide into {n_shards} shards")
+    dev = x.device
+    lib = _build.load_library()
+    shard = n // n_shards
+    per, n_splits, m, _, part_acc, part_stat = launch_buffers(
+        b_, shard, h_dim, False, kernel_plan.rows, dev,
+        splitter=lambda b, rows, r, sms: shard_split_plan(b, n_shards, rows, r, sms), parts_per_split=n_shards)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.toad_pool_sharded_forward(
+            _DTYPE_CODE[ops.w1.dtype], x.data_ptr(), mask.data_ptr(), bag_stride(x), bag_stride(mask), b_, n_shards,
+            shard, d, h_dim, a_dim, *(tensor.data_ptr() for tensor in ops),
+            per, n_splits, part_acc.data_ptr(), part_stat.data_ptr(), tickets(dev, stream, b_).data_ptr(),
+            m.data_ptr(), stream,
+        )
+    _raise_on(err, lib, "sharded pooling kernel")
+    SHARDED_LAUNCHES += 1
+    return m
+
+
 def combine_shards(acc: torch.Tensor, stats: torch.Tensor) -> torch.Tensor:
-    """Launch the cross-shard combine: acc [S, B, 2, H] and stats
-    [S, B, 2, 2] from :func:`pool_partial` -> pooled M [B, 2, H] f32 =
+    """Launch the cross-shard combine, for partials that come from several
+    devices (on one card :func:`pool_sharded` merges them in its own launch):
+    acc [S, B, 2, H] and stats [S, B, 2, 2] from :func:`pool_partial` ->
+    pooled M [B, 2, H] f32 =
     sum_s acc_s w_s / max(sum_s denom_s w_s, 1e-12) with w_s = exp(max_s -
     max over shards), 0 for a shard without live rows."""
     global COMBINE_LAUNCHES
@@ -349,6 +453,13 @@ def combine_shards(acc: torch.Tensor, stats: torch.Tensor) -> torch.Tensor:
     _raise_on(err, lib, "shard combine kernel")
     COMBINE_LAUNCHES += 1
     return m
+
+
+def library_launches() -> int:
+    """Kernel launches the library's pooling entry points (``csrc/pool.cu``:
+    K1, K1p, the sharded pool and the cross-shard combine) have made in this
+    process: what a profiler would count, from the library's own side."""
+    return int(_build.load_library().toad_pool_launches())
 
 
 def smem_bytes(compute_dtype: torch.dtype, h_dim: int, a_dim: int) -> int:

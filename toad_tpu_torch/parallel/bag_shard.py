@@ -8,12 +8,16 @@ pooled result of them. Exact because TOAD pooling is a softmax-weighted mean
 (a single softmax), not pairwise attention; what crosses shards is
 O(B * T * H), independent of N.
 
-With ``n_shards`` the shards run one after another on one device. With a
-mesh (:mod:`.mesh`) each shard runs on the device of its column of the
-grid, with that device's copy of the weights, and its partials (``[B, T,
-H]`` + ``[B, 2, T]``, a few KB a bag) are copied to the mesh's first device,
-where one combine makes the result: what the JAX package's ``psum`` over
-the bag axis does, as explicit copies from one controller.
+With ``n_shards`` on a card the kernel pools every shard of every bag in
+one launch and merges the partials at its end
+(:func:`~toad_tpu_torch.ops.cuda_pool.pool_sharded`); on the CPU the shards
+run one after another through the plain version. With a mesh (:mod:`.mesh`)
+each shard runs on the device of its column of the grid, with that device's
+copy of the weights, reading its slice of the batch in place, and its
+partials (``[B, T, H]`` + ``[B, 2, T]``, a few KB a bag) go straight into
+their slot of one buffer on the mesh's first device, where one combine
+makes the result: what the JAX package's ``psum`` over the bag axis does,
+as explicit copies from one controller.
 """
 
 from __future__ import annotations
@@ -71,6 +75,14 @@ def _params_on(params: dict[str, Any], dev: torch.device) -> dict[str, Any]:
     return torch.as_tensor(params).to(dev)
 
 
+def _partial_buffers(params: dict[str, Any], n_shards: int, b_: int, dev: torch.device):
+    """Empty (acc [S, B, T, H], stats [S, B, 2, T]) f32 on ``dev``: each
+    shard's slot, which its partials are written or copied into."""
+    t_dim, h_dim = params["attn"]["c"]["w"].shape[1], params["trunk"]["fc2"]["w"].shape[1]
+    return (torch.empty((n_shards, b_, t_dim, h_dim), device=dev, dtype=torch.float32),
+            torch.empty((n_shards, b_, 2, t_dim), device=dev, dtype=torch.float32))
+
+
 def bag_sharded_pool(
     params: dict[str, Any] | cuda_pool.PoolOperands,
     x: torch.Tensor,  # [B, N, D]
@@ -84,11 +96,13 @@ def bag_sharded_pool(
     contiguous slices (N must divide), each pooled in partial mode, then
     combined.
 
-    Give ``n_shards`` to run the shards one after another on ``x``'s device,
-    or a ``mesh`` to cut N over its ``bag`` axis: shard j runs on the device
-    of the first row's column j (the data axis is not used: every row would
-    compute the same bag), and the combine runs on ``mesh.primary``, which
-    the result is on.
+    Give ``n_shards`` to pool the shards on ``x``'s device (on a card in
+    one launch, :func:`~toad_tpu_torch.ops.cuda_pool.pool_sharded`; on the
+    CPU one after another), or a ``mesh`` to cut N over its ``bag`` axis:
+    shard j runs on the device of the first row's column j (the data axis is
+    not used: every row would compute the same bag), one partial-mode launch
+    reading its slice in place, and the combine runs on ``mesh.primary``,
+    which the result is on.
 
     ``params`` is the JAX params layout (packed for the kernel here, per
     call and device) or, with ``n_shards`` on CUDA, operands already packed
@@ -107,7 +121,7 @@ def bag_sharded_pool(
             raise ValueError(f"the patch dimension {n} must divide into the mesh's {len(devices)} bag shards")
         per = n // len(devices)
         on_dev: dict[torch.device, dict[str, Any]] = {}
-        accs, stats = [], []
+        acc, stats = _partial_buffers(params, len(devices), b_, mesh.primary)
         for s, dev in enumerate(devices):
             if dev not in on_dev:
                 p = _params_on(params, dev)
@@ -115,28 +129,27 @@ def bag_sharded_pool(
                                else None)
             p, operands = on_dev[dev]
             sl = slice(s * per, (s + 1) * per)
+            home = dev == mesh.primary  # the partials land in their slot directly, else are copied there
             a, t = fused_pool_partial(p, x[:, sl].to(dev), mask[:, sl].to(dev), compute_dtype=compute_dtype,
-                                      operands=operands)
-            accs.append(a)
-            stats.append(t)
-        return combine_partial_pool(accs, stats, mesh.primary)
+                                      operands=operands, out=(acc[s], stats[s]) if home else None)
+            if not home:
+                acc[s].copy_(a, non_blocking=True)
+                stats[s].copy_(t, non_blocking=True)
+        return combine_partial_pool(acc, stats)
     if n_shards < 1 or n % n_shards:
         raise ValueError(f"the patch dimension {n} must divide into {n_shards} shards")
     operands = None
     if isinstance(params, cuda_pool.PoolOperands):
         if x.device.type != "cuda":
             raise ValueError("packed kernel operands need CUDA tensors; pass the params dict on the CPU")
-        operands, params = params, None
-        t_dim, h_dim = operands.wc.shape[1], operands.w1.shape[0]
-    else:
-        if x.device.type == "cuda" and kernel_pools(params):
-            operands = cuda_pool.pack_params(params, compute_dtype)
-        t_dim, h_dim = params["attn"]["c"]["w"].shape[1], params["trunk"]["fc2"]["w"].shape[1]
-    acc = torch.empty((n_shards, b_, t_dim, h_dim), device=x.device, dtype=torch.float32)
-    stats = torch.empty((n_shards, b_, 2, t_dim), device=x.device, dtype=torch.float32)
+        operands = params
+    elif x.device.type == "cuda" and kernel_pools(params):
+        operands = cuda_pool.pack_params(params, compute_dtype)
+    if operands is not None:
+        return cuda_pool.pool_sharded(operands, x, mask, n_shards)
+    acc, stats = _partial_buffers(params, n_shards, b_, x.device)
     per = n // n_shards
     for s in range(n_shards):
         sl = slice(s * per, (s + 1) * per)
-        fused_pool_partial(params, x[:, sl], mask[:, sl], compute_dtype=compute_dtype, operands=operands,
-                           out=(acc[s], stats[s]))
+        fused_pool_partial(params, x[:, sl], mask[:, sl], compute_dtype=compute_dtype, out=(acc[s], stats[s]))
     return combine_partial_pool(acc, stats)

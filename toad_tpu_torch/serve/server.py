@@ -37,6 +37,12 @@ API:
 
 An int8 payload sent to a server that is not in int8 mode answers 400.
 
+A POST with an ``X-Toad-Trace`` header is answered with ``X-Toad-Timing:
+accepted=<s>,queued=<s>``: when its handler began and when the decoded
+request went to the batcher, on the host's monotonic clock
+(``time.perf_counter``), so that a client on the same host can tell where a
+slow request waited (``experiments/serve_load.py --timestamps``).
+
 Every POST body is capped at ``max_body_bytes`` (413 beyond it).
 """
 
@@ -395,6 +401,10 @@ def make_http_server(
             self.send_response(code)
             self.send_header("Content-Type", "application/json")
             self.send_header("Content-Length", str(len(payload)))
+            if self.headers.get("X-Toad-Trace") and self.command == "POST":
+                # the request's stages on the host's monotonic clock (time.perf_counter), for a
+                # client on the same host: the handler began, the decoded request went to the batcher
+                self.send_header("X-Toad-Timing", f"accepted={self._accepted:.6f},queued={self._queued:.6f}")
             self.end_headers()
             self.wfile.write(payload)
 
@@ -423,6 +433,7 @@ def make_http_server(
                 self.server.request_done()
 
         def do_POST(self):
+            self._accepted = self._queued = time.perf_counter()
             self.server.request_began()
             try:
                 self._handle_post()
@@ -457,6 +468,7 @@ def make_http_server(
                     top_k = int(self.headers.get("X-Toad-Top-K", 5))
                     attention = (self.headers.get("X-Toad-Attention") or "0").strip().lower() in ("1", "true", "yes")
                     feats, scales = _decode_raw_request(self.headers, body, in_dim)
+                    self._queued = time.perf_counter()
                     if scales is not None:
                         out = service.predict_quantized_features(feats, scales, sex, top_k, attention)
                     else:
@@ -475,6 +487,7 @@ def make_http_server(
                                                   downscale=int(req.get("downscale", 32)),
                                                   task=str(req.get("task", "origin")))
                     else:
+                        self._queued = time.perf_counter()
                         out = _predict_json(service, req, sex, in_dim)
             except (ValueError, KeyError, json.JSONDecodeError) as e:
                 self._send(400, {"error": str(e)})
