@@ -12,7 +12,9 @@ Phases (each prints its lines; any failure raises and the exit code is not 0):
    pool_common.cuh, that merge (pool_tail) and the combine kernel; pool_int8.cu, K2; mha.cu, K3 and P7;
    stage.cu, KS; pool_probe.cu and pool_int8_probe.cu, P1-P5) with nvcc, one
    process per source, all started together; shared memory per block and
-   ptxas's register counts. Beside them, the native bag loader
+   ptxas's register counts; cuobjdump -sass of the library shows both
+   instances of K1's f32 kernel on wgmma (HGMMA) and none on mma.sync
+   (HMMA). Beside them, the native bag loader
    (toad_tpu_torch/csrc/bagio.cpp, host C++) with g++; its command is logged.
 3. K1 vs its plain PyTorch version at full TOAD width (D=1024, H=512,
    A=384, T=2), f32 and bf16, scored and classification modes, including a
@@ -612,8 +614,8 @@ def phase_build(card: str) -> None:
         f"int8 {probe_pool_int8.smem_bytes()} B [{card}]")
     for kernel, line in ptxas_lines(_build.build_log):
         names = {"pool_int8_kernel": "K2 int8 (64-row tiles, one 3-slot weight stream)",
-                 "pool_kernel_f32ILi16": "K1 f32 (64-row tiles, 8 warps, H=512)",
-                 "pool_kernel_f32ILi8": "K1 f32 (64-row tiles, 8 warps, H=256)",
+                 "pool_kernel_f32ILi256": "K1 f32 (64-row tiles, 2 warpgroups of tf32 wgmma, H=512)",
+                 "pool_kernel_f32ILi128": "K1 f32 (64-row tiles, 2 warpgroups of tf32 wgmma, H=256)",
                  "pool_kernel_bf16": "K1 bf16 (128-row tiles, 8 warps)",
                  # K1, K1p and the one-launch sharded pool merge their partials in pool_tail at the end of their own
                  # launch; the combine kernel is a launch of its own only after K2 (pool_int8.cu) and the probes, and
@@ -638,6 +640,36 @@ def phase_build(card: str) -> None:
                      (2, 1, "int8_inquant_bf16"), (3, 1, "int8_h_only"))}}
         name = next((v for k, v in names.items() if k in kernel), kernel)
         log(f"phase 2 build: {name}: {line}")
+    for line in _build.build_log.splitlines():  # ptxas's word where it serialises a kernel's wgmma
+        if "wgmma" in line:
+            log(f"phase 2 build: ptxas: {line.strip()}")
+    sass = pool_f32_sass()
+    if len(sass) != 2 or any(c["HGMMA"] == 0 or c["HMMA"] for c in sass.values()):
+        raise AssertionError(f"K1 f32's SASS: {sass}; want both instances on wgmma (HGMMA) and no mma.sync (HMMA)")
+    log("phase 2 build: K1 f32's SASS (cuobjdump -sass): " + ", ".join(
+        f"{fn} {c['HGMMA']} HGMMA, {c['HMMA']} HMMA" for fn, c in sass.items()))
+
+
+def pool_f32_sass() -> dict:
+    """{function: {"HGMMA": n, "HMMA": n}} for each instance of K1's f32
+    kernel in ``cuobjdump -sass`` of the built library: its wgmma and its
+    mma.sync instructions."""
+    from toad_tpu_torch.ops import _build
+
+    cuobjdump = Path(_build._nvcc()).with_name("cuobjdump")
+    dump = subprocess.run([str(cuobjdump), "-sass", str(_build.library_path())], capture_output=True, text=True,
+                          check=True).stdout
+    counts, fn = {}, None
+    for line in dump.splitlines():
+        if "Function :" in line:
+            fn = line.split("Function :", 1)[1].strip()
+            fn = fn if "pool_kernel_f32" in fn else None
+            if fn is not None:
+                counts[fn] = {"HGMMA": 0, "HMMA": 0}
+        elif fn is not None:
+            for op in ("HGMMA", "HMMA"):
+                counts[fn][op] += f" {op}." in line
+    return counts
 
 
 def ptxas_lines(build_log: str):
@@ -1249,9 +1281,12 @@ def time_pool(seed: int = 0) -> dict:
     that must be the same bits in both trees: K2's scores at every shape,
     K2's M under :func:`~toad_tpu_torch.ops.cuda_pool.split_plan`'s split
     (passed where the package's ``pool_int8`` takes a split, else its own
-    default), and the controls K1 bf16 and f32 in both modes at every shape,
-    K1p in both dtypes (also on a strided B=2 shard, which the parent
-    copied), P6 and P1 full. Also K1's time in both dtypes at B=32 x 8,192,
+    default), and the controls K1 bf16 in both modes at every shape, K1p
+    bf16 (also on a strided B=2 shard, which the parent copied), P6 and P1
+    full. The kernels under change, K1 f32 in both modes at every shape and
+    K1p f32 (acc / denom, whole and on the strided shard), are held to
+    plain_pool_f64 instead: their largest errors beside the plain f32
+    version's (``f64``). Also K1's time in both dtypes at B=32 x 8,192,
     1 x 65,536, 1 x 8,192 and 1 x 40,960, K1p's at 1 x 40,960, and
     bag_sharded_pool's in 4 and 8 shards beside K1's on one bag of 163,840
     rows (each tree's own launches), and ptxas's lines of K1, its merge, K2
@@ -1260,14 +1295,25 @@ def time_pool(seed: int = 0) -> dict:
     import inspect
 
     from toad_tpu_torch.ops import _build, cuda_pool, cuda_pool_int8, probe_pool, probe_pool_int8
+    from toad_tpu_torch.ops.fused_pool import plain_pool, plain_pool_partial
     from toad_tpu_torch.ops.quantize import quantize_rows
 
     def digest(t: torch.Tensor) -> str:
         return hashlib.sha256(t.contiguous().view(torch.uint8).cpu().numpy().tobytes()).hexdigest()[:16]
 
+    f64 = {}  # the kernels under change: {output: {"kernel": err, "plain": err}} against plain_pool_f64
+
+    def vs_f64(tag: str, got: torch.Tensor, plain: torch.Tensor, want: torch.Tensor) -> None:
+        f64[tag] = {"kernel": (got.double() - want).abs().max().item(),
+                    "plain": (plain.double() - want).abs().max().item()}
+
+    def partial_m(acc_stats) -> torch.Tensor:  # acc / denom of K1p or plain_pool_partial (every bag has live rows)
+        return acc_stats[0] / acc_stats[1][:, 1, :, None]
+
     dev = torch.device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False
     model = seeded_model(seed).cuda().eval()
+    params = model.pool_params()
     g = torch.Generator(device=dev).manual_seed(seed + 17)
     n_sms = torch.cuda.get_device_properties(dev).multi_processor_count
     takes_split = "split" in inspect.signature(cuda_pool_int8.pool_int8).parameters
@@ -1283,6 +1329,7 @@ def time_pool(seed: int = 0) -> dict:
         for b, n in POOL_AB_SHAPES:
             x, mask = inputs(b, n)
             xq, sx = quantize_rows(x)
+            m64, s64 = plain_pool_f64(params, x, mask)
             for scored in (False, True):
                 shape = f"{'scored' if scored else 'classification'} B={b} N={n}"
                 m, s = cuda_pool_int8.pool_int8(ops8, xq, sx, mask, scored)
@@ -1294,26 +1341,27 @@ def time_pool(seed: int = 0) -> dict:
                     m = cuda_pool_int8.pool_int8(ops8, xq, sx, mask, scored,
                                                  split=cuda_pool.split_plan(b, n, 64, n_sms))[0]
                 digests[f"K2 {shape} M at split_plan"] = digest(m)
-                for dt in (torch.bfloat16, torch.float32):
-                    m, s = cuda_pool.pool(ops[dt], x.to(dt), mask, scored)
-                    digests[f"K1 {str(dt)[6:]} {shape} M"] = digest(m)
-                    if scored:
-                        digests[f"K1 {str(dt)[6:]} {shape} scores"] = digest(s)
-            del x, xq
-        b, n = POOL_AB_PARTIAL
-        x, mask = inputs(b, n)
-        for dt in (torch.bfloat16, torch.float32):
-            tag = f"K1p {str(dt)[6:]} B={b} N={n}"
-            digests.update(zip((f"{tag} acc", f"{tag} stats"),
-                               map(digest, cuda_pool.pool_partial(ops[dt], x.to(dt), mask))))
-        # K1p on the second half of a B=2 batch's rows, a strided view: the parent copies it, this tree reads it
-        b, n = POOL_AB_STRIDED
-        x, mask = inputs(b, 2 * n)
-        for dt in (torch.bfloat16, torch.float32):
-            tag = f"K1p {str(dt)[6:]} B={b} N={n} (rows {n}.. of {2 * n}, a view)"
-            digests.update(zip((f"{tag} acc", f"{tag} stats"),
-                               map(digest, cuda_pool.pool_partial(ops[dt], x.to(dt)[:, n:], mask[:, n:]))))
-        del x
+                m, s = cuda_pool.pool(ops[torch.bfloat16], x.to(torch.bfloat16), mask, scored)
+                digests[f"K1 bfloat16 {shape} M"] = digest(m)
+                if scored:
+                    digests[f"K1 bfloat16 {shape} scores"] = digest(s)
+                m, s = cuda_pool.pool(ops[torch.float32], x, mask, scored)
+                mp, sp = plain_pool(params, x, mask, torch.float32, scored)
+                vs_f64(f"K1 float32 {shape} M", m, mp, m64)
+                if scored:
+                    vs_f64(f"K1 float32 {shape} scores", s, sp, s64)
+            del x, xq, m64, s64
+        # K1p whole, and on the second half of a B=2 batch's rows, a strided view: the parent copies it, this
+        # tree reads it
+        for (b, n), rows in ((POOL_AB_PARTIAL, slice(None)), (POOL_AB_STRIDED, slice(POOL_AB_STRIDED[1], None))):
+            x, mask = inputs(b, n if rows.start is None else 2 * n)
+            xs, mask = x[:, rows], mask[:, rows]
+            tag = f"B={b} N={n}" + ("" if rows.start is None else f" (rows {n}.. of {2 * n}, a view)")
+            digests.update(zip((f"K1p bfloat16 {tag} acc", f"K1p bfloat16 {tag} stats"), map(
+                digest, cuda_pool.pool_partial(ops[torch.bfloat16], x.to(torch.bfloat16)[:, rows], mask))))
+            vs_f64(f"K1p float32 {tag} acc / denom", partial_m(cuda_pool.pool_partial(ops[torch.float32], xs, mask)),
+                   partial_m(plain_pool_partial(params, xs, mask, torch.float32)), plain_pool_f64(params, xs, mask)[0])
+        del x, xs
         b, n = POOL_AB_SPLIT
         x, mask = inputs(b, n)
         digests[f"P6 bf16 B={b} N={n} M"] = digest(
@@ -1378,13 +1426,14 @@ def time_pool(seed: int = 0) -> dict:
     torch.cuda.synchronize()
     out["ptxas"] = [f"{name}: {line}" for kernel, line in ptxas_lines(_build.build_log)
                     for key, name in (("pool_int8_kernel", "K2"), ("probe_int8_kernel", kernel),
-                                      ("pool_kernel_f32ILi16", "K1 f32 H=512"), ("pool_kernel_f32ILi8", "K1 f32 H=256"),
+                                      ("pool_kernel_f32", f"K1 f32 {kernel}"),
                                       ("pool_kernel_bf16", "K1 bf16"), ("pool_tail", "pool_tail"))
                     if key in kernel]
     path = REPO / "_work" / "pool_ab" / f"outputs_{os.getpid()}.pt"
     path.parent.mkdir(parents=True, exist_ok=True)
     torch.save({k: v.cpu() for k, v in saved.items()}, path)
     out["digests"] = digests
+    out["f64"] = f64
     out["saved"] = str(path)
     return out
 
@@ -1445,6 +1494,26 @@ def pool_ab(parent: Path, gpu: str) -> None:
         differ = sorted(k for k in want if r["digests"].get(k) != want[k])
         if differ or r["digests"].keys() != want.keys():
             raise AssertionError(f"pool A/B: the {label} tree's outputs differ from the parent's at {differ}")
+    # the kernels under change (K1 f32, K1p f32) against plain_pool_f64, in every run of both trees
+    for label, r in runs:
+        for key, e in r["f64"].items():
+            log(f"pool A/B {label} tree: {key} vs plain_pool_f64 {e['kernel']:.3e}, the plain f32 version's "
+                f"{e['plain']:.3e} (ratio {e['kernel'] / e['plain']:.2f}, limit {F64_ERR_RATIO})")
+            if e["kernel"] > F64_ERR_RATIO * e["plain"]:
+                raise AssertionError(f"pool A/B: the {label} tree's {key} misses plain_pool_f64 by {e['kernel']:.3e}, "
+                                     f"over {F64_ERR_RATIO} x the plain f32 version's {e['plain']:.3e}")
+    # K1 f32 in the same call: faster than the parent at the batch and the long bag, and at predict's shape no
+    # slower than the parent by more than the parent's own spread
+    for shape, strict in (("B=32 N=8192", True), ("B=1 N=65536", True), ("B=1 N=8192", False)):
+        key = f"K1 float32 {shape} ms"
+        t = {lab: sorted(r[key] for l2, r in runs if l2 == lab) for lab in ("parent", "this")}
+        med = {lab: statistics.median(v) for lab, v in t.items()}
+        spread = t["parent"][-1] - t["parent"][0]
+        log(f"pool A/B {key}: parent {t['parent']} (median {med['parent']:.4f}, spread {spread:.4f}), this tree "
+            f"{t['this']} (median {med['this']:.4f}) [{gpu}]")
+        if med["this"] >= med["parent"] if strict else med["this"] > med["parent"] + spread:
+            raise AssertionError(f"pool A/B: K1 f32 at {shape} takes {med['this']:.4f} ms, the parent "
+                                 f"{med['parent']:.4f} ms" + ("" if strict else f" (its spread {spread:.4f})"))
     ref = torch.load(runs[0][1]["saved"])
     worst, same_bits = {}, {}
     for label, r in runs[1:]:
@@ -1462,9 +1531,9 @@ def pool_ab(parent: Path, gpu: str) -> None:
                                  for k, v in worst.items()) + " against the parent's (K2 under each tree's default "
         f"split: max abs err, tolerance {TOL_INT8_M}; P3/P4: the largest error of a task row relative to its largest "
         f"|output|, tolerance {TOL_PROBE})")
-    log(f"pool A/B: all {len(want)} digests (K2's scores at every shape and its M at split_plan's split; K1 bf16 and "
-        "f32 in both modes at every shape, K1p in both dtypes, whole and on a strided shard, P6, P1 full) equal the "
-        "parent's in all four runs")
+    log(f"pool A/B: all {len(want)} digests (K2's scores at every shape and its M at split_plan's split; K1 bf16 in "
+        "both modes at every shape, K1p bf16, whole and on a strided shard, P6, P1 full) equal the parent's in all "
+        "four runs; K1 f32 and K1p f32 within the limit against plain_pool_f64 in every run")
 
 
 def _post(url: str, data: bytes, headers: dict) -> dict:
@@ -4738,9 +4807,10 @@ def main() -> int:
     ap.add_argument("--pool-ab", type=Path, metavar="PARENT",
                     help="only phases 1-2 and the K2 comparisons of phase 3, then K1, K1p, bag_sharded_pool, the int8 "
                          "probe's instances and K2 of the package checkout PARENT timed against this tree's (parent, "
-                         "this, this, parent), K2's scores, its M at the parent's split and the controls (K1, K1p "
-                         "whole and on a strided shard, P6, P1 full) required to be the same bits, K2's M and the "
-                         "int8 probe's outputs close to the parent's")
+                         "this, this, parent), K2's scores, its M at the parent's split and the controls (K1 bf16, "
+                         "K1p bf16 whole and on a strided shard, P6, P1 full) required to be the same bits, K2's M "
+                         "and the int8 probe's outputs close to the parent's, K1 f32 and K1p f32 held to the pool in "
+                         "float64 within F64_ERR_RATIO of the plain f32 version")
     ap.add_argument("--time-pool", type=Path, metavar="ROOT", help=argparse.SUPPRESS)
     ap.add_argument("--mesh-cards", action="store_true",
                     help="only phases 1-2, then the mesh with each cell on its own card (two or more cards)")

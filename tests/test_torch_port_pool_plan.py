@@ -1,9 +1,10 @@
 """The pooling kernel's plans (``toad_tpu_torch.ops.cuda_pool``).
 
 K1 (``csrc/pool.cu``) runs its bf16 instance on 128-row tiles with 8 warps
-of 64 x 64 warp tiles and its f32 instance on 64-row tiles with 8 warps of
-32 x H/4, each with h1 and h2 in one shared region; the f32 products are
-3xTF32 (each operand split into two TF32 halves). ``plan`` gives each
+of 64 x 64 warp tiles and its f32 instance on 64-row tiles with 8 warps as
+two warpgroups of H/2 columns on tf32 wgmma, each instance with h1 and h2 in
+one shared region; the f32 products are 3xTF32 (each operand split into two
+TF32 halves). ``plan`` gives each
 instance's rows, threads, ring slots and shared memory as the library
 computes them (``chip_smoke.py`` phase 2 asserts that the two agree on the
 card), and refuses a width whose layout does not fit a CTA. Both grids fill
@@ -69,17 +70,29 @@ def test_wrapper_refuses_those_widths_before_building(h_dim):
     assert not _build.is_loaded()
 
 
-@pytest.mark.parametrize("h_dim,a_dim,smem", [(512, 384, 221_216), (512, 256, 221_216), (256, 128, 112_672)])
+@pytest.mark.parametrize("h_dim,a_dim,smem", [(512, 384, 230_432), (512, 256, 230_432), (256, 128, 115_744)])
 def test_f32_plan_is_the_first_kernels(h_dim, a_dim, smem):
-    """The f32 instance's plan: 64-row tiles, 8 warps, a 2-slot ring. One
-    region [64][H + 4] for x slices, h1 and h2, the ring [2][H][16 + 4], the
-    column warps' partial scores, s, e, acc and stats; Wc stays in device
-    memory, so A does not change it. Within one CTA's shared memory."""
+    """The f32 instance's plan: 64-row tiles (one wgmma M), 8 warps as two
+    warpgroups, each with a 2-slot ring. One region [64][H + 4] for x slices,
+    h1 and h2, ending on a 1024-byte boundary where the swizzled rings start:
+    each warpgroup's ring [2][H/2][16] of 64-byte rows (no padding: wgmma's
+    layout has none) and its small halves [H/2][16] of one slice, which at
+    a tile's end hold the partial scores, s and e; the stats. The running
+    acc stays in registers and Wc in device memory, so A does not change
+    it. Within one CTA's shared memory."""
     p = cuda_pool.plan(F32, h_dim, a_dim)
     assert p == cuda_pool.PoolPlan(64, 256, 2, smem)
     assert p.smem <= cuda_pool.MAX_SMEM
     region = 4 * p.rows * (h_dim + 4)
     assert region < p.smem < 2 * region  # h1 and h2 take turns in one region
+    parts = cuda_pool.f32_layout(h_dim)
+    assert sum(parts.values()) == p.smem
+    assert parts["h"] == region and region % 1024 == 0  # the rings' swizzle needs 1024-byte alignment
+    assert parts["ring"] == 2 * p.slots * (h_dim // 2) * 64  # two warpgroups, H/2 rows of 16 f32 a slot
+    assert parts["small"] == 2 * (h_dim // 2) * 64  # one slice's small halves a warpgroup
+    assert parts["small"] // 2 >= 4 * (2 * p.rows * 2 + 2 * p.rows * 2)  # warpgroup 0's: partial scores, s, e
+    # x slices: each warpgroup's ring of 2 slots of [64][16 + 4] in the region
+    assert 2 * p.slots * p.rows * 20 * 4 <= region
 
 
 @pytest.mark.parametrize("h_dim", [768, 1024])
@@ -176,36 +189,64 @@ def _toward_zero(v: torch.Tensor) -> torch.Tensor:
     return torch.where(over, torch.nextafter(f, torch.zeros_like(f)), f)
 
 
-def _tensor_core(a: torch.Tensor, b: torch.Tensor, pairs, slice_depth: int | None = None) -> torch.Tensor:
-    """C = A B in k8 steps as mma.sync m16n8k8 takes them: each step adds the
-    products of each (a part, b part) pair, in order, to an f32 sum, exactly
-    and then rounded toward zero. With ``slice_depth`` the steps of each
-    slice of that depth go to a sum of their own, started at 0, which is
-    added to C once (an f32 add, rounded to nearest), as the kernel does;
-    without it they go straight to C."""
+def _tensor_core(a: torch.Tensor, b: torch.Tensor, steps, depth: int, sliced: bool = True) -> torch.Tensor:
+    """C = A B in slices of ``depth`` as the kernel's tensor-core products
+    take them: ``steps`` lists a slice's products in order, each (a part, b
+    part, k8 step within the slice), and each adds its exact products to an
+    f32 sum and rounds it toward zero. Sliced, each slice's products go to a
+    sum of their own, started at 0, which is added to C once (an f32 add,
+    rounded to nearest), as the kernel does; else they go straight to C."""
     acc = torch.zeros(a.shape[0], b.shape[1], dtype=torch.float32)
-    part = torch.zeros_like(acc)
-    for k0 in range(0, a.shape[1], 8):
-        for pa, pb in pairs:
-            prod = pa(a[:, k0:k0 + 8]).double() @ pb(b[k0:k0 + 8]).double()
-            if slice_depth is None:
-                acc = _toward_zero(acc.double() + prod)
-            else:
-                part = _toward_zero(part.double() + prod)
-        if slice_depth is not None and (k0 + 8) % slice_depth == 0:
-            acc, part = (acc.double() + part.double()).float(), torch.zeros_like(part)
+    for k0 in range(0, a.shape[1], depth):
+        part = torch.zeros_like(acc) if sliced else acc
+        for pa, pb, kk in steps:
+            ks = slice(k0 + 8 * kk, k0 + 8 * kk + 8)
+            part = _toward_zero(part.double() + pa(a[:, ks]).double() @ pb(b[ks]).double())
+        acc = (acc.double() + part.double()).float() if sliced else part
     return acc
 
 
-def test_3xtf32_is_as_accurate_as_f32_fma_and_one_tf32_product_is_not():
+def _small(v: torch.Tensor) -> torch.Tensor:
+    """The small half of an A operand: x - tf32(x), exact in f32, passed as
+    it is and truncated by the tensor cores."""
+    return _truncated(v - _tf32(v))
+
+
+def _small_of_raw(v: torch.Tensor) -> torch.Tensor:
+    """The small half of a weight whose big half is its raw f32 value, read
+    truncated: w - trunc(w), exact in f32, truncated in turn."""
+    return _truncated(v - _truncated(v))
+
+
+def _steps(big_b, small_b, order: str):
+    """A 16-deep slice's products: for each (product, k8 step) of ``order``
+    ("sb0" = A small . B big of the first k8 step), its (a part, b part, step)."""
+    parts = {"sb": (_small, big_b), "bs": (_tf32, small_b), "bb": (_tf32, big_b)}
+    return [(*parts[o[:2]], int(o[2])) for o in order.split()]
+
+
+# (B's big half, B's small half, the order of a 16-deep slice's products):
+# the earlier kernel's m16n8k8 steps, both operands rounded to nearest, each
+# k8 step's three products in turn; the wgmma kernel's, its weights' big
+# half the raw slice read truncated and their small half w - trunc(w)
+# written beside it, small.big and big.big of both k8 steps issued while the
+# small halves are written, then big.small of both.
+SCHEMES = {"mma.sync rna": (_tf32, _small, "sb0 bs0 bb0 sb1 bs1 bb1"),
+           "wgmma raw big": (_truncated, _small_of_raw, "sb0 bb0 sb1 bb1 bs0 bs1")}
+
+
+@pytest.mark.parametrize("scheme", list(SCHEMES))
+def test_3xtf32_is_as_accurate_as_f32_fma_and_one_tf32_product_is_not(scheme):
     """The model of the f32 instance's products on seeded 64 x 1024 x 128
     operands, against the f64 product, relative to its largest output:
-    3xTF32 (small.big + big.small + big.big, big = tf32(x) rounded to
-    nearest, small = x - big, which the kernel passes as it is and the tensor
-    cores truncate) in 16-deep slices stays within 2x of sequential f32 FMA
-    over k. Summed straight into one running sum, the truncation of every
+    3xTF32 (small.big + big.small + big.big, A's big half tf32(x) rounded to
+    nearest and its small half x - big, which the kernel passes as it is and
+    the tensor cores truncate; B's halves and the products' order as the
+    scheme makes them) in 16-deep slices stays within 2x of sequential f32
+    FMA over k. Summed straight into one running sum, the truncation of every
     step gathers a bias over K that misses it 5x or more; one TF32 product
     misses it by 50x or more."""
+    big_b, small_b, order = SCHEMES[scheme]
     rng = np.random.default_rng(15)
     a = torch.from_numpy(rng.standard_normal((64, 1024)).astype(np.float32))
     b = torch.from_numpy((0.03 * rng.standard_normal((1024, 128))).astype(np.float32))
@@ -216,13 +257,10 @@ def test_3xtf32_is_as_accurate_as_f32_fma_and_one_tf32_product_is_not():
     for k in range(a.shape[1]):  # one rounding a step: the f64 sum of an exact product, rounded to f32
         fma = (fma.double() + a[:, k:k + 1].double() * b[k:k + 1].double()).float()
 
-    def small(v):
-        return _truncated(v - _tf32(v))
-
-    three = ((small, _tf32), (_tf32, small), (_tf32, _tf32))
-    sliced = _tensor_core(a, b, three, slice_depth=16)
-    running = _tensor_core(a, b, three)
-    one = _tensor_core(a, b, ((_tf32, _tf32),), slice_depth=16)
+    steps = _steps(big_b, small_b, order)
+    sliced = _tensor_core(a, b, steps, 16)
+    running = _tensor_core(a, b, steps, 16, sliced=False)
+    one = _tensor_core(a, b, _steps(big_b, small_b, "bb0 bb1"), 16)
     err_fma, err_sliced, err_running, err_one = (
         (c.double() - want).abs().max().item() / scale for c in (fma, sliced, running, one))
     assert 0 < err_fma < 1e-5

@@ -61,29 +61,44 @@
 // (cuda_pool.shard_split_plan). Rows are read through a bag stride, so a
 // shard sliced out of a larger batch is read in place. Both instances hold an
 // SM with one CTA, and their grids fill whole waves
-// (cuda_pool.wave_split_plan). No wgmma, TMA or warp specialisation.
+// (cuda_pool.wave_split_plan). Neither uses TMA or warp specialisation; the
+// bf16 instance's products are mma.sync, the f32 instance's wgmma.
 //
-// The f32 instance (the default of serve, eval and the f32 trainer's
-// passes) keeps f32 f32: Hopper has no f32 tensor-core product, and a single
-// TF32 product is off by ~1e-3. Its f32 weights are 4.72 MB, twice bf16's,
-// and h1 or h2 of 64 rows already take 132 KB, so it runs 64-row tiles, 8
-// warps as 2 (rows) x 4 (columns), and each trunk GEMM as one pass over all
-// H columns (32 x 128 warp tiles, 128 f32 sums a thread): the pass's output
-// reaches shared memory only after its last slice, so h1 and h2 take turns
-// in one region, and GEMM1's x slices ride in that region while it is dead.
-// Weights come through a 2-slot cp.async ring of H-column x 16-deep slices.
-// The gate runs in 256-column passes that fold gated values into per-row
-// scores in registers, as the bf16 instance does. The products are
-// error-compensated TF32 ("3xTF32"): each f32 operand splits in registers
-// into big = x rounded to tf32 and small = x - big (exact in f32, read as
-// tf32 by truncation), and each m16n8k8 step accumulates small.big +
-// big.small + big.big in f32. The tensor cores
-// truncate the sums they write, so each 16-deep slice sums into registers
-// of its own that one f32 add folds into the running sum: a running sum
-// that keeps its sign would gather the truncation's bias over all of K (10x
-// f32 FMA's error on the card); so summed it is as accurate as f32 FMA
-// (PERF.md §6). Against the first kernel's 32-row tiles this halves the
-// weight stream from L2.
+// The f32 instance (the default of serve, eval, predict, infer and the f32
+// trainer's passes) keeps f32 f32: Hopper has no f32 tensor-core product,
+// and a single TF32 product is off by ~1e-3. So its products are
+// error-compensated TF32 ("3xTF32"), three TF32 products for each f32 one,
+// bound by operations: 3 x 2.4 MFLOP a 1024-d row at 495 TFLOP/s. Its f32
+// weights are 4.72 MB, twice bf16's, and h1 or h2 of 64 rows already take
+// 132 KB, so it runs 64-row tiles, one wgmma M, and each trunk GEMM as one
+// pass over all H columns: the pass's output reaches shared memory only after
+// its last slice, so h1 and h2 take turns in one region, and GEMM1's x slices
+// ride in that region while it is dead. Its 8 warps are two warpgroups that
+// split a pass's columns (H/2 each in the trunk, 128 of each 256-column gate
+// pass, whose epilogue folds gated values into per-row scores in registers
+// as the bf16 instance does) and keep to themselves between the passes'
+// barriers: each streams its half of the weights through its own 2-slot
+// cp.async ring of 16-deep slices (64-byte rows in the 64-byte swizzle that
+// wgmma reads; 32-byte rows made twice the L2 requests) and issues wgmma
+// m64n64k8 with A from registers and B from shared memory. A (x, h1 or h2)
+// splits in registers into big = a rounded to tf32 and small = a - big
+// (exact in f32, read as tf32 by truncation); W's big half is its raw f32
+// slice, which the tensor cores read truncated, and its small half
+// w - trunc(w), exact, is written beside the slice once it lands (not kept in
+// device memory: that would double the L2 stream). Each slice and 64-column
+// piece is small.big, big.big, then big.small for both k8 halves into 32
+// sums of their own, which one f32 add folds into the running 128 a thread:
+// the tensor cores truncate the sums they write, and a running sum that kept
+// its sign would gather that bias over all of K (10x f32 FMA's error on the
+// card, PERF.md §6), so summed it is as accurate as f32 FMA
+// (tests/test_torch_port_pool_plan.py models it). The first two pieces'
+// products that need only the raw slice run while the small halves are
+// written, and the fold of one piece overlaps the next piece's products.
+// What bounds it now (PERF.md §6): the L2 weight stream, ~5.2 ms of ~8.5 at
+// B=32 x 8,192 alone (a build without the products), with one slice in
+// flight a warpgroup; the products add ~3.4 ms over it and the small halves'
+// writes ~1.3 ms. One L2 read for two CTAs (TMA multicast over a cluster)
+// is what is left; the shared memory holds no third slot.
 //
 // Layout contract (the Python wrapper ops/cuda_pool.py prepares it):
 //   x [B, N, D] with contiguous rows (bag b's rows at x + b * x_bag, x_bag
@@ -104,68 +119,98 @@ static_assert(kThreadsBf16 == kThreads, "both instances end in pool_tail's 8 war
 std::atomic<long long> g_launches{0};  // kernel launches made by this file's entry points
 
 // ---------------------------------------------------------------------------
-// The f32 instance. Warp (wr, wc) owns rows wr*32 + mi*16 + {g, g+8} (mi < 2)
-// and columns wc*8*NT + ni*8 + 2q (+1) (ni < NT) of a pass of 32*NT columns
-// (g = lane / 4, q = lane % 4), the accumulator layout of mma.m16n8k8.
+// The f32 instance. Its 8 warps are two warpgroups; warpgroup wg owns columns
+// wg*NW .. wg*NW + NW - 1 of a pass (NW = H/2 in the trunk, 128 of a 256-
+// column gate pass) and all 64 rows. Its products are wgmma m64n64k8 pieces:
+// warp w of the group holds rows 16w + g and 16w + g + 8 of each piece, and
+// register i of a piece is row 16w + g + 8*((i >> 1) & 1), column 8*(i >> 2) +
+// 2q + (i & 1) (g = lane / 4, q = lane % 4), the accumulator layout of wgmma.
 
-constexpr int kRowsF32 = 64;        // rows a tile
-constexpr int kBKF32 = 16;          // reduction depth of a staged slice
-constexpr int kSF32 = kBKF32 + 4;   // staged row stride (words): 16-byte copies, conflict-free fragment loads
+constexpr int kRowsF32 = 64;        // rows a tile: one wgmma M
+constexpr int kBKF32 = 16;          // reduction depth of a staged slice: two tf32 wgmma K (64-byte rows)
+constexpr int kPiece = 64;          // columns of one wgmma (m64n64k8: 32 sums a thread)
+constexpr int kSlotsF32 = 2;        // slots of a warpgroup's cp.async ring: one slice in flight
+constexpr int kXSF32 = kBKF32 + 4;  // x slot row stride (words): conflict-free fragment loads
 constexpr int kHPadF32 = 4;         // row padding of the f32 region: H + 4 puts rows g on banks 4g
-constexpr int kSlotsF32 = 2;        // slots of the cp.async ring: one slice in flight
 constexpr int kGatePass = 256;      // interleaved [Wa|Wb] columns a gate pass
-static_assert(kRowsF32 * kBKF32 / 4 == kThreads, "one 16-byte x copy a thread a slice");
+constexpr int kWarpgroups = kThreads / 128;
+static_assert(kWarpgroups == 2 && kRowsF32 * kBKF32 / 4 == 2 * 128, "two warpgroups, two 16-byte x copies a thread");
 
-// One region h [64][H + 4] holds GEMM1's x slices, then h1, then h2; the
-// weight ring ws [2][H][20]; the column warps' partial scores [4][64][2], s
-// [64][2] and e [64][2]; the running acc [2][H] and stat (max[2], denom[2],
-// corr[2]). Wc is read from device memory.
+__host__ __device__ inline size_t align1024(size_t v) { return (v + 1023) & ~size_t(1023); }
+
+// One region h [64][H + 4] holds GEMM1's x slices (each warpgroup's ring of
+// [64][20] slots), then h1, then h2; each warpgroup's weight ring ws [2][H/2]
+// [16] of 64-byte swizzled rows, and its small halves [H/2][16] beside them,
+// which at a tile's end (every product done) hold the warpgroups' partial
+// scores [2][64][2], s [64][2] and e [64][2]; stat (max[2], denom[2],
+// corr[2]). The running acc [2][H] is the block's own slot of part_acc in
+// device memory (each thread its own entries), and Wc is read from there.
+// The rings start on a 1024-byte boundary: the swizzle is a function of the
+// address.
 struct LayoutF32 {
-  size_t h, ws, spart, s, e, acc, stat, total;
+  size_t h, ws, small, stat, total;
 };
 
 __host__ __device__ inline LayoutF32 layout_f32(int H) {
   LayoutF32 L;
   size_t o = 0;
-  L.h = o;     o = align16(o + sizeof(float) * kRowsF32 * (H + kHPadF32));
-  L.ws = o;    o = align16(o + sizeof(float) * kSlotsF32 * H * kSF32);
-  L.spart = o; o = align16(o + sizeof(float) * kColWarps * kRowsF32 * 2);
-  L.s = o;     o = align16(o + sizeof(float) * kRowsF32 * 2);
-  L.e = o;     o = align16(o + sizeof(float) * kRowsF32 * 2);
-  L.acc = o;   o = align16(o + sizeof(float) * 2 * H);
+  L.h = o;     o = align1024(o + sizeof(float) * kRowsF32 * (H + kHPadF32));
+  L.ws = o;    o = align16(o + sizeof(float) * kWarpgroups * kSlotsF32 * (H / 2) * kBKF32);
+  L.small = o; o = align16(o + sizeof(float) * kWarpgroups * (H / 2) * kBKF32);
   L.stat = o;  o = align16(o + sizeof(float) * 8);
   L.total = o;
   return L;
 }
 
-// ws[n][k] <- wt[n0 + n][k0 + k] (n < NC, k < 16) and (kFromX) xs[r][k] <-
-// x[row0 + r][k0 + k] (r < 64), rows past the bag's end N zero-filled, in
-// 16-byte copies; commits one group.
-template <int NC, bool kFromX>
-__device__ __forceinline__ void stage_f32(const float* __restrict__ wt, int K, int n0, int k0, float* ws,
-                                          const float* __restrict__ x, int N, int D, int row0, float* xs) {
-  constexpr int kChunks = kBKF32 / 4;
-#pragma unroll
-  for (int j = 0; j < NC * kChunks / kThreads; ++j) {
-    const int i = threadIdx.x + j * kThreads;
-    const int r = i / kChunks, c = (i % kChunks) * 4;
-    cp_async16(ws + r * kSF32 + c, wt + (size_t)(n0 + r) * K + k0 + c, 16);
-  }
-  if (kFromX) {
-    const int r = threadIdx.x / kChunks, c = (threadIdx.x % kChunks) * 4;
-    const bool ok = row0 + r < N;
-    cp_async16(xs + r * kSF32 + c, ok ? x + (size_t)(row0 + r) * D + k0 + c : x, ok ? 16 : 0);
-  }
-  cp_async_commit();
+__device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
+__device__ __forceinline__ void wgmma_commit() { asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory"); }
+template <int N>
+__device__ __forceinline__ void wgmma_wait() { asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory"); }
+// this thread's shared-memory writes (its landed cp.async copies too), seen by the tensor cores' reads
+__device__ __forceinline__ void fence_async_smem() { asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory"); }
+// the 128 threads of warpgroup wg (barrier 0 is __syncthreads)
+__device__ __forceinline__ void bar_wg(int wg) { asm volatile("bar.sync %0, 128;\n" ::"r"(wg + 1) : "memory"); }
+
+// threadIdx.x, opaque to the compiler: the epilogues compute their
+// addresses where they run, instead of keeping them in registers through the
+// products (which need all but a few of the 255)
+__device__ __forceinline__ int fresh_tid() {
+  int t = threadIdx.x;
+  asm volatile("" : "+r"(t));
+  return t;
 }
 
-// c[16x8] += a[16x8] . b[8x8], tf32 operands (each f32's low 13 bits dropped), f32 sums
-__device__ __forceinline__ void mma_tf32(float* c, const uint32_t* a, uint32_t b0, uint32_t b1) {
-  asm(
-      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+// The descriptor of a K-major operand of 64-byte rows (16 tf32) in the
+// 64-byte swizzle: row n at byte 64n, its 16-byte chunk c at (c ^ bits 1-2 of
+// n) * 16, 8-row groups 512 bytes apart (the leading offset is unused). A
+// wgmma's k8 half kk starts 32 kk bytes in; the swizzle is applied to the
+// address, so the same descriptor plus 2 reads it. Its high word is the same
+// for every operand, its low word the start address (and the unused leading
+// offset): offsets within shared memory never carry past it.
+constexpr uint32_t kDescHi = (512 >> 4) | (2u << 30);
+__device__ __forceinline__ uint32_t sw64_desc_lo(const void* p) {
+  return ((static_cast<uint32_t>(__cvta_generic_to_shared(p)) & 0x3FFFF) >> 4) | (1u << 16);
+}
+constexpr uint32_t kPieceDesc = kPiece * 64 / 16;  // a descriptor's step to the next piece's rows
+constexpr uint32_t kHalfDesc = 32 / 16;            // ... and to a slice's second k8 half
+
+// d[64 x 64] (+)= a[64 x 8] . b[64 x 8]^T: A (tf32 in f32 registers, the
+// m16n8k8 fragment of this warp's 16 rows) from registers, B from shared
+// memory; kScaleD = 0 writes the products over d
+template <int kScaleD>
+__device__ __forceinline__ void wgmma_tf32(float (&d)[kPiece / 2], const uint32_t (&a)[4], uint64_t desc_b) {
+  static_assert(kPiece == 64, "the operand list is m64n64k8's");
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(kScaleD));
 }
 
 // v = big + small as two tf32 operands. The tensor cores read the top 19
@@ -179,155 +224,228 @@ __device__ __forceinline__ void split_tf32(float v, uint32_t& big, uint32_t& sma
   small = __float_as_uint(v - __uint_as_float(big & 0xffffe000u));
 }
 
-// acc += A[64, 16] . W[32*NT columns, 16]^T over one staged slice in 3xTF32:
-// a_base the slice's row 0 (row stride la), w_base its column 0 of the pass
-// (stride kSF32); m16n8k8 fragments loaded as f32 and split in registers,
-// the small products first.
-template <int NT>
-__device__ __forceinline__ void slice_product(float (&acc)[2][NT][4], const float* a_base, int la,
-                                              const float* w_base) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int wr = warp >> 2, wc = warp & 3, g = lane >> 2, q = lane & 3;
-  const float* a_row = a_base + (wr * 32 + g) * la;
-  const float* w_col = w_base + (wc * 8 * NT) * kSF32;
-  uint32_t ab[2][2][4], as[2][2][4];  // a fragments of k8 step s, m-tile mi: big, small
-#pragma unroll
-  for (int s = 0; s < 2; ++s)
-#pragma unroll
-    for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-      for (int r = 0; r < 4; ++r)  // (g, q), (g+8, q), (g, q+4), (g+8, q+4)
-        split_tf32(a_row[(mi * 16 + (r & 1) * 8) * la + 8 * s + q + (r >> 1) * 4], ab[s][mi][r], as[s][mi][r]);
-  // four n-tiles at a time, eight independent sums between two products
-  // into one. The slice's products go to sums of their own, added to acc
-  // once: the tensor cores truncate each sum they write, and a running sum
-  // that kept its sign would gather that bias over all K
-#pragma unroll
-  for (int n4 = 0; n4 < NT; n4 += 4) {
-    float part[2][4][4] = {};
-#pragma unroll
-    for (int s = 0; s < 2; ++s) {
-      uint32_t bb[4][2], bs[4][2];  // b0 (k = q), b1 (k = q + 4) of column (n4 + j)*8 + g
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float* w = w_col + ((n4 + j) * 8 + g) * kSF32 + 8 * s + q;
-        split_tf32(w[0], bb[j][0], bs[j][0]);
-        split_tf32(w[4], bb[j][1], bs[j][1]);
-      }
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-#pragma unroll
-        for (int mi = 0; mi < 2; ++mi) mma_tf32(part[mi][j], as[s][mi], bb[j][0], bb[j][1]);
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-#pragma unroll
-        for (int mi = 0; mi < 2; ++mi) mma_tf32(part[mi][j], ab[s][mi], bs[j][0], bs[j][1]);
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-#pragma unroll
-        for (int mi = 0; mi < 2; ++mi) mma_tf32(part[mi][j], ab[s][mi], bb[j][0], bb[j][1]);
-    }
-#pragma unroll
-    for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) acc[mi][n4 + j][e] += part[mi][j][e];
-  }
+// w - w truncated to tf32: exact in f32, the small half of a weight whose big
+// half is the raw f32 value as the tensor cores read it
+__device__ __forceinline__ float tf32_rest(float w) { return w - __uint_as_float(__float_as_uint(w) & 0xffffe000u); }
+
+// The 16-byte chunks of a warpgroup's weight slice that thread t copies: j <
+// NW / 32, row n = t/4 + 32j, chunk c = t % 4 (four threads a 64-byte row);
+// its float4 index in the slot, the 64-byte swizzle's.
+__device__ __forceinline__ int chunk_f4(int t, int j) {
+  return 4 * (t >> 2) + ((t & 3) ^ ((t >> 3) & 3)) + 128 * j;  // bits 1-2 of n are bits 3-4 of t
 }
 
-// acc = A[64, K] . Wt[n0 : n0 + 32*NT, K]^T in one pass over K, A the staged
-// x tile (kFromX; its slices ride in xs) or h [64][ldh].
-template <int NT, bool kFromX>
-__device__ __forceinline__ void gemm_rows64(float (&acc)[2][NT][4], const float* __restrict__ wt, int K, int n0,
-                                            const float* h, int ldh, const float* __restrict__ x, int N, int D,
-                                            int row0, float* ws, float* xs) {
-  constexpr int NC = kColWarps * 8 * NT;
+// Warpgroup wg's share of slice k0..k0+15: its NW weight rows wt[n][k0..] (wt
+// at its first row, row stride K) into a ring slot in the 64-byte swizzle,
+// and (kFromX) the 64 x rows' k0..k0+15 into its x slot (rows past the bag's
+// end N zero-filled), in 16-byte copies; commits one group.
+template <int NW, bool kFromX>
+__device__ __forceinline__ void stage_f32(const float* __restrict__ wt, int K, int k0, float* slot,
+                                          const float* __restrict__ x, int N, int D, int row0, float* xs) {
+  const int t = threadIdx.x & 127;
+  const float* src = wt + (size_t)(t >> 2) * K + k0 + (t & 3) * 4;  // chunk 0's; chunk j's is 32j rows further
+#pragma unroll
+  for (int j = 0; j < NW / 32; ++j, src += (size_t)32 * K)
+    cp_async16(reinterpret_cast<float4*>(slot) + chunk_f4(t, j), src, 16);
+  if (kFromX) {
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      const int r = (t >> 2) + 32 * j, c = t & 3;
+      const bool ok = row0 + r < N;
+      cp_async16(xs + r * kXSF32 + c * 4, ok ? x + (size_t)(row0 + r) * D + k0 + c * 4 : x, ok ? 16 : 0);
+    }
+  }
+  cp_async_commit();
+}
+
+// run = A[64, K] . Wt[n0 + wg*NW .. + NW, K]^T for warpgroup wg in one pass
+// over K, A the staged x tile (kFromX; its slices ride in xs) or h [64][ldh],
+// in 3xTF32: A splits in registers into big (rounded) and small, W's big half
+// is its raw f32 slice (read truncated) and its small half w - trunc(w) is
+// written beside it once the slice lands (each thread the chunks it copied).
+// Each 16-deep slice and 64-column piece is six wgmmas (small.big and big.big
+// of each k8 half, then big.small of each) into sums of their own, started by
+// the first, which one f32 add folds into run: the tensor cores truncate each
+// sum they write, and a running sum that kept its sign would gather that bias
+// over all K. Pieces 0 and 1 start their products on the raw slice while the
+// small halves are written; the fold of piece p overlaps the products of
+// piece p + 1. The warpgroup keeps to itself (its own ring, x slots and
+// barriers), so the other one's products fill its barriers, splits and folds.
+template <int NW, bool kFromX>
+__device__ __forceinline__ void gemm_wg(float (&run)[NW / 2], const float* __restrict__ wt, int K, int n0,
+                                        const float* h, int ldh, const float* __restrict__ x, int N, int D, int row0,
+                                        float* ring, float* small, float* xring) {
+  constexpr int NP = NW / kPiece;
+  const int wg = threadIdx.x >> 7, t = threadIdx.x & 127;
+  const int lane = t & 31, g = lane >> 2, q = lane & 3, a_row = 16 * (t >> 5) + g;
   const int n_steps = K / kBKF32;
+  wt += (size_t)(n0 + wg * NW) * K;
   auto issue = [&](int step) {
     if (step < n_steps) {
       const int slot = step % kSlotsF32;
-      stage_f32<NC, kFromX>(wt, K, n0, step * kBKF32, ws + slot * NC * kSF32, x, N, D, row0,
-                            xs + slot * kRowsF32 * kSF32);
+      stage_f32<NW, kFromX>(wt, K, step * kBKF32, ring + slot * NW * kBKF32, x, N, D, row0,
+                            xring + slot * kRowsF32 * kXSF32);
     } else {
       cp_async_commit();  // empty group: keeps one group per step for the wait count
     }
   };
+  constexpr int PR = kPiece / 2;  // a piece's sums a thread: run[p * PR + i]
+  float part[2][PR];              // the pieces' sums, in turn
 #pragma unroll
-  for (int mi = 0; mi < 2; ++mi)
+  for (int i = 0; i < NW / 2; ++i) run[i] = 0.f;
 #pragma unroll
-    for (int ni = 0; ni < NT; ++ni)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[mi][ni][e] = 0.f;
+  for (int i = 0; i < PR; ++i) part[0][i] = part[1][i] = 0.f;
 
-  // the ring and the x slots are free, and the previous epilogue's writes to
-  // h are visible, once every warp has arrived here
-  __syncthreads();
+  bar_wg(wg);  // every warp of the group is done with the ring and small halves of its last pass
 #pragma unroll
   for (int s = 0; s < kSlotsF32 - 1; ++s) issue(s);
   for (int step = 0; step < n_steps; ++step) {
     cp_async_wait<kSlotsF32 - 2>();  // this thread's copies of `step` have landed
-    __syncthreads();                 // everyone's have, and slot (step - 1) is free
+    bar_wg(wg);  // the group's have, and its products of `step - 1` are done: that slot and `small` are free
     issue(step + kSlotsF32 - 1);
     const int slot = step % kSlotsF32;
-    slice_product<NT>(acc, kFromX ? xs + slot * kRowsF32 * kSF32 : h + step * kBKF32, kFromX ? kSF32 : ldh,
-                      ws + slot * NC * kSF32);
+    const float* raw = ring + slot * NW * kBKF32;
+    const float* a = kFromX ? xring + slot * kRowsF32 * kXSF32 : h + step * kBKF32;
+    const int la = kFromX ? kXSF32 : ldh;
+    uint32_t ab[2][4], as[2][4];  // each k8 half: (g, q), (g+8, q), (g, q+4), (g+8, q+4)
+#pragma unroll
+    for (int kk = 0; kk < 2; ++kk)
+#pragma unroll
+      for (int r = 0; r < 4; ++r)
+        split_tf32(a[(a_row + (r & 1) * 8) * la + 8 * kk + q + (r >> 1) * 4], ab[kk][r], as[kk][r]);
+    const uint32_t db_lo = sw64_desc_lo(raw), ds_lo = sw64_desc_lo(small);
+    // piece p's descriptors of the raw slice and of the small halves
+    auto descs = [&](int p, uint64_t& db, uint64_t& ds) {
+      db = (uint64_t)kDescHi << 32 | (db_lo + p * kPieceDesc);
+      ds = (uint64_t)kDescHi << 32 | (ds_lo + p * kPieceDesc);
+    };
+    // the products of piece p that read the raw slice only: small.big and big.big of each k8 half
+    auto raw_products = [&](int p) {
+      uint64_t db, ds;
+      descs(p, db, ds);
+      wgmma_fence();  // the fold's reads of these registers, and the A fragments' writes, come first
+#pragma unroll
+      for (int kk = 0; kk < 2; ++kk) {
+        if (kk == 0)
+          wgmma_tf32<0>(part[p & 1], as[kk], db + kk * kHalfDesc);
+        else
+          wgmma_tf32<1>(part[p & 1], as[kk], db + kk * kHalfDesc);
+        wgmma_tf32<1>(part[p & 1], ab[kk], db + kk * kHalfDesc);
+      }
+    };
+    // pieces 0 and 1 start on the raw slice while the small halves are written
+    raw_products(0);
+    wgmma_commit();
+    raw_products(1);
+    wgmma_commit();
+#pragma unroll
+    for (int j = 0; j < NW / 32; ++j) {
+      const float4 v = reinterpret_cast<const float4*>(raw)[chunk_f4(t, j)];
+      reinterpret_cast<float4*>(small)[chunk_f4(t, j)] =
+          make_float4(tf32_rest(v.x), tf32_rest(v.y), tf32_rest(v.z), tf32_rest(v.w));
+    }
+    fence_async_smem();
+    bar_wg(wg);  // the group's small halves are written
+#pragma unroll
+    for (int p = 0; p < NP; ++p) {
+      if (p >= 2) raw_products(p);
+      uint64_t db, ds;
+      descs(p, db, ds);
+#pragma unroll
+      for (int kk = 0; kk < 2; ++kk) wgmma_tf32<1>(part[p & 1], ab[kk], ds + kk * kHalfDesc);
+      wgmma_commit();
+      if (p > 0) {
+        wgmma_wait<1>();
+#pragma unroll
+        for (int i = 0; i < PR; ++i) run[(p - 1) * PR + i] += part[(p - 1) & 1][i];
+      }
+    }
+    wgmma_wait<0>();
+#pragma unroll
+    for (int i = 0; i < PR; ++i) run[(NP - 1) * PR + i] += part[(NP - 1) & 1][i];
   }
 }
 
-// h[row][col] <- relu(acc + bias) over the pass's 32*NT columns
-template <int NT>
-__device__ __forceinline__ void store_relu(const float (&acc)[2][NT][4], const float* __restrict__ bias, float* h,
+// h[row][col] <- relu(run + bias) over warpgroup wg's NW columns: run[4j +
+// 2hf + e] is row 16w + g + 8hf, column 8j + 2q + e of them
+template <int NW>
+__device__ __forceinline__ void store_relu(const float (&run)[NW / 2], const float* __restrict__ bias, float* h,
                                            int ldh) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int wr = warp >> 2, wc = warp & 3, g = lane >> 2, q = lane & 3;
+  const int tid = fresh_tid(), wg = tid >> 7, t = tid & 127;
+  const int lane = t & 31, row = 16 * (t >> 5) + (lane >> 2), q = lane & 3;
 #pragma unroll
-  for (int mi = 0; mi < 2; ++mi)
+  for (int j = 0; j < NW / 8; ++j) {
+    const int col = wg * NW + j * 8 + 2 * q;
+    const float b0 = __ldg(bias + col), b1 = __ldg(bias + col + 1);
 #pragma unroll
-    for (int hf = 0; hf < 2; ++hf) {
-      const int row = wr * 32 + mi * 16 + g + hf * 8;
-#pragma unroll
-      for (int ni = 0; ni < NT; ++ni) {
-        const int col = wc * 8 * NT + ni * 8 + 2 * q;
-        *reinterpret_cast<float2*>(h + row * ldh + col) =
-            make_float2(fmaxf(acc[mi][ni][2 * hf] + __ldg(bias + col), 0.f),
-                        fmaxf(acc[mi][ni][2 * hf + 1] + __ldg(bias + col + 1), 0.f));
-      }
-    }
+    for (int hf = 0; hf < 2; ++hf)
+      *reinterpret_cast<float2*>(h + (row + 8 * hf) * ldh + col) =
+          make_float2(fmaxf(run[4 * j + 2 * hf] + b0, 0.f), fmaxf(run[4 * j + 2 * hf + 1] + b1, 0.f));
+  }
 }
 
-// The gate epilogue of interleaved [Wa|Wb] columns n0..n0+255: warp column wc
-// holds u_j in n-tiles 0-3 and v_j (32 columns further) in n-tiles 4-7 for
-// j = n0/2 + wc*32 + ni*8 + 2q (+1). gated_j = tanh(u_j) sigmoid(v_j) (f32)
-// is folded into the thread's partial scores sacc[mi][hf][t] += gated_j
-// Wc[j][t]; it never reaches shared memory.
-__device__ __forceinline__ void gate_fold_f32(const float (&acc)[2][8][4], const float* __restrict__ bias,
-                                              const float* __restrict__ wc_g, int n0, float (&sacc)[2][2][2]) {
-  const int lane = threadIdx.x & 31, wc = (threadIdx.x >> 5) & 3;
-  float2 w[4][2];
+// The gate epilogue of interleaved [Wa|Wb] columns n0 + wg*128 .. + 127: in
+// each 64-column block, n-tiles 0-3 hold u_j and n-tiles 4-7 v_j (32 columns
+// further) for j = n0/2 + wg*64 + blk*32 + ni*8 + 2q (+1). gated_j =
+// tanh(u_j) sigmoid(v_j) (f32) is folded into the thread's partial scores
+// sacc[hf][t] += gated_j Wc[j][t] (rows g, g + 8 of its warp); it never
+// reaches shared memory.
+__device__ __forceinline__ void gate_fold_f32(const float (&run)[kGatePass / 4], const float* __restrict__ bias,
+                                              const float* __restrict__ wc_g, int n0, float (&sacc)[2][2]) {
+  const int tid = fresh_tid(), wg = tid >> 7, q = tid & 3;
 #pragma unroll
-  for (int ni = 0; ni < 4; ++ni)
+  for (int blk = 0; blk < kGatePass / 2 / 64; ++blk)
 #pragma unroll
-    for (int e = 0; e < 2; ++e)
-      w[ni][e] = __ldg(reinterpret_cast<const float2*>(wc_g) + n0 / 2 + wc * 32 + ni * 8 + 2 * (lane & 3) + e);
+    for (int ni = 0; ni < 4; ++ni)
 #pragma unroll
-  for (int mi = 0; mi < 2; ++mi)
+      for (int e = 0; e < 2; ++e) {
+        const int cu = n0 + wg * (kGatePass / 2) + blk * 64 + ni * 8 + 2 * q + e;  // u column; v is 32 further
+        const float2 w = __ldg(reinterpret_cast<const float2*>(wc_g) + n0 / 2 + wg * (kGatePass / 4) + blk * 32 +
+                               ni * 8 + 2 * q + e);
+        const float bu = __ldg(bias + cu), bv = __ldg(bias + cu + 32);
+#pragma unroll
+        for (int hf = 0; hf < 2; ++hf) {
+          const float gv = gate<kEpiTanh>(run[32 * blk + 4 * ni + 2 * hf + e] + bu,
+                                          run[32 * blk + 4 * (ni + 4) + 2 * hf + e] + bv);
+          sacc[hf][0] = fmaf(gv, w.x, sacc[hf][0]);
+          sacc[hf][1] = fmaf(gv, w.y, sacc[hf][1]);
+        }
+      }
+}
+
+// s = sum of the partial scores + bc, in a fixed order: the quad's lanes,
+// then warpgroup 0's and 1's, into s_s [64][2]; where scores is not null,
+// also the raw scores [B][2][N] of the tile's rows inside the bag. spart
+// lies over the small halves: both warpgroups' products are done first.
+__device__ __forceinline__ void reduce_scores_f32(float (&sacc)[2][2], float* spart, const float* __restrict__ bc,
+                                                  float* s_s, float* scores, int b, int N, int row0) {
+  const int tid = fresh_tid(), wg = tid >> 7, lane = tid & 31;
+  const int row = 16 * ((tid & 127) >> 5) + (lane >> 2);
+#pragma unroll
+  for (int hf = 0; hf < 2; ++hf)
+#pragma unroll
+    for (int t = 0; t < 2; ++t) {
+      sacc[hf][t] += __shfl_xor_sync(0xffffffffu, sacc[hf][t], 1);
+      sacc[hf][t] += __shfl_xor_sync(0xffffffffu, sacc[hf][t], 2);
+    }
+  __syncthreads();
+  if ((lane & 3) == 0)
 #pragma unroll
     for (int hf = 0; hf < 2; ++hf)
 #pragma unroll
-      for (int ni = 0; ni < 4; ++ni)
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const int cu = n0 + wc * 64 + ni * 8 + 2 * (lane & 3) + e;  // u column; v is 32 further
-          const float gv = gate<kEpiTanh>(acc[mi][ni][2 * hf + e] + __ldg(bias + cu),
-                                          acc[mi][ni + 4][2 * hf + e] + __ldg(bias + cu + 32));
-          sacc[mi][hf][0] = fmaf(gv, w[ni][e].x, sacc[mi][hf][0]);
-          sacc[mi][hf][1] = fmaf(gv, w[ni][e].y, sacc[mi][hf][1]);
-        }
+      for (int t = 0; t < 2; ++t) spart[(wg * kRowsF32 + row + 8 * hf) * 2 + t] = sacc[hf][t];
+  __syncthreads();
+  if (tid < kRowsF32 * 2) {
+    const int r = tid / 2, t = tid % 2;
+    const float s = spart[tid] + spart[kRowsF32 * 2 + tid] + __ldg(bc + t);
+    s_s[tid] = s;
+    if (scores != nullptr && row0 + r < N) scores[((size_t)b * 2 + t) * N + row0 + r] = s;
+  }
+  __syncthreads();
 }
 
-// NT = H / 32: the trunk GEMMs' n-tiles a warp
-template <int NT>
+// NW = H / 2: the trunk GEMMs' columns a warpgroup
+template <int NW>
 __global__ void __launch_bounds__(kThreads, 1)
 pool_kernel_f32(const float* __restrict__ x, const float* __restrict__ mask, long long x_bag, long long m_bag,
                 int N, int D, int H, int A,
@@ -338,24 +456,29 @@ pool_kernel_f32(const float* __restrict__ x, const float* __restrict__ mask, lon
                 int tiles_per_split, int n_splits,
                 float* __restrict__ scores, float* __restrict__ part_acc, float* __restrict__ part_stat,
                 int* __restrict__ tickets, float eps, float* __restrict__ out, float* __restrict__ stat_out) {
-  constexpr int R = kRowsF32;
-  extern __shared__ __align__(16) unsigned char smem[];
+  constexpr int R = kRowsF32, kAcc = 4 * NW / kThreads;  // running acc [2][H] entries a thread
+  extern __shared__ __align__(1024) unsigned char smem_f32[];
   const LayoutF32 L = layout_f32(H);
-  float* h = reinterpret_cast<float*>(smem + L.h);
-  float* ws = reinterpret_cast<float*>(smem + L.ws);
-  float* spart = reinterpret_cast<float*>(smem + L.spart);  // [4][R][2] partial scores of the column warps
-  float* s_s = reinterpret_cast<float*>(smem + L.s);        // [R][2] raw scores
-  float* e_s = reinterpret_cast<float*>(smem + L.e);        // [R][2] e
-  float* acc_s = reinterpret_cast<float*>(smem + L.acc);    // [2][H]
-  float* stat = reinterpret_cast<float*>(smem + L.stat);    // max[2], denom[2], corr[2]
+  float* h = reinterpret_cast<float*>(smem_f32 + L.h);
+  const int tid = threadIdx.x, wg = tid >> 7;
+  // this warpgroup's weight ring, small halves and (in h, while GEMM1 runs) x ring
+  float* ring = reinterpret_cast<float*>(smem_f32 + L.ws) + wg * kSlotsF32 * NW * kBKF32;
+  float* small = reinterpret_cast<float*>(smem_f32 + L.small) + wg * NW * kBKF32;
+  float* xring = h + wg * kSlotsF32 * R * kXSF32;
+  float* spart = reinterpret_cast<float*>(smem_f32 + L.small);  // [2][R][2] partial scores of the warpgroups
+  float* s_s = spart + kWarpgroups * R * 2;                      // [R][2] raw scores
+  float* e_s = s_s + R * 2;                                      // [R][2] e
+  float* stat = reinterpret_cast<float*>(smem_f32 + L.stat);     // max[2], denom[2], corr[2]
 
-  const int tid = threadIdx.x;
   const int shard = blockIdx.x / n_splits, split = blockIdx.x - shard * n_splits, b = blockIdx.y;
   const int ldh = H + kHPadF32;
   const float* xb = x + (size_t)b * x_bag + (size_t)shard * N * D;  // the shard's N rows
   const float* mb = mask + (size_t)b * m_bag + (size_t)shard * N;
+  const size_t p = (size_t)b * gridDim.x + blockIdx.x;
+  float* acc = part_acc + p * 2 * H;  // the running acc [2][H], entries tid + k * kThreads this thread's
 
-  for (int i = tid; i < 2 * H; i += kThreads) acc_s[i] = 0.f;
+#pragma unroll
+  for (int k = 0; k < kAcc; ++k) acc[tid + k * kThreads] = 0.f;
   if (tid < 2) {
     stat[tid] = kNegInf;
     stat[2 + tid] = 0.f;
@@ -368,42 +491,51 @@ pool_kernel_f32(const float* __restrict__ x, const float* __restrict__ mask, lon
     const int row0 = tile * R;
     const bool live = tid < R && row0 + tid < N && mb[row0 + tid] > 0.f;
     // classification mode skips tiles of pure padding (the online update is
-    // the identity there); scored mode writes every row's score
+    // the identity there); scored mode writes every row's score. The barrier
+    // also frees h, s and e: the last tile's e^T h2 has read them
     if (!__syncthreads_or(live) && scores == nullptr) continue;
 
     {
-      float acc[2][NT][4];
-      // h1 = relu(x W1 + b1) -> h, once every warp has read its last x slice there
-      gemm_rows64<NT, true>(acc, w1t, D, 0, nullptr, 0, xb, N, D, row0, ws, h);
+      float run[NW / 2];
+      // h1 = relu(x W1 + b1) -> h, once both warpgroups have read their last x slice there
+      gemm_wg<NW, true>(run, w1t, D, 0, nullptr, 0, xb, N, D, row0, ring, small, xring);
       __syncthreads();
-      store_relu<NT>(acc, b1, h, ldh);
-      // h2 = relu(h1 W2 + b2) -> h, over h1 once every warp has read all of it
-      gemm_rows64<NT, false>(acc, w2t, H, 0, h, ldh, nullptr, N, D, row0, ws, nullptr);
+      store_relu<NW>(run, b1, h, ldh);
       __syncthreads();
-      store_relu<NT>(acc, b2, h, ldh);
+      // h2 = relu(h1 W2 + b2) -> h, over h1 once both warpgroups have read all of it
+      gemm_wg<NW, false>(run, w2t, H, 0, h, ldh, nullptr, N, D, row0, ring, small, nullptr);
+      __syncthreads();
+      store_relu<NW>(run, b2, h, ldh);
+      __syncthreads();
     }
     // gated = tanh(h2 Wa + ba) * sigmoid(h2 Wb + bb), folded into the scores
-    float sacc[2][2][2] = {};
+    float sacc[2][2] = {};
     for (int n0 = 0; n0 < 2 * A; n0 += kGatePass) {
-      float acc[2][8][4];
-      gemm_rows64<8, false>(acc, wabt, H, n0, h, ldh, nullptr, N, D, row0, ws, nullptr);
-      gate_fold_f32(acc, bab, wc, n0, sacc);
+      float run[kGatePass / 4];
+      gemm_wg<kGatePass / 2, false>(run, wabt, H, n0, h, ldh, nullptr, N, D, row0, ring, small, nullptr);
+      gate_fold_f32(run, bab, wc, n0, sacc);
     }
-    // s = gated Wc + bc: the quad, then the four column warps
-    reduce_scores<2>(sacc, spart, bc, s_s, scores, b, N, row0);
+    // s = gated Wc + bc: the quad, then the two warpgroups
+    reduce_scores_f32(sacc, spart, bc, s_s, scores, b, N, row0);
 
     online_stats<R, float>(s_s, mb, row0, N, e_s, stat);
     __syncthreads();
-    online_accumulate<R, float>(acc_s, e_s, stat, h, ldh, H);
+    // acc = acc * corr + e^T h2, as online_accumulate sums it
+    const int tid2 = fresh_tid();
+#pragma unroll
+    for (int k = 0; k < kAcc; ++k) {
+      const int i = tid2 + k * kThreads, t = i >= H, c = i - t * H;
+      float a = acc[i] * stat[4 + t];
+      for (int r = 0; r < R; ++r) a = fmaf(e_s[2 * r + t], h[r * ldh + c], a);
+      acc[i] = a;
+    }
   }
   __syncthreads();
 
-  const size_t p = (size_t)b * gridDim.x + blockIdx.x;
-  for (int i = tid; i < 2 * H; i += kThreads) part_acc[p * 2 * H + i] = acc_s[i];
   if (tid < 4) part_stat[p * 4 + tid] = stat[tid];
   pool_tail<2>(part_acc, part_stat, (size_t)b * gridDim.x, gridDim.x, tickets + b, H, stat_out == nullptr, eps,
                out + (size_t)b * 2 * H, stat_out == nullptr ? nullptr : stat_out + (size_t)b * 4,
-               reinterpret_cast<float*>(smem));
+               reinterpret_cast<float*>(smem_f32));
 }
 
 // ---------------------------------------------------------------------------
@@ -586,8 +718,9 @@ int launch(const void* x, const float* mask, long long x_bag, long long m_bag, i
         tiles_per_split, n_splits, scores, part_acc, part_stat, tickets, eps, out, stat_out);
   } else {
     const LayoutF32 L = layout_f32(H);
-    if (sizeof(float) * tail_scratch_floats(2, n_shards * n_splits) > L.acc) return (int)cudaErrorInvalidValue;
-    auto kernel = H == kBN ? pool_kernel_f32<kBN / 32> : pool_kernel_f32<2 * kBN / 32>;
+    // the tail's scratch lies in the dead h region
+    if (sizeof(float) * tail_scratch_floats(2, n_shards * n_splits) > L.ws) return (int)cudaErrorInvalidValue;
+    auto kernel = H == kBN ? pool_kernel_f32<kBN / 2> : pool_kernel_f32<kBN>;
     err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)L.total);
     if (err != cudaSuccess) return (int)err;
     kernel<<<dim3(n_shards * n_splits, B), kThreads, L.total, stream>>>(

@@ -13,10 +13,11 @@ fill its matrix unit) has no counterpart here: on Hopper the split-N grid
 already keeps every SM busy with full row tiles.
 
 :func:`plan` gives each instance's row tile, threads, ring slots and shared
-memory: the bf16 instance 128-row tiles, the f32 instance 64-row tiles with
-its products as error-compensated TF32 (3xTF32: each f32 operand split into
-two TF32 halves, three tensor-core products summed in f32), each with h1 and
-h2 in one shared region; both run their grid in whole waves of one CTA an
+memory: the bf16 instance 128-row tiles, the f32 instance 64-row tiles (two
+warpgroups on Hopper's tf32 ``wgmma``, :func:`f32_layout`) with its products
+as error-compensated TF32 (3xTF32: each f32 operand split into two TF32
+halves, three tensor-core products summed in f32), each with h1 and h2 in
+one shared region; both run their grid in whole waves of one CTA an
 SM (:func:`wave_split_plan`). :func:`pack_params` lays the
 weights out for the kernel, once per model and compute dtype; :func:`pool` launches the kernel on CUDA tensors and
 raises on anything the kernel does not take. The plain version is
@@ -125,6 +126,27 @@ def _align16(n: int) -> int:
     return (n + 15) & ~15
 
 
+F32_ROWS = 64  # the f32 instance's tile: one wgmma M
+F32_SLOTS = 2  # slots of each warpgroup's cp.async ring in the f32 instance
+F32_DEPTH = 16  # reduction depth of an f32 slice: two tf32 wgmma K, 64-byte rows
+
+
+def f32_layout(h_dim: int) -> dict[str, int]:
+    """The f32 instance's shared memory by part, in bytes, each padded as
+    ``csrc/pool.cu``'s ``layout_f32`` pads it: the region [64][H + 4] for
+    GEMM1's x slices, h1 and h2 (ending on a 1024-byte boundary, where the
+    swizzled rings start); the two warpgroups' weight rings of 2 slots of
+    H/2 rows x 16 f32 (64-byte rows) and their small halves of one slice
+    (which at a tile's end hold the partial scores, s and e); the stats.
+    The running acc stays in registers and Wc in device memory, so A does
+    not change it."""
+    parts = {"h": 4 * F32_ROWS * (h_dim + 4), "ring": 4 * 2 * F32_SLOTS * (h_dim // 2) * F32_DEPTH,
+             "small": 4 * 2 * (h_dim // 2) * F32_DEPTH, "stat": 4 * 8}
+    padded = {k: _align16(v) for k, v in parts.items()}
+    padded["h"] = (parts["h"] + 1023) & ~1023
+    return padded
+
+
 def plan(compute_dtype: torch.dtype, h_dim: int, a_dim: int) -> PoolPlan:
     """The kernel's plan for (compute dtype, H, A); ValueError for H outside
     ``TRUNK_WIDTHS`` (a layout that does not fit a CTA's shared memory),
@@ -142,12 +164,8 @@ def plan(compute_dtype: torch.dtype, h_dim: int, a_dim: int) -> PoolPlan:
         parts = (2 * rows * (h_dim + 8), 2 * slots * 256 * stride, max(2 * slots * rows * stride, 4 * 32 * threads),
                  4 * 2 * h_dim, 4 * 8)
     else:
-        # one region for GEMM1's x slices, h1 and h2 (rows of H + 4 words), the weight ring of H-column x
-        # 16-deep slices (rows of 16 + 4 words), the column warps' partial scores, s, e, the running acc
-        # and stats; Wc stays in device memory
-        rows, threads, slots, stride = 64, 256, 2, 20
-        parts = (4 * rows * (h_dim + 4), 4 * slots * h_dim * stride, 4 * 4 * rows * 2, 4 * rows * 2, 4 * rows * 2,
-                 4 * 2 * h_dim, 4 * 8)
+        rows, threads, slots = F32_ROWS, 256, F32_SLOTS
+        parts = tuple(f32_layout(h_dim).values())
     smem = sum(map(_align16, parts))
     if smem > MAX_SMEM:
         raise ValueError(f"H={h_dim}, A={a_dim} not supported in {compute_dtype}: a CTA would need {smem} B of "
