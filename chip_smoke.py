@@ -12,17 +12,17 @@ Phases (each prints its lines; any failure raises and the exit code is not 0):
    pool_common.cuh, that merge (pool_tail) and the combine kernel; pool_int8.cu, K2; mha.cu, K3 and P7;
    stage.cu, KS; pool_probe.cu and pool_int8_probe.cu, P1-P5) with nvcc, one
    process per source, all started together; shared memory per block and
-   ptxas's register counts; cuobjdump -sass of the library shows both
-   instances of K1's f32 kernel on wgmma (HGMMA) and none on mma.sync
-   (HMMA). Beside them, the native bag loader
+   ptxas's register counts; cuobjdump -sass of the library shows K1's bf16
+   instance and both instances of its f32 kernel on wgmma (HGMMA) and none on
+   mma.sync (HMMA). Beside them, the native bag loader
    (toad_tpu_torch/csrc/bagio.cpp, host C++) with g++; its command is logged.
 3. K1 vs its plain PyTorch version at full TOAD width (D=1024, H=512,
    A=384, T=2), f32 and bf16, scored and classification modes, including a
    bag whose tiles past bucket/2+1 are padding and a fully-masked bag: M,
    raw scores and the heads' logits, within the tolerances stated below; in
-   f32 the kernel and the plain version also against the pool in float64
-   (plain_pool_f64), the kernel's largest error on M and on the scores at
-   most F64_ERR_RATIO times the plain version's.
+   both dtypes the kernel and the plain version also against the pool in
+   float64 (plain_pool_f64), the kernel's largest error on M and on the
+   scores at most F64_ERR_RATIO times the plain version's in its dtype.
    Then K1p: per shard pool_partial (on the shard as a view of the batch,
    read in place, the bits of its copy) vs plain_pool_partial (max,
    denominator, acc / denom), the combine kernel on K1p's partials vs its
@@ -30,7 +30,8 @@ Phases (each prints its lines; any failure raises and the exit code is not 0):
    at its end) vs K1p per shard with the combine, vs K1 on the whole bag and
    vs plain_pool, for B=1 and B=2 x 163,840 rows with 150,000 live in 2, 4
    and 8 shards, a bag of 30,000 live rows in 8 shards (6 of them fully
-   masked) and a fully masked bag, f32 and bf16, within K1's tolerances;
+   masked) and a fully masked bag, f32 and bf16, within K1's tolerances (in
+   bf16 K1p's acc / denom and the sharded pool also against plain_pool_f64);
    then bag_sharded_pool as a caller uses it on B=1 x 163,840 and on B=4 x
    40,960 rows sliced out of a batch (the main path of the one-launch
    sharded pool: one launch a call, no K1p or combine launch, counted from
@@ -499,19 +500,29 @@ def cast_params(params: dict, dtype: torch.dtype) -> dict:
     return {k: cast_params(v, dtype) if isinstance(v, dict) else v.to(dtype) for k, v in params.items()}
 
 
-def plain_pool_f64(params: dict, x: torch.Tensor, mask: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-    """The pool in float64 throughout (trunk, gate, scores, softmax, M):
-    (M [B, 2, H], scores [B, 2, N]), the truth that K1's f32 instance and
-    the plain f32 version are both held against."""
-    from toad_tpu_torch.ops.pooling import masked_softmax
-
+def plain_trunk_f64(params: dict, x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """The trunk and scores in float64 throughout: (h [B, N, H], scores [B, 2, N])."""
     p = cast_params(params, torch.float64)
     trunk, attn = p["trunk"], p["attn"]
     h = torch.relu(x.double() @ trunk["fc1"]["w"] + trunk["fc1"]["b"])
     h = torch.relu(h @ trunk["fc2"]["w"] + trunk["fc2"]["b"])
     gated = torch.tanh(h @ attn["a"]["w"] + attn["a"]["b"]) * torch.sigmoid(h @ attn["b"]["w"] + attn["b"]["b"])
-    scores = (gated @ attn["c"]["w"] + attn["c"]["b"]).transpose(1, 2)
-    return torch.bmm(masked_softmax(scores, mask[:, None, :], dim=-1), h), scores
+    return h, (gated @ attn["c"]["w"] + attn["c"]["b"]).transpose(1, 2)
+
+
+def pool_f64(h: torch.Tensor, scores: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """M [B, 2, H] = the masked softmax of float64 scores [B, 2, N] over h [B, N, H]."""
+    from toad_tpu_torch.ops.pooling import masked_softmax
+
+    return torch.bmm(masked_softmax(scores, mask[:, None, :], dim=-1), h)
+
+
+def plain_pool_f64(params: dict, x: torch.Tensor, mask: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """The pool in float64 throughout (trunk, gate, scores, softmax, M):
+    (M [B, 2, H], scores [B, 2, N]), the truth that both instances of K1 and
+    the plain versions in f32 and bf16 are held against."""
+    h, scores = plain_trunk_f64(params, x)
+    return pool_f64(h, scores, mask), scores
 
 
 def pool_ops(dt: torch.dtype, ops: int) -> dict:
@@ -616,7 +627,7 @@ def phase_build(card: str) -> None:
         names = {"pool_int8_kernel": "K2 int8 (64-row tiles, one 3-slot weight stream)",
                  "pool_kernel_f32ILi256": "K1 f32 (64-row tiles, 2 warpgroups of tf32 wgmma, H=512)",
                  "pool_kernel_f32ILi128": "K1 f32 (64-row tiles, 2 warpgroups of tf32 wgmma, H=256)",
-                 "pool_kernel_bf16": "K1 bf16 (128-row tiles, 8 warps)",
+                 "pool_kernel_bf16": "K1 bf16 (128-row tiles, 2 warpgroups of bf16 wgmma m64n256k16)",
                  # K1, K1p and the one-launch sharded pool merge their partials in pool_tail at the end of their own
                  # launch; the combine kernel is a launch of its own only after K2 (pool_int8.cu) and the probes, and
                  # for the mesh's shard partials (combine_shards)
@@ -643,17 +654,19 @@ def phase_build(card: str) -> None:
     for line in _build.build_log.splitlines():  # ptxas's word where it serialises a kernel's wgmma
         if "wgmma" in line:
             log(f"phase 2 build: ptxas: {line.strip()}")
-    sass = pool_f32_sass()
-    if len(sass) != 2 or any(c["HGMMA"] == 0 or c["HMMA"] for c in sass.values()):
-        raise AssertionError(f"K1 f32's SASS: {sass}; want both instances on wgmma (HGMMA) and no mma.sync (HMMA)")
-    log("phase 2 build: K1 f32's SASS (cuobjdump -sass): " + ", ".join(
+    sass = pool_sass()
+    if len(sass) != 3 or sum("pool_kernel_bf16" in fn for fn in sass) != 1 \
+            or any(c["HGMMA"] == 0 or c["HMMA"] for c in sass.values()):
+        raise AssertionError(f"K1's SASS: {sass}; want its bf16 instance and both f32 instances on wgmma (HGMMA) "
+                             "and no mma.sync (HMMA)")
+    log("phase 2 build: K1's SASS (cuobjdump -sass): " + ", ".join(
         f"{fn} {c['HGMMA']} HGMMA, {c['HMMA']} HMMA" for fn, c in sass.items()))
 
 
-def pool_f32_sass() -> dict:
-    """{function: {"HGMMA": n, "HMMA": n}} for each instance of K1's f32
-    kernel in ``cuobjdump -sass`` of the built library: its wgmma and its
-    mma.sync instructions."""
+def pool_sass() -> dict:
+    """{function: {"HGMMA": n, "HMMA": n}} for each instance of K1's kernel
+    (``pool_kernel_bf16`` and both ``pool_kernel_f32``) in ``cuobjdump -sass``
+    of the built library: its wgmma and its mma.sync instructions."""
     from toad_tpu_torch.ops import _build
 
     cuobjdump = Path(_build._nvcc()).with_name("cuobjdump")
@@ -663,7 +676,7 @@ def pool_f32_sass() -> dict:
     for line in dump.splitlines():
         if "Function :" in line:
             fn = line.split("Function :", 1)[1].strip()
-            fn = fn if "pool_kernel_f32" in fn else None
+            fn = fn if "pool_kernel_f32" in fn or "pool_kernel_bf16" in fn else None
             if fn is not None:
                 counts[fn] = {"HGMMA": 0, "HMMA": 0}
         elif fn is not None:
@@ -723,19 +736,44 @@ def check_modes(label: str, mask, outs: dict, tols: tuple) -> float:
     return worst
 
 
-# K1 f32 against the f64 pool: its largest error on M and on the scores, over
-# every case of phase 3, at most this many times the plain f32 version's
-# (cuBLAS in f32, TF32 off) on the same inputs. The kernel's 3xTF32 products
-# are as accurate as f32 FMA (tests/test_torch_port_pool_plan.py models
-# them); one TF32 product would miss this ~50-fold.
+# K1 against the f64 pool: its largest error on M and on the scores, over
+# every case of phase 3, at most this many times the plain version's in the
+# same compute dtype on the same inputs (f32: cuBLAS in f32, TF32 off; bf16:
+# bf16 products, the plain version's own rounding points). The f32 kernel's
+# 3xTF32 products are as accurate as f32 FMA (tests/test_torch_port_pool_plan.py
+# models them); one TF32 product would miss this ~50-fold. The bf16 kernel
+# rounds where the TPU kernel does (h1, h2, gated and e), its sums in wgmma's
+# order.
 F64_ERR_RATIO = 2.0
+
+
+def check_f64_ratio(what: str, vs64: dict) -> None:
+    """vs64 {output: {"kernel": err, "plain": err}} against plain_pool_f64:
+    logs each and raises where the kernel's error passes F64_ERR_RATIO x the
+    plain version's."""
+    for key, e in vs64.items():
+        log(f"{what} {key} vs plain_pool_f64: largest error {e['kernel']:.3e}, the plain version's {e['plain']:.3e} "
+            f"(ratio {e['kernel'] / e['plain']:.2f}, limit {F64_ERR_RATIO})")
+        if e["kernel"] > F64_ERR_RATIO * e["plain"]:
+            raise AssertionError(f"{what} {key}: the largest error against plain_pool_f64, {e['kernel']:.3e}, is over "
+                                 f"{F64_ERR_RATIO} x the plain version's {e['plain']:.3e}")
+
+
+def f64_err(got: torch.Tensor, want: torch.Tensor) -> float:
+    return (got.double() - want).abs().max().item()
+
+
+def worst_vs64(vs64: dict, key: str, kernel: float, plain: float) -> None:
+    """vs64[key] <- the larger errors of both, against plain_pool_f64."""
+    e = vs64.setdefault(key, {"kernel": 0.0, "plain": 0.0})
+    e["kernel"], e["plain"] = max(e["kernel"], kernel), max(e["plain"], plain)
 
 
 @restores_tf32
 def phase_compare(model, seed: int) -> dict:
     """K1 against its plain version at every case of compare_cases, f32 and
-    bf16, both modes; in f32 both also against plain_pool_f64. Returns the
-    largest error of M and scores by compute dtype."""
+    bf16, both modes, and both against plain_pool_f64. Returns the largest
+    error of M and scores by compute dtype."""
     from toad_tpu_torch.ops import cuda_pool
     from toad_tpu_torch.ops.fused_pool import plain_pool
 
@@ -745,10 +783,12 @@ def phase_compare(model, seed: int) -> dict:
     params = model.pool_params()
     g = torch.Generator(device=dev).manual_seed(seed)
     worst = {torch.float32: 0.0, torch.bfloat16: 0.0}
-    vs64 = dict.fromkeys(("kernel M", "plain M", "kernel scores", "plain scores"), 0.0)
+    vs64 = {}
     for label, b, n, mask in compare_cases(g):
         x = torch.randn(b, n, 1024, device=dev, generator=g)
         sex = torch.arange(b, device=dev) % 2
+        with torch.inference_mode():
+            m64, s64 = plain_pool_f64(params, x, mask)
         for dt, tols in (
             (torch.float32, (TOL_F32, TOL_F32, TOL_F32)),
             (torch.bfloat16, (TOL_BF16_M, TOL_BF16_S, TOL_BF16_LOGITS)),
@@ -763,25 +803,16 @@ def phase_compare(model, seed: int) -> dict:
                 torch.cuda.synchronize()
                 outs[scored] = (mk, sk, lk, mp, sp, lp)
             worst[dt] = max(worst[dt], check_modes(f"{label} {str(dt)[6:]}", mask, outs, tols))
-            if dt == torch.float32:
-                with torch.inference_mode():
-                    m64, s64 = plain_pool_f64(params, x, mask)
-                mk, sk, _, mp, sp, _ = outs[True]
-                errs = {"kernel M": max((o[0].double() - m64).abs().max().item() for o in outs.values()),
-                        "plain M": max((o[3].double() - m64).abs().max().item() for o in outs.values()),
-                        "kernel scores": (sk.double() - s64).abs().max().item(),
-                        "plain scores": (sp.double() - s64).abs().max().item()}
-                vs64 = {k: max(v, errs[k]) for k, v in vs64.items()}
-                log(f"phase 3 compare {label} float32 vs plain_pool_f64: K1 M {errs['kernel M']:.2e} scores "
-                    f"{errs['kernel scores']:.2e}; plain f32 M {errs['plain M']:.2e} scores {errs['plain scores']:.2e}")
-        del x
-    for what in ("M", "scores"):
-        k, p = vs64[f"kernel {what}"], vs64[f"plain {what}"]
-        log(f"phase 3 compare K1 f32 vs plain_pool_f64 over every case: largest error of {what} {k:.3e}, the plain f32 "
-            f"version's {p:.3e} (ratio {k / p:.2f}, limit {F64_ERR_RATIO})")
-        if k > F64_ERR_RATIO * p:
-            raise AssertionError(f"K1 f32's largest error of {what} against plain_pool_f64, {k:.3e}, is over "
-                                 f"{F64_ERR_RATIO} x the plain f32 version's {p:.3e}")
+            mk, sk, _, mp, sp, _ = outs[True]
+            errs = {"kernel M": max(f64_err(o[0], m64) for o in outs.values()),
+                    "plain M": max(f64_err(o[3], m64) for o in outs.values()),
+                    "kernel scores": f64_err(sk, s64), "plain scores": f64_err(sp, s64)}
+            for what in ("M", "scores"):
+                worst_vs64(vs64, f"K1 {str(dt)[6:]} {what}", errs[f"kernel {what}"], errs[f"plain {what}"])
+            log(f"phase 3 compare {label} {str(dt)[6:]} vs plain_pool_f64: K1 M {errs['kernel M']:.2e} scores "
+                f"{errs['kernel scores']:.2e}; plain M {errs['plain M']:.2e} scores {errs['plain scores']:.2e}")
+        del x, m64, s64
+    check_f64_ratio("phase 3 compare over every case:", vs64)
     return worst
 
 
@@ -793,8 +824,9 @@ def phase_compare_partial(model, seed: int) -> tuple[float, float, float]:
     K1p's partials against its plain version; and bag_sharded_pool (one
     launch over every shard, its merge at its end) against K1 on the whole
     bag, against plain_pool and against the combine of K1p's partials, on
-    bags of 163,840 rows. Returns the largest error of (the shards'
-    statistics, the combine kernel, the one-launch sharded pool)."""
+    bags of 163,840 rows; in bf16 K1p's acc / denom and the sharded pool also
+    against plain_pool_f64 (F64_ERR_RATIO). Returns the largest error of (the
+    shards' statistics, the combine kernel, the one-launch sharded pool)."""
     from toad_tpu_torch.ops import cuda_pool
     from toad_tpu_torch.ops.fused_pool import plain_pool, plain_pool_partial
     from toad_tpu_torch.ops.pooling import NEG_INF
@@ -809,18 +841,22 @@ def phase_compare_partial(model, seed: int) -> tuple[float, float, float]:
     cases = (("B=1 150,000 live", (150_000,), (2, 4, 8)), ("B=2 150,000 live", (150_000, 150_000), (2, 4, 8)),
              ("B=1 30,000 live", (30_000,), (8,)), ("B=2 one bag fully masked", (0, 150_000), (4,)))
     worst_stats = worst_comb = worst_m = 0.0
+    vs64 = {}  # bf16 K1p's acc / denom and the bf16 sharded pool against plain_pool_f64
     for label, live, shard_counts in cases:
         b = len(live)
         x = torch.randn(b, n, 1024, device=dev, generator=g)
         mask = torch.zeros(b, n, device=dev)
         for i, rows in enumerate(live):
             mask[i, :rows] = (torch.rand(rows, device=dev, generator=g) < 0.95).float()
+        with torch.inference_mode():
+            h64, s64 = plain_trunk_f64(params, x)
         for dt, tol_m, tol_s in ((torch.float32, TOL_F32, TOL_F32), (torch.bfloat16, TOL_BF16_M, TOL_BF16_S)):
             name = f"{label} {str(dt)[6:]}"
             with torch.inference_mode():
                 ops = model.kernel_operands(dt)
                 m_whole, _ = cuda_pool.pool(ops, x, mask, with_scores=False)
                 m_plain, _ = plain_pool(params, x, mask, dt, with_scores=False)
+                m64 = pool_f64(h64, s64, mask) if dt == torch.bfloat16 else None
                 for n_shards in shard_counts:
                     per = n // n_shards
                     masked_shards, e_max, e_den, e_mean = 0, 0.0, 0.0, 0.0
@@ -847,9 +883,13 @@ def phase_compare_partial(model, seed: int) -> tuple[float, float, float]:
                             den_k = st_k[lv, 1] * torch.exp(st_k[lv, 0] - st_p[lv, 0])
                             e_den = max(e_den, check_close(f"{name} shard {s}/{n_shards} denom / plain denom",
                                                            den_k / st_p[lv, 1], torch.ones_like(den_k), tol_s))
+                            mean_k, mean_p = acc_k[lv] / st_k[lv, 1, :, None], acc_p[lv] / st_p[lv, 1, :, None]
                             e_mean = max(e_mean, check_close(
-                                f"{name} shard {s}/{n_shards} acc / denom", acc_k[lv] / st_k[lv, 1, :, None],
-                                acc_p[lv] / st_p[lv, 1, :, None], tol_m))
+                                f"{name} shard {s}/{n_shards} acc / denom", mean_k, mean_p, tol_m))
+                            if dt == torch.bfloat16:
+                                sl = slice(s * per, (s + 1) * per)
+                                want = pool_f64(h64[:, sl], s64[:, :, sl], ms)[lv]
+                                worst_vs64(vs64, "K1p bf16 acc / denom", f64_err(mean_k, want), f64_err(mean_p, want))
                     m_sharded = bag_sharded_pool(ops, x, mask, n_shards)  # one launch
                     # the combine kernel alone, on K1p's partials, against its plain version; the one-launch pool
                     # against it (its runs differ from the per-shard launches': bf16 rounds e against other maxes)
@@ -861,6 +901,8 @@ def phase_compare_partial(model, seed: int) -> tuple[float, float, float]:
                                             m_sharded, m_comb, tol_m)
                     e_whole = check_close(f"{name} {n_shards} shards vs K1 on the whole bag", m_sharded, m_whole, tol_m)
                     e_plain = check_close(f"{name} {n_shards} shards vs plain_pool", m_sharded, m_plain, tol_m)
+                    if dt == torch.bfloat16:
+                        worst_vs64(vs64, "bag_sharded_pool bf16 M", f64_err(m_sharded, m64), f64_err(m_plain, m64))
                     dead_bags = mask.sum(1) == 0
                     if dead_bags.any() and m_sharded[dead_bags].abs().max().item() != 0.0:
                         raise AssertionError(f"{name}: a fully-masked bag pooled to nonzero M")
@@ -874,7 +916,8 @@ def phase_compare_partial(model, seed: int) -> tuple[float, float, float]:
                         f"{e_mean:.2e}; the combine kernel on K1p's partials vs its plain version {e_comb:.2e} "
                         f"(tolerance {TOL_F32}); bag_sharded_pool in one launch vs K1p + combine {e_regroup:.2e}, "
                         f"vs K1 on the whole bag {e_whole:.2e}, vs plain_pool {e_plain:.2e} (tolerance {tol_m})")
-        del x, mask
+        del x, mask, h64, s64
+    check_f64_ratio("phase 3 compare partial pool over every case:", vs64)
     return worst_stats, worst_comb, worst_m
 
 
@@ -1252,6 +1295,7 @@ POOL_AB_SHAPES = ((32, 8192), (1, 65536), (4, 29568))
 POOL_AB_PARTIAL = (1, 40960)
 POOL_AB_STRIDED = (2, 40960)  # K1p on half of each bag's rows: a strided shard
 POOL_AB_SPLIT = (1, 131072)
+POOL_AB_SHARDED = (1, 163840)  # the bf16 sharded pool against float64
 POOL_AB_PROBE = (4, 4096)
 
 
@@ -1272,40 +1316,45 @@ def int8_ladder(ms: dict, k2_ms: float) -> str:
 
 
 def time_pool(seed: int = 0) -> dict:
-    """The int8 probe's instances (the subject) and K2 in classification
-    mode beside them at B=32 x 8,192 (the probes' shape, mask all ones), on
-    seeded inputs (CUDA events, 5 readings of one launch): what ``--pool-ab``
-    compares across trees. Saves K2's M in classification mode at
-    POOL_AB_SHAPES and each int8 probe instance's output at POOL_AB_PROBE
-    under _work/pool_ab/ and returns its path, and a sha256 of every output
-    that must be the same bits in both trees: K2's scores at every shape,
-    K2's M under :func:`~toad_tpu_torch.ops.cuda_pool.split_plan`'s split
-    (passed where the package's ``pool_int8`` takes a split, else its own
-    default), and the controls K1 bf16 in both modes at every shape, K1p
-    bf16 (also on a strided B=2 shard, which the parent copied), P6 and P1
-    full. The kernels under change, K1 f32 in both modes at every shape and
-    K1p f32 (acc / denom, whole and on the strided shard), are held to
-    plain_pool_f64 instead: their largest errors beside the plain f32
-    version's (``f64``). Also K1's time in both dtypes at B=32 x 8,192,
-    1 x 65,536, 1 x 8,192 and 1 x 40,960, K1p's at 1 x 40,960, and
-    bag_sharded_pool's in 4 and 8 shards beside K1's on one bag of 163,840
-    rows (each tree's own launches), and ptxas's lines of K1, its merge, K2
-    and the int8 probe where this process built them."""
+    """The int8 probe's instances and K2 in classification mode beside them
+    at B=32 x 8,192 (the probes' shape, mask all ones), on seeded inputs
+    (CUDA events, 5 readings of one launch): what ``--pool-ab`` compares
+    across trees. Saves K2's M in classification mode at POOL_AB_SHAPES and
+    each int8 probe instance's output at POOL_AB_PROBE under _work/pool_ab/
+    and returns its path, and a sha256 of every output that must be the
+    same bits in both trees: K2's scores at every shape, K2's M under
+    :func:`~toad_tpu_torch.ops.cuda_pool.split_plan`'s split (passed where
+    the package's ``pool_int8`` takes a split, else its own default), and
+    the controls K1 f32 in both modes at every shape, K1p f32 (also on a
+    strided B=2 shard, which the parent copied) and P1 full. The kernels
+    under change, K1 bf16 in both modes at every shape, K1p bf16 (acc /
+    denom, whole and on the strided shard), P6 and the bf16 sharded pool,
+    are held to plain_pool_f64 instead: their largest errors beside the
+    plain bf16 version's (``f64``), and their digests apart (``bf16
+    digests``: whether they kept the parent's bits is logged). Also K1's time
+    in both dtypes at B=32 x 8,192, 1 x 65,536, 1 x 8,192 and 1 x 40,960,
+    K1p's at 1 x 40,960, and bag_sharded_pool's in 4 and 8 shards beside
+    K1's on one bag of 163,840 rows (each tree's own launches), and ptxas's
+    lines of K1, its merge, K2 and the int8 probe where this process built
+    them."""
     import hashlib
     import inspect
 
     from toad_tpu_torch.ops import _build, cuda_pool, cuda_pool_int8, probe_pool, probe_pool_int8
     from toad_tpu_torch.ops.fused_pool import plain_pool, plain_pool_partial
     from toad_tpu_torch.ops.quantize import quantize_rows
+    from toad_tpu_torch.parallel.bag_shard import bag_sharded_pool
 
     def digest(t: torch.Tensor) -> str:
         return hashlib.sha256(t.contiguous().view(torch.uint8).cpu().numpy().tobytes()).hexdigest()[:16]
 
     f64 = {}  # the kernels under change: {output: {"kernel": err, "plain": err}} against plain_pool_f64
+    bf16_digests = {}  # ... and their bits
 
     def vs_f64(tag: str, got: torch.Tensor, plain: torch.Tensor, want: torch.Tensor) -> None:
         f64[tag] = {"kernel": (got.double() - want).abs().max().item(),
                     "plain": (plain.double() - want).abs().max().item()}
+        bf16_digests[tag] = digest(got)
 
     def partial_m(acc_stats) -> torch.Tensor:  # acc / denom of K1p or plain_pool_partial (every bag has live rows)
         return acc_stats[0] / acc_stats[1][:, 1, :, None]
@@ -1341,32 +1390,37 @@ def time_pool(seed: int = 0) -> dict:
                     m = cuda_pool_int8.pool_int8(ops8, xq, sx, mask, scored,
                                                  split=cuda_pool.split_plan(b, n, 64, n_sms))[0]
                 digests[f"K2 {shape} M at split_plan"] = digest(m)
-                m, s = cuda_pool.pool(ops[torch.bfloat16], x.to(torch.bfloat16), mask, scored)
-                digests[f"K1 bfloat16 {shape} M"] = digest(m)
-                if scored:
-                    digests[f"K1 bfloat16 {shape} scores"] = digest(s)
                 m, s = cuda_pool.pool(ops[torch.float32], x, mask, scored)
-                mp, sp = plain_pool(params, x, mask, torch.float32, scored)
-                vs_f64(f"K1 float32 {shape} M", m, mp, m64)
+                digests[f"K1 float32 {shape} M"] = digest(m)
                 if scored:
-                    vs_f64(f"K1 float32 {shape} scores", s, sp, s64)
-            del x, xq, m64, s64
+                    digests[f"K1 float32 {shape} scores"] = digest(s)
+                xb = x.to(torch.bfloat16)
+                m, s = cuda_pool.pool(ops[torch.bfloat16], xb, mask, scored)
+                mp, sp = plain_pool(params, xb, mask, torch.bfloat16, scored)
+                vs_f64(f"K1 bfloat16 {shape} M", m, mp, m64)
+                if scored:
+                    vs_f64(f"K1 bfloat16 {shape} scores", s, sp, s64)
+            del x, xb, xq, m64, s64
         # K1p whole, and on the second half of a B=2 batch's rows, a strided view: the parent copies it, this
         # tree reads it
         for (b, n), rows in ((POOL_AB_PARTIAL, slice(None)), (POOL_AB_STRIDED, slice(POOL_AB_STRIDED[1], None))):
             x, mask = inputs(b, n if rows.start is None else 2 * n)
             xs, mask = x[:, rows], mask[:, rows]
             tag = f"B={b} N={n}" + ("" if rows.start is None else f" (rows {n}.. of {2 * n}, a view)")
-            digests.update(zip((f"K1p bfloat16 {tag} acc", f"K1p bfloat16 {tag} stats"), map(
-                digest, cuda_pool.pool_partial(ops[torch.bfloat16], x.to(torch.bfloat16)[:, rows], mask))))
-            vs_f64(f"K1p float32 {tag} acc / denom", partial_m(cuda_pool.pool_partial(ops[torch.float32], xs, mask)),
-                   partial_m(plain_pool_partial(params, xs, mask, torch.float32)), plain_pool_f64(params, xs, mask)[0])
-        del x, xs
-        b, n = POOL_AB_SPLIT
-        x, mask = inputs(b, n)
-        digests[f"P6 bf16 B={b} N={n} M"] = digest(
-            cuda_pool.pool(ops[torch.bfloat16], x.to(torch.bfloat16), mask, False, rows_per_split=2048)[0])
-        del x
+            digests.update(zip((f"K1p float32 {tag} acc", f"K1p float32 {tag} stats"), map(
+                digest, cuda_pool.pool_partial(ops[torch.float32], xs, mask))))
+            xb = x.to(torch.bfloat16)[:, rows]
+            vs_f64(f"K1p bfloat16 {tag} acc / denom", partial_m(cuda_pool.pool_partial(ops[torch.bfloat16], xb, mask)),
+                   partial_m(plain_pool_partial(params, xb, mask, torch.bfloat16)), plain_pool_f64(params, xs, mask)[0])
+        del x, xs, xb
+        for (b, n), shards in ((POOL_AB_SPLIT, None), (POOL_AB_SHARDED, 4)):
+            x, mask = inputs(b, n)
+            xb = x.to(torch.bfloat16)
+            got = (cuda_pool.pool(ops[torch.bfloat16], xb, mask, False, rows_per_split=2048)[0] if shards is None
+                   else bag_sharded_pool(ops[torch.bfloat16], xb, mask, shards))
+            vs_f64(f"P6 bf16 B={b} N={n} M" if shards is None else f"bag_sharded_pool bf16 B={b} N={n} {shards} shards M",
+                   got, plain_pool(params, xb, mask, torch.bfloat16, False)[0], plain_pool_f64(params, x, mask)[0])
+            del x, xb
         x, mask = inputs(*POOL_AB_PROBE)
         mask[1] = 0.0
         params, _, qp, qp_h, _ = probe_operands(seed, dev)
@@ -1398,8 +1452,6 @@ def time_pool(seed: int = 0) -> dict:
         del x
         # K1, K1p and the bag-sharded pool (the subject): each tree's own launches, its merge at
         # the end of the kernel or a combine launch after it
-        from toad_tpu_torch.parallel.bag_shard import bag_sharded_pool
-
         for b, n in (POOL_AB_SHAPES[0], (1, 65536), (1, 8192), POOL_AB_PARTIAL):
             x, mask = inputs(b, n)
             for dt in (torch.bfloat16, torch.float32):
@@ -1434,6 +1486,7 @@ def time_pool(seed: int = 0) -> dict:
     torch.save({k: v.cpu() for k, v in saved.items()}, path)
     out["digests"] = digests
     out["f64"] = f64
+    out["bf16 digests"] = bf16_digests
     out["saved"] = str(path)
     return out
 
@@ -1468,15 +1521,20 @@ def device_us(fn, calls: int = 10) -> dict:
 
 
 def pool_ab(parent: Path, gpu: str) -> None:
-    """The int8 probe of another tree against this one's: :func:`time_pool`
-    in each (:func:`ab_runs`). Every digest must be the same bits in both
-    trees, K2's M under each tree's default split within TOL_INT8_M of the
-    parent's (the splits may differ: e is rounded to bf16 against other
-    running maxes), and each int8 probe instance within TOL_PROBE of the
-    parent's output (logged: whether it is the parent's bits). Logs each
-    tree's ptxas lines and, for each run, each instance as x K2 and the
-    ladder as shares of int8_chain, and bag_sharded_pool as x K1 on the
-    same bag."""
+    """The pooling kernels of another tree against this one's:
+    :func:`time_pool` in each (:func:`ab_runs`). Every digest must be the
+    same bits in both trees, K2's M under each tree's default split within
+    TOL_INT8_M of the parent's (the splits may differ: e is rounded to bf16
+    against other running maxes), each int8 probe instance within TOL_PROBE
+    of the parent's output (logged: whether it is the parent's bits), the
+    kernels under change (K1 bf16, K1p bf16, P6, the bf16 sharded pool)
+    within F64_ERR_RATIO of the plain bf16 version against plain_pool_f64 in
+    every run (logged: whether they kept the parent's bits), and K1 bf16's
+    median over each tree's two runs faster than the parent's at B=32 x
+    8,192 and 1 x 65,536, and within the parent's spread at 1 x 8,192. Logs
+    each tree's ptxas lines and, for each run, each int8 probe instance as x
+    K2 and the ladder as shares of int8_chain, and bag_sharded_pool as x K1
+    on the same bag."""
     from toad_tpu_torch.ops.probe_pool_int8 import VARIANTS
 
     runs = ab_runs("--time-pool", "pool", parent, gpu)
@@ -1494,25 +1552,25 @@ def pool_ab(parent: Path, gpu: str) -> None:
         differ = sorted(k for k in want if r["digests"].get(k) != want[k])
         if differ or r["digests"].keys() != want.keys():
             raise AssertionError(f"pool A/B: the {label} tree's outputs differ from the parent's at {differ}")
-    # the kernels under change (K1 f32, K1p f32) against plain_pool_f64, in every run of both trees
+    # the kernels under change (K1 bf16, K1p bf16, P6, the bf16 sharded pool) against plain_pool_f64, in every
+    # run of both trees; whether this tree kept the parent's bits
     for label, r in runs:
-        for key, e in r["f64"].items():
-            log(f"pool A/B {label} tree: {key} vs plain_pool_f64 {e['kernel']:.3e}, the plain f32 version's "
-                f"{e['plain']:.3e} (ratio {e['kernel'] / e['plain']:.2f}, limit {F64_ERR_RATIO})")
-            if e["kernel"] > F64_ERR_RATIO * e["plain"]:
-                raise AssertionError(f"pool A/B: the {label} tree's {key} misses plain_pool_f64 by {e['kernel']:.3e}, "
-                                     f"over {F64_ERR_RATIO} x the plain f32 version's {e['plain']:.3e}")
-    # K1 f32 in the same call: faster than the parent at the batch and the long bag, and at predict's shape no
+        check_f64_ratio(f"pool A/B {label} tree:", r["f64"])
+    kept = {k: all(r["bf16 digests"][k] == runs[0][1]["bf16 digests"][k] for label, r in runs if label == "this")
+            for k in runs[0][1]["bf16 digests"]}
+    log("pool A/B: the kernels under change keep the parent's bits at " + (", ".join(k for k, v in kept.items() if v)
+        or "none") + "; not at " + (", ".join(k for k, v in kept.items() if not v) or "none"))
+    # K1 bf16 in the same call: faster than the parent at the batch and the long bag, and at predict's shape no
     # slower than the parent by more than the parent's own spread
     for shape, strict in (("B=32 N=8192", True), ("B=1 N=65536", True), ("B=1 N=8192", False)):
-        key = f"K1 float32 {shape} ms"
+        key = f"K1 bfloat16 {shape} ms"
         t = {lab: sorted(r[key] for l2, r in runs if l2 == lab) for lab in ("parent", "this")}
         med = {lab: statistics.median(v) for lab, v in t.items()}
         spread = t["parent"][-1] - t["parent"][0]
         log(f"pool A/B {key}: parent {t['parent']} (median {med['parent']:.4f}, spread {spread:.4f}), this tree "
             f"{t['this']} (median {med['this']:.4f}) [{gpu}]")
         if med["this"] >= med["parent"] if strict else med["this"] > med["parent"] + spread:
-            raise AssertionError(f"pool A/B: K1 f32 at {shape} takes {med['this']:.4f} ms, the parent "
+            raise AssertionError(f"pool A/B: K1 bf16 at {shape} takes {med['this']:.4f} ms, the parent "
                                  f"{med['parent']:.4f} ms" + ("" if strict else f" (its spread {spread:.4f})"))
     ref = torch.load(runs[0][1]["saved"])
     worst, same_bits = {}, {}
@@ -1531,9 +1589,9 @@ def pool_ab(parent: Path, gpu: str) -> None:
                                  for k, v in worst.items()) + " against the parent's (K2 under each tree's default "
         f"split: max abs err, tolerance {TOL_INT8_M}; P3/P4: the largest error of a task row relative to its largest "
         f"|output|, tolerance {TOL_PROBE})")
-    log(f"pool A/B: all {len(want)} digests (K2's scores at every shape and its M at split_plan's split; K1 bf16 in "
-        "both modes at every shape, K1p bf16, whole and on a strided shard, P6, P1 full) equal the parent's in all "
-        "four runs; K1 f32 and K1p f32 within the limit against plain_pool_f64 in every run")
+    log(f"pool A/B: all {len(want)} digests (K2's scores at every shape and its M at split_plan's split; K1 f32 in "
+        "both modes at every shape, K1p f32, whole and on a strided shard, P1 full) equal the parent's in all four "
+        "runs; K1 bf16, K1p bf16, P6 and the bf16 sharded pool within the limit against plain_pool_f64 in every run")
 
 
 def _post(url: str, data: bytes, headers: dict) -> dict:
@@ -4807,10 +4865,10 @@ def main() -> int:
     ap.add_argument("--pool-ab", type=Path, metavar="PARENT",
                     help="only phases 1-2 and the K2 comparisons of phase 3, then K1, K1p, bag_sharded_pool, the int8 "
                          "probe's instances and K2 of the package checkout PARENT timed against this tree's (parent, "
-                         "this, this, parent), K2's scores, its M at the parent's split and the controls (K1 bf16, "
-                         "K1p bf16 whole and on a strided shard, P6, P1 full) required to be the same bits, K2's M "
-                         "and the int8 probe's outputs close to the parent's, K1 f32 and K1p f32 held to the pool in "
-                         "float64 within F64_ERR_RATIO of the plain f32 version")
+                         "this, this, parent), K2's scores, its M at the parent's split and the controls (K1 f32, "
+                         "K1p f32 whole and on a strided shard, P1 full) required to be the same bits, K2's M and "
+                         "the int8 probe's outputs close to the parent's, K1 bf16, K1p bf16, P6 and the bf16 sharded "
+                         "pool held to the pool in float64 within F64_ERR_RATIO of the plain bf16 version")
     ap.add_argument("--time-pool", type=Path, metavar="ROOT", help=argparse.SUPPRESS)
     ap.add_argument("--mesh-cards", action="store_true",
                     help="only phases 1-2, then the mesh with each cell on its own card (two or more cards)")
@@ -4911,7 +4969,9 @@ def main() -> int:
         f"its {featurized['depth']} attention launches take {featurized['depth'] * mha['ms']:.2f} ms = "
         f"{100 * featurized['depth'] * mha['ms'] / featurized['batch_ms']:.1f} % of it [{gpu}]")
     k1_ms, pt = times[("bfloat16", 32)]["ms"], {v: r["ms"] for v, r in probes["times"].items()}
-    log(f"phase 10 ladder as K1's split, B=32 x 8,192: P1 full {pt['full']:.3f} ms = {pt['full'] / k1_ms:.2f} x K1 bf16 "
+    # P1 runs the mma.sync pass that K1 bf16 ran before its wgmma GEMMs: its ladder splits that pass, not K1's
+    log(f"phase 10 ladder of P1 (K1 bf16's mma.sync pass), B=32 x 8,192: P1 full {pt['full']:.3f} ms = "
+        f"{pt['full'] / k1_ms:.2f} x K1 bf16 "
         f"({k1_ms:.3f} ms in phase 6); " + ", ".join(
             f"full - {v} {pt['full'] - pt[v]:+.3f} ms ({100 * (pt['full'] - pt[v]) / pt['full']:+.1f} % of full)"
             for v in ("nogate", "nosoftmax", "trunkonly", "exp2")) + f"; b2 {pt['b2']:.3f} ms [{gpu}]")

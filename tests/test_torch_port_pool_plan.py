@@ -1,17 +1,20 @@
 """The pooling kernel's plans (``toad_tpu_torch.ops.cuda_pool``).
 
 K1 (``csrc/pool.cu``) runs its bf16 instance on 128-row tiles with 8 warps
-of 64 x 64 warp tiles and its f32 instance on 64-row tiles with 8 warps as
-two warpgroups of H/2 columns on tf32 wgmma, each instance with h1 and h2 in
-one shared region; the f32 products are 3xTF32 (each operand split into two
-TF32 halves). ``plan`` gives each
+as two warpgroups of 64 rows on bf16 wgmma m64n256k16, and its f32 instance
+on 64-row tiles with 8 warps as two warpgroups of H/2 columns on tf32 wgmma,
+each instance with h1 and h2 in one shared region; the f32 products are
+3xTF32 (each operand split into two TF32 halves). ``plan`` gives each
 instance's rows, threads, ring slots and shared memory as the library
 computes them (``chip_smoke.py`` phase 2 asserts that the two agree on the
 card), and refuses a width whose layout does not fit a CTA. Both grids fill
 whole waves of one CTA an SM (``wave_split_plan``), as K2's and the probes'
-do. No card is needed: the plans are arithmetic, and the 3xTF32
+do. No card is needed: the plans are arithmetic, the bf16 instance's
+accumulator mapping, ring and panel swizzles are index arithmetic, and the 3xTF32
 numerics are modelled here on the CPU.
 """
+
+from collections import Counter
 
 import numpy as np
 import pytest
@@ -33,20 +36,126 @@ def _cost(b: int, splits: int, per: int) -> int:
     return -(-b * splits // N_SMS) * per
 
 
+BF16_SMEM = {512: 229_408, 256: 163_872}
+
+
 @pytest.mark.parametrize("h_dim,a_dim", [(512, 384), (512, 256), (256, 128)])
 def test_bf16_plan_runs_128_rows_within_shared_memory(h_dim, a_dim):
+    """The bf16 instance's plan: 128-row tiles, 8 warps as two warpgroups of
+    64 rows, 4-slot rings. One region of H/32 panels [128][32] for h1 and
+    h2, then the weight ring of 4 slots of 256 rows x 32 bf16, both of
+    64-byte rows in wgmma's swizzle (no padding) on 1024-byte boundaries; the
+    x ring of 4 slots [128][32], which also holds half of GEMM2's stash (32
+    packed words a thread), then the scores and e; the stats. The running
+    acc is in device memory and Wc too, so A does not change it. Within one
+    CTA's shared memory."""
     p = cuda_pool.plan(BF16, h_dim, a_dim)
-    assert (p.rows, p.threads) == (128, 256)
-    assert p.slots >= 2
+    assert p == cuda_pool.PoolPlan(128, 256, 4, BF16_SMEM[h_dim])
     assert p.smem <= cuda_pool.MAX_SMEM == 232_448
-    region = 2 * p.rows * (h_dim + 8)  # h1, then h2: one bf16 region of 128 rows
-    assert region < p.smem < 2 * region + 2 * p.slots * 256 * 40  # one region beside the weight ring, not two
+    parts = cuda_pool.bf16_layout(h_dim)
+    assert sum(parts.values()) == p.smem
+    region = 2 * p.rows * h_dim  # h1, then h2: one bf16 region of 128 rows, unpadded
+    assert parts["h"] == region and region % 1024 == 0  # the swizzle needs 1024-byte alignment of what follows
+    assert parts["ring"] == p.slots * 256 * 64 and parts["ring"] % 1024 == 0  # 64-byte rows, whole swizzle atoms
+    assert parts["xs"] == p.slots * p.rows * 64 == 4 * 32 * p.threads  # the x ring, then the stash's half
+    assert parts["xs"] >= 4 * (p.rows * 2 + p.rows * 2)  # s and e of the tile's rows
+    assert region < p.smem < 2 * region + parts["ring"]  # one region beside the ring, not two
 
 
 @pytest.mark.parametrize("h_dim", [768, 1024])
 def test_bf16_plan_refuses_widths_whose_layout_does_not_fit(h_dim):
     with pytest.raises(ValueError, match=f"H={h_dim} not supported in bfloat16"):
         cuda_pool.plan(BF16, h_dim, 384)
+
+
+# -- the bf16 instance's wgmma layouts, as index arithmetic -----------------------
+
+
+def _acc_coords(tid: int, i: int) -> tuple[int, int]:
+    """(tile row, pass column) of register i of thread tid in the bf16
+    instance: wgmma m64n256's accumulator layout in the thread's warpgroup
+    (warp w, lane (g, q)), the warpgroup's 64 rows at 64 wg."""
+    wg, w, lane = tid // 128, tid % 128 // 32, tid % 32
+    g, q = lane // 4, lane % 4
+    return 64 * wg + 16 * w + g + 8 * ((i >> 1) & 1), 8 * (i >> 2) + 2 * q + (i & 1)
+
+
+def test_bf16_accumulators_cover_each_pass_once():
+    """The 256 threads' 128 registers are the pass's 128 x 256 outputs, each once."""
+    seen = Counter(_acc_coords(tid, i) for tid in range(256) for i in range(128))
+    assert len(seen) == 128 * 256 and set(seen.values()) == {1}
+
+
+@pytest.mark.parametrize("a_dim", [384, 128])  # the gate widths of H = 512 and 256: 3 passes and 1
+def test_bf16_gate_pass_pairs_u_and_v_of_one_j_in_one_thread(a_dim):
+    """gate_fold's pairing in every gate pass of interleaved [Wa|Wb] columns
+    (``cuda_pool.interleave_gate``): register group 8m + ni (ni < 4) is u_j
+    and group 8m + ni + 4 v_j of the same row and the same j = n0/2 + 32m +
+    8ni + 2q + e, the Wc row the thread reads; every (row, j) of the tile is
+    folded by exactly one thread."""
+    src = cuda_pool.interleave_gate(torch.arange(2 * a_dim)).tolist()  # interleaved column -> row of [Wa|Wb]
+    owned = Counter()
+    for n0 in range(0, 2 * a_dim, 256):
+        for tid in range(256):
+            q = tid % 4
+            for m in range(4):
+                for ni in range(4):
+                    for hf in range(2):
+                        for e in range(2):
+                            iu = 4 * (8 * m + ni) + 2 * hf + e
+                            (ru, cu), (rv, cv) = _acc_coords(tid, iu), _acc_coords(tid, iu + 16)
+                            j = n0 // 2 + 32 * m + 8 * ni + 2 * q + e
+                            assert ru == rv
+                            assert src[n0 + cu] == j and src[n0 + cv] == a_dim + j
+                            owned[ru, j] += 1
+    assert len(owned) == 128 * a_dim and set(owned.values()) == {1}
+
+
+def _swizzled(n: int, c: int) -> int:
+    """The 16-byte unit of chunk c of 64-byte row n in wgmma's 64-byte swizzle (sw64_desc_lo)."""
+    return 4 * n + (c ^ ((n >> 1) & 3))
+
+
+@pytest.mark.parametrize("rows", [256, 128])  # a weight slot, an x slot
+def test_bf16_ring_copies_fill_the_64_byte_swizzle(rows):
+    """stage_bf16's 16-byte copies: thread t's chunk t % 4 of row n = t / 4 +
+    64j lands where wgmma reads it, and a slice's copies fill the slot once."""
+    units = []
+    for t in range(256):
+        for j in range(rows // 64):
+            unit = 4 * (t >> 2) + ((t & 3) ^ ((t >> 3) & 3)) + 256 * j  # the kernel's index
+            assert unit == _swizzled(t // 4 + 64 * j, t % 4)
+            units.append(unit)
+    assert sorted(units) == list(range(4 * rows))
+
+
+def test_bf16_epilogue_stores_fill_the_panels_once():
+    """PanelPut's 4-byte stores of a 256-column pass: thread tid's pair
+    j, hf (row 16 warp + g + 8hf, columns 8j + 2q (+1), _acc_coords') goes to
+    panel j / 4, chunk j % 4 of its row, swizzled by bits 1-2 of g, which is
+    where the panels' swizzle puts those columns; accumulate_panels reads
+    column c of row r at the same place. The pass's stores cover its 8
+    panels once, and a warp's 32 stores hit 32 banks."""
+    words = Counter()
+    for tid in range(256):
+        lane = tid % 32
+        sw = (lane >> 3) & 3
+        for hf in range(2):
+            for j in range(32):
+                r, c = _acc_coords(tid, 4 * j + 2 * hf)
+                elem = (j >> 2) * 128 * 32 + (16 * (tid >> 5) + (lane >> 2)) * 32 + 2 * (lane & 3) \
+                    + 8 * hf * 32 + (((j & 3) ^ sw) << 3)  # the kernel's offset
+                chunk = (c >> 3) & 3
+                assert elem == (c >> 5) * 128 * 32 + 8 * _swizzled(r, chunk) + (c & 7)  # the panels' layout
+                assert elem == (c >> 5) * 128 * 32 + r * 32 + ((chunk ^ ((r % 8) >> 1)) << 3) + (c & 7)  # the reads'
+                words[elem // 2] += 1
+    assert len(words) == 128 * 256 // 2 and set(words.values()) == {1}
+    for warp in range(8):
+        for hf in range(2):
+            for j in range(32):
+                banks = {(((j >> 2) * 128 * 32 + (16 * warp + lane // 4 + 8 * hf) * 32 + 2 * (lane % 4)
+                           + ((((j & 3) ^ ((lane >> 3) & 3))) << 3)) // 2) % 32 for lane in range(32)}
+                assert len(banks) == 32
 
 
 def _operands(h_dim: int, a_dim: int, d: int, dtype: torch.dtype) -> cuda_pool.PoolOperands:

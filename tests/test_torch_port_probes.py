@@ -402,15 +402,19 @@ def test_probe_kernel_takes_n_ending_mid_tile():
 @pytest.mark.parametrize("a_dim", [128, 256, 384])
 def test_probe_plan(a_dim):
     """The probe kernel's plan (``csrc/pool_probe.cu``'s ``probe_layout``):
-    K1 bf16's 128-row tile, threads and ring, 64 + 64 rows for the pair; its
-    shared memory is K1's layout with K1's acc [2][H] and statistics traded
-    for two bag slots' statistics (the 8-task sums live in device memory),
-    under the card's limit at every A; Wc goes to the kernel transposed."""
+    K1 bf16's 128-row tile and threads, 64 + 64 rows for the pair, and the
+    3-slot ring of the mma.sync pass K1 bf16 ran before its wgmma GEMMs; its
+    shared memory is that pass's layout (h1/h2 rows of H + 8 bf16, ring and
+    x slots of 40-element rows, the x ring as large as GEMM2's stash half)
+    with two bag slots' statistics in place of K1's acc [2][H] and
+    statistics (the 8-task sums live in device memory), under the card's
+    limit at every A; Wc goes to the kernel transposed."""
     k1 = cuda_pool.plan(torch.bfloat16, H, a_dim)
+    rows128_pass = 2 * 128 * (H + 8) + 2 * 3 * 256 * 40 + 4 * 32 * 256
     for pair in (False, True):
         p = probe_pool.plan(pair, H, a_dim)
-        assert (p.rows, p.rows_per_bag, p.threads, p.slots) == (k1.rows, 64 if pair else 128, k1.threads, k1.slots)
-        assert p.smem == k1.smem - 4 * 2 * H - 32 + 4 * 2 * 3 * T_PAD == 227_520 <= cuda_pool.MAX_SMEM
+        assert (p.rows, p.rows_per_bag, p.threads, p.slots) == (k1.rows, 64 if pair else 128, k1.threads, 3)
+        assert p.smem == rows128_pass + 4 * 2 * 3 * T_PAD == 227_520 <= cuda_pool.MAX_SMEM
     params = probe_pool.probe_weights(0)
     ops = probe_pool.pack_probe_params(params)
     assert tuple(ops.wc.shape) == (T_PAD, A) and torch.equal(ops.wc, params[6].t())

@@ -22,30 +22,43 @@
 // GB from L2 at B=32 x 8,192, and each slice fed 64 x 256 x 32 products
 // between two barriers (14 % of the bound, PERF.md §6).
 //
-// The bf16 instance runs 128-row tiles, one CTA an SM, 8 warps of 64 x 64
-// warp tiles (16 warps of 32 x 64 were 2-4 % slower): each staged slice feeds
-// twice the rows, which halves the weight stream and doubles the products
-// under each barrier. Shared memory limits the tile, since h1 and h2 of 128
-// rows take 130 KB each, so they share one region:
+// The bf16 instance runs 128-row tiles, one CTA an SM, its 8 warps as two
+// warpgroups that each own 64 rows (one wgmma M) and every column of a
+// 256-column pass: each staged slice feeds 128 rows, which halves the weight
+// stream of 64-row tiles. Its products are wgmma m64n256k16 with both
+// operands in shared memory, K-major in the 64-byte swizzle: B from a 4-slot
+// cp.async ring of 256 x 32 weight slices, A from the x slices (a 4-slot
+// ring beside it) or from h1 and h2, which the epilogues store as 32-deep
+// panels of the same swizzle. Each warpgroup issues a slice's two wgmmas and
+// waits only for the slice before, so the products of one slice run while
+// the next is issued and two more are in flight. (A from registers, loaded
+// with ldmatrix from padded row-major tiles, made ptxas serialize the wgmmas:
+// the next slice's A registers are written while a wgmma is in flight.)
+// Shared memory limits the tile, since h1 and h2 of 128 rows take 128 KB
+// each, so they share one region:
 //   - GEMM1 writes h1 there;
 //   - GEMM2's first 256-column pass keeps its output as packed bf16 (the
 //     stash: half in registers, half in the x ring, idle in GEMM2) while the
 //     second pass still reads h1; both halves of h2 go over the dead h1 after
 //     a barrier;
 //   - the gate pass never writes `gated`: its epilogue rounds each value to
-//     bf16 and folds it into per-row partial scores against Wc, summed over
-//     the quad and then over the column warps in the x ring.
-// Each h1, h2 and gated value is the same sequence of k16 products as in the
-// 64-row kernel, so they keep its bits; the f32 summation order of the scores
-// and the rows grouped into one online-softmax update move. The plan (rows,
-// threads, ring slots, shared memory) is ops/cuda_pool.plan; the bf16
-// instance takes H = 256 or 512. What bounds it now (PERF.md §6, PR 14):
-// neither the L2 stream nor the products alone. A build without the copies
-// keeps 72 % of the time, one without the products and ldmatrix 66 %, one
-// without ldmatrix 97 %; a 2-slot ring, 16 warps or a ring run on across the
-// passes change it by a few %. mma.sync behind a barrier every 32-deep slice
-// (about 32 % of the bf16 peak alone) and the L2 stream overlap only in part:
-// wgmma and one L2 read for several CTAs (TMA multicast) are what is left.
+//     bf16 and folds it into per-row partial scores against Wc; a thread's
+//     sums are one row pair over all 256 columns, so a row's score is its
+//     quad's sum.
+// The running acc [2][H] lives in the block's slot of part_acc in device
+// memory, which makes room for the fourth ring slot. h1, h2 and gated round
+// where the TPU kernel does; wgmma sums a value's k16 products in ascending k
+// as mma.sync did, and the scores' f32 order is each thread's columns, then
+// its quad. The plan (rows, threads, ring slots, shared memory) is
+// ops/cuda_pool.plan; the bf16 instance takes H = 256 or 512. What bounds it
+// (PERF.md §6, §7): the passes' serial order. The L2 weight stream hides
+// under the products (a build without the weight copies is no faster); a
+// build without the products keeps ~75 % of the time, and each of a tile's
+// passes (7 at H = 512) ends in a wait for its last slice and an epilogue (ReLU and
+// stores, or the gate's tanh and sigmoid: a linear gate takes ~12-18 % off)
+// while the tensor cores idle. One warpgroup's epilogue under the other's
+// products, or the next pass's first slices under this pass's epilogue, is
+// what is left.
 //
 // The TPU's sequential grid (state carried across a bag's tiles) becomes a
 // split-N grid: block (split, bag) runs a contiguous range of row tiles and
@@ -61,8 +74,9 @@
 // (cuda_pool.shard_split_plan). Rows are read through a bag stride, so a
 // shard sliced out of a larger batch is read in place. Both instances hold an
 // SM with one CTA, and their grids fill whole waves
-// (cuda_pool.wave_split_plan). Neither uses TMA or warp specialisation; the
-// bf16 instance's products are mma.sync, the f32 instance's wgmma.
+// (cuda_pool.wave_split_plan). Neither uses TMA or warp specialisation; both
+// issue their products as wgmma, the bf16 instance's m64n256k16 in bf16, the
+// f32 instance's m64n64k8 in tf32.
 //
 // The f32 instance (the default of serve, eval, predict, infer and the f32
 // trainer's passes) keeps f32 f32: Hopper has no f32 tensor-core product,
@@ -539,64 +553,242 @@ pool_kernel_f32(const float* __restrict__ x, const float* __restrict__ mask, lon
 }
 
 // ---------------------------------------------------------------------------
-// The bf16 instance: 128-row tiles, one CTA an SM, 8 warps of 64 x 64; its
-// GEMM, ReLU epilogue and GEMM2's stash are pool_trunk.cuh's gemm_rows128,
-// relu_pack, store_packed, stash_put and stash_take, which the bf16 probe
-// (csrc/pool_probe.cu) shares.
+// The bf16 instance: 128-row tiles, one CTA an SM, 8 warps as two warpgroups
+// that own the tile's row halves (warpgroup wg rows 64 wg .. 64 wg + 63) and
+// every column of a 256-column pass. Its products are wgmma m64n256k16 with
+// both operands in shared memory, K-major in the 64-byte swizzle: A (the x
+// slice, h1 or h2) as 64 rows of one 32-deep panel, B a weight ring slot.
+// Warp w of the group holds rows 16w + g and 16w + g + 8 of its half, and
+// register 4j + 2hf + e is row 16w + g + 8hf, column 8j + 2q + e (j < 32; g
+// = lane / 4, q = lane % 4), the accumulator layout of wgmma. So a thread's
+// 128 sums are one row pair over the whole pass, and a gate pass's
+// interleaved [Wa|Wb] columns give it u_j (j mod 8 < 4) and v_j (4 register
+// groups further) of the same j; a row's scores need only its quad's sum.
 
-// One region h [128][H + kHPad] holds h1, then h2; the weight ring ws
-// [slots][256][kSBf16] and the x ring xs [slots][128][kSBf16], which after
-// GEMM1 (until the next tile's) holds half of GEMM2's stash [kStashSmem]
-// [threads], then the score scratch: the column warps' partial scores
-// [4][128][2], s [128][2] and e [128][2]; the running acc [2][H] and stat
-// (max[2], denom[2], corr[2]). Wc is read from device memory (3 KB, cached).
+constexpr int kSlotsW = 4;               // ring slots: two slices in flight beside the one multiplied
+constexpr int kLead = kSlotsW - 2;       // slices staged ahead of the one multiplied
+constexpr int kAccW = kBN / 2;           // sums a thread: m64n256 f32
+constexpr int kPanel = kRowsBf16 * kBK;  // bf16 values of a 32-deep panel of the tile: 128 rows of 64 bytes
+constexpr int kSliceW = kBN * kBK;       // bf16 values of a weight slot: 256 rows of 64 bytes
+constexpr int kStashW = kAccW / 4;       // GEMM2's first pass: packed words a thread that wait in the x ring
+constexpr size_t kXRingW = sizeof(uint32_t) * kStashW * kThreadsBf16;  // the x ring, then the stash
+static_assert(kThreadsBf16 == 2 * 128 && kRowsBf16 == 2 * 64, "two warpgroups, each a wgmma M of rows");
+static_assert(kBK * sizeof(bf16) == 64, "a slice row is one 64-byte swizzle row (sw64_desc_lo)");
+static_assert(sizeof(bf16) * kSlotsW * kPanel <= kXRingW, "the x ring's slots fit the stash's region");
+
+// One region h [H / 32][128][32] holds h1, then h2, as 32-deep panels (row r
+// at 64 bytes, its 16-byte chunk c at (c ^ bits 1-2 of r) * 16, the 64-byte
+// swizzle that sw64_desc_lo reads), then the weight ring ws [4][256][32] of
+// rows swizzled the same way, both on 1024-byte boundaries; the x ring xs
+// [4][128][32] (swizzled as the panels), which after GEMM1 (until the next
+// tile's) holds half of GEMM2's stash [kStashW][threads], then the scores s
+// [128][2] and e [128][2]; stat (max[2], denom[2], corr[2]). The running acc
+// [2][H] is the block's own slot of part_acc in device memory (each thread
+// its own entries), and Wc is read from there too (3 KB, cached).
 struct LayoutBf16 {
-  size_t h, ws, xs, acc, stat, total;
+  size_t h, ws, xs, stat, total;
 };
 
 __host__ __device__ inline LayoutBf16 layout_bf16(int H) {
   LayoutBf16 L;
   size_t o = 0;
-  L.h = o;    o = align16(o + sizeof(bf16) * kRowsBf16 * (H + kHPad));
-  L.ws = o;   o = align16(o + sizeof(bf16) * kSlotsBf16 * kBN * kSBf16);
-  L.xs = o;   o = align16(o + kXRingBytes);
-  L.acc = o;  o = align16(o + sizeof(float) * 2 * H);
+  L.h = o;    o = align1024(o + sizeof(bf16) * kRowsBf16 * H);
+  L.ws = o;   o = align1024(o + sizeof(bf16) * kSlotsW * kSliceW);
+  L.xs = o;   o = align16(o + kXRingW);
   L.stat = o; o = align16(o + sizeof(float) * 8);
   L.total = o;
   return L;
 }
 
-// The gate epilogue of interleaved [Wa|Wb] columns n0..n0+255: warp column wc
-// holds u_j in n-tiles 0-3 and v_j (32 columns further) in n-tiles 4-7 for
-// j = n0/2 + wc*32 + ni*8 + 2q (+1). gated_j = bf16(tanh(u_j) sigmoid(v_j))
-// (the TPU kernel's rounding point) is folded into the thread's partial
-// scores sacc[mi][hf][t] += gated_j Wc[j][t]; it never reaches shared memory.
-__device__ __forceinline__ void gate_fold(const float (&acc)[kMi][8][4], const float* __restrict__ bias,
-                                          const bf16* __restrict__ wc_g, int n0, float (&sacc)[kMi][2][2]) {
-  const int lane = threadIdx.x & 31, wc = (threadIdx.x >> 5) & 3;
-  float2 w[4][2];
+// d[64 x 256] (+)= a[64 x 16] . b[256 x 16]^T, both K-major in shared
+// memory through their descriptors; scale_d = 0 writes the products over d
+__device__ __forceinline__ void wgmma_bf16(float (&d)[kAccW], uint64_t desc_a, uint64_t desc_b, int scale_d) {
+  static_assert(kAccW == 128, "the operand list is m64n256k16's");
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, "
+      "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127"
+      "}, %128, %129, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
+        "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
+        "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+}
+
+// Slice k0..k0+31 of weight rows n0..n0+255 into a ring slot (row n at byte
+// 64n, its 16-byte chunk c at (c ^ bits 1-2 of n) * 16; thread t copies chunk
+// t % 4 of rows t / 4 + 64j) and (kFromX) the tile's 128 x rows' k0..k0+31
+// into an x slot, swizzled the same way (rows past the bag's end N
+// zero-filled), in 16-byte copies; commits one group.
+template <bool kFromX>
+__device__ __forceinline__ void stage_bf16(const bf16* __restrict__ wt, int K, int n0, int k0, bf16* ws,
+                                           const bf16* __restrict__ xb, int N, int D, int row0, bf16* xs) {
+  const int t = threadIdx.x;
+  const int unit = 4 * (t >> 2) + ((t & 3) ^ ((t >> 3) & 3));  // bits 1-2 of the row are bits 3-4 of t
+  const bf16* src = wt + (size_t)(n0 + (t >> 2)) * K + k0 + (t & 3) * 8;
 #pragma unroll
-  for (int ni = 0; ni < 4; ++ni)
+  for (int j = 0; j < kBN / 64; ++j)
+    cp_async16(reinterpret_cast<uint4*>(ws) + unit + 256 * j, src + (size_t)64 * j * K, 16);
+  if (kFromX) {
 #pragma unroll
-    for (int e = 0; e < 2; ++e) {
-      const int j = n0 / 2 + wc * 32 + ni * 8 + 2 * (lane & 3) + e;
-      const unsigned raw = __ldg(reinterpret_cast<const unsigned*>(wc_g) + j);  // Wc[j][0], Wc[j][1]
-      w[ni][e] = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw));
+    for (int j = 0; j < kRowsBf16 / 64; ++j) {
+      const int r = (t >> 2) + 64 * j;
+      const bool ok = row0 + r < N;
+      cp_async16(reinterpret_cast<uint4*>(xs) + unit + 256 * j,
+                 ok ? xb + (size_t)(row0 + r) * D + k0 + (t & 3) * 8 : xb, ok ? 16 : 0);
     }
+  }
+  cp_async_commit();
+}
+
+// acc = A[128, K] . Wt[n0 : n0 + 256, K]^T, each warpgroup its 64 rows: A
+// the staged x tile (kFromX) or h's panels, the weights through the 4-slot
+// ring. Each 32-deep slice is two wgmmas (k16 halves, the second 32 bytes
+// into each swizzled row), committed as one group; the warpgroup then waits
+// for the slice before it only, so one slice's products run while the next
+// is issued. A slot (weights and x) is refilled two slices after its
+// products were issued, behind the barrier that follows every warpgroup's
+// wait for them. Each output is the sum of its k16 products in ascending k.
+template <bool kFromX>
+__device__ __forceinline__ void gemm_wgmma(float (&acc)[kAccW], const bf16* __restrict__ wt, int K, int n0,
+                                           const bf16* h, const bf16* __restrict__ xb, int N, int D, int row0,
+                                           bf16* ws, bf16* xs) {
+  const int a_rows = (threadIdx.x >> 7) * 64 * kBK;  // this warpgroup's 64 rows of a panel
+  const int n_steps = K / kBK;
+  auto issue = [&](int step) {
+    if (step < n_steps)
+      stage_bf16<kFromX>(wt, K, n0, step * kBK, ws + (step % kSlotsW) * kSliceW, xb, N, D, row0,
+                         xs + (step % kSlotsW) * kPanel);
+    else
+      cp_async_commit();  // empty group: keeps one group per step for the wait count
+  };
+  // the ring is free (every warpgroup's products of the last pass are done),
+  // and the previous epilogue's writes to h are seen by the tensor cores,
+  // once every warp has arrived here
+  fence_async_smem();
+  __syncthreads();
 #pragma unroll
-  for (int mi = 0; mi < kMi; ++mi)
+  for (int s = 0; s < kLead; ++s) issue(s);
+  for (int step = 0; step < n_steps; ++step) {
+    cp_async_wait<kLead - 1>();  // this thread's copies of `step` have landed
+    fence_async_smem();          // ... and are seen by the tensor cores' reads
+    __syncthreads();             // everyone's have, and every warpgroup's products of step - 2 are done
+    issue(step + kLead);         // into their slot
+    const int slot = step % kSlotsW;
+    const uint32_t la = sw64_desc_lo((kFromX ? xs + slot * kPanel : h + step * kPanel) + a_rows);
+    const uint32_t lb = sw64_desc_lo(ws + slot * kSliceW);
+    wgmma_fence();
 #pragma unroll
-    for (int hf = 0; hf < 2; ++hf)
+    for (int kk = 0; kk < 2; ++kk)
+      wgmma_bf16(acc, (uint64_t)kDescHi << 32 | (la + kk * kHalfDesc), (uint64_t)kDescHi << 32 | (lb + kk * kHalfDesc),
+                 step | kk);  // the pass's first product starts the sums
+    wgmma_commit();
+    wgmma_wait<1>();  // the products of step - 1 are done
+  }
+  wgmma_wait<0>();
+}
+
+// The ReLU epilogue of columns n0..n0+255: each pair bf16(relu(acc + bias))
+// of the thread's row hf, columns n0 + 8j + 2q (+1), packed and handed to
+// put(j, hf, pair) as soon as it is made (so no array of them is live)
+template <typename Put>
+__device__ __forceinline__ void relu_pairs(const float (&acc)[kAccW], const float* __restrict__ bias, int n0,
+                                           Put&& put) {
+  const int q = threadIdx.x & 3;
 #pragma unroll
-      for (int ni = 0; ni < 4; ++ni)
+  for (int j = 0; j < kAccW / 4; ++j) {
+    const float2 b = __ldg(reinterpret_cast<const float2*>(bias + n0 + 8 * j + 2 * q));
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf) {
+      const __nv_bfloat162 v =
+          __floats2bfloat162_rn(fmaxf(acc[4 * j + 2 * hf] + b.x, 0.f), fmaxf(acc[4 * j + 2 * hf + 1] + b.y, 0.f));
+      put(j, hf, *reinterpret_cast<const uint32_t*>(&v));
+    }
+  }
+}
+
+// Stores the thread's pairs of a pass at n0 into h's panels: pair (j, hf)
+// sits in panel n0 / 32 + j / 4, chunk j % 4 of its row, which bits 1-2 of
+// the thread's rows (those of g) swizzle alike
+struct PanelPut {
+  bf16* p;
+  int sw;
+  __device__ __forceinline__ PanelPut(bf16* h, int n0) {
+    const int tid = fresh_tid(), lane = tid & 31;
+    p = h + (n0 / kBK) * kPanel + (16 * (tid >> 5) + (lane >> 2)) * kBK + 2 * (lane & 3);
+    sw = (lane >> 3) & 3;
+  }
+  __device__ __forceinline__ void operator()(int j, int hf, uint32_t v) const {
+    *reinterpret_cast<uint32_t*>(p + 8 * hf * kBK + (j >> 2) * kPanel + (((j & 3) ^ sw) << 3)) = v;
+  }
+};
+
+// acc[2][H] = acc * corr + e^T h2 over the tile's 128 rows, as
+// online_accumulate sums it (fmaf over the rows in order), h2 in its panels
+__device__ __forceinline__ void accumulate_panels(float* acc, const float* e_s, const float* stat, const bf16* h,
+                                                  int H) {
+  for (int i = fresh_tid(); i < 2 * H; i += kThreadsBf16) {
+    const int t = i >= H, c = i - t * H, chunk = (c >> 3) & 3;
+    const bf16* col = h + (c >> 5) * kPanel + (c & 7);
+    float a = acc[i] * stat[4 + t];
+    for (int r0 = 0; r0 < kRowsBf16; r0 += 8)
+#pragma unroll
+      for (int u = 0; u < 8; ++u)
+        a = fmaf(e_s[2 * (r0 + u) + t], __bfloat162float(col[(r0 + u) * kBK + ((chunk ^ (u >> 1)) << 3)]), a);
+    acc[i] = a;
+  }
+}
+
+// The gate epilogue of interleaved [Wa|Wb] columns n0..n0+255: register group
+// 8m + ni (ni < 4) holds u_j and group 8m + ni + 4 v_j (32 columns further)
+// for j = n0/2 + 32m + 8ni + 2q (+1). gated_j = bf16(tanh(u_j) sigmoid(v_j))
+// (the TPU kernel's rounding point) is folded into the thread's partial
+// scores sacc[hf][t] += gated_j Wc[j][t]; it never reaches shared memory.
+__device__ __forceinline__ void gate_fold(const float (&acc)[kAccW], const float* __restrict__ bias,
+                                          const bf16* __restrict__ wc_g, int n0, float (&sacc)[2][2]) {
+  const int q = threadIdx.x & 3;
+#pragma unroll
+  for (int m = 0; m < 4; ++m)
+#pragma unroll
+    for (int ni = 0; ni < 4; ++ni) {
+      const int cu = n0 + 64 * m + 8 * ni + 2 * q;  // u columns cu, cu + 1; v is 32 further
+      const float2 bu = __ldg(reinterpret_cast<const float2*>(bias + cu));
+      const float2 bv = __ldg(reinterpret_cast<const float2*>(bias + cu + 32));
+      // Wc[j][0], Wc[j][1], Wc[j + 1][0], Wc[j + 1][1]
+      const uint2 raw = __ldg(reinterpret_cast<const uint2*>(wc_g) + (n0 / 2 + 32 * m + 8 * ni + 2 * q) / 2);
+      const float2 w[2] = {__bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.x)),
+                           __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.y))};
+      const int ru = 4 * (8 * m + ni), rv = ru + 16;
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf)
 #pragma unroll
         for (int e = 0; e < 2; ++e) {
-          const int cu = n0 + wc * 64 + ni * 8 + 2 * (lane & 3) + e;  // u column; v is 32 further
-          const float gv = bf16_round(gate<kEpiTanh>(acc[mi][ni][2 * hf + e] + __ldg(bias + cu),
-                                                     acc[mi][ni + 4][2 * hf + e] + __ldg(bias + cu + 32)));
-          sacc[mi][hf][0] = fmaf(gv, w[ni][e].x, sacc[mi][hf][0]);
-          sacc[mi][hf][1] = fmaf(gv, w[ni][e].y, sacc[mi][hf][1]);
+          const float gv = bf16_round(gate<kEpiTanh>(acc[ru + 2 * hf + e] + (e ? bu.y : bu.x),
+                                                     acc[rv + 2 * hf + e] + (e ? bv.y : bv.x)));
+          sacc[hf][0] = fmaf(gv, w[e].x, sacc[hf][0]);
+          sacc[hf][1] = fmaf(gv, w[e].y, sacc[hf][1]);
         }
+    }
 }
 
 __global__ void __launch_bounds__(kThreadsBf16, 1)
@@ -610,24 +802,23 @@ pool_kernel_bf16(const bf16* __restrict__ x, const float* __restrict__ mask, lon
                  float* __restrict__ scores, float* __restrict__ part_acc, float* __restrict__ part_stat,
                  int* __restrict__ tickets, float eps, float* __restrict__ out, float* __restrict__ stat_out) {
   constexpr int R = kRowsBf16;
-  extern __shared__ __align__(16) unsigned char smem[];
+  extern __shared__ __align__(1024) unsigned char smem[];
   const LayoutBf16 L = layout_bf16(H);
   bf16* h = reinterpret_cast<bf16*>(smem + L.h);
   bf16* ws = reinterpret_cast<bf16*>(smem + L.ws);
   bf16* xs = reinterpret_cast<bf16*>(smem + L.xs);
-  float* spart = reinterpret_cast<float*>(smem + L.xs);  // [4][R][2] partial scores of the column warps
-  float* s_s = spart + kColWarps * R * 2;                  // [R][2] raw scores
+  float* s_s = reinterpret_cast<float*>(smem + L.xs);    // [R][2] raw scores
   float* e_s = s_s + R * 2;                                // [R][2] e rounded to bf16
-  float* acc_s = reinterpret_cast<float*>(smem + L.acc);   // [2][H]
-  float* stat = reinterpret_cast<float*>(smem + L.stat);   // max[2], denom[2], corr[2]
+  float* stat = reinterpret_cast<float*>(smem + L.stat);  // max[2], denom[2], corr[2]
 
   const int tid = threadIdx.x;
   const int shard = blockIdx.x / n_splits, split = blockIdx.x - shard * n_splits, b = blockIdx.y;
-  const int ldh = H + kHPad;
   const bf16* xb = x + (size_t)b * x_bag + (size_t)shard * N * D;  // the shard's N rows
   const float* mb = mask + (size_t)b * m_bag + (size_t)shard * N;
+  const size_t p = (size_t)b * gridDim.x + blockIdx.x;
+  float* acc_g = part_acc + p * 2 * H;  // the running acc [2][H], entries tid + k * threads this thread's
 
-  for (int i = tid; i < 2 * H; i += kThreadsBf16) acc_s[i] = 0.f;
+  for (int i = tid; i < 2 * H; i += kThreadsBf16) acc_g[i] = 0.f;
   if (tid < 2) {
     stat[tid] = kNegInf;
     stat[2 + tid] = 0.f;
@@ -643,51 +834,81 @@ pool_kernel_bf16(const bf16* __restrict__ x, const float* __restrict__ mask, lon
     // the identity there); scored mode writes every row's score
     if (!__syncthreads_or(live) && scores == nullptr) continue;
 
-    // h1 = relu(x W1 + b1), then h2 = relu(h1 W2 + b2) -> h
-    float acc[kMi][8][4];
-    uint32_t packed[kMi][8][2];
+    float acc[kAccW];
     // h1 = relu(x W1 + b1) -> h
     for (int n0 = 0; n0 < H; n0 += kBN) {
-      gemm_rows128<true>(acc, w1t, D, n0, nullptr, 0, &xb, N, D, row0, ws, xs);
-      relu_pack(acc, b1, n0, packed);
-      store_packed(packed, n0, h, ldh);
+      gemm_wgmma<true>(acc, w1t, D, n0, nullptr, xb, N, D, row0, ws, xs);
+      relu_pairs(acc, b1, n0, PanelPut(h, n0));
     }
-    constexpr int kHalf = kMi / 2;
-    uint32_t stash[kHalf][8][2];
-    uint32_t* stash_s = reinterpret_cast<uint32_t*>(xs);  // [kStashSmem][threads]
+    // h2 = relu(h1 W2 + b2) -> h, over h1: at H = 512 the first pass waits
+    // packed until the second has read all of h1 (the stash), columns 8j.. of
+    // j < 16 in the x ring (stash_s [kStashW][threads], idle in GEMM2), the
+    // rest in registers; they go to h after the barrier that ends the
+    // second pass's reads, before its own pairs are made
+    constexpr int kHalf = kAccW / 8;
+    uint32_t stash[kHalf][2];
+    uint32_t* stash_s = reinterpret_cast<uint32_t*>(xs);
     if (H == 2 * kBN) {
-      gemm_rows128<false>(acc, w2t, H, 0, h, ldh, nullptr, N, D, row0, ws, xs);
-      relu_pack(acc, b2, 0, packed);
-      stash_put(packed, stash, stash_s, tid);
+      gemm_wgmma<false>(acc, w2t, H, 0, h, nullptr, N, D, row0, ws, xs);
+      const int t2 = fresh_tid();
+      relu_pairs(acc, b2, 0, [&](int j, int hf, uint32_t v) {
+        if (j < kHalf)
+          stash_s[(2 * j + hf) * kThreadsBf16 + t2] = v;
+        else
+          stash[j % kHalf][hf] = v;
+      });
     }
-    gemm_rows128<false>(acc, w2t, H, H - kBN, h, ldh, nullptr, N, D, row0, ws, xs);
-    relu_pack(acc, b2, H - kBN, packed);
+    gemm_wgmma<false>(acc, w2t, H, H - kBN, h, nullptr, N, D, row0, ws, xs);
     __syncthreads();
     if (H == 2 * kBN) {
-      uint32_t first[kMi][8][2];
-      stash_take(first, stash, stash_s, tid);
-      store_packed(first, 0, h, ldh);
+      const PanelPut put(h, 0);
+      const int t2 = fresh_tid();
+#pragma unroll
+      for (int j = 0; j < kHalf; ++j)
+#pragma unroll
+        for (int hf = 0; hf < 2; ++hf) {
+          put(j, hf, stash_s[(2 * j + hf) * kThreadsBf16 + t2]);
+          put(kHalf + j, hf, stash[j][hf]);
+        }
     }
-    store_packed(packed, H - kBN, h, ldh);
+    relu_pairs(acc, b2, H - kBN, PanelPut(h, H - kBN));
     // gated = bf16(tanh(h2 Wa + ba) * sigmoid(h2 Wb + bb)), folded into the scores
-    float sacc[kMi][2][2] = {};
+    float sacc[2][2] = {};
     for (int n0 = 0; n0 < 2 * A; n0 += kBN) {
-      float acc[kMi][8][4];
-      gemm_rows128<false>(acc, wabt, H, n0, h, ldh, nullptr, N, D, row0, ws, xs);
+      gemm_wgmma<false>(acc, wabt, H, n0, h, nullptr, N, D, row0, ws, xs);
       gate_fold(acc, bab, wc, n0, sacc);
     }
-    // s = gated Wc + bc: the quad, then the four column warps (the x ring is
-    // idle until the next tile's GEMM1, past two barriers)
-    reduce_scores<2, R, kThreadsBf16, kMi>(sacc, spart, bc, s_s, scores, b, N, row0);
+    // s = gated Wc + bc: each row's sum over its quad (the x ring is idle
+    // until the next tile's GEMM1, past two barriers)
+    {
+      const int t2 = fresh_tid(), lane = t2 & 31;
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf)
+#pragma unroll
+        for (int t = 0; t < 2; ++t) {
+          sacc[hf][t] += __shfl_xor_sync(0xffffffffu, sacc[hf][t], 1);
+          sacc[hf][t] += __shfl_xor_sync(0xffffffffu, sacc[hf][t], 2);
+        }
+      if ((lane & 3) == 0)
+#pragma unroll
+        for (int hf = 0; hf < 2; ++hf) {
+          const int r = 16 * (t2 >> 5) + (lane >> 2) + 8 * hf;
+#pragma unroll
+          for (int t = 0; t < 2; ++t) {
+            const float s = sacc[hf][t] + __ldg(bc + t);
+            s_s[2 * r + t] = s;
+            if (scores != nullptr && row0 + r < N) scores[((size_t)b * 2 + t) * N + row0 + r] = s;
+          }
+        }
+    }
+    __syncthreads();
 
     online_stats<R, bf16>(s_s, mb, row0, N, e_s, stat);
     __syncthreads();
-    online_accumulate<R, bf16, kThreadsBf16>(acc_s, e_s, stat, h, ldh, H);
+    accumulate_panels(acc_g, e_s, stat, h, H);
   }
   __syncthreads();
 
-  const size_t p = (size_t)b * gridDim.x + blockIdx.x;
-  for (int i = tid; i < 2 * H; i += kThreadsBf16) part_acc[p * 2 * H + i] = acc_s[i];
   if (tid < 4) part_stat[p * 4 + tid] = stat[tid];
   pool_tail<2>(part_acc, part_stat, (size_t)b * gridDim.x, gridDim.x, tickets + b, H, stat_out == nullptr, eps,
                out + (size_t)b * 2 * H, stat_out == nullptr ? nullptr : stat_out + (size_t)b * 4,
@@ -707,8 +928,8 @@ int launch(const void* x, const float* mask, long long x_bag, long long m_bag, i
   cudaError_t err;
   if constexpr (std::is_same<T, bf16>::value) {
     const LayoutBf16 L = layout_bf16(H);
-    // the tail's scratch lies in the shared memory before the running acc
-    if (sizeof(float) * tail_scratch_floats(2, n_shards * n_splits) > L.acc) return (int)cudaErrorInvalidValue;
+    // the tail's scratch lies in the dead h region and rings
+    if (sizeof(float) * tail_scratch_floats(2, n_shards * n_splits) > L.stat) return (int)cudaErrorInvalidValue;
     err = cudaFuncSetAttribute(pool_kernel_bf16, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)L.total);
     if (err != cudaSuccess) return (int)err;
     pool_kernel_bf16<<<dim3(n_shards * n_splits, B), kThreadsBf16, L.total, stream>>>(

@@ -113,12 +113,11 @@ __device__ __forceinline__ void online_stats(const float* s_s, const float* mb, 
   }
 }
 
-// acc[2][H] = acc * corr + e^T h over the tile's R rows of h [R][ldh], by a
-// block of NT threads
-template <int R, typename T, int NT = kThreads>
+// acc[2][H] = acc * corr + e^T h over the tile's R rows of h [R][ldh]
+template <int R, typename T>
 __device__ __forceinline__ void online_accumulate(float* acc_s, const float* e_s, const float* stat,
                                                   const T* h, int ldh, int H) {
-  for (int i = threadIdx.x; i < 2 * H; i += NT) {
+  for (int i = threadIdx.x; i < 2 * H; i += kThreads) {
     const int t = i >= H, c = i - t * H;
     float a = acc_s[i] * stat[4 + t];
     for (int r = 0; r < R; ++r) a = fmaf(e_s[2 * r + t], to_f(h[r * ldh + c]), a);

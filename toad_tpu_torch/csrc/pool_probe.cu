@@ -22,13 +22,14 @@
 // 2 KB of bf16 input (trunkonly 1.6 MFLOP), far above the card's ~295
 // FLOP/byte: tensor-core bound.
 //
-// The design is K1's bf16 instance (csrc/pool.cu), so that the ladder's
-// deltas are K1's: 128-row tiles, one CTA an SM of 8 warps of 64 x 64, h1
+// The design is the mma.sync pass K1's bf16 instance ran before its GEMMs
+// moved onto wgmma (csrc/pool.cu), so that the ladder's deltas were K1's:
+// 128-row tiles, one CTA an SM of 8 warps of 64 x 64, h1
 // and h2 in one shared region with GEMM2's stash (half in registers, half in
 // the x ring), weights streamed from L2 through a 3-slot cp.async ring, the
 // grid in whole waves (ops/cuda_pool.wave_split_plan), each block's partial
 // merged by pool_combine_kernel<8> (pool_common.cuh). The trunk and the
-// gate GEMM are K1's own code (pool_trunk.cuh: gemm_rows128, relu_pack,
+// gate GEMM are that pass's code (pool_trunk.cuh: gemm_rows128, relu_pack,
 // store_packed, stash_put, stash_take), in K1's order. The variants are
 // template parameters of one kernel: the gate epilogue (tanh/sigmoid, exp2
 // or linear), the mode (online softmax, plain sum, or trunk only: no gate
@@ -36,16 +37,16 @@
 // of each in one 128-row tile, the TPU probe's 2 x tile rows in one GEMM
 // chain).
 //
-// The 8 task columns. K1 folds its 2 gated columns into 16 f32 registers a
-// thread and keeps acc [2][H] in 4 KB of shared memory; at 8 columns that
-// would be 64 registers (K1 has 247 and 8 to spare) and 16 KB (K1's layout
-// leaves under 1 KB). What the probe does instead:
+// The 8 task columns. K1's mma.sync pass folded its 2 gated columns into 16
+// f32 registers a thread and kept acc [2][H] in 4 KB of shared memory; at 8
+// columns that would be 64 registers (it had 247 and 8 to spare) and 16 KB
+// (its layout left under 1 KB). What the probe does instead:
 //   - the score head runs on the tensor cores: each gate pass rounds its
 //     gated values to bf16 and repacks them as A fragments of
 //     mma.m16n8k16 (the m16n8 accumulators of two n-tiles are one k16 A
 //     fragment), times Wc^T [8][A] from device memory as the B operand, one
-//     n-tile: 4 f32 registers per 16-row block, 16 a thread, as many as K1's
-//     two columns take. The column warps' partial scores then meet in the x
+//     n-tile: 4 f32 registers per 16-row block, 16 a thread, as many as that
+//     pass's two columns took. The column warps' partial scores then meet in the x
 //     ring (spart [4][128][8], s and e [128][8]: 24 KB of its 32 KB);
 //   - the running acc [8][H] of each bag lives in the CTA's own slot of
 //     part_acc in device memory, the partial the combine reads: each tile
@@ -55,7 +56,7 @@
 //     MB of weights streamed from L2 per tile.
 // The alternative, a 2-slot weight ring that frees 20 KB of shared memory
 // for acc [8][H], timed within 4 % of this design either way by instance
-// (PERF.md §6) and would change the trunk K1 runs.
+// (PERF.md §6) and would have changed the trunk K1 ran.
 //
 // Layout contract (ops/probe_pool.py prepares it): x [B, N, D] bf16, mask
 // [B, N] f32, N a multiple of 64 (the pair's rows of each bag in a tile; a

@@ -1,14 +1,16 @@
 // The trunk and gate of the fused pooling kernels, shared by csrc/pool.cu
-// (K1 and its partial mode), csrc/pool_int8.cu (K2), csrc/pool_probe.cu
-// (P1/P2/P5) and csrc/pool_int8_probe.cu (P3/P4). Each tile streams all of
+// (K1 and its partial mode: the gate function and the bf16 constants),
+// csrc/pool_int8.cu (K2), csrc/pool_probe.cu (P1/P2/P5) and
+// csrc/pool_int8_probe.cu (P3/P4). Each tile streams all of
 // the weights from L2, so the rows a staged slice feeds set the L2 traffic
 // and the products between two barriers. Here:
-//   - bf16, 128-row tiles (K1's bf16 instance and the bf16 probe, P1/P2/P5):
-//     one CTA an SM of 8 warps of 64 x 64, gemm_rows128 (256-column passes
-//     of mma.sync m16n8k16 fed by ldmatrix, weights through a 3-slot
-//     cp.async ring of 32-deep slices), relu_pack / store_packed, and GEMM2's
-//     stash (stash_put / stash_take), so that h1 and h2 share one region;
-//     rows of one bag, or 64 of each of two (NB = 2);
+//   - bf16, 128-row tiles (the bf16 probe, P1/P2/P5, on the pass K1's bf16
+//     instance ran before its GEMMs moved onto wgmma in csrc/pool.cu): one
+//     CTA an SM of 8 warps of 64 x 64, gemm_rows128 (256-column passes of
+//     mma.sync m16n8k16 fed by ldmatrix, weights through a 3-slot cp.async
+//     ring of 32-deep slices), relu_pack / store_packed, and GEMM2's stash
+//     (stash_put / stash_take), so that h1 and h2 share one region; rows of
+//     one bag, or 64 of each of two (NB = 2);
 //   - int8, 64-row tiles of 8 warps as 2 (rows) x 4 (columns) (K2 and the
 //     int8 probe, P3/P4): one weight stream of 32 KB slices a tile through a
 //     3-slot swizzled cp.async ring (swz, stage_slice; the cursor is each
@@ -210,10 +212,11 @@ __device__ __forceinline__ void store_packed(const uint32_t (&v)[kMi][8][2], int
 // H = 512) waits in packed bf16 until the second pass has read all of h1:
 // the second row block of the warp (mi >= kMi / 2) in registers, the first in
 // the x ring (stash_s [kStashSmem][threads], idle in GEMM2). A kernel runs
-// the trunk as K1 does (csrc/pool.cu): GEMM1 passes through relu_pack and
-// store_packed into h; GEMM2's first pass into stash_put; its second pass;
-// a barrier; stash_take and both passes' store_packed. (Wrapped in one
-// shared function, the same trunk costs K1 five more registers.)
+// the trunk as the probe does (csrc/pool_probe.cu): GEMM1 passes through
+// relu_pack and store_packed into h; GEMM2's first pass into stash_put; its
+// second pass; a barrier; stash_take and both passes' store_packed.
+// (Wrapped in one shared function, the same trunk cost K1 five more
+// registers when it ran this pass.)
 __device__ __forceinline__ void stash_put(const uint32_t (&packed)[kMi][8][2], uint32_t (&stash)[kMi / 2][8][2],
                                           uint32_t* stash_s, int tid) {
 #pragma unroll
@@ -574,18 +577,16 @@ __device__ __forceinline__ void gate_epilogue(int (&acc)[2][8][4], int n0, const
 }
 
 // s = sum of the partial scores + bc, in a fixed order: the quad's lanes,
-// then the four column warps, into s_s [R][T]; where scores is not null,
-// also the raw scores [B][T][N] of the tile's rows inside the bag. R rows of
-// NT threads, warp w owning MI m16 tiles from row (w / 4)*16*MI (K1's bf16
-// instance: 128 rows, its own thread count and MI).
-template <int T, int R = kTileRows, int NT = kThreads, int MI = 2>
-__device__ __forceinline__ void reduce_scores(float (&sacc)[MI][2][T], float* spart, const float* __restrict__ bc,
+// then the four column warps, into s_s [64][T]; where scores is not null,
+// also the raw scores [B][T][N] of the tile's rows inside the bag.
+template <int T>
+__device__ __forceinline__ void reduce_scores(float (&sacc)[2][2][T], float* spart, const float* __restrict__ bc,
                                               float* s_s, float* scores, int b, int N, int row0) {
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int g = lane >> 2, q = lane & 3;
   const int wr = warp / kColWarps, wc = warp % kColWarps;
 #pragma unroll
-  for (int mi = 0; mi < MI; ++mi) {
+  for (int mi = 0; mi < 2; ++mi) {
 #pragma unroll
     for (int hf = 0; hf < 2; ++hf) {
 #pragma unroll
@@ -593,16 +594,16 @@ __device__ __forceinline__ void reduce_scores(float (&sacc)[MI][2][T], float* sp
         float v = sacc[mi][hf][t];
         v += __shfl_xor_sync(0xffffffffu, v, 1);
         v += __shfl_xor_sync(0xffffffffu, v, 2);
-        if (q == 0) spart[(wc * R + wr * 16 * MI + mi * 16 + g + hf * 8) * T + t] = v;
+        if (q == 0) spart[(wc * kTileRows + wr * 32 + mi * 16 + g + hf * 8) * T + t] = v;
       }
     }
   }
   __syncthreads();
-  for (int i = tid; i < R * T; i += NT) {
+  for (int i = tid; i < kTileRows * T; i += kThreads) {
     const int r = i / T, t = i % T;
     float s = 0.f;
 #pragma unroll
-    for (int w = 0; w < kColWarps; ++w) s += spart[(w * R + r) * T + t];
+    for (int w = 0; w < kColWarps; ++w) s += spart[(w * kTileRows + r) * T + t];
     s += __ldg(bc + t);
     s_s[i] = s;
     if (scores != nullptr && row0 + r < N) scores[((size_t)b * T + t) * N + row0 + r] = s;

@@ -13,12 +13,14 @@ fill its matrix unit) has no counterpart here: on Hopper the split-N grid
 already keeps every SM busy with full row tiles.
 
 :func:`plan` gives each instance's row tile, threads, ring slots and shared
-memory: the bf16 instance 128-row tiles, the f32 instance 64-row tiles (two
-warpgroups on Hopper's tf32 ``wgmma``, :func:`f32_layout`) with its products
-as error-compensated TF32 (3xTF32: each f32 operand split into two TF32
-halves, three tensor-core products summed in f32), each with h1 and h2 in
-one shared region; both run their grid in whole waves of one CTA an
-SM (:func:`wave_split_plan`). :func:`pack_params` lays the
+memory, both on Hopper's ``wgmma``: the bf16 instance 128-row tiles (two
+warpgroups of 64 rows, each every column of a 256-column pass, the weights
+through a 4-slot ring, :func:`bf16_layout`), the f32 instance 64-row tiles
+(two warpgroups of H/2 columns on tf32 ``wgmma``, :func:`f32_layout`) with
+its products as error-compensated TF32 (3xTF32: each f32 operand split into
+two TF32 halves, three tensor-core products summed in f32), each with h1 and
+h2 in one shared region; both run their grid in whole waves of one CTA an SM
+(:func:`wave_split_plan`). :func:`pack_params` lays the
 weights out for the kernel, once per model and compute dtype; :func:`pool` launches the kernel on CUDA tensors and
 raises on anything the kernel does not take. The plain version is
 :func:`toad_tpu_torch.ops.fused_pool.plain_pool`, which the CPU path runs
@@ -113,12 +115,12 @@ def pack_params(params: dict[str, Any], dtype: torch.dtype) -> PoolOperands:
 
 class PoolPlan(NamedTuple):
     """How the kernel runs one compute dtype at one width (``csrc/pool.cu``'s
-    ``Cfg`` and ``layout``; the launcher and ``toad_pool_smem_bytes`` /
-    ``toad_pool_rows_per_tile`` agree with it)."""
+    ``layout_bf16`` and ``layout_f32``; the launcher and
+    ``toad_pool_smem_bytes`` / ``toad_pool_rows_per_tile`` agree with it)."""
 
     rows: int  # rows of a tile
     threads: int  # threads of a CTA
-    slots: int  # slots of the cp.async ring (1: staged synchronously)
+    slots: int  # slots of a weight ring (the bf16 instance's one; each f32 warpgroup's own)
     smem: int  # dynamic shared memory of a CTA, bytes
 
 
@@ -126,9 +128,26 @@ def _align16(n: int) -> int:
     return (n + 15) & ~15
 
 
+BF16_ROWS = 128  # the bf16 instance's tile: two warpgroups of one wgmma M each
+BF16_SLOTS = 4  # slots of the bf16 instance's weight and x rings: two slices in flight beside the one multiplied
+BF16_DEPTH = 32  # reduction depth of a bf16 slice: two bf16 wgmma K, 64-byte rows
 F32_ROWS = 64  # the f32 instance's tile: one wgmma M
 F32_SLOTS = 2  # slots of each warpgroup's cp.async ring in the f32 instance
 F32_DEPTH = 16  # reduction depth of an f32 slice: two tf32 wgmma K, 64-byte rows
+
+
+def bf16_layout(h_dim: int) -> dict[str, int]:
+    """The bf16 instance's shared memory by part, in bytes, each padded as
+    ``csrc/pool.cu``'s ``layout_bf16`` pads it: the region for h1 and h2 as
+    H/32 panels of 128 rows x 32 bf16 and the weight ring of 4 slots of 256
+    rows x 32 bf16, both of 64-byte rows in wgmma's swizzle (no padding) on
+    1024-byte boundaries; the x ring of 4 such slots of 128 rows, which also
+    holds half of GEMM2's stash (32 of a thread's 64 packed words), then the
+    scores and e; the stats. The running acc is the block's slot of the
+    partials in device memory and Wc stays there, so A does not change it."""
+    parts = {"h": 2 * BF16_ROWS * h_dim, "ring": 2 * BF16_SLOTS * 256 * BF16_DEPTH,
+             "xs": max(2 * BF16_SLOTS * BF16_ROWS * BF16_DEPTH, 4 * 32 * 256), "stat": 4 * 8}
+    return {k: _align16(v) for k, v in parts.items()}
 
 
 def f32_layout(h_dim: int) -> dict[str, int]:
@@ -157,16 +176,11 @@ def plan(compute_dtype: torch.dtype, h_dim: int, a_dim: int) -> PoolPlan:
         raise ValueError(f"H={h_dim} not supported in {str(compute_dtype)[6:]}: the kernel's tile of h1 and h2 fits "
                          f"shared memory only at H in {TRUNK_WIDTHS}")
     if compute_dtype == torch.bfloat16:
-        # one region for h1 and h2, the weight and x rings (staged rows: 32 bf16 + 8 of padding; the x
-        # ring also holds 32 of GEMM2's 64 stash registers a thread, then the score scratch), the running
-        # acc and stats; Wc stays in device memory
-        rows, threads, slots, stride = 128, 256, 3, 40
-        parts = (2 * rows * (h_dim + 8), 2 * slots * 256 * stride, max(2 * slots * rows * stride, 4 * 32 * threads),
-                 4 * 2 * h_dim, 4 * 8)
+        rows, threads, slots = BF16_ROWS, 256, BF16_SLOTS
+        smem = sum(bf16_layout(h_dim).values())
     else:
         rows, threads, slots = F32_ROWS, 256, F32_SLOTS
-        parts = tuple(f32_layout(h_dim).values())
-    smem = sum(map(_align16, parts))
+        smem = sum(f32_layout(h_dim).values())
     if smem > MAX_SMEM:
         raise ValueError(f"H={h_dim}, A={a_dim} not supported in {compute_dtype}: a CTA would need {smem} B of "
                          f"shared memory, over the card's {MAX_SMEM}")

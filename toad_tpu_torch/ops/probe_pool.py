@@ -12,8 +12,9 @@ probes' T_PAD = 8 task columns: [B, 8, H] f32.
 :func:`plain_probe_pool` is the plain version, at the probe's rounding
 points; :func:`probe_pool` launches ``csrc/pool_probe.cu`` on CUDA tensors
 and raises on anything the kernel does not take (it never falls back to the
-plain version). The kernel is K1's bf16 design (``csrc/pool.cu``): 128-row
-tiles (the pair: 64 rows of each of two bags), one CTA an SM, a 3-slot
+plain version). The kernel is the mma.sync design K1's bf16 instance ran
+before its GEMMs moved onto wgmma (``csrc/pool.cu``): 128-row tiles (the
+pair: 64 rows of each of two bags), one CTA an SM, a 3-slot
 weight ring, the grid in whole waves; :func:`plan` and :func:`split` give
 its tile, threads, ring slots, shared memory and split. :func:`probe_weights`
 draws the probes' weights.
