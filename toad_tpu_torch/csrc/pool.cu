@@ -125,6 +125,7 @@
 #include <atomic>
 
 #include "pool_trunk.cuh"
+#include "wgmma.cuh"
 
 namespace {
 
@@ -150,8 +151,6 @@ constexpr int kGatePass = 256;      // interleaved [Wa|Wb] columns a gate pass
 constexpr int kWarpgroups = kThreads / 128;
 static_assert(kWarpgroups == 2 && kRowsF32 * kBKF32 / 4 == 2 * 128, "two warpgroups, two 16-byte x copies a thread");
 
-__host__ __device__ inline size_t align1024(size_t v) { return (v + 1023) & ~size_t(1023); }
-
 // One region h [64][H + 4] holds GEMM1's x slices (each warpgroup's ring of
 // [64][20] slots), then h1, then h2; each warpgroup's weight ring ws [2][H/2]
 // [16] of 64-byte swizzled rows, and its small halves [H/2][16] beside them,
@@ -176,37 +175,8 @@ __host__ __device__ inline LayoutF32 layout_f32(int H) {
   return L;
 }
 
-__device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
-__device__ __forceinline__ void wgmma_commit() { asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory"); }
-template <int N>
-__device__ __forceinline__ void wgmma_wait() { asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory"); }
-// this thread's shared-memory writes (its landed cp.async copies too), seen by the tensor cores' reads
-__device__ __forceinline__ void fence_async_smem() { asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory"); }
-// the 128 threads of warpgroup wg (barrier 0 is __syncthreads)
-__device__ __forceinline__ void bar_wg(int wg) { asm volatile("bar.sync %0, 128;\n" ::"r"(wg + 1) : "memory"); }
-
-// threadIdx.x, opaque to the compiler: the epilogues compute their
-// addresses where they run, instead of keeping them in registers through the
-// products (which need all but a few of the 255)
-__device__ __forceinline__ int fresh_tid() {
-  int t = threadIdx.x;
-  asm volatile("" : "+r"(t));
-  return t;
-}
-
-// The descriptor of a K-major operand of 64-byte rows (16 tf32) in the
-// 64-byte swizzle: row n at byte 64n, its 16-byte chunk c at (c ^ bits 1-2 of
-// n) * 16, 8-row groups 512 bytes apart (the leading offset is unused). A
-// wgmma's k8 half kk starts 32 kk bytes in; the swizzle is applied to the
-// address, so the same descriptor plus 2 reads it. Its high word is the same
-// for every operand, its low word the start address (and the unused leading
-// offset): offsets within shared memory never carry past it.
-constexpr uint32_t kDescHi = (512 >> 4) | (2u << 30);
-__device__ __forceinline__ uint32_t sw64_desc_lo(const void* p) {
-  return ((static_cast<uint32_t>(__cvta_generic_to_shared(p)) & 0x3FFFF) >> 4) | (1u << 16);
-}
-constexpr uint32_t kPieceDesc = kPiece * 64 / 16;  // a descriptor's step to the next piece's rows
-constexpr uint32_t kHalfDesc = 32 / 16;            // ... and to a slice's second k8 half
+// the descriptors' step to the next piece's rows (sw64_desc_lo and kHalfDesc in wgmma.cuh)
+constexpr uint32_t kPieceDesc = kPiece * 64 / 16;
 
 // d[64 x 64] (+)= a[64 x 8] . b[64 x 8]^T: A (tf32 in f32 registers, the
 // m16n8k8 fragment of this warp's 16 rows) from registers, B from shared

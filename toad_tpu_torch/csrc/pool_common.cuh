@@ -3,7 +3,7 @@
 // kernels csrc/pool.cu (K1, bf16/f32) and csrc/pool_int8.cu (K2, int8) the
 // per-tile online masked-softmax update, and for those and the pooling
 // probes the exact combine of the split-N partials: a kernel of its own
-// after K2 and the probes, the tail of K1's own launch (their trunk is in
+// after the probes, the tail of K1's and K2's own launch (their trunk is in
 // pool_trunk.cuh). Everything sits in an anonymous namespace, so each
 // translation unit that includes this header gets its own copy.
 
@@ -130,12 +130,12 @@ __device__ __forceinline__ void online_accumulate(float* acc_s, const float* e_s
 // T task columns (2 for K1, K1p and K2; 8 for the probes). Partial s of bag b
 // sits at index b * stride_b + s * stride_s of part_acc (x T*H floats) and
 // part_stat (x 2T floats), which covers both users of the kernel:
-//   - the split-N partials of one launch of K2 or a probe, [B][n_splits]:
+//   - the split-N partials of one launch of a probe, [B][n_splits]:
 //     stride_b = n_splits, stride_s = 1;
 //   - the shard partials of a bag-sharded pool over a mesh, [S][B]:
 //     stride_b = 1, stride_s = B (the TPU version's pmax / psum over the bag
 //     axis).
-// K1 and K1p merge their split partials at the end of their own launch
+// K1, K1p and K2 merge their split partials at the end of their own launch
 // (pool_tail below), in the same order of summation.
 // With gmax the largest max (0 where every partial is masked) and
 // w_s = exp(max_s - gmax) (0 for a masked partial; 1 for the probes' plain
@@ -245,8 +245,8 @@ inline int launch_combine_strided(const float* part_acc, const float* part_stat,
   return (int)cudaGetLastError();
 }
 
-// The combine that ends a split-N pooling launch of T task columns (K2 and
-// the probes): acc / max(denom, 1e-30), or acc / divisor where divisor > 0.
+// The combine that ends a split-N pooling launch of T task columns (the
+// probes): acc / max(denom, 1e-30), or acc / divisor where divisor > 0.
 template <int T = 2>
 inline int launch_combine(const float* part_acc, const float* part_stat, int n_splits, int B, int H,
                           float* out, cudaStream_t stream, float divisor = 0.f) {
@@ -255,7 +255,8 @@ inline int launch_combine(const float* part_acc, const float* part_stat, int n_s
 
 // ---------------------------------------------------------------------------
 // The merge at the end of a pooling launch (csrc/pool.cu: K1, K1p and the
-// one-launch bag-sharded pool), in place of a combine launch of its own.
+// one-launch bag-sharded pool; csrc/pool_int8.cu: K2), in place of a combine
+// launch of its own.
 // Every block of a group (the blocks of one bag) writes its partial, then
 // draws a ticket from the group's counter; the block that draws the last
 // ticket merges the group's partials with the combine's arithmetic and order

@@ -29,14 +29,15 @@
 // What bounds it on an H100: ~2.4 MOP per 1024-d row against 1 KB of int8
 // (2 KB of bf16) input: tensor-core bound, as K2.
 //
-// The design is K2's pass (csrc/pool_int8.cu), so that the ladder of the
-// variants splits K2's time: 64-row tiles of 8 warps as 2 (rows) x 4
+// The design is the pass K2 (csrc/pool_int8.cu) ran on mma.sync before its
+// GEMMs moved onto int8 wgmma, so the ladder of the variants splits that
+// pass's time, no longer K2's: 64-row tiles of 8 warps as 2 (rows) x 4
 // (columns), each trunk GEMM one pass over all 512 columns; the weights one
 // stream of 32 KB slices a tile through a 3-slot swizzled cp.async ring,
 // whose cursor and step counter run on across GEMM1, GEMM2, the gate passes
-// and into the next tile; the requantization over K2's [4][64] amax scratch;
+// and into the next tile; the requantization over a [4][64] amax scratch;
 // the grid in whole waves of one CTA an SM (ops/cuda_pool.wave_split_plan).
-// The stream, GEMMs and epilogues are K2's own code (pool_trunk.cuh:
+// The stream, GEMMs and epilogues are that pass's code (pool_trunk.cuh:
 // stage_slice, trunk_slice, gate_slice, requant_rows with the quantizer as a
 // template argument, gate_epilogue and reduce_scores at 8 task columns).
 // What each variant stages and adds:

@@ -1,6 +1,7 @@
 // The trunk and gate of the fused pooling kernels, shared by csrc/pool.cu
 // (K1 and its partial mode: the gate function and the bf16 constants),
-// csrc/pool_int8.cu (K2), csrc/pool_probe.cu (P1/P2/P5) and
+// csrc/pool_int8.cu (K2: the int8 constants, swz, the dequantization and the
+// row quantizers), csrc/pool_probe.cu (P1/P2/P5) and
 // csrc/pool_int8_probe.cu (P3/P4). Each tile streams all of
 // the weights from L2, so the rows a staged slice feeds set the L2 traffic
 // and the products between two barriers. Here:
@@ -11,10 +12,11 @@
 //     ring of 32-deep slices), relu_pack / store_packed, and GEMM2's stash
 //     (stash_put / stash_take), so that h1 and h2 share one region; rows of
 //     one bag, or 64 of each of two (NB = 2);
-//   - int8, 64-row tiles of 8 warps as 2 (rows) x 4 (columns) (K2 and the
-//     int8 probe, P3/P4): one weight stream of 32 KB slices a tile through a
-//     3-slot swizzled cp.async ring (swz, stage_slice; the cursor is each
-//     kernel's own), trunk_slice (int8 m16n8k32 s8 with int32 sums, or bf16
+//   - int8, 64-row tiles of 8 warps as 2 (rows) x 4 (columns) (the int8
+//     probe, P3/P4, on the pass K2 ran before its GEMMs moved onto int8
+//     wgmma in csrc/pool_int8.cu): one weight stream of 32 KB slices a tile
+//     through a 3-slot swizzled cp.async ring (swz, stage_slice; the cursor
+//     is the kernel's own), trunk_slice (int8 m16n8k32 s8 with int32 sums, or bf16
 //     m16n8k16 with f32 sums over the same bytes) and gate_slice, the
 //     accumulators left in registers; requant_rows (dequantize, ReLU, one
 //     ordered amax a row over all 512 columns, the row quantizer as a
@@ -245,7 +247,8 @@ __device__ __forceinline__ void stash_take(uint32_t (&first)[kMi][8][2], const u
 }
 
 // ---------------------------------------------------------------------------
-// The int8 kernels' pass (K2 and the int8 probe P3/P4): 64-row tiles of 8
+// The int8 probe's pass (P3/P4; K2's until its GEMMs moved onto wgmma, whose
+// kernel keeps the constants, swz, dequant and the quantizers): 64-row tiles of 8
 // warps as 2 (rows) x 4 (columns). A row's scale needs the amax of all 512
 // trunk columns, so each trunk GEMM is one pass over them: warp (wr, wc) owns
 // rows wr*32 + mi*16 + {g, g+8} and columns wc*128 + ni*8 + 2q (+1) (g = lane

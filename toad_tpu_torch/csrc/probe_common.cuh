@@ -1,8 +1,8 @@
 // Pieces shared by the pooling-probe kernels csrc/pool_probe.cu (P1/P2/P5,
 // the bf16 ablation ladder on the 128-row mma.sync pass K1 bf16 ran before
 // its wgmma GEMMs) and
-// csrc/pool_int8_probe.cu (P3/P4, the int8 chain variants on K2's 64-row
-// pass): the probes' epilogue at T_PAD = 8 task columns, templated on the
+// csrc/pool_int8_probe.cu (P3/P4, the int8 chain variants on the 64-row
+// mma.sync pass K2 ran before its wgmma GEMMs): the probes' epilogue at T_PAD = 8 task columns, templated on the
 // rows R of a tile. Per tile (one bag's R rows, or R / 2 rows of each of two
 // bags):
 //   - probe_stats: the per-(bag, task) online masked softmax of the raw

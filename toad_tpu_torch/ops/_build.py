@@ -70,7 +70,7 @@ _SIGNATURES = {
          _p, _p, _p, _p, _p, _p, _p, _p, _p,  # w1t, sw1, b1, w2t, sw2, b2, wabt, swab, bab
          _p, _p,  # wc, bc
          _i, _i,  # tiles_per_split, n_splits
-         _p, _p, _p, _p, _p],  # scores, part_acc, part_stat, out, stream
+         _p, _p, _p, _p, _p, _p],  # scores, part_acc, part_stat, tickets, out, stream
         ctypes.c_int,
     ),
     "toad_probe_pool_rows_per_tile": ([_i], ctypes.c_int),  # pair

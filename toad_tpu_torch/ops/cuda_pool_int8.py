@@ -3,20 +3,22 @@
 The kernel replaces the TPU kernel
 ``toad_tpu/ops/pallas_pool.py::_pool_kernel_body_int8`` (K2) and its
 bag-pair form ``_pool_kernel_body_int8_pair`` (K2b): int8 x int8 -> int32
-trunk and gate GEMMs on the tensor cores with per-row requantization inside
-the kernel, then K1's online masked-softmax pooling (see the notes in
-``csrc/pool_int8.cu``). K2b is a launch choice, not a second kernel: every
-batch, even or odd, runs the same split-N grid as K1.
+trunk and gate GEMMs on the tensor cores (int8 wgmma, two warpgroups) with
+per-row requantization inside the kernel, then K1's online masked-softmax
+pooling and, at the end of the same launch, the merge of each bag's split
+partials (``pool_tail``; see the notes in ``csrc/pool_int8.cu``). K2b is a
+launch choice, not a second kernel: every batch, even or odd, runs the same
+split-N grid as K1.
 
 :func:`plan` gives the kernel's row tile, threads, ring slots and shared
 memory, :func:`layout` its shared-memory regions, :func:`swizzle` the byte
-order of its ring slots and :func:`stream_schedule` the slices its one
-weight stream stages a tile, each mirroring the kernel. :func:`pack_qparams`
-lays the int8 weights out for the kernel, once per model; :func:`pool_int8`
-launches the kernel on CUDA tensors in whole waves of one CTA an SM
-(:func:`~toad_tpu_torch.ops.cuda_pool.wave_split_plan`) and raises on
-anything the kernel does not take. The plain version is
-:func:`toad_tpu_torch.ops.quantize.plain_int8_pool`.
+order of its ring slots and activation panels and :func:`stream_schedule`
+the slices its one weight stream stages a tile, each mirroring the kernel.
+:func:`pack_qparams` lays the int8 weights out for the kernel, once per
+model; :func:`pool_int8` launches the kernel on CUDA tensors in whole waves
+of one CTA an SM (:func:`~toad_tpu_torch.ops.cuda_pool.wave_split_plan`), one
+launch a call, and raises on anything the kernel does not take. The plain
+version is :func:`toad_tpu_torch.ops.quantize.plain_int8_pool`.
 """
 
 from __future__ import annotations
@@ -26,22 +28,22 @@ from typing import NamedTuple
 import torch
 
 from toad_tpu_torch.ops import _build
-from toad_tpu_torch.ops.cuda_pool import MAX_SMEM, N_TASKS, interleave_gate, launch_buffers, wave_split_plan
+from toad_tpu_torch.ops.cuda_pool import MAX_SMEM, N_TASKS, interleave_gate, launch_buffers, tickets, wave_split_plan
 
 LAUNCHES = 0  # kernel launches in this process (one per call of pool_int8)
 SCORED_LAUNCHES = 0  # those of them in scored mode (with_scores: the raw scores written)
 
 HIDDEN = 512  # the kernel's trunk width: one GEMM pass covers a whole row
-ROWS = 64  # rows of a tile: each trunk GEMM keeps 64 x 512 int32 sums in registers
-THREADS = 256  # 8 warps, 2 (rows) x 4 (columns)
+ROWS = 64  # rows of a tile (one wgmma M): each trunk GEMM keeps 64 x 512 int32 sums in registers
+THREADS = 256  # 8 warps: two warpgroups, each 256 trunk columns (m64n256k32) and 128 of a gate pass (m64n128k32)
+WARPGROUPS = 2
 RING_SLOTS = 3  # slots of the weight ring: two slices in flight
 SLOT_BYTES = 32_768  # a weight slot: 512 trunk rows x 64 B, or 256 gate rows x 128 B
 TRUNK_DEPTH = 64  # bytes of the reduction a trunk slice covers (and an x slice: 64 rows x 64 B)
 GATE_COLS = 256  # interleaved [Wa|Wb] rows of a gate slice (one gate pass)
 GATE_DEPTH = 128  # bytes of the reduction a gate slice covers
-LD_ACT = HIDDEN + 16  # row stride (bytes) of the int8 activations h1q / h2q
+PANEL_BYTES = ROWS * TRUNK_DEPTH  # h1q / h2q as HIDDEN / 64 panels of 64 rows x 64 B (an x slot's shape)
 LD_H2 = HIDDEN + 8  # row stride (bf16 elements) of h2
-COL_WARPS = 4
 
 
 class Int8PoolPlan(NamedTuple):
@@ -57,21 +59,26 @@ class Int8PoolPlan(NamedTuple):
 
 def layout(a_dim: int) -> dict[str, tuple[int, int]]:
     """The kernel's shared-memory regions in its order, name -> (offset,
-    bytes), each 16-byte aligned, as ``layout8`` lays them out: the weight
-    ring, the x ring (both swizzled), h1q/h2q, h2 in bf16, Wc in f32, the row
-    scales, each column warp's row amax, the column warps' partial scores,
-    s, e, the running acc and the stats. Every region has its own bytes:
-    none is reused while another is live."""
-    sizes = {
-        "ws": RING_SLOTS * SLOT_BYTES, "xs": RING_SLOTS * ROWS * TRUNK_DEPTH,
-        "act": ROWS * LD_ACT, "h2": 2 * ROWS * LD_H2, "wc": 4 * N_TASKS * a_dim, "rs": 4 * ROWS, "amax": 4 * COL_WARPS * ROWS,
-        "spart": 4 * COL_WARPS * ROWS * N_TASKS, "s": 4 * N_TASKS * ROWS, "e": 4 * N_TASKS * ROWS,
-        "acc": 4 * N_TASKS * HIDDEN, "stat": 4 * 8,
-    }
+    bytes), as ``layout8`` lays them out: the weight ring, the x ring (both
+    swizzled), h1q/h2q as swizzled panels, each followed by a 1024-byte
+    boundary (so that the x ring, the panels and h2 start on one: the
+    swizzles are functions of the address); h2 in bf16, Wc in f32, the row
+    scales, each warpgroup's row amax and partial scores, s, e, the running
+    acc and the stats, each 16-byte aligned. Every region has its own bytes:
+    none is reused while another is live (the rings hold the merge's scratch
+    at the launch's end)."""
+    regions = [  # name, bytes, the alignment after it
+        ("ws", RING_SLOTS * SLOT_BYTES, 1024), ("xs", RING_SLOTS * ROWS * TRUNK_DEPTH, 1024),
+        ("panels", ROWS * HIDDEN, 1024), ("h2", 2 * ROWS * LD_H2, 16), ("wc", 4 * N_TASKS * a_dim, 16),
+        ("rs", 4 * ROWS, 16), ("wg_amax", 4 * WARPGROUPS * ROWS, 16),
+        ("wg_spart", 4 * WARPGROUPS * ROWS * N_TASKS, 16),
+        ("s", 4 * N_TASKS * ROWS, 16), ("e", 4 * N_TASKS * ROWS, 16), ("acc", 4 * N_TASKS * HIDDEN, 16),
+        ("stat", 4 * 8, 16),
+    ]
     out, offset = {}, 0
-    for name, size in sizes.items():
+    for name, size, align in regions:
         out[name] = (offset, size)
-        offset += -(-size // 16) * 16
+        offset += -(-size // align) * align
     return out
 
 
@@ -81,20 +88,26 @@ def plan(a_dim: int) -> Int8PoolPlan:
     memory."""
     if a_dim <= 0 or a_dim % 128 or a_dim > HIDDEN:
         raise ValueError(f"A={a_dim} not supported by the int8 kernel: need A % 128 == 0 and 0 < A <= {HIDDEN}")
-    regions = layout(a_dim)
-    smem = max(offset + -(-size // 16) * 16 for offset, size in regions.values())
+    smem = max(offset + -(-size // 16) * 16 for offset, size in layout(a_dim).values())
     if smem > MAX_SMEM:
         raise ValueError(f"A={a_dim} not supported by the int8 kernel: a CTA would need {smem} B of shared memory "
                          f"with {RING_SLOTS} ring slots, over the card's {MAX_SMEM}")
     return Int8PoolPlan(ROWS, THREADS, RING_SLOTS, smem)
 
 
-def swizzle(offset: int) -> int:
-    """Where byte ``offset`` of a ring slot is stored (the kernel's ``swz``):
-    its 16-byte chunk index (bits 4-6) XOR its 128-byte line index mod 8
-    (bits 7-9), so that the 8 rows of 64 or 128 bytes one ldmatrix phase
-    reads at one chunk fall in 8 different bank groups."""
-    return offset ^ ((offset >> 3) & 0x70)
+def swizzle(offset: int, row_bytes: int) -> int:
+    """Where byte ``offset`` of a region of ``row_bytes``-byte rows is stored,
+    in the swizzle wgmma's descriptors read (``csrc/wgmma.cuh``): rows of 64
+    bytes (trunk and x slots, h1q/h2q's panels) in the 64-byte swizzle, the
+    16-byte chunk index (bits 4-5) XOR bits 7-8 (bits 1-2 of the row); rows
+    of 128 bytes (gate slots) in the 128-byte swizzle, the chunk index (bits
+    4-6) XOR bits 7-9 (the row mod 8; the kernel's ``swz``). Either way the 8
+    rows of one 8-row group at one chunk fall in 8 different bank groups."""
+    if row_bytes == TRUNK_DEPTH:
+        return offset ^ ((offset >> 3) & 0x30)
+    if row_bytes == GATE_DEPTH:
+        return offset ^ ((offset >> 3) & 0x70)
+    raise ValueError(f"no swizzle for rows of {row_bytes} bytes")
 
 
 def stream_schedule(d: int, a_dim: int) -> list[tuple[str, int, int, int, int]]:
@@ -201,12 +214,13 @@ def pool_int8(
     per, n_splits, m, scores, part_acc, part_stat = launch_buffers(
         b_, n, h_dim, with_scores, lib.toad_pool_int8_rows_per_tile(), dev, splitter=splitter)
     with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.toad_pool_int8_forward(
             xq.data_ptr(), sx.data_ptr(), mask.data_ptr(), b_, n, d, h_dim, a_dim,
             *(tensor.data_ptr() for tensor in ops),
             per, n_splits,
             scores.data_ptr() if scores is not None else None, part_acc.data_ptr(), part_stat.data_ptr(),
-            m.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,
+            tickets(dev, stream, b_).data_ptr(), m.data_ptr(), stream,
         )
     if err != 0:
         raise RuntimeError(f"int8 pooling kernel launch failed: CUDA error {err} ({lib.toad_cuda_error_string(err).decode()})")

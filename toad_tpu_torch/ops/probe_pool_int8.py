@@ -9,9 +9,10 @@ row inside the kernel), at the probes' T_PAD = 8 task columns: [B, 8, H] f32.
 :func:`plain_probe_int8` and :func:`plain_probe_int8_inquant` are the plain
 versions at the probe's rounding points; :func:`probe_pool_int8` launches
 ``csrc/pool_int8_probe.cu`` on CUDA tensors and raises on anything the
-kernel does not take. The kernel runs K2's pass (``csrc/pool_int8.cu``):
-64-row tiles, one weight stream of 32 KB slices through a 3-slot swizzled
-ring, the grid in whole waves; :func:`plan`, :func:`layout`,
+kernel does not take. The kernel runs the pass K2 (``csrc/pool_int8.cu``)
+ran on ``mma.sync`` before its GEMMs moved onto int8 wgmma: 64-row tiles,
+one weight stream of 32 KB slices through a 3-slot swizzled ring, the grid
+in whole waves; :func:`plan`, :func:`layout`,
 :func:`stream_schedule` and :func:`split` give its tile, threads, ring,
 shared-memory regions, the slices each variant stages a tile and its split.
 :func:`probe_qparams` quantizes the probe's weights as ``int8_probe.main``
@@ -51,6 +52,11 @@ class Int8ProbePlan(NamedTuple):
     smem: int  # dynamic shared memory of a CTA, bytes
 
 
+# the mma.sync pass's own strides: h1q/h2q in padded rows, 8 warps as 2 (rows) x 4 (columns)
+LD_ACT = k2.HIDDEN + 16  # row stride (bytes) of the int8 activations h1q / h2q
+COL_WARPS = 4
+
+
 def layout() -> dict[str, tuple[int, int]]:
     """The kernel's shared-memory regions in its order, name -> (offset,
     bytes), each 16-byte aligned: K2's weight and x rings (swizzled), h1q/h2q,
@@ -61,8 +67,8 @@ def layout() -> dict[str, tuple[int, int]]:
     so A does not enter."""
     sizes = {
         "ws": k2.RING_SLOTS * k2.SLOT_BYTES, "xs": k2.RING_SLOTS * k2.ROWS * k2.TRUNK_DEPTH,
-        "act": k2.ROWS * k2.LD_ACT, "h2": 2 * k2.ROWS * k2.LD_H2, "rs": 4 * k2.ROWS,
-        "amax": 4 * k2.COL_WARPS * k2.ROWS, "spart": 4 * k2.COL_WARPS * k2.ROWS * T_PAD,
+        "act": k2.ROWS * LD_ACT, "h2": 2 * k2.ROWS * k2.LD_H2, "rs": 4 * k2.ROWS,
+        "amax": 4 * COL_WARPS * k2.ROWS, "spart": 4 * COL_WARPS * k2.ROWS * T_PAD,
         "s": 4 * k2.ROWS * T_PAD, "e": 4 * k2.ROWS * T_PAD, "stat": 4 * 3 * T_PAD,
     }
     out, offset = {}, 0
